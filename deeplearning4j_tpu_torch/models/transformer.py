@@ -1,0 +1,232 @@
+"""Transformer encoder in PyTorch.
+
+Port of ``deeplearning4j_tpu/models/transformer.py``: the same config,
+the same parameter tree (leaf names, shapes and layouts, stacked over a
+leading ``[n_layers, ...]`` axis) and the same post-LN encoder block.
+Where JAX scans one block body over the stacked layers (``lax.scan``,
+:290-303), this walks them with a Python loop.
+
+Numerics, site by site, against the JAX forward:
+
+- Matrix products take their operands in ``cfg.compute_dtype`` and,
+  where JAX asks for an fp32 result (``preferred_element_type``), return
+  fp32 unrounded (:func:`_matmul`); where JAX's product returns the
+  compute dtype (the MLM transform, bert.py:120) so does the port's.
+  What remains is summation order.  In fp32 the products are full fp32
+  (``resolve_device`` turns TF32 off).
+- GELU is the tanh approximation (``jax.nn.gelu``'s default).
+- LayerNorm runs in fp32 with biased variance, as at :181.
+- Plain attention masks with -1e9 as at :202 (the flash kernel uses
+  -1e5; they agree on every row with at least one live key).
+
+Dropout takes an explicit ``torch.Generator``; serving passes none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch import DeviceLike, resolve_device
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 30522          # BERT wordpiece vocab
+    max_len: int = 512
+    type_vocab_size: int = 2
+    hidden: int = 768
+    n_layers: int = 12
+    n_heads: int = 12
+    ffn_dim: int = 3072
+    dropout: float = 0.1
+    layer_norm_eps: float = 1e-12
+    compute_dtype: str = "bfloat16"
+    remat: bool = True               # JAX-only (jax.checkpoint); unused here
+    causal: bool = False             # BERT is bidirectional; GPT-style sets True
+
+    @property
+    def head_dim(self) -> int:
+        if self.hidden % self.n_heads:
+            raise ValueError(f"hidden {self.hidden} is not divisible by "
+                             f"n_heads {self.n_heads}")
+        return self.hidden // self.n_heads
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    try:
+        return _DTYPES[cfg.compute_dtype]
+    except KeyError:
+        raise ValueError(f"compute_dtype must be one of {tuple(_DTYPES)}, "
+                         f"got {cfg.compute_dtype!r}") from None
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _trunc_normal(shape, generator: torch.Generator, device: torch.device,
+                  stddev: float = 0.02) -> Tensor:
+    """stddev * N(0, 1) truncated to [-2, 2], as ``_trunc_normal`` (:67)."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.nn.init.trunc_normal_(t, std=stddev, a=-2 * stddev,
+                                       b=2 * stddev, generator=generator)
+
+
+def init_params(generator: torch.Generator, cfg: TransformerConfig,
+                device: DeviceLike = None) -> Params:
+    """Stacked-block parameter tree with the leaf names and shapes of
+    ``init_params`` (:71-101).  ``generator`` must live on ``device``.
+    The draws differ from JAX's (threefry vs Philox); parity tests carry
+    JAX's params over with ``bert.params_from_numpy`` instead."""
+    dev = resolve_device(device)
+    H, L, Fd, NH, D = (cfg.hidden, cfg.n_layers, cfg.ffn_dim, cfg.n_heads,
+                       cfg.head_dim)
+
+    def tn(*shape):
+        return _trunc_normal(shape, generator, dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    embed = {"tok": tn(cfg.vocab_size, H), "pos": tn(cfg.max_len, H),
+             "type": tn(cfg.type_vocab_size, H),
+             "ln_g": ones(H), "ln_b": zeros(H)}
+    blocks = {
+        "wq": tn(L, H, NH, D), "wk": tn(L, H, NH, D), "wv": tn(L, H, NH, D),
+        "wo": tn(L, NH, D, H),
+        "bq": zeros(L, NH, D), "bk": zeros(L, NH, D), "bv": zeros(L, NH, D),
+        "bo": zeros(L, H),
+        "ln1_g": ones(L, H), "ln1_b": zeros(L, H),
+        "w1": tn(L, H, Fd), "b1": zeros(L, Fd),
+        "w2": tn(L, Fd, H), "b2": zeros(L, H),
+        "ln2_g": ones(L, H), "ln2_b": zeros(L, H),
+    }
+    return {"embed": embed, "blocks": blocks}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def layer_norm(x: Tensor, g: Tensor, b: Tensor, eps: float) -> Tensor:
+    return F.layer_norm(x.float(), (x.shape[-1],), g, b, eps)
+
+
+def _matmul(x: Tensor, w: Tensor, cdt: torch.dtype) -> Tensor:
+    """``x @ w`` with both cast to the compute dtype and an fp32 result,
+    as JAX's ``preferred_element_type=float32`` products: products of
+    bf16 values are exact in fp32 and summed in fp32.  On CUDA that is
+    cuBLAS's bf16 product with an fp32 output (``out_dtype``); PyTorch's
+    CPU build lacks that, and the CPU computes the same function as an
+    fp32 product of the bf16-rounded operands."""
+    x, w = x.to(cdt), w.to(cdt)
+    if cdt == torch.float32:
+        return torch.matmul(x, w)
+    if x.device.type == "cuda":
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
+              causal: bool = False) -> Tensor:
+    """Plain attention ``[B, T, NH, D] -> [B, T, NH, D]`` (:188): fp32
+    logits and softmax; p cast to the input dtype before p.V with an
+    fp32 sum, as JAX's ``preferred_element_type`` products."""
+    cdt = q.dtype
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        # mask: [B, Tk] attention (1 = keep) -> additive
+        logits = logits + (1.0 - mask.float()[:, None, None, :]) * -1e9
+    if causal:
+        tq, tk = logits.shape[-2], logits.shape[-1]
+        cm = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(cm, logits, torch.full_like(logits, -1e9))
+    probs = torch.softmax(logits, dim=-1).to(cdt)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(cdt)
+
+
+def _dropout(x: Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> Tensor:
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=generator, device=x.device)
+    return x * (draw < keep) / keep
+
+
+def _attention_sublayer(cfg, x: Tensor, p: Dict[str, Tensor],
+                        mask: Optional[Tensor],
+                        generator: Optional[torch.Generator],
+                        attn_fn=attention) -> Tensor:
+    """Attention + residual + post-LN, the first half of a block (:212)."""
+    cdt = compute_dtype(cfg)
+    B, T, H = x.shape
+    NH, D = p["wq"].shape[1], p["wq"].shape[2]
+
+    def proj(w, b):
+        return _matmul(x, w.reshape(H, NH * D), cdt).reshape(B, T, NH, D) + b
+
+    q = proj(p["wq"], p["bq"])
+    k = proj(p["wk"], p["bk"])
+    v = proj(p["wv"], p["bv"])
+    a = attn_fn(q.to(cdt), k.to(cdt), v.to(cdt), mask, cfg.causal)
+    a = _matmul(a.reshape(B, T, NH * D), p["wo"].reshape(NH * D, H),
+                cdt) + p["bo"]
+    a = _dropout(a, cfg.dropout, generator)
+    return layer_norm(x + a, p["ln1_g"], p["ln1_b"], cfg.layer_norm_eps)
+
+
+def _block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
+           mask: Optional[Tensor], generator: Optional[torch.Generator],
+           attn_fn=attention) -> Tensor:
+    """One post-LN encoder block (:244): x ``[B, T, H]`` fp32."""
+    cdt = compute_dtype(cfg)
+    x = _attention_sublayer(cfg, x, p, mask, generator, attn_fn)
+    f = _matmul(x, p["w1"], cdt) + p["b1"]
+    f = F.gelu(f, approximate="tanh").to(cdt)
+    f = _matmul(f, p["w2"], cdt) + p["b2"]
+    f = _dropout(f, cfg.dropout, generator)
+    return layer_norm(x + f, p["ln2_g"], p["ln2_b"], cfg.layer_norm_eps)
+
+
+def embed(cfg: TransformerConfig, params: Params, token_ids: Tensor,
+          type_ids: Optional[Tensor] = None) -> Tensor:
+    """``[B, T]`` ids -> ``[B, T, H]`` fp32 (tok + pos + type, LN) (:263).
+    The sequence-parallel ``position_offset`` comes with the parallel
+    slice."""
+    e = params["embed"]
+    T = token_ids.shape[-1]
+    x = e["tok"][token_ids.long()]
+    x = x + e["pos"][torch.arange(T, device=token_ids.device)]
+    if type_ids is not None:
+        x = x + e["type"][type_ids.long()]
+    return layer_norm(x, e["ln_g"], e["ln_b"], cfg.layer_norm_eps)
+
+
+def encode(cfg: TransformerConfig, params: Params, token_ids: Tensor,
+           mask: Optional[Tensor] = None, type_ids: Optional[Tensor] = None,
+           generator: Optional[torch.Generator] = None,
+           attn_fn=attention) -> Tensor:
+    """Full encoder: ids ``[B, T]`` -> hidden ``[B, T, H]`` fp32 (:280),
+    one block per layer of the stacked ``[L, ...]`` params."""
+    x = embed(cfg, params, token_ids, type_ids)
+    blocks = params["blocks"]
+    for layer in range(cfg.n_layers):
+        p = {name: w[layer] for name, w in blocks.items()}
+        x = _block(cfg, x, p, mask, generator, attn_fn)
+    return x

@@ -1,0 +1,4 @@
+"""Kernels and kernel selection: the counterpart of
+``deeplearning4j_tpu/ops``.  ``flash_attention`` holds the port of the
+Pallas flash-attention forward; ``kernel_select`` the shared dispatch
+policy; ``cuda_build`` compiles the CUDA sources under ``csrc/``."""

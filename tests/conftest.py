@@ -63,6 +63,9 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute test (skipped under --fast)")
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of the PyTorch port; skips "
+                   "where no CUDA card is present")
 
 
 def pytest_collection_modifyitems(config, items):
