@@ -14,13 +14,29 @@ Phases, each fatal on failure:
    causal, ragged T, Tq != Tk, a fully masked row, fp32 and other head
    dims; then kernel, plain twin and F.scaled_dot_product_attention (a
    yardstick the port never calls) timed with CUDA events;
-4. the slice: BERT-base fill-mask serving at full width (12 x 768, 12
-   heads, vocab 30522, bf16, seeded random weights) through
-   InferenceEngine + DynamicBatcher, with client threads sending mixed
-   requests at T=128 and one T=512 request through its own engine.
-   Checks: each future gets its own rows, logits are finite and agree
-   with an unpadded forward and with the plain-attention forward, and
-   the kernel launched exactly once per layer per dispatch.
+4. BERT-base fill-mask serving at full width (12 x 768, 12 heads, vocab
+   30522, bf16, seeded random weights) through InferenceEngine +
+   DynamicBatcher, with client threads sending mixed requests at T=128
+   and one T=512 request through its own engine.  Checks: each future
+   gets its own rows, logits are finite and agree with an unpadded
+   forward and with the plain-attention forward, and B1 launched exactly
+   once per layer per dispatch;
+5. BERT-base MLM training (B=32, T=128, dropout 0.1) and
+6. GPT-2 small causal-LM training (B=8, T=1024), each through the
+   model's make_train_step defaults (flash attention, adamw) at full
+   width: 2 warm-up and 10 timed steps on a fixed batch.  Checks: the
+   loss is finite and falls; B1, B2 and B3 each launch once per layer
+   per step; one dropout-0 step's gradients through the kernels agree
+   with the plain attention's (global relative L2 <= 3e-2), and for
+   BERT an fp32-compute step at depth 2 within 1e-4.  Prints step ms,
+   tokens/s, the model-FLOPs share of 989 TFLOP/s and a profile of one
+   step (B1/B2/B3, forward and backward products, optimizer).
+
+Phase 3 also holds the backward kernels B2 (dK/dV) and B3 (dQ) against
+their plain twins on the same 14 cases (bf16 within 3e-2 of the case's
+largest |grad|, fp32 5e-4), and times them (profiler, per kernel) beside
+their twins, their bound and the backward of
+F.scaled_dot_product_attention.
 
 Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 Exits non-zero, printing no result, when CUDA is absent or any phase
@@ -87,6 +103,38 @@ def flash_bound(B, NH, Tq, Tk, D, itemsize, causal):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_summary(log: str):
+    """One line per kernel of an ``nvcc -Xptxas -v`` report: its name and
+    template argument, registers, spill stores and loads."""
+    import re
+
+    out, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = kernel = entry.group(1)
+            spill = ""
+            # <length><identifier> of the kernel, then its template int;
+            # the digits before it may end a hex namespace hash
+            for m in re.finditer(r"(\d+)(flash_\w+)", mangled):
+                digits, rest = m.group(1), m.group(2)
+                for i in range(len(digits)):
+                    ident = rest[:int(digits[i:])]
+                    if ident.endswith("_kernel"):
+                        arg = re.match(r"ILi(\d+)E", rest[len(ident):])
+                        kernel = ident + (f"<{arg.group(1)}>" if arg
+                                          else "")
+                        break
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "registers" in line and kernel is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{kernel}: {regs.group(1) if regs else '?'} "
+                       f"registers; {spill}")
+            kernel = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +234,169 @@ def time_flash(torch, F, fa, B, T, NH=12, D=64):
           f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by})")
     return ms, plain_ms, lib_ms, bound_ms, bound_by
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the backward kernels against their plain twins
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {"bfloat16": 3e-2, "float32": 5e-4}
+
+
+def bwd_error(torch, got, ref, dt: str):
+    """(max |got - ref|, ok): bf16 within 3e-2 of the case's largest
+    |grad|, fp32 within 5e-4 (tests/test_pallas_attention.py:55)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    tol = BWD_TOL[dt]
+    if dt == "bfloat16":
+        ok = err <= tol * max(ref.abs().max().item(), 1e-30)
+    else:
+        ok = bool(torch.allclose(got, ref, rtol=tol, atol=tol))
+    return err, ok and bool(got.isfinite().all())
+
+
+def kernel_bwd_phase(torch, fa):
+    """B2 and B3 on the 14 kernel cases, against the plain twins fed the same
+    o and lse (B1's), through the [BH, T, D] entry point and through
+    autograd on [B, T, NH, D]."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    worst = {"dkv": 0.0, "dq": 0.0}
+    for name, B, NH, Tq, Tk, D, dt, causal, lens in KERNEL_CASES:
+        dtype = getattr(torch, dt)
+
+        def rand(T):
+            return torch.randn((B, T, NH, D), generator=gen, device="cuda",
+                               dtype=torch.float32).to(dtype)
+
+        q, k, v, do = rand(Tq), rand(Tk), rand(Tk), rand(Tq)
+        mask = None
+        if lens is not None:
+            mask = (torch.arange(Tk, device="cuda")[None, :]
+                    < torch.tensor(lens, device="cuda")[:, None]).float()
+        bias = None if mask is None else (1.0 - mask) * fa.MASK_VAL
+
+        def bhtd(x):
+            return x.permute(0, 2, 1, 3).reshape(B * NH, x.shape[1], D) \
+                .contiguous()
+
+        q4, k4, v4, do4 = bhtd(q), bhtd(k), bhtd(v), bhtd(do)
+        o, lse = fa.flash_attention_fwd_cuda(q4, k4, v4, bias, causal)
+        dq, dk, dv = fa.flash_attention_bwd_cuda(q4, k4, v4, bias, o, lse,
+                                                 do4, causal)
+        qh, kh, vh = (x.clone().requires_grad_(True) for x in (q, k, v))
+        oh = fa.flash_attention(qh, kh, vh, mask, causal)
+        gh = torch.autograd.grad(oh, (qh, kh, vh), do)
+        dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(
+            q4, k4, v4, bias, o, lse, do4, causal)
+        dq_ref = fa.flash_attention_bwd_dq_plain(q4, k4, v4, bias, o, lse,
+                                                 do4, causal)
+        torch.cuda.synchronize()
+        errs, oks = {}, []
+        for label, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                                ("dv", dv, dv_ref),
+                                ("dq[BTHD]", bhtd(gh[0]), dq_ref),
+                                ("dk[BTHD]", bhtd(gh[1]), dk_ref),
+                                ("dv[BTHD]", bhtd(gh[2]), dv_ref)):
+            errs[label], ok = bwd_error(torch, got, ref, dt)
+            oks.append(ok)
+        ok = all(oks)
+        print(f"  backward case {name!r}: "
+              + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+              + f" (max|ref| dq {dq_ref.float().abs().max().item():.3e}, "
+              f"dk {dk_ref.float().abs().max().item():.3e}, dv "
+              f"{dv_ref.float().abs().max().item():.3e}) tol="
+              f"{BWD_TOL[dt]:g}{' x max|ref|' if dt == 'bfloat16' else ''} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"flash backward kernels disagree with their plain twins: "
+                  f"{name}")
+        worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"],
+                           errs["dk[BTHD]"], errs["dv[BTHD]"])
+        worst["dq"] = max(worst["dq"], errs["dq"], errs["dq[BTHD]"])
+    return worst
+
+
+def bwd_bound(B, NH, Tq, Tk, D, itemsize, causal, kernel):
+    """(bound_ms, bound_by) of B2 ("dkv") or B3 ("dq"): the larger of
+    its FLOPs (8 or 6 * BH*Tq*Tk*D, halved when causal) over the bf16
+    peak and its bytes (q, k, v, dO read and its gradients written once,
+    lse, delta and the bias) over the memory rate."""
+    BH = B * NH
+    flops = ((8.0 if kernel == "dkv" else 6.0) * BH * Tq * Tk * D
+             * (0.5 if causal else 1.0))
+    grads = 2 * Tk if kernel == "dkv" else Tq
+    nbytes = (itemsize * BH * D * (2 * Tq + 2 * Tk + grads)
+              + 4 * 2 * BH * Tq + 4 * B * Tk)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def profile_kernel_ms(torch, fn, names, iters: int = 20):
+    """Mean device ms per call of each kernel whose name contains one of
+    ``names``, from torch.profiler over ``iters`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: 0.0 for n in names}
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key:
+                out[n] += e.self_device_time_total / 1e3 / iters
+    return out
+
+
+def time_flash_bwd(torch, F, fa, B, T, NH=12, D=64, causal=False):
+    """B2 and B3 (device time of each, from the profiler), the whole
+    backward call (CUDA events), their plain twins, and the backward of
+    F.scaled_dot_product_attention (a yardstick the port never calls),
+    bf16 with an all-live mask bias."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+
+    def rand():
+        return torch.randn((B * NH, T, D), generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q4, k4, v4, do4 = rand(), rand(), rand(), rand()
+    bias = torch.zeros((B, T), device="cuda", dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd_cuda(q4, k4, v4, bias, causal)
+    args = (q4, k4, v4, bias, o, lse, do4, causal)
+    prof = profile_kernel_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+        *args), ("flash_bwd_dkv", "flash_bwd_dq"))
+    call_ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(*args))
+    dkv_plain = time_ms(torch, lambda: fa.flash_attention_bwd_dkv_plain(
+        *args), iters=10)
+    dq_plain = time_ms(torch, lambda: fa.flash_attention_bwd_dq_plain(
+        *args), iters=10)
+    qs, ks, vs = (x.view(B, NH, T, D).detach().requires_grad_(True)
+                  for x in (q4, k4, v4))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    dos = do4.view(B, NH, T, D)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dos, retain_graph=True))
+    rows = {}
+    for kernel, ms, plain_ms in (("dkv", prof["flash_bwd_dkv"], dkv_plain),
+                                 ("dq", prof["flash_bwd_dq"], dq_plain)):
+        bound_ms, bound_by = bwd_bound(B, NH, T, T, D, 2, causal, kernel)
+        rows[kernel] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
+    print(f"  flash bwd B={B} NH={NH} T={T} D={D} bf16 causal={causal}: "
+          f"B2 {rows['dkv'][0]:.4f} ms (bound {rows['dkv'][3]:.4f}, "
+          f"{rows['dkv'][4]}), B3 {rows['dq'][0]:.4f} ms (bound "
+          f"{rows['dq'][3]:.4f}, {rows['dq'][4]}) [profiler]; whole "
+          f"backward call {call_ms:.4f} ms [events]; plain B2 "
+          f"{dkv_plain:.4f} ms, plain B3 {dq_plain:.4f} ms; sdpa backward "
+          f"{lib_ms:.4f} ms")
+    check(rows["dkv"][0] > 0 and rows["dq"][0] > 0,
+          "the profiler saw no device time for B2/B3")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +529,7 @@ def serving_phase(torch, fa):
     threads = [threading.Thread(target=client,
                                 args=(range(c, len(reqs), n_clients),))
                for c in range(n_clients)]
-    fa.launches = 0
+    fa.reset_launches()
     serving_metrics.reset()
     t0 = time.perf_counter()
     for t in threads:
@@ -425,6 +636,258 @@ def profile_dispatch(torch, run) -> None:
         print(f"    {us / 1e3:8.3f} ms  {count:4d}x  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: BERT-base MLM and GPT-2 small training
+# ---------------------------------------------------------------------------
+
+GRAD_TOL_BF16 = 3e-2       # kernel path vs plain attention, global rel. L2
+GRAD_TOL_FP32 = 1e-4
+WARMUP_STEPS = 2
+TIMED_STEPS = 10
+
+
+def bert_train_flops(cfg, batch: int, seq: int) -> float:
+    """Analytic matmul FLOPs for one BERT MLM training step (fwd*3):
+    per layer 8BTh² (qkv+out) + 4BTh·ffn (mlp) + 4BT²h (scores+values),
+    plus the vocab logits matmul 2BThV (bench.py:143)."""
+    L, h, f, V = cfg.n_layers, cfg.hidden, cfg.ffn_dim, cfg.vocab_size
+    per_layer = (8 * batch * seq * h * h + 4 * batch * seq * h * f
+                 + 4 * batch * seq * seq * h)
+    fwd = L * per_layer + 2 * batch * seq * h * V
+    return 3.0 * fwd
+
+
+def gpt_train_flops(cfg, batch: int, seq: int) -> float:
+    """Analytic matmul FLOPs for one causal-LM training step (fwd*3),
+    the dense score matrix counted full (bench.py:265)."""
+    L, h, f, V = cfg.n_layers, cfg.hidden, cfg.ffn_dim, cfg.vocab_size
+    per_layer = (8 * batch * seq * h * h + 4 * batch * seq * h * f
+                 + 4 * batch * seq * seq * h)
+    return 3.0 * (L * per_layer + 2 * batch * seq * h * V)
+
+
+def grad_agreement(updaters, got, ref):
+    """(global relative L2 error, the leaf with the largest error, that
+    leaf's own relative L2 error).  The largest error, not the largest
+    relative one: a leaf whose true gradient is 0 up to rounding (the
+    key bias: softmax ignores a shift shared by a row's scores) has a
+    meaningless relative error."""
+    paths = []
+
+    def walk(tree, prefix):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val, prefix + key + "/")
+            else:
+                paths.append(prefix + key)
+    walk(ref, "")
+    num = den = 0.0
+    worst = ("", -1.0, 0.0)
+    for path, g, r in zip(paths, updaters.tree_leaves(got),
+                          updaters.tree_leaves(ref)):
+        d = float((g.float() - r.float()).norm()) ** 2
+        n = float(r.float().norm()) ** 2
+        num, den = num + d, den + n
+        if d > worst[1]:
+            worst = (path, d, (d / n) ** 0.5 if n > 0 else float("inf"))
+    return (num / den) ** 0.5, worst[0], worst[2]
+
+
+GEMM_MARKS = ("gemm", "Gemm", "GEMM", "nvjet", "cutlass", "xmma", "cublas")
+
+
+def device_ms_by_kernel(torch, run):
+    """{kernel name: device ms} of one call of ``run``, torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def gemm_ms(by_kernel) -> float:
+    return sum(ms for k, ms in by_kernel.items()
+               if any(m in k for m in GEMM_MARKS))
+
+
+def profile_step(torch, tfm, updaters, what, step_fn, state, batch, gen,
+                 forward_loss, optimizer, step_ms: float) -> None:
+    """Where one training step's device time goes: the whole step, the
+    forward alone (its products), and the optimizer alone, each from
+    torch.profiler; backward products = the step's minus the forward's.
+    The busy share is the step's device time over ``step_ms``, the
+    unprofiled median step (the profiler slows the host)."""
+    step_k = device_ms_by_kernel(torch, lambda: step_fn(state, batch, gen))
+    with torch.no_grad():
+        fwd_k = device_ms_by_kernel(torch, lambda: forward_loss(
+            state.params))
+    _, grads = tfm.value_and_grad(forward_loss, state.params)
+    opt_k = device_ms_by_kernel(torch, lambda: updaters.apply_updates(
+        state.params, optimizer.update(grads, state.opt_state,
+                                       state.params)[0]))
+    if not step_k:
+        print(f"  {what} profile: no device time reported (not measured)")
+        return
+    busy = sum(step_k.values())
+
+    def named(mark):
+        return sum(ms for k, ms in step_k.items() if mark in k)
+
+    b1, b2, b3 = (named("flash_fwd"), named("flash_bwd_dkv"),
+                  named("flash_bwd_dq"))
+    g_all, g_fwd = gemm_ms(step_k), gemm_ms(fwd_k)
+    opt = sum(opt_k.values())
+    other = busy - b1 - b2 - b3 - g_all - opt
+    print(f"  {what} profile of one step: device busy {busy:.2f} ms = "
+          f"{busy / step_ms:.1%} of the median step; B1 {b1:.3f} ms "
+          f"({b1 / busy:.1%}), B2 {b2:.3f} ms ({b2 / busy:.1%}), B3 "
+          f"{b3:.3f} ms ({b3 / busy:.1%}); products {g_all:.3f} ms "
+          f"({g_all / busy:.1%}): forward {g_fwd:.3f} ms, backward "
+          f"{g_all - g_fwd:.3f} ms ({(g_all - g_fwd) / busy:.1%}); "
+          f"optimizer {opt:.3f} ms ({opt / busy:.1%}, profiled alone); "
+          f"the rest {other:.3f} ms ({other / busy:.1%})")
+    for key, ms in sorted(step_k.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {ms:8.3f} ms  {key[:100]}")
+
+
+def train_phase(torch, fa, what, mod, cfg, batch, flops, loss_of):
+    """Train ``cfg`` through ``mod.make_train_step`` defaults (flash
+    attention, adamw) at full width: warm-up, then timed steps with the
+    kernel launch counts read around them; then one step's gradients
+    through the kernels against the plain attention (dropout 0), and a
+    profile of one step.  ``loss_of(cfg, params, attn_fn)`` is the
+    model's loss on ``batch``.  Returns the launch counts."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops import updaters
+
+    init_fn, step_fn = mod.make_train_step(cfg)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    dropout_gen = torch.Generator(device="cuda").manual_seed(1)
+    losses, step_s = [], []
+    for _ in range(WARMUP_STEPS):
+        state, loss = step_fn(state, batch, dropout_gen)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path, counted ------------------------------------------
+    fa.reset_launches()
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch, dropout_gen)
+        losses.append(float(loss))         # synchronizes
+        step_s.append(time.perf_counter() - t0)
+    counts = fa.launch_counts()
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(step_s)) * 1e3
+    tokens = (batch.token_ids if hasattr(batch, "token_ids")
+              else batch).numel()
+    print(f"  {what}: losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f" ({WARMUP_STEPS} warm-up, {TIMED_STEPS} timed)")
+    print(f"  {what}: step {ms:.2f} ms (median of {TIMED_STEPS}, host clock, "
+          f"synchronized; min {min(step_s) * 1e3:.2f}, max "
+          f"{max(step_s) * 1e3:.2f}), {tokens / (ms / 1e3):.1f} tokens/s, "
+          f"model FLOPs {flops / 1e12:.3f} TFLOP/step = "
+          f"{flops / (ms / 1e3) / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; "
+          f"peak memory {peak_gb:.2f} GB")
+    print(f"  {what}: launches over the {TIMED_STEPS} timed steps: {counts} "
+          f"({cfg.n_layers} layers)")
+    check(all(np.isfinite(losses)), f"{what}: non-finite loss {losses}")
+    check(losses[-1] < losses[WARMUP_STEPS],
+          f"{what}: loss did not fall over the timed steps: {losses}")
+    for name, n in counts.items():
+        check(n == cfg.n_layers * TIMED_STEPS,
+              f"{what}: {name} = {n}, not {cfg.n_layers} per step")
+
+    # -- kernel-path gradients against the plain attention ----------------
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    kernel_attn = fa.make_attn_fn("auto")
+    lk, gk = tfm.value_and_grad(
+        lambda p: loss_of(cfg0, p, kernel_attn), state.params)
+    lp, gp = tfm.value_and_grad(
+        lambda p: loss_of(cfg0, p, tfm.attention), state.params)
+    rel, leaf, leaf_rel = grad_agreement(updaters, gk, gp)
+    del gp
+    print(f"  {what}: dropout-0 step through the kernels vs the plain "
+          f"attention: loss {float(lk):.6f} vs {float(lp):.6f}; gradients' "
+          f"global relative L2 error {rel:.3e} (tolerance "
+          f"{GRAD_TOL_BF16:g}); largest error in {leaf} (relative "
+          f"{leaf_rel:.3e})")
+    check(rel <= GRAD_TOL_BF16, f"{what}: kernel-path gradients differ "
+                                f"from the plain path by {rel}")
+    optimizer = updaters.adamw(1e-4, weight_decay=0.01)
+    profile_step(torch, tfm, updaters, what, step_fn, state, batch,
+                 dropout_gen, lambda p: loss_of(cfg0, p, kernel_attn),
+                 optimizer, ms)
+    return counts
+
+
+def bert_train_phase(torch, fa):
+    from deeplearning4j_tpu_torch.models import bert
+
+    cfg = bert.bert_base()
+    B, T = 32, 128
+    batch = bert.synthetic_batch(0, cfg, B, T, device="cuda")
+
+    def loss_of(c, params, attn):
+        return bert.mlm_loss(c, params, batch, None, attn)
+
+    counts = train_phase(torch, fa, "BERT-base MLM B=32 T=128", bert, cfg,
+                         batch, bert_train_flops(cfg, B, T), loss_of)
+    fp32_check(torch, fa, bert, cfg, batch)
+    return counts
+
+
+def fp32_check(torch, fa, bert, cfg, batch) -> None:
+    """fp32 compute at depth 2: the CUDA-core flash kernels against the
+    plain attention, one step's gradients within 1e-4."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops import updaters
+
+    c32 = dataclasses.replace(cfg, compute_dtype="float32", n_layers=2,
+                              dropout=0.0)
+    params = bert.init_params(torch.Generator(device="cuda").manual_seed(2),
+                              c32, device="cuda")
+    before = fa.launch_counts()
+    lk, gk = tfm.value_and_grad(lambda p: bert.mlm_loss(
+        c32, p, batch, None, fa.make_attn_fn("auto")), params)
+    after = fa.launch_counts()
+    lp, gp = tfm.value_and_grad(lambda p: bert.mlm_loss(
+        c32, p, batch, None, tfm.attention), params)
+    rel, leaf, leaf_rel = grad_agreement(updaters, gk, gp)
+    print(f"  BERT-base fp32 compute, depth 2: loss {float(lk):.7f} vs "
+          f"{float(lp):.7f}; gradients' global relative L2 error "
+          f"{rel:.3e} (tolerance {GRAD_TOL_FP32:g}); largest error in {leaf} "
+          f"(relative {leaf_rel:.3e}); fp32 kernel launches "
+          f"{ {k: after[k] - before[k] for k in after} }")
+    check(all(after[k] - before[k] == 2 for k in after),
+          "fp32 step did not launch each kernel once per layer")
+    check(rel <= GRAD_TOL_FP32, f"fp32 kernel-path gradients differ by {rel}")
+
+
+def gpt_train_phase(torch, fa):
+    from deeplearning4j_tpu_torch.models import gpt
+
+    cfg = gpt.gpt_config()
+    B, T = 8, 1024
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
+                           .astype(np.int32)).cuda()
+
+    def loss_of(c, params, attn):
+        return gpt.lm_loss(c, params, ids, None, None, attn)
+
+    return train_phase(torch, fa, "GPT-2 small B=8 T=1024", gpt, cfg, ids,
+                       gpt_train_flops(cfg, B, T), loss_of)
+
+
 def main() -> int:
     import torch
 
@@ -457,25 +920,37 @@ def main() -> int:
     for name in seconds:
         log = cuda_build.library_path(name).with_name(
             cuda_build.library_path(name).name + ".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_summary(log.read_text()):
+            print(f"  ptxas {name}: {line}")
 
     print("phase 3: kernels against their plain twins")
     worst = kernel_phase(torch, fa)
     time_flash(torch, F, fa, B=32, T=128)
     ms, plain_ms, lib_ms, bound_ms, bound_by = time_flash(
         torch, F, fa, B=32, T=512)
+    worst_bwd = kernel_bwd_phase(torch, fa)
+    bwd_rows = time_flash_bwd(torch, F, fa, B=32, T=128)
+    time_flash_bwd(torch, F, fa, B=8, T=512)
+    time_flash_bwd(torch, F, fa, B=8, T=1024, causal=True)
 
+    # each main path runs with the counts set to 0 just before it and
+    # read just after; the line below sums them
     print("phase 4: BERT-base fill-mask serving")
-    launches = serving_phase(torch, fa)
+    launches = {"launches": serving_phase(torch, fa), "launches_dkv": 0,
+                "launches_dq": 0}
+    print("phase 5: BERT-base MLM training")
+    for name, n in bert_train_phase(torch, fa).items():
+        launches[name] += n
+    print("phase 6: GPT-2 small causal-LM training")
+    for name, n in gpt_train_phase(torch, fa).items():
+        launches[name] += n
 
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:83",
-        "launches": launches,
+        "launches": launches["launches"],
         "max_abs_err": worst,
         "ms": ms,
         "kernel_ms": ms,
@@ -484,6 +959,24 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": lib_ms,
     }]
+    for kernel, name, line, counter in (
+            ("dkv", "flash_attention_bwd_dkv", 188, "launches_dkv"),
+            ("dq", "flash_attention_bwd_dq", 240, "launches_dq")):
+        k_ms, k_plain, k_lib, k_bound, k_by = bwd_rows[kernel]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"deeplearning4j_tpu/ops/pallas_attention.py:{line}",
+            "launches": launches[counter],
+            "max_abs_err": worst_bwd[kernel],
+            "ms": k_ms,
+            "kernel_ms": k_ms,
+            "plain_ms": k_plain,
+            "bound_ms": k_bound,
+            "bound_by": k_by,
+            "library_ms": k_lib,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

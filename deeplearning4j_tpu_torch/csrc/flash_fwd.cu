@@ -42,6 +42,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr float kMaskVal = -1e5f;
@@ -71,45 +73,6 @@ struct FwdParams {
 constexpr int kBQ = 64;        // query rows per CTA
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 128;  // 4 warps x 16 rows
-
-__device__ __forceinline__ uint32_t pack_f32_to_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(__nv_bfloat16 lo,
-                                                __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage a [64, dpad] bf16 tile: rows past `rows` and columns past d are
-// zero.  d % 8 == 0 and 16-byte aligned rows are checked by the wrapper.
-template <int LDS>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* s,
-                                               const __nv_bfloat16* g,
-                                               long long st, int rows, int d,
-                                               int dpad) {
-  const int chunks = dpad / 8;
-  for (int c = threadIdx.x; c < 64 * chunks; c += blockDim.x) {
-    const int r = c / chunks;
-    const int col = (c - r * chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows && col < d)
-      val = *reinterpret_cast<const uint4*>(g + r * st + col);
-    *reinterpret_cast<uint4*>(s + r * LDS + col) = val;
-  }
-}
 
 template <int DMAX>
 __global__ void __launch_bounds__(kThreads)

@@ -1,2 +1,3 @@
 """Models of the port (counterpart of ``deeplearning4j_tpu/models``):
-the transformer encoder and BERT."""
+the transformer encoder, BERT (MLM training and fill-mask serving) and
+GPT (causal-LM training)."""

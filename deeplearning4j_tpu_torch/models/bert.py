@@ -1,15 +1,17 @@
-"""BERT masked-language model in PyTorch: fill-mask serving forward.
+"""BERT masked-language model in PyTorch: MLM training and fill-mask
+serving.
 
 Port of ``deeplearning4j_tpu/models/bert.py``: configs, params (the
 same tree, so JAX weights carry over with :func:`params_from_numpy`),
 the MLM head over tied token embeddings, the MLM loss, synthetic
-batches, and the serving forward.  The training steps (:175-430) come
-with the training slice.
+batches, the one-device training step (:175-241) and the serving
+forward.  The pipeline and sequence-parallel steps (:248-430) come with
+the parallel slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,33 +59,8 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     return params
 
 
-#: leaf names the forward, the MLM head and the pooler read
-_TREE = {
-    "embed": ("tok", "pos", "type", "ln_g", "ln_b"),
-    "blocks": ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo", "ln1_g",
-               "ln1_b", "w1", "b1", "w2", "b2", "ln2_g", "ln2_b"),
-    "mlm": ("w", "b", "ln_g", "ln_b", "out_b"),
-    "pooler": ("w", "b"),
-}
-
-
-def params_from_numpy(tree: Mapping[str, Any],
-                      device: DeviceLike = None) -> Params:
-    """The JAX BERT param tree as numpy arrays (from
-    ``runtime.checkpoint.load_numpy_tree`` or ``jax.tree.map(np.asarray,
-    params)``) -> the port's params on ``device``.  Layouts stay JAX's,
-    with no transposes (``wq`` ``[L, H, NH, D]``, ``wo`` ``[L, NH, D,
-    H]``, ``w1`` ``[L, H, F]``), so the products read the same in both
-    packages.  Raises ``KeyError`` naming any missing leaf."""
-    dev = resolve_device(device)
-    missing = [f"{grp}/{leaf}" for grp, leaves in _TREE.items()
-               for leaf in leaves
-               if grp not in tree or leaf not in tree[grp]]
-    if missing:
-        raise KeyError(f"BERT param tree lacks {missing}")
-    return {grp: {leaf: torch.from_numpy(np.array(tree[grp][leaf]))
-                  .to(dev) for leaf in leaves}
-            for grp, leaves in _TREE.items()}
+#: the JAX BERT tree -> the port's params (``transformer.params_from_numpy``)
+params_from_numpy = tfm.params_from_numpy
 
 
 class Batch(NamedTuple):
@@ -125,6 +102,31 @@ def mlm_loss_from_hidden(cfg: TransformerConfig, params: Params,
     ll = torch.gather(logp, -1, batch.labels.long()[..., None])[..., 0]
     denom = torch.clamp(batch.mlm_mask.sum(), min=1.0)
     return -(ll * batch.mlm_mask).sum() / denom
+
+
+def mlm_loss(cfg: TransformerConfig, params: Params, batch: Batch,
+             generator: Optional[torch.Generator] = None,
+             attn_fn=tfm.attention) -> Tensor:
+    hidden = forward_hidden(cfg, params, batch, generator, attn_fn)
+    return mlm_loss_from_hidden(cfg, params, hidden, batch)
+
+
+#: the training state ``(params, opt_state, step)`` (:144)
+TrainState = tfm.TrainState
+
+
+def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
+                    attn_fn=None, n_steps: int = 1,
+                    device: DeviceLike = None) -> Tuple[Callable, Callable]:
+    """``(init_fn(generator) -> TrainState, step_fn(state, batch,
+    generator=None) -> (state, loss))`` for the MLM loss on one device,
+    after ``make_train_step`` (:175-241): ``optimizer`` defaults to
+    ``updaters.adamw(1e-4, weight_decay=0.01)`` (JAX's ``optax.adamw(1e-4,
+    weight_decay=0.01)``), ``attn_fn=None`` to the flash kernels on CUDA
+    (``transformer.make_train_step`` has the rest); the batch lives on
+    ``device`` (``None`` means ``"cuda"``)."""
+    return tfm.make_train_step(cfg, init_params, mlm_loss, 1e-4, mesh,
+                               optimizer, attn_fn, n_steps, device)
 
 
 def synthetic_batch(seed: int, cfg: TransformerConfig, batch_size: int,

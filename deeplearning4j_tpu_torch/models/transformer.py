@@ -13,24 +13,30 @@ Numerics, site by site, against the JAX forward:
   fp32 unrounded (:func:`_matmul`); where JAX's product returns the
   compute dtype (the MLM transform, bert.py:120) so does the port's.
   What remains is summation order.  In fp32 the products are full fp32
-  (``resolve_device`` turns TF32 off).
+  (``resolve_device`` turns TF32 off).  Their gradients follow JAX's
+  transpose rule: each is cast to the operand's compute dtype.
 - GELU is the tanh approximation (``jax.nn.gelu``'s default).
 - LayerNorm runs in fp32 with biased variance, as at :181.
 - Plain attention masks with -1e9 as at :202 (the flash kernel uses
   -1e5; they agree on every row with at least one live key).
 
 Dropout takes an explicit ``torch.Generator``; serving passes none.
+Everything here is differentiable, so the training steps
+(``bert.make_train_step``, ``gpt.make_train_step``) take gradients
+with ``torch.autograd`` through the same forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.ops import updaters
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -124,21 +130,59 @@ def layer_norm(x: Tensor, g: Tensor, b: Tensor, eps: float) -> Tensor:
     return F.layer_norm(x.float(), (x.shape[-1],), g, b, eps)
 
 
-def _matmul(x: Tensor, w: Tensor, cdt: torch.dtype) -> Tensor:
-    """``x @ w`` with both cast to the compute dtype and an fp32 result,
-    as JAX's ``preferred_element_type=float32`` products: products of
-    bf16 values are exact in fp32 and summed in fp32.  On CUDA that is
-    cuBLAS's bf16 product with an fp32 output (``out_dtype``); PyTorch's
-    CPU build lacks that, and the CPU computes the same function as an
-    fp32 product of the bf16-rounded operands."""
-    x, w = x.to(cdt), w.to(cdt)
-    if cdt == torch.float32:
+def _mm_fp32(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` of two compute-dtype operands with an fp32 result:
+    products of bf16 values are exact in fp32 and summed in fp32.  On
+    CUDA that is cuBLAS's bf16 product with an fp32 output
+    (``out_dtype``); PyTorch's CPU build lacks that, and the CPU
+    computes the same function as an fp32 product of the bf16 values."""
+    if x.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.device.type == "cuda":
         out = torch.mm(x.reshape(-1, x.shape[-1]), w,
                        out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+class _MixedMatmul(torch.autograd.Function):
+    """:func:`_mm_fp32` with JAX's transpose rule for ``dot_general``
+    with ``preferred_element_type`` (``lax._dot_general_transpose_lhs``
+    and ``_rhs``): each operand's gradient is the fp32 cotangent's
+    product with the other operand, cast to the operand's (compute)
+    dtype; the caller's ``.to(cdt)`` then carries it back to the fp32
+    master weight.  The product runs on the compute-dtype cotangent,
+    as XLA feeds the TPU's matrix unit at default precision."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, w: Tensor) -> Tensor:
+        ctx.save_for_backward(x, w)
+        return _mm_fp32(x, w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g: Tensor):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = _mm_fp32(g, w.t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = _mm_fp32(x.reshape(-1, x.shape[-1]).t(),
+                          g.reshape(-1, g.shape[-1])).to(w.dtype)
+        return gx, gw
+
+
+def _matmul(x: Tensor, w: Tensor, cdt: torch.dtype) -> Tensor:
+    """``x @ w`` with both cast to the compute dtype and an fp32 result,
+    as JAX's ``preferred_element_type=float32`` products (w ``[K, N]``).
+    Differentiable: in bf16 through :class:`_MixedMatmul` (PyTorch has
+    no derivative for ``mm(out_dtype=)``), in fp32 as a plain fp32
+    product."""
+    x, w = x.to(cdt), w.to(cdt)
+    if cdt == torch.float32:
+        return torch.matmul(x, w)
+    return _MixedMatmul.apply(x, w)
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
@@ -204,6 +248,56 @@ def _block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
     return layer_norm(x + f, p["ln2_g"], p["ln2_b"], cfg.layer_norm_eps)
 
 
+#: leaf names of the encoder groups, and of BERT's heads (models/bert.py)
+_ENCODER_TREE = {
+    "embed": ("tok", "pos", "type", "ln_g", "ln_b"),
+    "blocks": ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo", "ln1_g",
+               "ln1_b", "w1", "b1", "w2", "b2", "ln2_g", "ln2_b"),
+}
+_HEAD_TREE = {
+    "mlm": ("w", "b", "ln_g", "ln_b", "out_b"),
+    "pooler": ("w", "b"),
+}
+
+
+def params_from_numpy(tree: Mapping[str, Any],
+                      device: DeviceLike = None) -> Params:
+    """A JAX param tree as numpy arrays (from
+    ``runtime.checkpoint.load_numpy_tree`` or ``jax.tree.map(np.asarray,
+    params)``) -> the port's params on ``device``.  The encoder groups
+    (``embed``, ``blocks``) are required; BERT's ``mlm`` and ``pooler``
+    are carried when the tree has them, leaf by leaf (a GPT tree has
+    neither).  Layouts stay JAX's, with no transposes (``wq`` ``[L, H,
+    NH, D]``, ``wo`` ``[L, NH, D, H]``, ``w1`` ``[L, H, F]``), so the
+    products read the same in both packages.  Raises ``KeyError``
+    naming any missing leaf."""
+    dev = resolve_device(device)
+    groups = dict(_ENCODER_TREE)
+    groups.update({grp: leaves for grp, leaves in _HEAD_TREE.items()
+                   if grp in tree})
+    missing = [f"{grp}/{leaf}" for grp, leaves in groups.items()
+               for leaf in leaves
+               if grp not in tree or leaf not in tree[grp]]
+    if missing:
+        raise KeyError(f"param tree lacks {missing}")
+    return {grp: {leaf: torch.from_numpy(np.array(tree[grp][leaf]))
+                  .to(dev) for leaf in leaves}
+            for grp, leaves in groups.items()}
+
+
+def value_and_grad(loss_fn: Callable[[Params], Tensor], params: Params):
+    """``jax.value_and_grad`` over a param tree: ``(loss, grads)`` with
+    the grads in the params' structure, the loss detached.  A leaf the
+    loss does not read (BERT's pooler under the MLM loss) gets zeros,
+    as in JAX."""
+    live = updaters.tree_map(lambda p: p.detach().requires_grad_(True),
+                             params)
+    loss = loss_fn(live)
+    grads = torch.autograd.grad(loss, updaters.tree_leaves(live),
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), updaters.tree_unflatten(params, grads)
+
+
 def embed(cfg: TransformerConfig, params: Params, token_ids: Tensor,
           type_ids: Optional[Tensor] = None) -> Tensor:
     """``[B, T]`` ids -> ``[B, T, H]`` fp32 (tok + pos + type, LN) (:263).
@@ -230,3 +324,78 @@ def encode(cfg: TransformerConfig, params: Params, token_ids: Tensor,
         p = {name: w[layer] for name, w in blocks.items()}
         x = _block(cfg, x, p, mask, generator, attn_fn)
     return x
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+class TrainState(NamedTuple):
+    """``(params, opt_state, step)`` of a training step (bert.py:144,
+    gpt.py:109); ``step`` counts the optimizer steps taken."""
+    params: Params
+    opt_state: Any
+    step: int
+
+
+def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
+                    loss_fn: Callable, learning_rate: float, mesh=None,
+                    optimizer=None, attn_fn=None, n_steps: int = 1,
+                    device: DeviceLike = None):
+    """The one-device training step BERT and GPT share (bert.py:175-241,
+    gpt.py:115-160): ``(init_fn(generator) -> TrainState,
+    step_fn(state, batch, generator=None) -> (state, loss))``.
+
+    ``init_params_fn(generator, cfg, device)`` makes the params and
+    ``loss_fn(cfg, params, batch, generator, attn_fn)`` is the model's
+    loss.  ``optimizer`` defaults to ``updaters.adamw(learning_rate,
+    weight_decay=0.01)``; ``attn_fn=None`` takes
+    ``ops.flash_attention.make_attn_fn("auto")``, so on CUDA each layer's
+    forward launches B1 and its backward B2 and B3.  ``n_steps > 1`` runs
+    that many optimizer steps per call and returns the ``[n_steps]``
+    losses, as JAX's scan does.  ``generator`` draws the dropout masks,
+    on the batch's device; a config with dropout needs one, as JAX's
+    step needs its key.  ``mesh=`` raises ``NotImplementedError``: it
+    comes with the parallel slice.  The step is eager; nothing is
+    compiled or donated, and the state it returns holds new tensors."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded training is not ported yet: it comes with the "
+            "parallel slice of the port (ROADMAP Queue A)")
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    dev = resolve_device(device)
+    if attn_fn is None:
+        from deeplearning4j_tpu_torch.ops.flash_attention import make_attn_fn
+        attn_fn = make_attn_fn("auto")
+    if optimizer is None:
+        optimizer = updaters.adamw(learning_rate, weight_decay=0.01)
+
+    def init_fn(generator: torch.Generator) -> TrainState:
+        params = init_params_fn(generator, cfg, dev)
+        return TrainState(params, optimizer.init(params), 0)
+
+    def one_step(state: TrainState, batch, generator):
+        if cfg.dropout > 0.0 and generator is None:
+            raise ValueError(
+                f"cfg.dropout={cfg.dropout}: pass step_fn a torch.Generator "
+                f"on the batch's device for the dropout draws, or train a "
+                f"config with dropout=0.0")
+        loss, grads = value_and_grad(
+            lambda p: loss_fn(cfg, p, batch, generator, attn_fn),
+            state.params)
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.params)
+        params = updaters.apply_updates(state.params, updates)
+        return TrainState(params, opt_state, state.step + 1), loss
+
+    def step_fn(state: TrainState, batch, generator=None):
+        if n_steps == 1:
+            return one_step(state, batch, generator)
+        losses = []
+        for _ in range(n_steps):
+            state, loss = one_step(state, batch, generator)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return init_fn, step_fn

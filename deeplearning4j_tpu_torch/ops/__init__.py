@@ -1,4 +1,5 @@
-"""Kernels and kernel selection: the counterpart of
+"""Kernels, kernel selection and optimizers: the counterpart of
 ``deeplearning4j_tpu/ops``.  ``flash_attention`` holds the port of the
-Pallas flash-attention forward; ``kernel_select`` the shared dispatch
-policy; ``cuda_build`` compiles the CUDA sources under ``csrc/``."""
+Pallas flash-attention forward and backward; ``kernel_select`` the
+shared dispatch policy; ``cuda_build`` compiles the CUDA sources under
+``csrc/``; ``updaters`` the optax-exact ``adamw``."""

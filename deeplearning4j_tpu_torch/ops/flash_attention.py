@@ -1,27 +1,35 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain twin.
+"""Flash attention: hand-written CUDA kernels and their plain twins.
 
-Port of ``deeplearning4j_tpu/ops/pallas_attention.py``.  The kernel
-(``csrc/flash_fwd.cu``) replaces the Pallas forward ``_fwd_kernel``
-(:83, launched by ``_fwd`` at :145): online softmax over key tiles with
-fp32 statistics, an additive per-key bias, optional causal masking, and
-the fp32 logsumexp saved beside the output for the backward kernels.
+Port of ``deeplearning4j_tpu/ops/pallas_attention.py``.  Three kernels
+replace the three Pallas kernels there:
 
-- :func:`flash_attention_fwd` on ``[BH, T, D]`` (the layout of ``_fwd``)
-  returns ``(o, lse)``.  On CPU tensors it runs
-  :func:`flash_attention_fwd_plain`; on CUDA tensors it launches the
-  kernel through :func:`flash_attention_fwd_cuda` or raises.  There is
-  no fallback from a CUDA tensor to the plain twin.
+- B1, ``csrc/flash_fwd.cu``: the forward ``_fwd_kernel`` (:83, launched
+  by ``_fwd`` at :145): online softmax over key tiles with fp32
+  statistics, an additive per-key bias, optional causal masking, and
+  the fp32 logsumexp saved beside the output for the backward kernels;
+- B2 and B3, ``csrc/flash_bwd.cu``: the backward ``_bwd_dkv_kernel``
+  (:188) and ``_bwd_dq_kernel`` (:240), launched by ``_bwd`` (:281),
+  which rebuild p = exp(s - lse) from the saved lse.
+
+Entry points:
+
+- :func:`flash_attention_fwd` and :func:`flash_attention_bwd` on
+  ``[BH, T, D]`` (the layout of ``_fwd`` and ``_bwd``).  On CPU tensors
+  they run :func:`flash_attention_fwd_plain` and
+  :func:`flash_attention_bwd_plain`; on CUDA tensors they launch the
+  kernels or raise.  There is no fallback from a CUDA tensor to a plain
+  twin.
 - :func:`flash_attention` on ``[B, T, NH, D]`` (:374-403) keeps the JAX
-  layout: the kernel reads and writes it through strides, and indexes
-  the ``[B, Tk]`` mask bias by ``bh // NH`` instead of repeating it.
+  layout: the kernels read and write it through strides, and index the
+  ``[B, Tk]`` mask bias by ``bh // NH`` instead of repeating it.  It is
+  differentiable through :class:`FlashAttentionFn`, the counterpart of
+  ``_flash_bhtd``'s ``custom_vjp`` (:356-371).
 - :func:`make_attn_fn` is the dispatch every transformer forward takes
   (:446-623), through ``kernel_select.resolve_attn_kernel``.
 
-``launches`` counts kernel launches (never plain-twin calls), so a run
-can show that its path went through the kernel.
-
-Only the forward is ported here; the backward kernels (``_bwd_dkv_kernel``
-and ``_bwd_dq_kernel``) come with the training slice.
+``launches`` (B1), ``launches_dkv`` (B2) and ``launches_dq`` (B3) count
+kernel launches (never plain-twin calls), so a run can show that its
+path went through each kernel.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import ctypes
 import dataclasses
 import math
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -43,18 +51,34 @@ Tensor = torch.Tensor
 #: fully masked row has to keep log(Tk) beside it (ulp(1e5) = 0.008)
 MASK_VAL = -1e5
 
-#: kernel launches since the process started (or the caller reset it)
+#: kernel launches since the process started (or the caller reset them):
+#: B1 (forward), B2 (dK/dV) and B3 (dQ)
 launches = 0
+launches_dkv = 0
+launches_dq = 0
+_COUNTERS = ("launches", "launches_dkv", "launches_dq")
 _launch_lock = threading.Lock()
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID_Y = 65535
 
 
-def _note_launch() -> None:
-    global launches
+def _note_launch(counter: str) -> None:
     with _launch_lock:
-        launches += 1
+        globals()[counter] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """``{"launches": B1, "launches_dkv": B2, "launches_dq": B3}``."""
+    with _launch_lock:
+        return {name: globals()[name] for name in _COUNTERS}
+
+
+def reset_launches() -> None:
+    """Set the three launch counters to 0."""
+    with _launch_lock:
+        for name in _COUNTERS:
+            globals()[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -86,27 +110,107 @@ def flash_attention_fwd_plain(q4: Tensor, k4: Tensor, v4: Tensor,
     return o.to(q4.dtype), (m + torch.log(l))[..., 0]
 
 
+def _bwd_plain_p_ds(q4: Tensor, k4: Tensor, v4: Tensor,
+                    bias: Optional[Tensor], o: Tensor, lse: Tensor,
+                    do: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
+    """p = exp(s - lse) and dS = p * (dO V^T - delta) * scale, fp32
+    ``[BH, Tq, Tk]``, with delta = rowsum(dO * O)."""
+    BH, Tq, D = q4.shape
+    Tk = k4.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    s = torch.matmul(q4.float(), k4.float().transpose(1, 2)) * scale
+    if bias is not None:
+        rows = bias.float().repeat_interleave(BH // bias.shape[0], dim=0)
+        s = s + rows[:, None, :]
+    if causal:
+        keep = torch.ones(Tq, Tk, dtype=torch.bool, device=s.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, MASK_VAL))
+    p = torch.exp(s - lse[..., None])
+    delta = (do.float() * o.float()).sum(-1)
+    dp = torch.matmul(do.float(), v4.float().transpose(1, 2))
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_attention_bwd_dkv_plain(q4: Tensor, k4: Tensor, v4: Tensor,
+                                  bias: Optional[Tensor], o: Tensor,
+                                  lse: Tensor, do: Tensor,
+                                  causal: bool = False
+                                  ) -> Tuple[Tensor, Tensor]:
+    """B2's plain twin: ``(dk, dv)``; p is cast to dO's dtype before
+    P^T dO and dS to the input dtype before dS^T Q, with fp32 sums."""
+    p, ds = _bwd_plain_p_ds(q4, k4, v4, bias, o, lse, do, causal)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
+    dk = torch.matmul(ds.to(q4.dtype).float().transpose(1, 2), q4.float())
+    return dk.to(k4.dtype), dv.to(v4.dtype)
+
+
+def flash_attention_bwd_dq_plain(q4: Tensor, k4: Tensor, v4: Tensor,
+                                 bias: Optional[Tensor], o: Tensor,
+                                 lse: Tensor, do: Tensor,
+                                 causal: bool = False) -> Tensor:
+    """B3's plain twin: ``dq``; dS is cast to the input dtype before
+    dS K, with an fp32 sum."""
+    _, ds = _bwd_plain_p_ds(q4, k4, v4, bias, o, lse, do, causal)
+    return torch.matmul(ds.to(k4.dtype).float(), k4.float()).to(q4.dtype)
+
+
+def flash_attention_bwd_plain(q4: Tensor, k4: Tensor, v4: Tensor,
+                              bias: Optional[Tensor], o: Tensor, lse: Tensor,
+                              do: Tensor, causal: bool = False
+                              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """``_bwd``'s arithmetic (:281-349) in plain PyTorch, on any device:
+    the inputs of :func:`flash_attention_fwd_plain` plus its ``o`` and
+    ``lse`` and the output gradient ``do`` ``[BH, Tq, D]``.  Returns
+    ``(dq, dk, dv)`` in the input dtype, rebuilt from p = exp(s - lse)
+    as the kernels do.  Unlike B2 and B3 it skips no causal tiles: the
+    two differ only on a causal row whose every key is masked, whose lse
+    depends on the tiles the forward walked."""
+    dk, dv = flash_attention_bwd_dkv_plain(q4, k4, v4, bias, o, lse, do,
+                                           causal)
+    dq = flash_attention_bwd_dq_plain(q4, k4, v4, bias, o, lse, do, causal)
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
+
+#: ctypes argument types of each library's entry points
+_ARGTYPES = {
+    # q, k, v, bias, o, lse, strides; is_bf16, bh, nh, bias_nh, tq, tk, d,
+    # causal; scale; stream
+    "flash_fwd": {"flash_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                  + [ctypes.c_float, ctypes.c_void_p]},
+    # q, k, v, dout, bias, lse, delta, dq, dk, dv, strides; the same ints;
+    # scale; stream
+    "flash_bwd": {fn: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                  + [ctypes.c_float, ctypes.c_void_p]
+                  for fn in ("flash_bwd_dkv", "flash_bwd_dq")},
+}
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
         from deeplearning4j_tpu_torch.ops import cuda_build
 
-        lib = cuda_build.load("flash_fwd")
-        lib.flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        lib = cuda_build.load(name)
+        for fn, argtypes in _ARGTYPES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        err_string = getattr(lib, f"{name}_error_string")
+        err_string.argtypes = [ctypes.c_int]
+        err_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def _raise_on_error(lib: ctypes.CDLL, name: str, fn: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({err})")
 
 
 def kernel_supports(Tq: int, Tk: int, D: int, dtype: torch.dtype) -> bool:
@@ -130,13 +234,21 @@ def _check_common(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                          f"{q.shape[t_axis]} != {k.shape[t_axis]}")
 
 
-def _launch(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
-            causal: bool, heads_layout: bool) -> Tuple[Tensor, Tensor]:
-    """Validate and launch.  ``heads_layout``: tensors are
-    ``[B, T, NH, D]`` (else ``[BH, T, D]``).  Raises on anything the
-    kernel does not take; CPU tensors included."""
-    t_axis = 1
-    _check_common(q, k, v, causal, t_axis)
+def _strides_ok(x: Tensor) -> bool:
+    """Strides the kernels take: a unit last stride, the others multiples
+    of 8 elements, and a 16-byte aligned start."""
+    return (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:-1])
+            and x.data_ptr() % 16 == 0)
+
+
+def _check_kernel_inputs(q: Tensor, k: Tensor, v: Tensor,
+                         bias: Optional[Tensor], causal: bool,
+                         heads_layout: bool):
+    """Validate what every kernel takes; returns ``(BH, NH, Tq, Tk, D,
+    bias_nh)``.  Raises on anything the kernels do not take, CPU tensors
+    included.  ``heads_layout``: tensors are ``[B, T, NH, D]`` (else
+    ``[BH, T, D]``)."""
+    _check_common(q, k, v, causal, 1)
     if heads_layout:
         if q.dim() != 4:
             raise ValueError(f"expected [B, T, NH, D], got {tuple(q.shape)}")
@@ -164,11 +276,10 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
                 f"the flash kernel needs q/k/v on one CUDA device; {name} "
                 f"is on {x.device} (CPU tensors take flash_attention_fwd, "
                 f"which runs the plain twin there)")
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]):
-            raise ValueError(f"{name} needs a unit last stride and the "
-                             f"others multiples of 8, got {x.stride()}")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+        if not _strides_ok(x):
+            raise ValueError(f"{name} needs a unit last stride, the others "
+                             f"multiples of 8 and a 16-byte aligned start, "
+                             f"got {x.stride()}")
     bias_nh = NH
     if bias is not None:
         if (bias.dtype != torch.float32 or bias.dim() != 2
@@ -179,17 +290,26 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
                 f"with BH % R == 0; got {bias.dtype} {tuple(bias.shape)} "
                 f"on {bias.device}")
         bias_nh = BH // bias.shape[0]
+    return BH, NH, Tq, Tk, D, bias_nh
 
+
+def _bht(x: Tensor, heads_layout: bool):
+    """Element strides of (batch, head, token)."""
+    if heads_layout:
+        return x.stride(0), x.stride(2), x.stride(1)
+    return x.stride(0), 0, x.stride(1)
+
+
+def _launch(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
+            causal: bool, heads_layout: bool) -> Tuple[Tensor, Tensor]:
+    """Validate and launch B1; returns ``(o, lse)``."""
+    BH, NH, Tq, Tk, D, bias_nh = _check_kernel_inputs(q, k, v, bias, causal,
+                                                       heads_layout)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=q.device)
-
-    def bht(x: Tensor):      # element strides of (batch, head, token)
-        if heads_layout:
-            return x.stride(0), x.stride(2), x.stride(1)
-        return x.stride(0), 0, x.stride(1)
-
-    strides = (ctypes.c_longlong * 12)(*bht(q), *bht(k), *bht(v), *bht(o))
-    lib = _library()
+    strides = (ctypes.c_longlong * 12)(
+        *(s for x in (q, k, v, o) for s in _bht(x, heads_layout)))
+    lib = _library("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_fwd(
@@ -198,12 +318,55 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
             o.data_ptr(), lse.data_ptr(), ctypes.addressof(strides),
             int(q.dtype == torch.bfloat16), BH, NH, bias_nh, Tq, Tk, D,
             int(causal), 1.0 / math.sqrt(D), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: "
-            f"{lib.flash_fwd_error_string(err).decode()} ({err})")
-    _note_launch()
+    _raise_on_error(lib, "flash_fwd", "flash_fwd", err)
+    _note_launch("launches")
     return o, lse
+
+
+def _launch_bwd(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
+                o: Tensor, lse: Tensor, do: Tensor, causal: bool,
+                heads_layout: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    """Validate and launch B2 then B3; returns ``(dq, dk, dv)`` in the
+    input dtype.  delta = rowsum(dO * O) is a plain reduction, as JAX
+    computes it outside Pallas (:290).  A ``do`` with strides the
+    kernels do not take is made contiguous first."""
+    BH, NH, Tq, Tk, D, bias_nh = _check_kernel_inputs(q, k, v, bias, causal,
+                                                       heads_layout)
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(
+                f"{name} must match q ({tuple(q.shape)} {q.dtype} on "
+                f"{q.device}); got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (BH, Tq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous fp32 [{BH}, {Tq}] on "
+                         f"{q.device}; got {lse.dtype} {tuple(lse.shape)}")
+    if not _strides_ok(do):
+        do = do.contiguous()
+    delta = (do.float() * o.float()).sum(-1)
+    if heads_layout:                                   # [B, Tq, NH]
+        delta = delta.permute(0, 2, 1)
+    delta = delta.reshape(BH, Tq).contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    strides = (ctypes.c_longlong * 21)(
+        *(s for x in (q, k, v, do, dq, dk, dv)
+          for s in _bht(x, heads_layout)))
+    lib = _library("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                bias.data_ptr() if bias is not None else None,
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides),
+                int(q.dtype == torch.bfloat16), BH, NH, bias_nh, Tq, Tk, D,
+                int(causal), 1.0 / math.sqrt(D), stream)
+        for fn, counter in (("flash_bwd_dkv", "launches_dkv"),
+                            ("flash_bwd_dq", "launches_dq")):
+            _raise_on_error(lib, "flash_bwd", fn, getattr(lib, fn)(*args))
+            _note_launch(counter)
+    return dq, dk, dv
 
 
 def flash_attention_fwd_cuda(q4: Tensor, k4: Tensor, v4: Tensor,
@@ -227,24 +390,85 @@ def flash_attention_fwd(q4: Tensor, k4: Tensor, v4: Tensor,
     return flash_attention_fwd_cuda(q4, k4, v4, bias, causal)
 
 
+def flash_attention_bwd_cuda(q4: Tensor, k4: Tensor, v4: Tensor,
+                             bias: Optional[Tensor], o: Tensor, lse: Tensor,
+                             do: Tensor, causal: bool = False
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Launch B2 then B3 on ``[BH, T, D]`` CUDA tensors; raises for
+    anything they do not take, CPU tensors included."""
+    return _launch_bwd(q4, k4, v4, bias, o, lse, do, causal,
+                       heads_layout=False)
+
+
+def flash_attention_bwd(q4: Tensor, k4: Tensor, v4: Tensor,
+                        bias: Optional[Tensor], o: Tensor, lse: Tensor,
+                        do: Tensor, causal: bool = False
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """``_bwd`` (:281): the inputs and outputs of
+    :func:`flash_attention_fwd` and the output gradient ``do`` ->
+    ``(dq, dk, dv)``.  CPU tensors run the plain twin; CUDA tensors
+    launch the kernels or raise."""
+    if q4.device.type == "cpu":
+        _check_common(q4, k4, v4, causal, 1)
+        return flash_attention_bwd_plain(q4, k4, v4, bias, o, lse, do,
+                                         causal)
+    return flash_attention_bwd_cuda(q4, k4, v4, bias, o, lse, do, causal)
+
+
+def _to_bhtd(x: Tensor) -> Tensor:
+    B, T, NH, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * NH, T, D)
+
+
+def _from_bhtd(x: Tensor, B: int, NH: int) -> Tensor:
+    _, T, D = x.shape
+    return x.reshape(B, NH, T, D).permute(0, 2, 1, 3)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``_flash_bhtd``'s ``custom_vjp`` (:356-371) on ``[B, T, NH, D]``.
+    The forward (B1 on CUDA, the plain twin on the CPU) saves q, k, v,
+    the bias, o and lse; the backward (B2 then B3 on CUDA, the plain
+    twin on the CPU) returns no gradient for the bias, as at :349."""
+
+    @staticmethod
+    def forward(ctx, q: Tensor, k: Tensor, v: Tensor,
+                bias: Optional[Tensor], causal: bool) -> Tensor:
+        if q.device.type == "cpu":
+            _check_common(q, k, v, causal, 1)
+            o4, lse = flash_attention_fwd_plain(_to_bhtd(q), _to_bhtd(k),
+                                                _to_bhtd(v), bias, causal)
+            o = _from_bhtd(o4, q.shape[0], q.shape[2])
+        else:
+            o, lse = _launch(q, k, v, bias, causal, heads_layout=True)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do: Tensor):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_plain(
+                _to_bhtd(q), _to_bhtd(k), _to_bhtd(v), bias, _to_bhtd(o),
+                lse, _to_bhtd(do), ctx.causal)
+            dq, dk, dv = (_from_bhtd(g, q.shape[0], q.shape[2])
+                          for g in grads)
+        else:
+            dq, dk, dv = _launch_bwd(q, k, v, bias, o, lse, do, ctx.causal,
+                                     heads_layout=True)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor,
                     mask: Optional[Tensor] = None,
                     causal: bool = False) -> Tensor:
     """Flash attention ``[B, T, NH, D] -> [B, T, NH, D]``, a drop-in for
-    ``models/transformer.attention`` (mask ``[B, Tk]``, 1 = attend)."""
-    B, Tq, NH, D = q.shape
+    ``models/transformer.attention`` (mask ``[B, Tk]``, 1 = attend),
+    differentiable in q, k and v through :class:`FlashAttentionFn`."""
     bias = None if mask is None else (1.0 - mask.float()) * MASK_VAL
-    if q.device.type == "cpu":
-        _check_common(q, k, v, causal, 1)
-
-        def to_bhtd(x: Tensor) -> Tensor:
-            return x.permute(0, 2, 1, 3).reshape(B * NH, x.shape[1], D)
-
-        o4, _ = flash_attention_fwd_plain(to_bhtd(q), to_bhtd(k),
-                                          to_bhtd(v), bias, causal)
-        return o4.reshape(B, NH, Tq, D).permute(0, 2, 1, 3)
-    o, _ = _launch(q, k, v, bias, causal, heads_layout=True)
-    return o
+    return FlashAttentionFn.apply(q, k, v, bias, causal)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,107 @@
+"""Optimizers over the port's parameter trees (nested dicts of tensors).
+
+The JAX package trains its transformer family with ``optax.adamw``
+(``models/bert.py:197``, ``models/gpt.py:125``); :func:`adamw` here is
+that transformation, step for step, as optax 0.2.6 computes it
+(``optax.adamw`` = ``scale_by_adam`` -> ``add_decayed_weights`` ->
+``scale_by_learning_rate``), so the two packages take the same steps
+from the same gradients.  ``torch.optim.AdamW`` is not used: it folds
+the decay into the parameter before the Adam step and keeps its own
+step-count rules.  The reference's ``ops/updaters.py:dl4j_updater``
+chain lands here later.
+
+An optimizer is a :class:`GradientTransformation` of two functions, as
+in optax: ``init(params) -> state`` and ``update(grads, state, params)
+-> (updates, state)``; :func:`apply_updates` adds the updates.  Trees
+are nested ``dict``s whose leaves are tensors; gradients share their
+params' structure.  State is fp32 and lives on the params' device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+Tree = Dict[str, Any]
+
+
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    return {key: (tree_map(fn, val, *(r[key] for r in rest))
+                  if isinstance(val, dict) else fn(val, *(r[key] for r in rest)))
+            for key, val in tree.items()}
+
+
+def tree_leaves(tree: Tree) -> list:
+    """Leaves in key order (the order :func:`tree_map` rebuilds)."""
+    out = []
+    for val in tree.values():
+        out.extend(tree_leaves(val) if isinstance(val, dict) else [val])
+    return out
+
+
+def tree_unflatten(tree: Tree, leaves) -> Tree:
+    """A tree of ``tree``'s structure over ``leaves`` (from
+    :func:`tree_leaves`)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+class GradientTransformation(NamedTuple):
+    init: Callable[[Tree], Any]
+    update: Callable[..., Any]
+
+
+class AdamWState(NamedTuple):
+    """``ScaleByAdamState``: the step count and the fp32 first and
+    second moments (the decay and the learning-rate scale keep none)."""
+    count: int
+    mu: Tree
+    nu: Tree
+
+
+def adamw(learning_rate: float, weight_decay: float = 1e-4, b1: float = 0.9,
+          b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
+    """``optax.adamw(learning_rate, b1, b2, eps, weight_decay=...)`` with
+    optax's defaults (``eps_root=0``, no mask: the decay applies to every
+    leaf).  Per leaf, in optax's order:
+
+    - mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu  (fp32);
+    - count += 1;  mu_hat = mu / (1 - b1^count),  nu_hat likewise, the
+      corrections computed in fp32 as ``1 - decay**count``;
+    - u = mu_hat / (sqrt(nu_hat) + eps);  u = u + weight_decay * p;
+      u = -learning_rate * u.
+    """
+
+    def init(params: Tree) -> AdamWState:
+        def zeros(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+
+        return AdamWState(count=0, mu=tree_map(zeros, params),
+                          nu=tree_map(zeros, params))
+
+    def update(grads: Tree, state: AdamWState, params: Tree):
+        count = state.count + 1
+        # 1 - decay**count in fp32, as optax's bias_correction
+        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
+                      state.nu)
+
+        def step(m, v, p):
+            u = (m / c1) / (torch.sqrt(v / c2) + eps)
+            return (u + weight_decay * p) * -learning_rate
+
+        updates = tree_map(step, mu, nu, params)
+        return updates, AdamWState(count=count, mu=mu, nu=nu)
+
+    return GradientTransformation(init, update)
+
+
+def apply_updates(params: Tree, updates: Tree) -> Tree:
+    """``optax.apply_updates``: p + u, in p's dtype."""
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
