@@ -32,11 +32,32 @@ Phases, each fatal on failure:
    tokens/s, the model-FLOPs share of 989 TFLOP/s and a profile of one
    step (B1/B2/B3, forward and backward products, optimizer).
 
+7. word2vec (the bench.py:676-678 config: D=100, window 5, 5 negatives,
+   HS, batch 16,384) on data/text8 (50-word sentences, min count 5):
+   masked cold fit, warm refit and one profiled epoch, then exact and
+   device pair modes; on a 2M-word Zipf corpus of 71,290 names (cold
+   and warm); ParagraphVectors over the labelled text8 sentences.
+   Checks: B4 launches once per chunk on every path, finite tables,
+   tests/test_nlp.py's text8 neighbour check, and one epoch through B4
+   against one through the plain twin with the same draws (1e-4);
+8. GloVe (GloveConfig defaults) on text8 and the Zipf corpus: B5
+   launches once per chunk, the loss falls, one epoch through B5
+   against one through the plain twin with the same permutation.
+   Prints words/s and triples/s (host clock after synchronize) and the
+   device-busy share of one profiled epoch.
+
 Phase 3 also holds the backward kernels B2 (dK/dV) and B3 (dQ) against
 their plain twins on the same 14 cases (bf16 within 3e-2 of the case's
 largest |grad|, fp32 5e-4), and times them (profiler, per kernel) beside
 their twins, their bound and the backward of
-F.scaled_dot_product_attention.
+F.scaled_dot_product_attention.  Phase 3c holds B4 (word2vec chunk)
+against its plain twin evaluated in fp64 on 11 cases (the JAX test
+shape, text8 and Zipf shapes, padded pairs, negative == target, D=50,
+300 and 600, the last through the kernel's wide path) and B5 (GloVe
+chunk) against its twin on 5 (D=600 the wide path), with tolerances
+from each chunk's hit counts (see U32; B5's per entry), and times both
+at the text8 and Zipf shapes beside their twins and bounds; no PyTorch
+call computes either function, so they have no library time.
 
 Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 Exits non-zero, printing no result, when CUDA is absent or any phase
@@ -118,7 +139,8 @@ def ptxas_summary(log: str):
             spill = ""
             # <length><identifier> of the kernel, then its template int;
             # the digits before it may end a hex namespace hash
-            for m in re.finditer(r"(\d+)(flash_\w+)", mangled):
+            for m in re.finditer(r"(\d+)((?:flash|w2v|glove)_\w+)",
+                                   mangled):
                 digits, rest = m.group(1), m.group(2)
                 for i in range(len(digits)):
                     ident = rest[:int(digits[i:])]
@@ -888,6 +910,609 @@ def gpt_train_phase(torch, fa):
                        gpt_train_flops(cfg, B, T), loss_of)
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: B4 (word2vec chunk) and B5 (GloVe chunk) against their twins
+# ---------------------------------------------------------------------------
+
+#: published fp32 rate of an H100 SXM outside the tensor cores (700 W)
+PEAK_FP32_FLOPS = 67e12
+#: Tolerances of B4/B5 against their plain twins.  A sum of n fp32 terms
+#: in any order is within (n-1) * u * sum|t| of the exact sum (u = 2^-24).
+#: B4 is held against its twin evaluated in fp64: the fp32 twin, like
+#: JAX's .at[].add, adds each of a row's n terms into the table itself,
+#: so at the Huffman root (n = 16,384) its own rounding is ~1e-5, larger
+#: than the update it checks.  B4 sums into zeroed accumulators and adds
+#: a row's mean once: each table is within 2 * n_max * u * t + 4 * u *
+#: max|table| of the exact result, with t the largest term (alpha *
+#: max|l1| for syn1/syn1neg, alpha * (L+K+1) * max|partner row| for
+#: syn0) and n_max the chunk's most-hit row (for syn0 on the wide path,
+#: which adds each partner's term on its own, times L+K+1).  B5's twin
+#: also sums into zeroed accumulators, in fp32; B5 is held to it entry
+#: by entry (see glove_tolerances).
+U32 = 2.0 ** -24
+#: one training epoch through the kernel against one through the plain
+#: twin, same draws: the per-chunk rounding differences compound over the
+#: epoch's chunks
+EPOCH_TOL = 1e-4
+TEXT8 = os.path.join(REPO, "data", "text8")
+W2V_CONFIG = dict(vector_size=100, window=5, negative=5, use_hs=True,
+                  batch_size=16384)            # bench.py:676-678
+ZIPF_VOCAB = 71290        # the min-count-5 vocabulary of public text8
+ZIPF_WORDS = 2_000_000
+
+
+def text8_sentences():
+    """data/text8 (tools/make_text_corpus.py) as 50-word sentences."""
+    with open(TEXT8) as f:
+        words = f.read().split()
+    return [" ".join(words[i:i + 50]) for i in range(0, len(words), 50)]
+
+
+def zipf_sentences():
+    """The synthetic Zipf corpus of bench.py:654-660 (exponent 1.05,
+    30-word sentences, RandomState(0)) at ZIPF_VOCAB names and about
+    ZIPF_WORDS words."""
+    rng = np.random.RandomState(0)
+    probs = 1.0 / np.arange(1, ZIPF_VOCAB + 1) ** 1.05
+    probs /= probs.sum()
+    ids = rng.choice(ZIPF_VOCAB, p=probs, size=(-(-ZIPF_WORDS // 30), 30))
+    return [" ".join(f"w{i}" for i in row) for row in ids]
+
+
+def zipf_cache():
+    """A vocabulary of all ZIPF_VOCAB names at their expected Zipf counts
+    over ZIPF_WORDS words, with Huffman codes."""
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabCache, build_huffman
+
+    probs = 1.0 / np.arange(1, ZIPF_VOCAB + 1) ** 1.05
+    counts = probs / probs.sum() * ZIPF_WORDS
+    cache = VocabCache()
+    for i, c in enumerate(counts):
+        cache.add_token(f"w{i}", float(c))
+    cache.trim(0)
+    build_huffman(cache)
+    return cache, probs / probs.sum()
+
+
+def w2v_chunk_inputs(torch, tables, cen, ctx, K, pmask=None, seed=0):
+    """One B4 chunk on the card: Huffman rows of the centers, negatives
+    from the unigram table.  ``tables`` = prepare_train_tables(...)."""
+    codes_t, points_t, mask_t, table, _ = tables
+    rng = np.random.RandomState(seed)
+    B = cen.size
+    negs = table[rng.randint(0, table.size, (B, max(K, 1)))]
+    t = lambda a, dt=None: torch.as_tensor(np.ascontiguousarray(a),
+                                           device="cuda", dtype=dt)
+    return dict(inputs=t(ctx, torch.int32), targets=t(cen, torch.int32),
+                codes=t(codes_t[cen], torch.float32),
+                points=t(points_t[cen], torch.int32),
+                mask=t(mask_t[cen], torch.float32),
+                negs=t(negs, torch.int32),
+                pmask=t(np.ones(B, np.float32) if pmask is None else pmask))
+
+
+def w2v_partners(torch, c, use_hs, K):
+    """Chunk ``c``'s live hits, one entry per hit: (HS points, negative
+    sampling rows, inputs of pairs with a live HS level, inputs of
+    unpadded pairs when K > 0)."""
+    pts = rows = in_hs = in_ng = c["inputs"][:0].long()
+    pm = c["pmask"] > 0
+    if use_hs:
+        m = (c["mask"] * c["pmask"][:, None]) > 0
+        pts, in_hs = c["points"][m].long(), c["inputs"][m.any(1)].long()
+    if K > 0:
+        r = torch.cat([c["targets"][:, None], c["negs"][:, :K]], 1)
+        valid = torch.cat([torch.ones_like(r[:, :1], dtype=torch.bool),
+                           r[:, 1:] != r[:, :1]], 1) & pm[:, None]
+        rows, in_ng = r[valid].long(), c["inputs"][pm].long()
+    return pts, rows, in_hs, in_ng
+
+
+def w2v_work(torch, c, V0, D, use_hs, K):
+    """(bytes, flops, hot-row share) B4 needs for chunk ``c``: the index
+    arrays once, each distinct table row read once, each distinct
+    accumulator row written once; 6*D FLOPs per live (pair, partner); the
+    share of its atomic adds that land on the 16 most-hit rows."""
+    B = c["inputs"].shape[0]
+    L = c["codes"].shape[1] if use_hs else 0
+    pts, rows, in_hs, in_ng = w2v_partners(torch, c, use_hs, K)
+    # hits per row of acc0, acc1 and accn; each hit is D+1 atomic adds
+    hits = [torch.bincount(x, minlength=V0)
+            for x in (torch.cat([in_hs, in_ng]), pts, rows)]
+    adds = torch.cat([h[h > 0] for h in hits]).double()
+    hot = float(adds.topk(min(16, adds.numel())).values.sum() / adds.sum())
+    n0, n1, nn = (int((h > 0).sum()) for h in hits)
+    nbytes = (4 * B * (3 + 3 * L + K) + 4 * D * (n0 + n1 + nn)
+              + 4 * (D + 1) * (2 * n0 + n1 + nn))
+    return nbytes, 6.0 * D * (pts.numel() + rows.numel()), hot
+
+
+def bound(nbytes, flops):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def w2v_case_chunks(torch, text8_tables, text8_pairs, zipf):
+    """The B4 cases: (name, V, D, K, use_hs, tables, chunk, time_it)."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import prepare_train_tables
+
+    cases = []
+    rng = np.random.RandomState(0)
+    # the JAX test's shape (tests/test_nlp.py:_rand_chunk)
+    V, D, L, K, B = 64, 32, 7, 3, 256
+    small = dict(inputs=rng.randint(0, V, B), targets=rng.randint(0, V, B),
+                 codes=rng.randint(0, 2, (B, L)).astype(np.float32),
+                 points=rng.randint(0, V, (B, L)),
+                 mask=(rng.rand(B, L) < 0.7).astype(np.float32),
+                 negs=rng.randint(0, V, (B, K)),
+                 pmask=(rng.rand(B) < 0.9).astype(np.float32))
+    small = {k: torch.as_tensor(v, device="cuda",
+                                dtype=torch.float32 if v.dtype == np.float32
+                                else torch.int32) for k, v in small.items()}
+    for name, hs, k in (("JAX test shape, HS only", True, 0),
+                        ("JAX test shape, negatives only", False, K),
+                        ("JAX test shape, HS + negatives", True, K)):
+        cases.append((name, V, D, k, hs, small, False))
+    cen, ctx = text8_pairs
+    B = 16384
+    main = w2v_chunk_inputs(torch, text8_tables, cen[:B], ctx[:B], 5)
+    V8 = text8_tables[0].shape[0]
+    cases += [("text8 V=2404 D=100 L=14 K=5 B=16384, HS + negatives",
+               V8, 100, 5, True, main, True),
+              ("text8, HS only", V8, 100, 0, True, main, False),
+              ("text8, negatives only", V8, 100, 5, False, main, False)]
+    # padded pairs and negative == target collisions
+    pm = (rng.rand(B) < 0.7).astype(np.float32)
+    pad = w2v_chunk_inputs(torch, text8_tables, cen[:B], ctx[:B], 5, pm,
+                           seed=1)
+    hit = torch.as_tensor(rng.rand(B, 5) < 0.2, device="cuda")
+    pad["negs"] = torch.where(hit, pad["targets"][:, None], pad["negs"])
+    cases.append(("text8, 30% padded pairs, 20% negatives == target", V8,
+                  100, 5, True, pad, False))
+    for d in (50, 300, 600):
+        wide = ", the wide path (D > 512)" if d > 512 else ""
+        cases.append((f"text8, D={d}{wide}", V8, d, 5, True, main, False))
+    zcache, probs = zipf
+    ztables = prepare_train_tables(zcache, 100_000)
+    zc = rng.choice(ZIPF_VOCAB, p=probs, size=B)
+    zx = rng.choice(ZIPF_VOCAB, p=probs, size=B)
+    cases.append((f"Zipf V={ZIPF_VOCAB} D=100 L={ztables[0].shape[1]} K=5 "
+                  f"B=16384, HS + negatives", ZIPF_VOCAB, 100, 5, True,
+                  w2v_chunk_inputs(torch, ztables, zc, zx, 5), True))
+    return cases
+
+
+def w2v_tolerances(torch, c, args, use_hs, K):
+    """B4's per-table tolerances (syn0, syn1, syn1neg) for chunk ``c``
+    (see U32 above), from its hit counts and the tables' largest |x|."""
+    syn0, syn1, sneg = args[:3]
+    alpha = args[-1]
+
+    def most(x):
+        return int(torch.bincount(x).max()) if x.numel() else 0
+
+    pts, rows, in_hs, in_ng = w2v_partners(torch, c, use_hs, K)
+    l1 = syn0.abs().max().item()
+    partner = max(syn1.abs().max().item(), sneg.abs().max().item())
+    L = c["codes"].shape[1] if use_hs else 0
+    # the wide path (D > 512) adds each partner's term into acc0 on its
+    # own: L + K + 1 times the terms a row's sum takes
+    wide = L + K + 1 if syn0.shape[1] > 512 else 1
+    return [2 * n * U32 * alpha * term + 4 * U32 * table.abs().max().item()
+            for n, term, table in (
+                (wide * max(most(in_hs), most(in_ng)), (L + K + 1) * partner,
+                 syn0),
+                (most(pts), l1, syn1), (most(rows), l1, sneg))]
+
+
+def w2v_kernel_phase(torch, fw, cases):
+    """B4 against its plain twin on every case; times at the main-path
+    shapes.  Returns (worst |diff|, timing rows)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    worst, rows = 0.0, []
+    for name, V, D, K, hs, c, time_it in cases:
+        syn = [torch.randn((V, D), generator=gen, device="cuda") * 0.1
+               for _ in range(3)]
+        syn1 = syn[1] if hs else torch.zeros((1, D), device="cuda")
+        sneg = syn[2] if K else torch.zeros((1, D), device="cuda")
+        args = (syn[0], syn1, sneg, c["inputs"], c["targets"], c["codes"],
+                c["points"], c["mask"], c["negs"][:, :max(K, 1)],
+                c["pmask"], 0.025)
+        kw = dict(use_hs=hs, negative=K)
+        got = fw.fused_chunk_update_cuda(*args, **kw)
+        ref = fw.fused_chunk_update_plain(
+            *(a.double() if torch.is_tensor(a) and a.is_floating_point()
+              else a for a in args), **kw)
+        torch.cuda.synchronize()
+        errs = [(g.double() - r).abs().max().item()
+                for g, r in zip(got, ref)]
+        # the fp32 twin's own rounding, for scale: it adds each term into
+        # the table itself (as JAX's .at[].add), B4 adds a row's mean once
+        twin32 = fw.fused_chunk_update_plain(*args, **kw)
+        twin_errs = [(t.double() - r).abs().max().item()
+                     for t, r in zip(twin32, ref)]
+        tols = w2v_tolerances(torch, c, args, hs, K)
+        ok = all(e <= t for e, t in zip(errs, tols)) and all(
+            bool(g.isfinite().all()) for g in got)
+        print(f"  B4 case {name!r}: max|diff| vs the fp64 twin syn0 "
+              f"{errs[0]:.3e} syn1 "
+              f"{errs[1]:.3e} syn1neg {errs[2]:.3e} (tolerances "
+              + " ".join(f"{t:.2e}" for t in tols)
+              + f") {'ok' if ok else 'FAIL'}; the fp32 twin vs the fp64 "
+              f"twin: " + " ".join(f"{e:.3e}" for e in twin_errs))
+        check(ok, f"B4 disagrees with its plain twin: {name}")
+        worst = max(worst, *errs)
+        if time_it:
+            ms = profile_kernel_ms(torch, lambda: fw.fused_chunk_update_cuda(
+                *args, **kw), ("w2v_chunk_kernel",))["w2v_chunk_kernel"]
+            call_ms = time_ms(torch, lambda: fw.fused_chunk_update_cuda(
+                *args, **kw), iters=20)
+            plain_ms = time_ms(torch, lambda: fw.fused_chunk_update_plain(
+                *args, **kw), iters=10)
+            nbytes, flops, hot = w2v_work(torch, c, V, D, hs, K)
+            b_ms, b_by = bound(nbytes, flops)
+            print(f"  B4 timing {name!r}: kernel {ms:.4f} ms [profiler], "
+                  f"whole update call {call_ms:.4f} ms [events], plain twin "
+                  f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+                  f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
+                  f"{hot:.1%} of the atomic adds land on the 16 most-hit "
+                  f"rows; library: none (no one PyTorch call computes it)")
+            check(ms > 0, "the profiler saw no device time for B4")
+            rows.append((name, ms, plain_ms, b_ms, b_by, call_ms, hot))
+    return worst, rows
+
+
+def glove_case_chunks(torch, text8_triples, zipf_probs):
+    rng = np.random.RandomState(3)
+    cases = []
+
+    def chunk(V, D, rows, cols, x, mask):
+        t = torch.as_tensor
+        return (V, D, t(rows, device="cuda", dtype=torch.int32),
+                t(cols, device="cuda", dtype=torch.int32),
+                t(x, device="cuda", dtype=torch.float32),
+                t(mask, device="cuda", dtype=torch.float32))
+
+    V, B = 64, 128
+    cases.append(("V=64 D=32 B=128 (the JAX test's shape)", False, chunk(
+        V, 32, rng.randint(0, V, B), rng.randint(0, V, B),
+        rng.rand(B) * 50 + 1, (rng.rand(B) < 0.9).astype(np.float32))))
+    B = 4096
+    r, c, x, V8 = text8_triples
+    sel = rng.permutation(r.size)[:B]
+    cases.append((f"text8 V={V8} D=100 B=4096", True,
+                  chunk(V8, 100, r[sel], c[sel], x[sel], np.ones(B))))
+    zr = rng.choice(ZIPF_VOCAB, p=zipf_probs, size=B)
+    zc = rng.choice(ZIPF_VOCAB, p=zipf_probs, size=B)
+    zx = np.exp(rng.uniform(np.log(0.1), np.log(1000.0), B))
+    cases.append((f"Zipf V={ZIPF_VOCAB} D=100 B=4096, x from 0.1 to 1000",
+                  True, chunk(ZIPF_VOCAB, 100, zr, zc, zx, np.ones(B))))
+    cases.append(("text8, x on both sides of x_max, 25% masked", False,
+                  chunk(V8, 100, r[sel], c[sel], zx,
+                        (rng.rand(B) < 0.75).astype(np.float32))))
+    cases.append(("text8 D=600 B=4096, the wide path (D+2 > 512)", False,
+                  chunk(V8, 600, r[sel], c[sel], x[sel], np.ones(B))))
+    return cases
+
+
+def glove_tolerances(torch, args, x_max, power):
+    """B5's per-entry tolerances (accw, accwt, loss sums) for one chunk,
+    worked out in fp64.  Kernel and twin each compute an entry's n terms
+    t in fp32, each within dt of the exact term, and sum them in some
+    order within n * u * sum|t|, so the two differ by at most 2 * (n * u
+    * sum|t| + sum dt).  dt comes from the score: an fp32 dot of E
+    products and a log are within dd = (E + 3) * u * (sum|wi * wj| +
+    |log x|) of exact, so g = f * diff * m is within f * dd * m + 6 * u
+    * |g|, a gradient term g * p within |p| * dg + u * |g * p|, its
+    square within 2 * |g * p| * dt + u * (g * p)^2 and a loss term
+    0.5 * f * diff^2 * m within f * |diff| * dd * m + 6 * u * loss."""
+    wext, wtext, r, c, x, m = (a.double() if a.is_floating_point()
+                               else a.long() for a in args)
+    V, E = wext.shape
+    D = E - 2
+    wi, wj = wext[r], wtext[c]
+    prod = wi * wj
+    logx = torch.log(x.clamp_min(1e-12))
+    diff = prod.sum(1) - logx
+    fx = ((x / x_max) ** power).clamp_max(1.0)
+    g = fx * diff * m
+    dd = (E + 3) * U32 * (prod.abs().sum(1) + logx.abs())
+    dg = fx * dd * m + 6 * U32 * g.abs()
+    live = (m != 0).double()
+
+    def side(idx, partner):
+        t = g[:, None] * partner
+        dt = partner.abs() * dg[:, None] + U32 * t.abs()
+        size = torch.cat([t.abs(), t * t, m[:, None].abs()], 1)
+        err = torch.cat([dt, 2 * t.abs() * dt + U32 * t * t,
+                         torch.zeros_like(m[:, None])], 1)
+        zero = torch.zeros((V, 2 * D + 3), dtype=torch.float64,
+                           device=wext.device)
+        n = torch.zeros(V, dtype=torch.float64, device=wext.device
+                        ).index_add_(0, idx, live)
+        return 2 * (n[:, None] * U32 * zero.index_add(0, idx, size)
+                    + zero.index_add(0, idx, err))
+
+    loss = 0.5 * fx * diff * diff * m
+    dloss = fx * diff.abs() * dd * m + 6 * U32 * loss
+    n = live.sum()
+    tol_loss = 2 * torch.stack([n * U32 * loss.abs().sum() + dloss.sum(),
+                                n * U32 * m.abs().sum()])[None, :]
+    return (side(r, wj[:, :D + 1]),
+            side(c, torch.cat([wi[:, :D], wi[:, D + 1:]], 1)), tol_loss)
+
+
+def glove_kernel_phase(torch, fg, cases):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    worst, rows = 0.0, []
+    for name, time_it, (V, D, r, c, x, m) in cases:
+        ones = torch.ones((V, 1), device="cuda")
+        w, wt = (torch.randn((V, D), generator=gen, device="cuda") * 0.1
+                 for _ in range(2))
+        b, bt = (torch.randn((V, 1), generator=gen, device="cuda") * 0.1
+                 for _ in range(2))
+        args = (torch.cat([w, b, ones], 1), torch.cat([wt, ones, bt], 1),
+                r, c, x, m)
+        kw = dict(x_max=100.0, power=0.75)
+        got = fg.fused_glove_chunk_cuda(*args, **kw)
+        ref = fg.fused_glove_chunk_plain(*args, **kw)
+        torch.cuda.synchronize()
+        tols = glove_tolerances(torch, args, **kw)
+        errs, ratios = [], []
+        for g, rf, tol in zip(got, ref, tols):
+            diff = (g.double() - rf.double()).abs()
+            errs.append(diff.max().item())
+            ratios.append(float((diff / tol.clamp_min(1e-300)).max()))
+        ok = all(ratio <= 1.0 for ratio in ratios) and all(
+            bool(g.isfinite().all()) for g in got)
+        d1 = D + 1
+
+        def blocks(tol):       # the largest tolerance per column block
+            return "|".join(f"{float(tol[:, a:b].max()):.2e}" for a, b in (
+                (0, d1), (d1, 2 * d1), (2 * d1, 2 * d1 + 1)))
+
+        print(f"  B5 case {name!r}: max|diff| accw {errs[0]:.3e} accwt "
+              f"{errs[1]:.3e} loss {errs[2]:.3e}; largest diff/tolerance "
+              f"per entry " + " ".join(f"{q:.3f}" for q in ratios)
+              + f" {'ok' if ok else 'FAIL'}; largest tolerance per block "
+              f"(grad|grad^2|hits) accw {blocks(tols[0])} accwt "
+              f"{blocks(tols[1])}, loss sums "
+              + " ".join(f"{float(t):.2e}" for t in tols[2][0]))
+        check(ok, f"B5 disagrees with its plain twin: {name}")
+        worst = max(worst, *errs)
+        if time_it:
+            ms = profile_kernel_ms(torch, lambda: fg.fused_glove_chunk_cuda(
+                *args, **kw), ("glove_chunk_kernel",))["glove_chunk_kernel"]
+            plain_ms = time_ms(torch, lambda: fg.fused_glove_chunk_plain(
+                *args, **kw), iters=10)
+            # the four [B] inputs once; each distinct live row of wext
+            # and wtext read once, its accumulator row written once
+            live = m > 0
+            rows_hit = (torch.unique(r[live]).numel()
+                        + torch.unique(c[live]).numel())
+            nbytes = 16 * r.numel() + 4 * rows_hit * (3 * D + 5) + 8
+            flops = 6.0 * D * int(live.sum())
+            b_ms, b_by = bound(nbytes, flops)
+            print(f"  B5 timing {name!r}: kernel {ms:.4f} ms [profiler], "
+                  f"plain twin {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+                  f"({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
+                  f"GFLOP); library: none (no one PyTorch call computes it)")
+            check(ms > 0, "the profiler saw no device time for B5")
+            rows.append((name, ms, plain_ms, b_ms, b_by))
+    return worst, rows
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: word2vec, ParagraphVectors and GloVe training
+# ---------------------------------------------------------------------------
+
+def busy_share(torch, run):
+    """(device busy ms, wall ms) of one call of ``run``, torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy, wall
+
+
+def rel_diff(torch, got, ref):
+    """(max |diff| over the tables, global relative L2 difference)."""
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    num = sum(float((g - r).double().norm()) ** 2 for g, r in zip(got, ref))
+    den = sum(float(r.double().norm()) ** 2 for r in ref)
+    return err, (num / max(den, 1e-30)) ** 0.5
+
+
+def w2v_fit(torch, fw, what, sents, cfg, cache=None, w2v=None):
+    """One fit, timed on the host clock after synchronize, with B4's
+    launches read around it and held to one per chunk.  Returns the
+    Word2Vec, seconds and launches."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    w2v = w2v or Word2Vec(sents, cfg, cache=cache, device="cuda")
+    fw.reset_launches()
+    t0 = time.perf_counter()
+    w2v.fit()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n = fw.launches
+    check(w2v.chunks > 0 and n == w2v.chunks,
+          f"{what}: B4 launched {n} times for {w2v.chunks} chunks")
+    tabs = [t for t in (w2v.syn0, w2v.syn1, w2v.syn1neg) if t is not None]
+    check(all(bool(t.isfinite().all()) for t in tabs),
+          f"{what}: non-finite tables")
+    words = w2v._n_positions * cfg.epochs
+    print(f"  {what}: {cfg.epochs} epochs, {w2v._n_positions} words, "
+          f"V={len(w2v.cache)}, {w2v.chunks} chunks = {n} B4 launches, "
+          f"{sec:.3f} s, {words / sec:.1f} words/s (host clock, "
+          f"synchronized)")
+    return w2v, sec, n
+
+
+def neighbour_check(wv, what):
+    """tests/test_nlp.py:test_word2vec_real_corpus_tier's check."""
+    check(len(wv.cache) > 1000, f"{what}: vocabulary {len(wv.cache)}")
+    probe = next((w for w in ("the", "of", "and", "one")
+                  if w in wv.cache.vocab), wv.cache.word_for(0))
+    near = wv.words_nearest(probe, 5)
+    print(f"  {what}: nearest to {probe!r}: "
+          + ", ".join(f"{w} {s:.3f}" for w, s in near))
+    check(len(near) == 5 and all(np.isfinite(s) for _, s in near),
+          f"{what}: neighbour check failed: {near}")
+
+
+def word2vec_phase(torch, fw, t8, zipf):
+    """Phase 7: returns B4's launches over the main paths."""
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        ParagraphVectors, ParagraphVectorsConfig)
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec, Word2VecConfig
+
+    launches = 0
+    cfg = Word2VecConfig(min_word_frequency=5, epochs=3, **W2V_CONFIG)
+    w2v, sec, n = w2v_fit(torch, fw, "text8 masked, cold fit", t8, cfg)
+    launches += n
+    cache = w2v.cache
+    neighbour_check(w2v.word_vectors, "text8 masked")
+    _, sec, n = w2v_fit(torch, fw, "text8 masked, warm refit (cached "
+                        "slabs)", t8, cfg, w2v=w2v)
+    launches += n
+    print(f"  text8 masked: warm epoch {sec / cfg.epochs * 1e3:.1f} ms, "
+          f"{w2v._n_positions / (sec / cfg.epochs):.1f} words/s")
+    w2v.config = dataclasses.replace(cfg, epochs=1)
+    fw.reset_launches()
+    busy, wall = busy_share(torch, w2v.fit)
+    launches += fw.launches
+    print(f"  text8 masked, one profiled epoch: device busy {busy:.2f} ms "
+          f"of {wall:.2f} ms wall ({busy / wall:.1%}); "
+          f"{fw.launches} B4 launches")
+    for mode in ("exact", "device"):
+        _, _, n = w2v_fit(torch, fw, f"text8 {mode}, cold fit", t8,
+                          dataclasses.replace(cfg, pair_mode=mode),
+                          cache=cache)
+        launches += n
+
+    # one epoch through B4 against one through the plain twin, same draws
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    V, D = len(cache), cfg.vector_size
+    init = ((torch.rand((V, D), generator=gen, device="cuda") - 0.5) / D,
+            torch.randn((V, D), generator=gen, device="cuda") * 0.01,
+            torch.randn((V, D), generator=gen, device="cuda") * 0.01)
+    out = {}
+    for kernel in ("cuda", "plain"):
+        one = Word2Vec(t8, dataclasses.replace(cfg, epochs=1, kernel=kernel),
+                       cache=cache, device="cuda")
+        one.fit(initial_weights=init)
+        out[kernel] = (one.syn0, one.syn1, one.syn1neg)
+    err, rel = rel_diff(torch, out["cuda"], out["plain"])
+    print(f"  text8 masked, one epoch through B4 vs through the plain twin "
+          f"(same draws): max|diff| {err:.3e}, relative L2 {rel:.3e} "
+          f"(tolerance {EPOCH_TOL:g})")
+    check(err <= EPOCH_TOL, "word2vec epoch: B4 and plain twin disagree")
+
+    zcfg = dataclasses.replace(cfg, min_word_frequency=1, epochs=2)
+    zw, sec, n = w2v_fit(torch, fw, f"Zipf {ZIPF_VOCAB} names masked, cold "
+                         f"fit", zipf, zcfg)
+    launches += n
+    _, sec, n = w2v_fit(torch, fw, "Zipf masked, warm refit", zipf, zcfg,
+                        w2v=zw)
+    launches += n
+    print(f"  Zipf masked: warm epoch {sec / zcfg.epochs * 1e3:.1f} ms, "
+          f"{zw._n_positions / (sec / zcfg.epochs):.1f} words/s")
+
+    docs = [(f"doc{i}", s) for i, s in enumerate(t8)]
+    pv = ParagraphVectors(docs, ParagraphVectorsConfig(
+        min_word_frequency=5, epochs=3, vector_size=100, window=5,
+        batch_size=16384), device="cuda")
+    fw.reset_launches()
+    t0 = time.perf_counter()
+    pv.fit()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n = fw.launches
+    launches += n
+    inferred = pv.infer_vector(t8[0])
+    labels = pv.nearest_labels(t8[0])
+    print(f"  ParagraphVectors over {len(docs)} text8 documents: 3 epochs, "
+          f"{pv.chunks} chunks = {n} B4 launches, {sec:.3f} s; inferred "
+          f"|v| {np.linalg.norm(inferred):.4f}; nearest labels {labels}")
+    check(pv.chunks > 0 and n == pv.chunks,
+          "ParagraphVectors: B4 launches != chunks")
+    check(bool(pv.syn0.isfinite().all()) and np.isfinite(inferred).all()
+          and len(labels) == 3, "ParagraphVectors: bad result")
+    return launches
+
+
+def glove_fit(torch, fg, what, sents, cfg, cache=None):
+    from deeplearning4j_tpu_torch.nlp.glove import (Glove,
+                                                    count_cooccurrences)
+    from deeplearning4j_tpu_torch.nlp.vocab import build_vocab
+
+    g = Glove(sents, cfg, device="cuda")
+    g.cache = cache or build_vocab(sents, g.tokenizer,
+                                   cfg.min_word_frequency)
+    t0 = time.perf_counter()
+    co = count_cooccurrences(sents, g.tokenizer, g.cache, cfg.window,
+                             cfg.symmetric)
+    t_count = time.perf_counter() - t0
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    g.fit(cooccurrences=co)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n = fg.launches
+    P = co[0].size
+    print(f"  {what}: V={len(g.cache)}, {P} triples, counting {t_count:.3f} "
+          f"s; {cfg.epochs} epochs, {g.chunks} chunks = {n} B5 launches, "
+          f"{sec:.3f} s, {P * cfg.epochs / sec:.1f} triples/s (host clock, "
+          f"synchronized); losses " + " ".join(f"{x:.5f}" for x in g.losses))
+    check(g.chunks > 0 and n == g.chunks, f"{what}: B5 launches != chunks")
+    check(all(np.isfinite(g.losses)) and g.losses[-1] < g.losses[0],
+          f"{what}: loss did not fall: {g.losses}")
+    check(all(bool(t.isfinite().all()) for t in g.state),
+          f"{what}: non-finite state")
+    return g, co, n
+
+
+def glove_phase(torch, fg, t8, zipf):
+    """Phase 8: returns B5's launches over the main paths."""
+    from deeplearning4j_tpu_torch.nlp.glove import Glove, GloveConfig
+
+    cfg = GloveConfig()
+    g, co, launches = glove_fit(torch, fg, "text8 GloVe", t8, cfg)
+    one_cfg = dataclasses.replace(cfg, epochs=1)
+    prof = Glove(t8, one_cfg, cache=g.cache, device="cuda")
+    fg.reset_launches()
+    busy, wall = busy_share(torch, lambda: prof.fit(cooccurrences=co))
+    launches += fg.launches
+    print(f"  text8 GloVe, one profiled epoch: device busy {busy:.2f} ms of "
+          f"{wall:.2f} ms wall ({busy / wall:.1%}); {fg.launches} B5 "
+          f"launches")
+    out = {}
+    for kernel in ("cuda", "plain"):
+        one = Glove(t8, dataclasses.replace(one_cfg, kernel=kernel),
+                    cache=g.cache, device="cuda")
+        one.fit(initial_weights=g.state, cooccurrences=co)
+        out[kernel] = one.state
+    err, rel = rel_diff(torch, out["cuda"], out["plain"])
+    print(f"  text8 GloVe, one epoch through B5 vs through the plain twin "
+          f"(same permutation): max|diff| {err:.3e}, relative L2 {rel:.3e} "
+          f"(tolerance {EPOCH_TOL:g})")
+    check(err <= EPOCH_TOL, "GloVe epoch: B5 and plain twin disagree")
+    _, _, n = glove_fit(torch, fg, f"Zipf {ZIPF_VOCAB} names GloVe", zipf,
+                        dataclasses.replace(cfg, epochs=2))
+    return launches + n
+
+
 def main() -> int:
     import torch
 
@@ -933,6 +1558,38 @@ def main() -> int:
     time_flash_bwd(torch, F, fa, B=8, T=512)
     time_flash_bwd(torch, F, fa, B=8, T=1024, causal=True)
 
+    print("phase 3c: B4 (word2vec chunk) and B5 (GloVe chunk) against their "
+          "plain twins")
+    from deeplearning4j_tpu_torch.nlp.glove import count_cooccurrences
+    from deeplearning4j_tpu_torch.nlp.text import DefaultTokenizerFactory
+    from deeplearning4j_tpu_torch.nlp.vocab import build_huffman, build_vocab
+    from deeplearning4j_tpu_torch.nlp.word2vec import (corpus_pairs,
+                                                       prepare_train_tables)
+    from deeplearning4j_tpu_torch.ops import fused_glove as fg
+    from deeplearning4j_tpu_torch.ops import fused_word2vec as fw
+
+    t0 = time.perf_counter()
+    tok = DefaultTokenizerFactory()
+    t8 = text8_sentences()
+    cache5 = build_vocab(t8, tok, 5)
+    build_huffman(cache5)
+    t8_tables = prepare_train_tables(cache5, 100_000)
+    t8_idx = [np.asarray([cache5.index_of(w) for w in tok(s)
+                          if w in cache5], np.int32) for s in t8]
+    t8_pairs = corpus_pairs([a for a in t8_idx if a.size], 5)[:2]
+    cache1 = build_vocab(t8, tok, 1)
+    t8_triples = count_cooccurrences(t8, tok, cache1) + (len(cache1),)
+    zipf_vocab = zipf_cache()
+    zipf_sents = zipf_sentences()
+    print(f"  corpora: text8 {len(t8)} sentences, V={len(cache5)} at min "
+          f"count 5, Huffman depth {t8_tables[0].shape[1]}; Zipf "
+          f"{len(zipf_sents)} sentences of 30 words; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    worst_w2v, w2v_rows = w2v_kernel_phase(
+        torch, fw, w2v_case_chunks(torch, t8_tables, t8_pairs, zipf_vocab))
+    worst_glove, glove_rows = glove_kernel_phase(
+        torch, fg, glove_case_chunks(torch, t8_triples, zipf_vocab[1]))
+
     # each main path runs with the counts set to 0 just before it and
     # read just after; the line below sums them
     print("phase 4: BERT-base fill-mask serving")
@@ -944,6 +1601,10 @@ def main() -> int:
     print("phase 6: GPT-2 small causal-LM training")
     for name, n in gpt_train_phase(torch, fa).items():
         launches[name] += n
+    print("phase 7: word2vec and ParagraphVectors training")
+    launches_w2v = word2vec_phase(torch, fw, t8, zipf_sents)
+    print("phase 8: GloVe training")
+    launches_glove = glove_phase(torch, fg, t8, zipf_sents)
 
     kernels = [{
         "name": "flash_attention_fwd",
@@ -977,6 +1638,32 @@ def main() -> int:
             "bound_by": k_by,
             "library_ms": k_lib,
         })
+    # B4 and B5 at the text8 main-path shape (the first timed case); no
+    # single PyTorch call computes either function, so no library time
+    for name, source, replaces, n, worst_err, rows in (
+            ("word2vec_chunk", "word2vec_chunk.cu",
+             "deeplearning4j_tpu/ops/pallas_word2vec.py:91", launches_w2v,
+             worst_w2v, w2v_rows),
+            ("glove_chunk", "glove_chunk.cu",
+             "deeplearning4j_tpu/ops/pallas_glove.py:64", launches_glove,
+             worst_glove, glove_rows)):
+        _, k_ms, k_plain, k_bound, k_by = rows[0][:5]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"deeplearning4j_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": n,
+            "max_abs_err": worst_err,
+            "ms": k_ms,
+            "kernel_ms": k_ms,
+            "plain_ms": k_plain,
+            "bound_ms": k_bound,
+            "bound_by": k_by,
+            "library_ms": None,
+        })
+    check(launches_w2v > 0 and launches_glove > 0,
+          "B4 or B5 never launched on the main paths")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

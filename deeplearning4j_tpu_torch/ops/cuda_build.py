@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: kernel library name -> source file under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "w2v_chunk": "word2vec_chunk.cu", "glove_chunk": "glove_chunk.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -106,3 +107,23 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def bind(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:
+    """:func:`load`, with each named entry point's ``argtypes`` set, an
+    ``int`` (``cudaError_t``) result, and ``<name>_error_string``."""
+    lib = load(name)
+    for fn, types in argtypes.items():
+        getattr(lib, fn).argtypes = types
+        getattr(lib, fn).restype = ctypes.c_int
+    err_string = getattr(lib, f"{name}_error_string")
+    err_string.argtypes = [ctypes.c_int]
+    err_string.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, name: str, fn: str, err: int) -> None:
+    """Raise when a launch returned a CUDA error."""
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({err})")

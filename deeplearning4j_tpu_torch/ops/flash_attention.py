@@ -25,7 +25,7 @@ Entry points:
   differentiable through :class:`FlashAttentionFn`, the counterpart of
   ``_flash_bhtd``'s ``custom_vjp`` (:356-371).
 - :func:`make_attn_fn` is the dispatch every transformer forward takes
-  (:446-623), through ``kernel_select.resolve_attn_kernel``.
+  (:446-623), through ``kernel_select.resolve_kernel``.
 
 ``launches`` (B1), ``launches_dkv`` (B2) and ``launches_dq`` (B3) count
 kernel launches (never plain-twin calls), so a run can show that its
@@ -42,6 +42,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.ops import cuda_build
 from deeplearning4j_tpu_torch.ops import kernel_select as ks
 
 Tensor = torch.Tensor
@@ -175,8 +176,6 @@ def flash_attention_bwd_plain(q4: Tensor, k4: Tensor, v4: Tensor,
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-_libs: Dict[str, ctypes.CDLL] = {}
-
 #: ctypes argument types of each library's entry points
 _ARGTYPES = {
     # q, k, v, bias, o, lse, strides; is_bf16, bh, nh, bias_nh, tq, tk, d,
@@ -189,28 +188,14 @@ _ARGTYPES = {
                   + [ctypes.c_float, ctypes.c_void_p]
                   for fn in ("flash_bwd_dkv", "flash_bwd_dq")},
 }
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
-        from deeplearning4j_tpu_torch.ops import cuda_build
-
-        lib = cuda_build.load(name)
-        for fn, argtypes in _ARGTYPES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        err_string = getattr(lib, f"{name}_error_string")
-        err_string.argtypes = [ctypes.c_int]
-        err_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        lib = _libs[name] = cuda_build.bind(name, _ARGTYPES[name])
     return lib
-
-
-def _raise_on_error(lib: ctypes.CDLL, name: str, fn: str, err: int) -> None:
-    if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{fn} launch failed: {msg} ({err})")
 
 
 def kernel_supports(Tq: int, Tk: int, D: int, dtype: torch.dtype) -> bool:
@@ -318,7 +303,7 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
             o.data_ptr(), lse.data_ptr(), ctypes.addressof(strides),
             int(q.dtype == torch.bfloat16), BH, NH, bias_nh, Tq, Tk, D,
             int(causal), 1.0 / math.sqrt(D), stream)
-    _raise_on_error(lib, "flash_fwd", "flash_fwd", err)
+    cuda_build.raise_on_error(lib, "flash_fwd", "flash_fwd", err)
     _note_launch("launches")
     return o, lse
 
@@ -364,7 +349,8 @@ def _launch_bwd(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
                 int(causal), 1.0 / math.sqrt(D), stream)
         for fn, counter in (("flash_bwd_dkv", "launches_dkv"),
                             ("flash_bwd_dq", "launches_dq")):
-            _raise_on_error(lib, "flash_bwd", fn, getattr(lib, fn)(*args))
+            cuda_build.raise_on_error(lib, "flash_bwd", fn,
+                                      getattr(lib, fn)(*args))
             _note_launch(counter)
     return dq, dk, dv
 
@@ -487,7 +473,7 @@ class AttnDecision:
 def make_attn_fn(kernel: str = "auto", mesh=None):
     """An ``attn(q, k, v, mask=None, causal=False)`` drop-in for
     ``models/transformer.attention`` that dispatches per call through
-    ``kernel_select.resolve_attn_kernel``: ``"plain"`` forces the plain
+    ``kernel_select.resolve_kernel``: ``"plain"`` forces the plain
     attention, ``"cuda"`` forces the kernel and raises where it cannot
     run, ``"auto"`` takes the kernel on CUDA for every supported shape.
     ``attn.describe(q_shape, k_shape, causal, device=, dtype=)`` returns
@@ -498,9 +484,9 @@ def make_attn_fn(kernel: str = "auto", mesh=None):
         raise NotImplementedError(
             "mesh-placed attention is not ported yet: it comes with the "
             "parallel slice of the port (ROADMAP Queue A)")
-    if kernel not in ks.ATTN_KERNELS:
+    if kernel not in ks.KERNELS:
         raise ValueError(
-            f"kernel must be one of {ks.ATTN_KERNELS}, got {kernel!r}")
+            f"kernel must be one of {ks.KERNELS}, got {kernel!r}")
 
     def describe(q_shape, k_shape, causal: bool = False, *,
                  device="cuda", dtype=torch.bfloat16) -> AttnDecision:
@@ -508,7 +494,7 @@ def make_attn_fn(kernel: str = "auto", mesh=None):
         Tk = k_shape[1]
         on_cuda = torch.device(device).type == "cuda"
         aligned = kernel_supports(Tq, Tk, D, dtype)
-        impl = ks.resolve_attn_kernel(kernel, aligned=aligned,
+        impl = ks.resolve_kernel(kernel, aligned=aligned,
                                       on_cuda=on_cuda,
                                       desc="transformer attention")
         if kernel != "auto":

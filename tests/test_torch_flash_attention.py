@@ -148,22 +148,22 @@ def test_causal_requires_equal_lengths():
 # -- the dispatch contract --------------------------------------------------
 
 def test_resolve_attn_kernel_contract():
-    assert ks.resolve_attn_kernel("auto", aligned=True,
+    assert ks.resolve_kernel("auto", aligned=True,
                                   on_cuda=False) == "plain"
-    assert ks.resolve_attn_kernel("auto", aligned=True,
+    assert ks.resolve_kernel("auto", aligned=True,
                                   on_cuda=True) == "cuda"
-    assert ks.resolve_attn_kernel("auto", aligned=False,
+    assert ks.resolve_kernel("auto", aligned=False,
                                   on_cuda=True) == "plain"
-    assert ks.resolve_attn_kernel("plain", aligned=True,
+    assert ks.resolve_kernel("plain", aligned=True,
                                   on_cuda=True) == "plain"
-    assert ks.resolve_attn_kernel("cuda", aligned=True,
+    assert ks.resolve_kernel("cuda", aligned=True,
                                   on_cuda=True) == "cuda"
     with pytest.raises(ValueError, match="CPU tensors"):
-        ks.resolve_attn_kernel("cuda", aligned=True, on_cuda=False)
+        ks.resolve_kernel("cuda", aligned=True, on_cuda=False)
     with pytest.raises(ValueError, match="never a silent fallback"):
-        ks.resolve_attn_kernel("cuda", aligned=False, on_cuda=True)
+        ks.resolve_kernel("cuda", aligned=False, on_cuda=True)
     with pytest.raises(ValueError, match="kernel must be one of"):
-        ks.resolve_attn_kernel("pallas", aligned=True, on_cuda=True)
+        ks.resolve_kernel("pallas", aligned=True, on_cuda=True)
 
 
 def test_make_attn_fn_dispatch():
