@@ -11,9 +11,11 @@ Phases, each fatal on failure:
 3. kernels: the flash-attention forward against its plain twin on the
    card (bf16 3e-2, fp32 2e-5 — the tolerances of
    tests/test_pallas_attention.py), over BERT-base shapes, padded keys,
-   causal, ragged T, Tq != Tk, a fully masked row, fp32 and other head
-   dims; then kernel, plain twin and F.scaled_dot_product_attention (a
-   yardstick the port never calls) timed with CUDA events;
+   causal, ragged T, Tq != Tk, fully masked rows (causal too), fp32 and
+   other head dims; then kernel, plain twin and
+   F.scaled_dot_product_attention (a yardstick the port never calls)
+   timed with CUDA events at BERT's serving shapes and GPT-2 small's
+   causal training shape;
 4. BERT-base fill-mask serving at full width (12 x 768, 12 heads, vocab
    30522, bf16, seeded random weights) through InferenceEngine +
    DynamicBatcher, with client threads sending mixed requests at T=128
@@ -47,10 +49,14 @@ Phases, each fatal on failure:
    device-busy share of one profiled epoch.
 
 Phase 3 also holds the backward kernels B2 (dK/dV) and B3 (dQ) against
-their plain twins on the same 14 cases (bf16 within 3e-2 of the case's
+their plain twins on the same 17 cases (bf16 within 3e-2 of the case's
 largest |grad|, fp32 5e-4), and times them (profiler, per kernel) beside
 their twins, their bound and the backward of
-F.scaled_dot_product_attention.  Phase 3c holds B4 (word2vec chunk)
+F.scaled_dot_product_attention.  The twins skip B1's causal tiles
+(causal_tile=CAUSAL_TILE), so every row is held, a causal row whose every
+key is masked included; each case prints the route the kernels took
+(wgmma, mma.sync or cuda-cores).  Phase 2 fails if a Hopper (wgmma)
+kernel spills registers.  Phase 3c holds B4 (word2vec chunk)
 against its plain twin evaluated in fp64 on 11 cases (the JAX test
 shape, text8 and Zipf shapes, padded pairs, negative == target, D=50,
 300 and 600, the last through the kernel's wide path) and B5 (GloVe
@@ -127,8 +133,9 @@ def flash_bound(B, NH, Tq, Tk, D, itemsize, causal):
 
 
 def ptxas_summary(log: str):
-    """One line per kernel of an ``nvcc -Xptxas -v`` report: its name and
-    template argument, registers, spill stores and loads."""
+    """One entry per kernel of an ``nvcc -Xptxas -v`` report: (its name
+    and template argument, a line with its registers, static shared
+    memory and spill stores and loads, spilled bytes)."""
     import re
 
     out, kernel, spill = [], None, ""
@@ -153,8 +160,12 @@ def ptxas_summary(log: str):
             spill = line.strip()
         elif "registers" in line and kernel is not None:
             regs = re.search(r"Used (\d+) registers", line)
-            out.append(f"{kernel}: {regs.group(1) if regs else '?'} "
-                       f"registers; {spill}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            spilled = sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", spill))
+            out.append((kernel, f"{kernel}: {regs.group(1) if regs else '?'} "
+                        f"registers, {smem.group(1) if smem else 0} bytes "
+                        f"static smem; {spill}", spilled))
             kernel = None
     return out
 
@@ -182,6 +193,13 @@ KERNEL_CASES = [
     ("D=128", 4, 8, 256, 256, 128, "bfloat16", False, [256, 200, 7, 256]),
     ("D=256", 1, 4, 130, 130, 256, "bfloat16", False, [130]),
     ("D=40", 2, 3, 70, 70, 40, "bfloat16", True, [70, 41]),
+    # one sequence's keys all masked under causal masking: its rows see
+    # only the -1e5 scores of the 64-key tiles B1 walked, which the
+    # tile-exact twins (causal_tile=CAUSAL_TILE) follow
+    ("causal, one sequence fully masked", 2, 12, 256, 256, 64, "bfloat16",
+     True, [0, 256]),
+    ("D=128 causal", 2, 4, 256, 256, 128, "bfloat16", True, [256, 190]),
+    ("Tq != Tk D=128", 2, 4, 300, 100, 128, "bfloat16", False, [100, 57]),
 ]
 
 
@@ -210,8 +228,8 @@ def kernel_phase(torch, fa):
         q4, k4, v4 = bhtd(q), bhtd(k), bhtd(v)
         o, lse = fa.flash_attention_fwd_cuda(q4, k4, v4, bias, causal)
         o_h = fa.flash_attention(q, k, v, mask, causal)   # [B, T, NH, D]
-        o_ref, lse_ref = fa.flash_attention_fwd_plain(q4, k4, v4, bias,
-                                                      causal)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(
+            q4, k4, v4, bias, causal, causal_tile=fa.CAUSAL_TILE)
         torch.cuda.synchronize()
         tol = TOL[dt]
         err_o = (o.float() - o_ref.float()).abs().max().item()
@@ -231,9 +249,10 @@ def kernel_phase(torch, fa):
     return worst
 
 
-def time_flash(torch, F, fa, B, T, NH=12, D=64):
-    """Kernel, plain twin and SDPA at a serving shape (bf16, the all-live
-    mask bias of the serving path)."""
+def time_flash(torch, F, fa, B, T, NH=12, D=64, causal=False):
+    """Kernel, plain twin and SDPA, bf16: at a serving shape with the
+    all-live mask bias of the serving path, or causal with no bias, as
+    GPT's training path calls it."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
 
@@ -242,19 +261,22 @@ def time_flash(torch, F, fa, B, T, NH=12, D=64):
                            dtype=torch.float32).to(torch.bfloat16)
 
     q4, k4, v4 = rand(), rand(), rand()
-    bias = torch.zeros((B, T), device="cuda", dtype=torch.float32)
+    bias = None if causal else torch.zeros((B, T), device="cuda",
+                                           dtype=torch.float32)
     q_s, k_s, v_s = (x.view(B, NH, T, D) for x in (q4, k4, v4))
     with torch.inference_mode():
         ms = time_ms(torch, lambda: fa.flash_attention_fwd_cuda(
-            q4, k4, v4, bias, False))
+            q4, k4, v4, bias, causal))
         plain_ms = time_ms(torch, lambda: fa.flash_attention_fwd_plain(
-            q4, k4, v4, bias, False))
+            q4, k4, v4, bias, causal), iters=10)
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q_s, k_s, v_s))
-    bound_ms, bound_by = flash_bound(B, NH, T, T, D, 2, False)
-    print(f"  flash fwd B={B} NH={NH} T={T} D={D} bf16: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
+            q_s, k_s, v_s, is_causal=causal))
+    bound_ms, bound_by = flash_bound(B, NH, T, T, D, 2, causal)
+    flops = 4.0 * B * NH * T * T * D * (0.5 if causal else 1.0)
+    print(f"  flash fwd B={B} NH={NH} T={T} D={D} bf16 causal={causal}: "
+          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by}) [events]")
     return ms, plain_ms, lib_ms, bound_ms, bound_by
 
 
@@ -279,9 +301,10 @@ def bwd_error(torch, got, ref, dt: str):
 
 
 def kernel_bwd_phase(torch, fa):
-    """B2 and B3 on the 14 kernel cases, against the plain twins fed the same
-    o and lse (B1's), through the [BH, T, D] entry point and through
-    autograd on [B, T, NH, D]."""
+    """B2 and B3 on the kernel cases, against the tile-exact plain twins
+    (causal_tile=CAUSAL_TILE) fed the same o and lse (B1's), through the
+    [BH, T, D] entry point and through autograd on [B, T, NH, D]; each
+    case prints the route the C entry points took."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     worst = {"dkv": 0.0, "dq": 0.0}
@@ -311,9 +334,11 @@ def kernel_bwd_phase(torch, fa):
         oh = fa.flash_attention(qh, kh, vh, mask, causal)
         gh = torch.autograd.grad(oh, (qh, kh, vh), do)
         dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(
-            q4, k4, v4, bias, o, lse, do4, causal)
-        dq_ref = fa.flash_attention_bwd_dq_plain(q4, k4, v4, bias, o, lse,
-                                                 do4, causal)
+            q4, k4, v4, bias, o, lse, do4, causal,
+            causal_tile=fa.CAUSAL_TILE)
+        dq_ref = fa.flash_attention_bwd_dq_plain(
+            q4, k4, v4, bias, o, lse, do4, causal,
+            causal_tile=fa.CAUSAL_TILE)
         torch.cuda.synchronize()
         errs, oks = {}, []
         for label, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
@@ -324,7 +349,7 @@ def kernel_bwd_phase(torch, fa):
             errs[label], ok = bwd_error(torch, got, ref, dt)
             oks.append(ok)
         ok = all(oks)
-        print(f"  backward case {name!r}: "
+        print(f"  backward case {name!r} [{fa.bwd_route(dtype, D)}]: "
               + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
               + f" (max|ref| dq {dq_ref.float().abs().max().item():.3e}, "
               f"dk {dk_ref.float().abs().max().item():.3e}, dv "
@@ -409,13 +434,24 @@ def time_flash_bwd(torch, F, fa, B, T, NH=12, D=64, causal=False):
                                  ("dq", prof["flash_bwd_dq"], dq_plain)):
         bound_ms, bound_by = bwd_bound(B, NH, T, T, D, 2, causal, kernel)
         rows[kernel] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
-    print(f"  flash bwd B={B} NH={NH} T={T} D={D} bf16 causal={causal}: "
-          f"B2 {rows['dkv'][0]:.4f} ms (bound {rows['dkv'][3]:.4f}, "
-          f"{rows['dkv'][4]}), B3 {rows['dq'][0]:.4f} ms (bound "
-          f"{rows['dq'][3]:.4f}, {rows['dq'][4]}) [profiler]; whole "
-          f"backward call {call_ms:.4f} ms [events]; plain B2 "
+    # achieved rates on the FLOPs each kernel runs (B2 four products, B3
+    # three, halved when causal); SDPA's backward on its five
+    half = 0.5 if causal else 1.0
+    fl = {"dkv": 8.0 * B * NH * T * T * D * half,
+          "dq": 6.0 * B * NH * T * T * D * half}
+    pair_ms = rows["dkv"][0] + rows["dq"][0]
+    print(f"  flash bwd B={B} NH={NH} T={T} D={D} bf16 causal={causal} "
+          f"[{fa.bwd_route(torch.bfloat16, D)}]: B2 {rows['dkv'][0]:.4f} ms "
+          f"(bound {rows['dkv'][3]:.4f}, {rows['dkv'][4]}; "
+          f"{fl['dkv'] / rows['dkv'][0] / 1e9:.1f} TFLOP/s), B3 "
+          f"{rows['dq'][0]:.4f} ms (bound {rows['dq'][3]:.4f}, "
+          f"{rows['dq'][4]}; {fl['dq'] / rows['dq'][0] / 1e9:.1f} TFLOP/s), "
+          f"B2 + B3 {pair_ms:.4f} ms ({(fl['dkv'] + fl['dq']) / pair_ms / 1e9:.1f}"
+          f" TFLOP/s, {pair_ms / lib_ms:.2f}x sdpa's backward) [profiler]; "
+          f"whole backward call {call_ms:.4f} ms [events]; plain B2 "
           f"{dkv_plain:.4f} ms, plain B3 {dq_plain:.4f} ms; sdpa backward "
-          f"{lib_ms:.4f} ms")
+          f"{lib_ms:.4f} ms ({10.0 * B * NH * T * T * D * half / lib_ms / 1e9:.1f}"
+          f" TFLOP/s) [events]")
     check(rows["dkv"][0] > 0 and rows["dq"][0] > 0,
           "the profiler saw no device time for B2/B3")
     return rows
@@ -1545,14 +1581,21 @@ def main() -> int:
     for name in seconds:
         log = cuda_build.library_path(name).with_name(
             cuda_build.library_path(name).name + ".log")
-        for line in ptxas_summary(log.read_text()):
+        for kernel, line, spilled in ptxas_summary(log.read_text()):
             print(f"  ptxas {name}: {line}")
+            check(spilled == 0 or "wgmma" not in kernel,
+                  f"{kernel} spills {spilled} bytes")
+    for D in (64, 128):
+        dkv, dq = fa.bwd_wgmma_smem(D)
+        print(f"  wgmma B2/B3 at D={D}: {dkv} / {dq} bytes of dynamic "
+              f"shared memory a CTA")
 
     print("phase 3: kernels against their plain twins")
     worst = kernel_phase(torch, fa)
     time_flash(torch, F, fa, B=32, T=128)
     ms, plain_ms, lib_ms, bound_ms, bound_by = time_flash(
         torch, F, fa, B=32, T=512)
+    time_flash(torch, F, fa, B=8, T=1024, causal=True)   # GPT-2 small's
     worst_bwd = kernel_bwd_phase(torch, fa)
     bwd_rows = time_flash_bwd(torch, F, fa, B=32, T=128)
     time_flash_bwd(torch, F, fa, B=8, T=512)

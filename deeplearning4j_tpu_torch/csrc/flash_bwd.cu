@@ -28,9 +28,40 @@
 //               (three), halved when causal, at 989 TFLOP/s bf16
 //   bytes: q, k, v, dO read and the gradients written once, plus lse, delta
 //          and the bias, at 3.35 TB/s.
-// Like the forward, at BERT's T=128/512 the bytes side is the larger.
+// At BERT's T=128 the bytes side is the larger, from T=512 on the
+// operations side (B=8, NH=12, D=64).
 //
-// Design, right before fast:
+// Design.  bf16 with D = 64 or 128 takes the Hopper path (wgmma + TMA);
+// every other case keeps the first kernels (mma.sync for bf16, CUDA cores
+// for fp32).  The C entry points choose by that rule alone
+// (flash_bwd_route), and nothing falls back at run time.
+//
+// Hopper path (one or two consumer warpgroups of 64 keys or rows each,
+// and one producer warp that issues every load):
+// - B2: a CTA per (bh, 128-key block; 64 keys at D = 128, see DkvShape);
+//   each consumer warpgroup owns 64 keys.  K and V arrive once by TMA; the
+//   producer warp streams the query tiles (64 rows, 32 for D = 128) of Q
+//   and dO by TMA, with lse and delta, into a ring of 3 stages guarded by
+//   mbarriers, so later tiles load while the consumers compute on this
+//   one.  S^T = K Q^T and dP^T = V dO^T are wgmma m64nNk16 with both
+//   operands in shared memory; P^T and dS^T go from the fp32 accumulators
+//   straight into the register A operand of dV += P^T dO and dK += dS^T Q,
+//   whose B operand (dO, Q) is read transposed through the descriptor's
+//   transpose bit.  p is formed while dP^T is still running, and dV/dK of
+//   one tile run while the next tile's S^T and P^T are formed.  dK and dV
+//   stay in registers and are written once.
+// - B3: a CTA per (bh, 128-row block), Q and dO once by TMA, K, V and the
+//   bias streamed in 64-key tiles (32 at D = 128); dS feeds dQ += dS K the
+//   same way.
+// - Tiles sit in shared memory in the 128-byte-swizzled layout that a row
+//   of 64 bf16 fills exactly (hopper_sm90.cuh); D = 128 is two such
+//   column halves.  The tensor maps describe [B, T, NH, D] through the
+//   wrapper's strides and are built here, in the entry point, through
+//   cudaGetDriverEntryPoint (no -lcuda).
+// - Under causal masking the CTAs with the most tiles launch first, and a
+//   warpgroup whose keys (B2) or rows (B3) a tile cannot reach skips its
+//   products for that tile.
+// First path (mma.sync m16n8k16 for bf16; CUDA cores for fp32):
 // - B2: one CTA of 4 warps per (bh, 64-key tile); each warp owns 16 keys.
 //   K and V stay in shared memory while the CTA walks the 64-row query tiles
 //   (from the diagonal tile under causal masking); the dK and dV sums stay
@@ -40,23 +71,24 @@
 // - B3: one CTA of 4 warps per (bh, 64-row query tile); each warp owns 16
 //   rows and walks the 64-key tiles as the forward does, with dS kept in
 //   registers for dQ += dS K;
-// - bf16 runs on tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums);
 // - fp32 (compute_dtype="float32") runs on CUDA cores, four threads per key
 //   (B2) or per row (B3), over 32 x 32 tiles; its dot products run in the
 //   forward fp32 kernel's order, so s matches the scores behind lse.
-// Not yet: wgmma, TMA, cp.async double buffering, ldmatrix.
 
+#include <cuda.h>   // CUtensorMap and its enums only; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
+#include "flash_common.cuh"
+#include "hopper_sm90.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr float kMaskVal = -1e5f;
-constexpr int kCausalTile = 64;   // the forward's key tile under causal masking
+constexpr int kCausalTile = kFlashKeyTile;
 
 struct BwdParams {
   const void* q;
@@ -376,6 +408,519 @@ flash_bwd_dq_bf16_kernel(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, D = 64 or 128: wgmma and TMA (Hopper)
+// ---------------------------------------------------------------------------
+//
+// A CTA is 64 * WGS consumer rows (B2: keys, B3: query rows), one consumer
+// warpgroup per 64, plus one producer warp.  ptxas holds every thread of a
+// CTA to the same register budget, which the register file's four
+// quarters set: 168 a thread where a quarter hosts 3 warps (two consumer
+// warpgroups + the producer), 255 where it hosts 2.  B2 at D = 128 keeps
+// 2 x 64 x 128 fp32 sums (dK, dV) a warpgroup, so it runs one consumer
+// warpgroup (64 keys); every other case runs two.
+
+constexpr int kStages = 3;   // streamed tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
+
+// B2: keys per warpgroup are 64; the query tile is 64 rows, 32 at D = 128
+template <int D>
+struct DkvShape {
+  static constexpr int WGS = D == 64 ? 2 : 1;
+  static constexpr int KEYS = 64 * WGS;
+  static constexpr int BQ = D == 64 ? 64 : 32;
+  static constexpr int THREADS = WGS * 128 + 32;
+  static constexpr int SMEM = 2 * KEYS * D * 2 + 2 * kStages * BQ * D * 2 +
+                              2 * kStages * BQ * 4 + (2 * kStages + 1) * 8 +
+                              1024;
+};
+
+// B3: 128 query rows; the key tile is 64 keys, 32 at D = 128
+template <int D>
+struct DqShape {
+  static constexpr int WGS = 2;
+  static constexpr int ROWS = 64 * WGS;
+  static constexpr int BK = D == 64 ? 64 : 32;
+  static constexpr int THREADS = WGS * 128 + 32;
+  static constexpr int SMEM = 2 * ROWS * D * 2 + 2 * kStages * BK * D * 2 +
+                              kStages * BK * 4 + (2 * kStages + 1) * 8 + 1024;
+};
+
+// The exponent of p, log2(e) * (s - lse), of a pair at a tile's edge:
+// prob()'s cases.  -inf (p = 0) where the forward never scored the pair;
+// the mask value's where causal masking hides the key inside the row's
+// own tile; x, the exponent of an unmasked pair, otherwise.
+__device__ __forceinline__ float edge_exponent(const BwdParams& p, float x,
+                                               int row, int key, float lse) {
+  if (row >= p.tq || key >= p.tk) return -INFINITY;
+  if (p.causal) {
+    if (key / kCausalTile > row / kCausalTile) return -INFINITY;
+    if (row < key) return (kMaskVal - lse) * kLog2e;
+  }
+  return x;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Descriptor of k-step kk (16 k-values) of a K-major [rows][D] tile of
+// `rows` rows, from row r0 on: k runs along the 64-column halves.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows,
+                                                int r0, int kk) {
+  return wgmma_desc(tile + (kk / 4) * rows * 128 + r0 * 128 + (kk % 4) * 32,
+                    16, 1024);
+}
+
+// Descriptor of k-step kk (rows 16kk..16kk+15) of column half hh of an
+// MN-major [rows][D] tile, read through the transpose bit.
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows,
+                                                 int kk, int hh) {
+  return wgmma_desc(tile + hh * rows * 128 + kk * 16 * 128, rows * 128, 1024);
+}
+
+// Two 8-column accumulator blocks (registers 8kk..8kk+7), rounded to bf16,
+// as the register A operand of a k16 step.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[R],
+                                         int kk) {
+  a[0] = pack_f32_to_bf16x2(c[8 * kk + 0], c[8 * kk + 1]);
+  a[1] = pack_f32_to_bf16x2(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack_f32_to_bf16x2(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack_f32_to_bf16x2(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
+// Load a [rows][D] bf16 box at (row, h, b) as D / 64 column halves.
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, int rows,
+                                         const CUtensorMap* map, uint64_t* bar,
+                                         int row, int h, int b) {
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh)
+    tma_load_4d(dst + hh * rows * 128, map, bar, hh * 64, row, h, b);
+}
+
+// A consumer warp is done with a ring stage.
+__device__ __forceinline__ void release_stage(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// B2: dK and dV for one block of 64 * WGS keys.
+template <int D>
+__global__ void __launch_bounds__(DkvShape<D>::THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const BwdParams p,
+                           const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do) {
+  constexpr int BQ = DkvShape<D>::BQ;
+  constexpr int KEYS = DkvShape<D>::KEYS;
+  constexpr int CONSUMER_WARPS = 4 * DkvShape<D>::WGS;
+  constexpr int KV_BYTES = KEYS * D * 2;
+  constexpr int Q_BYTES = BQ * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = align1024(smem_raw);
+  unsigned char* sV = sK + KV_BYTES;
+  unsigned char* sQ = sV + KV_BYTES;              // [kStages] tiles
+  unsigned char* sdO = sQ + kStages * Q_BYTES;    // [kStages] tiles
+  float* sLse = reinterpret_cast<float*>(sdO + kStages * Q_BYTES);
+  float* sDelta = sLse + kStages * BQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sDelta + kStages * BQ);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.nh, h = bh - (bh / p.nh) * p.nh;
+  const int k0 = blockIdx.y * KEYS;
+  const int n_qt = (p.tq + BQ - 1) / BQ;
+  // under causal masking, rows before this key block never saw it
+  const int qt0 = p.causal ? k0 / BQ : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);                // the producer warp's lanes
+      mbar_init(&empty[s], CONSUMER_WARPS);   // one lane per consumer warp
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    // producer: K and V once, then the Q/dO/lse/delta ring
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * KV_BYTES);
+      tma_tile<D>(sK, KEYS, &tm_k, kv_full, k0, h, b);
+      tma_tile<D>(sV, KEYS, &tm_v, kv_full, k0, h, b);
+    }
+    const float* lseg = p.lse + static_cast<long long>(bh) * p.tq;
+    const float* deltag = p.delta + static_cast<long long>(bh) * p.tq;
+    for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
+      const int s = it % kStages;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      const int q0 = qt * BQ;
+      for (int i = lane; i < BQ; i += 32) {
+        const bool live = q0 + i < p.tq;
+        sLse[s * BQ + i] = live ? lseg[q0 + i] : 0.f;
+        sDelta[s * BQ + i] = live ? deltag[q0 + i] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * Q_BYTES);
+        tma_tile<D>(sQ + s * Q_BYTES, BQ, &tm_q, &full[s], q0, h, b);
+        tma_tile<D>(sdO + s * Q_BYTES, BQ, &tm_do, &full[s], q0, h, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys kw0..kw0+63; this thread's keys are
+  // accumulator rows g and g + 8 of its warp's 16
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + 64 * wg;
+  const int key0 = kw0 + 16 * wl + g;
+  const float sl2 = p.scale * kLog2e;
+  float bias_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    bias_r[r] = (p.bias != nullptr && key < p.tk)
+                    ? p.bias[static_cast<long long>(bh / p.bias_nh) * p.tk + key]
+                    : 0.f;
+  }
+  float dk[D / 64][32], dv[D / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[hh][i] = dv[hh][i] = 0.f;
+
+  const uint32_t aK = smem_u32(sK), aV = smem_u32(sV);
+  const bool wg_live = kw0 < p.tk;
+  int held = -1;   // the stage the last dV/dK products still read
+  mbar_wait(kv_full, 0);
+  for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const int q0 = qt * BQ;
+    // a tile whose rows all lie in causal tiles before this warpgroup's
+    // keys has p = 0 throughout
+    if (!wg_live || (p.causal && q0 / kCausalTile < kw0 / kCausalTile)) {
+      release_stage(&empty[s], lane);
+      continue;
+    }
+    const uint32_t aQ = smem_u32(sQ + s * Q_BYTES);
+    const uint32_t adO = smem_u32(sdO + s * Q_BYTES);
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x BQ queries), in two
+    // groups behind the previous tile's dV/dK products
+    float st[BQ / 2], dpt[BQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(st, desc_kmajor(aK, KEYS, 64 * wg, kk),
+               desc_kmajor(aQ, BQ, 0, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dpt, desc_kmajor(aV, KEYS, 64 * wg, kk),
+               desc_kmajor(adO, BQ, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous dV/dK products and S^T are done
+    fence_regs(st);
+#pragma unroll
+    for (int hh = 0; hh < D / 64; ++hh) {
+      fence_regs(dv[hh]);
+      fence_regs(dk[hh]);
+    }
+    if (held >= 0) release_stage(&empty[held], lane);
+
+    // P^T in place of S^T, while dP^T runs: p = 2^(log2e (s - lse))
+    const bool interior = q0 + BQ <= p.tq && kw0 + 64 <= p.tk &&
+                          (!p.causal || q0 >= kw0 + 64);
+    const float2* lse2 = reinterpret_cast<const float2*>(sLse + s * BQ);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l2 = lse2[4 * j + t];   // queries 8j + 2t and + 1
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, r = e >> 1;
+        const float lse = (e & 1) ? l2.y : l2.x;
+        float x = fmaf(st[i], sl2, (bias_r[r] - lse) * kLog2e);
+        if (!interior)
+          x = edge_exponent(p, x, q0 + 8 * j + 2 * t + (e & 1), key0 + 8 * r,
+                            lse);
+        st[i] = exp2f(x);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    // dS^T in place of dP^T
+    const float2* delta2 = reinterpret_cast<const float2*>(sDelta + s * BQ);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = delta2[4 * j + t];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d2.y : d2.x)) * p.scale;
+      }
+    }
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      acc_to_a(pa[kk], st, kk);
+      acc_to_a(da[kk], dpt, kk);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, 16 queries per step; they run on
+    // while the next tile's S^T and P^T are computed
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int hh = 0; hh < D / 64; ++hh) {
+        wgmma_rs_tb_n64(dv[hh], pa[kk], desc_mnmajor(adO, BQ, kk, hh));
+        wgmma_rs_tb_n64(dk[hh], da[kk], desc_mnmajor(aQ, BQ, kk, hh));
+      }
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int hh = 0; hh < D / 64; ++hh) {
+      fence_regs(dv[hh]);
+      fence_regs(dk[hh]);
+    }
+    held = s;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) {
+    fence_regs(dv[hh]);
+    fence_regs(dk[hh]);
+  }
+  if (held >= 0) release_stage(&empty[held], lane);
+
+  bf16* dkg = head_ptr_out<bf16>(p.dk, b, h, p.dk_sb, p.dk_sh);
+  bf16* dvg = head_ptr_out<bf16>(p.dv, b, h, p.dv_sb, p.dv_sh);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key < p.tk) {
+      bf16* dkrow = dkg + key * p.dk_st;
+      bf16* dvrow = dvg + key * p.dv_st;
+#pragma unroll
+      for (int hh = 0; hh < D / 64; ++hh) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * hh + 8 * j + 2 * t;
+          *reinterpret_cast<uint32_t*>(dkrow + col) = pack_f32_to_bf16x2(
+              dk[hh][4 * j + 2 * r], dk[hh][4 * j + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(dvrow + col) = pack_f32_to_bf16x2(
+              dv[hh][4 * j + 2 * r], dv[hh][4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// B3: dQ for one block of 128 query rows.
+template <int D>
+__global__ void __launch_bounds__(DqShape<D>::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const BwdParams p,
+                          const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do) {
+  constexpr int ROWS = DqShape<D>::ROWS;
+  constexpr int BK = DqShape<D>::BK;
+  constexpr int CONSUMER_WARPS = 4 * DqShape<D>::WGS;
+  constexpr int Q_BYTES = ROWS * D * 2;
+  constexpr int K_BYTES = BK * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sdO = sQ + Q_BYTES;
+  unsigned char* sK = sdO + Q_BYTES;              // [kStages] tiles
+  unsigned char* sV = sK + kStages * K_BYTES;     // [kStages] tiles
+  float* sBias = reinterpret_cast<float*>(sV + kStages * K_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sBias + kStages * BK);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.nh, h = bh - (bh / p.nh) * p.nh;
+  // under causal masking the last row blocks walk the most key tiles:
+  // launch them first
+  const int rb = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = rb * ROWS;
+  int n_kt = (p.tk + BK - 1) / BK;
+  if (p.causal) {
+    // keys up to the end of the causal tile of the block's last row
+    const int last_row = min(q0 + ROWS, p.tq) - 1;
+    n_kt = min(n_kt, (last_row / kCausalTile + 1) * kCausalTile / BK);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    // producer: Q and dO once, then the K/V/bias ring
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * Q_BYTES);
+      tma_tile<D>(sQ, ROWS, &tm_q, q_full, q0, h, b);
+      tma_tile<D>(sdO, ROWS, &tm_do, q_full, q0, h, b);
+    }
+    const float* biasg =
+        p.bias ? p.bias + static_cast<long long>(bh / p.bias_nh) * p.tk
+               : nullptr;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+      const int k0 = kt * BK;
+      for (int j = lane; j < BK; j += 32)
+        sBias[s * BK + j] =
+            (biasg != nullptr && k0 + j < p.tk) ? biasg[k0 + j] : 0.f;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * K_BYTES);
+        tma_tile<D>(sK + s * K_BYTES, BK, &tm_k, &full[s], k0, h, b);
+        tma_tile<D>(sV + s * K_BYTES, BK, &tm_v, &full[s], k0, h, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows rw0..rw0+63; this thread's rows are
+  // accumulator rows g and g + 8 of its warp's 16
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw0 = q0 + 64 * wg;
+  const int row0 = rw0 + 16 * wl + g;
+  const float sl2 = p.scale * kLog2e;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const long long at = static_cast<long long>(bh) * p.tq + row;
+    lse_r[r] = row < p.tq ? p.lse[at] : 0.f;
+    delta_r[r] = row < p.tq ? p.delta[at] : 0.f;
+  }
+  float dq[D / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[hh][i] = 0.f;
+
+  const uint32_t aQ = smem_u32(sQ), adO = smem_u32(sdO);
+  const bool wg_live = rw0 < p.tq;
+  int held = -1;   // the stage the last dQ products still read
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const int k0 = kt * BK;
+    // a key tile past the causal tile of every row of this warpgroup has
+    // p = 0 throughout
+    if (!wg_live || (p.causal && k0 / kCausalTile > rw0 / kCausalTile)) {
+      release_stage(&empty[s], lane);
+      continue;
+    }
+    const uint32_t aK = smem_u32(sK + s * K_BYTES);
+    const uint32_t aV = smem_u32(sV + s * K_BYTES);
+    // S = Q K^T and dP = dO V^T (64 rows x 64 keys), in two groups
+    // behind the previous tile's dQ products
+    float sc[BK / 2], dp[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, desc_kmajor(aQ, ROWS, 64 * wg, kk),
+               desc_kmajor(aK, BK, 0, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_kmajor(adO, ROWS, 64 * wg, kk),
+               desc_kmajor(aV, BK, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous dQ products and S are done
+    fence_regs(sc);
+#pragma unroll
+    for (int hh = 0; hh < D / 64; ++hh) fence_regs(dq[hh]);
+    if (held >= 0) release_stage(&empty[held], lane);
+
+    // P in place of S, while dP runs
+    const bool interior = rw0 + 64 <= p.tq && k0 + BK <= p.tk &&
+                          (!p.causal || k0 + BK <= rw0);
+    const float2* bias2 =
+        reinterpret_cast<const float2*>(sBias + s * BK);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float2 b2 = bias2[4 * j + t];   // keys 8j + 2t and + 1
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, r = e >> 1;
+        float x = fmaf(sc[i], sl2,
+                       (((e & 1) ? b2.y : b2.x) - lse_r[r]) * kLog2e);
+        if (!interior)
+          x = edge_exponent(p, x, row0 + 8 * r, k0 + 8 * j + 2 * t + (e & 1),
+                            lse_r[r]);
+        sc[i] = exp2f(x);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS in place of P
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      sc[i] = sc[i] * (dp[i] - delta_r[(i >> 1) & 1]) * p.scale;
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(da[kk], sc, kk);
+
+    // dQ += dS K, 16 keys per step; it runs on while the next tile's S
+    // and P are computed
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int hh = 0; hh < D / 64; ++hh)
+        wgmma_rs_tb_n64(dq[hh], da[kk], desc_mnmajor(aK, BK, kk, hh));
+    wgmma_commit();
+#pragma unroll
+    for (int hh = 0; hh < D / 64; ++hh) fence_regs(dq[hh]);
+    held = s;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) fence_regs(dq[hh]);
+  if (held >= 0) release_stage(&empty[held], lane);
+
+  bf16* dqg = head_ptr_out<bf16>(p.dq, b, h, p.dq_sb, p.dq_sh);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < p.tq) {
+      bf16* dqrow = dqg + row * p.dq_st;
+#pragma unroll
+      for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(dqrow + 64 * hh + 8 * j + 2 * t) =
+              pack_f32_to_bf16x2(dq[hh][4 * j + 2 * r],
+                                 dq[hh][4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32: CUDA cores, four threads per key (B2) or per query row (B3)
 // ---------------------------------------------------------------------------
 
@@ -627,6 +1172,116 @@ int launch_dq(const BwdParams& p, int is_bf16, int bh, cudaStream_t s) {
                 dim3((p.tq + kBF - 1) / kBF, bh), kThreadsF, smem, p, s);
 }
 
+// cuTensorMapEncodeTiled (a libcuda function), taken through the runtime
+// so the library links without -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor of `bh` = batch * nh heads, `t` tokens and 64 or 128
+// columns, with element strides (sb, sh, st) of batch, head and token, as
+// the 4-D map (column, token, head, batch) read in boxes of 64 columns x
+// `rows` tokens with the 128-byte swizzle.  Tokens past t load as zeros.
+int make_map(CUtensorMap* map, const void* base, long long sb, long long sh,
+             long long st, int nh, int bh, int t, int d, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (nh == 1) sh = st;   // one head: its stride is never used, must be > 0
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(nh),
+                              static_cast<cuuint64_t>(bh / nh)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) {
+    fprintf(stderr, "flash_bwd: cuTensorMapEncodeTiled returned %d\n",
+            static_cast<int>(r));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+// Tensor maps of q, k, v and dout; q and dout in boxes of q_rows tokens,
+// k and v of k_rows.
+int make_maps(CUtensorMap (&m)[4], const BwdParams& p, int bh, int q_rows,
+              int k_rows) {
+  int err = make_map(&m[0], p.q, p.q_sb, p.q_sh, p.q_st, p.nh, bh, p.tq, p.d,
+                     q_rows);
+  if (!err)
+    err = make_map(&m[1], p.k, p.k_sb, p.k_sh, p.k_st, p.nh, bh, p.tk, p.d,
+                   k_rows);
+  if (!err)
+    err = make_map(&m[2], p.v, p.v_sb, p.v_sh, p.v_st, p.nh, bh, p.tk, p.d,
+                   k_rows);
+  if (!err)
+    err = make_map(&m[3], p.dout, p.do_sb, p.do_sh, p.do_st, p.nh, bh, p.tq,
+                   p.d, q_rows);
+  return err;
+}
+
+template <typename Kernel>
+int launch_wgmma(Kernel kernel, dim3 grid, int threads, int smem,
+                 const BwdParams& p, const CUtensorMap (&m)[4],
+                 cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, threads, smem, stream>>>(p, m[0], m[1], m[2], m[3]);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_wgmma(const BwdParams& p, int bh, cudaStream_t s) {
+  using S = DkvShape<D>;
+  CUtensorMap m[4];
+  const int err = make_maps(m, p, bh, S::BQ, S::KEYS);
+  if (err) return err;
+  return launch_wgmma(flash_bwd_dkv_wgmma_kernel<D>,
+                      dim3(bh, (p.tk + S::KEYS - 1) / S::KEYS), S::THREADS,
+                      S::SMEM, p, m, s);
+}
+
+template <int D>
+int launch_dq_wgmma(const BwdParams& p, int bh, cudaStream_t s) {
+  using S = DqShape<D>;
+  CUtensorMap m[4];
+  const int err = make_maps(m, p, bh, S::ROWS, S::BK);
+  if (err) return err;
+  return launch_wgmma(flash_bwd_dq_wgmma_kernel<D>,
+                      dim3(bh, (p.tq + S::ROWS - 1) / S::ROWS), S::THREADS,
+                      S::SMEM, p, m, s);
+}
+
 BwdParams make_params(const void* q, const void* k, const void* v,
                       const void* dout, const float* bias, const float* lse,
                       const float* delta, void* dq, void* dk, void* dv,
@@ -660,6 +1315,15 @@ BwdParams make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// Which kernels take a case: bf16 with D = 64 or 128 the Hopper kernels
+// (wgmma + TMA), other bf16 the mma.sync kernels, fp32 the CUDA-core ones.
+enum Route { kRouteCudaCores = 0, kRouteMmaSync = 1, kRouteWgmma = 2 };
+
+int route(int is_bf16, int d) {
+  if (!is_bf16) return kRouteCudaCores;
+  return (d == 64 || d == 128) ? kRouteWgmma : kRouteMmaSync;
+}
+
 }  // namespace
 
 extern "C" {
@@ -680,6 +1344,9 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   dv, strides, nh, bias_nh, tq, tk, d,
                                   causal, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route(is_bf16, d) == kRouteWgmma)
+    return d == 64 ? launch_dkv_wgmma<64>(p, bh, s)
+                   : launch_dkv_wgmma<128>(p, bh, s);
   if (d <= 64) return launch_dkv<64>(p, is_bf16, bh, s);
   if (d <= 128) return launch_dkv<128>(p, is_bf16, bh, s);
   return launch_dkv<256>(p, is_bf16, bh, s);
@@ -697,9 +1364,23 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                                   dv, strides, nh, bias_nh, tq, tk, d,
                                   causal, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route(is_bf16, d) == kRouteWgmma)
+    return d == 64 ? launch_dq_wgmma<64>(p, bh, s)
+                   : launch_dq_wgmma<128>(p, bh, s);
   if (d <= 64) return launch_dq<64>(p, is_bf16, bh, s);
   if (d <= 128) return launch_dq<128>(p, is_bf16, bh, s);
   return launch_dq<256>(p, is_bf16, bh, s);
+}
+
+// The kernels a case takes: 2 wgmma + TMA, 1 mma.sync, 0 CUDA cores.
+int flash_bwd_route(int is_bf16, int d) { return route(is_bf16, d); }
+
+// Dynamic shared memory of a Hopper kernel (kernel 0: B2, 1: B3) at head
+// dim d, in bytes; 0 where the case takes another route.
+int flash_bwd_wgmma_smem(int kernel, int d) {
+  if (d == 64) return kernel == 0 ? DkvShape<64>::SMEM : DqShape<64>::SMEM;
+  if (d == 128) return kernel == 0 ? DkvShape<128>::SMEM : DqShape<128>::SMEM;
+  return 0;
 }
 
 const char* flash_bwd_error_string(int err) {

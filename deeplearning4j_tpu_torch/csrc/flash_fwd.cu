@@ -42,11 +42,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr float kMaskVal = -1e5f;
 constexpr float kNegInit = -1e30f;   // running-max seed only; never stored
 
 struct FwdParams {
@@ -71,7 +71,8 @@ struct FwdParams {
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // keys per tile
+constexpr int kBK = kFlashKeyTile;   // keys per tile
+static_assert(kBQ == kBK, "causal: a CTA's key tiles end with its own rows");
 constexpr int kThreads = 128;  // 4 warps x 16 rows
 
 template <int DMAX>
@@ -239,6 +240,10 @@ flash_fwd_bf16_kernel(const FwdParams p) {
 
 constexpr int kBQF = 64;          // query rows per CTA
 constexpr int kBKF = 32;          // keys per tile
+// causal: a CTA's key tiles end with its own 64 rows, the tiles the
+// backward rebuilds p over
+static_assert(kBQF == kFlashKeyTile && kFlashKeyTile % kBKF == 0,
+              "the fp32 forward's causal tiles must match kFlashKeyTile");
 constexpr int kTPR = 4;           // threads per row
 constexpr int kThreadsF = kBQF * kTPR;
 

@@ -9,7 +9,10 @@ replace the three Pallas kernels there:
   the fp32 logsumexp saved beside the output for the backward kernels;
 - B2 and B3, ``csrc/flash_bwd.cu``: the backward ``_bwd_dkv_kernel``
   (:188) and ``_bwd_dq_kernel`` (:240), launched by ``_bwd`` (:281),
-  which rebuild p = exp(s - lse) from the saved lse.
+  which rebuild p = exp(s - lse) from the saved lse.  The C entry points
+  route bf16 with D = 64 or 128 to Hopper kernels (wgmma + TMA), other
+  bf16 to mma.sync kernels and fp32 to CUDA-core ones
+  (:func:`bwd_route` reports the choice).
 
 Entry points:
 
@@ -52,6 +55,13 @@ Tensor = torch.Tensor
 #: fully masked row has to keep log(Tk) beside it (ulp(1e5) = 0.008)
 MASK_VAL = -1e5
 
+#: the forward kernel's key tile (``kFlashKeyTile`` in
+#: ``csrc/flash_common.cuh``): under causal masking B1 skips every key
+#: tile past the one that holds a row's 64-row tile, and B2/B3 rebuild p
+#: over exactly those tiles.  The plain twins follow it with
+#: ``causal_tile=CAUSAL_TILE``.
+CAUSAL_TILE = 64
+
 #: kernel launches since the process started (or the caller reset them):
 #: B1 (forward), B2 (dK/dV) and B3 (dQ)
 launches = 0
@@ -86,14 +96,32 @@ def reset_launches() -> None:
 # plain twin
 # ---------------------------------------------------------------------------
 
+def _causal_tiles_skipped(Tq: int, Tk: int, causal_tile: Optional[int],
+                          device) -> Optional[Tensor]:
+    """``[Tq, Tk]`` True where key // causal_tile > row // causal_tile:
+    the pairs the kernels never score under causal masking (None when
+    ``causal_tile`` is None)."""
+    if causal_tile is None:
+        return None
+    rows = torch.arange(Tq, device=device) // causal_tile
+    keys = torch.arange(Tk, device=device) // causal_tile
+    return keys[None, :] > rows[:, None]
+
+
 def flash_attention_fwd_plain(q4: Tensor, k4: Tensor, v4: Tensor,
                               bias: Optional[Tensor] = None,
-                              causal: bool = False) -> Tuple[Tensor, Tensor]:
+                              causal: bool = False,
+                              causal_tile: Optional[int] = None
+                              ) -> Tuple[Tensor, Tensor]:
     """The kernel's arithmetic in plain PyTorch, on any device: q4
     ``[BH, Tq, D]``, k4/v4 ``[BH, Tk, D]``, bias ``[R, Tk]`` fp32 with
     ``BH % R == 0`` (row ``bh // (BH // R)``), or None.  Returns ``o``
     in q4's dtype and ``lse`` fp32 ``[BH, Tq]``.  Scores and sums are
-    fp32; p is cast to v's dtype before p.V, as in the kernel."""
+    fp32; p is cast to v's dtype before p.V, as in the kernel.  With
+    ``causal`` and ``causal_tile`` (e.g. :data:`CAUSAL_TILE`) the keys of
+    tiles past a row's own drop out of its softmax, as in the kernel: the
+    two then agree on every row, a causal row whose every key is masked
+    included."""
     BH, Tq, D = q4.shape
     Tk = k4.shape[1]
     s = torch.matmul(q4.float(), k4.float().transpose(1, 2)) \
@@ -104,6 +132,9 @@ def flash_attention_fwd_plain(q4: Tensor, k4: Tensor, v4: Tensor,
     if causal:
         keep = torch.ones(Tq, Tk, dtype=torch.bool, device=s.device).tril()
         s = torch.where(keep, s, torch.full_like(s, MASK_VAL))
+        skipped = _causal_tiles_skipped(Tq, Tk, causal_tile, s.device)
+        if skipped is not None:
+            s = s.masked_fill(skipped, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)    # fully masked rows
@@ -113,9 +144,13 @@ def flash_attention_fwd_plain(q4: Tensor, k4: Tensor, v4: Tensor,
 
 def _bwd_plain_p_ds(q4: Tensor, k4: Tensor, v4: Tensor,
                     bias: Optional[Tensor], o: Tensor, lse: Tensor,
-                    do: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
+                    do: Tensor, causal: bool,
+                    causal_tile: Optional[int] = None
+                    ) -> Tuple[Tensor, Tensor]:
     """p = exp(s - lse) and dS = p * (dO V^T - delta) * scale, fp32
-    ``[BH, Tq, Tk]``, with delta = rowsum(dO * O)."""
+    ``[BH, Tq, Tk]``, with delta = rowsum(dO * O); with ``causal`` and
+    ``causal_tile``, p = 0 where key // causal_tile > row // causal_tile,
+    as in B2 and B3."""
     BH, Tq, D = q4.shape
     Tk = k4.shape[1]
     scale = 1.0 / math.sqrt(D)
@@ -127,6 +162,10 @@ def _bwd_plain_p_ds(q4: Tensor, k4: Tensor, v4: Tensor,
         keep = torch.ones(Tq, Tk, dtype=torch.bool, device=s.device).tril()
         s = torch.where(keep, s, torch.full_like(s, MASK_VAL))
     p = torch.exp(s - lse[..., None])
+    if causal:
+        skipped = _causal_tiles_skipped(Tq, Tk, causal_tile, p.device)
+        if skipped is not None:
+            p = p.masked_fill(skipped, 0.0)
     delta = (do.float() * o.float()).sum(-1)
     dp = torch.matmul(do.float(), v4.float().transpose(1, 2))
     return p, p * (dp - delta[..., None]) * scale
@@ -135,11 +174,13 @@ def _bwd_plain_p_ds(q4: Tensor, k4: Tensor, v4: Tensor,
 def flash_attention_bwd_dkv_plain(q4: Tensor, k4: Tensor, v4: Tensor,
                                   bias: Optional[Tensor], o: Tensor,
                                   lse: Tensor, do: Tensor,
-                                  causal: bool = False
+                                  causal: bool = False,
+                                  causal_tile: Optional[int] = None
                                   ) -> Tuple[Tensor, Tensor]:
     """B2's plain twin: ``(dk, dv)``; p is cast to dO's dtype before
     P^T dO and dS to the input dtype before dS^T Q, with fp32 sums."""
-    p, ds = _bwd_plain_p_ds(q4, k4, v4, bias, o, lse, do, causal)
+    p, ds = _bwd_plain_p_ds(q4, k4, v4, bias, o, lse, do, causal,
+                            causal_tile)
     dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
     dk = torch.matmul(ds.to(q4.dtype).float().transpose(1, 2), q4.float())
     return dk.to(k4.dtype), dv.to(v4.dtype)
@@ -148,27 +189,33 @@ def flash_attention_bwd_dkv_plain(q4: Tensor, k4: Tensor, v4: Tensor,
 def flash_attention_bwd_dq_plain(q4: Tensor, k4: Tensor, v4: Tensor,
                                  bias: Optional[Tensor], o: Tensor,
                                  lse: Tensor, do: Tensor,
-                                 causal: bool = False) -> Tensor:
+                                 causal: bool = False,
+                                 causal_tile: Optional[int] = None) -> Tensor:
     """B3's plain twin: ``dq``; dS is cast to the input dtype before
     dS K, with an fp32 sum."""
-    _, ds = _bwd_plain_p_ds(q4, k4, v4, bias, o, lse, do, causal)
+    _, ds = _bwd_plain_p_ds(q4, k4, v4, bias, o, lse, do, causal,
+                            causal_tile)
     return torch.matmul(ds.to(k4.dtype).float(), k4.float()).to(q4.dtype)
 
 
 def flash_attention_bwd_plain(q4: Tensor, k4: Tensor, v4: Tensor,
                               bias: Optional[Tensor], o: Tensor, lse: Tensor,
-                              do: Tensor, causal: bool = False
+                              do: Tensor, causal: bool = False,
+                              causal_tile: Optional[int] = None
                               ) -> Tuple[Tensor, Tensor, Tensor]:
     """``_bwd``'s arithmetic (:281-349) in plain PyTorch, on any device:
     the inputs of :func:`flash_attention_fwd_plain` plus its ``o`` and
     ``lse`` and the output gradient ``do`` ``[BH, Tq, D]``.  Returns
     ``(dq, dk, dv)`` in the input dtype, rebuilt from p = exp(s - lse)
-    as the kernels do.  Unlike B2 and B3 it skips no causal tiles: the
-    two differ only on a causal row whose every key is masked, whose lse
-    depends on the tiles the forward walked."""
+    as the kernels do.  By default it skips no causal tiles, and differs
+    from B2 and B3 only on a causal row whose every key is masked, whose
+    lse depends on the tiles the forward walked; ``causal_tile`` (e.g.
+    :data:`CAUSAL_TILE`) skips the kernels' tiles and agrees with them
+    there too."""
     dk, dv = flash_attention_bwd_dkv_plain(q4, k4, v4, bias, o, lse, do,
-                                           causal)
-    dq = flash_attention_bwd_dq_plain(q4, k4, v4, bias, o, lse, do, causal)
+                                           causal, causal_tile)
+    dq = flash_attention_bwd_dq_plain(q4, k4, v4, bias, o, lse, do, causal,
+                                      causal_tile)
     return dq, dk, dv
 
 
@@ -184,10 +231,15 @@ _ARGTYPES = {
                   + [ctypes.c_float, ctypes.c_void_p]},
     # q, k, v, dout, bias, lse, delta, dq, dk, dv, strides; the same ints;
     # scale; stream
-    "flash_bwd": {fn: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                  + [ctypes.c_float, ctypes.c_void_p]
-                  for fn in ("flash_bwd_dkv", "flash_bwd_dq")},
+    "flash_bwd": {**{fn: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                     + [ctypes.c_float, ctypes.c_void_p]
+                     for fn in ("flash_bwd_dkv", "flash_bwd_dq")},
+                  # is_bf16, d / kernel (0: B2, 1: B3), d
+                  "flash_bwd_route": [ctypes.c_int] * 2,
+                  "flash_bwd_wgmma_smem": [ctypes.c_int] * 2},
 }
+#: flash_bwd_route's answers: which kernels B2 and B3 run for a case
+BWD_ROUTES = {2: "wgmma", 1: "mma.sync", 0: "cuda-cores"}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -196,6 +248,22 @@ def _library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _libs[name] = cuda_build.bind(name, _ARGTYPES[name])
     return lib
+
+
+def bwd_route(dtype: torch.dtype, D: int) -> str:
+    """Which kernels B2 and B3 run for ``dtype`` and head dim ``D``, as
+    the C entry points choose (the library is built if needed, so this
+    needs nvcc): ``"wgmma"`` (bf16 with D = 64 or 128: wgmma + TMA),
+    ``"mma.sync"`` (other bf16) or ``"cuda-cores"`` (fp32)."""
+    lib = _library("flash_bwd")
+    return BWD_ROUTES[lib.flash_bwd_route(int(dtype == torch.bfloat16), D)]
+
+
+def bwd_wgmma_smem(D: int) -> Tuple[int, int]:
+    """Dynamic shared memory (bytes) of the wgmma B2 and B3 at head dim
+    ``D`` (0 where the case takes another route)."""
+    lib = _library("flash_bwd")
+    return lib.flash_bwd_wgmma_smem(0, D), lib.flash_bwd_wgmma_smem(1, D)
 
 
 def kernel_supports(Tq: int, Tk: int, D: int, dtype: torch.dtype) -> bool:

@@ -56,20 +56,27 @@ def _inputs(seed, B, NH, Tq, Tk, D, lens):
     return q, k, v, do, mask
 
 
-def _jax_grads(q, k, v, do, mask, causal, dtype):
-    """(dq, dk, dv) of the interpreted Pallas flash attention, fp32."""
+def _jax_vjp(q, k, v, do, mask, causal, dtype, block=32):
+    """(o, (dq, dk, dv)) of the interpreted Pallas flash attention, fp32."""
     jd = jnp.dtype(dtype)
 
     @jax.jit
     def vjp(q, k, v, do):
         def f(q, k, v):
             return jpa.flash_attention(q, k, v, jnp.asarray(mask), causal,
-                                       block_q=32, block_k=32, interpret=True)
-        _, pull = jax.vjp(f, q, k, v)
-        return pull(do)
+                                       block_q=block, block_k=block,
+                                       interpret=True)
+        o, pull = jax.vjp(f, q, k, v)
+        return o, pull(do)
 
-    grads = vjp(*(jnp.asarray(x, jd) for x in (q, k, v, do)))
-    return [np.asarray(g, np.float32) for g in grads]
+    o, grads = vjp(*(jnp.asarray(x, jd) for x in (q, k, v, do)))
+    return (np.asarray(o, np.float32),
+            [np.asarray(g, np.float32) for g in grads])
+
+
+def _jax_grads(q, k, v, do, mask, causal, dtype):
+    """(dq, dk, dv) of the interpreted Pallas flash attention, fp32."""
+    return _jax_vjp(q, k, v, do, mask, causal, dtype)[1]
 
 
 def _assert_grads_close(got, ref, dtype):
@@ -134,6 +141,42 @@ def test_fully_masked_rows_keep_probabilities_summing_to_one():
                                       torch.ones_like(q4))
     torch.testing.assert_close(dv.sum(1), torch.full((B, D), float(T)),
                                rtol=1e-2, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_exact_twins_match_pallas_on_fully_masked_causal_rows(dtype):
+    """Causal attention where one sequence's keys are all masked: every
+    row of it is fully masked, and its softmax runs over the -1e5 scores
+    of the key tiles the kernel walked.  With ``causal_tile=64`` the
+    plain forward and backward skip the kernels' tiles (B1's 64-key tile,
+    ``csrc/flash_common.cuh``), and agree with the Pallas kernel at
+    block 64 (``_pick_block`` keeps 64 at T=256) on every row, the fully
+    masked ones included; the default twins, which see every key, do
+    not.  Tolerances: the forward fp32 2e-5 and the gradients fp32 5e-4
+    (tests/test_pallas_attention.py:34,55); bf16 3e-2 of the largest
+    |value|."""
+    B, NH, T, D = 2, 1, 256, 64
+    q, k, v, do, mask = _inputs(7, B, NH, T, T, D, [0, T])
+    o_ref, g_ref = _jax_vjp(q, k, v, do, mask, True, dtype, block=64)
+    td = getattr(torch, dtype)
+    q4, k4, v4, do4 = (_bhtd(torch.from_numpy(x).to(td))
+                       for x in (q, k, v, do))
+    bias = (1.0 - torch.from_numpy(mask)) * fa.MASK_VAL
+    o, lse = fa.flash_attention_fwd_plain(q4, k4, v4, bias, True,
+                                          causal_tile=fa.CAUSAL_TILE)
+    grads = fa.flash_attention_bwd_plain(q4, k4, v4, bias, o, lse, do4,
+                                         True, causal_tile=fa.CAUSAL_TILE)
+    got_o = _btnd(o, B, NH).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got_o, o_ref, rtol=2e-5, atol=2e-5)
+    else:
+        assert np.abs(got_o - o_ref).max() <= BF16_TOL * np.abs(o_ref).max()
+    _assert_grads_close([_btnd(g, B, NH).float().numpy() for g in grads],
+                        g_ref, dtype)
+    # the masked sequence's first 192 rows see fewer tiles than keys
+    o_all, _ = fa.flash_attention_fwd_plain(q4, k4, v4, bias, True)
+    diff = np.abs(_btnd(o_all, B, NH).float().numpy() - o_ref)
+    assert diff[0, :192].max() > 0.1 and diff[1].max() <= 3e-2
 
 
 def test_bias_gets_no_gradient_and_inference_mode_runs_forward_only():
@@ -211,24 +254,32 @@ def test_backward_wrapper_refuses_cpu_and_unsupported_inputs():
 
 
 @pytest.mark.cuda
-def test_cuda_backward_kernels_match_plain_twins():
-    """On a CUDA card: B2/B3 against their plain twins (bf16, 3e-2 of the
-    largest |grad|), each launched once."""
+@pytest.mark.parametrize(
+    "D,causal,T,route",
+    [(64, True, 256, "wgmma"), (128, False, 200, "wgmma"),
+     (40, True, 200, "mma.sync")],
+    ids=["d64-causal-t256", "d128-t200", "d40-causal-mma-sync"])
+def test_cuda_backward_kernels_match_plain_twins(D, causal, T, route):
+    """On a CUDA card: B2/B3 against their tile-exact plain twins (bf16,
+    3e-2 of the largest |grad|), each launched once, on the route the
+    entry points pick for the head dim (wgmma + TMA for 64 and 128)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernels run only on the card "
                     "(python3 chip_smoke.py covers them there)")
+    assert fa.bwd_route(torch.bfloat16, D) == route
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(24, 200, 64, generator=gen, device="cuda")
+    q, k, v, do = (torch.randn(24, T, D, generator=gen, device="cuda")
                    .bfloat16() for _ in range(4))
-    bias = torch.zeros(2, 200, device="cuda")
+    bias = torch.zeros(2, T, device="cuda")
     bias[1, 150:] = fa.MASK_VAL
-    o, lse = fa.flash_attention_fwd(q, k, v, bias, False)
+    o, lse = fa.flash_attention_fwd(q, k, v, bias, causal)
     before = fa.launch_counts()
-    grads = fa.flash_attention_bwd(q, k, v, bias, o, lse, do, False)
+    grads = fa.flash_attention_bwd(q, k, v, bias, o, lse, do, causal)
     after = fa.launch_counts()
     assert after["launches_dkv"] == before["launches_dkv"] + 1
     assert after["launches_dq"] == before["launches_dq"] + 1
-    refs = fa.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, False)
+    refs = fa.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, causal,
+                                        causal_tile=fa.CAUSAL_TILE)
     for got, ref in zip(grads, refs):
         err = (got.float() - ref.float()).abs().max()
         assert err <= BF16_TOL * ref.float().abs().max()
