@@ -12,10 +12,12 @@ Phases, each fatal on failure:
    card (bf16 3e-2, fp32 2e-5 — the tolerances of
    tests/test_pallas_attention.py), over BERT-base shapes, padded keys,
    causal, ragged T, Tq != Tk, fully masked rows (causal too), fp32 and
-   other head dims; then kernel, plain twin and
-   F.scaled_dot_product_attention (a yardstick the port never calls)
-   timed with CUDA events at BERT's serving shapes and GPT-2 small's
-   causal training shape;
+   other head dims, and the edges of the wgmma route (serving's B=1
+   T=128, an odd count of 64-row tiles with a sequence fully masked,
+   D=128 causal T=1024), each case printing its route; then kernel,
+   plain twin and F.scaled_dot_product_attention (a yardstick the port
+   never calls) timed with CUDA events at BERT's serving shapes and
+   GPT-2 small's causal training shape;
 4. BERT-base fill-mask serving at full width (12 x 768, 12 heads, vocab
    30522, bf16, seeded random weights) through InferenceEngine +
    DynamicBatcher, with client threads sending mixed requests at T=128
@@ -56,7 +58,8 @@ F.scaled_dot_product_attention.  The twins skip B1's causal tiles
 (causal_tile=CAUSAL_TILE), so every row is held, a causal row whose every
 key is masked included; each case prints the route the kernels took
 (wgmma, mma.sync or cuda-cores).  Phase 2 fails if a Hopper (wgmma)
-kernel spills registers.  Phase 3c holds B4 (word2vec chunk)
+kernel spills registers, and prints the Hopper kernels' dynamic shared
+memory.  Phase 3c holds B4 (word2vec chunk)
 against its plain twin evaluated in fp64 on 11 cases (the JAX test
 shape, text8 and Zipf shapes, padded pairs, negative == target, D=50,
 300 and 600, the last through the kernel's wide path) and B5 (GloVe
@@ -202,12 +205,23 @@ KERNEL_CASES = [
     ("Tq != Tk D=128", 2, 4, 300, 100, 128, "bfloat16", False, [100, 57]),
 ]
 
+#: forward-only cases at the edges of the wgmma B1: serving's smallest
+#: bucket (12 CTAs); an odd count of 64-row tiles, so the last 128-row
+#: CTA's second warpgroup has no rows, with one causal sequence fully
+#: masked; and D=128 causal at GPT-2 small's length
+FWD_CASES = KERNEL_CASES + [
+    ("serving B=1 T=128", 1, 12, 128, 128, 64, "bfloat16", False, [128]),
+    ("causal T=192, one sequence fully masked", 2, 12, 192, 192, 64,
+     "bfloat16", True, [0, 192]),
+    ("D=128 causal T=1024", 2, 4, 1024, 1024, 128, "bfloat16", True, None),
+]
+
 
 def kernel_phase(torch, fa):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     worst = 0.0
-    for name, B, NH, Tq, Tk, D, dt, causal, lens in KERNEL_CASES:
+    for name, B, NH, Tq, Tk, D, dt, causal, lens in FWD_CASES:
         dtype = getattr(torch, dt)
 
         def rand(T):
@@ -240,7 +254,8 @@ def kernel_phase(torch, fa):
                                  rtol=tol, atol=tol)
               and torch.allclose(lse, lse_ref, rtol=tol, atol=tol)
               and bool(torch.isfinite(o.float()).all()))
-        print(f"  kernel case {name!r}: B={B} NH={NH} Tq={Tq} Tk={Tk} "
+        print(f"  kernel case {name!r} [{fa.fwd_route(dtype, D)}]: B={B} "
+              f"NH={NH} Tq={Tq} Tk={Tk} "
               f"D={D} {dt} causal={causal}: max|o-o_plain|={err_o:.3e} "
               f"([B,T,NH,D] path {err_h:.3e}) max|lse-lse_plain|="
               f"{err_lse:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
@@ -273,8 +288,10 @@ def time_flash(torch, F, fa, B, T, NH=12, D=64, causal=False):
             q_s, k_s, v_s, is_causal=causal))
     bound_ms, bound_by = flash_bound(B, NH, T, T, D, 2, causal)
     flops = 4.0 * B * NH * T * T * D * (0.5 if causal else 1.0)
-    print(f"  flash fwd B={B} NH={NH} T={T} D={D} bf16 causal={causal}: "
-          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+    print(f"  flash fwd B={B} NH={NH} T={T} D={D} bf16 causal={causal} "
+          f"[{fa.fwd_route(torch.bfloat16, D)}]: "
+          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{ms / lib_ms:.2f}x sdpa), plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} "
           f"ms ({bound_by}) [events]")
     return ms, plain_ms, lib_ms, bound_ms, bound_by
@@ -1587,11 +1604,14 @@ def main() -> int:
                   f"{kernel} spills {spilled} bytes")
     for D in (64, 128):
         dkv, dq = fa.bwd_wgmma_smem(D)
+        print(f"  wgmma B1 at D={D}: {fa.fwd_wgmma_smem(D)} bytes of dynamic "
+              f"shared memory a CTA")
         print(f"  wgmma B2/B3 at D={D}: {dkv} / {dq} bytes of dynamic "
               f"shared memory a CTA")
 
     print("phase 3: kernels against their plain twins")
     worst = kernel_phase(torch, fa)
+    time_flash(torch, F, fa, B=1, T=128)      # serving's smallest bucket
     time_flash(torch, F, fa, B=32, T=128)
     ms, plain_ms, lib_ms, bound_ms, bound_by = time_flash(
         torch, F, fa, B=32, T=512)

@@ -56,8 +56,8 @@
 // - Tiles sit in shared memory in the 128-byte-swizzled layout that a row
 //   of 64 bf16 fills exactly (hopper_sm90.cuh); D = 128 is two such
 //   column halves.  The tensor maps describe [B, T, NH, D] through the
-//   wrapper's strides and are built here, in the entry point, through
-//   cudaGetDriverEntryPoint (no -lcuda).
+//   wrapper's strides and are built in the entry point (make_map, shared
+//   with the forward in flash_sm90.cuh).
 // - Under causal masking the CTAs with the most tiles launch first, and a
 //   warpgroup whose keys (B2) or rows (B3) a tile cannot reach skips its
 //   products for that tile.
@@ -75,15 +75,13 @@
 //   (B2) or per row (B3), over 32 x 32 tiles; its dot products run in the
 //   forward fp32 kernel's order, so s matches the scores behind lse.
 
-#include <cuda.h>   // CUtensorMap and its enums only; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <stdio.h>
 
 #include "flash_common.cuh"
-#include "hopper_sm90.cuh"
+#include "flash_sm90.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -420,7 +418,6 @@ flash_bwd_dq_bf16_kernel(const BwdParams p) {
 // warpgroup (64 keys); every other case runs two.
 
 constexpr int kStages = 3;   // streamed tiles in flight
-constexpr float kLog2e = 1.4426950408889634f;
 
 // B2: keys per warpgroup are 64; the query tile is 64 rows, 32 at D = 128
 template <int D>
@@ -457,52 +454,6 @@ __device__ __forceinline__ float edge_exponent(const BwdParams& p, float x,
     if (row < key) return (kMaskVal - lse) * kLog2e;
   }
   return x;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// Descriptor of k-step kk (16 k-values) of a K-major [rows][D] tile of
-// `rows` rows, from row r0 on: k runs along the 64-column halves.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows,
-                                                int r0, int kk) {
-  return wgmma_desc(tile + (kk / 4) * rows * 128 + r0 * 128 + (kk % 4) * 32,
-                    16, 1024);
-}
-
-// Descriptor of k-step kk (rows 16kk..16kk+15) of column half hh of an
-// MN-major [rows][D] tile, read through the transpose bit.
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows,
-                                                 int kk, int hh) {
-  return wgmma_desc(tile + hh * rows * 128 + kk * 16 * 128, rows * 128, 1024);
-}
-
-// Two 8-column accumulator blocks (registers 8kk..8kk+7), rounded to bf16,
-// as the register A operand of a k16 step.
-template <int R>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[R],
-                                         int kk) {
-  a[0] = pack_f32_to_bf16x2(c[8 * kk + 0], c[8 * kk + 1]);
-  a[1] = pack_f32_to_bf16x2(c[8 * kk + 2], c[8 * kk + 3]);
-  a[2] = pack_f32_to_bf16x2(c[8 * kk + 4], c[8 * kk + 5]);
-  a[3] = pack_f32_to_bf16x2(c[8 * kk + 6], c[8 * kk + 7]);
-}
-
-// Load a [rows][D] bf16 box at (row, h, b) as D / 64 column halves.
-template <int D>
-__device__ __forceinline__ void tma_tile(unsigned char* dst, int rows,
-                                         const CUtensorMap* map, uint64_t* bar,
-                                         int row, int h, int b) {
-#pragma unroll
-  for (int hh = 0; hh < D / 64; ++hh)
-    tma_load_4d(dst + hh * rows * 128, map, bar, hh * 64, row, h, b);
-}
-
-// A consumer warp is done with a ring stage.
-__device__ __forceinline__ void release_stage(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(empty);
 }
 
 // B2: dK and dV for one block of 64 * WGS keys.
@@ -1172,80 +1123,21 @@ int launch_dq(const BwdParams& p, int is_bf16, int bh, cudaStream_t s) {
                 dim3((p.tq + kBF - 1) / kBF, bh), kThreadsF, smem, p, s);
 }
 
-// cuTensorMapEncodeTiled (a libcuda function), taken through the runtime
-// so the library links without -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 tensor of `bh` = batch * nh heads, `t` tokens and 64 or 128
-// columns, with element strides (sb, sh, st) of batch, head and token, as
-// the 4-D map (column, token, head, batch) read in boxes of 64 columns x
-// `rows` tokens with the 128-byte swizzle.  Tokens past t load as zeros.
-int make_map(CUtensorMap* map, const void* base, long long sb, long long sh,
-             long long st, int nh, int bh, int t, int d, int rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  if (nh == 1) sh = st;   // one head: its stride is never used, must be > 0
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(nh),
-                              static_cast<cuuint64_t>(bh / nh)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                            const_cast<void*>(base), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) {
-    fprintf(stderr, "flash_bwd: cuTensorMapEncodeTiled returned %d\n",
-            static_cast<int>(r));
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
-}
-
 // Tensor maps of q, k, v and dout; q and dout in boxes of q_rows tokens,
 // k and v of k_rows.
 int make_maps(CUtensorMap (&m)[4], const BwdParams& p, int bh, int q_rows,
               int k_rows) {
   int err = make_map(&m[0], p.q, p.q_sb, p.q_sh, p.q_st, p.nh, bh, p.tq, p.d,
-                     q_rows);
+                     q_rows, "flash_bwd");
   if (!err)
     err = make_map(&m[1], p.k, p.k_sb, p.k_sh, p.k_st, p.nh, bh, p.tk, p.d,
-                   k_rows);
+                   k_rows, "flash_bwd");
   if (!err)
     err = make_map(&m[2], p.v, p.v_sb, p.v_sh, p.v_st, p.nh, bh, p.tk, p.d,
-                   k_rows);
+                   k_rows, "flash_bwd");
   if (!err)
     err = make_map(&m[3], p.dout, p.do_sb, p.do_sh, p.do_st, p.nh, bh, p.tq,
-                   p.d, q_rows);
+                   p.d, q_rows, "flash_bwd");
   return err;
 }
 
@@ -1315,15 +1207,6 @@ BwdParams make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-// Which kernels take a case: bf16 with D = 64 or 128 the Hopper kernels
-// (wgmma + TMA), other bf16 the mma.sync kernels, fp32 the CUDA-core ones.
-enum Route { kRouteCudaCores = 0, kRouteMmaSync = 1, kRouteWgmma = 2 };
-
-int route(int is_bf16, int d) {
-  if (!is_bf16) return kRouteCudaCores;
-  return (d == 64 || d == 128) ? kRouteWgmma : kRouteMmaSync;
-}
-
 }  // namespace
 
 extern "C" {
@@ -1344,7 +1227,7 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   dv, strides, nh, bias_nh, tq, tk, d,
                                   causal, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route(is_bf16, d) == kRouteWgmma)
+  if (flash_route(is_bf16, d) == kRouteWgmma)
     return d == 64 ? launch_dkv_wgmma<64>(p, bh, s)
                    : launch_dkv_wgmma<128>(p, bh, s);
   if (d <= 64) return launch_dkv<64>(p, is_bf16, bh, s);
@@ -1364,7 +1247,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                                   dv, strides, nh, bias_nh, tq, tk, d,
                                   causal, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route(is_bf16, d) == kRouteWgmma)
+  if (flash_route(is_bf16, d) == kRouteWgmma)
     return d == 64 ? launch_dq_wgmma<64>(p, bh, s)
                    : launch_dq_wgmma<128>(p, bh, s);
   if (d <= 64) return launch_dq<64>(p, is_bf16, bh, s);
@@ -1373,7 +1256,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // The kernels a case takes: 2 wgmma + TMA, 1 mma.sync, 0 CUDA cores.
-int flash_bwd_route(int is_bf16, int d) { return route(is_bf16, d); }
+int flash_bwd_route(int is_bf16, int d) { return flash_route(is_bf16, d); }
 
 // Dynamic shared memory of a Hopper kernel (kernel 0: B2, 1: B3) at head
 // dim d, in bytes; 0 where the case takes another route.

@@ -71,6 +71,35 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
+// Copy 4 bytes from global to shared memory asynchronously (cp.async);
+// zeros when !live (src is then not read).
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on `bar`, made once every cp.async this thread issued
+// before has landed; it counts against the barrier's expected count.
+__device__ __forceinline__ void mbar_arrive_on_cp_async(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// Named barriers 1..15 (0 is __syncthreads): sync waits until `threads`
+// threads have synced or arrived; arrive counts this thread and goes on.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------

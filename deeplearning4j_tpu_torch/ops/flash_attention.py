@@ -9,10 +9,12 @@ replace the three Pallas kernels there:
   the fp32 logsumexp saved beside the output for the backward kernels;
 - B2 and B3, ``csrc/flash_bwd.cu``: the backward ``_bwd_dkv_kernel``
   (:188) and ``_bwd_dq_kernel`` (:240), launched by ``_bwd`` (:281),
-  which rebuild p = exp(s - lse) from the saved lse.  The C entry points
-  route bf16 with D = 64 or 128 to Hopper kernels (wgmma + TMA), other
-  bf16 to mma.sync kernels and fp32 to CUDA-core ones
-  (:func:`bwd_route` reports the choice).
+  which rebuild p = exp(s - lse) from the saved lse.
+
+The C entry points of both route bf16 with D = 64 or 128 to Hopper
+kernels (wgmma + TMA), other bf16 to mma.sync kernels and fp32 to
+CUDA-core ones (:func:`fwd_route` and :func:`bwd_route` report the
+choice).
 
 Entry points:
 
@@ -228,7 +230,10 @@ _ARGTYPES = {
     # q, k, v, bias, o, lse, strides; is_bf16, bh, nh, bias_nh, tq, tk, d,
     # causal; scale; stream
     "flash_fwd": {"flash_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                  + [ctypes.c_float, ctypes.c_void_p]},
+                  + [ctypes.c_float, ctypes.c_void_p],
+                  # is_bf16, d / d
+                  "flash_fwd_route": [ctypes.c_int] * 2,
+                  "flash_fwd_wgmma_smem": [ctypes.c_int]},
     # q, k, v, dout, bias, lse, delta, dq, dk, dv, strides; the same ints;
     # scale; stream
     "flash_bwd": {**{fn: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
@@ -238,8 +243,8 @@ _ARGTYPES = {
                   "flash_bwd_route": [ctypes.c_int] * 2,
                   "flash_bwd_wgmma_smem": [ctypes.c_int] * 2},
 }
-#: flash_bwd_route's answers: which kernels B2 and B3 run for a case
-BWD_ROUTES = {2: "wgmma", 1: "mma.sync", 0: "cuda-cores"}
+#: flash_fwd_route's and flash_bwd_route's answers: which kernels run
+ROUTES = {2: "wgmma", 1: "mma.sync", 0: "cuda-cores"}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -250,13 +255,28 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def fwd_route(dtype: torch.dtype, D: int) -> str:
+    """Which kernel B1 runs for ``dtype`` and head dim ``D``, as the C
+    entry point chooses (the library is built if needed, so this needs
+    nvcc): ``"wgmma"`` (bf16 with D = 64 or 128: wgmma + TMA),
+    ``"mma.sync"`` (other bf16) or ``"cuda-cores"`` (fp32)."""
+    lib = _library("flash_fwd")
+    return ROUTES[lib.flash_fwd_route(int(dtype == torch.bfloat16), D)]
+
+
+def fwd_wgmma_smem(D: int) -> int:
+    """Dynamic shared memory (bytes) of the wgmma B1 at head dim ``D``
+    (0 where the case takes another route)."""
+    return _library("flash_fwd").flash_fwd_wgmma_smem(D)
+
+
 def bwd_route(dtype: torch.dtype, D: int) -> str:
     """Which kernels B2 and B3 run for ``dtype`` and head dim ``D``, as
     the C entry points choose (the library is built if needed, so this
     needs nvcc): ``"wgmma"`` (bf16 with D = 64 or 128: wgmma + TMA),
     ``"mma.sync"`` (other bf16) or ``"cuda-cores"`` (fp32)."""
     lib = _library("flash_bwd")
-    return BWD_ROUTES[lib.flash_bwd_route(int(dtype == torch.bfloat16), D)]
+    return ROUTES[lib.flash_bwd_route(int(dtype == torch.bfloat16), D)]
 
 
 def bwd_wgmma_smem(D: int) -> Tuple[int, int]:

@@ -205,20 +205,29 @@ def test_kernel_wrapper_refuses_cpu_and_unsupported_inputs():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_twin():
-    """On a CUDA card: the kernel against its plain twin (bf16 3e-2)."""
+@pytest.mark.parametrize(
+    "D,causal,T,route",
+    [(64, True, 256, "wgmma"), (128, False, 200, "wgmma"),
+     (40, True, 200, "mma.sync")],
+    ids=["d64-causal-t256", "d128-t200", "d40-causal-mma-sync"])
+def test_cuda_kernel_matches_plain_twin(D, causal, T, route):
+    """On a CUDA card: B1 against its tile-exact plain twin (bf16 3e-2),
+    launched once, on the route the entry point picks for the head dim
+    (wgmma + TMA for 64 and 128)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernel runs only on the card "
                     "(python3 chip_smoke.py covers it there)")
+    assert fa.fwd_route(torch.bfloat16, D) == route
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(24, 200, 64, generator=gen, device="cuda")
+    q, k, v = (torch.randn(24, T, D, generator=gen, device="cuda")
                .bfloat16() for _ in range(3))
-    bias = torch.zeros(2, 200, device="cuda")
+    bias = torch.zeros(2, T, device="cuda")
     bias[1, 150:] = fa.MASK_VAL
     before = fa.launches
-    o, lse = fa.flash_attention_fwd(q, k, v, bias, False)
+    o, lse = fa.flash_attention_fwd(q, k, v, bias, causal)
     assert fa.launches == before + 1
-    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, bias, False)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(
+        q, k, v, bias, causal, causal_tile=fa.CAUSAL_TILE)
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=3e-2,
                                atol=3e-2)
     torch.testing.assert_close(lse, lse_ref, rtol=3e-2, atol=3e-2)
