@@ -28,13 +28,16 @@ Phases, each fatal on failure:
 5. BERT-base MLM training (B=32, T=128, dropout 0.1) and
 6. GPT-2 small causal-LM training (B=8, T=1024), each through the
    model's make_train_step defaults (flash attention, adamw) at full
-   width: 2 warm-up and 10 timed steps on a fixed batch.  Checks: the
-   loss is finite and falls; B1, B2 and B3 each launch once per layer
-   per step; one dropout-0 step's gradients through the kernels agree
+   width: 2 warm-up and 10 timed steps on a fixed batch, each block
+   recomputed in the backward (cfg.remat).  Checks: the loss is finite
+   and falls; B2 and B3 launch once per layer per step and B1 twice
+   (forward and recompute); one dropout-0 step's gradients through the
+   kernels agree
    with the plain attention's (global relative L2 <= 3e-2), and for
    BERT an fp32-compute step at depth 2 within 1e-4.  Prints step ms,
    tokens/s, the model-FLOPs share of 989 TFLOP/s and a profile of one
-   step (B1/B2/B3, forward and backward products, optimizer).
+   step (B1/B2/B3, forward and backward products, optimizer, fp32 adds
+   and fills) and the peak memory.
 
 7. word2vec (the bench.py:676-678 config: D=100, window 5, 5 negatives,
    HS, batch 16,384) on data/text8 (50-word sentences, min count 5):
@@ -59,14 +62,21 @@ F.scaled_dot_product_attention.  The twins skip B1's causal tiles
 key is masked included; each case prints the route the kernels took
 (wgmma, mma.sync or cuda-cores).  Phase 2 fails if a Hopper (wgmma)
 kernel spills registers, and prints the Hopper kernels' dynamic shared
-memory.  Phase 3c holds B4 (word2vec chunk)
-against its plain twin evaluated in fp64 on 11 cases (the JAX test
-shape, text8 and Zipf shapes, padded pairs, negative == target, D=50,
-300 and 600, the last through the kernel's wide path) and B5 (GloVe
-chunk) against its twin on 5 (D=600 the wide path), with tolerances
-from each chunk's hit counts (see U32; B5's per entry), and times both
-at the text8 and Zipf shapes beside their twins and bounds; no PyTorch
-call computes either function, so they have no library time.
+memory.  Phase 3c holds B4 (word2vec chunk, which updates its tables in
+place, so each call gets copies) against its plain twin evaluated in
+fp64 on 11 cases (the JAX test shape, text8 and Zipf shapes, padded
+pairs, negative == target, D=50, 300 and 600, the last through the
+kernel's wide path) and B5 (GloVe chunk) in its accumulator mode against
+its twin on 5 (D=600 the wide path), and B5's in-place chunk step
+against glove_chunk_step_plain on 4 of them (text8, Zipf, 25% masked,
+D=600), with tolerances from each chunk's hit counts (see U32; B5's per
+entry, carried through the AdaGrad step for the step cases).  It times
+both at the text8 and Zipf shapes: B4's call as the device time summed
+over its phases (profiler) and as a whole call (CUDA events), B5's chunk
+step beside the old composition (accumulator mode, two apply_chunk, the
+cat and the slice writes) in the same run, each beside its twin and
+bound; no PyTorch call computes either function, so they have no
+library time.
 
 Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 Exits non-zero, printing no result, when CUDA is absent or any phase
@@ -417,6 +427,37 @@ def profile_kernel_ms(torch, fn, names, iters: int = 20):
     return out
 
 
+def profile_call_ms(torch, fn, iters: int = 20):
+    """(device ms per call summed over every kernel and memset a call of
+    ``fn`` launches, {name: ms per call}), torch.profiler over ``iters``
+    calls after 3 warm-up calls.  A profile that reports no device time
+    (the profiler on the card has returned an empty trace now and then)
+    is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by = {e.key: e.self_device_time_total / 1e3 / iters
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0}
+        if by:
+            break
+    return sum(by.values()), by
+
+
+def phases(by, marks):
+    """One line of a call's device ms by phase: each mark's kernels."""
+    return ", ".join(f"{m} {sum(ms for k, ms in by.items() if m in k):.4f}"
+                     for m in marks)
+
+
 def time_flash_bwd(torch, F, fa, B, T, NH=12, D=64, causal=False):
     """B2 and B3 (device time of each, from the profiler), the whole
     backward call (CUDA events), their plain twins, and the backward of
@@ -721,6 +762,15 @@ WARMUP_STEPS = 2
 TIMED_STEPS = 10
 
 
+def launches_per_step(cfg):
+    """B1/B2/B3 launches of one training step: each layer's backward runs
+    B2 and B3 once; its forward runs B1 once, and again in the backward
+    when cfg.remat recomputes the block (as jax.checkpoint does)."""
+    L = cfg.n_layers
+    return {"launches": (2 if cfg.remat else 1) * L, "launches_dkv": L,
+            "launches_dq": L}
+
+
 def bert_train_flops(cfg, batch: int, seq: int) -> float:
     """Analytic matmul FLOPs for one BERT MLM training step (fwd*3):
     per layer 8BTh² (qkv+out) + 4BTh·ffn (mlp) + 4BT²h (scores+values),
@@ -827,8 +877,50 @@ def profile_step(torch, tfm, updaters, what, step_fn, state, batch, gen,
           f"{g_all - g_fwd:.3f} ms ({(g_all - g_fwd) / busy:.1%}); "
           f"optimizer {opt:.3f} ms ({opt / busy:.1%}, profiled alone); "
           f"the rest {other:.3f} ms ({other / busy:.1%})")
+    vec_add, add, fill = fp32_add_fill_ms(step_k)
+    print(f"  {what} profile of one step: fp32 add {vec_add:.3f} ms "
+          f"(vectorized CUDAFunctor_add<float>; every fp32 add kernel "
+          f"{add:.3f} ms), fills {fill:.3f} ms")
     for key, ms in sorted(step_k.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {ms:8.3f} ms  {key[:100]}")
+
+
+def fp32_add_fill_ms(by_kernel):
+    """(device ms of the vectorized fp32 add kernel, of every fp32 add
+    kernel, of fills) in a profile.  Summing per-layer gradients of the
+    stacked weights at full size ran in the first and the fills; one
+    unbind per leaf removed that."""
+    vec = sum(ms for k, ms in by_kernel.items()
+              if "vectorized_elementwise_kernel" in k
+              and "CUDAFunctor_add<float>" in k)
+    add = sum(ms for k, ms in by_kernel.items()
+              if "add" in k.lower() and "<float>" in k)
+    fill = sum(ms for k, ms in by_kernel.items() if "FillFunctor" in k)
+    return vec, add, fill
+
+
+def remat_comparison(torch, mod, cfg, what, state, batch, gen, step_fn,
+                     peak_on: float) -> None:
+    """One step with cfg.remat off beside one with it on, in this run:
+    peak memory and device time, and the fp32 adds and fills of each."""
+    _, step_off = mod.make_train_step(dataclasses.replace(cfg, remat=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_off(state, batch, gen)
+    torch.cuda.synchronize()
+    peak_off = torch.cuda.max_memory_allocated() / 1e9
+    on = device_ms_by_kernel(torch, lambda: step_fn(state, batch, gen))
+    off = device_ms_by_kernel(torch, lambda: step_off(state, batch, gen))
+    if not on or not off:
+        print(f"  {what}: remat comparison: no device time reported")
+        return
+    (va_on, a_on, f_on), (va_off, a_off, f_off) = (fp32_add_fill_ms(on),
+                                                   fp32_add_fill_ms(off))
+    print(f"  {what}: remat on vs off, one step each: peak memory "
+          f"{peak_on:.2f} vs {peak_off:.2f} GB; device busy "
+          f"{sum(on.values()):.2f} vs {sum(off.values()):.2f} ms; fp32 add "
+          f"(vectorized) {va_on:.3f} vs {va_off:.3f} ms, every fp32 add "
+          f"{a_on:.3f} vs {a_off:.3f} ms, fills {f_on:.3f} vs {f_off:.3f} ms")
 
 
 def train_phase(torch, fa, what, mod, cfg, batch, flops, loss_of):
@@ -871,15 +963,17 @@ def train_phase(torch, fa, what, mod, cfg, batch, flops, loss_of):
           f"{max(step_s) * 1e3:.2f}), {tokens / (ms / 1e3):.1f} tokens/s, "
           f"model FLOPs {flops / 1e12:.3f} TFLOP/step = "
           f"{flops / (ms / 1e3) / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; "
-          f"peak memory {peak_gb:.2f} GB")
+          f"peak memory {peak_gb:.2f} GB (remat "
+          f"{'on' if cfg.remat else 'off'})")
     print(f"  {what}: launches over the {TIMED_STEPS} timed steps: {counts} "
           f"({cfg.n_layers} layers)")
     check(all(np.isfinite(losses)), f"{what}: non-finite loss {losses}")
     check(losses[-1] < losses[WARMUP_STEPS],
           f"{what}: loss did not fall over the timed steps: {losses}")
+    expect = launches_per_step(cfg)
     for name, n in counts.items():
-        check(n == cfg.n_layers * TIMED_STEPS,
-              f"{what}: {name} = {n}, not {cfg.n_layers} per step")
+        check(n == expect[name] * TIMED_STEPS,
+              f"{what}: {name} = {n}, not {expect[name]} per step")
 
     # -- kernel-path gradients against the plain attention ----------------
     cfg0 = dataclasses.replace(cfg, dropout=0.0)
@@ -901,6 +995,8 @@ def train_phase(torch, fa, what, mod, cfg, batch, flops, loss_of):
     profile_step(torch, tfm, updaters, what, step_fn, state, batch,
                  dropout_gen, lambda p: loss_of(cfg0, p, kernel_attn),
                  optimizer, ms)
+    remat_comparison(torch, mod, cfg, what, state, batch, dropout_gen,
+                     step_fn, peak_gb)
     return counts
 
 
@@ -942,8 +1038,9 @@ def fp32_check(torch, fa, bert, cfg, batch) -> None:
           f"{rel:.3e} (tolerance {GRAD_TOL_FP32:g}); largest error in {leaf} "
           f"(relative {leaf_rel:.3e}); fp32 kernel launches "
           f"{ {k: after[k] - before[k] for k in after} }")
-    check(all(after[k] - before[k] == 2 for k in after),
-          "fp32 step did not launch each kernel once per layer")
+    expect = launches_per_step(c32)
+    check(all(after[k] - before[k] == expect[k] for k in after),
+          f"fp32 step's launches are not {expect}")
     check(rel <= GRAD_TOL_FP32, f"fp32 kernel-path gradients differ by {rel}")
 
 
@@ -974,8 +1071,9 @@ PEAK_FP32_FLOPS = 67e12
 #: B4 is held against its twin evaluated in fp64: the fp32 twin, like
 #: JAX's .at[].add, adds each of a row's n terms into the table itself,
 #: so at the Huffman root (n = 16,384) its own rounding is ~1e-5, larger
-#: than the update it checks.  B4 sums into zeroed accumulators and adds
-#: a row's mean once: each table is within 2 * n_max * u * t + 4 * u *
+#: than the update it checks.  B4 sums each row's terms in registers (and
+#: a split row's segments in scratch) and adds a row's mean once: each
+#: table is within 2 * n_max * u * t + 4 * u *
 #: max|table| of the exact result, with t the largest term (alpha *
 #: max|l1| for syn1/syn1neg, alpha * (L+K+1) * max|partner row| for
 #: syn0) and n_max the chunk's most-hit row (for syn0 on the wide path,
@@ -1062,22 +1160,19 @@ def w2v_partners(torch, c, use_hs, K):
 
 
 def w2v_work(torch, c, V0, D, use_hs, K):
-    """(bytes, flops, hot-row share) B4 needs for chunk ``c``: the index
-    arrays once, each distinct table row read once, each distinct
-    accumulator row written once; 6*D FLOPs per live (pair, partner); the
-    share of its atomic adds that land on the 16 most-hit rows."""
+    """(bytes, flops, touched rows, the most hits on one row) of chunk
+    ``c``: the least work is the index arrays once and each touched row
+    of syn0, syn1 and syn1neg read once and written once; 6*D FLOPs per
+    live (pair, partner)."""
     B = c["inputs"].shape[0]
     L = c["codes"].shape[1] if use_hs else 0
     pts, rows, in_hs, in_ng = w2v_partners(torch, c, use_hs, K)
-    # hits per row of acc0, acc1 and accn; each hit is D+1 atomic adds
     hits = [torch.bincount(x, minlength=V0)
             for x in (torch.cat([in_hs, in_ng]), pts, rows)]
-    adds = torch.cat([h[h > 0] for h in hits]).double()
-    hot = float(adds.topk(min(16, adds.numel())).values.sum() / adds.sum())
-    n0, n1, nn = (int((h > 0).sum()) for h in hits)
-    nbytes = (4 * B * (3 + 3 * L + K) + 4 * D * (n0 + n1 + nn)
-              + 4 * (D + 1) * (2 * n0 + n1 + nn))
-    return nbytes, 6.0 * D * (pts.numel() + rows.numel()), hot
+    touched = sum(int((h > 0).sum()) for h in hits)
+    nbytes = 4 * B * (3 + 3 * L + K) + 8 * D * touched
+    most = max(int(h.max()) if h.numel() else 0 for h in hits)
+    return nbytes, 6.0 * D * (pts.numel() + rows.numel()), touched, most
 
 
 def bound(nbytes, flops):
@@ -1174,7 +1269,9 @@ def w2v_kernel_phase(torch, fw, cases):
                 c["points"], c["mask"], c["negs"][:, :max(K, 1)],
                 c["pmask"], 0.025)
         kw = dict(use_hs=hs, negative=K)
-        got = fw.fused_chunk_update_cuda(*args, **kw)
+        # B4 updates the tables it is given in place; the twins reuse args
+        got = fw.fused_chunk_update_cuda(*(a.clone() for a in args[:3]),
+                                         *args[3:], **kw)
         ref = fw.fused_chunk_update_plain(
             *(a.double() if torch.is_tensor(a) and a.is_floating_point()
               else a for a in args), **kw)
@@ -1198,23 +1295,37 @@ def w2v_kernel_phase(torch, fw, cases):
         check(ok, f"B4 disagrees with its plain twin: {name}")
         worst = max(worst, *errs)
         if time_it:
-            ms = profile_kernel_ms(torch, lambda: fw.fused_chunk_update_cuda(
-                *args, **kw), ("w2v_chunk_kernel",))["w2v_chunk_kernel"]
-            call_ms = time_ms(torch, lambda: fw.fused_chunk_update_cuda(
-                *args, **kw), iters=20)
+            tabs = [a.clone() for a in args[:3]]
+
+            def call():
+                fw.fused_chunk_update_cuda(*tabs, *args[3:], **kw)
+
+            ms, by = profile_call_ms(torch, call)
+            call_ms = time_ms(torch, call, iters=20)
             plain_ms = time_ms(torch, lambda: fw.fused_chunk_update_plain(
                 *args, **kw), iters=10)
-            nbytes, flops, hot = w2v_work(torch, c, V, D, hs, K)
+            nbytes, flops, touched, most = w2v_work(torch, c, V, D, hs, K)
             b_ms, b_by = bound(nbytes, flops)
-            print(f"  B4 timing {name!r}: kernel {ms:.4f} ms [profiler], "
-                  f"whole update call {call_ms:.4f} ms [events], plain twin "
-                  f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+            print(f"  B4 timing {name!r}: kernels {ms:.4f} ms a call "
+                  f"[profiler, every phase summed: "
+                  + phases(by, W2V_PHASES)
+                  + f"], whole update call {call_ms:.4f} ms [events], plain "
+                  f"twin {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
                   f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
-                  f"{hot:.1%} of the atomic adds land on the 16 most-hit "
-                  f"rows; library: none (no one PyTorch call computes it)")
+                  f"{touched} touched rows, at most {most} hits on one, "
+                  f"segments of {fw.SEGMENT}; library: none (no one PyTorch "
+                  f"call computes it)")
             check(ms > 0, "the profiler saw no device time for B4")
-            rows.append((name, ms, plain_ms, b_ms, b_by, call_ms, hot))
+            rows.append((name, ms, plain_ms, b_ms, b_by, call_ms))
     return worst, rows
+
+
+#: the kernels (and memset) of one B4 call, by phase
+W2V_PHASES = ("Memset", "w2v_phase_a", "scan_kernel", "scatter_kernel",
+              "w2v_reduce_syn_kernel", "w2v_reduce_syn0_kernel")
+#: and of one B5 call
+GLOVE_PHASES = ("Memset", "glove_score", "scan_kernel", "scatter_kernel",
+                "glove_reduce_kernel", "glove_apply_kernel")
 
 
 def glove_case_chunks(torch, text8_triples, zipf_probs):
@@ -1229,24 +1340,26 @@ def glove_case_chunks(torch, text8_triples, zipf_probs):
                 t(mask, device="cuda", dtype=torch.float32))
 
     V, B = 64, 128
-    cases.append(("V=64 D=32 B=128 (the JAX test's shape)", False, chunk(
-        V, 32, rng.randint(0, V, B), rng.randint(0, V, B),
-        rng.rand(B) * 50 + 1, (rng.rand(B) < 0.9).astype(np.float32))))
+    cases.append(("V=64 D=32 B=128 (the JAX test's shape)", False, False,
+                  chunk(V, 32, rng.randint(0, V, B), rng.randint(0, V, B),
+                        rng.rand(B) * 50 + 1,
+                        (rng.rand(B) < 0.9).astype(np.float32))))
     B = 4096
     r, c, x, V8 = text8_triples
     sel = rng.permutation(r.size)[:B]
-    cases.append((f"text8 V={V8} D=100 B=4096", True,
+    cases.append((f"text8 V={V8} D=100 B=4096", True, True,
                   chunk(V8, 100, r[sel], c[sel], x[sel], np.ones(B))))
     zr = rng.choice(ZIPF_VOCAB, p=zipf_probs, size=B)
     zc = rng.choice(ZIPF_VOCAB, p=zipf_probs, size=B)
     zx = np.exp(rng.uniform(np.log(0.1), np.log(1000.0), B))
     cases.append((f"Zipf V={ZIPF_VOCAB} D=100 B=4096, x from 0.1 to 1000",
-                  True, chunk(ZIPF_VOCAB, 100, zr, zc, zx, np.ones(B))))
-    cases.append(("text8, x on both sides of x_max, 25% masked", False,
+                  True, True, chunk(ZIPF_VOCAB, 100, zr, zc, zx,
+                                    np.ones(B))))
+    cases.append(("text8, x on both sides of x_max, 25% masked", False, True,
                   chunk(V8, 100, r[sel], c[sel], zx,
                         (rng.rand(B) < 0.75).astype(np.float32))))
     cases.append(("text8 D=600 B=4096, the wide path (D+2 > 512)", False,
-                  chunk(V8, 600, r[sel], c[sel], x[sel], np.ones(B))))
+                  True, chunk(V8, 600, r[sel], c[sel], x[sel], np.ones(B))))
     return cases
 
 
@@ -1297,11 +1410,55 @@ def glove_tolerances(torch, args, x_max, power):
             side(c, torch.cat([wi[:, :D], wi[:, D + 1:]], 1)), tol_loss)
 
 
+def glove_step_tolerances(torch, fg, args, gext, gtext, alpha, x_max,
+                          power):
+    """B5's chunk step against glove_chunk_step_plain, per entry of
+    (wext, wtext, gext, gtext), worked out in fp64: glove_tolerances
+    bounds the two's sums (ds, dq) and the AdaGrad step carries them,
+    with k the row's hits, as grad = s/k within ds/k + 2u|grad|, g2 =
+    gsq + q/k^2 within dq/k^2 + 4u|g2|, step = alpha * grad / sqrt(G),
+    G = g2 + 1e-8, within alpha * dgrad / sqrt(G) + alpha * |grad| *
+    dg2 / (2 G^1.5) + 6u|step|, and the new weight within dstep +
+    2u|w - step|."""
+    acc_tols = glove_tolerances(torch, args, x_max, power)
+    wext, wtext, r, c, x, m = (a.double() if a.is_floating_point() else a
+                               for a in args)
+    accs = fg.fused_glove_chunk_plain(wext, wtext, r, c, x, m, x_max=x_max,
+                                      power=power)
+    D = wext.shape[1] - 2
+    d1 = D + 1
+    out = []
+    for acc, tol, table_b, gsq in (
+            (accs[0], acc_tols[0], wext[:, :d1], gext.double()),
+            (accs[1], acc_tols[1],
+             torch.cat([wtext[:, :D], wtext[:, D + 1:]], 1), gtext.double())):
+        k = acc[:, 2 * d1:].clamp_min(1.0)
+        grad = acc[:, :d1] / k
+        g2 = gsq + acc[:, d1:2 * d1] / (k * k)
+        G = g2 + 1e-8
+        step = alpha * grad / G.sqrt()
+        dgrad = tol[:, :d1] / k + 2 * U32 * grad.abs()
+        dg2 = tol[:, d1:2 * d1] / (k * k) + 4 * U32 * g2.abs()
+        dstep = (alpha * dgrad / G.sqrt()
+                 + alpha * grad.abs() * dg2 / (2 * G ** 1.5)
+                 + 6 * U32 * step.abs())
+        out.append((dstep + 2 * U32 * (table_b - step).abs(), dg2))
+    zero = torch.zeros_like(out[0][0][:, :1])
+    (dwi, dgi), (dwj, dgj) = out
+    return (torch.cat([dwi, zero], 1),                       # (w | b | 1)
+            torch.cat([dwj[:, :D], zero, dwj[:, D:]], 1),    # (wt | 1 | bt)
+            dgi, dgj)
+
+
 def glove_kernel_phase(torch, fg, cases):
+    """B5's accumulator mode against fused_glove_chunk_plain on every
+    case, its chunk step against glove_chunk_step_plain on the step
+    cases, and at the timed shapes the step's device time beside the old
+    composition's.  Returns (worst |diff|, timing rows)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     worst, rows = 0.0, []
-    for name, time_it, (V, D, r, c, x, m) in cases:
+    for name, time_it, step_case, (V, D, r, c, x, m) in cases:
         ones = torch.ones((V, 1), device="cuda")
         w, wt = (torch.randn((V, D), generator=gen, device="cuda") * 0.1
                  for _ in range(2))
@@ -1336,25 +1493,83 @@ def glove_kernel_phase(torch, fg, cases):
               + " ".join(f"{float(t):.2e}" for t in tols[2][0]))
         check(ok, f"B5 disagrees with its plain twin: {name}")
         worst = max(worst, *errs)
-        if time_it:
-            ms = profile_kernel_ms(torch, lambda: fg.fused_glove_chunk_cuda(
-                *args, **kw), ("glove_chunk_kernel",))["glove_chunk_kernel"]
-            plain_ms = time_ms(torch, lambda: fg.fused_glove_chunk_plain(
-                *args, **kw), iters=10)
-            # the four [B] inputs once; each distinct live row of wext
-            # and wtext read once, its accumulator row written once
-            live = m > 0
-            rows_hit = (torch.unique(r[live]).numel()
-                        + torch.unique(c[live]).numel())
-            nbytes = 16 * r.numel() + 4 * rows_hit * (3 * D + 5) + 8
-            flops = 6.0 * D * int(live.sum())
-            b_ms, b_by = bound(nbytes, flops)
-            print(f"  B5 timing {name!r}: kernel {ms:.4f} ms [profiler], "
-                  f"plain twin {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
-                  f"({b_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
-                  f"GFLOP); library: none (no one PyTorch call computes it)")
-            check(ms > 0, "the profiler saw no device time for B5")
-            rows.append((name, ms, plain_ms, b_ms, b_by))
+        if not step_case:
+            continue
+
+        # the fused chunk step, in place on copies, against its twin
+        gext, gtext = (torch.rand((V, d1), generator=gen, device="cuda")
+                       * 0.1 + 1e-8 for _ in range(2))
+        alpha = 0.05
+        state = (args[0], args[1], gext, gtext)
+        *step_ref, ls_ref = fg.glove_chunk_step_plain(*state, *args[2:],
+                                                      alpha, **kw)
+        *step_got, ls = fg.glove_chunk_step_cuda(
+            *(t.clone() for t in state), *args[2:], alpha, **kw)
+        torch.cuda.synchronize()
+        step_tols = glove_step_tolerances(torch, fg, args, gext, gtext,
+                                          alpha, **kw)
+        step_ratios = [float(((g.double() - rf.double()).abs()
+                              / tol.clamp_min(1e-300)).max())
+                       for g, rf, tol in zip(step_got, step_ref, step_tols)]
+        loss_ratio = float(((ls.double() - ls_ref.double()).abs()
+                            / tols[2].clamp_min(1e-300)).max())
+        step_errs = [float((g - rf).abs().max())
+                     for g, rf in zip(step_got, step_ref)]
+        ok = (max(step_ratios + [loss_ratio]) <= 1.0
+              and all(bool(g.isfinite().all()) for g in step_got))
+        print(f"  B5 step case {name!r}: max|diff| wext {step_errs[0]:.3e} "
+              f"wtext {step_errs[1]:.3e} gext {step_errs[2]:.3e} gtext "
+              f"{step_errs[3]:.3e}; largest diff/tolerance per entry "
+              + " ".join(f"{q:.3f}" for q in step_ratios)
+              + f", loss {loss_ratio:.3f} {'ok' if ok else 'FAIL'}")
+        check(ok, f"B5's chunk step disagrees with its plain twin: {name}")
+        worst = max(worst, *step_errs)
+        if not time_it:
+            continue
+        tabs = [t.clone() for t in state]
+
+        def fused():
+            fg.glove_chunk_step_cuda(*tabs, *args[2:], alpha, **kw)
+
+        def old_composition():
+            wext, wtext, gx, gt = tabs
+            accw, accwt, _ = fg.fused_glove_chunk_cuda(wext, wtext,
+                                                       *args[2:], **kw)
+            wb, gx2 = fg.apply_chunk(wext[:, :D + 1], gx, accw, alpha)
+            wtb, gt2 = fg.apply_chunk(
+                torch.cat([wtext[:, :D], wtext[:, D + 1:]], 1), gt, accwt,
+                alpha)
+            wext[:, :D + 1] = wb
+            wtext[:, :D] = wtb[:, :D]
+            wtext[:, D + 1] = wtb[:, D]
+            gx.copy_(gx2)
+            gt.copy_(gt2)
+
+        old_ms, _ = profile_call_ms(torch, old_composition)
+        ms, by = profile_call_ms(torch, fused)
+        old_ms2, _ = profile_call_ms(torch, old_composition)
+        plain_ms = time_ms(torch, lambda: fg.glove_chunk_step_plain(
+            *state, *args[2:], alpha, **kw), iters=10)
+        # the four [B] inputs once; each touched row of each side: its
+        # extended row read, its D+1 update columns and AdaGrad sums read
+        # and written
+        live = m > 0
+        rows_hit = (torch.unique(r[live]).numel()
+                    + torch.unique(c[live]).numel())
+        nbytes = 16 * r.numel() + 4 * rows_hit * (4 * D + 5) + 8
+        flops = 6.0 * D * int(live.sum())
+        b_ms, b_by = bound(nbytes, flops)
+        old = min(old_ms, old_ms2)
+        print(f"  B5 timing {name!r}: chunk step {ms:.4f} ms [profiler, "
+              f"every phase summed: " + phases(by, GLOVE_PHASES)
+              + f"]; the old composition (accumulators, two apply_chunk, "
+              f"cat, slice writes) {old_ms:.4f} / {old_ms2:.4f} ms, the step "
+              f"at {ms / old:.2f}x of it; plain twin {plain_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP); library: none (no one PyTorch "
+              f"call computes it)")
+        check(ms > 0, "the profiler saw no device time for B5")
+        rows.append((name, ms, plain_ms, b_ms, b_by, old))
     return worst, rows
 
 
@@ -1701,16 +1916,18 @@ def main() -> int:
             "bound_by": k_by,
             "library_ms": k_lib,
         })
-    # B4 and B5 at the text8 main-path shape (the first timed case); no
-    # single PyTorch call computes either function, so no library time
-    for name, source, replaces, n, worst_err, rows in (
+    # B4 and B5 at the text8 main-path shape (the first timed case): the
+    # device time summed over every phase of one call (B5: one chunk
+    # step); no single PyTorch call computes either function, so no
+    # library time
+    for name, source, replaces, n, worst_err, rows, extra in (
             ("word2vec_chunk", "word2vec_chunk.cu",
              "deeplearning4j_tpu/ops/pallas_word2vec.py:91", launches_w2v,
-             worst_w2v, w2v_rows),
+             worst_w2v, w2v_rows, "call_ms"),
             ("glove_chunk", "glove_chunk.cu",
              "deeplearning4j_tpu/ops/pallas_glove.py:64", launches_glove,
-             worst_glove, glove_rows)):
-        _, k_ms, k_plain, k_bound, k_by = rows[0][:5]
+             worst_glove, glove_rows, "old_composition_ms")):
+        _, k_ms, k_plain, k_bound, k_by, k_extra = rows[0]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1720,6 +1937,7 @@ def main() -> int:
             "max_abs_err": worst_err,
             "ms": k_ms,
             "kernel_ms": k_ms,
+            extra: k_extra,
             "plain_ms": k_plain,
             "bound_ms": k_bound,
             "bound_by": k_by,

@@ -4,7 +4,11 @@ Port of ``deeplearning4j_tpu/models/transformer.py``: the same config,
 the same parameter tree (leaf names, shapes and layouts, stacked over a
 leading ``[n_layers, ...]`` axis) and the same post-LN encoder block.
 Where JAX scans one block body over the stacked layers (``lax.scan``,
-:290-303), this walks them with a Python loop.
+:290-303), this walks them with a Python loop over one ``torch.unbind``
+of each stacked leaf, so the backward stacks each leaf's gradient once.
+With ``cfg.remat`` set and grad enabled, each block runs under
+``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``, :302): its
+activations are recomputed in the backward instead of kept.
 
 Numerics, site by site, against the JAX forward:
 
@@ -34,6 +38,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _checkpoint
 
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.ops import updaters
@@ -56,7 +61,7 @@ class TransformerConfig:
     dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     compute_dtype: str = "bfloat16"
-    remat: bool = True               # JAX-only (jax.checkpoint); unused here
+    remat: bool = True               # recompute each block in the backward
     causal: bool = False             # BERT is bidirectional; GPT-style sets True
 
     @property
@@ -317,12 +322,51 @@ def encode(cfg: TransformerConfig, params: Params, token_ids: Tensor,
            generator: Optional[torch.Generator] = None,
            attn_fn=attention) -> Tensor:
     """Full encoder: ids ``[B, T]`` -> hidden ``[B, T, H]`` fp32 (:280),
-    one block per layer of the stacked ``[L, ...]`` params."""
+    one block per layer of the stacked ``[L, ...]`` params, each under
+    :func:`_remat_block` when ``cfg.remat`` is set and grad is enabled
+    (a training step then runs each block's forward twice: B1 launches
+    2 L times a step, B2 and B3 L times)."""
     x = embed(cfg, params, token_ids, type_ids)
     blocks = params["blocks"]
-    for layer in range(cfg.n_layers):
-        p = {name: w[layer] for name, w in blocks.items()}
-        x = _block(cfg, x, p, mask, generator, attn_fn)
+    # one unbind per leaf: its backward stacks the L slices' gradients
+    # once, where w[layer] would build a full-size zero gradient per layer
+    layers = zip(*(torch.unbind(w) for w in blocks.values()))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for ws in layers:
+        p = dict(zip(blocks, ws))
+        if remat:
+            x = _remat_block(cfg, x, p, mask, generator, attn_fn)
+        else:
+            x = _block(cfg, x, p, mask, generator, attn_fn)
+    return x
+
+
+def _remat_block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
+                 mask: Optional[Tensor],
+                 generator: Optional[torch.Generator], attn_fn) -> Tensor:
+    """:func:`_block` under ``torch.utils.checkpoint``: the backward runs
+    the block's forward again.  Checkpoint restores only the global RNG
+    states, not an explicit generator, so the block draws its dropout
+    masks from a layer generator started from the caller's state before
+    the block (the port's ``jax.random.split(dropout_key, L)``, :293):
+    the recompute starts a new one from the same state and draws the same
+    masks.  The caller's generator moves once, to where the block left
+    the layer generator, as if the block had drawn from it."""
+    if generator is None:
+        return _checkpoint.checkpoint(_block, cfg, x, p, mask, None, attn_fn,
+                                      use_reentrant=False)
+    start = generator.get_state()
+    ends = []
+
+    def body(x, p):
+        layer_gen = torch.Generator(device=generator.device)
+        layer_gen.set_state(start)
+        out = _block(cfg, x, p, mask, layer_gen, attn_fn)
+        ends.append(layer_gen.get_state())
+        return out
+
+    x = _checkpoint.checkpoint(body, x, p, use_reentrant=False)
+    generator.set_state(ends[0])
     return x
 
 
@@ -351,7 +395,8 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
     loss.  ``optimizer`` defaults to ``updaters.adamw(learning_rate,
     weight_decay=0.01)``; ``attn_fn=None`` takes
     ``ops.flash_attention.make_attn_fn("auto")``, so on CUDA each layer's
-    forward launches B1 and its backward B2 and B3.  ``n_steps > 1`` runs
+    forward launches B1 (again in the backward under ``cfg.remat``) and
+    its backward B2 and B3.  ``n_steps > 1`` runs
     that many optimizer steps per call and returns the ``[n_steps]``
     losses, as JAX's scan does.  ``generator`` draws the dropout masks,
     on the batch's device; a config with dropout needs one, as JAX's

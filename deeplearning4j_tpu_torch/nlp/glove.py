@@ -8,9 +8,10 @@ Port of ``deeplearning4j_tpu/nlp/glove.py`` (reference parity:
 - An epoch shuffles the triples and walks fixed [batch] chunks, carrying
   the extended tables ``wext = (w|b|1)``, ``wtext = (wt|1|bt)`` and the
   packed AdaGrad state across the epoch, as the JAX kernel branch does
-  (:162-199): one ``ops/fused_glove`` chunk accumulation per chunk
-  (kernel B5 on CUDA tensors, its plain twin on CPU tensors or with
-  ``kernel="plain"``), then ``apply_chunk``'s AdaGrad step per side.
+  (:162-199): one ``ops/fused_glove`` chunk step per chunk, the chunk's
+  sums and then ``apply_chunk``'s AdaGrad step per side (kernel B5 in
+  place on CUDA tensors, its plain twin on CPU tensors or with
+  ``kernel="plain"``).
 - ``_glove_update`` (:112), JAX's plain scatter step, is kept in plain
   PyTorch as the reference the chunk path is held to.
 - The per-epoch permutation comes from a ``torch.Generator`` seeded
@@ -163,32 +164,23 @@ def glove_epoch(ext, rows: Tensor, cols: Tensor, x: Tensor, mask: Tensor,
                 n_chunks: int, batch: int, impl: str):
     """One epoch over the permuted triples (``_glove_epoch_body``,
     :147-213, the extended-table carry of its kernel branch).  ``ext``
-    is :func:`to_extended`'s 4-tuple and is updated in place (the slices
-    of the weight tables are overwritten, not rebuilt).  Returns
-    ``(ext, weighted loss sum, count sum)``, the sums as device
-    tensors."""
-    chunk = (fg.fused_glove_chunk_cuda if impl == "cuda"
-             else fg.fused_glove_chunk_plain)
-    wext, wtext, gext, gtext = ext
-    D = wext.shape[1] - 2
+    is :func:`to_extended`'s 4-tuple; each chunk is
+    ``fused_glove.glove_chunk_step_cuda`` (which updates the tables in
+    place) or its plain twin (which returns new ones).  Returns ``(ext,
+    weighted loss sum, count sum)``, the sums as device tensors."""
+    step = (fg.glove_chunk_step_cuda if impl == "cuda"
+            else fg.glove_chunk_step_plain)
+    wext = ext[0]
     loss_sum = torch.zeros((), device=wext.device)
     cnt_sum = torch.zeros((), device=wext.device)
     for i in range(n_chunks):
         idx = perm[i * batch:(i + 1) * batch]
-        m = mask[idx]
-        accw, accwt, ls = chunk(wext, wtext, rows[idx], cols[idx], x[idx],
-                                m, x_max=x_max, power=power)
-        wb, gext = fg.apply_chunk(wext[:, :D + 1], gext, accw, alpha)
-        wtb, gtext = fg.apply_chunk(
-            torch.cat([wtext[:, :D], wtext[:, D + 1:]], dim=1), gtext,
-            accwt, alpha)
-        wext[:, :D + 1] = wb
-        wtext[:, :D] = wtb[:, :D]
-        wtext[:, D + 1] = wtb[:, D]
+        *ext, ls = step(*ext, rows[idx], cols[idx], x[idx], mask[idx],
+                        alpha, x_max=x_max, power=power)
         loss = ls[0, 0] / ls[0, 1].clamp_min(1.0)
         loss_sum = loss_sum + loss * ls[0, 1]
         cnt_sum = cnt_sum + ls[0, 1]
-    return (wext, wtext, gext, gtext), loss_sum, cnt_sum
+    return tuple(ext), loss_sum, cnt_sum
 
 
 def _resolve(kernel: str, dim: int, dev: torch.device, B: int) -> str:

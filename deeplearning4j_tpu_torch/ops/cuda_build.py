@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_scratch_bytes: Dict[tuple, int] = {}
 
 
 def nvcc_path() -> str:
@@ -120,6 +121,23 @@ def bind(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:
     err_string.argtypes = [ctypes.c_int]
     err_string.restype = ctypes.c_char_p
     return lib
+
+
+def scratch(lib: ctypes.CDLL, fn: str, device, *shape):
+    """A kernel's scratch buffer for these shapes: a ``torch.uint8``
+    tensor on ``device`` of the bytes ``lib.<fn>(*shape)`` (a ``size_t``
+    function of the library) asks for, asked once per shape and taken
+    from PyTorch's caching allocator (256-byte aligned) each call."""
+    import torch
+
+    key = (fn,) + shape
+    nbytes = _scratch_bytes.get(key)
+    if nbytes is None:
+        sizer = getattr(lib, fn)
+        sizer.argtypes = [ctypes.c_int] * len(shape)
+        sizer.restype = ctypes.c_size_t
+        nbytes = _scratch_bytes[key] = sizer(*shape)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def raise_on_error(lib: ctypes.CDLL, name: str, fn: str, err: int) -> None:

@@ -2,37 +2,41 @@
 
 Port of ``deeplearning4j_tpu/ops/pallas_word2vec.py``.  Kernel B4,
 ``csrc/word2vec_chunk.cu``, replaces the Pallas kernel ``_kernel`` (:91)
-that ``fused_chunk_update`` (:207) launches: one chunk of hierarchical
-softmax over the Huffman paths plus K negatives, with both objectives
-reading the chunk-start tables.  The kernel sums each row's updates and
-hits into fp32 accumulators (acc0 ``[V0, 2(D+1)]``, acc1/accn
-``[V, D+1]``, the layout of :191-202); the wrapper then applies
-``syn += sum / max(count, 1)`` (:272-278) in plain PyTorch, as JAX does
-outside the kernel.
+that ``fused_chunk_update`` (:207) launches and the apply after it
+(:272-278): one chunk of hierarchical softmax over the Huffman paths plus
+K negatives, with both objectives reading the chunk-start tables, then
+``syn += sum / max(count, 1)`` on every row the chunk touched.  It buckets
+the chunk's hits by destination row and sums each row in one warp
+(``csrc/row_segments.cuh``), so a row is written once and no dense
+``[V, D+1]`` accumulator exists.
 
 - :func:`fused_chunk_update` keeps the JAX signature (less ``block`` and
-  ``interpret``, which sized and interpreted the TPU grid) and returns
-  the updated ``(syn0, syn1, syn1neg)``.  CPU tensors run the plain
-  twin; CUDA tensors launch B4 or raise.  The training engines call
-  :func:`fused_chunk_update_cuda` or the plain twin directly.
-- :func:`fused_chunk_update_cuda` launches B4 on CUDA tensors of any
-  width (rows wider than 512 take the kernel's wide path) and applies
-  the sums.
+  ``interpret``, which sized and interpreted the TPU grid) and JAX's
+  functional contract: it returns updated copies of ``(syn0, syn1,
+  syn1neg)`` and leaves its inputs alone.  CPU tensors run the plain twin;
+  CUDA tensors launch B4 on copies, or raise.
+- :func:`fused_chunk_update_cuda` launches B4 on CUDA tensors of any width
+  (rows wider than 512 floats take the kernel's wide path) and updates the
+  tables IN PLACE; it returns the same three tensors.  The training
+  engines call it, or the plain twin, directly and carry the returned
+  tensors as their state; every fit starts from tables of its own, so a
+  ``WordVectors`` of an earlier fit does not change.
 - :func:`fused_chunk_update_plain` is the same function in plain
-  PyTorch on any device: the algebra of ``nlp/word2vec._hs_update`` and
-  ``_neg_update`` (:98, :129), :func:`hs_update` and :func:`neg_update`
-  here, with syn0's two deltas summed as the plain path sums them
-  (``word2vec.py:248-261``).
-- ``launches`` counts B4 launches (never plain-twin calls).
+  PyTorch on any device, returning new tensors: the algebra of
+  ``nlp/word2vec._hs_update`` and ``_neg_update`` (:98, :129),
+  :func:`hs_update` and :func:`neg_update` here, with syn0's two deltas
+  summed as the plain path sums them (``word2vec.py:248-261``).
+- ``launches`` counts B4 launches, one per update call (the call's phases
+  are several kernels behind one C entry point; never plain-twin calls).
 
 The TPU kernel cast the tables to bf16 and moved rows through one-hot
-matrix products over VMEM-resident tables; B4 gathers fp32 rows from HBM
-and scatters with fp32 atomics, so it is closer to the JAX plain path
-than the TPU kernel was.  Its accumulators sum in no fixed order.  The
-plain twin, like JAX's ``.at[].add``, adds each of a row's terms into
-the table itself, so at a row hit thousands of times (the Huffman root)
-its rounding grows with the table's magnitude; B4 adds a row's mean
-once, and is the more accurate of the two there.
+matrix products over VMEM-resident tables; B4 gathers fp32 rows from HBM,
+so it is closer to the JAX plain path than the TPU kernel was.  A row's
+hits are summed in no fixed order.  The plain twin, like JAX's
+``.at[].add``, adds each of a row's terms into the table itself, so at a
+row hit thousands of times (the Huffman root) its rounding grows with the
+table's magnitude; B4 adds a row's mean once, and is the more accurate of
+the two there.
 """
 
 from __future__ import annotations
@@ -52,6 +56,10 @@ launches = 0
 _launch_lock = threading.Lock()
 
 _lib = None
+
+#: hits a segment of B4's row reductions holds at most: a row with more is
+#: split across warps whose partials meet in scratch
+SEGMENT = 32
 
 
 def reset_launches() -> None:
@@ -146,9 +154,10 @@ def fused_chunk_update_plain(syn0: Tensor, syn1: Tensor, syn1neg: Tensor,
 def _library():
     global _lib
     if _lib is None:
-        # 13 pointers; B, L, K, D, V0, V1, Vn, use_hs; alpha; stream
+        # 10 pointers + scratch; B, L, K, D, V0, V1, Vn, use_hs, seg;
+        # alpha; stream
         _lib = cuda_build.bind("w2v_chunk", {
-            "w2v_chunk": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+            "w2v_chunk": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_void_p]})
     return _lib
 
@@ -165,10 +174,12 @@ def fused_chunk_update_cuda(syn0: Tensor, syn1: Tensor, syn1neg: Tensor,
                             points: Tensor, mask: Tensor, negs: Tensor,
                             pmask: Tensor, alpha, *, use_hs: bool,
                             negative: int) -> Tuple[Tensor, Tensor, Tensor]:
-    """Launch B4 on CUDA tensors of any width, then apply ``syn += sum /
-    max(count, 1)`` per objective (:272-278); returns the updated
-    ``(syn0, syn1, syn1neg)``.  Raises for anything the kernel does not
-    take, CPU tensors included.  ``alpha`` is a Python or numpy float."""
+    """Launch B4 on CUDA tensors of any width: ``syn += sum / max(count,
+    1)`` per objective on every row the chunk touches (:272-278), IN
+    PLACE; returns ``(syn0, syn1, syn1neg)``, the tensors it was given.
+    The tables must be contiguous fp32.  Raises for anything the kernel
+    does not take, CPU tensors included.  ``alpha`` is a Python or numpy
+    float."""
     dev = syn0.device
     if dev.type != "cuda":
         raise ValueError(f"B4 needs CUDA tensors; syn0 is on {dev} (CPU "
@@ -207,36 +218,27 @@ def fused_chunk_update_cuda(syn0: Tensor, syn1: Tensor, syn1neg: Tensor,
             raise ValueError(f"negs must be [B={B}, K={K}]; got "
                              f"{tuple(negs.shape)}")
         negs = _as(negs, torch.int32, "negs", dev)
-    acc0 = torch.zeros((V0, 2 * (D + 1)), dtype=torch.float32, device=dev)
-    acc1 = torch.zeros((syn1.shape[0] if use_hs else 1, D + 1),
-                       dtype=torch.float32, device=dev)
-    accn = torch.zeros((syn1neg.shape[0] if K > 0 else 1, D + 1),
-                       dtype=torch.float32, device=dev)
+    V1, Vn = syn1.shape[0], syn1neg.shape[0]
 
     def ptr(t, live):
         return t.data_ptr() if live else None
 
     lib = _library()
     with torch.cuda.device(dev):
+        scratch = cuda_build.scratch(lib, "w2v_chunk_scratch_bytes", dev, B,
+                                     L, K, D, V0, V1, Vn, SEGMENT)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.w2v_chunk(
             syn0.data_ptr(), ptr(syn1, use_hs), ptr(syn1neg, K > 0),
             inputs.data_ptr(), targets.data_ptr(), pmask.data_ptr(),
             ptr(codes, use_hs), ptr(points, use_hs), ptr(mask, use_hs),
-            ptr(negs, K > 0), acc0.data_ptr(), acc1.data_ptr(),
-            accn.data_ptr(), B, L, K, D, V0, syn1.shape[0],
-            syn1neg.shape[0], int(use_hs), float(alpha), stream)
+            ptr(negs, K > 0), scratch.data_ptr(), B, L, K, D, V0, V1, Vn,
+            int(use_hs), SEGMENT, float(alpha), stream)
     cuda_build.raise_on_error(lib, "w2v_chunk", "w2v_chunk", err)
     global launches
     with _launch_lock:
         launches += 1
-    if use_hs:
-        syn1 = syn1 + acc1[:, :D] / acc1[:, D:].clamp_min(1.0)
-    if K > 0:
-        syn1neg = syn1neg + accn[:, :D] / accn[:, D:].clamp_min(1.0)
-    upd0 = acc0[:, :D] / acc0[:, D:D + 1].clamp_min(1.0) \
-        + acc0[:, D + 1:2 * D + 1] / acc0[:, 2 * D + 1:].clamp_min(1.0)
-    return syn0 + upd0, syn1, syn1neg
+    return syn0, syn1, syn1neg
 
 
 def fused_chunk_update(syn0: Tensor, syn1: Tensor, syn1neg: Tensor,
@@ -248,9 +250,15 @@ def fused_chunk_update(syn0: Tensor, syn1: Tensor, syn1neg: Tensor,
     ``[B]``; codes/points/mask ``[B, L]`` (``[B, 1]`` dummies when
     ``use_hs`` is off); negs ``[B, K]`` already mapped through the
     unigram table; pmask ``[B]`` the combined pad and window mask; alpha
-    a float.  Returns the updated ``(syn0, syn1, syn1neg)``.  CPU tensors
-    run the plain twin; CUDA tensors launch B4 or raise."""
-    fn = (fused_chunk_update_plain if syn0.device.type == "cpu"
-          else fused_chunk_update_cuda)
-    return fn(syn0, syn1, syn1neg, inputs, targets, codes, points, mask,
-              negs, pmask, alpha, use_hs=use_hs, negative=negative)
+    a float.  Returns updated copies of ``(syn0, syn1, syn1neg)``; the
+    inputs are not changed.  CPU tensors run the plain twin; CUDA tensors
+    launch B4 on copies of the tables, or raise."""
+    if syn0.device.type == "cpu":
+        return fused_chunk_update_plain(
+            syn0, syn1, syn1neg, inputs, targets, codes, points, mask, negs,
+            pmask, alpha, use_hs=use_hs, negative=negative)
+    fresh = torch.contiguous_format
+    return fused_chunk_update_cuda(
+        syn0.clone(memory_format=fresh), syn1.clone(memory_format=fresh),
+        syn1neg.clone(memory_format=fresh), inputs, targets, codes,
+        points, mask, negs, pmask, alpha, use_hs=use_hs, negative=negative)

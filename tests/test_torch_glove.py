@@ -250,3 +250,97 @@ def test_cuda_kernel_wide_rows_match_plain_twin():
     ref = fg.fused_glove_chunk_plain(*args, x_max=100.0, power=0.75)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+
+
+# -- the fused chunk step ----------------------------------------------------
+
+def _old_epoch_chunk(ext, rows, cols, x, mask, alpha):
+    """One chunk of glove_epoch as it was before the fused step: the
+    accumulator mode, two apply_chunk calls, the cat and the slice
+    writes into the tables."""
+    wext, wtext, gext, gtext = (t.clone() for t in ext)
+    D = wext.shape[1] - 2
+    accw, accwt, ls = fg.fused_glove_chunk_plain(wext, wtext, rows, cols, x,
+                                                 mask, x_max=100.0,
+                                                 power=0.75)
+    wb, gext = fg.apply_chunk(wext[:, :D + 1], gext, accw, alpha)
+    wtb, gtext = fg.apply_chunk(
+        torch.cat([wtext[:, :D], wtext[:, D + 1:]], dim=1), gtext, accwt,
+        alpha)
+    wext[:, :D + 1] = wb
+    wtext[:, :D] = wtb[:, :D]
+    wtext[:, D + 1] = wtb[:, D]
+    return (wext, wtext, gext, gtext), ls
+
+
+def _step_inputs(D=32, seed=0):
+    state, rows, cols, x, mask = _chunk(D=D, seed=seed)
+    ext = tg.to_extended(tuple(torch.from_numpy(a) for a in state))
+    return ext, tuple(torch.from_numpy(a) for a in (rows, cols, x, mask))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chunk_step_plain_equals_the_old_epoch_composition(seed):
+    ext, tri = _step_inputs(seed=seed)
+    *got, ls = fg.glove_chunk_step_plain(*ext, *tri, 0.05, x_max=100.0,
+                                         power=0.75)
+    ref, ref_ls = _old_epoch_chunk(ext, *tri, 0.05)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert torch.equal(ls, ref_ls)
+
+
+def test_chunk_step_plain_leaves_untouched_rows_bit_identical():
+    """A row no live triple touches has sums 0 and count 0: the AdaGrad
+    step leaves its bits alone, so B5 updates only the touched rows."""
+    ext, (rows, cols, x, mask) = _step_inputs()
+    rows, cols = rows[:20], cols[:20]
+    x, mask = x[:20], mask[:20]
+    *got, _ = fg.glove_chunk_step_plain(*ext, rows, cols, x, mask, 0.05,
+                                        x_max=100.0, power=0.75)
+    V = ext[0].shape[0]
+    for side, idx in ((0, rows), (1, cols)):
+        hit = torch.zeros(V, dtype=torch.bool)
+        hit[idx[mask != 0].long()] = True
+        assert (~hit).any()
+        for old, new in ((ext[side], got[side]),
+                         (ext[side + 2], got[side + 2])):
+            assert torch.equal(new[~hit], old[~hit])
+            assert not torch.equal(new[hit], old[hit])
+
+
+def test_refit_leaves_an_earlier_word_vectors_unchanged():
+    g = tg.Glove(CORPUS, tg.GloveConfig(vector_size=8, epochs=2,
+                                        batch_size=64), device="cpu")
+    first = g.fit()
+    kept = first.vectors.clone()
+    state = tuple(t.clone() for t in g.state)
+    g.fit(initial_weights=g.state)
+    assert torch.equal(first.vectors, kept)
+    for a, b in zip(state, g.state):
+        assert not torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 600])
+def test_cuda_chunk_step_matches_plain_twin_in_place(D):
+    """On a CUDA card: glove_chunk_step_cuda updates the tables it is
+    given (narrow and wide paths) as glove_chunk_step_plain computes
+    them, and launches B5 once."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernel runs only on the card "
+                    "(python3 chip_smoke.py covers it there)")
+    ext, tri = _step_inputs(D=D)
+    ext = tuple(t.cuda() for t in ext)
+    tri = tuple(t.cuda() for t in tri)
+    *ref, ref_ls = fg.glove_chunk_step_plain(*ext, *tri, 0.05, x_max=100.0,
+                                             power=0.75)
+    tables = [t.clone() for t in ext]
+    before = fg.launches
+    *got, ls = fg.glove_chunk_step_cuda(*tables, *tri, 0.05, x_max=100.0,
+                                        power=0.75)
+    assert fg.launches == before + 1
+    assert all(g is t for g, t in zip(got, tables))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ls, ref_ls, rtol=1e-5, atol=1e-5)

@@ -338,3 +338,103 @@ def test_train_entry_points_default_to_cuda_and_refuse_a_mesh():
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 mod.make_train_step(cfg)
+
+
+# -- the stacked-weight backward and remat ----------------------------------
+
+def _tiny(model, **kw):
+    cfg = (tbert.bert_tiny() if model == "bert" else tgpt.gpt_tiny())
+    return dataclasses.replace(cfg, **kw)
+
+
+def _live_params(model, cfg):
+    mod = tbert if model == "bert" else tgpt
+    params = mod.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    return updaters.tree_map(lambda p: p.detach().requires_grad_(True),
+                             params)
+
+
+def _encode_backward_ops(n_layers):
+    """{op: count} of the backward of an ``n_layers`` encode, profiled."""
+    from torch.profiler import profile
+
+    cfg = _tiny("bert", n_layers=n_layers, remat=False)
+    live = _live_params("bert", cfg)
+    batch = tbert.synthetic_batch(0, cfg, 2, 16, device="cpu")
+    h = ttfm.encode(cfg, live, batch.token_ids, batch.attention_mask,
+                    batch.type_ids)
+    with profile() as prof:
+        torch.autograd.grad(h.sum(), updaters.tree_leaves(live["blocks"]))
+    return {e.key: e.count for e in prof.key_averages()}
+
+
+def test_stacked_weight_backward_does_not_grow_with_depth():
+    """Each stacked [L, ...] leaf is unbound once a forward, so its
+    gradient is stacked once: no select_backward (a full-size zero
+    gradient per layer), and as many zero fills at depth 8 as at 2."""
+    ops2, ops8 = _encode_backward_ops(2), _encode_backward_ops(8)
+    assert ops8.get("aten::select_backward", 0) == 0
+    assert ops8.get("aten::zeros", 0) == ops2.get("aten::zeros", 0)
+    assert ops8.get("aten::stack", 0) == len(ttfm._ENCODER_TREE["blocks"])
+
+
+def _loss_and_grads(model, cfg, seed):
+    """Loss, gradients and the generator after one dropout forward and
+    backward of ``cfg`` from a generator seeded with ``seed``."""
+    live = _live_params(model, cfg)
+    gen = torch.Generator().manual_seed(seed)
+    if model == "bert":
+        batch = tbert.synthetic_batch(0, cfg, 2, 16, device="cpu")
+        loss = tbert.mlm_loss(cfg, live, batch, gen, ttfm.attention)
+    else:
+        ids = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 16)).astype(np.int32))
+        loss = tgpt.lm_loss(cfg, live, ids, None, gen, ttfm.attention)
+    grads = torch.autograd.grad(loss, updaters.tree_leaves(live),
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), grads, gen
+
+
+@pytest.mark.parametrize("model", ["bert", "gpt"])
+def test_remat_replays_the_dropout_masks_exactly(model):
+    """remat on and off give bit-equal losses and gradients under dropout
+    from the same generator (fp32 on the CPU: the recompute runs the same
+    kernels on the same inputs and the same masks), and leave the
+    caller's generator in the same state."""
+    got, ref = (_loss_and_grads(model, _tiny(model, n_layers=3,
+                                             dropout=0.1, remat=remat), 7)
+                for remat in (True, False))
+    assert torch.equal(got[0], ref[0])
+    for g, r in zip(got[1], ref[1]):
+        assert torch.equal(g, r)
+    assert torch.equal(got[2].get_state(), ref[2].get_state())
+    # the masks were drawn: the generator moved, and another seed differs
+    assert not torch.equal(got[2].get_state(),
+                           torch.Generator().manual_seed(7).get_state())
+    other = _loss_and_grads(model, _tiny(model, n_layers=3, dropout=0.1), 8)
+    assert not torch.equal(got[0], other[0])
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_remat_checkpoints_each_block_only_with_grad(grad, monkeypatch):
+    """Training (grad on) checkpoints each of the L blocks; serving
+    (no_grad) never does, and its output does not depend on remat."""
+    calls = []
+    real = ttfm._checkpoint.checkpoint
+
+    def counting(*args, **kwargs):
+        calls.append(kwargs.get("use_reentrant"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ttfm._checkpoint, "checkpoint", counting)
+    cfg = _tiny("bert", n_layers=3)
+    params = tbert.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = tbert.synthetic_batch(0, cfg, 2, 16, device="cpu")
+    with torch.set_grad_enabled(grad):
+        h = ttfm.encode(cfg, params, batch.token_ids, batch.attention_mask,
+                        batch.type_ids)
+        h0 = ttfm.encode(dataclasses.replace(cfg, remat=False), params,
+                         batch.token_ids, batch.attention_mask,
+                         batch.type_ids)
+    assert calls == ([False] * cfg.n_layers if grad else [])
+    assert torch.equal(h, h0)

@@ -369,7 +369,115 @@ def test_cuda_kernel_wide_rows_match_plain_twin():
     args = (c["syn0"], c["syn1"], c["sneg"], c["inputs"], c["targets"],
             c["codes"], c["points"], c["mask"], c["negs"], c["pmask"],
             0.025)
-    got = fw.fused_chunk_update_cuda(*args, use_hs=True, negative=3)
     ref = fw.fused_chunk_update_plain(*args, use_hs=True, negative=3)
+    # the CUDA entry updates its tables in place: hand it copies
+    got = fw.fused_chunk_update_cuda(*(a.clone() for a in args[:3]),
+                                     *args[3:], use_hs=True, negative=3)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-6)
+
+
+# -- the update contract: untouched rows, copies, in place ------------------
+
+def _chunk_args(c, use_hs, negative):
+    D = c["syn0"].shape[1]
+    zeros = np.zeros((1, D), np.float32)
+    arrays = (c["syn0"], c["syn1"] if use_hs else zeros,
+              c["sneg"] if negative else zeros, c["inputs"], c["targets"],
+              c["codes"], c["points"], c["mask"], c["negs"], c["pmask"])
+    return tuple(torch.from_numpy(a) for a in arrays) + (0.025,)
+
+
+def _touched_rows(c, use_hs, negative):
+    """Rows of (syn0, syn1, syn1neg) the chunk hits, as boolean masks."""
+    V = c["syn0"].shape[0]
+    live = c["pmask"] != 0
+    hs = (c["mask"] * c["pmask"][:, None]) != 0
+    rows0, rows1, rowsn = (np.zeros(V, bool) for _ in range(3))
+    if use_hs:
+        rows1[c["points"][hs]] = True
+        rows0[c["inputs"][hs.any(1)]] = True
+    if negative:
+        rowsn[c["targets"][live]] = True
+        rowsn[c["negs"][live][c["negs"][live] != c["targets"][live, None]]] \
+            = True
+        rows0[c["inputs"][live]] = True
+    return rows0, rows1, rowsn
+
+
+@pytest.mark.parametrize("use_hs,negative", [(True, 0), (False, 3),
+                                             (True, 3)])
+def test_plain_twin_leaves_untouched_rows_bit_identical(use_hs, negative):
+    """An untouched row has count 0 and sum 0: it keeps its bits, which is
+    what lets B4 update only the rows a chunk touches."""
+    c = _rand_chunk(B=24, V=64)
+    args = _chunk_args(c, use_hs, negative)
+    got = fw.fused_chunk_update_plain(*args, use_hs=use_hs,
+                                      negative=negative)
+    for table, new, hit in zip(args[:3], got,
+                               _touched_rows(c, use_hs, negative)):
+        if table.shape[0] == 1:          # an absent objective's dummy
+            continue
+        assert (~hit).any() and hit.any()
+        assert torch.equal(new[torch.from_numpy(~hit)],
+                           table[torch.from_numpy(~hit)])
+        assert not torch.equal(new[torch.from_numpy(hit)],
+                               table[torch.from_numpy(hit)])
+
+
+def test_fused_chunk_update_does_not_change_its_inputs():
+    """The JAX-signature entry keeps JAX's functional contract."""
+    args = _chunk_args(_rand_chunk(), True, 3)
+    before = [a.clone() for a in args[:-1]]
+    got = fw.fused_chunk_update(*args, use_hs=True, negative=3)
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)
+    assert all(g.data_ptr() != a.data_ptr() for g, a in zip(got, args))
+
+
+@pytest.mark.parametrize("pair_mode", ["masked", "device"])
+def test_refit_leaves_an_earlier_word_vectors_unchanged(pair_mode):
+    """Every fit trains tables of its own, so the CUDA chunk update's
+    in-place writes never reach a WordVectors an earlier fit returned."""
+    w2v = tw.Word2Vec(CORPUS, tw.Word2VecConfig(
+        vector_size=8, epochs=1, batch_size=64, negative=2,
+        pair_mode=pair_mode), device="cpu")
+    first = w2v.fit()
+    kept = first.vectors.clone()
+    second = w2v.fit(initial_weights=(w2v.syn0, w2v.syn1, w2v.syn1neg))
+    assert torch.equal(first.vectors, kept)
+    assert not torch.equal(second.vectors, kept)
+
+
+def _cuda_chunk(D):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernel runs only on the card "
+                    "(python3 chip_smoke.py covers it there)")
+    c = _rand_chunk(D=D)
+    args = _chunk_args(c, True, 3)
+    return c, tuple(a.cuda() if torch.is_tensor(a) else a for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 600])
+def test_cuda_kernel_updates_in_place_only_touched_rows(D):
+    """On a CUDA card: fused_chunk_update_cuda writes the tables it is
+    given (narrow and wide paths), matches the plain twin, and leaves
+    every untouched row's bits alone; fused_chunk_update leaves its
+    inputs alone."""
+    c, args = _cuda_chunk(D)
+    tables = [a.clone() for a in args[:3]]
+    ref = fw.fused_chunk_update_plain(*args, use_hs=True, negative=3)
+    before = fw.launches
+    got = fw.fused_chunk_update_cuda(*tables, *args[3:], use_hs=True,
+                                     negative=3)
+    assert fw.launches == before + 1
+    assert all(g is t for g, t in zip(got, tables))
+    for g, r, a, hit in zip(got, ref, args, _touched_rows(c, True, 3)):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-6)
+        keep = torch.from_numpy(~hit).cuda()
+        assert torch.equal(g[keep], a[keep])
+    orig = [a.clone() for a in args[:3]]
+    copies = fw.fused_chunk_update(*args, use_hs=True, negative=3)
+    for g, a, o in zip(copies, args, orig):
+        assert g.data_ptr() != a.data_ptr() and torch.equal(a, o)
