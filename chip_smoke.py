@@ -52,6 +52,21 @@ Phases, each fatal on failure:
    against one through the plain twin with the same permutation.
    Prints words/s and triples/s (host clock after synchronize) and the
    device-busy share of one profiled epoch.
+9. LeNet-MNIST (models/lenet.py at full width, seeded weights) on
+   data/mnist (2,048 train, 512 test images), B=128: the same params and
+   10 seeded random batches through the port on the card and on the CPU
+   (per-step losses fp32 rtol 1e-4, bf16 5e-2), 10 data/mnist batches
+   the same way (printed, not held: exact max-pool ties there are
+   broken by each conv algorithm's rounding), max pooling's tie routing
+   card vs CPU (equal), the bf16 dense product with cuBLAS's
+   reduced-precision reduction on and off; fit_backprop and
+   fit_iterator for 2 epochs each (bf16), then evaluate on the test
+   split (accuracy >= 0.90); a warmed serving engine's mixed-size
+   stream against the unpadded forward (bf16 3e-2, fp32 2e-5); the
+   step's time (median of 207 synchronized steps, and the staged path
+   between CUDA events), the busy share and device ms by kernel kind of
+   one profiled epoch, peak memory.  No hand kernel runs here (the
+   path is cuDNN and cuBLAS): their launch counts must stay 0.
 
 Phase 3 also holds the backward kernels B2 (dK/dV) and B3 (dQ) against
 their plain twins on the same 17 cases (bf16 within 3e-2 of the case's
@@ -1781,6 +1796,325 @@ def glove_phase(torch, fg, t8, zipf):
     return launches + n
 
 
+# ---------------------------------------------------------------------------
+# phase 9: LeNet-MNIST training, evaluation and serving
+# ---------------------------------------------------------------------------
+
+LENET_B = 128
+LENET_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}   # as the CPU tests
+LENET_DENSE_TOL = 3e-2     # bf16 dense product, card vs CPU, of max |ref|
+LENET_SERVE_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+LENET_MIN_ACC = 0.90       # tests/test_mnist_e2e.py:122 on data/mnist
+LENET_TIMED_EPOCHS = 13    # 13 x 16 batches = 208 steps
+
+#: a LeNet step's device kernels by kind, first match wins; cuDNN's own
+#: padding and layout kernels count with the convolutions (its cutlass
+#: wgrad kernels are named for neither direction)
+LENET_KINDS = (("convolutions (cuDNN)", ("conv", "grad", "fprop",
+                                         "implicit_gemm", "Padding",
+                                         "nhwcTo", "nchwTo", "cudnn")),
+               ("GEMMs", GEMM_MARKS), ("max pooling", ("MaxOps",)),
+               ("copies and casts", ("copy",)),
+               ("finite checks", ("ReduceOp<bool",)))
+
+
+def lenet_flops(batch: int) -> float:
+    """bench.py:500-505: one training step (forward x 3)."""
+    macs = (28 * 28 * 25 * 1 * 20 + 14 * 14 * 25 * 20 * 50
+            + 7 * 7 * 50 * 500 + 500 * 10)
+    return 3.0 * 2.0 * macs * batch
+
+
+def mnist_split(train: bool):
+    from deeplearning4j_tpu_torch.datasets.fetchers import MnistDataFetcher
+
+    f = MnistDataFetcher(train=train, flatten=False, binarize=False)
+    check(not f.synthetic, "data/mnist not found")
+    f.fetch(f.total)
+    return f.next()
+
+
+def lenet_net(ln, dtype, params, device):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    return MultiLayerNetwork(
+        ln.lenet_conf(compute_dtype=dtype),
+        params=[{k: v.to(device) for k, v in p.items()} for p in params],
+        device=device)
+
+
+def lenet_random_batches(n: int, seed: int = 0):
+    """``n`` batches of seeded uniform images and labels (the CPU parity
+    tests' inputs, tests/test_torch_lenet.py, at B=128)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    rng = np.random.default_rng(seed)
+    x = rng.random((n * LENET_B, 28, 28, 1), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n * LENET_B)]
+    return DataSet(x, y).batch_by(LENET_B)
+
+
+def lenet_losses(ln, dtype, params, batches, device):
+    from deeplearning4j_tpu_torch.optimize.listeners import \
+        CollectScoresListener
+
+    net = lenet_net(ln, dtype, params, device)
+    col = CollectScoresListener()
+    net.set_listeners([col])
+    net.fit_backprop(batches)
+    return np.array([v for _, v in col.scores])
+
+
+def lenet_parity(torch, ln, params, mnist_batches) -> None:
+    """The same params and batches through the port on the card and on
+    the CPU, fp32 and bf16: held to the bar on seeded random images;
+    data/mnist's batches printed beside them, not held: their flat
+    saturated regions give max-pool windows that tie in exact
+    arithmetic, and each conv algorithm's rounding breaks those ties its
+    own way (cuDNN on the card agrees with an im2col conv on the CPU
+    over 10 steps, and two CPU convs part by 3e-3:
+    tools/lenet_tie_probe.py).  Then pooling ties on the card, and the
+    bf16 dense 2450 -> 500 product with cuBLAS's reduced-precision
+    reduction on and off."""
+    random_batches = lenet_random_batches(len(mnist_batches))
+    for dtype, tol in LENET_LOSS_RTOL.items():
+        for what, batches in (("seeded random", random_batches),
+                              ("data/mnist", mnist_batches)):
+            cuda = lenet_losses(ln, dtype, params, batches, "cuda")
+            cpu = lenet_losses(ln, dtype, params, batches, "cpu")
+            rel = np.abs(cuda - cpu) / np.abs(cpu)
+            held = what == "seeded random"
+            print(f"  LeNet {dtype}, {what} batches: {len(batches)} steps at "
+                  f"B={LENET_B}, card vs CPU: losses "
+                  + " ".join(f"{v:.6f}" for v in cuda)
+                  + f"; largest relative difference {rel.max():.3e} at "
+                  f"step {int(rel.argmax())} "
+                  + (f"(tolerance {tol:g})" if held else
+                     "(exact ties broken by rounding: not held)"))
+            check(bool(np.isfinite(cuda).all()),
+                  f"LeNet {dtype}: non-finite loss on the card")
+            if held and dtype == "float32":
+                again = lenet_losses(ln, dtype, params, batches, "cuda")
+                print(f"  LeNet {dtype}, {what} batches: a second card run "
+                      f"against the first: largest relative difference "
+                      f"{(np.abs(again - cuda) / np.abs(cuda)).max():.3e}")
+            if held:
+                check(rel.max() <= tol, f"LeNet {dtype}: card and CPU "
+                                        f"losses differ by {rel.max()}")
+
+    # max pooling must send a tied window's gradient to its first
+    # largest entry (XLA's select_and_scatter) on the card too
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        LayerKind, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import make_layer
+
+    pool = make_layer(NeuralNetConfiguration(kind=LayerKind.SUBSAMPLING,
+                                             pool_size=(2, 2)))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, 3, (LENET_B, 28, 28, 20))
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(LENET_B, 14, 14, 20))
+                          .astype(np.float32))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev).requires_grad_(True)
+        (pool.activate({}, xd) * dy.to(dev)).sum().backward()
+        grads.append(xd.grad.cpu())
+    print(f"  LeNet max pooling on a tie-heavy input: card and CPU "
+          f"gradients {'equal' if torch.equal(*grads) else 'DIFFER'}")
+    check(torch.equal(*grads), "max pooling routes ties differently on "
+                               "the card")
+
+    cuda_net = lenet_net(ln, "bfloat16", params, "cuda")
+    cpu_net = lenet_net(ln, "bfloat16", params, "cpu")
+    x = mnist_batches[0].features
+    with torch.no_grad():
+        h = cpu_net.feed_forward(cpu_net.params, x, upto=4)[-1]
+        h = h.reshape(h.shape[0], -1)
+        dense = cpu_net.layers[4]
+        ref = dense.pre_output(cpu_net.params[4], h)
+        matmul = torch.backends.cuda.matmul
+        flag = matmul.allow_bf16_reduced_precision_reduction
+        errs = {}
+        for on in (True, False):
+            matmul.allow_bf16_reduced_precision_reduction = on
+            got = dense.pre_output(cuda_net.params[4], h.cuda()).cpu()
+            errs[on] = float((got - ref).abs().max() / ref.abs().max())
+        matmul.allow_bf16_reduced_precision_reduction = flag
+    print(f"  LeNet bf16 dense 2450->500 at B={LENET_B}, card vs CPU, max "
+          f"|diff| / max |ref|: {errs[True]:.3e} with cuBLAS's reduced-"
+          f"precision bf16 reduction allowed, {errs[False]:.3e} without "
+          f"(tolerance {LENET_DENSE_TOL:g}; the port leaves the flag at "
+          f"{flag})")
+    check(errs[flag] <= LENET_DENSE_TOL,
+          f"bf16 dense product differs from the CPU's by {errs[flag]}")
+
+
+def profile_kernels(torch, run):
+    """{kernel name: (device ms, launches)} of one call of ``run``, and
+    its wall ms (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return ({e.key: (e.self_device_time_total / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0}, wall)
+
+
+def lenet_kind(name: str) -> str:
+    for kind, marks in LENET_KINDS:
+        if any(m in name for m in marks):
+            return kind
+    return "elementwise and the rest"
+
+
+def lenet_times(torch, ln, batches, steps_per_epoch: int,
+                card: str) -> None:
+    """Steady-state step time at B=128 on batches already on the card:
+    the median of >= 200 steps on the host clock (each step synchronized
+    by a listener reading its loss), the same steps unsynchronized
+    between CUDA events, one
+    profiled epoch's busy share and device ms by kernel kind, and the
+    peak memory."""
+    from deeplearning4j_tpu_torch.datasets.iterator import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.optimize.listeners import TimingListener
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    batches = [DataSet(b.features.cuda(), b.labels.cuda()) for b in batches]
+    net = ln.lenet(device="cuda")
+    net.fit_backprop(batches)                       # warm-up epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = TimingListener()
+    net.set_listeners([timer])
+    net.fit_iterator(ListDataSetIterator(batches, LENET_B),
+                     num_epochs=LENET_TIMED_EPOCHS)
+    step_ms = [d * 1e3 for d in timer.durations[1:]]
+    check(len(step_ms) >= 200, f"{len(step_ms)} timed steps")
+    med = float(np.median(step_ms))
+    net.set_listeners([])
+    n_steps = LENET_TIMED_EPOCHS * steps_per_epoch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    net.fit_backprop(batches, num_epochs=LENET_TIMED_EPOCHS)
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    ev = start.elapsed_time(end) / n_steps
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    flops = lenet_flops(LENET_B)
+    print(f"  LeNet bf16 step at B={LENET_B} on {card}: {med:.3f} ms "
+          f"median of "
+          f"{len(step_ms)} (host clock, each step synchronized; min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}) = "
+          f"{LENET_B / med * 1e3:.1f} samples/s; fit_backprop's staged "
+          f"path, {n_steps} steps with no sync between: {ev:.3f} ms a "
+          f"step between CUDA events ({wall:.3f} ms host clock) = "
+          f"{LENET_B / ev * 1e3:.1f} samples/s; model FLOPs "
+          f"{flops / 1e9:.2f} GFLOP a step = "
+          f"{flops / (ev / 1e3) / PEAK_BF16_FLOPS:.3%} of 989 TFLOP/s; "
+          f"peak memory {peak:.1f} MB")
+
+    by, wall = profile_kernels(torch, lambda: net.fit_backprop(batches))
+    if not by:
+        print("  LeNet profile: no device time reported (not measured)")
+        return
+    busy = sum(ms for ms, _ in by.values())
+    launches = sum(n for _, n in by.values())
+    kinds = {}
+    for name, (ms, n) in by.items():
+        k = kinds.setdefault(lenet_kind(name), [0.0, 0])
+        k[0] += ms
+        k[1] += n
+    print(f"  LeNet profile of one epoch ({steps_per_epoch} steps) on "
+          f"{card}: device "
+          f"busy {busy:.3f} ms of {wall:.3f} ms wall = {busy / wall:.1%}; "
+          f"{launches} kernels = {launches / steps_per_epoch:.1f} a step; "
+          f"device ms a step by kind: " + "; ".join(
+              f"{kind} {ms / steps_per_epoch:.4f} ms ({n / steps_per_epoch:.1f}"
+              f" kernels)" for kind, (ms, n) in
+              sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    for name, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"    {ms / steps_per_epoch:8.4f} ms a step, {n:5d} launches  "
+              f"{name[:100]}")
+
+
+def lenet_serving_check(torch, ln, net, test) -> None:
+    """A served mixed-size stream through the warmed engine (bf16, and
+    the same params at fp32) against the unpadded forward."""
+    for dtype in ("bfloat16", "float32"):
+        snet = lenet_net(ln, dtype, net.params, "cuda")
+        t0 = time.perf_counter()
+        eng = ln.lenet_serving(snet)
+        warm = (time.perf_counter() - t0) * 1e3
+        worst, lat = 0.0, []
+        for n in (1, 3, 17, 100, 128, 200, 300, 512):
+            x = test.features[:n]
+            t0 = time.perf_counter()
+            out = eng.infer(x, sync=True)
+            lat.append((n, (time.perf_counter() - t0) * 1e3))
+            with torch.inference_mode():
+                ref = snet.feed_forward(snet.params, x.cuda())[-1]
+            check(tuple(out.shape) == (n, 10), f"served shape {out.shape}")
+            worst = max(worst, float((out - ref).abs().max()))
+        print(f"  LeNet serving {dtype}: {len(eng.buckets)} buckets "
+              f"{eng.buckets} warmed in {warm:.1f} ms; stream of "
+              + ", ".join(f"{n} rows {ms:.2f} ms" for n, ms in lat)
+              + f" (host clock, synchronized); largest |diff| to the "
+              f"unpadded forward {worst:.3e} (tolerance "
+              f"{LENET_SERVE_TOL[dtype]:g})")
+        check(worst <= LENET_SERVE_TOL[dtype],
+              f"LeNet {dtype}: served rows differ from the unpadded "
+              f"forward by {worst}")
+
+
+def lenet_phase(torch, ln, card: str) -> None:
+    """Phase 9 (see the module docstring)."""
+    from deeplearning4j_tpu_torch.datasets.iterator import \
+        MnistDataSetIterator
+
+    t0 = time.perf_counter()
+    train, test = mnist_split(True), mnist_split(False)
+    batches = train.batch_by(LENET_B)
+    print(f"  data/mnist: {train.num_examples()} train, "
+          f"{test.num_examples()} test images; {len(batches)} batches of "
+          f"{LENET_B}; read in {time.perf_counter() - t0:.2f} s")
+    params = ln.lenet(device="cpu").params
+    lenet_parity(torch, ln, params, batches[:10])
+
+    for how in ("fit_backprop", "fit_iterator"):
+        net = ln.lenet(device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "fit_backprop":
+            net.fit_backprop(batches, num_epochs=2)
+        else:
+            net.fit_iterator(MnistDataSetIterator(
+                LENET_B, binarize=False, flatten=False), num_epochs=2)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        ev = net.evaluate(test)
+        print(f"  LeNet bf16 {how}, 2 epochs: {sec:.3f} s (host clock, "
+              f"synchronized); test accuracy {ev.accuracy():.4f}, f1 "
+              f"{ev.f1():.4f} over {ev.confusion.total()} images (bar "
+              f"{LENET_MIN_ACC}); guard skips {net.guard_skips}")
+        check(ev.accuracy() >= LENET_MIN_ACC,
+              f"LeNet {how}: test accuracy {ev.accuracy()}")
+    lenet_serving_check(torch, ln, net, test)
+    lenet_times(torch, ln, batches, len(batches), card)
+
+
 def main() -> int:
     import torch
 
@@ -1883,6 +2217,17 @@ def main() -> int:
     launches_w2v = word2vec_phase(torch, fw, t8, zipf_sents)
     print("phase 8: GloVe training")
     launches_glove = glove_phase(torch, fg, t8, zipf_sents)
+    print("phase 9: LeNet-MNIST training, evaluation and serving")
+    from deeplearning4j_tpu_torch.models import lenet as ln
+
+    for mod in (fa, fw, fg):
+        mod.reset_launches()
+    lenet_phase(torch, ln, card)
+    hand = {**fa.launch_counts(), "w2v": fw.launches, "glove": fg.launches}
+    print(f"  hand-kernel launches during phase 9: {hand} (no TPU kernel "
+          f"lies on LeNet's path)")
+    check(not any(hand.values()), f"a hand kernel ran on LeNet's path: "
+                                  f"{hand}")
 
     kernels = [{
         "name": "flash_attention_fwd",

@@ -7,8 +7,10 @@ that transformation, step for step, as optax 0.2.6 computes it
 ``scale_by_learning_rate``), so the two packages take the same steps
 from the same gradients.  ``torch.optim.AdamW`` is not used: it folds
 the decay into the parameter before the Adam step and keeps its own
-step-count rules.  The reference's ``ops/updaters.py:dl4j_updater``
-chain lands here later.
+step-count rules.  :func:`dl4j_updater` is the reference's
+``ops/updaters.py:dl4j_updater`` (:41-118), the GradientAdjustment chain
+that ``nn/multilayer`` trains with; its updates are subtracted
+(:func:`apply_descent`).
 
 An optimizer is a :class:`GradientTransformation` of two functions, as
 in optax: ``init(params) -> state`` and ``update(grads, state, params)
@@ -19,7 +21,7 @@ params' structure.  State is fp32 and lives on the params' device.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -105,3 +107,99 @@ def adamw(learning_rate: float, weight_decay: float = 1e-4, b1: float = 0.9,
 def apply_updates(params: Tree, updates: Tree) -> Tree:
     """``optax.apply_updates``: p + u, in p's dtype."""
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+class UpdaterState(NamedTuple):
+    """AdaGrad's sum of squared gradients and the momentum velocity,
+    each a tree of the params' structure."""
+    adagrad_accum: Tree
+    momentum_buf: Tree
+
+
+class Dl4jUpdater(NamedTuple):
+    """``init(params) -> UpdaterState`` and ``update(state, grads, params,
+    iteration, batch_size) -> (updates, state)``."""
+    init: Callable[[Tree], UpdaterState]
+    update: Callable[..., Any]
+
+
+def _is_weight_key(key: str) -> bool:
+    """A leaf whose dict key names a weight matrix: ``W`` or ``*_W``."""
+    return key == "W" or key.endswith("_W")
+
+
+def dl4j_updater(
+    lr: float = 1e-1,
+    momentum: float = 0.5,
+    momentum_schedule: Optional[Dict[int, float]] = None,
+    use_adagrad: bool = False,
+    l2: float = 0.0,
+    use_regularization: bool = False,
+    constrain_unit_norm: bool = False,
+    adagrad_eps: float = 1e-6,
+) -> Dl4jUpdater:
+    """The reference's update rule, in its order (GradientAdjustment.java
+    :50-113):
+
+    1. AdaGrad, ``lr * g / (sqrt(a) + eps)`` with ``a += g^2``, else
+       ``lr * g``;
+    2. heavy-ball momentum ``v = m v + g``, where ``m`` is ``momentum``
+       replaced by ``momentum_schedule[k]`` from ``iteration >= k``;
+    3. L2 (when ``use_regularization`` and ``l2 > 0``): ``+ lr l2 p`` on
+       weight leaves only (key ``W`` or ``*_W``);
+    4. unit norm: ``u / (||u|| + 1e-12)``;
+    5. times ``1 / max(batch_size, 1)``.
+
+    The updates are subtracted from the params.  ``iteration`` is the
+    host's step count, so the schedule costs no device work.
+    """
+    schedule = tuple(sorted((momentum_schedule or {}).items()))
+
+    def init(params: Tree) -> UpdaterState:
+        return UpdaterState(adagrad_accum=tree_map(torch.zeros_like, params),
+                            momentum_buf=tree_map(torch.zeros_like, params))
+
+    def momentum_at(iteration: int) -> float:
+        m = momentum
+        for after, value in schedule:
+            if iteration >= after:
+                m = value
+        return m
+
+    def with_l2(upd: Tree, params: Tree, coeff: float) -> Tree:
+        return {key: (with_l2(u, params[key], coeff) if isinstance(u, dict)
+                      else u + coeff * params[key] if _is_weight_key(key)
+                      else u)
+                for key, u in upd.items()}
+
+    def update(state: UpdaterState, grads: Tree, params: Tree,
+               iteration: int = 0, batch_size: int = 1):
+        inv_batch = 1.0 / max(float(batch_size), 1.0)
+        if use_adagrad:
+            accum = tree_map(lambda a, g: a + g * g, state.adagrad_accum,
+                             grads)
+            scaled = tree_map(
+                lambda g, a: lr * g / (torch.sqrt(a) + adagrad_eps), grads,
+                accum)
+        else:
+            accum = state.adagrad_accum
+            scaled = tree_map(lambda g: lr * g, grads)
+        m = momentum_at(int(iteration))
+        buf = tree_map(lambda v, g: m * v + g, state.momentum_buf, scaled)
+        upd = buf
+        if use_regularization and l2 > 0.0:
+            upd = with_l2(upd, params, lr * l2)
+        if constrain_unit_norm:
+            upd = tree_map(lambda u: u / (torch.linalg.norm(u.reshape(-1))
+                                          + 1e-12), upd)
+        if inv_batch != 1.0:      # x 1.0 is exact: skip its launches
+            upd = tree_map(lambda u: u * inv_batch, upd)
+        return upd, UpdaterState(adagrad_accum=accum, momentum_buf=buf)
+
+    return Dl4jUpdater(init, update)
+
+
+def apply_descent(params: Tree, updates: Tree) -> Tree:
+    """p - u: the reference's ``ops/updaters.apply_updates`` (:124), the
+    gradient-descent application of :func:`dl4j_updater`'s updates."""
+    return tree_map(lambda p, u: p - u, params, updates)

@@ -56,12 +56,15 @@ def pick_bucket(n: int, buckets: Sequence[int]) -> int:
     raise ValueError(f"no bucket >= {n} in {buckets}")
 
 
-def pad_rows(x: np.ndarray, bucket: int) -> np.ndarray:
-    """Zero-pad the leading (batch) dim up to ``bucket`` on the host, so
-    the device only ever sees ladder shapes."""
+def pad_rows(x, bucket: int):
+    """Zero-pad the leading (batch) dim up to ``bucket``, so the device
+    only ever sees ladder shapes: a numpy batch on the host, a tensor on
+    its own device."""
     n = x.shape[0]
     if n == bucket:
         return x
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x.new_zeros((bucket - n,) + x.shape[1:])])
     buf = np.zeros((bucket,) + x.shape[1:], dtype=x.dtype)
     buf[:n] = x
     return buf
@@ -125,12 +128,13 @@ class InferenceEngine:
         return {"buckets": len(self.buckets),
                 "warmup_ms": (time.perf_counter() - t0) * 1e3}
 
-    def _call_forward(self, params: Any, x: np.ndarray) -> torch.Tensor:
-        xt = torch.from_numpy(np.array(x)).to(self.device)
+    def _call_forward(self, params: Any, x) -> torch.Tensor:
+        xt = (x.to(self.device) if isinstance(x, torch.Tensor)
+              else torch.from_numpy(np.array(x)).to(self.device))
         with torch.inference_mode():
             return self._forward(params, xt)
 
-    def _dispatch(self, x: np.ndarray, params: Any) -> torch.Tensor:
+    def _dispatch(self, x, params: Any) -> torch.Tensor:
         """One bucketed forward: pad -> apply -> slice rows out."""
         n = x.shape[0]
         bucket = pick_bucket(n, self.buckets)
@@ -144,12 +148,14 @@ class InferenceEngine:
 
     def infer(self, x, params: Any = None, sync: bool = False,
               count_request: bool = True) -> torch.Tensor:
-        """Serve one request batch ``[n, ...]``: bucket-pad, run the
-        forward, slice the n real rows back out.  Requests larger than
-        the ladder are chunked by the largest bucket.  ``sync=True``
-        waits for the device, so the recorded latency is honest."""
+        """Serve one request batch ``[n, ...]`` (numpy, or a tensor on
+        any device): bucket-pad, run the forward, slice the n real rows
+        back out.  Requests larger than the ladder are chunked by the
+        largest bucket.  ``sync=True`` waits for the device, so the
+        recorded latency is honest."""
         t0 = time.perf_counter()
-        x = np.asarray(x)
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
         if x.ndim == 0:
             raise ValueError("infer expects a batched input [n, ...]")
         n = x.shape[0]
@@ -168,7 +174,7 @@ class InferenceEngine:
                                  for i in range(0, n, cap)], dim=0)
             if sync:
                 self._sync()
-        if self.input_spec is None:
+        if self.input_spec is None and isinstance(x, np.ndarray):
             self.input_spec = (x.shape[1:], x.dtype)
         if count_request:
             # batcher-routed traffic records end-to-end latency itself
