@@ -67,6 +67,32 @@ Phases, each fatal on failure:
    between CUDA events), the busy share and device ms by kernel kind of
    one profiled epoch, peak memory.  No hand kernel runs here (the
    path is cuDNN and cuBLAS): their launch counts must stay 0.
+10. GPT-2 small generation serving (gpt.gpt_config() at full width and
+   depth, bf16, seeded random weights): (a) 4 prompts of 128 tokens,
+   64 greedy tokens through gpt.generate, its prefill and step logits
+   teacher-forced against forward_logits over prompt + tokens (bf16 5e-2,
+   fp32 1e-3) and its tokens against the dense argmax wherever the
+   dense top-2 margin exceeds the bar; (b) a seeded burst of 32 requests
+   (prompts 16-512, 64 tokens, half greedy, half sampled at 0.8 with
+   their own seeds) through DecodeEngine(n_slots=8, buckets 32-1024) +
+   ContinuousBatcher: TTFT and per-step latency p50/p99 and tokens/s,
+   against the same burst as sequential solo generate calls; requests
+   join mid-flight and every slot is free at the end; every sampled
+   request gives the same tokens resubmitted alone; one decode step of
+   8 slots in bucket 1024 timed (host) and profiled (device ms,
+   kernels), the burst profiled for its busy share; the burst in fp32,
+   each greedy request token-identical to its solo generate up to the
+   solo run's first step of top-2 margin below 1e-3; (c) the burst with
+   int8 weights + int8 KV and with bf16 weights (tokens/s,
+   kv_bytes_per_slot, the dequantization's ms a dispatch, greedy
+   agreement with full precision), int8 on the card against the port's
+   CPU (round trip within scale / 2, payloads, prefill logits within 5%
+   of their scale: tests/test_serving_tier2.py:70, :204); (d) GPT
+   scoring through InferenceEngine(gpt.make_serving_apply) at T=1024
+   causal, buckets 1/2/4: logits within 5e-2 of the plain-attention
+   forward, and one row through InferenceEngine(quantize="int8") within
+   5e-2 of the plain-attention forward of the dequantized tree; B1 launched 12 times a
+   dispatch and never on the decode path.  Every line ends with the card's name and power limit.
 
 Phase 3 also holds the backward kernels B2 (dK/dV) and B3 (dQ) against
 their plain twins on the same 17 cases (bf16 within 3e-2 of the case's
@@ -2115,6 +2141,466 @@ def lenet_phase(torch, ln, card: str) -> None:
     lenet_times(torch, ln, batches, len(batches), card)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: GPT-2 small generation serving
+# ---------------------------------------------------------------------------
+
+#: the device phase 10 runs on (a CPU rehearsal substitutes "cpu")
+GEN_DEVICE = "cuda"
+GEN_PROMPTS, GEN_PROMPT_LEN, GEN_TOKENS = 4, 128, 64
+#: teacher-forced decode logits vs the dense forward (phase 4's bf16 bar)
+GEN_LOGITS_TOL = {"bfloat16": LOGITS_TOL, "float32": 1e-3}
+GEN_SLOTS = 8
+BURST, BURST_MIN, BURST_MAX, BURST_TOKENS, BURST_TEMP = 32, 16, 512, 64, 0.8
+#: greedy parity with solo generate holds up to the first step whose
+#: top-2 margin (solo run, fp32) is below this
+PARITY_MARGIN = 1e-3
+#: int8 logits, card vs CPU, of max(|CPU|, 1) (test_serving_tier2.py:204)
+KV_DRIFT = 0.05
+SCORING_T, SCORING_BUCKETS, SCORING_ROWS = 1024, (1, 2, 4), (1, 3, 4)
+
+
+def gen_config(gpt):
+    """GPT-2 small, bf16 (gpt.gpt_config())."""
+    return gpt.gpt_config()
+
+
+def top2_margin(torch, logits):
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def decode_against_dense(torch, gpt, cfg, params, say) -> None:
+    """(a) generate's prefill and decode-step logits, teacher-forced,
+    against forward_logits over the prompt and the generated tokens, in
+    bf16 and fp32; greedy tokens against the dense argmax wherever its
+    top-2 margin exceeds the bar."""
+    rng = np.random.default_rng(7)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (GEN_PROMPTS, GEN_PROMPT_LEN)).astype(np.int32)
+    ).to(GEN_DEVICE)
+    for c in (cfg, dataclasses.replace(cfg, compute_dtype="float32")):
+        bar = GEN_LOGITS_TOL[c.compute_dtype]
+        t0 = time.perf_counter()
+        toks, logits = gpt.generate(c, params, prompts, GEN_TOKENS,
+                                    temperature=0.0, return_logits=True)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        with torch.inference_mode():
+            dense = gpt.forward_logits(
+                c, params, torch.cat([prompts, toks], dim=1))[
+                    :, GEN_PROMPT_LEN - 1:GEN_PROMPT_LEN - 1 + GEN_TOKENS]
+        err = (logits - dense).abs().max().item()
+        resolved = top2_margin(torch, dense) > bar
+        agree = (toks.long() == dense.argmax(-1))[resolved]
+        say(f"(a) {c.compute_dtype}: generate {GEN_PROMPTS} x "
+            f"{GEN_PROMPT_LEN} prompt tokens + {GEN_TOKENS} greedy tokens "
+            f"in {sec:.3f} s; prefill and step logits vs forward_logits "
+            f"max|diff| {err:.3e} (bar {bar}); greedy = dense argmax at "
+            f"{int(agree.sum())}/{agree.numel()} positions whose top-2 "
+            f"margin exceeds the bar ({toks.numel()} in all)")
+        check(bool(torch.isfinite(logits).all()), "decode logits non-finite")
+        check(torch.allclose(logits, dense, rtol=bar, atol=bar),
+              f"{c.compute_dtype} decode logits differ from the dense "
+              f"forward by {err} (bar {bar})")
+        check(bool(agree.all()), f"{c.compute_dtype} greedy tokens differ "
+                                 f"from the dense argmax where it resolves")
+
+
+def burst_requests(cfg):
+    """32 seeded requests: prompt lengths 16-512, even ones greedy, odd
+    ones sampled at 0.8, each with its own seed."""
+    rng = np.random.default_rng(8)
+    reqs = []
+    for i in range(BURST):
+        n = int(rng.integers(BURST_MIN, BURST_MAX + 1))
+        reqs.append((rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                     0.0 if i % 2 == 0 else BURST_TEMP, 1000 + i))
+    return reqs
+
+
+def serve_burst(torch, eng, reqs):
+    """Every request submitted at once to a ContinuousBatcher over
+    ``eng``: (outputs, wall s, decode_metrics snapshot)."""
+    from deeplearning4j_tpu_torch.runtime.metrics import decode_metrics
+    from deeplearning4j_tpu_torch.serving.decode import ContinuousBatcher
+
+    decode_metrics.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ContinuousBatcher(eng, default_max_tokens=BURST_TOKENS) as cb:
+        handles = [cb.submit(p, max_tokens=BURST_TOKENS, temperature=t,
+                             seed=s) for p, t, s in reqs]
+        outs = [h.result(timeout=600) for h in handles]
+    wall = time.perf_counter() - t0
+    for o in outs:
+        check(o.shape == (BURST_TOKENS,), f"burst output shape {o.shape}")
+        check(bool(((o >= 0) & (o < eng.cfg.vocab_size)).all()),
+              "burst token out of the vocabulary")
+    check(eng.n_active() == 0 and all(
+        b.free_slot() == 0 for b in eng._buckets.values()),
+        "slots not all free after the burst")
+    return outs, wall, decode_metrics.snapshot()
+
+
+def solo_generate(torch, gpt, cfg, params, eng, p, temp, seed,
+                  return_logits=False):
+    """One request alone through generate, in its engine bucket's
+    cache length."""
+    return gpt.generate(cfg, params, torch.from_numpy(p[None]).to(
+        GEN_DEVICE), BURST_TOKENS, seed=seed, temperature=temp,
+        max_len=eng.pick_bucket(p.size + BURST_TOKENS),
+        return_logits=return_logits)
+
+
+def busy_share_cuda(torch, run):
+    """(device busy ms, wall ms) of ``run``: torch.profiler with device
+    activity only, summed over the raw trace events (a burst launches
+    ~10^5 kernels, too many to turn into profiler function events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(e.duration_ns()
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda) / 1e6
+    return busy, wall
+
+
+def decode_step_profile(torch, cfg, eng, say) -> None:
+    """Host and device time of one decode step with every slot of the
+    largest bucket active (prompts of 512, budgets of 64)."""
+    bucket = eng.buckets[-1]
+    rng = np.random.default_rng(9)
+    placed = [eng.start(rng.integers(0, cfg.vocab_size, BURST_MAX),
+                        max_tokens=BURST_TOKENS, temperature=BURST_TEMP,
+                        seed=i)[:2] for i in range(GEN_SLOTS)]
+    check(all(b == bucket for b, _ in placed), "profile slots off-bucket")
+    for _ in range(3):
+        eng.advance(bucket)
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        eng.advance(bucket)
+        host.append((time.perf_counter() - t0) * 1e3)
+    by, _ = profile_kernels(torch, lambda: eng.advance(bucket))
+    for b, s in placed:
+        eng.release(b, s)
+    dev_ms = sum(ms for ms, _ in by.values())
+    n_kernels = sum(n for _, n in by.values())
+    kv = 2 * cfg.n_layers * GEN_SLOTS * bucket * cfg.hidden * 2
+    weights = 2 * (12 * cfg.n_layers * cfg.hidden ** 2
+                   + cfg.vocab_size * cfg.hidden)
+    bound = (kv + weights) / PEAK_BYTES_PER_S * 1e3
+    say(f"(b) one decode step, {GEN_SLOTS} slots active in bucket {bucket}: "
+        f"host {np.median(host):.3f} ms (median of 10, synchronized by the "
+        f"token fetch), device {dev_ms:.3f} ms in {n_kernels} kernels "
+        f"(profiler; {dev_ms / np.median(host):.1%} busy); bound "
+        f"{bound:.3f} ms ({(kv + weights) / 1e6:.0f} MB of bf16 weights "
+        f"and KV at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    for key, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:6]:
+        say(f"    {ms:8.3f} ms  {n:4d}x  {key[:90]}")
+
+
+def continuous_batching(torch, gpt, cfg, params, reqs, say):
+    """(b) the burst through DecodeEngine(n_slots=8) + ContinuousBatcher:
+    bf16 timed and profiled, fp32 greedy parity with solo generate,
+    sampled requests resubmitted alone, the burst again as sequential
+    solo generate calls.  Returns the bf16 outputs."""
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeEngine, default_length_buckets)
+
+    ladder = default_length_buckets(cfg.max_len)
+    eng = DecodeEngine(cfg, params, n_slots=GEN_SLOTS, buckets=ladder,
+                       device=GEN_DEVICE)
+    w = eng.warmup()
+    say(f"(b) DecodeEngine: {GEN_SLOTS} slots, buckets {list(ladder)}, "
+        f"prefill chunk {eng.prefill_chunk}, warmup {w['warmup_ms']:.1f} "
+        f"ms; kv_bytes_per_slot {eng.kv_bytes_per_slot} "
+        f"({eng.kv_bytes_per_slot / 2 ** 20:.1f} MiB, bucket {ladder[-1]})")
+    torch.cuda.reset_peak_memory_stats()
+    outs, wall, snap = serve_burst(torch, eng, reqs)
+    n_tok = BURST * BURST_TOKENS
+    say(f"(b) bf16 burst of {BURST} requests (prompts {BURST_MIN}-"
+        f"{BURST_MAX}, {BURST_TOKENS} tokens each, half sampled at "
+        f"{BURST_TEMP}): {wall:.3f} s, {n_tok / wall:.1f} tokens/s; TTFT "
+        f"p50 {snap['ttft_p50_ms']:.2f} ms p99 {snap['ttft_p99_ms']:.2f} "
+        f"ms; per-step latency p50 {snap['tok_p50_ms']:.2f} ms p99 "
+        f"{snap['tok_p99_ms']:.2f} ms; {snap['decode_dispatches']} decode "
+        f"steps, {snap['prefill_dispatches']} prefill chunks, "
+        f"{snap['joins']} mid-flight joins, slot occupancy "
+        f"{snap['slot_occupancy']:.3f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(snap["joins"] > 0, "no request joined mid-flight")
+    check(snap["requests_completed"] == BURST, "burst incomplete")
+
+    # the same burst as sequential solo generate calls (bench.py's
+    # decode_serving comparison)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = [solo_generate(torch, gpt, cfg, params, eng, p, t, s)
+           for p, t, s in reqs]
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    same = sum(int(np.array_equal(o, q[0].cpu().numpy()))
+               for o, q in zip(outs, seq))
+    say(f"(b) the same burst as {BURST} sequential solo generate calls: "
+        f"{seq_wall:.3f} s, {n_tok / seq_wall:.1f} tokens/s; continuous "
+        f"batching {seq_wall / wall:.2f}x its tokens/s; {same}/{BURST} "
+        f"requests token-identical (bf16, printed, not held)")
+
+    # sampled requests resubmitted alone reproduce bit for bit
+    t0 = time.perf_counter()
+    sampled = [i for i, (_, t, _) in enumerate(reqs) if t > 0]
+    alone = serve_burst(torch, eng, [reqs[sampled[0]]])[0]
+    for i in sampled[1:]:
+        alone += serve_burst(torch, eng, [reqs[i]])[0]
+    diff = [i for i, a in zip(sampled, alone) if not np.array_equal(
+        a, outs[i])]
+    say(f"(b) {len(sampled)} sampled requests resubmitted alone: "
+        f"{len(sampled) - len(diff)} token-identical to their burst run "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(not diff, f"sampled requests {diff} changed when resubmitted "
+                    f"alone")
+
+    t0 = time.perf_counter()
+    decode_step_profile(torch, cfg, eng, say)
+    t1 = time.perf_counter()
+    busy, wall_ms = busy_share_cuda(torch, lambda: serve_burst(
+        torch, eng, reqs))
+    say(f"(b) profiled burst: device busy {busy:.1f} ms of {wall_ms:.1f} "
+        f"ms wall ({busy / wall_ms:.1%}; torch.profiler, device activity "
+        f"only); the step profile took {t1 - t0:.1f} s, this "
+        f"{time.perf_counter() - t1:.1f} s")
+    del eng
+
+    # fp32 greedy parity: each greedy request in the busy batch matches
+    # its solo generate up to the solo run's first step of top-2 margin
+    # below PARITY_MARGIN
+    t0 = time.perf_counter()
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    eng32 = DecodeEngine(c32, params, n_slots=GEN_SLOTS, buckets=ladder,
+                         device=GEN_DEVICE)
+    eng32.warmup()
+    outs32, wall32, snap32 = serve_burst(torch, eng32, reqs)
+    held = total = cut = 0
+    for i, (p, t, s) in enumerate(reqs):
+        if t > 0:
+            continue
+        toks, logits = solo_generate(torch, gpt, c32, params, eng32, p, t,
+                                     s, return_logits=True)
+        low = (top2_margin(torch, logits[0]) < PARITY_MARGIN).nonzero()
+        n = int(low[0, 0]) if low.numel() else BURST_TOKENS
+        cut += int(n < BURST_TOKENS)
+        check(np.array_equal(outs32[i][:n], toks[0, :n].cpu().numpy()),
+              f"fp32 greedy request {i} differs from its solo generate "
+              f"within its first {n} tokens")
+        held += n
+        total += BURST_TOKENS
+    say(f"(b) fp32 burst: {wall32:.3f} s, {n_tok / wall32:.1f} tokens/s, "
+        f"{snap32['joins']} joins; greedy parity with solo generate held "
+        f"over {held}/{total} tokens of {BURST // 2} requests ({cut} cut "
+        f"at a step of top-2 margin < {PARITY_MARGIN}); "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    del eng32
+    return outs
+
+
+def int8_against_cpu(torch, gpt, qz, updaters, cfg, params, say) -> None:
+    """The reference's int8 bars on the card against the port's CPU:
+    every quantized leaf's round trip within scale / 2 and its payload
+    equal to the CPU's but for ones at rounding boundaries
+    (test_serving_tier2.py:70); prefill logits through int8 weights and
+    the int8 KV cache within KV_DRIFT of the CPU's (:204)."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+
+    cdt = tfm.compute_dtype(cfg)
+    with torch.inference_mode():
+        q_card = qz.quantize_tree(params, "int8")
+        cpu_params = updaters.tree_map(lambda t: t.cpu(), params)
+        q_cpu = qz.quantize_tree(cpu_params, "int8")
+        worst_rt, off, n = 0.0, 0, 0
+        for grp in params:
+            for name, leaf in q_card[grp].items():
+                if not isinstance(leaf, qz.QTensor):
+                    continue
+                sb = leaf.scale.reshape(qz._scale_bshape(leaf.q.ndim,
+                                                         leaf.scale))
+                rt = ((qz.dequantize_leaf(leaf) - params[grp][name]).abs()
+                      / sb).max().item()
+                worst_rt = max(worst_rt, rt)
+                d = (leaf.q.cpu().int() - q_cpu[grp][name].q.int()).abs()
+                check(int(d.max()) <= 1, f"int8 {grp}/{name}: card and "
+                                         f"CPU payloads differ by {d.max()}")
+                off += int((d > 0).sum())
+                n += d.numel()
+        check(worst_rt <= 0.5 + 1e-5, f"int8 round trip {worst_rt} scales")
+        check(off <= 1e-3 * n, f"int8 payloads: {off} of {n} off by one")
+        prompt = torch.from_numpy(np.random.default_rng(11).integers(
+            0, cfg.vocab_size, (1, GEN_PROMPT_LEN)).astype(np.int32))
+        logits = []
+        for tree, dev in ((q_card, GEN_DEVICE), (q_cpu, "cpu")):
+            cache = gpt.init_cache(cfg, 1, GEN_PROMPT_LEN, "int8", dev)
+            logits.append(gpt._prefill_chunk(
+                cfg, qz.dequantize_tree(tree, cdt), cache, prompt.to(dev),
+                0)[1].cpu())
+    err = (logits[0] - logits[1]).abs().max().item()
+    scale = max(logits[1].abs().max().item(), 1.0)
+    say(f"(c) int8 on the card vs the port's CPU: round trip <= "
+        f"{worst_rt:.6f} scales (bar 0.5), payloads off by one at {off} "
+        f"of {n}; int8 weights + int8 KV prefill logits of a "
+        f"{GEN_PROMPT_LEN}-token prompt max|diff| {err:.3e} (bar "
+        f"{KV_DRIFT} x {scale:.3f})")
+    check(err <= KV_DRIFT * scale, f"int8 logits card vs CPU {err}")
+
+
+def quantized_serving(torch, gpt, cfg, params, reqs, base, say) -> None:
+    """(c) the burst with quantize="int8", kv_dtype="int8" and with
+    quantize="bf16": tokens/s, kv_bytes_per_slot, greedy agreement with
+    full precision, the dequantization's device ms a dispatch."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.runtime import quantize as qz
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeEngine, default_length_buckets)
+
+    t0 = time.perf_counter()
+    int8_against_cpu(torch, gpt, qz, updaters, cfg, params, say)
+    say(f"(c) int8 against the CPU took {time.perf_counter() - t0:.1f} s")
+    cdt = tfm.compute_dtype(cfg)
+    for mode, kv in (("int8", "int8"), ("bf16", None)):
+        eng = DecodeEngine(cfg, params, n_slots=GEN_SLOTS,
+                           buckets=default_length_buckets(cfg.max_len),
+                           quantize=mode, kv_dtype=kv, device=GEN_DEVICE)
+        eng.warmup()
+        outs, wall, snap = serve_burst(torch, eng, reqs)
+        qp = eng.current_params()
+        deq_ms = time_ms(torch, lambda: qz.dequantize_tree(qp, cdt),
+                         iters=10)
+        lead = []
+        for i, (_, t, _) in enumerate(reqs):
+            if t > 0:
+                continue
+            d = np.nonzero(outs[i] != base[i])[0]
+            lead.append(int(d[0]) if d.size else BURST_TOKENS)
+        say(f"(c) quantize={mode} kv_dtype={kv}: {wall:.3f} s, "
+            f"{BURST * BURST_TOKENS / wall:.1f} tokens/s; "
+            f"kv_bytes_per_slot {eng.kv_bytes_per_slot} "
+            f"({eng.kv_bytes_per_slot / 2 ** 20:.1f} MiB); weights "
+            f"{qz.tree_bytes(qp) / 1e6:.1f} MB; dequantization "
+            f"{deq_ms:.4f} ms a dispatch (CUDA events); greedy tokens "
+            f"equal to full precision's up to the first difference: "
+            f"{sum(lead)}/{len(lead) * BURST_TOKENS} ({sum(x == BURST_TOKENS for x in lead)}/{len(lead)} "
+            f"requests whole); TTFT p50 {snap['ttft_p50_ms']:.2f} ms, "
+            f"per-step p50 {snap['tok_p50_ms']:.2f} ms")
+        del eng
+
+
+def gpt_scoring(torch, fa, gpt, cfg, params, say) -> int:
+    """(d) GPT scoring through InferenceEngine(gpt.make_serving_apply) at
+    T=1024 causal, buckets 1/2/4: logits within the bar of the
+    plain-attention forward, B1 launched once per layer per dispatch;
+    one more row through InferenceEngine(quantize="int8"), held to the
+    plain-attention forward of the dequantized tree.  Returns the B1 launches of the counted
+    dispatches."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.runtime import quantize as qz
+    from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+
+    apply_fn = gpt.make_serving_apply(cfg)
+    eng = InferenceEngine(apply_fn, params, buckets=SCORING_BUCKETS,
+                          device=GEN_DEVICE)
+    w = eng.warmup(input_shape=(SCORING_T,), dtype=np.int32)
+    q8 = InferenceEngine(apply_fn, params, buckets=(1,), quantize="int8",
+                         device=GEN_DEVICE)
+    q8.warmup(input_shape=(SCORING_T,), dtype=np.int32)
+    rng = np.random.default_rng(12)
+    reqs = [rng.integers(0, cfg.vocab_size, (n, SCORING_T)).astype(np.int32)
+            for n in SCORING_ROWS]
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    outs = [eng.infer(x, sync=True) for x in reqs]
+    sec = time.perf_counter() - t0
+    q_out = q8.infer(reqs[0], sync=True)
+    launches = fa.launch_counts()
+    n_disp = len(reqs) + 1
+    plain = gpt.make_serving_apply(cfg, attn_fn=tfm.attention)
+    with torch.inference_mode():
+        x0 = torch.from_numpy(reqs[0]).to(GEN_DEVICE)
+        q_ref = plain(qz.dequantize_tree(q8.current_params()), x0)
+        q_err = (q_out - q_ref).abs().max().item()
+        q_ok = torch.allclose(q_out, q_ref, rtol=LOGITS_TOL, atol=LOGITS_TOL)
+        del q_ref
+    q_far = (q_out - outs[0]).abs().max().item()
+    say(f"(d) InferenceEngine(quantize=\"int8\"), 1 row: max|diff| vs the "
+        f"plain-attention forward of the dequantized tree {q_err:.3e} "
+        f"(tolerance {LOGITS_TOL}), vs full precision {q_far:.3e}")
+    check(q_ok, f"int8 scoring differs from the plain-attention forward of "
+                f"the dequantized tree by {q_err}")
+    check(q_far > 1e-3, "int8 scoring equals full precision: not quantized")
+    err = 0.0
+    with torch.inference_mode():
+        for x, got in zip(reqs, outs):
+            check(got.shape == (x.shape[0], SCORING_T, cfg.vocab_size),
+                  f"scoring shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), "scoring non-finite")
+            ref = plain(params, torch.from_numpy(x).to(GEN_DEVICE))
+            e = (got - ref).abs().max().item()
+            err = max(err, e)
+            check(torch.allclose(got, ref, rtol=LOGITS_TOL, atol=LOGITS_TOL),
+                  f"scoring logits differ from the plain forward by {e}")
+            del ref
+    say(f"(d) GPT scoring at T={SCORING_T} causal, buckets "
+        f"{list(SCORING_BUCKETS)} (warmup {w['warmup_ms']:.1f} ms): "
+        f"{len(reqs)} requests of {list(SCORING_ROWS)} rows in {sec:.3f} s "
+        f"(host clock, synchronized; {sum(SCORING_ROWS) * SCORING_T / sec:.1f} "
+        f"tokens/s); max|diff| vs the plain-attention forward {err:.3e} "
+        f"(tolerance {LOGITS_TOL}); B1 launches {launches['launches']} "
+        f"({cfg.n_layers} layers x {n_disp} dispatches, the int8 one "
+        f"included)")
+    check(launches["launches"] == cfg.n_layers * n_disp,
+          f"B1 launched {launches['launches']} times for {n_disp} "
+          f"scoring dispatches")
+    check(launches["launches_dkv"] == launches["launches_dq"] == 0,
+          "a backward kernel ran while scoring")
+    return launches["launches"]
+
+
+def generation_phase(torch, fa, card: str) -> int:
+    """Phase 10 (see the module docstring).  Returns B1's launches."""
+    from deeplearning4j_tpu_torch.models import gpt
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    cfg = gen_config(gpt)
+    gen = torch.Generator(device=GEN_DEVICE)
+    gen.manual_seed(0)
+    params = gpt.init_params(gen, cfg, device=GEN_DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    reqs = burst_requests(cfg)
+    t0 = time.perf_counter()
+    decode_against_dense(torch, gpt, cfg, params, say)
+    t1 = time.perf_counter()
+    base = continuous_batching(torch, gpt, cfg, params, reqs, say)
+    t2 = time.perf_counter()
+    quantized_serving(torch, gpt, cfg, params, reqs, base, say)
+    t3 = time.perf_counter()
+    hand = fa.launch_counts()
+    check(not any(hand.values()), f"flash kernels ran on the decode "
+                                  f"path: {hand}")
+    n = gpt_scoring(torch, fa, gpt, cfg, params, say)
+    say(f"phase 10 wall: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
+    return n
+
+
 def main() -> int:
     import torch
 
@@ -2228,6 +2714,8 @@ def main() -> int:
           f"lies on LeNet's path)")
     check(not any(hand.values()), f"a hand kernel ran on LeNet's path: "
                                   f"{hand}")
+    print("phase 10: GPT-2 small generation serving")
+    launches["launches"] += generation_phase(torch, fa, card)
 
     kernels = [{
         "name": "flash_attention_fwd",

@@ -132,7 +132,11 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
 # ---------------------------------------------------------------------------
 
 def layer_norm(x: Tensor, g: Tensor, b: Tensor, eps: float) -> Tensor:
-    return F.layer_norm(x.float(), (x.shape[-1],), g, b, eps)
+    """fp32 LayerNorm; gains and biases in another dtype (the bf16
+    serving mode casts the stacked ``[L, H]`` ones) are promoted to fp32,
+    as JAX's arithmetic promotes them."""
+    return F.layer_norm(x.float(), (x.shape[-1],), g.float(), b.float(),
+                        eps)
 
 
 def _mm_fp32(x: Tensor, w: Tensor) -> Tensor:
@@ -304,14 +308,17 @@ def value_and_grad(loss_fn: Callable[[Params], Tensor], params: Params):
 
 
 def embed(cfg: TransformerConfig, params: Params, token_ids: Tensor,
-          type_ids: Optional[Tensor] = None) -> Tensor:
+          type_ids: Optional[Tensor] = None,
+          position_offset: int = 0) -> Tensor:
     """``[B, T]`` ids -> ``[B, T, H]`` fp32 (tok + pos + type, LN) (:263).
-    The sequence-parallel ``position_offset`` comes with the parallel
-    slice."""
+    The ids sit at positions ``position_offset + [0, T)``: a KV-cache
+    prefill chunk (``gpt._prefill_chunk``) or one decode step embeds its
+    tokens at their absolute positions."""
     e = params["embed"]
     T = token_ids.shape[-1]
     x = e["tok"][token_ids.long()]
-    x = x + e["pos"][torch.arange(T, device=token_ids.device)]
+    idx = torch.arange(T, device=token_ids.device) + position_offset
+    x = x + e["pos"][idx]
     if type_ids is not None:
         x = x + e["type"][type_ids.long()]
     return layer_norm(x, e["ln_g"], e["ln_b"], cfg.layer_norm_eps)

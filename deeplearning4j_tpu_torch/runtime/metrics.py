@@ -1,9 +1,9 @@
 """Serving counters.
 
-Port of ``ServingMetrics``/``serving_metrics``
-(``deeplearning4j_tpu/runtime/metrics.py:134-243``) and of the one
-``DecodeMetrics`` counter the batcher books
-(``note_deadline_expiration``, batcher.py:203).  The compile-count mark
+Port of ``ServingMetrics``/``serving_metrics`` and
+``DecodeMetrics``/``decode_metrics``
+(``deeplearning4j_tpu/runtime/metrics.py:134-513``, the decode family's
+tier-1 and tier-2 counters).  The compile-count mark
 (``mark_compiles``, ``compile_delta_since_mark``) has no counterpart:
 PyTorch runs eagerly, so serving compiles nothing.  The other counter
 families come with the slices that use them.
@@ -108,9 +108,36 @@ serving_metrics = ServingMetrics()
 
 
 class DecodeMetrics:
-    """The serving-wide failure counter the batcher books: requests
-    whose ``deadline_ms`` passed while queued.  The decode engine's own
-    counters come with the decode slice."""
+    """Process-wide counters of the continuous-batching decode stack
+    (``serving/decode.py``), the reference's tier-1 and tier-2 families
+    (``DecodeMetrics``, metrics.py:246):
+
+    - ``requests`` / ``requests_completed``: decode requests accepted
+      and finished (EOS or token budget);
+    - ``prompt_tokens`` / ``tokens_out``: prompt tokens accepted and
+      continuation tokens streamed back;
+    - ``prefill_dispatches`` / ``decode_dispatches``: prefill chunks
+      and decode steps dispatched;
+    - ``joins``: requests that prefilled while other slots were
+      mid-decode;
+    - ``slot_steps`` / ``slot_capacity_steps``: active and total slots
+      summed over decode steps; ``snapshot()["slot_occupancy"]`` is
+      their ratio;
+    - ``queue_depth`` / ``max_queue_depth``: the batcher's latest and
+      high-water pending depth;
+    - time-to-first-token and per-step latency reservoirs ->
+      ``ttft_p50_ms``/``ttft_p99_ms`` and ``tok_p50_ms``/``tok_p99_ms``;
+    - tier 2: ``kv_bytes_per_slot`` (gauge: KV bytes a slot of the
+      newest engine's largest bucket).  The prefix-store and router
+      counters come with their bookers (ROADMAP A4);
+    - ``deadline_expirations``: requests whose ``deadline_ms`` passed
+      while queued or mid-decode (the one-shot batcher books here too).
+
+    The compile mark (``mark_compiles``) has no counterpart: PyTorch
+    runs eagerly and serving compiles nothing.
+    """
+
+    MAX_SAMPLES = 8192
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -118,16 +145,98 @@ class DecodeMetrics:
 
     def reset(self) -> None:
         with self._lock:
+            self.requests = 0
+            self.requests_completed = 0
+            self.prompt_tokens = 0
+            self.tokens_out = 0
+            self.prefill_dispatches = 0
+            self.decode_dispatches = 0
+            self.joins = 0
+            self.slot_steps = 0
+            self.slot_capacity_steps = 0
+            self.queue_depth = 0
+            self.max_queue_depth = 0
+            self.kv_bytes_per_slot = 0
             self.deadline_expirations = 0
+            self._ttft_ms: List[float] = []
+            self._tok_ms: List[float] = []
+
+    def note_request(self, prompt_tokens: int) -> None:
+        with self._lock:
+            self.requests += 1
+            self.prompt_tokens += int(prompt_tokens)
+
+    def note_join(self) -> None:
+        with self._lock:
+            self.joins += 1
+
+    def note_kv_bytes_per_slot(self, nbytes: int) -> None:
+        with self._lock:
+            self.kv_bytes_per_slot = int(nbytes)
 
     def note_deadline_expiration(self) -> None:
         with self._lock:
             self.deadline_expirations += 1
 
-    def snapshot(self) -> Dict[str, Any]:
+    def note_complete(self, tokens: int) -> None:
         with self._lock:
-            return {"deadline_expirations": self.deadline_expirations}
+            self.requests_completed += 1
+            self.tokens_out += int(tokens)
+
+    def note_prefill(self, chunks: int = 1) -> None:
+        with self._lock:
+            self.prefill_dispatches += int(chunks)
+
+    def note_decode_dispatch(self, active: int, capacity: int) -> None:
+        with self._lock:
+            self.decode_dispatches += 1
+            self.slot_steps += int(active)
+            self.slot_capacity_steps += int(capacity)
+
+    def note_queue_depth(self, depth: int) -> None:
+        with self._lock:
+            self.queue_depth = depth
+            self.max_queue_depth = max(self.max_queue_depth, depth)
+
+    def _push(self, buf: List[float], ms: float) -> None:
+        buf.append(ms)
+        if len(buf) > self.MAX_SAMPLES:
+            del buf[:len(buf) // 2]
+
+    def note_ttft_ms(self, ms: float) -> None:
+        with self._lock:
+            self._push(self._ttft_ms, ms)
+
+    def note_token_ms(self, ms: float) -> None:
+        with self._lock:
+            self._push(self._tok_ms, ms)
+
+    def snapshot(self) -> Dict[str, Any]:
+        pct = ServingMetrics._pct
+        with self._lock:
+            ttft = sorted(self._ttft_ms)
+            tok = sorted(self._tok_ms)
+            occ = (self.slot_steps / self.slot_capacity_steps
+                   if self.slot_capacity_steps else 0.0)
+            return {
+                "requests": self.requests,
+                "requests_completed": self.requests_completed,
+                "prompt_tokens": self.prompt_tokens,
+                "tokens_out": self.tokens_out,
+                "prefill_dispatches": self.prefill_dispatches,
+                "decode_dispatches": self.decode_dispatches,
+                "joins": self.joins,
+                "slot_occupancy": round(occ, 4),
+                "queue_depth": self.queue_depth,
+                "max_queue_depth": self.max_queue_depth,
+                "kv_bytes_per_slot": self.kv_bytes_per_slot,
+                "deadline_expirations": self.deadline_expirations,
+                "ttft_p50_ms": pct(ttft, 0.50),
+                "ttft_p99_ms": pct(ttft, 0.99),
+                "tok_p50_ms": pct(tok, 0.50),
+                "tok_p99_ms": pct(tok, 0.99),
+            }
 
 
-#: process-wide singleton the batcher's deadline sweep reports into
+#: process-wide singleton the decode engine and both batchers report into
 decode_metrics = DecodeMetrics()

@@ -11,9 +11,14 @@ Port of ``deeplearning4j_tpu/serving/engine.py`` (:60-296).  What stays:
 - ``input_spec`` records the per-example shape and dtype served, so the
   batcher can reject a mismatched request at submit time.
 
+``quantize="int8"|"bf16"`` serves post-training quantized weights
+(``runtime/quantize.py``): the params are quantized once per distinct
+tree and dequantized (fp32, the reference's default) before every
+forward; where JAX fuses that into its jitted forward, the eager port
+makes an extra pass over the weights.
+
 What has no counterpart yet: ``cached_jit`` and input donation (:162),
-since PyTorch runs eagerly (CUDA graphs are later work), and
-``quantize=``, which raises until ``runtime/quantize.py`` is ported.
+since PyTorch runs eagerly (CUDA graphs are later work).
 
 ``apply_fn(params, x)`` takes the padded batch as a tensor on the
 engine's device and returns one tensor whose rows depend only on the
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.runtime import quantize as qz
 from deeplearning4j_tpu_torch.runtime import telemetry
 from deeplearning4j_tpu_torch.runtime.metrics import serving_metrics
 
@@ -75,6 +81,9 @@ class InferenceEngine:
 
     ``params`` may be the params themselves or a zero-arg callable
     returning them (so a live model's current params are served).
+    With ``quantize``, static params are quantized once and the engine
+    drops its reference to the raw tree; a callable's trees are
+    quantized once each (memoized on identity).
     """
 
     def __init__(self, apply_fn: Callable, params: Any = None, *,
@@ -82,24 +91,30 @@ class InferenceEngine:
                  max_batch_size: int = DEFAULT_MAX_BATCH,
                  quantize: Optional[str] = None,
                  device: DeviceLike = None):
-        if quantize is not None:
-            raise NotImplementedError(
-                "quantize= is not ported yet (runtime/quantize.py)")
+        self.quantize = qz.check_mode(quantize)
         self.device = resolve_device(device)
         self.buckets = tuple(sorted(set(
             buckets if buckets is not None
             else default_buckets(max_batch_size))))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad bucket ladder: {self.buckets}")
+        if self.quantize is not None:
+            raw_apply = apply_fn
+
+            def apply_fn(params, x):
+                return raw_apply(qz.dequantize_tree(params), x)
         self._forward = apply_fn
-        self._params = params
+        self._served = qz.ServedParams(
+            params, None if self.quantize is None
+            else lambda raw: qz.quantize_tree(raw, self.quantize))
         #: (per-example shape, dtype) the engine serves — set by
         #: warmup() / the first successful infer
         self.input_spec: Optional[Tuple[Tuple[int, ...], Any]] = None
 
     def current_params(self, params: Any = None) -> Any:
-        p = self._params if params is None else params
-        return p() if callable(p) else p
+        """The tree the forward takes: quantized when ``quantize`` is
+        set (:class:`runtime.quantize.ServedParams`)."""
+        return self._served.get(params)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

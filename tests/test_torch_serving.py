@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.models import bert
+from deeplearning4j_tpu_torch.runtime import quantize as qz
 from deeplearning4j_tpu_torch.runtime import telemetry
 from deeplearning4j_tpu_torch.runtime.metrics import (decode_metrics,
                                                       serving_metrics)
@@ -87,8 +88,14 @@ def test_engine_pads_slices_and_chunks_against_unpadded(model):
 
 
 def test_engine_options():
-    with pytest.raises(NotImplementedError, match="quantize"):
-        InferenceEngine(lambda p, x: x, quantize="int8", device="cpu")
+    with pytest.raises(ValueError, match="quantize mode"):
+        InferenceEngine(lambda p, x: x, quantize="int4", device="cpu")
+    w = torch.tensor([[0.5, -1.0], [0.25, 2.0]])
+    q8 = InferenceEngine(lambda p, x: x @ p["w"], params={"w": w},
+                         buckets=(2,), quantize="int8", device="cpu")
+    assert isinstance(q8.current_params()["w"], qz.QTensor)
+    np.testing.assert_allclose(q8.infer(np.eye(2, dtype=np.float32)).numpy(),
+                               w.numpy(), atol=float(w.abs().max()) / 254)
     with pytest.raises(ValueError, match="bucket"):
         InferenceEngine(lambda p, x: x, buckets=(0, 2), device="cpu")
     eng = InferenceEngine(lambda p, x: x * p, params=lambda: 3,
