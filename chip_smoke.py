@@ -93,6 +93,29 @@ Phases, each fatal on failure:
    forward, and one row through InferenceEngine(quantize="int8") within
    5e-2 of the plain-attention forward of the dequantized tree; B1 launched 12 times a
    dispatch and never on the decode path.  Every line ends with the card's name and power limit.
+11. the compile engine (runtime/compile_cache): each of the five
+   captured paths runs the same seeded inputs through its raw function
+   (``call.fn``, or every engine entry made eager for the loops) and
+   through its CUDA graphs: LeNet fp32 B=128, 20 steps (losses and
+   params within 1e-6 relative, cuDNN deterministic for both), then two
+   same-conf LeNet fits at once in two threads through the shared step,
+   each against its solo eager fit (1e-6); BERT-base MLM B=32 T=128 and
+   GPT-2 small B=8 T=1024 (remat), 10 bf16 steps with dropout (loss per
+   step, and the relative L2 of the params' change from the initial
+   state, within 1e-6), then two BERT states stepped alternately through
+   one step_fn, each against its solo eager run (1e-6), the initial
+   states unchanged; slot_decode's logits at 8 slots in bucket 1024
+   (fp32 1e-5, bf16 5e-2), the 32-request burst and one decode step,
+   which must copy no byte into the graphs' buffers; one word2vec and
+   one GloVe epoch on text8 (1e-4 relative L2).  Each path prints host ms
+   (median of synchronized calls), device ms and the busy share, eager
+   beside captured, and holds its steady state to zero new captures;
+   the captures per label must equal the signatures the entries hold.
+
+Phases 4-10 run through the compile engine as a user's calls do: every
+serving dispatch, training step, decode and prefill dispatch and
+embedding chunk is a CUDA graph replay after its signature's capture,
+and the kernel wrappers' launch counts are booked once per replay.
 
 Phase 3 also holds the backward kernels B2 (dK/dV) and B3 (dQ) against
 their plain twins on the same 17 cases (bf16 within 3e-2 of the case's
@@ -126,6 +149,7 @@ fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -978,11 +1002,15 @@ def train_phase(torch, fa, what, mod, cfg, batch, flops, loss_of):
     state = init_fn(torch.Generator(device="cuda").manual_seed(0))
     dropout_gen = torch.Generator(device="cuda").manual_seed(1)
     losses, step_s = [], []
+    # the peak spans the warm-up: a captured step's workspace is taken
+    # from its graph's pool at capture (the engine's warm-up runs execute
+    # eagerly), and a replay allocates nothing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(WARMUP_STEPS):
         state, loss = step_fn(state, batch, dropout_gen)
         losses.append(float(loss))
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
 
     # -- the main path, counted ------------------------------------------
     fa.reset_launches()
@@ -2017,9 +2045,11 @@ def lenet_times(torch, ln, batches, steps_per_epoch: int,
 
     batches = [DataSet(b.features.cuda(), b.labels.cuda()) for b in batches]
     net = ln.lenet(device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e6
+    torch.cuda.reset_peak_memory_stats()     # the warm-up captures the step
     net.fit_backprop(batches)                       # warm-up epoch
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     timer = TimingListener()
     net.set_listeners([timer])
     net.fit_iterator(ListDataSetIterator(batches, LENET_B),
@@ -2050,7 +2080,9 @@ def lenet_times(torch, ln, batches, steps_per_epoch: int,
           f"{LENET_B / ev * 1e3:.1f} samples/s; model FLOPs "
           f"{flops / 1e9:.2f} GFLOP a step = "
           f"{flops / (ev / 1e3) / PEAK_BF16_FLOPS:.3%} of 989 TFLOP/s; "
-          f"peak memory {peak:.1f} MB")
+          f"peak memory {peak:.1f} MB, {held:.1f} MB of it allocated "
+          f"before the warm-up (earlier phases' engine entries and the "
+          f"batches)")
 
     by, wall = profile_kernels(torch, lambda: net.fit_backprop(batches))
     if not by:
@@ -2600,6 +2632,573 @@ def generation_phase(torch, fa, card: str) -> int:
         f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
     return n
 
+# ---------------------------------------------------------------------------
+# phase 11: the compile engine's CUDA graphs against the raw functions
+# ---------------------------------------------------------------------------
+
+#: captured against eager, each bar with its reason: LeNet fp32 runs the
+#: same kernels in both (cuDNN deterministic for both); the transformer
+#: steps (bf16 with dropout) ran bit-equal captured and eager, so the
+#: loss and the parameters' change from the initial state (p_k - p_0) are
+#: held at 1e-6 relative, a bar that a frozen AdamW count or frozen
+#: dropout masks fail by orders of magnitude; decode logits fp32 / bf16;
+#: B4 and B5 sum a row's hits with atomics in no fixed order
+GRAPH_LENET_RTOL = 1e-6
+GRAPH_TRAIN_RTOL = 1e-6
+GRAPH_DECODE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+GRAPH_EMBED_RTOL = 1e-4
+GRAPH_LENET_STEPS, GRAPH_TRAIN_STEPS, GRAPH_DECODE_STEPS = 20, 10, 8
+GRAPH_TIMED = {"lenet": 30, "train": 5, "decode": 20}
+
+
+@contextlib.contextmanager
+def eager_engine():
+    """Every compile-engine entry runs its raw function (``call.fn``):
+    the eager comparator, nothing captured or counted."""
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    call = compile_cache.GraphFn.__call__
+    compile_cache.GraphFn.__call__ = lambda self, *a, **kw: self.fn(*a, **kw)
+    try:
+        yield
+    finally:
+        compile_cache.GraphFn.__call__ = call
+
+
+def host_ms(torch, run, n: int) -> float:
+    """Median host ms of ``n`` calls of ``run``, each synchronized."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def device_ms(torch, run, n: int):
+    """(device ms, kernels) a call of ``run`` over ``n`` profiled calls
+    (torch.profiler); (None, 0) when it reports no device time."""
+    by, _ = profile_kernels(torch, lambda: [run() for _ in range(n)])
+    if not by:
+        return None, 0
+    return (sum(ms for ms, _ in by.values()) / n,
+            sum(k for _, k in by.values()) / n)
+
+
+def graph_times(torch, what, runs, n_host, n_dev, say):
+    """Host ms, device ms and busy share of each of ``runs`` ({"eager":
+    fn, "captured": fn}), printed side by side."""
+    rows = {}
+    for how, run in runs.items():
+        h = host_ms(torch, run, n_host)
+        d, k = device_ms(torch, run, n_dev)
+        rows[how] = (h, d, k)
+    parts = []
+    for how, (h, d, k) in rows.items():
+        dev = ("device not measured" if d is None else
+               f"device {d:.3f} ms in {k:.0f} kernels = {d / h:.1%} busy")
+        parts.append(f"{how} host {h:.3f} ms, {dev}")
+    say(f"{what}: " + "; ".join(parts)
+        + f" (host: median of {n_host} synchronized calls; device: "
+          f"profiler over {n_dev})")
+    return rows
+
+
+def graph_lenet(torch, ln, entries, say) -> None:
+    """LeNet fp32 B=128: 20 steps through the raw step and through its
+    graph from the same state and batches."""
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    net = lenet_net(ln, "float32", ln.lenet(device="cpu").params, "cuda")
+    step = net._machinery()[0]
+    entries.append(step)
+    batches = [(torch.as_tensor(b.features).cuda(),
+                torch.as_tensor(b.labels).cuda())
+               for b in lenet_random_batches(GRAPH_LENET_STEPS, seed=3)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res, runs = {}, {}
+        for how, fn in (("eager", step.fn), ("captured", step)):
+            params, ustate, it, gen = net._fit_state(2)
+            state = (params, ustate, it)
+            losses = []
+            for k, (x, y) in enumerate(batches):
+                if k == 1:
+                    c1 = compile_metrics.compile_count
+                *state, loss, _ = fn(*state, x, y, gen)
+                losses.append(float(loss))
+            res[how] = (np.array(losses), state[0])
+            if how == "captured":
+                delta = compile_metrics.compile_count - c1
+            runs[how] = (lambda fn=fn, st=state, g=gen: fn(
+                *st, *batches[0], g))
+        lrel = float(np.max(np.abs(res["captured"][0] - res["eager"][0])
+                            / np.abs(res["eager"][0])))
+        prel = max(float((c[k] - e[k]).abs().max() / e[k].abs().max())
+                   for c, e in zip(res["captured"][1], res["eager"][1])
+                   for k in e)
+        say(f"LeNet fp32 B={LENET_B}, {GRAPH_LENET_STEPS} steps captured vs "
+            f"eager (cuDNN deterministic for both): losses' largest relative "
+            f"difference {lrel:.3e}, parameters' {prel:.3e} (bar "
+            f"{GRAPH_LENET_RTOL:g}); captures over steps 2-"
+            f"{GRAPH_LENET_STEPS}: {delta}")
+        check(lrel <= GRAPH_LENET_RTOL and prel <= GRAPH_LENET_RTOL,
+              f"LeNet: captured steps differ from eager ({lrel}, {prel})")
+        check(delta == 0, f"LeNet: {delta} captures in the steady state")
+        graph_times(torch, f"LeNet fp32 step B={LENET_B}", runs,
+                    GRAPH_TIMED["lenet"], 10, say)
+        del runs, res, state
+        lenet_threads(torch, ln, say)
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def lenet_threads(torch, ln, say) -> None:
+    """Two LeNet networks of one conf fit at once, in two threads,
+    through their shared ``multilayer.train_step``, in lockstep (a
+    listener holds each step until the other thread's same step is
+    done): each must end where its solo eager fit ends."""
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    batches = lenet_random_batches(GRAPH_LENET_STEPS, seed=5)
+    last = batches[-1]
+    # a ragged last batch: the per-step path, which calls the listeners
+    # after every step
+    batches[-1] = type(last)(last.features[:LENET_B // 2],
+                             last.labels[:LENET_B // 2])
+    inits = [ln.lenet(seed=s, device="cpu").params for s in (7, 8)]
+    solo = []
+    with eager_engine():
+        for p in inits:
+            net = lenet_net(ln, "float32", p, "cuda")
+            net.fit_backprop(batches)
+            solo.append(net.params_flat())
+    lockstep = threading.Barrier(2, timeout=120)
+
+    class Lockstep:
+        def iteration_done(self, net, n, score):
+            lockstep.wait()
+
+    nets = [lenet_net(ln, "float32", p, "cuda") for p in inits]
+    for net in nets:
+        net.set_listeners([Lockstep()])
+    c0 = compile_metrics.compile_count
+    errors = []
+
+    def fit(net):
+        try:
+            net.fit_backprop(batches)
+        except Exception as e:          # reported below
+            lockstep.abort()
+            errors.append(e)
+
+    threads = [threading.Thread(target=fit, args=(n,)) for n in nets]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"LeNet threads: {errors}")
+    caps = compile_metrics.compile_count - c0
+    rels = [float((n.params_flat() - r).abs().max() / r.abs().max())
+            for n, r in zip(nets, solo)]
+    say(f"two same-conf LeNet fits ({GRAPH_LENET_STEPS} steps each, the "
+        f"last batch {LENET_B // 2} rows) in two threads, in lockstep "
+        f"through one shared train step, against each one's solo eager "
+        f"fit: parameters' largest relative difference {rels[0]:.3e} and "
+        f"{rels[1]:.3e} (bar {GRAPH_LENET_RTOL:g}); captures: {caps} (the "
+        f"second live state's set, and the short batch on each set)")
+    check(max(rels) <= GRAPH_LENET_RTOL,
+          f"LeNet threads differ from their solo fits {rels}")
+    check(caps >= 2, f"LeNet threads: {caps} captures, so the two fits "
+                     f"did not run on two state sets at once")
+
+
+def update_rel(torch, updaters, p0, got, ref) -> float:
+    """Relative L2 of the parameters' change from ``p0``: ``|(got - p0)
+    - (ref - p0)| / |ref - p0|`` over every leaf."""
+    num = den = 0.0
+    for a, c, e in zip(updaters.tree_leaves(p0), updaters.tree_leaves(got),
+                       updaters.tree_leaves(ref)):
+        d = e.double() - a.double()
+        num += float((c.double() - e.double()).norm()) ** 2
+        den += float(d.norm()) ** 2
+    return (num / den) ** 0.5
+
+
+def graph_train(torch, mod, cfg, batch, what, entries, say,
+                interleave: bool = False) -> None:
+    """A transformer step, bf16 with dropout: 10 steps through the raw
+    step and through its graph from the same state and generator seed;
+    with ``interleave``, two states stepped alternately through one
+    ``step_fn``, each against its solo eager run."""
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    init_fn, step_fn = mod.make_train_step(cfg)
+    graph = step_fn.graph
+    entries.append(graph)
+    s0 = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    res, runs = {}, {}
+    for how, fn in (("eager", graph.fn), ("captured", graph)):
+        # the raw step writes its state in place: it runs on a copy
+        st = updaters.tree_map(torch.clone, (s0.params, s0.opt_state))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        losses = []
+        for k in range(GRAPH_TRAIN_STEPS):
+            if k == 1:
+                c1 = compile_metrics.compile_count
+            *st, loss = fn(*st, batch, gen)
+            losses.append(float(loss))
+        res[how] = (np.array(losses), st[0])
+        if how == "captured":
+            delta = compile_metrics.compile_count - c1
+        runs[how] = lambda fn=fn, st=st, g=gen: fn(*st, batch, g)
+    lrel = float(np.max(np.abs(res["captured"][0] - res["eager"][0])
+                        / np.abs(res["eager"][0])))
+    urel = update_rel(torch, updaters, s0.params, res["captured"][1],
+                      res["eager"][1])
+    say(f"{what}, {GRAPH_TRAIN_STEPS} steps captured vs eager (bf16, "
+        f"dropout {cfg.dropout}): losses " + " / ".join(
+            f"{a:.4f}:{b:.4f}" for a, b in zip(res["eager"][0],
+                                               res["captured"][0]))
+        + f"; largest relative loss difference {lrel:.3e}, relative L2 "
+          f"of the parameters' change p_k - p_0 {urel:.3e} (bar "
+          f"{GRAPH_TRAIN_RTOL:g}); captures over steps 2-"
+          f"{GRAPH_TRAIN_STEPS}: {delta}")
+    check(lrel <= GRAPH_TRAIN_RTOL and urel <= GRAPH_TRAIN_RTOL,
+          f"{what}: captured steps differ from eager ({lrel}, {urel})")
+    check(delta == 0, f"{what}: {delta} captures in the steady state")
+    graph_times(torch, f"{what} step", runs, GRAPH_TIMED["train"], 2, say)
+    del runs, res, st
+    if interleave:
+        graph_interleave(torch, updaters, init_fn, step_fn, batch, what,
+                         say)
+
+
+def graph_interleave(torch, updaters, init_fn, step_fn, batch, what,
+                     say) -> None:
+    """Two training states stepped alternately through one ``step_fn``
+    (``a1 = f(a0); b1 = f(b0); a2 = f(a1)``, ...): each must end where
+    its solo eager run ends, and the initial states must not change."""
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    n = 3
+    inits = [init_fn(torch.Generator(device="cuda").manual_seed(s))
+             for s in (2, 3)]
+    kept = [updaters.tree_map(torch.clone, s.params) for s in inits]
+    solo = []
+    with eager_engine():
+        for k, s in enumerate(inits):
+            st = s._replace(params=updaters.tree_map(torch.clone, s.params),
+                            opt_state=updaters.tree_map(torch.clone,
+                                                        s.opt_state))
+            gen = torch.Generator(device="cuda").manual_seed(10 + k)
+            for _ in range(n):
+                st, _ = step_fn(st, batch, gen)
+            solo.append(st.params)
+            del st
+    c0 = compile_metrics.compile_count
+    st = list(inits)
+    gens = [torch.Generator(device="cuda").manual_seed(10 + k)
+            for k in (0, 1)]
+    for _ in range(n):
+        for k in (0, 1):
+            st[k], _ = step_fn(st[k], batch, gens[k])
+    rels = [update_rel(torch, updaters, kept[k], st[k].params, solo[k])
+            for k in (0, 1)]
+    same0 = all(torch.equal(a, b) for k in (0, 1) for a, b in zip(
+        updaters.tree_leaves(kept[k]), updaters.tree_leaves(inits[k].params)))
+    caps = compile_metrics.compile_count - c0
+    say(f"{what}: two states stepped alternately through one step_fn, "
+        f"{n} steps each, against each one's solo eager run: relative L2 "
+        f"of the change p_k - p_0 {rels[0]:.3e} and {rels[1]:.3e} (bar "
+        f"{GRAPH_TRAIN_RTOL:g}); initial states unchanged: {same0}; "
+        f"captures: {caps} (a state set each for two live states)")
+    check(max(rels) <= GRAPH_TRAIN_RTOL,
+          f"{what}: interleaved states differ from their solo runs {rels}")
+    check(same0, f"{what}: a step wrote the caller's initial state")
+
+
+def graph_decode(torch, gpt, entries, say) -> None:
+    """GPT-2 small decoding: slot_decode's logits captured vs eager (8
+    slots, bucket 1024, bf16 and fp32), then the engine's decode step
+    and the 32-request burst with its entries captured and raw."""
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+    from deeplearning4j_tpu_torch.runtime import quantize as qz
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeEngine, default_length_buckets)
+
+    cfg = gen_config(gpt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = gpt.init_params(gen, cfg, device="cuda")
+    rng = np.random.default_rng(11)
+    T, C = cfg.max_len, gpt.PREFILL_CHUNK
+    with torch.inference_mode():
+        for c in (cfg, dataclasses.replace(cfg, compute_dtype="float32")):
+            sp = gpt.serving_params(c, params)
+            slots = gpt.init_slots(c, GEN_SLOTS, T, device="cuda")
+            for s in range(GEN_SLOTS):
+                toks = torch.from_numpy(rng.integers(
+                    0, c.vocab_size, BURST_MAX).astype(np.int32)).cuda()
+                for lo in range(0, BURST_MAX, C):
+                    gpt.slot_prefill(c, sp, slots, toks[lo:lo + C], s, lo,
+                                     C, 0.0, s)
+            active = torch.ones(GEN_SLOTS, dtype=torch.bool, device="cuda")
+            temps = torch.tensor([0.0, BURST_TEMP] * (GEN_SLOTS // 2),
+                                 device="cuda")
+            seeds = torch.arange(GEN_SLOTS, dtype=torch.int64,
+                                 device="cuda")
+
+            def fn(p, sl, a, t, sd, c=c):
+                return gpt.slot_decode(c, p, sl, a, t, sd,
+                                       return_logits=True)
+
+            g = compile_cache.cached_graph(fn, label="slot_decode.logits",
+                                           donate_argnums=(1,))
+            entries.append(g)
+            se = updaters.tree_map(torch.clone, slots)
+            sc = updaters.tree_map(torch.clone, slots)
+            worst, same = 0.0, 0
+            for _ in range(GRAPH_DECODE_STEPS):
+                _, te, le = fn(sp, se, active, temps, seeds)
+                sc, tc, lc = g(sp, sc, active, temps, seeds)
+                worst = max(worst, float((le - lc).abs().max()))
+                same += int(torch.equal(te, tc))
+            bar = GRAPH_DECODE_TOL[c.compute_dtype]
+            say(f"slot_decode {c.compute_dtype}, {GEN_SLOTS} slots at "
+                f"position {BURST_MAX}+ of bucket {T}: captured vs eager "
+                f"logits max|diff| {worst:.3e} over {GRAPH_DECODE_STEPS} "
+                f"steps (bar {bar:g}); tokens identical at {same}/"
+                f"{GRAPH_DECODE_STEPS} steps")
+            check(worst <= bar, f"slot_decode {c.compute_dtype}: captured "
+                                f"logits differ from eager by {worst}")
+            del slots, se, sc, g
+
+    ladder = default_length_buckets(cfg.max_len)
+    eng = DecodeEngine(cfg, params, n_slots=GEN_SLOTS, buckets=ladder,
+                       device="cuda")
+    entries.extend([eng._prefill, eng._decode])
+    w = eng.warmup()
+    say(f"DecodeEngine warm-up: {w['compiles']} captures for "
+        f"{len(ladder)} buckets (prefill + step each) in "
+        f"{w['warmup_ms']:.1f} ms")
+    check(w["compiles"] == 2 * len(ladder), "decode warm-up captures != "
+                                            "2 x buckets")
+    reqs = burst_requests(cfg)
+    c0 = compile_metrics.compile_count
+    outs, wall, snap = serve_burst(torch, eng, reqs)
+    with eager_engine():
+        outs_e, wall_e, _ = serve_burst(torch, eng, reqs)
+    n_tok = BURST * BURST_TOKENS
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(outs, outs_e))
+    delta = compile_metrics.compile_count - c0
+    say(f"the {BURST}-request burst (bf16): captured {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s, eager {wall_e:.3f} s = "
+        f"{n_tok / wall_e:.1f} tokens/s ({wall_e / wall:.2f}x); "
+        f"{same}/{BURST} requests token-identical; captures during the "
+        f"captured burst: {delta}")
+    check(delta == 0, f"decode: {delta} captures in the steady state")
+
+    bucket = ladder[-1]
+    placed = [eng.start(rng.integers(0, cfg.vocab_size, BURST_MAX),
+                        max_tokens=BURST_TOKENS, temperature=BURST_TEMP,
+                        seed=i)[:2] for i in range(GEN_SLOTS)]
+    check(all(b == bucket for b, _ in placed), "decode slots off-bucket")
+
+    eng.advance(bucket)             # takes the joins' slot vectors in
+    b0 = eng._decode.copied_bytes
+    for _ in range(5):
+        eng.advance(bucket)
+    per_step = (eng._decode.copied_bytes - b0) / 5
+    say(f"bytes copied into the graphs' buffers per steady decode step: "
+        f"{per_step:.0f} (the served weights, {qz.tree_bytes(eng.current_params())} "
+        f"bytes, were copied once, at the warm-up)")
+    check(per_step == 0, f"decode: a steady step copies {per_step} bytes")
+
+    def eager_step():
+        with eager_engine():
+            eng.advance(bucket)
+
+    graph_times(torch, f"GPT-2 small decode step, {GEN_SLOTS} slots in "
+                       f"bucket {bucket}",
+                {"eager": eager_step,
+                 "captured": lambda: eng.advance(bucket)},
+                GRAPH_TIMED["decode"], 3, say)
+    for b, s in placed:
+        eng.release(b, s)
+    del eng
+    inference_weights(torch, gpt, cfg, params, bucket, entries, rng, say)
+
+
+def inference_weights(torch, gpt, cfg, params, bucket, entries, rng,
+                      say) -> None:
+    """The captured decode step with its served weights made under
+    ``inference_mode``, as the engine's first design made them: an
+    inference tensor has no version counter, so the engine copies it
+    into the graph's buffers at every step.  Prints what that costs a
+    step beside the main engine's numbers above."""
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+    with torch.inference_mode():
+        tree = gpt.serving_params(cfg, params)
+    eng = DecodeEngine(cfg, tree, n_slots=GEN_SLOTS, buckets=(bucket,),
+                       device="cuda")
+    entries.extend([eng._prefill, eng._decode])
+    eng.warmup()
+    for i in range(GEN_SLOTS):
+        eng.start(rng.integers(0, cfg.vocab_size, BURST_MAX),
+                  max_tokens=BURST_TOKENS, temperature=BURST_TEMP, seed=i)
+    eng.advance(bucket)
+    b0 = eng._decode.copied_bytes
+    for _ in range(5):
+        eng.advance(bucket)
+    per_step = (eng._decode.copied_bytes - b0) / 5
+    h = host_ms(torch, lambda: eng.advance(bucket), GRAPH_TIMED["decode"])
+    d, k = device_ms(torch, lambda: eng.advance(bucket), 3)
+    dev = ("device not measured" if d is None else
+           f"device {d:.3f} ms in {k:.0f} kernels = {d / h:.1%} busy")
+    say(f"the same captured decode step with its served weights made under "
+        f"inference_mode (no version counter): {per_step:.0f} bytes copied "
+        f"in a step; host {h:.3f} ms, {dev}")
+    del eng
+
+
+def graph_embeddings(torch, t8, entries, say) -> None:
+    """One word2vec epoch and one GloVe epoch on text8, warm (pairs and
+    graphs ready), from the same tables and draws: captured vs eager."""
+    from deeplearning4j_tpu_torch.nlp import glove as tglove
+    from deeplearning4j_tpu_torch.nlp import word2vec as tw2v
+    from deeplearning4j_tpu_torch.nlp.glove import (Glove, GloveConfig,
+                                                    count_cooccurrences)
+    from deeplearning4j_tpu_torch.nlp.vocab import build_vocab
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    cfg = tw2v.Word2VecConfig(min_word_frequency=5, epochs=1, **W2V_CONFIG)
+    w2v = tw2v.Word2Vec(t8, cfg, device="cuda")
+    w2v.fit()                               # pairs, slabs and captures
+    entries.append(compile_cache.cached_graph(
+        tw2v._pair_chunk, key="word2vec.pair_chunk"))
+    init = (w2v.syn0, w2v.syn1, w2v.syn1neg)
+    c0 = compile_metrics.compile_count
+    tabs, sec, busy = {}, {}, {}
+    for how in ("captured", "eager"):
+        ctx = eager_engine() if how == "eager" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w2v.fit(initial_weights=init)
+            torch.cuda.synchronize()
+            sec[how] = time.perf_counter() - t0
+            tabs[how] = (w2v.syn0, w2v.syn1, w2v.syn1neg)
+            busy[how] = busy_share(torch, lambda: w2v.fit(
+                initial_weights=init))
+    delta = compile_metrics.compile_count - c0
+    err, rel = rel_diff(torch, tabs["captured"], tabs["eager"])
+    words = w2v._n_positions
+    say(f"word2vec text8 epoch ({w2v.chunks} chunks), captured vs eager: "
+        f"tables max|diff| {err:.3e}, relative L2 {rel:.3e} (bar "
+        f"{GRAPH_EMBED_RTOL:g}); captured {sec['captured']:.3f} s = "
+        f"{words / sec['captured']:.1f} words/s, eager {sec['eager']:.3f} "
+        f"s = {words / sec['eager']:.1f} words/s; profiled epoch device "
+        f"busy captured {busy['captured'][0]:.1f} of "
+        f"{busy['captured'][1]:.1f} ms ({busy['captured'][0] / busy['captured'][1]:.1%}), "
+        f"eager {busy['eager'][0]:.1f} of {busy['eager'][1]:.1f} ms "
+        f"({busy['eager'][0] / busy['eager'][1]:.1%}); captures over the "
+        f"warm epochs: {delta}")
+    check(rel <= GRAPH_EMBED_RTOL, f"word2vec: captured epoch differs from "
+                                   f"eager by {rel}")
+    check(delta == 0, f"word2vec: {delta} captures in the steady state")
+
+    gcfg = GloveConfig(epochs=1)
+    g = Glove(t8, gcfg, device="cuda")
+    g.cache = build_vocab(t8, g.tokenizer, gcfg.min_word_frequency)
+    co = count_cooccurrences(t8, g.tokenizer, g.cache, gcfg.window,
+                             gcfg.symmetric)
+    g.fit(cooccurrences=co)                 # the capture
+    entries.append(compile_cache.cached_graph(
+        tglove._glove_chunk, key="glove.chunk"))
+    c0 = compile_metrics.compile_count
+    states, sec, busy = {}, {}, {}
+    for how in ("captured", "eager"):
+        ctx = eager_engine() if how == "eager" else contextlib.nullcontext()
+        one = Glove(t8, gcfg, cache=g.cache, device="cuda")
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one.fit(initial_weights=g.state, cooccurrences=co)
+            torch.cuda.synchronize()
+            sec[how] = time.perf_counter() - t0
+            states[how] = one.state
+            busy[how] = busy_share(torch, lambda: Glove(
+                t8, gcfg, cache=g.cache, device="cuda").fit(
+                    initial_weights=g.state, cooccurrences=co))
+    delta = compile_metrics.compile_count - c0
+    err, rel = rel_diff(torch, states["captured"], states["eager"])
+    P = co[0].size
+    say(f"GloVe text8 epoch ({one.chunks} chunks), captured vs eager: state "
+        f"max|diff| {err:.3e}, relative L2 {rel:.3e} (bar "
+        f"{GRAPH_EMBED_RTOL:g}); captured {sec['captured']:.3f} s = "
+        f"{P / sec['captured']:.1f} triples/s, eager {sec['eager']:.3f} s = "
+        f"{P / sec['eager']:.1f} triples/s; profiled epoch device busy "
+        f"captured {busy['captured'][0]:.1f} of {busy['captured'][1]:.1f} "
+        f"ms ({busy['captured'][0] / busy['captured'][1]:.1%}), eager "
+        f"{busy['eager'][0]:.1f} of {busy['eager'][1]:.1f} ms "
+        f"({busy['eager'][0] / busy['eager'][1]:.1%}); captures over the "
+        f"warm epochs: {delta}")
+    check(rel <= GRAPH_EMBED_RTOL, f"GloVe: captured epoch differs from "
+                                   f"eager by {rel}")
+    check(delta == 0, f"GloVe: {delta} captures in the steady state")
+
+
+def graph_phase(torch, ln, t8, card: str) -> None:
+    """Phase 11 (see the module docstring)."""
+    from deeplearning4j_tpu_torch.models import bert, gpt
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    compile_cache.clear()
+    compile_metrics.reset()
+    entries = []
+    t0 = time.perf_counter()
+    graph_lenet(torch, ln, entries, say)
+    t1 = time.perf_counter()
+    bcfg = bert.bert_base()
+    graph_train(torch, bert, bcfg,
+                bert.synthetic_batch(0, bcfg, 32, 128, device="cuda"),
+                "BERT-base MLM B=32 T=128", entries, say, interleave=True)
+    gcfg = gpt.gpt_config()
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, gcfg.vocab_size, (8, 1024)).astype(np.int32)).cuda()
+    graph_train(torch, gpt, gcfg, ids, "GPT-2 small B=8 T=1024 (remat)",
+                entries, say)
+    t2 = time.perf_counter()
+    graph_decode(torch, gpt, entries, say)
+    t3 = time.perf_counter()
+    graph_embeddings(torch, t8, entries, say)
+    t4 = time.perf_counter()
+    snap = compile_metrics.snapshot()
+    traces = snap["traces"]
+    held = {}
+    for e in {id(e): e for e in entries}.values():
+        if e.signatures():
+            held[e.label] = held.get(e.label, 0) + e.signatures()
+    say(f"captures per label {traces}; signatures the entries hold {held}; "
+        f"{snap['compile_count']} captures took {snap['compile_ms']} ms "
+        f"(warm-up runs, capture and first replay); "
+        f"{snap['cached_dispatches']} replays")
+    check(traces == held, "captures per label != signatures held")
+    say(f"phase 11 wall: LeNet {t1 - t0:.1f} s, training {t2 - t1:.1f} s, "
+        f"decoding {t3 - t2:.1f} s, embeddings {t4 - t3:.1f} s")
+
 
 def main() -> int:
     import torch
@@ -2716,6 +3315,9 @@ def main() -> int:
                                   f"{hand}")
     print("phase 10: GPT-2 small generation serving")
     launches["launches"] += generation_phase(torch, fa, card)
+    print("phase 11: the compile engine's CUDA graphs against the raw "
+          "functions")
+    graph_phase(torch, ln, t8, card)
 
     kernels = [{
         "name": "flash_attention_fwd",

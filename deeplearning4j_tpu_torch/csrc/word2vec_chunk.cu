@@ -90,7 +90,9 @@ struct W2vParams {
   float2* g_ng;   // [B, K+1]: (g, count weight) of each live partner
   float* neu;     // [B, 2, D]: (neu_hs | neu_ng) of each pair
   int B, L, K, D, V0, V1, Vn;  // L = 0 without HS
-  float alpha;
+  const float* alpha;  // the learning rate, in device memory: it decays
+                       // every chunk, and a captured CUDA graph replays
+                       // the chunk with the value stored there
 };
 
 // tables: 0 = syn1 (ids b * L + l), 1 = syn1neg (ids b * (K+1) + k),
@@ -292,6 +294,7 @@ __device__ __forceinline__ void score_pairs(const W2vParams& p, int block,
   const int lane = threadIdx.x & 31;
   const int n_warps = n_blocks * kWarps;
   const int D = p.D;
+  const float alpha = __ldg(p.alpha);
   for (int b = block * kWarps + (threadIdx.x >> 5); b < p.B; b += n_warps) {
     const int inp = pair_input(p, b);
     if (inp < 0) continue;
@@ -315,7 +318,7 @@ __device__ __forceinline__ void score_pairs(const W2vParams& p, int block,
                          __shfl_sync(kFull, my_m, l),
                          __shfl_sync(kFull, my_code, l), w, label);
         },
-        p.alpha, p.g_hs + static_cast<size_t>(b) * p.L, lane, D, l1, neu_hs);
+        alpha, p.g_hs + static_cast<size_t>(b) * p.L, lane, D, l1, neu_hs);
     const bool live_ng = p.K > 0 && pm != 0.f;
     if (live_ng) {
       score_partners<NC, G>(
@@ -325,7 +328,7 @@ __device__ __forceinline__ void score_pairs(const W2vParams& p, int block,
                                    : neg_input(p, b, k, tgt);
             return neg_rule(p, k, row, tgt, pm, w, label);
           },
-          p.alpha, p.g_ng + static_cast<size_t>(b) * (p.K + 1), lane, D, l1,
+          alpha, p.g_ng + static_cast<size_t>(b) * (p.K + 1), lane, D, l1,
           neu_ng);
     }
     float* nb = p.neu + static_cast<size_t>(b) * 2 * D;
@@ -368,6 +371,7 @@ __device__ __forceinline__ void score_pairs_wide(const W2vParams& p,
   const int lane = threadIdx.x & 31;
   const int n_warps = n_blocks * kWarps;
   const int D = p.D;
+  const float alpha = __ldg(p.alpha);
   float w, label;
   for (int b = block * kWarps + (threadIdx.x >> 5); b < p.B; b += n_warps) {
     const int inp = pair_input(p, b);
@@ -379,7 +383,7 @@ __device__ __forceinline__ void score_pairs_wide(const W2vParams& p,
     for (int l = 0; l < p.L; ++l) {
       const int pt = hs_row(p, b, l, pm, &w, &label);
       if (pt >= 0)
-        partner_wide(p.syn1, pt, label, w, p.alpha,
+        partner_wide(p.syn1, pt, label, w, alpha,
                      p.g_hs + static_cast<size_t>(b) * p.L + l, lane, D, l1,
                      nb);
     }
@@ -389,7 +393,7 @@ __device__ __forceinline__ void score_pairs_wide(const W2vParams& p,
         const int row =
             neg_rule(p, k, neg_input(p, b, k, tgt), tgt, pm, &w, &label);
         if (row >= 0)
-          partner_wide(p.syn1neg, row, label, w, p.alpha,
+          partner_wide(p.syn1neg, row, label, w, alpha,
                        p.g_ng + static_cast<size_t>(b) * (p.K + 1) + k, lane,
                        D, l1, nb + D);
       }
@@ -554,13 +558,15 @@ size_t w2v_chunk_scratch_bytes(int B, int L, int K, int D, int V0, int V1,
 // fp32; scratch holds w2v_chunk_scratch_bytes(...) bytes, 16-byte aligned,
 // of any content.  With use_hs == 0 (pass L = 0) the codes, points, mask and
 // syn1 arguments are never read; with K == 0 neither are negs and syn1neg.
-// Segments hold at most seg hits (seg >= 1).  Returns a cudaError_t: 0 when
+// Segments hold at most seg hits (seg >= 1).  alpha points at one fp32 in
+// device memory, read by the kernels.  Returns a cudaError_t: 0 when
 // every launch was accepted (or B == 0, when nothing is launched).
 int w2v_chunk(float* syn0, float* syn1, float* syn1neg, const int* inputs,
               const int* targets, const float* pmask, const float* codes,
               const int* points, const float* mask, const int* negs,
               void* scratch, int B, int L, int K, int D, int V0, int V1,
-              int Vn, int use_hs, int seg, float alpha, void* stream) {
+              int Vn, int use_hs, int seg, const float* alpha,
+              void* stream) {
   if (D <= 0 || B < 0 || L < 0 || K < 0 || seg < 1 || (use_hs && L == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;

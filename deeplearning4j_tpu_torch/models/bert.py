@@ -126,7 +126,8 @@ def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
     (``transformer.make_train_step`` has the rest); the batch lives on
     ``device`` (``None`` means ``"cuda"``)."""
     return tfm.make_train_step(cfg, init_params, mlm_loss, 1e-4, mesh,
-                               optimizer, attn_fn, n_steps, device)
+                               optimizer, attn_fn, n_steps, device,
+                               label="bert.train_step")
 
 
 def synthetic_batch(seed: int, cfg: TransformerConfig, batch_size: int,

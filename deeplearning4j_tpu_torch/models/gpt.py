@@ -125,7 +125,8 @@ def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
         return lm_loss(c, params, token_ids, None, generator, attn)
 
     return tfm.make_train_step(cfg, init_params, loss_fn, 3e-4, mesh,
-                               optimizer, attn_fn, device=device)
+                               optimizer, attn_fn, device=device,
+                               label="gpt.train_step")
 
 
 # ---------------------------------------------------------------------------
@@ -205,23 +206,28 @@ def _store(buf: Tensor, index, val: Tensor,
 
 
 def _write_kv(cache, layer: int, index, k1: Tensor, v1: Tensor,
-              cdt: torch.dtype, drop: Optional[Tensor] = None
-              ) -> Tuple[Tensor, Tensor]:
+              cdt: torch.dtype, drop: Optional[Tensor] = None,
+              select: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Store a layer's fresh fp32 K/V rows at ``index`` of its ``[B,
     T_max]`` rows (quantized for an int8 cache, else cast to ``cdt``)
-    and return the layer's whole K/V in ``cdt`` for attention."""
+    and return the layer's K/V in ``cdt`` for attention: every row, or
+    the leading rows ``select`` (an index tensor)."""
     k_scale = getattr(cache, "k_scale", None)
+
+    def rows(t):
+        return t if select is None else t.index_select(0, select)
+
     if k_scale is None:
         _store(cache.k[layer], index, k1.to(cdt), drop)
         _store(cache.v[layer], index, v1.to(cdt), drop)
-        return cache.k[layer], cache.v[layer]
+        return rows(cache.k[layer]), rows(cache.v[layer])
     for buf, sbuf, x in ((cache.k, k_scale, k1),
                          (cache.v, cache.v_scale, v1)):
         q, s = _kv_quant(x)
         _store(buf[layer], index, q, drop)
         _store(sbuf[layer], index, s, drop)
-    return (_kv_load(cache.k[layer], k_scale[layer], cdt),
-            _kv_load(cache.v[layer], cache.v_scale[layer], cdt))
+    return (_kv_load(rows(cache.k[layer]), rows(k_scale[layer]), cdt),
+            _kv_load(rows(cache.v[layer]), rows(cache.v_scale[layer]), cdt))
 
 
 def _heads_fp32(x: Tensor) -> Tensor:
@@ -540,33 +546,47 @@ def slots_bytes_per_slot(cfg: TransformerConfig, t_max: int,
 
 
 def slot_prefill(cfg: TransformerConfig, params: Params,
-                 slots: DecodeSlots, toks: Tensor, slot: int, start: int,
-                 n_valid: int, temperature: float, seed: int):
+                 slots: DecodeSlots, toks: Tensor, slot, start, n_valid,
+                 temperature, seed):
     """Prefill one chunk ``toks`` ``[C]`` of a prompt into ``slot`` at
     positions ``start + [0, n_valid)`` (rows past ``n_valid`` are
-    padding), writing through the ``k[:, slot]`` view while the other
-    slots stay untouched (:503).  Samples the slot's next token from the
-    last valid row (meaningful for a prompt's last chunk) with the key of
-    ``(seed, start + n_valid - 1)`` and records it with ``pos = start +
-    n_valid``.  Returns ``(slots, first_token)``, a 0-d int32 tensor."""
-    s = slice(slot, slot + 1)
-    if slots.k_scale is None:
-        cache = KVCache(slots.k[:, s], slots.v[:, s])
-    else:
-        cache = QKVCache(slots.k[:, s], slots.v[:, s],
-                         slots.k_scale[:, s], slots.v_scale[:, s])
-    _, logits = _prefill_chunk(cfg, params, cache, toks[None, :], start)
+    padding), writing the slot's cache rows while the other slots stay
+    untouched (:503).  Samples the slot's next token from the last valid
+    row (meaningful for a prompt's last chunk) with the key of ``(seed,
+    start + n_valid - 1)`` and records it with ``pos = start +
+    n_valid``.  ``slot``, ``start``, ``n_valid`` and ``seed`` are ints
+    or 0-d integer tensors on the cache's device, ``temperature`` a
+    float or a 0-d fp32 tensor: as tensors, one CUDA graph serves every
+    slot and chunk (``serving/decode.DecodeEngine`` passes them so).
+    Returns ``(slots, first_token)``, a 0-d int32 tensor."""
+    cdt = tfm.compute_dtype(cfg)
+    dev = toks.device
+    C = toks.shape[0]
+    T_max = slots.k.shape[2]
+    if not isinstance(start, Tensor) and start + C > T_max:
+        raise ValueError(f"prefill chunk at {start} + {C} runs past the "
+                         f"cache's {T_max} rows")
+    sel = torch.as_tensor(slot, device=dev).long().reshape(1)
+    start = torch.as_tensor(start, device=dev).long()
+    n_valid = torch.as_tensor(n_valid, device=dev).long()
+    rows = start + torch.arange(C, device=dev)
+    x = tfm.embed(cfg, params, toks[None, :], None, start)
+    masked = torch.arange(T_max, device=dev)[None, :] > rows[:, None]
+    index = (sel[:, None], rows[None, :])
+    x = _cached_stack(cfg, params, x, lambda layer, k1, v1: _write_kv(
+        slots, layer, index, k1, v1, cdt, select=sel), masked)
+    logits = lm_logits(cfg, params, x)[0]
     end = start + n_valid
-    first = sample_token(logits[0, n_valid - 1], _slot_key(seed, end - 1),
-                         temperature)
-    slots.tokens[slot] = first
-    slots.pos[slot] = end
+    last = logits.index_select(0, (n_valid - 1).reshape(1))[0]
+    first = sample_token(last, _slot_key(seed, end - 1), temperature)
+    slots.tokens.index_put_((sel,), first.reshape(1))
+    slots.pos.index_put_((sel,), end.to(slots.pos.dtype).reshape(1))
     return slots, first
 
 
 def slot_decode(cfg: TransformerConfig, params: Params,
                 slots: DecodeSlots, active: Tensor, temperature: Tensor,
-                seeds: Tensor):
+                seeds: Tensor, return_logits: bool = False):
     """Advance every slot one token in one pass (:547): slot s feeds its
     token at ``pos[s]``, stores its K/V at ``(s, pos[s])`` and attends
     its rows ``<= pos[s]``; it samples at ``temperature[s]`` with the
@@ -597,7 +617,7 @@ def slot_decode(cfg: TransformerConfig, params: Params,
     out = torch.where(active, nxt, slots.tokens)
     slots.tokens.copy_(out)
     slots.pos.add_(active.to(slots.pos.dtype))
-    return slots, out
+    return (slots, out, logits) if return_logits else (slots, out)
 
 
 def make_slot_fns(cfg: TransformerConfig):

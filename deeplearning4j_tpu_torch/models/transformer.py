@@ -42,6 +42,7 @@ from torch.utils import checkpoint as _checkpoint
 
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.ops import updaters
+from deeplearning4j_tpu_torch.runtime import compile_cache
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -214,18 +215,37 @@ def attention(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
 
 
 def _dropout(x: Tensor, rate: float,
-             generator: Optional[torch.Generator]) -> Tensor:
-    if generator is None or rate <= 0.0:
+             generator: Optional[torch.Generator],
+             kept: Optional[Tensor] = None) -> Tensor:
+    """Inverted dropout of ``x``: the kept entries are ``kept`` (a bool
+    mask drawn before, see :func:`_dropout_masks`) or a fresh draw of
+    ``torch.rand(x.shape) < 1 - rate`` from ``generator``."""
+    if kept is None and (generator is None or rate <= 0.0):
         return x
     keep = 1.0 - rate
-    draw = torch.rand(x.shape, generator=generator, device=x.device)
-    return x * (draw < keep) / keep
+    if kept is None:
+        kept = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+    return x * kept / keep
+
+
+def _dropout_masks(cfg, x: Tensor, generator: Optional[torch.Generator]):
+    """A block's two dropout masks (attention output, then FFN output),
+    drawn from ``generator`` in the order :func:`_block` draws them, so
+    the same bits as the block drawing them itself; None without
+    dropout."""
+    if generator is None or cfg.dropout <= 0.0:
+        return None
+    keep = 1.0 - cfg.dropout
+    return tuple(torch.rand(x.shape, generator=generator,
+                            device=x.device) < keep for _ in range(2))
 
 
 def _attention_sublayer(cfg, x: Tensor, p: Dict[str, Tensor],
                         mask: Optional[Tensor],
                         generator: Optional[torch.Generator],
-                        attn_fn=attention) -> Tensor:
+                        attn_fn=attention,
+                        kept: Optional[Tensor] = None) -> Tensor:
     """Attention + residual + post-LN, the first half of a block (:212)."""
     cdt = compute_dtype(cfg)
     B, T, H = x.shape
@@ -240,20 +260,23 @@ def _attention_sublayer(cfg, x: Tensor, p: Dict[str, Tensor],
     a = attn_fn(q.to(cdt), k.to(cdt), v.to(cdt), mask, cfg.causal)
     a = _matmul(a.reshape(B, T, NH * D), p["wo"].reshape(NH * D, H),
                 cdt) + p["bo"]
-    a = _dropout(a, cfg.dropout, generator)
+    a = _dropout(a, cfg.dropout, generator, kept)
     return layer_norm(x + a, p["ln1_g"], p["ln1_b"], cfg.layer_norm_eps)
 
 
 def _block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
            mask: Optional[Tensor], generator: Optional[torch.Generator],
-           attn_fn=attention) -> Tensor:
-    """One post-LN encoder block (:244): x ``[B, T, H]`` fp32."""
+           attn_fn=attention, masks=None) -> Tensor:
+    """One post-LN encoder block (:244): x ``[B, T, H]`` fp32.  Dropout
+    draws from ``generator``, or takes ``masks`` (from
+    :func:`_dropout_masks`) when given."""
     cdt = compute_dtype(cfg)
-    x = _attention_sublayer(cfg, x, p, mask, generator, attn_fn)
+    kept_a, kept_f = masks if masks is not None else (None, None)
+    x = _attention_sublayer(cfg, x, p, mask, generator, attn_fn, kept_a)
     f = _matmul(x, p["w1"], cdt) + p["b1"]
     f = F.gelu(f, approximate="tanh").to(cdt)
     f = _matmul(f, p["w2"], cdt) + p["b2"]
-    f = _dropout(f, cfg.dropout, generator)
+    f = _dropout(f, cfg.dropout, generator, kept_f)
     return layer_norm(x + f, p["ln2_g"], p["ln2_b"], cfg.layer_norm_eps)
 
 
@@ -352,29 +375,19 @@ def _remat_block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
                  mask: Optional[Tensor],
                  generator: Optional[torch.Generator], attn_fn) -> Tensor:
     """:func:`_block` under ``torch.utils.checkpoint``: the backward runs
-    the block's forward again.  Checkpoint restores only the global RNG
-    states, not an explicit generator, so the block draws its dropout
-    masks from a layer generator started from the caller's state before
-    the block (the port's ``jax.random.split(dropout_key, L)``, :293):
-    the recompute starts a new one from the same state and draws the same
-    masks.  The caller's generator moves once, to where the block left
-    the layer generator, as if the block had drawn from it."""
-    if generator is None:
-        return _checkpoint.checkpoint(_block, cfg, x, p, mask, None, attn_fn,
-                                      use_reentrant=False)
-    start = generator.get_state()
-    ends = []
-
-    def body(x, p):
-        layer_gen = torch.Generator(device=generator.device)
-        layer_gen.set_state(start)
-        out = _block(cfg, x, p, mask, layer_gen, attn_fn)
-        ends.append(layer_gen.get_state())
-        return out
-
-    x = _checkpoint.checkpoint(body, x, p, use_reentrant=False)
-    generator.set_state(ends[0])
-    return x
+    the block's forward again.  The block's dropout masks are drawn
+    before the checkpoint, from the caller's generator in the order the
+    block would draw them (:func:`_dropout_masks`), and enter it as
+    inputs, so the recompute applies the masks the forward applied (the
+    port's ``jax.random.split(dropout_key, L)``, :293).  Nothing random
+    happens inside the checkpoint (``preserve_rng_state=False``), and
+    no generator state is read or set on the host, so the step can be
+    captured as a CUDA graph: the masks cost a bool tensor of ``x``'s
+    shape twice a layer, kept to the backward."""
+    masks = _dropout_masks(cfg, x, generator)
+    return _checkpoint.checkpoint(_block, cfg, x, p, mask, None, attn_fn,
+                                  masks, use_reentrant=False,
+                                  preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +405,8 @@ class TrainState(NamedTuple):
 def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
                     loss_fn: Callable, learning_rate: float, mesh=None,
                     optimizer=None, attn_fn=None, n_steps: int = 1,
-                    device: DeviceLike = None):
+                    device: DeviceLike = None,
+                    label: str = "transformer.train_step"):
     """The one-device training step BERT and GPT share (bert.py:175-241,
     gpt.py:115-160): ``(init_fn(generator) -> TrainState,
     step_fn(state, batch, generator=None) -> (state, loss))``.
@@ -408,8 +422,17 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
     losses, as JAX's scan does.  ``generator`` draws the dropout masks,
     on the batch's device; a config with dropout needs one, as JAX's
     step needs its key.  ``mesh=`` raises ``NotImplementedError``: it
-    comes with the parallel slice.  The step is eager; nothing is
-    compiled or donated, and the state it returns holds new tensors."""
+    comes with the parallel slice.
+
+    The optimizer step runs through the compile engine
+    (``runtime/compile_cache``, as ``label``): on the card it is one
+    CUDA graph a batch shape, B1-B3 inside it.  The state is donated to
+    it: a state the step did not return (``init_fn``'s, or one the
+    caller made) is copied into the engine's buffers and never changes;
+    a returned state is updated in place by the step it is passed to,
+    and stays as it is while other states step (each live state has
+    buffers of its own).  ``step_fn.graph`` is the engine entry
+    (``.fn`` the raw step)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded training is not ported yet: it comes with the "
@@ -427,18 +450,27 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
         params = init_params_fn(generator, cfg, dev)
         return TrainState(params, optimizer.init(params), 0)
 
+    def graph_step(params, opt_state, batch, generator):
+        loss, grads = value_and_grad(
+            lambda p: loss_fn(cfg, p, batch, generator, attn_fn), params)
+        updates, new_opt = optimizer.update(grads, opt_state, params)
+        new_params = updaters.apply_updates(params, updates)
+        with torch.no_grad():
+            updaters.copy_into(params, new_params)
+            updaters.copy_into(opt_state, new_opt)
+        return params, opt_state, loss
+
+    graph = compile_cache.cached_graph(graph_step, label=label,
+                                       donate_argnums=(0, 1))
+
     def one_step(state: TrainState, batch, generator):
         if cfg.dropout > 0.0 and generator is None:
             raise ValueError(
                 f"cfg.dropout={cfg.dropout}: pass step_fn a torch.Generator "
                 f"on the batch's device for the dropout draws, or train a "
                 f"config with dropout=0.0")
-        loss, grads = value_and_grad(
-            lambda p: loss_fn(cfg, p, batch, generator, attn_fn),
-            state.params)
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
-        params = updaters.apply_updates(state.params, updates)
+        params, opt_state, loss = graph(state.params, state.opt_state,
+                                        batch, generator)
         return TrainState(params, opt_state, state.step + 1), loss
 
     def step_fn(state: TrainState, batch, generator=None):
@@ -450,4 +482,5 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
             losses.append(loss)
         return state, torch.stack(losses)
 
+    step_fn.graph = graph
     return init_fn, step_fn

@@ -11,7 +11,11 @@ Port of ``deeplearning4j_tpu/nlp/glove.py`` (reference parity:
   (:162-199): one ``ops/fused_glove`` chunk step per chunk, the chunk's
   sums and then ``apply_chunk``'s AdaGrad step per side (kernel B5 in
   place on CUDA tensors, its plain twin on CPU tensors or with
-  ``kernel="plain"``).
+  ``kernel="plain"``).  Each chunk is one call through the compile
+  engine (``runtime/compile_cache``, ``glove.chunk``: a CUDA graph on
+  the card), the chunk index a device counter it advances; the tables
+  are donated to it (the caller's are copied in, never written), and a
+  fit clones them at its end.
 - ``_glove_update`` (:112), JAX's plain scatter step, is kept in plain
   PyTorch as the reference the chunk path is held to.
 - The per-epoch permutation comes from a ``torch.Generator`` seeded
@@ -36,6 +40,8 @@ from deeplearning4j_tpu_torch.nlp.word2vec import as_table
 from deeplearning4j_tpu_torch.nlp.word_vectors import WordVectors
 from deeplearning4j_tpu_torch.ops import fused_glove as fg
 from deeplearning4j_tpu_torch.ops import kernel_select as ks
+from deeplearning4j_tpu_torch.ops.updaters import copy_into
+from deeplearning4j_tpu_torch.runtime import compile_cache
 
 Tensor = torch.Tensor
 
@@ -159,28 +165,50 @@ def from_extended(ext):
             gext[:, :D], gtext[:, :D], gext[:, D], gtext[:, D])
 
 
+def _glove_chunk(ext, sums, i, rows: Tensor, cols: Tensor, x: Tensor,
+                 mask: Tensor, perm: Tensor, *, alpha: float, x_max: float,
+                 power: float, batch: int, impl: str):
+    """Chunk ``i`` (a ``[1]`` device counter, advanced here) of the
+    permuted triples: B5's step or its plain twin, written into the
+    donated ``ext`` in place, and the chunk's weighted loss and count
+    added to the donated ``sums`` ``[2]``.  ``alpha`` is constant within
+    a fit, so it stays a kernel argument (part of the signature)."""
+    step = (fg.glove_chunk_step_cuda if impl == "cuda"
+            else fg.glove_chunk_step_plain)
+    idx = perm.view(-1, batch).index_select(0, i)[0]
+    *new, ls = step(*ext, rows[idx], cols[idx], x[idx], mask[idx], alpha,
+                    x_max=x_max, power=power)
+    copy_into(ext, tuple(new))
+    loss = ls[0, 0] / ls[0, 1].clamp_min(1.0)
+    sums.add_(torch.stack([loss * ls[0, 1], ls[0, 1]]))
+    i.add_(1)
+    return ext, sums, i
+
+
 def glove_epoch(ext, rows: Tensor, cols: Tensor, x: Tensor, mask: Tensor,
                 perm: Tensor, alpha, *, x_max: float, power: float,
                 n_chunks: int, batch: int, impl: str):
     """One epoch over the permuted triples (``_glove_epoch_body``,
     :147-213, the extended-table carry of its kernel branch).  ``ext``
-    is :func:`to_extended`'s 4-tuple; each chunk is
-    ``fused_glove.glove_chunk_step_cuda`` (which updates the tables in
-    place) or its plain twin (which returns new ones).  Returns ``(ext,
-    weighted loss sum, count sum)``, the sums as device tensors."""
-    step = (fg.glove_chunk_step_cuda if impl == "cuda"
-            else fg.glove_chunk_step_plain)
-    wext = ext[0]
-    loss_sum = torch.zeros((), device=wext.device)
-    cnt_sum = torch.zeros((), device=wext.device)
-    for i in range(n_chunks):
-        idx = perm[i * batch:(i + 1) * batch]
-        *ext, ls = step(*ext, rows[idx], cols[idx], x[idx], mask[idx],
-                        alpha, x_max=x_max, power=power)
-        loss = ls[0, 0] / ls[0, 1].clamp_min(1.0)
-        loss_sum = loss_sum + loss * ls[0, 1]
-        cnt_sum = cnt_sum + ls[0, 1]
-    return tuple(ext), loss_sum, cnt_sum
+    is :func:`to_extended`'s 4-tuple, donated: each chunk is one call of
+    :func:`_glove_chunk` through the compile engine (``glove.chunk``,
+    one CUDA graph on the card, B5 inside), which updates it in place.
+    Returns ``(ext, weighted loss sum, count sum)``, the sums as device
+    tensors."""
+    dev = ext[0].device
+    step = compile_cache.cached_graph(_glove_chunk, key="glove.chunk",
+                                      label="glove.chunk",
+                                      donate_argnums=(0, 1, 2))
+    sums = torch.zeros(2, device=dev)
+    i = torch.zeros(1, dtype=torch.int64, device=dev)
+    for _ in range(n_chunks):
+        ext, sums, i = step(ext, sums, i, rows, cols, x, mask, perm,
+                            alpha=float(alpha), x_max=float(x_max),
+                            power=float(power), batch=batch, impl=impl)
+    # a clone: a view of the donated sums would keep their buffers busy
+    # into the next epoch, which would then need buffers of its own
+    sums = sums.clone()
+    return tuple(ext), sums[0], sums[1]
 
 
 def _resolve(kernel: str, dim: int, dev: torch.device, B: int) -> str:
@@ -299,7 +327,8 @@ class Glove:
                 batch=B, impl=impl)
             self.losses.append(float(ls / cs.clamp_min(1.0)))
         self.chunks = NC * cfg.epochs
-        self.state = from_extended(ext)
+        # the boundary: the graph's buffers stay with the engine
+        self.state = from_extended(tuple(t.clone() for t in ext))
         w, wt = self.state[0], self.state[1]
         self._wv = WordVectors(self.cache, w + wt)
         return self._wv

@@ -12,10 +12,20 @@ its plain twin on CPU tensors (or when ``kernel="plain"``).
   the device), re-drawn on the host every epoch (``"exact"``), or built
   on the device from the uploaded token stream (``"device"``).
 - The JAX package's ``lax.scan`` over chunks (``_scan_slab`` :161,
-  ``_stream_epoch_scan`` :282) becomes a Python loop over chunks here;
-  PyTorch runs eagerly and each chunk is one B4 launch.  The plain
-  path's ``_hs_update``/``_neg_update`` (:98, :129) are
-  ``ops/fused_word2vec.hs_update``/``neg_update``, B4's plain twin.
+  ``_stream_epoch_scan`` :282) becomes a Python loop over chunks here,
+  each chunk one call of a function captured by the compile engine
+  (``runtime/compile_cache``: ``word2vec.pair_chunk`` and
+  ``word2vec.stream_chunk``, one CUDA graph a chunk shape on the card,
+  B4 inside it).  Everything that changes from chunk to chunk reaches
+  it on the device: the chunk index (a counter the graph advances), the
+  slab's arrays, the per-chunk learning rates (computed on the host in
+  fp32 as JAX does, uploaded once a slab and epoch), the epoch's shrink
+  seed; negatives are drawn inside the graph from the run's generator.
+  The tables are donated: the graph updates the engine's copy of them
+  in place, and a fit clones them at its end, which frees that copy for
+  the next fit.  The plain path's ``_hs_update``/``_neg_update`` (:98, :129)
+  are ``ops/fused_word2vec.hs_update``/``neg_update``, B4's plain
+  twin.
 - ``_hash_shrink`` computes JAX's uint32 hash in int64 with a mask after
   every step (torch has no general uint32 multiply), bit-equal to it.
 - Random draws: the per-epoch window-shrink seed and the negatives come
@@ -44,6 +54,8 @@ from deeplearning4j_tpu_torch.nlp.vocab import (VocabCache, build_huffman,
 from deeplearning4j_tpu_torch.nlp.word_vectors import WordVectors
 from deeplearning4j_tpu_torch.ops import fused_word2vec as fw
 from deeplearning4j_tpu_torch.ops import kernel_select as ks
+from deeplearning4j_tpu_torch.ops.updaters import copy_into
+from deeplearning4j_tpu_torch.runtime import compile_cache
 
 Tensor = torch.Tensor
 
@@ -109,10 +121,11 @@ def _mul32(h: Tensor, c: int) -> Tensor:
     return (lo + hi) & _M32
 
 
-def _hash_shrink(pos: Tensor, seed32: int, window: int) -> Tensor:
+def _hash_shrink(pos: Tensor, seed32, window: int) -> Tensor:
     """Stateless per-(epoch, position) window-shrink draw (:270-279): a
     Wang-style integer hash of the position in uint32 arithmetic, done
-    in int64 with ``& 0xFFFFFFFF`` after each step."""
+    in int64 with ``& 0xFFFFFFFF`` after each step.  ``seed32`` is an
+    int or an int64 tensor of one value."""
     h = (_mul32(pos.long() & _M32, 2654435761) + seed32) & _M32
     h = _mul32(h ^ (h >> 16), 2246822519)
     h = _mul32(h ^ (h >> 13), 3266489917)
@@ -121,17 +134,101 @@ def _hash_shrink(pos: Tensor, seed32: int, window: int) -> Tensor:
 
 # -- one chunk ----------------------------------------------------------------
 
+def _update(state, inputs, targets, pmask, alpha, hs_tables, table, negs,
+            gen, *, use_hs: bool, negative: int, impl: str):
+    """One chunk's update of the donated ``state`` (syn0, syn1, syn1neg),
+    in place: gather the centers' Huffman rows, map the negatives (given
+    indices into the unigram table, or drawn here from ``gen``), run B4
+    or its plain twin, and write the result into ``state``."""
+    dev = inputs.device
+    B = inputs.shape[0]
+    if use_hs:
+        c_t, p_t, m_t = hs_tables
+        tl = targets.long()
+        hs = (c_t[tl], p_t[tl], m_t[tl])
+    else:
+        hs = (torch.zeros((B, 1), device=dev),
+              torch.zeros((B, 1), dtype=torch.int32, device=dev),
+              torch.zeros((B, 1), device=dev))
+    if negative > 0:
+        if negs is None:
+            negs = torch.randint(0, table.shape[0], (B, negative),
+                                 generator=gen, device=dev)
+        negs = table[negs.long()]
+    else:
+        negs = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    update = (fw.fused_chunk_update_cuda if impl == "cuda"
+              else fw.fused_chunk_update_plain)
+    new = update(*state, inputs, targets, *hs, negs, pmask, alpha,
+                 use_hs=use_hs, negative=negative)
+    copy_into(state, new)
+    return state
+
+
+def _pair_chunk(state, c, cen, ctx, cpos, dlt, n_real, alphas, seed32,
+                hs_tables, table, negs, gen, *, window: int,
+                window_mask: bool, use_hs: bool, negative: int, impl: str):
+    """Chunk ``c`` (a ``[1]`` device counter, advanced here) of a pair
+    slab ``[NC, B]``: its pad and window-shrink mask, its learning rate
+    ``alphas[c]``, and :func:`_update`."""
+    B = cen.shape[1]
+    pm = (torch.arange(B, device=cen.device)
+          < n_real.index_select(0, c)).float()
+    if window_mask:
+        shrink = window - _hash_shrink(cpos.index_select(0, c)[0], seed32,
+                                       window)
+        pm = (dlt.index_select(0, c)[0].abs() <= shrink).float() * pm
+    # pairs of pair_mode="exact" arrive pre-shrunk: all real train
+    state = _update(state, ctx.index_select(0, c)[0],
+                    cen.index_select(0, c)[0], pm, alphas.index_select(0, c),
+                    hs_tables, table, negs, gen, use_hs=use_hs,
+                    negative=negative, impl=impl)
+    c.add_(1)
+    return state, c
+
+
+def _stream_chunk(state, i, tok, sid, alphas, seed32, hs_tables, table,
+                  negs, gen, *, pos_chunk: int, window: int, use_hs: bool,
+                  negative: int, impl: str):
+    """Chunk ``i`` (a ``[1]`` device counter, advanced here) of the
+    uploaded token stream (``_stream_epoch_scan``, :282-370): its
+    ``pos_chunk`` positions' pairs built on the device — contexts at the
+    2W signed offsets, sentence boundaries through a separator-count
+    sentence id, the window shrink through :func:`_hash_shrink` — then
+    :func:`_update`."""
+    dev = tok.device
+    n_pad = tok.shape[0]
+    deltas = torch.cat([torch.arange(-window, 0, device=dev),
+                        torch.arange(1, window + 1, device=dev)])
+    W2 = 2 * window
+    B = pos_chunk * W2
+    pos = i * pos_chunk + torch.arange(pos_chunk, device=dev)
+    cen = tok[pos]
+    j = pos[:, None] + deltas[None, :]                      # [P, 2W]
+    jc = j.clamp(0, n_pad - 1)
+    ctx = tok[jc]
+    valid = ((j >= 0) & (cen[:, None] >= 0) & (ctx >= 0)
+             & (sid[jc] == sid[pos][:, None]))
+    shrink = window - _hash_shrink(pos, seed32, window)
+    m = valid & (deltas.abs()[None, :] <= shrink[:, None])
+    state = _update(state, ctx.clamp_min(0).reshape(B),
+                    cen.clamp_min(0)[:, None].expand(pos_chunk, W2)
+                    .reshape(B), m.reshape(B).float(),
+                    alphas.index_select(0, i), hs_tables, table, negs, gen,
+                    use_hs=use_hs, negative=negative, impl=impl)
+    i.add_(1)
+    return state, i
+
+
 class _Chunks:
     """What every chunk of a run shares: the device, the implementation,
-    the tables it gathers from, and the dummies of an absent objective."""
+    the tables it gathers from, the draws, and the engine's two chunk
+    entries (shared module-wide: they close over nothing)."""
 
     def __init__(self, dev, impl, B, codes_t, points_t, mask_t, table,
                  use_hs, negative, draws):
-        self.dev, self.B = dev, B
+        self.dev, self.B, self.impl = dev, B, impl
         self.use_hs, self.negative, self.draws = use_hs, negative, draws
-        self.update = (fw.fused_chunk_update_cuda if impl == "cuda"
-                       else fw.fused_chunk_update_plain)
-        self.col = torch.arange(B, device=dev)
         self.hs_tables = (torch.as_tensor(codes_t, dtype=torch.float32,
                                           device=dev),
                           torch.as_tensor(points_t, dtype=torch.int32,
@@ -140,32 +237,34 @@ class _Chunks:
                                           device=dev))
         self.table = torch.as_tensor(np.asarray(table), dtype=torch.int32,
                                      device=dev)
-        self.no_hs = (torch.zeros((B, 1), device=dev),
-                      torch.zeros((B, 1), dtype=torch.int32, device=dev),
-                      torch.zeros((B, 1), device=dev))
-        self.no_negs = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        self.pair_step = compile_cache.cached_graph(
+            _pair_chunk, key="word2vec.pair_chunk",
+            label="word2vec.pair_chunk", donate_argnums=(0, 1))
+        self.stream_step = compile_cache.cached_graph(
+            _stream_chunk, key="word2vec.stream_chunk",
+            label="word2vec.stream_chunk", donate_argnums=(0, 1))
         self.count = 0
 
-    def train(self, state, inputs, targets, pmask, alpha, epoch, chunk,
-              hs_tables=None):
-        """One chunk: gather the centers' Huffman rows, draw negatives,
-        and run the update.  ``alpha`` is a float32 scalar."""
-        if self.use_hs:
-            c_t, p_t, m_t = hs_tables or self.hs_tables
-            tl = targets.long()
-            hs = (c_t[tl], p_t[tl], m_t[tl])
-        else:
-            hs = self.no_hs
-        if self.negative > 0:
-            draws = self.draws.negatives(epoch, chunk, (self.B, self.negative),
-                                         self.table.shape[0])
-            negs = self.table[torch.as_tensor(draws, device=self.dev).long()]
-        else:
-            negs = self.no_negs
-        self.count += 1
-        return self.update(*state, inputs, targets, *hs, negs, pmask,
-                           float(alpha), use_hs=self.use_hs,
-                           negative=self.negative)
+    def seed32(self, epoch: int) -> Tensor:
+        """The epoch's shrink seed, as an int64 tensor on the device."""
+        return torch.tensor([self.draws.seed32(epoch)],
+                            dtype=torch.int64).to(self.dev)
+
+    def negatives(self, epoch: int, chunk: int):
+        """``(negs, gen)`` of a chunk: the port's :class:`Draws` draw
+        inside the chunk from their generator; other draws (the tests
+        hand JAX's over) come as indices into the unigram table."""
+        if self.negative <= 0:
+            return None, None
+        if isinstance(self.draws, Draws):
+            return None, self.draws.gen
+        draws = self.draws.negatives(epoch, chunk, (self.B, self.negative),
+                                     self.table.shape[0])
+        return torch.as_tensor(draws, device=self.dev), None
+
+    def consts(self):
+        return dict(use_hs=self.use_hs, negative=self.negative,
+                    impl=self.impl)
 
 
 def _resolve(kernel: str, dim: int, dev: torch.device, B: int) -> str:
@@ -176,10 +275,14 @@ def _resolve(kernel: str, dim: int, dev: torch.device, B: int) -> str:
                              desc=f"word2vec dim {dim} (batch {B})")
 
 
-def _alpha(alpha0, min_alpha, frac) -> np.float32:
-    """``max(min_alpha, alpha0 * (1 - frac))`` in float32, as JAX does."""
+def _alphas(alpha0, min_alpha, frac: np.ndarray, dev) -> Tensor:
+    """``max(min_alpha, alpha0 * (1 - frac))`` in float32, as JAX does,
+    for an fp32 array of decay fractions: one learning rate a chunk, on
+    ``dev``."""
     f32 = np.float32
-    return max(f32(min_alpha), f32(alpha0) * (f32(1.0) - f32(frac)))
+    a = np.maximum(f32(min_alpha),
+                   f32(alpha0) * (f32(1.0) - frac.astype(f32)))
+    return torch.from_numpy(a.astype(f32)).to(dev)
 
 
 # -- pair_mode="device" -------------------------------------------------------
@@ -187,39 +290,24 @@ def _alpha(alpha0, min_alpha, frac) -> np.float32:
 def _stream_epoch(state, cache, chunks: _Chunks, epoch: int, n_epochs: int,
                   alpha0, min_alpha, window: int):
     """One epoch over the uploaded token stream (``_stream_epoch_scan``,
-    :282-370): each chunk takes ``pos_chunk`` positions and builds its
-    pairs on the device — contexts at the 2W signed offsets, sentence
-    boundaries through a separator-count sentence id, the window shrink
-    through :func:`_hash_shrink`."""
+    :282-370): one :func:`_stream_chunk` a chunk of ``pos_chunk``
+    positions."""
     dev = chunks.dev
-    tok, sid = cache["tok"], cache["sid"]
-    pos_chunk, n_pad = cache["pos_chunk"], tok.shape[0]
-    seed32 = chunks.draws.seed32(epoch)
-    deltas = torch.cat([torch.arange(-window, 0), torch.arange(1, window + 1)]
-                       ).to(device=dev)
-    W2 = 2 * window
-    B = pos_chunk * W2
+    pos_chunk, n_chunks = cache["pos_chunk"], cache["n_chunks"]
+    seed32 = chunks.seed32(epoch)
     f32 = np.float32
     nf = f32(cache["n_stream"])
     span = max(nf * f32(max(n_epochs, 1)), f32(1.0))
-    ar = torch.arange(pos_chunk, device=dev)
-    for i in range(cache["n_chunks"]):
-        p0 = i * pos_chunk
-        pos = p0 + ar
-        cen = tok[pos]
-        j = pos[:, None] + deltas[None, :]                  # [P, 2W]
-        jc = j.clamp(0, n_pad - 1)
-        ctx = tok[jc]
-        valid = ((j >= 0) & (cen[:, None] >= 0) & (ctx >= 0)
-                 & (sid[jc] == sid[pos][:, None]))
-        shrink = window - _hash_shrink(pos, seed32, window)
-        m = valid & (deltas.abs()[None, :] <= shrink[:, None])
-        pm = m.reshape(B).float()
-        inputs = ctx.clamp_min(0).reshape(B)
-        targets = cen.clamp_min(0)[:, None].expand(pos_chunk, W2).reshape(B)
-        frac = (f32(epoch) * nf + f32(p0)) / span
-        state = chunks.train(state, inputs, targets, pm,
-                             _alpha(alpha0, min_alpha, frac), epoch, i)
+    p0 = (np.arange(n_chunks) * pos_chunk).astype(f32)
+    alphas = _alphas(alpha0, min_alpha, (f32(epoch) * nf + p0) / span, dev)
+    i = torch.zeros(1, dtype=torch.int64, device=dev)
+    for c in range(n_chunks):
+        negs, gen = chunks.negatives(epoch, c)
+        state, i = chunks.stream_step(
+            state, i, cache["tok"], cache["sid"], alphas, seed32,
+            chunks.hs_tables, chunks.table, negs, gen, pos_chunk=pos_chunk,
+            window=window, **chunks.consts())
+        chunks.count += 1
     return state
 
 
@@ -262,7 +350,8 @@ def run_stream_training(syn0, syn1, syn1neg, indexed, *,
     for epoch in range(epochs):
         state = _stream_epoch(state, stream_cache, chunks, epoch, epochs,
                               alpha, min_alpha, window)
-    syn0, syn1, syn1neg = state
+    # the boundary: the graph's buffers stay with the engine
+    syn0, syn1, syn1neg = (t.clone() for t in state)
     return (syn0, syn1, syn1neg if had_neg else None, stream_cache, impl,
             chunks.count)
 
@@ -445,16 +534,18 @@ def run_pair_training(syn0, syn1, syn1neg,
         cen_d, ctx_d, cpos_d, dlt_d, off_frac, n_real = (
             torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray)
             and a.ndim == 2 else a for a in slab)
-        for c in range(n_real.shape[0]):
-            pm = (chunks.col < int(n_real[c])).float()
-            if window_mask:
-                shrink = window - _hash_shrink(cpos_d[c], seed32, window)
-                pm = (dlt_d[c].abs() <= shrink).float() * pm
-            # pairs of pair_mode="exact" arrive pre-shrunk: all real train
-            frac = f32(epoch) * epoch_frac + off_frac[c]
-            state = chunks.train(state, ctx_d[c], cen_d[c], pm,
-                                 _alpha(alpha, min_alpha, frac), epoch,
-                                 cid0 + c, tables[bidx])
+        NC = n_real.shape[0]
+        n_real_d = torch.from_numpy(n_real).to(dev)
+        alphas = _alphas(alpha, min_alpha,
+                         f32(epoch) * epoch_frac + off_frac, dev)
+        c_d = torch.zeros(1, dtype=torch.int64, device=dev)
+        for c in range(NC):
+            negs, gen = chunks.negatives(epoch, cid0 + c)
+            state, c_d = chunks.pair_step(
+                state, c_d, cen_d, ctx_d, cpos_d, dlt_d, n_real_d, alphas,
+                seed32, tables[bidx], chunks.table, negs, gen,
+                window=window, window_mask=window_mask, **chunks.consts())
+            chunks.count += 1
         return state
 
     state = (syn0, syn1, neg_tab)
@@ -511,14 +602,15 @@ def run_pair_training(syn0, syn1, syn1neg,
                 emit(bidx, empty, final=True)
 
     def result(cache):
-        syn0, syn1, neg_tab = state
+        # the boundary: the graph's buffers stay with the engine
+        syn0, syn1, neg_tab = (t.clone() for t in state)
         return (syn0, syn1, neg_tab if syn1neg is not None else None,
                 cache, impl, chunks.count)
 
     if pairs_iter_factory is not None:
         for epoch in range(epochs):
-            stream(pairs_iter_factory(epoch), epoch,
-                   chunks.draws.seed32(epoch), None)
+            stream(pairs_iter_factory(epoch), epoch, chunks.seed32(epoch),
+                   None)
         return result(None)
 
     if dev_cache is not None and dev_cache["bucket_l"] != bucket_l:
@@ -535,10 +627,10 @@ def run_pair_training(syn0, syn1, syn1neg,
             pairs_iter = (tuple(a[lo:lo + PAIRS_PER_SLAB] for a in pairs)
                           for lo in range(0, pairs[0].size, PAIRS_PER_SLAB))
         dev_cache = {"bucket_l": bucket_l, "slabs": []}
-        stream(pairs_iter, 0, chunks.draws.seed32(0), dev_cache["slabs"])
+        stream(pairs_iter, 0, chunks.seed32(0), dev_cache["slabs"])
         first_epoch = 1
     for epoch in range(first_epoch, epochs):
-        seed32 = chunks.draws.seed32(epoch)
+        seed32 = chunks.seed32(epoch)
         for slab, cid0, bidx in dev_cache["slabs"]:
             state = dispatch(slab, cid0, bidx, epoch, seed32, state)
     return result(dev_cache)

@@ -20,8 +20,16 @@ updater state when the loss or a gradient is not finite, with
 of a fit into ``guard_skips``, so a step costs no host sync.  A
 uniform list of batches within ``SCAN_MAX_DATASET_BYTES`` is stacked on
 the device once and the steps index into it (the counterpart of the
-reference's scanned epoch; capturing the step as a CUDA graph is
-ROADMAP A3).
+reference's scanned epoch).
+
+The step and the serving forward run through the compile engine
+(``runtime/compile_cache``), shared by every network of the same conf
+JSON (reference :176-201, :496-577): on the card the step is one CUDA
+graph a batch shape, replayed every step.  It writes the params, the
+updater state and its device iteration counter in place (they are
+donated): the network's own params are copied into the engine's buffers
+on the first step, and the fit clones the trained ones back out (the
+API boundary).
 
 Not ported (each raises ``NotImplementedError``): the data-parallel,
 accumulation and mixed-precision fit paths (``mesh``, ``grad_accum >
@@ -50,9 +58,10 @@ from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
 from deeplearning4j_tpu_torch.nn.params import (pack_params, param_leaves,
                                                 unpack_params)
 from deeplearning4j_tpu_torch.ops.updaters import (apply_descent,
-                                                   dl4j_updater, tree_map)
+                                                   copy_into, dl4j_updater,
+                                                   tree_map)
 from deeplearning4j_tpu_torch.optimize.listeners import IterationListener
-from deeplearning4j_tpu_torch.runtime import telemetry
+from deeplearning4j_tpu_torch.runtime import compile_cache, telemetry
 
 log = logging.getLogger(__name__)
 
@@ -111,6 +120,7 @@ class MultiLayerNetwork:
         self._out_pre = {i: make_preprocessor(spec)
                          for i, spec in conf.output_preprocessors.items()}
         self._serving_engine_memo = None
+        self._machinery_memo = None
         #: in-step guard skips summed over this network's fits
         self.guard_skips = 0
 
@@ -193,10 +203,43 @@ class MultiLayerNetwork:
             h = self._in_pre[len(self.layers) - 1](h, gen)
         return self.output_layer.loss(params[-1], h, labels)
 
-    # -- inference (output:1147 / predict:1057 / score:1213) ---------------
-    def _serving_forward(self, params: Params, x: Tensor) -> Tensor:
-        return self.feed_forward(params, x)[-1]
+    # -- the engine's entries (reference :176-201, :496-577) ---------------
+    def _machinery(self):
+        """``(train_step, serving_forward)`` through the compile engine,
+        shared module-wide by conf JSON."""
+        if self._machinery_memo is None:
+            self._machinery_memo = compile_cache.get_or_build(
+                ("multilayer", self.conf.to_json()), self._build_machinery)
+        return self._machinery_memo
 
+    def _build_machinery(self):
+        # close over a replica rebuilt from the conf JSON, never over
+        # self: the shared entry outlives this network and must not pin
+        # it (or its trained params)
+        net = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(self.conf.to_json()),
+            device="cpu")
+        updaters = net._updaters()
+
+        def train_step(params, ustate, iteration, x, y, gen):
+            new_p, new_u, score, skipped = net._train_step(
+                updaters, params, ustate, x, y, gen, iteration)
+            with torch.no_grad():
+                copy_into(params, new_p)
+                copy_into(ustate, new_u)
+                iteration.add_(1)
+            return params, ustate, iteration, score, skipped
+
+        def forward(params, x):
+            return net.feed_forward(params, x)[-1]
+
+        return (compile_cache.cached_graph(
+                    train_step, label="multilayer.train_step",
+                    donate_argnums=(0, 1, 2)),
+                compile_cache.cached_graph(forward,
+                                           label="serving.forward"))
+
+    # -- inference (output:1147 / predict:1057 / score:1213) ---------------
     def serving_engine(self, buckets: Optional[Sequence[int]] = None,
                        max_batch_size: Optional[int] = None):
         """The bucketed inference engine serving this network's live
@@ -208,7 +251,7 @@ class MultiLayerNetwork:
         if not custom and self._serving_engine_memo is not None:
             return self._serving_engine_memo
         eng = InferenceEngine(
-            self._serving_forward, params=self._require_params,
+            self._machinery()[1], params=self._require_params,
             buckets=buckets,
             max_batch_size=max_batch_size or DEFAULT_MAX_BATCH,
             device=self.device)
@@ -281,10 +324,11 @@ class MultiLayerNetwork:
 
     def _train_step(self, updaters, params: Params, ustate: list,
                     x: Tensor, y: Tensor, gen: torch.Generator,
-                    iteration: int):
+                    iteration):
         """One step: (params, ustate, loss, skipped), all on the device;
         ``skipped`` is an int32 flag, 1 where the guard dropped the
-        update."""
+        update.  ``iteration`` (the momentum schedule's clock) is an int
+        or a 0-d device tensor."""
         live = [tree_map(lambda t: t.detach().requires_grad_(True), p)
                 for p in params]
         leaves = param_leaves(live)
@@ -332,19 +376,27 @@ class MultiLayerNetwork:
                             epochs=num_epochs, batches=len(batches)):
             self._fit_backprop_single(batches, num_epochs, seed)
 
+    def _fit_state(self, seed: int):
+        """A fit's working state: a copy of the network's params (the
+        step donates them), fresh updater state, the device iteration
+        counter and the dropout generator."""
+        params = [tree_map(torch.clone, p) for p in self._require_params()]
+        ustate = [u.init(p) for u, p in zip(self._updaters(), params)]
+        it = torch.zeros((), dtype=torch.int32, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return params, ustate, it, gen
+
     def _fit_backprop_single(self, batches, num_epochs: int,
                              seed: int) -> None:
-        params = self._require_params()
-        updaters = self._updaters()
-        ustate = [u.init(p) for u, p in zip(updaters, params)]
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        step = self._machinery()[0]
+        params, ustate, it, gen = self._fit_state(seed)
         total_bytes = sum(_nbytes(b.features) + _nbytes(b.labels)
                           for b in batches)
         uniform = (len(batches) > 1
                    and total_bytes <= self.SCAN_MAX_DATASET_BYTES
                    and len({(tuple(b.features.shape), tuple(b.labels.shape))
                             for b in batches}) == 1)
-        it = 0
+        n = 0
         skips = []
         if uniform:
             with telemetry.span("multilayer.stage",
@@ -360,12 +412,10 @@ class MultiLayerNetwork:
                 for epoch in range(num_epochs):
                     with telemetry.span("multilayer.epoch", epoch=epoch):
                         for j in range(len(batches)):
-                            params, ustate, score, skipped = \
-                                self._train_step(updaters, params, ustate,
-                                                 xs[j], ys[j], gen, it)
+                            params, ustate, it, score, skipped = step(
+                                params, ustate, it, xs[j], ys[j], gen)
                             scores.append(score)
                             skips.append(skipped)
-                            it += 1
                 self._note_skips(skips)
             if self.listeners:
                 for j, s in enumerate(torch.stack(scores).tolist()):
@@ -376,22 +426,29 @@ class MultiLayerNetwork:
                 with telemetry.span("multilayer.epoch", epoch=epoch):
                     for batch in batches:
                         params, ustate, it = self._step_and_notify(
-                            updaters, params, ustate, batch, gen, it, skips)
+                            step, params, ustate, it, batch, gen, n, skips)
+                        n += 1
             self._note_skips(skips)
-        self.params = params
+        self._set_trained(params)
 
-    def _step_and_notify(self, updaters, params, ustate, batch, gen,
-                         step, skips):
-        """One step on ``batch`` (moved to the device) and the listeners
-        (a host sync only when there are listeners)."""
-        params, ustate, score, skipped = self._train_step(
-            updaters, params, ustate, _as_tensor(batch.features, self.device),
-            _as_tensor(batch.labels, self.device), gen, step)
+    def _set_trained(self, params: Params) -> None:
+        """The API boundary: the step's params share the engine's
+        buffers; the network keeps a clone, so the fit's state set is
+        free for the next fit of this conf."""
+        self.params = [tree_map(torch.clone, p) for p in params]
+
+    def _step_and_notify(self, step, params, ustate, it, batch, gen, n,
+                         skips):
+        """Step ``n`` on ``batch`` (moved to the device) and the
+        listeners (a host sync only when there are listeners)."""
+        params, ustate, it, score, skipped = step(
+            params, ustate, it, _as_tensor(batch.features, self.device),
+            _as_tensor(batch.labels, self.device), gen)
         skips.append(skipped)
         if self.listeners:
             for ls in self.listeners:
-                ls.iteration_done(self, step, float(score))
-        return params, ustate, step + 1
+                ls.iteration_done(self, n, float(score))
+        return params, ustate, it
 
     def _note_skips(self, skips) -> None:
         """Sum the guard's per-step flags with one host sync a fit."""
@@ -424,11 +481,9 @@ class MultiLayerNetwork:
                 f"{self.conf.pretrain}, backprop={self.conf.backprop})")
         self._check_fit_conf(mesh)
         self._notify_fit_start()
-        params = self._require_params()
-        updaters = self._updaters()
-        ustate = [u.init(p) for u, p in zip(updaters, params)]
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        step = 0
+        step = self._machinery()[0]
+        params, ustate, counter, gen = self._fit_state(seed)
+        n = 0
         skips = []
         with telemetry.span("multilayer.fit", path="iterator",
                             epochs=num_epochs):
@@ -436,11 +491,12 @@ class MultiLayerNetwork:
                 with telemetry.span("multilayer.epoch", epoch=epoch):
                     it.reset()
                     while it.has_next():
-                        params, ustate, step = self._step_and_notify(
-                            updaters, params, ustate, it.next(), gen, step,
-                            skips)
+                        params, ustate, counter = self._step_and_notify(
+                            step, params, ustate, counter, it.next(), gen,
+                            n, skips)
+                        n += 1
             self._note_skips(skips)
-        self.params = params
+        self._set_trained(params)
 
     # -- evaluation ----------------------------------------------------------
     def evaluate(self, data: DataSet):

@@ -34,7 +34,8 @@ Entry points:
 
 ``launches`` (B1), ``launches_dkv`` (B2) and ``launches_dq`` (B3) count
 kernel launches (never plain-twin calls), so a run can show that its
-path went through each kernel.
+path went through each kernel.  A launch recorded in a CUDA graph
+counts once at every replay (``runtime/compile_cache`` books it).
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import cuda_build
 from deeplearning4j_tpu_torch.ops import kernel_select as ks
+from deeplearning4j_tpu_torch.runtime import compile_cache
 
 Tensor = torch.Tensor
 
@@ -92,6 +94,16 @@ def reset_launches() -> None:
     with _launch_lock:
         for name in _COUNTERS:
             globals()[name] = 0
+
+
+def _add_launches(counts: Dict[str, int]) -> None:
+    """Book ``{counter: n}`` launches (a CUDA-graph replay's)."""
+    with _launch_lock:
+        for name, n in counts.items():
+            globals()[name] += n
+
+
+compile_cache.register_launch_counters(launch_counts, _add_launches)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ from typing import Tuple
 import torch
 
 from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.runtime import compile_cache
 
 Tensor = torch.Tensor
 
@@ -61,6 +62,17 @@ def reset_launches() -> None:
     global launches
     with _launch_lock:
         launches = 0
+
+
+def _add_launches(counts) -> None:
+    """Book a CUDA-graph replay's launches."""
+    global launches
+    with _launch_lock:
+        launches += counts["launches"]
+
+
+compile_cache.register_launch_counters(lambda: {"launches": launches},
+                                       _add_launches)
 
 
 def fused_glove_chunk_plain(wext: Tensor, wtext: Tensor, rows: Tensor,

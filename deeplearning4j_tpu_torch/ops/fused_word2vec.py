@@ -48,6 +48,7 @@ from typing import Tuple
 import torch
 
 from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.runtime import compile_cache
 
 Tensor = torch.Tensor
 
@@ -66,6 +67,17 @@ def reset_launches() -> None:
     global launches
     with _launch_lock:
         launches = 0
+
+
+def _add_launches(counts) -> None:
+    """Book a CUDA-graph replay's launches."""
+    global launches
+    with _launch_lock:
+        launches += counts["launches"]
+
+
+compile_cache.register_launch_counters(lambda: {"launches": launches},
+                                       _add_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -155,10 +167,10 @@ def _library():
     global _lib
     if _lib is None:
         # 10 pointers + scratch; B, L, K, D, V0, V1, Vn, use_hs, seg;
-        # alpha; stream
+        # alpha (a device pointer); stream
         _lib = cuda_build.bind("w2v_chunk", {
             "w2v_chunk": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_void_p]})
+            + [ctypes.c_void_p, ctypes.c_void_p]})
     return _lib
 
 
@@ -178,8 +190,10 @@ def fused_chunk_update_cuda(syn0: Tensor, syn1: Tensor, syn1neg: Tensor,
     1)`` per objective on every row the chunk touches (:272-278), IN
     PLACE; returns ``(syn0, syn1, syn1neg)``, the tensors it was given.
     The tables must be contiguous fp32.  Raises for anything the kernel
-    does not take, CPU tensors included.  ``alpha`` is a Python or numpy
-    float."""
+    does not take, CPU tensors included.  ``alpha`` is a 0-d fp32 tensor
+    on the tables' device, which the kernel reads there (so a captured
+    chunk replays with the current rate), or a Python or numpy float,
+    moved to the device first."""
     dev = syn0.device
     if dev.type != "cuda":
         raise ValueError(f"B4 needs CUDA tensors; syn0 is on {dev} (CPU "
@@ -219,6 +233,13 @@ def fused_chunk_update_cuda(syn0: Tensor, syn1: Tensor, syn1neg: Tensor,
                              f"{tuple(negs.shape)}")
         negs = _as(negs, torch.int32, "negs", dev)
     V1, Vn = syn1.shape[0], syn1neg.shape[0]
+    if isinstance(alpha, torch.Tensor):
+        if alpha.numel() != 1 or alpha.device != dev:
+            raise ValueError(f"alpha must be one value on {dev}; got "
+                             f"{tuple(alpha.shape)} on {alpha.device}")
+        alpha = alpha.to(torch.float32).contiguous()
+    else:
+        alpha = torch.tensor(float(alpha), dtype=torch.float32).to(dev)
 
     def ptr(t, live):
         return t.data_ptr() if live else None
@@ -233,7 +254,7 @@ def fused_chunk_update_cuda(syn0: Tensor, syn1: Tensor, syn1neg: Tensor,
             inputs.data_ptr(), targets.data_ptr(), pmask.data_ptr(),
             ptr(codes, use_hs), ptr(points, use_hs), ptr(mask, use_hs),
             ptr(negs, K > 0), scratch.data_ptr(), B, L, K, D, V0, V1, Vn,
-            int(use_hs), SEGMENT, float(alpha), stream)
+            int(use_hs), SEGMENT, alpha.data_ptr(), stream)
     cuda_build.raise_on_error(lib, "w2v_chunk", "w2v_chunk", err)
     global launches
     with _launch_lock:
@@ -250,7 +271,7 @@ def fused_chunk_update(syn0: Tensor, syn1: Tensor, syn1neg: Tensor,
     ``[B]``; codes/points/mask ``[B, L]`` (``[B, 1]`` dummies when
     ``use_hs`` is off); negs ``[B, K]`` already mapped through the
     unigram table; pmask ``[B]`` the combined pad and window mask; alpha
-    a float.  Returns updated copies of ``(syn0, syn1, syn1neg)``; the
+    a float or a 0-d fp32 tensor.  Returns updated copies of ``(syn0, syn1, syn1neg)``; the
     inputs are not changed.  CPU tensors run the plain twin; CUDA tensors
     launch B4 on copies of the tables, or raise."""
     if syn0.device.type == "cpu":

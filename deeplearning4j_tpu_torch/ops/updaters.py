@@ -23,7 +23,6 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -31,18 +30,42 @@ Tree = Dict[str, Any]
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` over the leaves of nested dicts of the same structure."""
-    return {key: (tree_map(fn, val, *(r[key] for r in rest))
-                  if isinstance(val, dict) else fn(val, *(r[key] for r in rest)))
-            for key, val in tree.items()}
+    """``fn`` over the leaves of nested dicts, lists and (named) tuples
+    of the same structure; a None leaf stays None."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, val, *(r[key] for r in rest))
+                for key, val in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        vals = [tree_map(fn, val, *(r[i] for r in rest))
+                for i, val in enumerate(tree)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else type(tree)(vals)
+    return None if tree is None else fn(tree, *rest)
 
 
 def tree_leaves(tree: Tree) -> list:
     """Leaves in key order (the order :func:`tree_map` rebuilds)."""
-    out = []
-    for val in tree.values():
-        out.extend(tree_leaves(val) if isinstance(val, dict) else [val])
-    return out
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [leaf for val in tree for leaf in tree_leaves(val)]
+    return [] if tree is None else [tree]
+
+
+def copy_into(dst, src) -> None:
+    """Copy every tensor of ``src`` into the tensor at the same place in
+    ``dst`` (nested dicts, tuples and named tuples of one structure),
+    skipping a leaf that already is its destination: how a donated
+    training state takes its step's result in place."""
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        for key, val in dst.items():
+            copy_into(val, src[key])
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            copy_into(d, s)
 
 
 def tree_unflatten(tree: Tree, leaves) -> Tree:
@@ -58,9 +81,10 @@ class GradientTransformation(NamedTuple):
 
 
 class AdamWState(NamedTuple):
-    """``ScaleByAdamState``: the step count and the fp32 first and
-    second moments (the decay and the learning-rate scale keep none)."""
-    count: int
+    """``ScaleByAdamState``: the step count (a 0-d int32 tensor on the
+    params' device, as optax's) and the fp32 first and second moments
+    (the decay and the learning-rate scale keep none)."""
+    count: Tensor
     mu: Tree
     nu: Tree
 
@@ -73,7 +97,9 @@ def adamw(learning_rate: float, weight_decay: float = 1e-4, b1: float = 0.9,
 
     - mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu  (fp32);
     - count += 1;  mu_hat = mu / (1 - b1^count),  nu_hat likewise, the
-      corrections computed in fp32 as ``1 - decay**count``;
+      corrections computed in fp32 as ``1 - decay**count`` on the
+      device, so a step reads no host number and a captured step
+      (``runtime/compile_cache``) replays with the live count;
     - u = mu_hat / (sqrt(nu_hat) + eps);  u = u + weight_decay * p;
       u = -learning_rate * u.
     """
@@ -82,14 +108,19 @@ def adamw(learning_rate: float, weight_decay: float = 1e-4, b1: float = 0.9,
         def zeros(p):
             return torch.zeros_like(p, dtype=torch.float32)
 
-        return AdamWState(count=0, mu=tree_map(zeros, params),
+        dev = tree_leaves(params)[0].device
+        return AdamWState(count=torch.zeros((), dtype=torch.int32,
+                                            device=dev),
+                          mu=tree_map(zeros, params),
                           nu=tree_map(zeros, params))
 
     def update(grads: Tree, state: AdamWState, params: Tree):
         count = state.count + 1
         # 1 - decay**count in fp32, as optax's bias_correction
-        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        # (a Python base: no host-to-device copy inside a captured step)
+        n = count.to(torch.float32)
+        c1 = 1.0 - torch.pow(b1, n)
+        c2 = 1.0 - torch.pow(b2, n)
         mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
         nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
                       state.nu)
@@ -150,8 +181,9 @@ def dl4j_updater(
     4. unit norm: ``u / (||u|| + 1e-12)``;
     5. times ``1 / max(batch_size, 1)``.
 
-    The updates are subtracted from the params.  ``iteration`` is the
-    host's step count, so the schedule costs no device work.
+    The updates are subtracted from the params.  ``iteration`` is an int
+    or a 0-d device tensor (the captured train step passes its device
+    counter); with a schedule the momentum is selected on the device.
     """
     schedule = tuple(sorted((momentum_schedule or {}).items()))
 
@@ -159,11 +191,17 @@ def dl4j_updater(
         return UpdaterState(adagrad_accum=tree_map(torch.zeros_like, params),
                             momentum_buf=tree_map(torch.zeros_like, params))
 
-    def momentum_at(iteration: int) -> float:
-        m = momentum
+    def momentum_at(iteration):
+        """The momentum at ``iteration``: a float without a schedule,
+        else an fp32 tensor selected on the device (``iteration`` an int
+        or a 0-d tensor), as the reference's ``jnp.where`` chain."""
+        if not schedule:
+            return momentum
+        it = torch.as_tensor(iteration)
+        # filled on the device: no host-to-device copy in a captured step
+        m = torch.full((), momentum, dtype=torch.float32, device=it.device)
         for after, value in schedule:
-            if iteration >= after:
-                m = value
+            m = torch.where(it >= after, value, m)
         return m
 
     def with_l2(upd: Tree, params: Tree, coeff: float) -> Tree:
@@ -184,7 +222,7 @@ def dl4j_updater(
         else:
             accum = state.adagrad_accum
             scaled = tree_map(lambda g: lr * g, grads)
-        m = momentum_at(int(iteration))
+        m = momentum_at(iteration)
         buf = tree_map(lambda v, g: m * v + g, state.momentum_buf, scaled)
         upd = buf
         if use_regularization and l2 > 0.0:

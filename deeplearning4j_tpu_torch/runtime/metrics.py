@@ -1,18 +1,96 @@
-"""Serving counters.
+"""Compile and serving counters.
 
-Port of ``ServingMetrics``/``serving_metrics`` and
-``DecodeMetrics``/``decode_metrics``
-(``deeplearning4j_tpu/runtime/metrics.py:134-513``, the decode family's
-tier-1 and tier-2 counters).  The compile-count mark
-(``mark_compiles``, ``compile_delta_since_mark``) has no counterpart:
-PyTorch runs eagerly, so serving compiles nothing.  The other counter
-families come with the slices that use them.
+Port of ``CompileMetrics``/``compile_metrics`` (``deeplearning4j_tpu/
+runtime/metrics.py:22-80``), ``ServingMetrics``/``serving_metrics`` and
+``DecodeMetrics``/``decode_metrics`` (:134-513, the decode family's
+tier-1 and tier-2 counters).  The compile engine
+(``runtime/compile_cache.py``) reports into ``compile_metrics``: a
+"compile" is a CUDA-graph capture on the card and the first call of a
+signature on the CPU.  ``mark_compiles`` banks its count, and
+``compile_delta_since_mark`` in a snapshot is what was captured since.
+The other counter families come with the slices that use them.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Any, Dict, List, Optional
+
+
+class CompileMetrics:
+    """Process-wide counters of the compile engine
+    (``runtime/compile_cache.py``):
+
+    - ``compile_count``: signatures compiled, one per (function, input
+      signature): a CUDA-graph capture on the card, the first call on
+      the CPU.  Two identically configured networks sharing one engine
+      entry compile ONCE;
+    - ``compile_ms``: wall-clock ms of the calls that compiled (on the
+      card: warm-up, capture and the first replay);
+    - ``engine_builds`` / ``engine_hits``: keyed engine lookups that
+      built a new entry vs reused one;
+    - ``cached_dispatches``: calls served by an existing signature (a
+      graph replay on the card);
+    - ``traces``: compiles per label, e.g.
+      ``{"multilayer.train_step": 1}``.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.compile_count = 0
+            self.compile_ms = 0.0
+            self.engine_builds = 0
+            self.engine_hits = 0
+            self.cached_dispatches = 0
+            self.traces: Dict[str, int] = {}
+
+    def note_trace(self, label: str) -> None:
+        with self._lock:
+            self.compile_count += 1
+            self.traces[label] = self.traces.get(label, 0) + 1
+
+    def note_compile_ms(self, ms: float) -> None:
+        with self._lock:
+            self.compile_ms += ms
+
+    def note_engine(self, hit: bool) -> None:
+        with self._lock:
+            if hit:
+                self.engine_hits += 1
+            else:
+                self.engine_builds += 1
+
+    def note_cached_dispatch(self) -> None:
+        with self._lock:
+            self.cached_dispatches += 1
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "compile_count": self.compile_count,
+                "compile_ms": round(self.compile_ms, 1),
+                "engine_builds": self.engine_builds,
+                "engine_hits": self.engine_hits,
+                "cached_dispatches": self.cached_dispatches,
+                "traces": dict(self.traces),
+            }
+
+
+#: process-wide singleton the compile engine reports into
+compile_metrics = CompileMetrics()
+
+
+def _compile_delta(out: Dict[str, Any]) -> Dict[str, Any]:
+    """Add ``compile_delta_since_mark`` to a snapshot that carries a
+    ``compile_mark``."""
+    if out["compile_mark"] is not None:
+        out["compile_delta_since_mark"] = (compile_metrics.compile_count
+                                           - out["compile_mark"])
+    return out
 
 
 class ServingMetrics:
@@ -27,7 +105,10 @@ class ServingMetrics:
     - ``queue_depth`` / ``max_queue_depth``: live and high-water batcher
       queue occupancy;
     - a bounded request-latency reservoir -> ``latency_p50_ms`` /
-      ``latency_p99_ms``.
+      ``latency_p99_ms``;
+    - ``compile_mark``: the engine's compile count banked by
+      ``mark_compiles()`` (call it right after ``warmup()``); snapshots
+      then carry ``compile_delta_since_mark``.
     """
 
     #: latency reservoir bound — percentiles come from the recent window
@@ -48,6 +129,7 @@ class ServingMetrics:
             self.queue_depth = 0
             self.max_queue_depth = 0
             self._latencies_ms: List[float] = []
+            self._compile_mark: Optional[int] = None
 
     def note_request(self, rows: int) -> None:
         with self._lock:
@@ -75,6 +157,12 @@ class ServingMetrics:
             if len(self._latencies_ms) > self.MAX_LATENCIES:
                 del self._latencies_ms[:len(self._latencies_ms) // 2]
 
+    def mark_compiles(self) -> None:
+        """Bank the current engine compile count (call right after
+        ``warmup()``); later snapshots report the delta."""
+        with self._lock:
+            self._compile_mark = compile_metrics.compile_count
+
     @staticmethod
     def _pct(sorted_ms: List[float], q: float) -> Optional[float]:
         if not sorted_ms:
@@ -87,7 +175,7 @@ class ServingMetrics:
             lat = sorted(self._latencies_ms)
             waste = (1.0 - self.rows / self.rows_padded) \
                 if self.rows_padded else 0.0
-            return {
+            out = {
                 "requests": self.requests,
                 "rows": self.rows,
                 "dispatches": self.dispatches,
@@ -100,7 +188,9 @@ class ServingMetrics:
                 "latency_p50_ms": self._pct(lat, 0.50),
                 "latency_p99_ms": self._pct(lat, 0.99),
                 "latency_samples": len(lat),
+                "compile_mark": self._compile_mark,
             }
+        return _compile_delta(out)
 
 
 #: process-wide singleton the serving engine + batcher report into
@@ -131,10 +221,9 @@ class DecodeMetrics:
       newest engine's largest bucket).  The prefix-store and router
       counters come with their bookers (ROADMAP A4);
     - ``deadline_expirations``: requests whose ``deadline_ms`` passed
-      while queued or mid-decode (the one-shot batcher books here too).
-
-    The compile mark (``mark_compiles``) has no counterpart: PyTorch
-    runs eagerly and serving compiles nothing.
+      while queued or mid-decode (the one-shot batcher books here too);
+    - ``compile_mark``: as :class:`ServingMetrics`'s, for the decode
+      stack's captures (``mark_compiles()`` after ``warmup()``).
     """
 
     MAX_SAMPLES = 8192
@@ -160,6 +249,7 @@ class DecodeMetrics:
             self.deadline_expirations = 0
             self._ttft_ms: List[float] = []
             self._tok_ms: List[float] = []
+            self._compile_mark: Optional[int] = None
 
     def note_request(self, prompt_tokens: int) -> None:
         with self._lock:
@@ -211,6 +301,10 @@ class DecodeMetrics:
         with self._lock:
             self._push(self._tok_ms, ms)
 
+    def mark_compiles(self) -> None:
+        with self._lock:
+            self._compile_mark = compile_metrics.compile_count
+
     def snapshot(self) -> Dict[str, Any]:
         pct = ServingMetrics._pct
         with self._lock:
@@ -218,7 +312,7 @@ class DecodeMetrics:
             tok = sorted(self._tok_ms)
             occ = (self.slot_steps / self.slot_capacity_steps
                    if self.slot_capacity_steps else 0.0)
-            return {
+            out = {
                 "requests": self.requests,
                 "requests_completed": self.requests_completed,
                 "prompt_tokens": self.prompt_tokens,
@@ -235,7 +329,9 @@ class DecodeMetrics:
                 "ttft_p99_ms": pct(ttft, 0.99),
                 "tok_p50_ms": pct(tok, 0.50),
                 "tok_p99_ms": pct(tok, 0.99),
+                "compile_mark": self._compile_mark,
             }
+        return _compile_delta(out)
 
 
 #: process-wide singleton the decode engine and both batchers report into

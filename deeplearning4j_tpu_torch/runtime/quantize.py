@@ -169,7 +169,10 @@ class QuantMemo:
 class ServedParams:
     """The tree a serving engine dispatches with: ``params`` (a tree or
     a zero-arg callable returning one) through ``transform`` (quantize,
-    cast; None passes through), under ``inference_mode``.  A static
+    cast; None passes through), under ``no_grad`` (not
+    ``inference_mode``: the compile engine skips the copy of a read-only
+    tensor whose version has not moved, and an inference tensor has no
+    version).  A static
     tree is transformed once and the raw reference dropped; a
     callable's trees are transformed again only when it returns a new
     tree object (:class:`QuantMemo`).  ``get(params)`` serves an
@@ -187,7 +190,7 @@ class ServedParams:
     def get(self, params: Any = None) -> Any:
         if params is None and not callable(self._params):
             if not self._static_done and self._params is not None:
-                with torch.inference_mode():
+                with torch.no_grad():
                     self._params = self._transform(self._params)
                 self._static_done = True
             return self._params
@@ -196,7 +199,7 @@ class ServedParams:
             p = p()
         if self._transform is None or p is None:
             return p
-        with torch.inference_mode():
+        with torch.no_grad():
             return self._memo.get(p, self._transform)
 
 

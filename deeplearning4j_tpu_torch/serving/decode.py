@@ -16,14 +16,19 @@ Port of ``deeplearning4j_tpu/serving/decode.py``, pinned slots:
   ``runtime.metrics.decode_metrics``, expires requests past their
   ``deadline_ms`` and drains on close.
 
-What differs from JAX: nothing is compiled or donated.  The slot state
-is updated in place by eager PyTorch; ``warmup()`` runs every bucket
-once (the CUDA allocator, cuBLAS's per-shape choices), and the per-step
-host work is the cost (CUDA-graph capture of the step is ROADMAP A3).
-The sampling, activity and seed arrays the decode step reads live on
-the device and change only on a join or a release, so a step copies
-nothing to the device; its one sync is the ``[S]`` token fetch, which
-is the stream.
+Both dispatches run through the compile engine (``runtime/
+compile_cache``, the reference's :734-738): on the card each bucket's
+decode step is one CUDA graph (``decode.step``) and each bucket's
+prefill chunk another (``decode.prefill``), captured by ``warmup()``
+and replayed after.  A prefill's slot, start, valid length, seed and
+temperature reach its graph as device scalars, so one capture serves
+every slot and chunk.  The slot state is donated to both entries,
+which share their buffers (``share=``), so a bucket's KV cache lives in
+one place that prefill and step update in place.  The params and the
+activity, temperature and seed arrays are read-only arguments, copied
+in only when their version moves (a join or a release), so a steady
+step copies nothing to the device; its one sync is the ``[S]`` token
+fetch, outside the graph, which is the stream.
 
 Tier 2: ``quantize="int8"|"bf16"`` serves post-training quantized
 weights (``runtime/quantize.py``), quantized once per distinct params
@@ -53,9 +58,11 @@ import torch
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.models import gpt
 from deeplearning4j_tpu_torch.models import transformer as tfm
+from deeplearning4j_tpu_torch.runtime import compile_cache
 from deeplearning4j_tpu_torch.runtime import quantize as qz
 from deeplearning4j_tpu_torch.runtime import telemetry
-from deeplearning4j_tpu_torch.runtime.metrics import decode_metrics
+from deeplearning4j_tpu_torch.runtime.metrics import (compile_metrics,
+                                                      decode_metrics)
 from deeplearning4j_tpu_torch.serving.batcher import (BatcherClosed,
                                                       DeadlineExceeded)
 
@@ -169,14 +176,14 @@ class DecodeEngine:
         for t in self.buckets:
             chunk = math.gcd(chunk, t)
         self.prefill_chunk = chunk
-        with torch.inference_mode():
-            self._buckets: Dict[int, _Bucket] = {
-                t: _Bucket(t, self.n_slots, self.device)
-                for t in self.buckets}
+        # outside inference_mode: the dispatches read the slot vectors
+        # as read-only arguments, copied in only when their version moves
+        self._buckets: Dict[int, _Bucket] = {
+            t: _Bucket(t, self.n_slots, self.device) for t in self.buckets}
         prefill_fn, decode_fn = gpt.make_slot_fns(cfg)
         if self.quantize is not None:
-            # dequantized to the compute dtype at every dispatch: the
-            # eager port has no fuser to fold it into the products
+            # dequantized to the compute dtype inside each captured
+            # dispatch
             cdt = tfm.compute_dtype(cfg)
             base_prefill, base_decode = prefill_fn, decode_fn
 
@@ -185,8 +192,21 @@ class DecodeEngine:
 
             def decode_fn(params, *a):
                 return base_decode(qz.dequantize_tree(params, cdt), *a)
-        self._prefill = prefill_fn
-        self._decode = decode_fn
+        slot_prefill = prefill_fn
+
+        def prefill_fn(params, slots, toks, scalars, temperature):
+            # scalars: [slot, start, n_valid, seed] int64 on the device
+            return slot_prefill(params, slots, toks, scalars[0],
+                                scalars[1], scalars[2], temperature,
+                                scalars[3])
+
+        # one entry in two: both update the buckets' KV caches, which
+        # live in the buffers they share
+        self._prefill = compile_cache.cached_graph(
+            prefill_fn, label="decode.prefill", donate_argnums=(1,))
+        self._decode = compile_cache.cached_graph(
+            decode_fn, label="decode.step", donate_argnums=(1,),
+            share=self._prefill)
         #: KV bytes one slot of the largest bucket costs, the 'slots per
         #: card' denominator
         self.kv_bytes_per_slot = int(gpt.slots_bytes_per_slot(
@@ -246,27 +266,42 @@ class DecodeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _prefill_chunk(self, params, slots, toks: torch.Tensor, slot: int,
+                       start: int, n_valid: int, temperature: float,
+                       seed: int):
+        """One prefill dispatch, its scalars moved to the device in two
+        small copies."""
+        scalars = torch.tensor([slot, start, n_valid, int(seed) & gpt._M32],
+                               dtype=torch.int64).to(self.device)
+        temp = torch.tensor(float(temperature),
+                            dtype=torch.float32).to(self.device)
+        return self._prefill(params, slots, toks, scalars, temp)
+
     # -- warmup ------------------------------------------------------------
     def warmup(self) -> dict:
-        """Run one prefill chunk and one decode step in every bucket
-        (the allocator and cuBLAS see every shape before traffic), then
-        drop the slot state so serving starts from zeros.  Returns
-        ``{"buckets": n, "warmup_ms": wall}``."""
+        """Run one prefill chunk and one decode step in every bucket (on
+        the card: capture both graphs of the bucket), then zero the slot
+        state so serving starts from zeros.  Returns ``{"buckets": n,
+        "compiles": captures booked, "warmup_ms": wall}``."""
         params = self.current_params()
         t0 = time.perf_counter()
+        c0 = compile_metrics.compile_count
         with torch.inference_mode(), \
                 telemetry.span("decode.warmup", buckets=len(self.buckets)):
             toks = torch.zeros(self.prefill_chunk, dtype=torch.int32,
                                device=self.device)
             for t in self.buckets:
                 b = self._buckets[t]
-                slots, _ = self._prefill(params, self._state(b), toks, 0,
-                                         0, 1, 0.0, 0)
-                self._decode(params, slots, b.active_d, b.temps_d,
-                             b.seeds_d)
+                b.slots, _ = self._prefill_chunk(params, self._state(b),
+                                                 toks, 0, 0, 1, 0.0, 0)
+                b.slots, _ = self._decode(params, b.slots, b.active_d,
+                                          b.temps_d, b.seeds_d)
+                for buf in b.slots:
+                    if buf is not None:
+                        buf.zero_()
                 self._sync()
-                b.slots = None
         return {"buckets": len(self.buckets),
+                "compiles": compile_metrics.compile_count - c0,
                 "warmup_ms": (time.perf_counter() - t0) * 1e3}
 
     # -- serving -----------------------------------------------------------
@@ -314,10 +349,10 @@ class DecodeEngine:
             # tokens/pos untouched: the slot is simply not activated
             for c in range(n_chunks):
                 lo = c * C
-                slots, first = self._prefill(
+                slots, first = self._prefill_chunk(
                     params, slots, toks[lo:lo + C], slot, lo,
-                    min(C, prompt.size - lo), float(temperature),
-                    int(seed) & gpt._M32)
+                    min(C, prompt.size - lo), temperature, seed)
+            b.slots = slots
             first_tok = int(first)              # join-time sync, once
         decode_metrics.note_prefill(n_chunks)
         return first_tok
@@ -333,8 +368,8 @@ class DecodeEngine:
         with torch.inference_mode(), \
                 telemetry.span("decode.dispatch", bucket=bucket,
                                active=n_act):
-            _, out = self._decode(params, self._state(b), b.active_d,
-                                  b.temps_d, b.seeds_d)
+            b.slots, out = self._decode(params, self._state(b),
+                                        b.active_d, b.temps_d, b.seeds_d)
             # the per-step stream sync: the [S] tokens must reach the
             # host to stream, the one fetch a step
             toks = out.cpu().numpy()

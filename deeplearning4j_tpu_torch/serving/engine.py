@@ -6,19 +6,26 @@ Port of ``deeplearning4j_tpu/serving/engine.py`` (:60-296).  What stays:
   ladder** and the result rows sliced back out, so the forward only ever
   sees the ladder's batch sizes;
 - requests larger than the ladder are chunked by its largest bucket;
-- ``warmup()`` runs every bucket once before traffic (here that warms
-  the CUDA allocator and cuBLAS's per-shape choices; nothing compiles);
+- the forward runs through the compile engine (``runtime/compile_cache``,
+  the reference's ``cached_jit`` at :162): on the card each bucket is
+  one CUDA graph, captured by ``warmup()`` (or a bucket's first
+  request) and replayed after, so a warm-up books one compile a bucket
+  and steady traffic none (``serving_metrics.mark_compiles`` /
+  ``compile_delta_since_mark``);
 - ``input_spec`` records the per-example shape and dtype served, so the
   batcher can reject a mismatched request at submit time.
 
 ``quantize="int8"|"bf16"`` serves post-training quantized weights
 (``runtime/quantize.py``): the params are quantized once per distinct
-tree and dequantized (fp32, the reference's default) before every
-forward; where JAX fuses that into its jitted forward, the eager port
-makes an extra pass over the weights.
+tree and dequantized (fp32, the reference's default) inside the
+captured forward, which is its own engine entry keyed on the mode.
 
-What has no counterpart yet: ``cached_jit`` and input donation (:162),
-since PyTorch runs eagerly (CUDA graphs are later work).
+Params are read-only arguments of the captured forward: a call with
+other params than the last ones (a live network after a fit, an
+explicit ``params=``) has them copied into the graph's buffers, with no
+new capture; the engine's own params are copied once, not per request.
+The padded batch is copied in at every dispatch, and the output rows
+are a clone of the graph's output (the engine's boundary rule).
 
 ``apply_fn(params, x)`` takes the padded batch as a tensor on the
 engine's device and returns one tensor whose rows depend only on the
@@ -34,9 +41,11 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.runtime import compile_cache
 from deeplearning4j_tpu_torch.runtime import quantize as qz
 from deeplearning4j_tpu_torch.runtime import telemetry
-from deeplearning4j_tpu_torch.runtime.metrics import serving_metrics
+from deeplearning4j_tpu_torch.runtime.metrics import (compile_metrics,
+                                                      serving_metrics)
 
 #: default ladder: powers of two up to max_batch_size
 DEFAULT_MAX_BATCH = 256
@@ -83,7 +92,9 @@ class InferenceEngine:
     returning them (so a live model's current params are served).
     With ``quantize``, static params are quantized once and the engine
     drops its reference to the raw tree; a callable's trees are
-    quantized once each (memoized on identity).
+    quantized once each (memoized on identity).  ``apply_fn`` may also
+    be an engine-wrapped callable (a ``cached_graph`` result, as
+    ``MultiLayerNetwork`` shares one per conf), used as it is.
     """
 
     def __init__(self, apply_fn: Callable, params: Any = None, *,
@@ -98,12 +109,20 @@ class InferenceEngine:
             else default_buckets(max_batch_size))))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad bucket ladder: {self.buckets}")
-        if self.quantize is not None:
-            raw_apply = apply_fn
+        if isinstance(apply_fn, compile_cache.GraphFn):
+            if self.quantize is not None:
+                raise ValueError(
+                    "quantize= needs a raw apply_fn: an engine-wrapped "
+                    "callable cannot be rekeyed on the quantization mode")
+            self._forward = apply_fn
+        else:
+            if self.quantize is not None:
+                raw_apply = apply_fn
 
-            def apply_fn(params, x):
-                return raw_apply(qz.dequantize_tree(params), x)
-        self._forward = apply_fn
+                def apply_fn(params, x):
+                    return raw_apply(qz.dequantize_tree(params), x)
+            self._forward = compile_cache.cached_graph(
+                apply_fn, label="serving.forward")
         self._served = qz.ServedParams(
             params, None if self.quantize is None
             else lambda raw: qz.quantize_tree(raw, self.quantize))
@@ -123,10 +142,11 @@ class InferenceEngine:
     def warmup(self, input_shape: Optional[Sequence[int]] = None,
                dtype: Any = np.float32, example: Any = None,
                params: Any = None) -> dict:
-        """Run every bucket once before traffic arrives.  ``input_shape``
-        is the per-example shape (no batch dim), or pass ``example`` (a
-        representative batch).  Returns ``{"buckets": n, "warmup_ms":
-        wall}``."""
+        """Run every bucket once before traffic arrives (on the card:
+        capture its graph).  ``input_shape`` is the per-example shape (no
+        batch dim), or pass ``example`` (a representative batch).
+        Returns ``{"buckets": n, "compiles": captures booked,
+        "warmup_ms": wall}``."""
         if example is not None:
             ex = np.asarray(example)
             input_shape, dtype = ex.shape[1:], ex.dtype
@@ -135,12 +155,14 @@ class InferenceEngine:
         self.input_spec = (tuple(input_shape), np.dtype(dtype))
         p = self.current_params(params)
         t0 = time.perf_counter()
+        c0 = compile_metrics.compile_count
         with telemetry.span("serving.warmup", buckets=len(self.buckets)):
             for b in self.buckets:
                 self._call_forward(p, np.zeros((b,) + tuple(input_shape),
                                                dtype=dtype))
             self._sync()
         return {"buckets": len(self.buckets),
+                "compiles": compile_metrics.compile_count - c0,
                 "warmup_ms": (time.perf_counter() - t0) * 1e3}
 
     def _call_forward(self, params: Any, x) -> torch.Tensor:
