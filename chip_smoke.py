@@ -111,6 +111,28 @@ Phases, each fatal on failure:
    (median of synchronized calls), device ms and the busy share, eager
    beside captured, and holds its steady state to zero new captures;
    the captures per label must equal the signatures the entries hold.
+12. self-healing training, checkpoints and run telemetry
+   (runtime/{checkpoint,resilience,telemetry,metrics}): (a) ResilientFit
+   over LeNet-MNIST (bf16, data/mnist, B=128, 3 epochs, async snapshots
+   every 8 steps, cuDNN deterministic) with one batch NaN-poisoned on its
+   first read and an injected detector forcing one rollback:
+   steps_skipped == 1, rollbacks == 1, params finite; the same run
+   stopped at max_steps=20 and resumed with resume=True ends torch.equal
+   to the uninterrupted run (final params, and the newest common
+   snapshot leaf for leaf, momentum state included); a programmatic
+   PreemptionGuard.request() stops at the next boundary with one final
+   sync snapshot; no capture after warm-up across all of it; (b) GPT-2
+   small's training state (B=8, T=1024, remat, dropout, adamw; B1-B3 on
+   the path): 2 steps, an AsyncCheckpointer.save, 2 steps dispatched
+   behind it at once, then the snapshot restored into a fresh run that
+   replays those 2 steps with the same batches and dropout streams:
+   bit-identical to the uninterrupted run, no new capture; it prints the
+   snapshot's bytes, the training thread's staging ms, the writer's
+   commit ms and write-behind lag, and the step's ms (CUDA events) with
+   and without a snapshot in flight; (c) the telemetry registry's
+   snapshot (all nine counter families, peak_bytes_in_use) and part
+   (a)'s journal and Chrome trace, summarized.  Checkpoints go under a
+   temporary directory that is removed at the end.
 
 Phases 4-10 run through the compile engine as a user's calls do: every
 serving dispatch, training step, decode and prefill dispatch and
@@ -3200,6 +3222,370 @@ def graph_phase(torch, ln, t8, card: str) -> None:
         f"decoding {t3 - t2:.1f} s, embeddings {t4 - t3:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: self-healing training, checkpoints and run telemetry
+# ---------------------------------------------------------------------------
+
+#: phase 12's LeNet run: data/mnist at B=128 (16 batches an epoch), the
+#: poisoned batch (its first read only), the step the injected detector
+#: fires at (in epoch 1, after the step-24 snapshot), the bounded slice
+#: and the preemption request
+RF_EPOCHS, RF_EVERY = 3, 8
+RF_POISON_BATCH, RF_FIRE_CALL, RF_SLICE, RF_PREEMPT_AT = 5, 30, 20, 10
+#: GPT-2 small: steps before the snapshot, steps dispatched behind it,
+#: steps timed with no snapshot in flight
+GPT_SNAP_AT, GPT_BEHIND, GPT_TIMED = 2, 2, 3
+
+
+class PoisonOnce:
+    """A batch whose first read comes back with a NaN (a transient
+    fault: a flaky read), every later read clean.  Shared by a bounded
+    slice and its resume, it poisons the same step an uninterrupted run
+    does (its first visit, in epoch 0)."""
+
+    def __init__(self, ds):
+        self._ds = ds
+        self.labels = ds.labels
+        self.reads = 0
+
+    @property
+    def features(self):
+        self.reads += 1
+        if self.reads > 1:
+            return self._ds.features
+        x = self._ds.features.clone()
+        x.view(-1)[0] = float("nan")
+        return x
+
+
+def fire_once_detector(at: int):
+    """A loss-spike detector that reports one sustained anomaly at its
+    ``at``-th observation (shared by a slice and its resume, it fires at
+    the same step as in an uninterrupted run)."""
+    from deeplearning4j_tpu_torch.runtime.resilience import LossSpikeDetector
+
+    class FireOnce(LossSpikeDetector):
+        def __init__(self):
+            super().__init__()
+            self.calls = 0
+
+        def observe(self, loss):
+            self.calls += 1
+            return self.calls == at
+
+    return FireOnce()
+
+
+def rf_leaves(tree):
+    from deeplearning4j_tpu_torch.runtime.checkpoint import \
+        _flatten_with_paths
+
+    return _flatten_with_paths(tree)
+
+
+def resilient_lenet(torch, ln, tmp, say):
+    """Part (a): ResilientFit over LeNet-MNIST (see the module
+    docstring).  Returns the telemetry tracer of the run."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.optimize.listeners import IterationListener
+    from deeplearning4j_tpu_torch.runtime import resilience, telemetry
+    from deeplearning4j_tpu_torch.runtime.metrics import (checkpoint_metrics,
+                                                          compile_metrics,
+                                                          resilience_metrics)
+    from deeplearning4j_tpu_torch.runtime.resilience import (
+        PreemptionGuard, ResilienceConfig, ResilientFit)
+
+    train = mnist_split(True)
+    clean = [DataSet(torch.as_tensor(b.features).cuda(),
+                     torch.as_tensor(b.labels).cuda())
+             for b in train.batch_by(LENET_B)]
+    steps = RF_EPOCHS * len(clean)
+    params0 = ln.lenet(device="cpu").params
+
+    def data():
+        return [PoisonOnce(b) if i == RF_POISON_BATCH else b
+                for i, b in enumerate(clean)]
+
+    def run(name, batches, detector, **kw):
+        net = lenet_net(ln, "bfloat16", params0, "cuda")
+        drv = ResilientFit(net, ResilienceConfig(
+            checkpoint_dir=os.path.join(tmp, name),
+            checkpoint_every=RF_EVERY, max_to_keep=10, **kw),
+            detector=detector)
+        resilience_metrics.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv.fit(batches, num_epochs=RF_EPOCHS, seed=5)
+        torch.cuda.synchronize()
+        return net, drv, time.perf_counter() - t0, \
+            resilience_metrics.snapshot()
+
+    # warm-up: the train step's capture and the restore check's
+    warm = lenet_net(ln, "bfloat16", params0, "cuda")
+    warm.fit_backprop(clean[0])
+    check(resilience.compiled_all_finite(warm.params), "warm-up params")
+    del warm
+    c0 = compile_metrics.compile_count
+    tracer = telemetry.enable(run_id="chip-smoke-phase-12a")
+
+    checkpoint_metrics.reset()
+    full, fdrv, sec, snap = run("full", data(), fire_once_detector(
+        RF_FIRE_CALL))
+    ck = checkpoint_metrics.snapshot()
+    finite = bool(torch.isfinite(full.params_flat()).all())
+    say(f"LeNet bf16 ResilientFit, data/mnist B={LENET_B}, {RF_EPOCHS} "
+        f"epochs ({steps} steps), async snapshots every {RF_EVERY}: "
+        f"{sec:.3f} s (host clock, synchronized) for {fdrv.steps_run} steps "
+        f"run ({fdrv.steps_run / sec:.1f} steps/s, each with its loss read "
+        f"on the host); steps_skipped {snap.get('steps_skipped', 0)} (bar "
+        f"1), rollbacks {fdrv.rollbacks} (bar 1), final params finite "
+        f"{finite}; {ck['snapshots_committed']} snapshots committed, "
+        f"{ck['bytes_written']} bytes, staging {ck['stage_ms']:.3f} ms "
+        f"summed over {ck['saves_async']} async saves, writer "
+        f"{ck['write_ms']:.3f} ms summed, latest write-behind lag "
+        f"{ck['write_behind_lag_ms']:.3f} ms, backpressure waits "
+        f"{ck['backpressure_waits']}")
+    check(snap.get("steps_skipped", 0) == 1 and full.guard_skips == 1,
+          f"LeNet ResilientFit: steps_skipped {snap}")
+    check(fdrv.rollbacks == 1 and snap.get("rollbacks") == 1,
+          f"LeNet ResilientFit: rollbacks {fdrv.rollbacks}")
+    check(finite, "LeNet ResilientFit: non-finite params")
+
+    # kill and resume: the slice and its resume share the poisoned batch
+    # and the detector, as one process's run would
+    batches, det = data(), fire_once_detector(RF_FIRE_CALL)
+    _, sdrv, s1, _ = run("split", batches, det, max_steps=RF_SLICE)
+    check(sdrv.steps_run == RF_SLICE and sdrv.manager.latest_step()
+          == RF_SLICE, f"slice stopped at {sdrv.manager.latest_step()}")
+    part, rdrv, s2, rsnap = run("split", batches, det, resume=True)
+    same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        rf_leaves(full.params), rf_leaves(part.params)))
+    # the newest snapshot both runs committed: params and optimizer state
+    last = max(set(fdrv.manager.all_steps())
+               & set(rdrv.manager.all_steps()))
+    _, ups = full._backprop_machinery()
+    tpl = ([{k: v.clone() for k, v in p.items()} for p in full.params],
+           [u.init(p) for u, p in zip(ups, full.params)])
+    fa_, _ = fdrv.manager.restore(step=last, like=tpl)
+    ra_, _ = rdrv.manager.restore(step=last, like=tpl)
+    pairs = list(zip(rf_leaves(fa_), rf_leaves(ra_)))
+    same_snap = all(pa == pb and torch.equal(a, b)
+                    for (pa, a), (pb, b) in pairs)
+    n_ustate = sum(1 for (p, _), _ in pairs if p.startswith("1/"))
+    say(f"kill at step {RF_SLICE} ({s1:.3f} s) and resume ({s2:.3f} s, "
+        f"{rdrv.steps_run} steps, rollbacks {rdrv.rollbacks}, "
+        f"steps_skipped {rsnap.get('steps_skipped', 0)} in the resume): "
+        f"final params torch.equal to the uninterrupted run {same_params}; "
+        f"snapshot {last} leaf for leaf ({len(pairs)} leaves, {n_ustate} of "
+        f"them momentum and AdaGrad state) {same_snap} (cuDNN "
+        f"deterministic)")
+    check(same_params and same_snap, "LeNet: resume != uninterrupted run")
+
+    # preemption: a programmatic notice at a step boundary
+    guard = PreemptionGuard()
+
+    class Notice(IterationListener):
+        def iteration_done(self, model, iteration, score):
+            if iteration == RF_PREEMPT_AT:
+                guard.request()
+
+    checkpoint_metrics.reset()
+    net = lenet_net(ln, "bfloat16", params0, "cuda")
+    net.set_listeners([Notice()])
+    pdrv = ResilientFit(net, ResilienceConfig(
+        checkpoint_dir=os.path.join(tmp, "preempt"),
+        checkpoint_every=RF_EVERY), preemption_guard=guard)
+    pdrv.fit(data(), num_epochs=RF_EPOCHS, seed=5)
+    ck = checkpoint_metrics.snapshot()
+    say(f"preemption requested at step {RF_PREEMPT_AT}: preempted "
+        f"{pdrv.preempted} after {pdrv.steps_run} steps, latest snapshot "
+        f"{pdrv.manager.latest_step()}, final sync snapshots "
+        f"{ck['preemption_snapshots']}, sync saves {ck['saves_sync']}")
+    check(pdrv.preempted and pdrv.steps_run == RF_PREEMPT_AT + 1
+          and pdrv.manager.latest_step() == RF_PREEMPT_AT + 1
+          and ck["preemption_snapshots"] == 1 and ck["saves_sync"] == 1,
+          "LeNet: preemption did not stop with one final snapshot")
+    delta = compile_metrics.compile_count - c0
+    say(f"captures after warm-up, across the rollback, the resume and "
+        f"the preemption: {delta} (traces {compile_metrics.traces})")
+    check(delta == 0, f"LeNet ResilientFit: {delta} captures after warm-up")
+    telemetry.disable()
+    return tracer
+
+
+def gpt_snapshot(torch, fa, tmp, say) -> dict:
+    """Part (b): an async snapshot of GPT-2 small's training state with
+    steps dispatched behind it, restored into a fresh run that replays
+    them (see the module docstring).  Returns B1-B3's launches."""
+    from deeplearning4j_tpu_torch.models import gpt
+    from deeplearning4j_tpu_torch.models.transformer import TrainState
+    from deeplearning4j_tpu_torch.runtime.checkpoint import (
+        AsyncCheckpointer, CheckpointManager)
+    from deeplearning4j_tpu_torch.runtime.metrics import (checkpoint_metrics,
+                                                          compile_metrics)
+    from deeplearning4j_tpu_torch.runtime.resilience import fold
+
+    cfg = gpt.gpt_config()
+    check(cfg.remat and cfg.dropout > 0, "GPT-2 small: remat and dropout")
+    B, T = 8, 1024
+    rng = np.random.default_rng(12)
+    n = GPT_SNAP_AT + GPT_BEHIND + GPT_TIMED
+    ids = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
+                            .astype(np.int32)).cuda() for _ in range(n)]
+    init_fn, step_fn = gpt.make_train_step(cfg)
+    gen = torch.Generator(device="cuda")
+
+    def step(state, k):
+        # the step's dropout stream is a function of (seed, step), as
+        # ResilientFit derives it: a restored run redraws it exactly
+        gen.manual_seed(fold(7, 0, k))
+        return step_fn(state, ids[k], gen)
+
+    def event_ms(fn):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    fa.reset_launches()
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    for k in range(GPT_SNAP_AT):
+        state, _ = step(state, k)
+    torch.cuda.synchronize()
+    mgr = CheckpointManager(os.path.join(tmp, "gpt"), max_to_keep=2)
+    checkpoint_metrics.reset()
+    ac = AsyncCheckpointer(mgr, max_in_flight=1)
+    t0 = time.perf_counter()
+    handle = ac.save(GPT_SNAP_AT, state, meta={"seed": 7})
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    behind = []
+    for k in range(GPT_SNAP_AT, GPT_SNAP_AT + GPT_BEHIND):
+        (state, _), ms = event_ms(lambda k=k: step(state, k))
+        behind.append(ms)
+    in_flight_at_end = not handle.done()
+    ac.close()
+    ck = checkpoint_metrics.snapshot()
+    nbytes = sum(t.numel() * t.element_size() for _, t in rf_leaves(state)
+                 if isinstance(t, torch.Tensor))
+    ref = [(p, t.clone() if isinstance(t, torch.Tensor) else t)
+           for p, t in rf_leaves(state)]
+    # drop the uninterrupted run's aliases: the restored state then lands
+    # in the engine's free state set (no new capture)
+    state = None
+    c0 = compile_metrics.compile_count
+    tpl = init_fn(torch.Generator(device="cuda").manual_seed(99))
+    restored, meta = mgr.restore(like=tpl)
+    tpl = None
+    check(restored.step == GPT_SNAP_AT and meta["step"] == GPT_SNAP_AT,
+          f"GPT snapshot step {meta['step']}")
+    for k in range(GPT_SNAP_AT, GPT_SNAP_AT + GPT_BEHIND):
+        restored, _ = step(restored, k)
+    torch.cuda.synchronize()
+    got = rf_leaves(restored)
+    equal = [p for (p, a), (q, b) in zip(got, ref)
+             if p != q or not (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                               else a == b)]
+    captures = compile_metrics.compile_count - c0
+    free = []
+    for k in range(GPT_SNAP_AT + GPT_BEHIND, n):
+        (restored, _), ms = event_ms(lambda k=k: step(restored, k))
+        free.append(ms)
+    launches = fa.launch_counts()
+    # a second snapshot: PyTorch's caching host allocator now holds the
+    # first one's pinned buffers
+    ac = AsyncCheckpointer(mgr, max_in_flight=1)
+    t0 = time.perf_counter()
+    ac.save(n, restored, meta={"seed": 7})
+    stage2_ms = (time.perf_counter() - t0) * 1e3
+    ac.close()
+    say(f"GPT-2 small B={B} T={T} (remat, dropout {cfg.dropout}, adamw) "
+        f"training state: {nbytes} bytes ({len(ref)} leaves: fp32 params, "
+        f"mu and nu, the count, the step) a snapshot; training thread's "
+        f"staging {stage_ms:.3f} ms (clones + copies to pinned memory "
+        f"queued); writer's commit {ck['write_ms']:.3f} ms ({ck['bytes_written']} "
+        f"bytes on disk, fsync'd, crc32'd), write-behind lag "
+        f"{ck['write_behind_lag_ms']:.3f} ms; snapshot still in flight "
+        f"after the {GPT_BEHIND} steps behind it: {in_flight_at_end}; a "
+        f"second snapshot's staging {stage2_ms:.3f} ms")
+    say(f"GPT-2 small step ms (CUDA events) with the snapshot in flight "
+        + " / ".join(f"{x:.3f}" for x in behind) + ", without "
+        + " / ".join(f"{x:.3f}" for x in free))
+    say(f"restored at step {GPT_SNAP_AT} into a fresh run, {GPT_BEHIND} "
+        f"steps replayed with the same batches and dropout streams: state "
+        f"after step {GPT_SNAP_AT + GPT_BEHIND} bit-identical to the "
+        f"uninterrupted run's {not equal} ({len(ref)} leaves; differing "
+        f"{equal[:4]}); captures across the restore {captures}; B1/B2/B3 "
+        f"launches {launches}")
+    check(not equal, f"GPT-2 small: restored run differs at {equal[:4]}")
+    check(captures == 0, f"GPT-2 small: {captures} captures after restore")
+    check(launches["launches"] > 0 and launches["launches_dkv"] > 0
+          and launches["launches_dq"] > 0, "B1-B3 did not launch")
+    return launches
+
+
+def telemetry_report(tracer, tmp, say) -> None:
+    """Part (c): the registry's snapshot and part (a)'s journal and
+    Chrome trace, summarized."""
+    from deeplearning4j_tpu_torch.runtime import telemetry
+
+    snap = telemetry.registry.snapshot()
+    journal = os.path.join(tmp, "phase12a.jsonl")
+    trace = os.path.join(tmp, "phase12a.trace.json")
+    tracer.export_journal(journal, snapshot=snap)
+    tracer.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    summary = telemetry.summarize_journal(telemetry.read_journal(journal),
+                                          top_k=3)
+    tree = {"/".join(r["path"]): (r["count"], r["total_ms"])
+            for r in summary["tree"] if r["depth"] <= 1}
+    say(f"registry families {sorted(snap['counters'])}; peak_bytes_in_use "
+        f"{snap['device_memory']['peak_bytes_in_use']}; checkpoint "
+        f"{snap['counters']['checkpoint']}; resilience "
+        f"{snap['counters']['resilience']}; compile count "
+        f"{snap['counters']['compile']['compile_count']}")
+    say(f"journal of part (a): {summary['n_spans']} spans, "
+        f"{summary['n_events']} events {summary['events']}; span tree "
+        f"(count, total ms) {tree}; Chrome trace {len(events)} events, "
+        f"{os.path.getsize(trace)} bytes")
+    check(len(snap["counters"]) == 9 and summary["n_spans"] > 0
+          and "resilience.rollback" in summary["events"]
+          and any(e.get("ph") == "X" for e in events),
+          "phase 12: telemetry incomplete")
+    peaks = snap["device_memory"]["peak_bytes_in_use"]
+    check(all(v is not None and v > 0 for v in peaks.values()),
+          f"peak_bytes_in_use not reported: {peaks}")
+
+
+def resilience_phase(torch, fa, ln, card: str) -> dict:
+    """Phase 12 (see the module docstring).  Returns B1-B3's launches."""
+    import shutil
+    import tempfile
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        tracer = resilient_lenet(torch, ln, tmp, say)
+        t1 = time.perf_counter()
+        launches = gpt_snapshot(torch, fa, tmp, say)
+        t2 = time.perf_counter()
+        telemetry_report(tracer, tmp, say)
+        say(f"phase 12 wall: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+            f"{time.perf_counter() - t2:.1f} s")
+        return launches
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3318,6 +3704,9 @@ def main() -> int:
     print("phase 11: the compile engine's CUDA graphs against the raw "
           "functions")
     graph_phase(torch, ln, t8, card)
+    print("phase 12: self-healing training, checkpoints and run telemetry")
+    for name, n in resilience_phase(torch, fa, ln, card).items():
+        launches[name] += n
 
     kernels = [{
         "name": "flash_attention_fwd",

@@ -27,7 +27,11 @@ Numerics, site by site, against the JAX forward:
 Dropout takes an explicit ``torch.Generator``; serving passes none.
 Everything here is differentiable, so the training steps
 (``bert.make_train_step``, ``gpt.make_train_step``) take gradients
-with ``torch.autograd`` through the same forward.
+with ``torch.autograd`` through the same forward.  Weights and training
+state cross between the packages through numpy trees:
+:func:`params_from_numpy`, and :func:`train_state_from_numpy` /
+:func:`train_state_to_numpy` for a whole ``TrainState`` (optax's AdamW
+chain on the JAX side).
 """
 
 from __future__ import annotations
@@ -315,6 +319,48 @@ def params_from_numpy(tree: Mapping[str, Any],
     return {grp: {leaf: torch.from_numpy(np.array(tree[grp][leaf]))
                   .to(dev) for leaf in leaves}
             for grp, leaves in groups.items()}
+
+
+def train_state_from_numpy(tree: Mapping[str, Any],
+                           device: DeviceLike = None) -> "TrainState":
+    """A JAX ``TrainState`` read as a tree (``runtime.checkpoint.
+    load_numpy_tree``, or ``load_pytree`` without a template) -> the
+    port's :class:`TrainState` on ``device``.  The JAX tree holds
+    ``params/...``, optax's AdamW chain ``(ScaleByAdamState, EmptyState,
+    EmptyState)`` as ``opt_state/0/count``, ``opt_state/0/mu/...`` and
+    ``opt_state/0/nu/...``, and ``step``; the port's ``AdamWState`` is
+    ``(count, mu, nu)``.  Params and moments go through
+    :func:`params_from_numpy` (same layouts)."""
+    dev = resolve_device(device)
+    adam = tree["opt_state"]["0"]
+    count = torch.from_numpy(np.array(adam["count"], dtype=np.int32)).to(dev)
+    opt = updaters.AdamWState(count=count,
+                              mu=params_from_numpy(adam["mu"], dev),
+                              nu=params_from_numpy(adam["nu"], dev))
+    return TrainState(params_from_numpy(tree["params"], dev), opt,
+                      int(np.asarray(tree["step"])))
+
+
+def train_state_to_numpy(state: "TrainState") -> "TrainState":
+    """The port's :class:`TrainState` as numpy arrays in JAX's tree
+    order: ``runtime.checkpoint.save_pytree`` of the result writes the
+    paths JAX's ``TrainState`` flattens to (``params/...``,
+    ``opt_state/0/count``, ``opt_state/0/mu/...``, ``opt_state/0/nu/...``,
+    ``step``), so the JAX package restores it with ``like=`` its state;
+    bf16 leaves come out as numpy's raw ``V2``, as JAX's are written."""
+    from deeplearning4j_tpu_torch.runtime.checkpoint import _to_numpy
+
+    opt = state.opt_state
+    if not isinstance(opt, updaters.AdamWState):
+        raise TypeError(f"train_state_to_numpy carries an AdamW state, "
+                        f"not {type(opt).__name__}")
+    adam = updaters.AdamWState(
+        count=np.asarray(_to_numpy(opt.count), dtype=np.int32),
+        mu=updaters.tree_map(_to_numpy, opt.mu),
+        nu=updaters.tree_map(_to_numpy, opt.nu))
+    # optax's chain: scale_by_adam, then two stateless transformations
+    return TrainState(updaters.tree_map(_to_numpy, state.params),
+                      (adam, (), ()), np.asarray(state.step, np.int32))
 
 
 def value_and_grad(loss_fn: Callable[[Params], Tensor], params: Params):

@@ -14,13 +14,20 @@ packages unchanged.
 
 The train step is one function: forward, ``torch.autograd.grad`` of the
 loss, each layer's own ``dl4j_updater`` (batch size 1: the loss is
-already a mean), then the in-step guard.  The guard keeps params and
+already a mean), then the in-step guard (``runtime/resilience.
+guard_update``, as in the reference).  The guard keeps params and
 updater state when the loss or a gradient is not finite, with
 ``torch.where`` on a device flag; the flags are summed once at the end
-of a fit into ``guard_skips``, so a step costs no host sync.  A
-uniform list of batches within ``SCAN_MAX_DATASET_BYTES`` is stacked on
-the device once and the steps index into it (the counterpart of the
-reference's scanned epoch).
+of a fit (``resilience.note_skips``) into ``guard_skips``, so a step
+costs no host sync.  A uniform list of batches within
+``SCAN_MAX_DATASET_BYTES`` is stacked on the device once and the steps
+index into it (the counterpart of the reference's scanned epoch).
+Every fit loop checks ``resilience.preemption_requested()`` at each
+step boundary and stops cleanly when a ``PreemptionGuard`` has seen a
+notice (reference :1120-1130; the staged loop has step boundaries too,
+where the reference's single-dispatch scan has none).
+``_backprop_machinery`` / ``_init_ustate`` / ``_notify_fit_start`` are
+the hooks ``runtime/resilience.ResilientFit`` drives.
 
 The step and the serving forward run through the compile engine
 (``runtime/compile_cache``), shared by every network of the same conf
@@ -41,7 +48,6 @@ accumulation and mixed-precision fit paths (``mesh``, ``grad_accum >
 from __future__ import annotations
 
 import io
-import logging
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -61,9 +67,8 @@ from deeplearning4j_tpu_torch.ops.updaters import (apply_descent,
                                                    copy_into, dl4j_updater,
                                                    tree_map)
 from deeplearning4j_tpu_torch.optimize.listeners import IterationListener
-from deeplearning4j_tpu_torch.runtime import compile_cache, telemetry
-
-log = logging.getLogger(__name__)
+from deeplearning4j_tpu_torch.runtime import (compile_cache, resilience,
+                                              telemetry)
 
 Tensor = torch.Tensor
 Params = List[Dict[str, Tensor]]
@@ -87,13 +92,6 @@ def _as_tensor(a, device: torch.device) -> Tensor:
     if t.dtype == torch.float64:
         t = t.float()
     return t.to(device)
-
-
-def _all_finite(score: Tensor, grads: Sequence[Tensor]) -> Tensor:
-    """A device bool: the loss and every gradient are finite."""
-    flags = [torch.isfinite(score).all()]
-    flags += [torch.isfinite(g).all() for g in grads]
-    return torch.stack(flags).all()
 
 
 class MultiLayerNetwork:
@@ -239,6 +237,36 @@ class MultiLayerNetwork:
                 compile_cache.cached_graph(forward,
                                            label="serving.forward"))
 
+    def _backprop_machinery(self, mesh=None):
+        """``(train_step, updaters)``: the captured engine step
+        ``train_step(params, ustate, iteration, x, y, gen) -> (params,
+        ustate, iteration, score, skipped)`` shared by conf JSON, and this
+        conf's per-layer updaters; the counterpart of the reference's
+        ``_backprop_machinery`` (:442-470; the scanned ``train_epochs``
+        has no counterpart: the staged loop replays the step).  A
+        ``mesh`` raises (data-parallel machinery, ROADMAP A7)."""
+        self._check_fit_conf(mesh)
+        return self._machinery()[0], self._updaters()
+
+    @staticmethod
+    def _init_ustate(train_step, updaters, params):
+        """Fresh updater state for an engine step: the per-layer list
+        (the reference's mixed-precision step carries its own
+        initializer, ROADMAP A7)."""
+        return [u.init(p) for u, p in zip(updaters, params)]
+
+    @staticmethod
+    def _preempt_stop(where: str) -> bool:
+        """Step-boundary preemption check of the fit loops: True when an
+        installed ``resilience.PreemptionGuard`` has seen a notice; the
+        loop then finishes cleanly with the params trained so far (the
+        final snapshot belongs to ``ResilientFit``).  One global read
+        when no guard is installed."""
+        if resilience.preemption_requested():
+            telemetry.event("multilayer.preempt_stop", where=where)
+            return True
+        return False
+
     # -- inference (output:1147 / predict:1057 / score:1213) ---------------
     def serving_engine(self, buckets: Optional[Sequence[int]] = None,
                        max_batch_size: Optional[int] = None):
@@ -344,18 +372,10 @@ class MultiLayerNetwork:
                 u_i, s_i = upd.update(u, g, p, iteration, 1)
                 new_params.append(apply_descent(p, u_i))
                 new_ustate.append(s_i)
-            ok = _all_finite(score, grads_flat)
-
-            def keep(new, old):
-                # a buffer the step left alone (AdaGrad's when off) needs
-                # no select
-                return old if new is old else torch.where(ok, new, old)
-            new_params = [tree_map(keep, n, o)
-                          for n, o in zip(new_params, params)]
-            new_ustate = [type(n)(*(tree_map(keep, a, b)
-                                    for a, b in zip(n, o)))
-                          for n, o in zip(new_ustate, ustate)]
-        return new_params, new_ustate, score, (~ok).to(torch.int32)
+            new_params, new_ustate, skipped = resilience.guard_update(
+                params, ustate, new_params, new_ustate,
+                (score, list(grads_flat)))
+        return new_params, new_ustate, score, skipped
 
     def fit_backprop(self, data: Union[DataSet, Sequence[DataSet]],
                      num_epochs: int = 1, seed: int = 2,
@@ -390,6 +410,7 @@ class MultiLayerNetwork:
                              seed: int) -> None:
         step = self._machinery()[0]
         params, ustate, it, gen = self._fit_state(seed)
+        stop = False
         total_bytes = sum(_nbytes(b.features) + _nbytes(b.labels)
                           for b in batches)
         uniform = (len(batches) > 1
@@ -410,21 +431,31 @@ class MultiLayerNetwork:
             with telemetry.span("multilayer.dispatch", staged=True,
                                 steps=num_epochs * len(batches)):
                 for epoch in range(num_epochs):
+                    if stop:
+                        break
                     with telemetry.span("multilayer.epoch", epoch=epoch):
                         for j in range(len(batches)):
+                            if self._preempt_stop("fit_backprop"):
+                                stop = True
+                                break
                             params, ustate, it, score, skipped = step(
                                 params, ustate, it, xs[j], ys[j], gen)
                             scores.append(score)
                             skips.append(skipped)
                 self._note_skips(skips)
-            if self.listeners:
+            if self.listeners and scores:
                 for j, s in enumerate(torch.stack(scores).tolist()):
                     for ls in self.listeners:
                         ls.iteration_done(self, j, s)
         else:
             for epoch in range(num_epochs):
+                if stop:
+                    break
                 with telemetry.span("multilayer.epoch", epoch=epoch):
                     for batch in batches:
+                        if self._preempt_stop("fit_backprop"):
+                            stop = True
+                            break
                         params, ustate, it = self._step_and_notify(
                             step, params, ustate, it, batch, gen, n, skips)
                         n += 1
@@ -451,16 +482,9 @@ class MultiLayerNetwork:
         return params, ustate, it
 
     def _note_skips(self, skips) -> None:
-        """Sum the guard's per-step flags with one host sync a fit."""
-        if not skips:
-            return
-        n = int(torch.stack(skips).sum())
-        if n:
-            telemetry.event("resilience.guard_skips", count=n,
-                            where="multilayer")
-            log.warning("non-finite loss/gradient: %d multilayer step "
-                        "update(s) skipped by the in-step guard", n)
-        self.guard_skips += n
+        """Book the guard's per-step flags with one host sync a fit
+        (``resilience.note_skips``) into ``guard_skips``."""
+        self.guard_skips += resilience.note_skips(skips, where="multilayer")
 
     def _notify_fit_start(self) -> None:
         for ls in self.listeners:
@@ -485,12 +509,18 @@ class MultiLayerNetwork:
         params, ustate, counter, gen = self._fit_state(seed)
         n = 0
         skips = []
+        stop = False
         with telemetry.span("multilayer.fit", path="iterator",
                             epochs=num_epochs):
             for epoch in range(num_epochs):
+                if stop:
+                    break
                 with telemetry.span("multilayer.epoch", epoch=epoch):
                     it.reset()
                     while it.has_next():
+                        if self._preempt_stop("fit_iterator"):
+                            stop = True
+                            break
                         params, ustate, counter = self._step_and_notify(
                             step, params, ustate, counter, it.next(), gen,
                             n, skips)
