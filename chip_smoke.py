@@ -126,13 +126,47 @@ Phases, each fatal on failure:
    the path): 2 steps, an AsyncCheckpointer.save, 2 steps dispatched
    behind it at once, then the snapshot restored into a fresh run that
    replays those 2 steps with the same batches and dropout streams:
-   bit-identical to the uninterrupted run, no new capture; it prints the
-   snapshot's bytes, the training thread's staging ms, the writer's
-   commit ms and write-behind lag, and the step's ms (CUDA events) with
-   and without a snapshot in flight; (c) the telemetry registry's
+   bit-identical to the uninterrupted run, no new capture; the
+   checkpointer's pinned pool is reserved for the state before training,
+   so the first snapshot's staging is within 5x of a second one's; it
+   prints the snapshot's bytes, the training thread's staging ms, the
+   writer's commit ms and write-behind lag, and the step's ms (CUDA
+   events) with and without a snapshot in flight; (c) the telemetry registry's
    snapshot (all nine counter families, peak_bytes_in_use) and part
    (a)'s journal and Chrome trace, summarized.  Checkpoints go under a
    temporary directory that is removed at the end.
+13. MultiLayerNetwork.fit and what it reaches (optimize/{solver,
+   line_search,hessian_free}, the RBM and autoencoder, cli.py): (1)
+   LeNet-MNIST (fp32, B=128) through net.fit(batches, num_epochs=2), the
+   finetune of the output layer through the solver (its scores fall, the
+   iterations run before a termination printed) then fit_backprop; test
+   accuracy >= 0.90; the finetune's scores against the port's CPU
+   finetune on the card's activations (rtol 1e-4); ms a GD iteration and
+   the host read's share; (2) prepare_resilient_fit -> ResilientFit:
+   params torch.equal to finetune's, 0 captures after warm-up; (3) a deep
+   belief net at Hinton, Osindero & Teh (2006)'s MNIST widths
+   784-500-500-2000 (binary RBMs, CD-1, 10 steps a batch) on binarized
+   data/mnist through fit (pretrain, finetune, one backprop epoch): each
+   RBM's reconstruction error falls (mean of its last 10 steps below its
+   first 10), test accuracy printed, a second pretrain with the seed
+   torch.equal, the device ms of a CD-1 step a layer; the same widths with
+   denoising autoencoders (corruption 0.25), whose losses fall; (4) CG
+   and L-BFGS (30 iterations) on the DBN's 2000x10 output layer over the
+   merged 2,048 rows: the score never rises, card vs CPU on the same
+   activations within rtol 1e-4 an iteration with the same line-search
+   trials; (5) Hessian-free on Martens (2010)'s curves deep autoencoder
+   784-400-200-100-50-25-6-25-50-100-200-400-784 (sigmoid layers, logistic
+   outputs under cross-entropy, weights N(0, 9/fan_in)) over
+   CurvesDataFetcher(n=20000): 5 outer iterations take the score below
+   0.9 of its start, no capture after the first as lambda adapts; ms an
+   outer iteration, CG iterations, ms a damped Gauss-Newton product; (6)
+   the CLI in subprocesses on the card: train (mnist2d, LeNet conf, one
+   epoch), test and predict (the written classes score test's accuracy),
+   train
+   --checkpoint-dir, the same command refused in one line, --resume; each
+   command's wall time; the phase's peak memory.  No hand kernel runs
+   here (the path is cuBLAS, cuDNN and torch ops): their launch counts
+   must stay 0.
 
 Phases 4-10 run through the compile engine as a user's calls do: every
 serving dispatch, training step, decode and prefill dispatch and
@@ -3452,12 +3486,16 @@ def gpt_snapshot(torch, fa, tmp, say) -> dict:
 
     fa.reset_launches()
     state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    mgr = CheckpointManager(os.path.join(tmp, "gpt"), max_to_keep=2)
+    ac = AsyncCheckpointer(mgr, max_in_flight=1)
+    # the snapshots' pinned host buffers, before training
+    t0 = time.perf_counter()
+    pool_bytes = ac.reserve(state)
+    reserve_ms = (time.perf_counter() - t0) * 1e3
     for k in range(GPT_SNAP_AT):
         state, _ = step(state, k)
     torch.cuda.synchronize()
-    mgr = CheckpointManager(os.path.join(tmp, "gpt"), max_to_keep=2)
     checkpoint_metrics.reset()
-    ac = AsyncCheckpointer(mgr, max_in_flight=1)
     t0 = time.perf_counter()
     handle = ac.save(GPT_SNAP_AT, state, meta={"seed": 7})
     stage_ms = (time.perf_counter() - t0) * 1e3
@@ -3466,7 +3504,7 @@ def gpt_snapshot(torch, fa, tmp, say) -> dict:
         (state, _), ms = event_ms(lambda k=k: step(state, k))
         behind.append(ms)
     in_flight_at_end = not handle.done()
-    ac.close()
+    ac.wait_until_finished()
     ck = checkpoint_metrics.snapshot()
     nbytes = sum(t.numel() * t.element_size() for _, t in rf_leaves(state)
                  if isinstance(t, torch.Tensor))
@@ -3494,22 +3532,28 @@ def gpt_snapshot(torch, fa, tmp, say) -> dict:
         (restored, _), ms = event_ms(lambda k=k: step(restored, k))
         free.append(ms)
     launches = fa.launch_counts()
-    # a second snapshot: PyTorch's caching host allocator now holds the
-    # first one's pinned buffers
-    ac = AsyncCheckpointer(mgr, max_in_flight=1)
+    # a second snapshot: the pool's buffers again, no allocation
+    allocs = ac.pool.allocations
     t0 = time.perf_counter()
     ac.save(n, restored, meta={"seed": 7})
     stage2_ms = (time.perf_counter() - t0) * 1e3
     ac.close()
     say(f"GPT-2 small B={B} T={T} (remat, dropout {cfg.dropout}, adamw) "
         f"training state: {nbytes} bytes ({len(ref)} leaves: fp32 params, "
-        f"mu and nu, the count, the step) a snapshot; training thread's "
-        f"staging {stage_ms:.3f} ms (clones + copies to pinned memory "
-        f"queued); writer's commit {ck['write_ms']:.3f} ms ({ck['bytes_written']} "
+        f"mu and nu, the count, the step) a snapshot; pinned pool "
+        f"reserved before training: {pool_bytes} bytes in {reserve_ms:.3f} "
+        f"ms; training thread's staging {stage_ms:.3f} ms (clones + copies "
+        f"to the pool's pinned buffers queued); writer's commit "
+        f"{ck['write_ms']:.3f} ms ({ck['bytes_written']} "
         f"bytes on disk, fsync'd, crc32'd), write-behind lag "
         f"{ck['write_behind_lag_ms']:.3f} ms; snapshot still in flight "
         f"after the {GPT_BEHIND} steps behind it: {in_flight_at_end}; a "
-        f"second snapshot's staging {stage2_ms:.3f} ms")
+        f"second snapshot's staging {stage2_ms:.3f} ms; pinned buffers "
+        f"allocated by the saves {ac.pool.allocations - allocs} after "
+        f"the reserve")
+    check(stage_ms <= 5 * stage2_ms,
+          f"GPT-2 small: first staging {stage_ms:.3f} ms > 5 x the second "
+          f"{stage2_ms:.3f} ms")
     say(f"GPT-2 small step ms (CUDA events) with the snapshot in flight "
         + " / ".join(f"{x:.3f}" for x in behind) + ", without "
         + " / ".join(f"{x:.3f}" for x in free))
@@ -3581,6 +3625,541 @@ def resilience_phase(torch, fa, ln, card: str) -> dict:
         say(f"phase 12 wall: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
             f"{time.perf_counter() - t2:.1f} s")
         return launches
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: fit, the solvers, greedy pretraining, Hessian-free and the CLI
+# ---------------------------------------------------------------------------
+
+#: the device phase 13 runs on (a CPU rehearsal substitutes "cpu")
+FIT_DEVICE = "cuda"
+#: card vs CPU on the same activations, fp32 (tests/test_torch_lenet.py)
+FIT_SCORE_RTOL = 1e-4
+#: Hinton, Osindero & Teh (2006)'s MNIST deep belief net, and the CD-1
+#: steps each RBM (or autoencoder) takes a batch
+DBN_WIDTHS, DBN_ITERS = (784, 500, 500, 2000), 10
+#: CG and L-BFGS iterations on the DBN's output layer, and the score
+#: below which card and CPU are no longer compared (fp32's resolution of
+#: a cross-entropy near 0)
+DBN_SOLVER_ITERS, SOLVER_FLOOR = 30, 1e-3
+#: Martens (2010)'s curves deep autoencoder, its training size, and the
+#: Hessian-free outer iterations; the score must fall below this share
+#: of its start (tests/test_hessian_free.py:130)
+CURVES_WIDTHS = (784, 400, 200, 100, 50, 25, 6, 25, 50, 100, 200, 400, 784)
+CURVES_N, HF_ITERS, HF_BAR = 20000, 5, 0.9
+
+
+def mnist_flat(train: bool):
+    """data/mnist flattened to [N, 784] and binarized at 30/255 (the
+    reference's default, MnistDataFetcher.java)."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import MnistDataFetcher
+
+    f = MnistDataFetcher(train=train, flatten=True, binarize=True)
+    check(not f.synthetic, "data/mnist not found")
+    f.fetch(f.total)
+    return f.next()
+
+
+class PhaseScores:
+    """Every listener call of a fit, with the model that made it (the
+    network in pretrain and backprop, an optimizer in finetune)."""
+
+    def __init__(self, on_first_solver=None):
+        self.rows = []
+        self.on_first_solver = on_first_solver
+
+    def iteration_done(self, model, iteration, score):
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        solver = not isinstance(model, MultiLayerNetwork)
+        if solver and self.on_first_solver is not None \
+                and not any(s for s, _, _ in self.rows):
+            self.on_first_solver()
+        self.rows.append((solver, iteration, score))
+
+    def solver_scores(self):
+        return [v for s, _, v in self.rows if s]
+
+    def layer_runs(self):
+        """The network-made scores split where the iteration restarts at
+        0 (pretrain: a run a layer)."""
+        runs = []
+        for s, it, v in self.rows:
+            if s:
+                continue
+            if it == 0:
+                runs.append([])
+            runs[-1].append(v)
+        return runs
+
+
+def sync_share(torch, opt, params, n: int) -> float:
+    """The share of a gradient-descent solver iteration spent in its host
+    read: ``n`` replays of its captured step with the read after each,
+    against ``n`` with one read at the end."""
+    ustate = opt.updater.init(params)
+    it = torch.zeros((), dtype=torch.int32, device=FIT_DEVICE)
+    p, u, it, *_ = opt._step(params, ustate, it, None)
+
+    def run(read_each: bool) -> float:
+        nonlocal p, u, it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            p, u, it, score, gnorm, _ = opt._step(p, u, it, None)
+            if read_each:
+                opt._read(score, gnorm)
+        opt._read(score, gnorm)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    # alternate the two, 5 runs each: the host clock on a shared host
+    # moves more than the read costs
+    runs = {True: [], False: []}
+    for _ in range(5):
+        for read_each in (True, False):
+            runs[read_each].append(run(read_each))
+    with_read = float(np.median(runs[True]))
+    without = float(np.median(runs[False]))
+    return with_read, without, 1.0 - without / with_read
+
+
+def lenet_fit(torch, ln, tmp, say) -> None:
+    """Part (1): LeNet-MNIST through ``fit``; part (2):
+    ``prepare_resilient_fit`` -> ``ResilientFit`` on the same conf."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+    from deeplearning4j_tpu_torch.runtime.resilience import (ResilienceConfig,
+                                                             ResilientFit)
+
+    train, test = mnist_split(True), mnist_split(False)
+    batches = train.batch_by(LENET_B)
+    params0 = ln.lenet(device="cpu").params
+    merged = DataSet.merge(batches)
+    net = lenet_net(ln, "float32", params0, FIT_DEVICE)
+    x = torch.as_tensor(merged.features).to(FIT_DEVICE)
+    labels = torch.as_tensor(merged.labels).to(FIT_DEVICE)
+    with torch.no_grad():
+        h = net.hidden_activations(net.params, x)
+    rec = PhaseScores()
+    net.set_listeners([rec])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(batches, num_epochs=2)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ev = net.evaluate(test)
+    ft = rec.solver_scores()
+    n_ft = net.conf.confs[-1].num_iterations
+    say(f"LeNet fp32 fit on data/mnist, B={LENET_B}, 2 epochs: finetune "
+        f"(GD) ran {len(ft)} of {n_ft} iterations before a termination, "
+        f"score {ft[0]:.6f} -> {ft[-1]:.6f}; then {len(rec.rows) - len(ft)} "
+        f"backprop steps; {sec:.3f} s (host clock, synchronized); test "
+        f"accuracy {ev.accuracy():.4f} (bar {LENET_MIN_ACC})")
+    check(ft[-1] < ft[0], "LeNet fit: finetune's score did not fall")
+    check(ev.accuracy() >= LENET_MIN_ACC,
+          f"LeNet fit: test accuracy {ev.accuracy()}")
+
+    # the card's finetune against the port's CPU finetune, same params
+    # and the same (card) activations
+    cpu = lenet_net(ln, "float32", params0, "cpu")
+    _, cpu_opt = cpu.finetune_output(h.cpu(), labels.cpu())
+    ref = cpu_opt.score_history
+    worst = max(abs(a - b) / abs(b) for a, b in zip(ft, ref))
+    say(f"finetune scores, card vs CPU on the card's activations: "
+        f"{len(ft)} vs {len(ref)} iterations, worst relative difference "
+        f"{worst:.3e} (bar {FIT_SCORE_RTOL})")
+    check(len(ft) == len(ref) and worst <= FIT_SCORE_RTOL,
+          f"LeNet finetune card vs CPU: {worst}")
+    fresh = lenet_net(ln, "float32", params0, FIT_DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, opt = fresh.finetune_output(h, labels)
+    torch.cuda.synchronize()
+    ms_it = (time.perf_counter() - t0) * 1e3 / len(opt.score_history)
+    with_read, without, share = sync_share(
+        torch, opt, fresh.params[-1], 200)
+    say(f"GD finetune iteration ([{h.shape[0]}, {h.shape[1]}] x "
+        f"[{h.shape[1]}, 10] objective): {ms_it:.4f} ms in a run (the "
+        f"first capture included); {with_read:.4f} ms a replay with the "
+        f"host read, {without:.4f} ms without (medians of 5 alternating "
+        f"runs of 200): the read's share {100 * share:.1f}%")
+
+    # (2) prepare_resilient_fit -> ResilientFit
+    a = lenet_net(ln, "float32", params0, FIT_DEVICE)
+    a.finetune(merged)
+    b = lenet_net(ln, "float32", params0, FIT_DEVICE)
+    batch_list, mesh = b.prepare_resilient_fit(batches)
+    same = all(torch.equal(p[k], q[k]) for p, q in zip(a.params, b.params)
+               for k in p)
+    c0 = compile_metrics.compile_count
+    drv = ResilientFit(b, ResilienceConfig(
+        checkpoint_dir=os.path.join(tmp, "rf"), checkpoint_every=8))
+    drv.fit(batch_list, num_epochs=1, seed=3)
+    torch.cuda.synchronize()
+    captures = compile_metrics.compile_count - c0
+    ev = b.evaluate(test)
+    say(f"prepare_resilient_fit: mesh {mesh}, params torch.equal to "
+        f"finetune's inside fit {same}; ResilientFit {drv.steps_run} steps, "
+        f"{len(drv.manager.all_steps())} snapshots, captures after warm-up "
+        f"{captures}, test accuracy {ev.accuracy():.4f}")
+    check(mesh is None and same, "prepare_resilient_fit != finetune")
+    check(captures == 0, f"ResilientFit after prepare: {captures} captures")
+
+
+def dbn_conf(kind: str, algo: str = "gradient_descent"):
+    """784-500-500-2000 with binary RBMs (CD-1) or denoising autoencoders
+    (corruption 0.25, lr 0.01), a 10-way softmax, fp32 products."""
+    from deeplearning4j_tpu_torch.nn.conf import (LayerKind,
+                                                  NeuralNetConfiguration,
+                                                  OptimizationAlgorithm)
+
+    layer = {"rbm": {"kind": LayerKind.RBM, "k": 1},
+             # the reconstruction cross-entropy sums over the inputs
+             # (up to 784 a row): at lr 0.1 the 500- and 2000-wide layers
+             # diverge, so the autoencoders take 0.01
+             "autoencoder": {"kind": LayerKind.AUTOENCODER,
+                             "corruption_level": 0.25, "lr": 0.01,
+                             "activation": "sigmoid"}}[kind]
+    b = (NeuralNetConfiguration.builder()
+         .n_in(DBN_WIDTHS[0]).lr(0.1).momentum(0.5)
+         .num_iterations(DBN_ITERS).use_adagrad(False)
+         .activation("sigmoid").compute_dtype("float32")
+         .list(len(DBN_WIDTHS)).hidden_layer_sizes(*DBN_WIDTHS[1:]))
+    for i in range(len(DBN_WIDTHS) - 1):
+        b = b.override(i, **layer)
+    return (b.override(len(DBN_WIDTHS) - 1, kind=LayerKind.OUTPUT, n_out=10,
+                       activation="softmax", loss_function="mcxent",
+                       optimization_algo=OptimizationAlgorithm(algo),
+                       num_iterations=(100 if algo == "gradient_descent"
+                                       else DBN_SOLVER_ITERS))
+            .pretrain(True).backward(True).build())
+
+
+def falls(run) -> bool:
+    """The mean of a run's last 10 scores is below that of its first 10."""
+    return float(np.mean(run[-10:])) < float(np.mean(run[:10]))
+
+
+def pretrain_step_ms(torch, net, i: int, batch) -> float:
+    """Device ms of one captured CD-1 (or AE) step of layer ``i`` on a
+    batch (CUDA events over replays of the engine's shared step)."""
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    step, updater = compile_cache.get_or_build(
+        ("multilayer_pretrain_gd", i, net.conf.to_json()),
+        lambda: check(False, "pretrain step not built"))
+    with torch.no_grad():
+        x = net.feed_forward(net.params, batch, upto=i)[-1]
+    p, u = net.params[i], updater.init(net.params[i])
+    it = torch.zeros((), dtype=torch.int32, device=FIT_DEVICE)
+    gen = torch.Generator(device=FIT_DEVICE).manual_seed(0)
+    state = [p, u, it]
+
+    def once():
+        state[0], state[1], state[2], _, _ = step(*state[:2], x, gen,
+                                                  state[2])
+    return time_ms(torch, once, iters=50)
+
+
+def dbn(torch, say):
+    """Part (3): the DBN and the AE stack; part (4): CG and L-BFGS on the
+    DBN's output layer."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    train, test = mnist_flat(True), mnist_flat(False)
+    batches = [DataSet(torch.as_tensor(b.features).to(FIT_DEVICE),
+                       torch.as_tensor(b.labels).to(FIT_DEVICE))
+               for b in train.batch_by(LENET_B)]
+    init = MultiLayerNetwork(dbn_conf("rbm"), device="cpu").init(seed=11)
+    params0 = init.params
+
+    def fresh(kind, algo="gradient_descent", params=params0):
+        return MultiLayerNetwork(dbn_conf(kind, algo), device=FIT_DEVICE,
+                                 params=[{k: v.to(FIT_DEVICE)
+                                          for k, v in p.items()}
+                                         for p in params])
+
+    net = fresh("rbm")
+    snap = {}
+    rec = PhaseScores(on_first_solver=lambda: snap.setdefault(
+        "params", [{k: v.clone() for k, v in p.items()}
+                   for p in net.params]))
+    net.set_listeners([rec])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(batches, num_epochs=1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ev = net.evaluate(test)
+    runs = rec.layer_runs()
+    steps_ms = [pretrain_step_ms(torch, net, i, batches[0].features)
+                for i in range(len(DBN_WIDTHS) - 1)]
+    say(f"DBN {'-'.join(map(str, DBN_WIDTHS))} (binary RBMs, CD-1, "
+        f"{DBN_ITERS} steps a batch, B={LENET_B}) fit: pretrain, finetune "
+        f"({len(rec.solver_scores())} GD iterations), 1 backprop epoch in "
+        f"{sec:.3f} s (host clock, a score read a pretrain step); "
+        f"reconstruction error first/last 10 steps a layer "
+        + ", ".join(f"{np.mean(r[:10]):.4f}/{np.mean(r[-10:]):.4f}"
+                    for r in runs[:3])
+        + f"; CD-1 step device ms a layer "
+        + " / ".join(f"{m:.4f}" for m in steps_ms)
+        + f"; test accuracy {ev.accuracy():.4f}")
+    check(len(runs) >= 3 and all(falls(r) for r in runs[:3]),
+          "DBN: an RBM's reconstruction error did not fall")
+    again = fresh("rbm")
+    again.pretrain(batches)
+    same = all(torch.equal(p[k], q[k]) for p, q in
+               zip(snap["params"], again.params) for k in p)
+    say(f"a second pretrain with the same seed: params torch.equal {same}")
+    check(same, "DBN: same-seed pretrains differ")
+
+    ae = fresh("autoencoder")
+    arec = PhaseScores()
+    ae.set_listeners([arec])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ae.pretrain(batches)
+    torch.cuda.synchronize()
+    aruns = arec.layer_runs()
+    say(f"the same widths with denoising autoencoders (corruption 0.25): "
+        f"pretrain {time.perf_counter() - t0:.3f} s, reconstruction loss "
+        f"first/last 10 steps a layer "
+        + ", ".join(f"{np.mean(r[:10]):.4f}/{np.mean(r[-10:]):.4f}"
+                    for r in aruns))
+    check(len(aruns) == 3 and all(falls(r) for r in aruns),
+          "AE stack: a layer's reconstruction loss did not fall")
+
+    # (4) CG and L-BFGS on the output layer, from where fit's finetune
+    # started: the pretrained stack's activations of the merged rows
+    merged = DataSet.merge(batches)
+    pre = snap["params"]
+    with torch.no_grad():
+        h = net.hidden_activations(pre, merged.features)
+    for algo in ("conjugate_gradient", "lbfgs"):
+        card = fresh("rbm", algo, pre)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt = card.finetune_output(h, merged.labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = MultiLayerNetwork(dbn_conf("rbm", algo), device="cpu",
+                                params=[{k: v.cpu() for k, v in p.items()}
+                                        for p in pre])
+        _, ref = cpu.finetune_output(h.cpu(), merged.labels.cpu())
+        s, r = opt.score_history, ref.score_history
+        # held where fp32 resolves the loss: up to the CPU run's first
+        # score below SOLVER_FLOOR (L-BFGS drives this separable
+        # objective to ~0, where the two devices' roundings decide)
+        n = next((i for i, b in enumerate(r) if b < SOLVER_FLOOR), len(r))
+        worst = max(abs(a - b) / abs(b) for a, b in zip(s[:n], r[:n]))
+        rises = sum(b > a for a, b in zip(s, s[1:]))
+        again = fresh("rbm", algo, pre)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again.finetune_output(h, merged.labels)
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t0) * 1e3
+        say(f"{algo} on the DBN's output layer ([{h.shape[0]}, "
+            f"{h.shape[1]}] x [{h.shape[1]}, 10]), {len(s)} iterations: "
+            f"score {s[0]:.6f} -> {s[-1]:.6f}, rises {rises}; trials per "
+            f"iteration {opt.trials_history} (CPU "
+            f"{'same' if opt.trials_history == ref.trials_history else ref.trials_history}); "
+            f"card vs CPU over the {n} iterations before the CPU score "
+            f"falls below {SOLVER_FLOOR}: worst relative difference "
+            f"{worst:.3e} (bar {FIT_SCORE_RTOL}), trials "
+            f"{'equal' if opt.trials_history[:n] == ref.trials_history[:n] else 'differ'}; "
+            f"scores a tenth of the way "
+            + " ".join(f"{a:.6g}/{b:.6g}" for a, b in
+                       list(zip(s, r))[::max(1, len(s) // 10)])
+            + f"; {ms / len(s):.3f} ms an iteration with "
+            f"the captures, {warm / len(s):.3f} ms in a second run's "
+            f"(a host read a trial and an iteration)")
+        check(rises == 0, f"{algo}: the score rose")
+        check(len(s) == len(r) and n >= 8 and worst <= FIT_SCORE_RTOL
+              and opt.trials_history[:n] == ref.trials_history[:n],
+              f"{algo}: card vs CPU {worst}, trials {opt.trials_history} "
+              f"vs {ref.trials_history}")
+
+
+def curves_conf():
+    """The curves autoencoder with Martens (2010)'s objective for it:
+    logistic outputs under cross-entropy (the fused sigmoid/xent pair),
+    and each layer's weights drawn from N(0, 9 / fan_in).  Under mse
+    (the reference's small test conf) the reference's HF, damping 1 at
+    the start and CG stopping at r'r < 1e-10, takes this depth only to
+    ~0.91 of its start in 5 iterations (CPU rehearsal, n=1000): mse's
+    1/784 scale leaves CG 2-3 iterations an outer one.  Martens' sparse
+    init (variance 15 / fan_in) finds no improving CG iterate in its
+    first two iterations here."""
+    from deeplearning4j_tpu_torch.nn.conf import (LayerKind,
+                                                  NeuralNetConfiguration,
+                                                  OptimizationAlgorithm,
+                                                  WeightInit)
+
+    b = (NeuralNetConfiguration.builder()
+         .n_in(CURVES_WIDTHS[0]).compute_dtype("float32")
+         .num_iterations(HF_ITERS).activation("sigmoid")
+         .optimization_algo(OptimizationAlgorithm.HESSIAN_FREE)
+         .list(len(CURVES_WIDTHS) - 1)
+         .hidden_layer_sizes(*CURVES_WIDTHS[1:-1]))
+    for i, fan_in in enumerate(CURVES_WIDTHS[:-1]):
+        b = b.override(i, weight_init=WeightInit.DISTRIBUTION,
+                       dist=("normal", 0.0, 3.0 / fan_in ** 0.5))
+    return (b.override(len(CURVES_WIDTHS) - 2, kind=LayerKind.OUTPUT,
+                       n_out=CURVES_WIDTHS[-1], activation="sigmoid",
+                       loss_function="xent")
+            .pretrain(False).backward(False).build())
+
+
+def hessian_free(torch, say) -> None:
+    """Part (5): HF on the curves deep autoencoder."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.fetchers import CurvesDataFetcher
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    f = CurvesDataFetcher(n=CURVES_N, dim=CURVES_WIDTHS[0])
+    data = DataSet(torch.from_numpy(f.features).to(FIT_DEVICE),
+                   torch.from_numpy(f.labels).to(FIT_DEVICE))
+    net = MultiLayerNetwork(curves_conf(), device=FIT_DEVICE).init(seed=13)
+    n_params = net.num_params()
+    start = net.score(data)
+    seen = {}
+
+    class Rec:
+        rows = []
+
+        def iteration_done(self, model, iteration, score):
+            seen["hf"] = model
+            torch.cuda.synchronize()
+            self.rows.append((time.perf_counter(), score,
+                              compile_metrics.compile_count))
+
+    rec = Rec()
+    net.set_listeners([rec])
+    torch.cuda.synchronize()
+    ms0 = compile_metrics.compile_ms
+    t0 = time.perf_counter()
+    net.finetune(data)
+    capture_ms = compile_metrics.compile_ms - ms0
+    hf = seen["hf"]
+    times = [t0] + [t for t, _, _ in rec.rows]
+    outer = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    new_captures = rec.rows[-1][2] - rec.rows[0][2]
+    params = net.params
+    v = [{k: torch.randn_like(t) for k, t in p.items()} for p in params]
+    lam = torch.tensor(1.0, device=FIT_DEVICE)
+    mv_ms = time_ms(torch, lambda: hf._damped_mv(params, v, lam), iters=10)
+    end = rec.rows[-1][1]
+    say(f"Hessian-free, curves deep autoencoder "
+        f"{'-'.join(map(str, CURVES_WIDTHS))} ({n_params} params, sigmoid, "
+        f"xent) on CurvesDataFetcher(n={CURVES_N}): score {start:.6f} -> "
+        f"{end:.6f} ({end / start:.3f} of the start, bar {HF_BAR}) in "
+        f"{len(rec.rows)} outer iterations; ms an outer iteration "
+        + " / ".join(f"{m:.1f}" for m in outer)
+        + f"; CG iterations {hf.cg_iterations}; lambda "
+        + " / ".join(f"{x:.4f}" for x in hf.lambda_history)
+        + f" (the first holds the captures of value, value_and_grad and "
+          f"the damped product: {capture_ms:.1f} ms); a damped GN product "
+          f"{mv_ms:.3f} ms (CUDA events); new captures after the first "
+          f"outer iteration {new_captures}")
+    check(end < HF_BAR * start, f"HF: {end} not below {HF_BAR} x {start}")
+    check(new_captures == 0, f"HF: {new_captures} captures as lambda adapts")
+
+
+def cli_runs(torch, ln, tmp, say) -> None:
+    """Part (6): the CLI in subprocesses, on the card by default."""
+    conf = os.path.join(tmp, "lenet.json")
+    with open(conf, "w") as fh:
+        fh.write(ln.lenet_conf().to_json())
+    model, ck = os.path.join(tmp, "m.bin"), os.path.join(tmp, "ck")
+    preds = os.path.join(tmp, "preds.txt")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    device = [] if FIT_DEVICE == "cuda" else ["--device", FIT_DEVICE]
+
+    def run(*args, ok=True):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", *args,
+             *device], cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=600)
+        sec = time.perf_counter() - t0
+        if ok:
+            check(res.returncode == 0,
+                  f"cli {args[0]} failed: {res.stdout[-2000:]}"
+                  f"{res.stderr[-2000:]}")
+        return res, sec
+
+    train = ("train", "--input", "mnist2d", "--conf", conf, "--epochs", "1",
+             "--batch", str(LENET_B), "--raw-pixels")
+    r, s_train = run(*train, "--output", model)
+    acc_train = [ln_ for ln_ in r.stdout.splitlines()
+                 if "accuracy" in ln_]
+    r, s_test = run("test", "--input", "mnist2d-test", "--model", model,
+                    "--raw-pixels")
+    acc_test = [ln_.strip() for ln_ in r.stdout.splitlines()
+                if "Accuracy" in ln_]
+    r, s_pred = run("predict", "--input", "mnist2d-test", "--model", model,
+                    "--raw-pixels", "--output", preds)
+    test = mnist_split(False)
+    got = np.loadtxt(preds, dtype=np.int64)
+    acc_pred = float(np.mean(got == np.asarray(test.labels).argmax(1)))
+    r, s_ck = run(*train, "--output", model, "--checkpoint-dir", ck,
+                  "--checkpoint-every", "8")
+    acc_ck = [ln_ for ln_ in r.stdout.splitlines() if "accuracy" in ln_]
+    refused, s_ref = run(*train, "--output", model, "--checkpoint-dir", ck,
+                         "--checkpoint-every", "8", ok=False)
+    r, s_res = run(*train, "--output", model, "--checkpoint-dir", ck,
+                   "--checkpoint-every", "8", "--resume", "--epochs", "2")
+    acc_res = [ln_ for ln_ in r.stdout.splitlines() if "accuracy" in ln_]
+    say(f"cli train {s_train:.1f} s ({acc_train}), test {s_test:.1f} s "
+        f"({acc_test}), predict {s_pred:.1f} s (accuracy of the written "
+        f"classes {acc_pred:.4f}), train --checkpoint-dir {s_ck:.1f} s "
+        f"({acc_ck}), the same again {s_ref:.1f} s (exit "
+        f"{refused.returncode}: {refused.stderr.strip()[-160:]!r}), "
+        f"--resume {s_res:.1f} s ({acc_res}); wall time of each "
+        f"subprocess, host clock")
+    check(acc_train and acc_test and acc_ck and acc_res,
+          "cli: an accuracy line is missing")
+    # one model, one test split: predict's classes score what test says
+    check(abs(acc_pred - float(acc_test[0].split()[-1])) < 1e-4,
+          f"cli predict's accuracy {acc_pred} != test's {acc_test}")
+    err = refused.stderr.strip().splitlines()
+    check(refused.returncode == 1 and len(err) == 1
+          and "already holds snapshots" in err[0],
+          f"cli: a populated --checkpoint-dir was not refused in one line: "
+          f"{refused.stderr[-400:]}")
+
+
+def fit_phase(torch, ln, card: str) -> None:
+    """Phase 13 (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t = [time.perf_counter()]
+        for part in (lambda: lenet_fit(torch, ln, tmp, say),
+                     lambda: dbn(torch, say),
+                     lambda: hessian_free(torch, say),
+                     lambda: cli_runs(torch, ln, tmp, say)):
+            part()
+            t.append(time.perf_counter())
+        wall = [b - a for a, b in zip(t, t[1:])]
+        say(f"phase 13 wall: LeNet fit + resilient {wall[0]:.1f} s, DBN + "
+            f"AE + CG/L-BFGS {wall[1]:.1f} s, HF {wall[2]:.1f} s, CLI "
+            f"{wall[3]:.1f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MB")
     finally:
         torch.backends.cudnn.deterministic = det
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3707,6 +4286,16 @@ def main() -> int:
     print("phase 12: self-healing training, checkpoints and run telemetry")
     for name, n in resilience_phase(torch, fa, ln, card).items():
         launches[name] += n
+    print("phase 13: fit, the solvers, greedy pretraining, Hessian-free and "
+          "the CLI")
+    for mod in (fa, fw, fg):
+        mod.reset_launches()
+    fit_phase(torch, ln, card)
+    hand = {**fa.launch_counts(), "w2v": fw.launches, "glove": fg.launches}
+    print(f"  hand-kernel launches during phase 13: {hand} (no TPU kernel "
+          f"lies on fit's path)")
+    check(not any(hand.values()), f"a hand kernel ran during phase 13: "
+                                  f"{hand}")
 
     kernels = [{
         "name": "flash_attention_fwd",

@@ -22,7 +22,7 @@ Port of ``deeplearning4j_tpu/nlp/glove.py`` (reference parity:
   with ``config.seed`` on the run's device; ``Glove._shuffles`` can
   stand in for it (the tests pass JAX's permutation).
 - Not ported here: ``fit(mesh=...)`` and ``make_dp_glove_epoch``
-  (ROADMAP A9).
+  (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -262,7 +262,7 @@ class Glove:
         if mesh is not None:
             raise NotImplementedError(
                 "Glove.fit(mesh=...) data-parallel training is not ported "
-                "yet (ROADMAP A9)")
+                "yet (ROADMAP A7)")
         if self.cache is None:
             self.cache = build_vocab(self.sentences, self.tokenizer,
                                      cfg.min_word_frequency)

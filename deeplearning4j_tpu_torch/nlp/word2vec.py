@@ -34,7 +34,7 @@ its plain twin on CPU tensors (or when ``kernel="plain"``).
   ``jax.random`` draws, so the engine functions take ``draws=`` and the
   tests hand over JAX's values through it.
 - Not ported here: ``fit(mesh=...)`` and ``make_dp_stream_epoch``
-  (ROADMAP A9); the TPU block rounding of the device mode's chunk
+  (ROADMAP A7); the TPU block rounding of the device mode's chunk
   (:460-465, :499-513): the port takes the JAX plain path's granularity.
 """
 
@@ -734,7 +734,7 @@ class Word2Vec:
         if mesh is not None:
             raise NotImplementedError(
                 "Word2Vec.fit(mesh=...) data-parallel training is not "
-                "ported yet (ROADMAP A9)")
+                "ported yet (ROADMAP A7)")
         if cfg.kernel not in ks.KERNELS:
             raise ValueError(
                 f"Word2VecConfig.kernel must be one of {ks.KERNELS}, got "

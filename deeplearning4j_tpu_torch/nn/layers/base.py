@@ -10,12 +10,20 @@ stack is autograd of the network's loss.
   ``compute_dtype``, bias included, and returned in fp32 (as the
   reference rounds it, ``base.py:75-81``);
 - ``activate(params, x, gen=None, train=False) -> y``: dropout and
-  DropConnect draw from ``gen`` when training.
+  DropConnect draw from ``gen`` when training;
+- pretrain layers (:class:`PretrainLayer`, the RBM and the autoencoder)
+  add ``pretrain_value_and_grad(params, gen, x) -> (score, grads)`` for
+  greedy layer-wise pretraining, in two halves: ``draw(gen, x)`` makes
+  the random tensors one evaluation uses (the uniforms behind each
+  Bernoulli, the normals behind each Gaussian, a corruption mask) and
+  ``pretrain_core(params, draws, x)`` is a pure function of them, so a
+  caller can hand over another source's draws (the tests give JAX's,
+  rebuilt from its keys).  The grads are the direction to descend on.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Type
+from typing import Any, Dict, Optional, Tuple, Type
 
 import torch
 
@@ -32,10 +40,8 @@ _LAYER_REGISTRY: Dict[LayerKind, Type["Layer"]] = {}
 
 #: the ROADMAP item that ports each layer kind this package lacks
 _NOT_PORTED = {
-    LayerKind.RBM: "A5",
-    LayerKind.AUTOENCODER: "A5",
-    LayerKind.RECURSIVE_AUTOENCODER: "A5",
-    LayerKind.LSTM: "A5",
+    LayerKind.RECURSIVE_AUTOENCODER: "A5b",
+    LayerKind.LSTM: "A5b",
     LayerKind.EMBEDDING: "A6",
     LayerKind.BATCH_NORM: "A6",
 }
@@ -106,3 +112,25 @@ class Layer:
     def __repr__(self):
         return (f"{type(self).__name__}(n_in={self.conf.n_in}, "
                 f"n_out={self.conf.n_out})")
+
+
+class PretrainLayer(Layer):
+    """A layer trainable unsupervised (RBM/AutoEncoder family)."""
+
+    is_pretrainable = True
+
+    def draw(self, gen: Optional[torch.Generator], x: Tensor) -> Any:
+        """The random tensors one evaluation of the pretrain objective on
+        ``x`` uses, drawn from ``gen`` on ``x``'s device."""
+        raise NotImplementedError
+
+    def pretrain_core(self, params: Params, draws: Any, x: Tensor
+                      ) -> Tuple[Tensor, Params]:
+        """``(score, grads)`` of the pretrain objective with the given
+        draws; the grads are the direction to descend on."""
+        raise NotImplementedError
+
+    def pretrain_value_and_grad(self, params: Params,
+                                gen: Optional[torch.Generator], x: Tensor
+                                ) -> Tuple[Tensor, Params]:
+        return self.pretrain_core(params, self.draw(gen, x), x)

@@ -38,11 +38,21 @@ donated): the network's own params are copied into the engine's buffers
 on the first step, and the fit clones the trained ones back out (the
 API boundary).
 
-Not ported (each raises ``NotImplementedError``): the data-parallel,
-accumulation and mixed-precision fit paths (``mesh``, ``grad_accum >
-1``, ``mixed_precision="bf16"``: ROADMAP A7), and ``fit``,
-``finetune``, ``pretrain`` and ``fit_hessian_free``, which need
-``optimize/solver.py`` (ROADMAP A5).
+``fit`` is the reference's (:1238-1246): greedy layer-wise
+``pretrain`` when the conf asks for it, ``finetune`` of the output
+layer on the merged batches through ``optimize/solver.Solver`` (or
+whole-network Hessian-free for a HESSIAN_FREE conf), then
+``fit_backprop`` when the conf asks for it.  ``pretrain``'s
+gradient-descent step is one captured step a layer, shared by (layer
+index, conf JSON); its random stream is a generator re-seeded with
+``fold(seed, layer, iteration)`` before each step (the reference's
+``fold_in(fold_in(key, layer), iteration)``), so two pretrains with one
+seed give equal params.  ``prepare_resilient_fit`` is ``fit``'s front
+half for ``runtime/resilience.ResilientFit``.
+
+Not ported (each raises ``NotImplementedError`` naming ROADMAP A7): the
+data-parallel, accumulation and mixed-precision fit paths (``mesh``,
+``grad_accum > 1``, ``mixed_precision="bf16"``).
 """
 
 from __future__ import annotations
@@ -56,10 +66,11 @@ import torch
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.nn.conf.configuration import (
-    LayerKind, MIXED_PRECISION_POLICIES, MultiLayerConfiguration)
+    LayerKind, MIXED_PRECISION_POLICIES, MultiLayerConfiguration,
+    OptimizationAlgorithm)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import make_preprocessor
 from deeplearning4j_tpu_torch.nn.layers import make_layer
-from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, PretrainLayer
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
 from deeplearning4j_tpu_torch.nn.params import (pack_params, param_leaves,
                                                 unpack_params)
@@ -67,6 +78,8 @@ from deeplearning4j_tpu_torch.ops.updaters import (apply_descent,
                                                    copy_into, dl4j_updater,
                                                    tree_map)
 from deeplearning4j_tpu_torch.optimize.listeners import IterationListener
+from deeplearning4j_tpu_torch.optimize.solver import (Objective, Solver,
+                                                      value_and_grad)
 from deeplearning4j_tpu_torch.runtime import (compile_cache, resilience,
                                               telemetry)
 
@@ -308,22 +321,237 @@ class MultiLayerNetwork:
                                    _as_tensor(data.features, self.device),
                                    _as_tensor(data.labels, self.device)))
 
-    # -- paths that wait for later slices -----------------------------------
-    def pretrain(self, data, seed: int = 0) -> None:
-        raise _not_ported("greedy layer-wise pretrain (optimize/solver.py)",
-                          "A5")
+    # -- pretrain (pretrain:144 parity) ------------------------------------
+    def pretrain(self, data: Union[DataSet, Sequence[DataSet]],
+                 seed: int = 0) -> None:
+        """Greedy layer-wise: train each pretrainable layer on the
+        activations of the stack below it, batch by batch (reference
+        :253-360).
 
-    def finetune(self, data, seed: int = 1) -> None:
-        raise _not_ported("finetune (optimize/solver.py)", "A5")
+        For GRADIENT_DESCENT (the default) the step is captured ONCE per
+        layer with the batch as an argument, shared through the engine
+        by (layer index, conf JSON); each step's draws come from a
+        generator re-seeded with ``fold(seed, layer, iteration)``.
+        Line-search algorithms (CG/LBFGS) run a full Solver per batch
+        (they are full-batch methods; the reference does the same), its
+        generator seeded with ``fold(seed, layer, batch)``."""
+        # the API boundary: the steps update the engine's copies; the
+        # caller's params are never written
+        params = list(self._require_params())
+        batches = [data] if isinstance(data, DataSet) else list(data)
+        self._notify_fit_start()
+        for i, layer in enumerate(self.layers):
+            if not isinstance(layer, PretrainLayer):
+                continue
+            conf = self.conf.confs[i]
 
-    def fit_hessian_free(self, data, num_iterations=None) -> None:
-        raise _not_ported("Hessian-free (optimize/hessian_free.py)", "A5")
+            # Inputs to layer i under the CURRENT stack params (greedy).
+            def layer_input(x, _i=i) -> Tensor:
+                with torch.no_grad():
+                    return self.feed_forward(
+                        params, _as_tensor(x, self.device), upto=_i)[-1]
 
-    def fit(self, data, num_epochs: int = 1) -> None:
-        """``fit`` is pretrain -> finetune -> backprop; it needs the
-        solver.  ``fit_backprop`` trains the backprop stage alone."""
-        raise _not_ported("fit (pretrain and finetune through "
-                          "optimize/solver.py); use fit_backprop", "A5")
+            with telemetry.span("multilayer.pretrain_layer", layer=i,
+                                algo=conf.optimization_algo.value):
+                if conf.optimization_algo in (
+                        OptimizationAlgorithm.GRADIENT_DESCENT,
+                        OptimizationAlgorithm.ITERATION_GRADIENT_DESCENT):
+                    params[i] = self._pretrain_gd(i, conf, params[i],
+                                                  batches, layer_input, seed)
+                else:
+                    for b, batch in enumerate(batches):
+                        inputs = layer_input(batch.features)
+                        objective = Objective(
+                            value_and_grad=lambda p, d, x=inputs, ly=layer:
+                                ly.pretrain_core(p, d, x),
+                            value=lambda p, d, x=inputs, ly=layer:
+                                ly.pretrain_core(p, d, x)[0],
+                            batch_size=1,
+                            draw=lambda g, x=inputs, ly=layer: ly.draw(g, x))
+                        solver = Solver(conf, objective,
+                                        listeners=self.listeners)
+                        gen = torch.Generator(device=self.device)
+                        gen.manual_seed(resilience.fold(seed, i, b))
+                        params[i] = solver.optimize(params[i], gen)
+        self.params = params
+
+    def _pretrain_gd(self, i: int, conf, p, batches, layer_input,
+                     seed: int):
+        """Layer ``i``'s gradient-descent pretraining: the engine's step
+        over every batch, ``num_iterations`` steps a batch; returns the
+        trained params (out of the engine's buffers)."""
+        sig = self.conf.to_json()
+
+        def build():
+            # a detached replica rebuilt from the conf JSON: the shared
+            # entry neither pins this network nor sees later mutations
+            rep = MultiLayerNetwork(MultiLayerConfiguration.from_json(sig),
+                                    device="cpu")
+            rlayer, rc = rep.layers[i], rep.conf.confs[i]
+            rupdater = dl4j_updater(
+                lr=rc.lr, momentum=rc.momentum,
+                momentum_schedule=rc.momentum_after,
+                use_adagrad=rc.use_adagrad, l2=rc.l2,
+                use_regularization=rc.use_regularization,
+                constrain_unit_norm=rc.constrain_gradient_to_unit_norm)
+
+            def gd_step(p, ustate, inputs, gen, it):
+                score, grads = rlayer.pretrain_value_and_grad(p, gen, inputs)
+                with torch.no_grad():
+                    # batch_size=1: objectives are batch MEANS
+                    updates, new_ustate = rupdater.update(ustate, grads, p,
+                                                          it, 1)
+                    new_p, new_ustate, skipped = resilience.guard_update(
+                        p, ustate, apply_descent(p, updates), new_ustate,
+                        (score, grads))
+                    copy_into(p, new_p)
+                    copy_into(ustate, new_ustate)
+                    it.add_(1)
+                return p, ustate, it, score, skipped
+
+            return (compile_cache.cached_graph(
+                gd_step, label=f"multilayer.pretrain_gd[{i}]",
+                donate_argnums=(0, 1, 4)), rupdater)
+
+        gd_step, updater = compile_cache.get_or_build(
+            ("multilayer_pretrain_gd", i, sig), build)
+        ustate = updater.init(p)
+        it = torch.zeros((), dtype=torch.int32, device=self.device)
+        gen = torch.Generator(device=self.device)
+        n, skips = 0, []
+        for batch in batches:
+            inputs = layer_input(batch.features)
+            for _ in range(conf.num_iterations):
+                # a distinct stream per (seed, layer, iteration): fold(seed,
+                # iteration) alone would replay one layer's noise in the next
+                gen.manual_seed(resilience.fold(seed, i, n))
+                p, ustate, it, score, skipped = gd_step(p, ustate, inputs,
+                                                        gen, it)
+                skips.append(skipped)
+                if self.listeners:
+                    for ls in self.listeners:
+                        ls.iteration_done(self, n, float(score))
+                n += 1
+        self._note_skips(skips)
+        return tree_map(torch.clone, p)
+
+    # -- Hessian-free (fit:1006-1009 + backPropGradient2:856 parity) -------
+    def fit_hessian_free(self, data: DataSet,
+                         num_iterations: Optional[int] = None) -> None:
+        """Whole-network Hessian-free optimization: Gauss-Newton products
+        through the full stack (the autodiff equivalent of the
+        reference's R-operator backPropGradient2/getBackPropRGradient)."""
+        from deeplearning4j_tpu_torch.optimize.hessian_free import (
+            GNObjective, StochasticHessianFree)
+
+        params = self._require_params()
+        out = self.output_layer
+        last = len(self.layers) - 1
+        x = _as_tensor(data.features, self.device)
+        labels = _as_tensor(data.labels, self.device)
+
+        def logits_fn(p):
+            h = self.hidden_activations(p, x)
+            if last in self._in_pre:
+                h = self._in_pre[last](h, None)
+            return out.pre_output(p[last], h)
+
+        obj = GNObjective(
+            logits_fn=logits_fn,
+            loss_from_logits=lambda z: out.loss_from_logits(z, labels))
+        hf = StochasticHessianFree(
+            obj,
+            num_iterations=num_iterations
+            or self.conf.confs[-1].num_iterations,
+            listeners=self.listeners)
+        with telemetry.span("multilayer.hessian_free",
+                            rows=int(x.shape[0])):
+            self.params = hf.optimize(params)
+
+    # -- finetune (finetune:987 parity) ------------------------------------
+    def finetune(self, data: DataSet, seed: int = 1) -> None:
+        """Train ONLY the output layer on last-hidden activations; with
+        HESSIAN_FREE configured, optimize the WHOLE network instead (the
+        reference's finetune does exactly this split, fit:1006-1009).
+
+        The hidden activations of the whole set are computed once, in
+        one forward outside the solver's loop, and the objective closes
+        over them (reference :409-413).  That forward holds every
+        layer's activations of every row at once: for LeNet on the full
+        60,000-image MNIST, conv1's alone are 60,000 x 24 x 24 x 20 fp32
+        values, ~2.8 GB, as in the reference."""
+        if (self.conf.confs[-1].optimization_algo
+                is OptimizationAlgorithm.HESSIAN_FREE):
+            self.fit_hessian_free(data)
+            return
+        params = self._require_params()
+        x = _as_tensor(data.features, self.device)
+        with torch.no_grad():
+            h = self.hidden_activations(params, x)
+            # Same boundary transform as loss(): the output layer must
+            # train on exactly what it sees at inference.
+            last = len(self.layers) - 1
+            if last in self._in_pre:
+                h = self._in_pre[last](h, None)
+        with telemetry.span("multilayer.finetune", rows=int(x.shape[0])):
+            params[-1], _ = self.finetune_output(
+                h, _as_tensor(data.labels, self.device), seed)
+        self.params = params
+
+    def finetune_output(self, h: Tensor, labels: Tensor, seed: int = 1):
+        """``finetune``'s solver run on given last-hidden activations
+        ``h`` (after the output layer's input preprocessor): the output
+        layer's params trained from the network's current ones, and the
+        optimizer (its ``score_history`` and ``trials_history``).  The
+        network is not changed."""
+        out_layer = self.output_layer
+
+        def loss(p):
+            return out_layer.loss(p, h, labels)
+
+        vag = value_and_grad(loss)
+        objective = Objective(value_and_grad=lambda p, d: vag(p),
+                              value=lambda p, d: loss(p), batch_size=1)
+        solver = Solver(self.conf.confs[-1], objective,
+                        listeners=self.listeners)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        trained = solver.optimize(self._require_params()[-1], gen)
+        return trained, solver.optimizer
+
+    # -- fit (fit:918 parity: pretrain -> finetune -> optional backprop) ---
+    def fit(self, data: Union[DataSet, Sequence[DataSet]],
+            num_epochs: int = 1) -> None:
+        batches = [data] if isinstance(data, DataSet) else list(data)
+        if self.conf.pretrain:
+            self.pretrain(batches)
+        merged = DataSet.merge(batches) if len(batches) > 1 else batches[0]
+        self.finetune(merged)
+        if self.conf.backprop:
+            self.fit_backprop(batches, num_epochs=num_epochs)
+
+    def prepare_resilient_fit(self, data: Union[DataSet, Sequence[DataSet]]
+                              ) -> tuple:
+        """``fit()``'s front half for EXTERNAL training drivers
+        (``cli train --checkpoint-dir`` -> ``runtime.resilience
+        .ResilientFit``): the same finetune pass on the merged batches,
+        and the mesh ``fit_backprop`` would use, returned as
+        ``(batch_list, mesh)`` for the driver's constructor.  On one
+        device the mesh is None.  Pretrain confs are the caller's
+        problem to refuse (the driver only replays the backprop step)."""
+        batches = [data] if isinstance(data, DataSet) else list(data)
+        merged = DataSet.merge(batches) if len(batches) > 1 else batches[0]
+        self.finetune(merged)
+        mesh = self._resolve_fit_mesh(
+            "auto", min(int(b.features.shape[0]) for b in batches))
+        return batches, mesh
+
+    def _resolve_fit_mesh(self, mesh, min_batch: int):
+        """The reference's sharded-by-default policy (:831-866) on one
+        device: ``None``/``False``/``"auto"`` give None (the single-
+        device path); an explicit mesh raises (ROADMAP A7)."""
+        if mesh is None or mesh is False or mesh == "auto":
+            return None
+        raise _not_ported("data-parallel fit (mesh=)", "A7")
 
     # -- backprop training ---------------------------------------------------
     def _check_fit_conf(self, mesh) -> None:
@@ -362,7 +590,11 @@ class MultiLayerNetwork:
         leaves = param_leaves(live)
         with torch.enable_grad():
             score = self.loss(live, x, y, gen, train=True)
-        grads_flat = torch.autograd.grad(score, leaves)
+        # a pretrain layer's visible bias takes no part in the supervised
+        # loss: its gradient is zero, as jax.grad gives it
+        grads_flat = [torch.zeros_like(p) if g is None else g for p, g in
+                      zip(leaves, torch.autograd.grad(score, leaves,
+                                                      allow_unused=True))]
         score = score.detach()
         it = iter(grads_flat)
         grads = [{key: next(it) for key in sorted(p)} for p in params]

@@ -28,9 +28,11 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import (
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
-# Canonical parameter keys (DefaultParamInitializer.W_KEY / B_KEY).
+# Canonical parameter keys (DefaultParamInitializer.W_KEY / B_KEY, and
+# PretrainParamInitializer's visible bias).
 W_KEY = "W"
 B_KEY = "b"
+VISIBLE_BIAS_KEY = "vb"
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -99,6 +101,16 @@ def default_params(gen: torch.Generator, conf: NeuralNetConfiguration,
     }
 
 
+def pretrain_params(gen: torch.Generator, conf: NeuralNetConfiguration,
+                    device: DeviceLike = None) -> Params:
+    """PretrainParamInitializer: adds the visible bias ``vb`` ``[n_in]``
+    for the RBM and the autoencoder."""
+    p = default_params(gen, conf, device)
+    p[VISIBLE_BIAS_KEY] = torch.zeros((conf.n_in,), dtype=_dtype(conf.dtype),
+                                      device=p[W_KEY].device)
+    return p
+
+
 def convolution_params(gen: torch.Generator, conf: NeuralNetConfiguration,
                        device: DeviceLike = None) -> Params:
     """ConvolutionParamInitializer: HWIO filter + per-filter bias."""
@@ -111,18 +123,26 @@ def convolution_params(gen: torch.Generator, conf: NeuralNetConfiguration,
     }
 
 
-def param_leaves(params: List[Params]) -> List[Tensor]:
+def _layers(params) -> List[Params]:
+    """A network's list of layer dicts, or one layer's dict as a list of
+    one (the solver packs a single layer: ``finetune``'s output layer,
+    ``pretrain``'s layer ``i``)."""
+    return [params] if isinstance(params, Mapping) else list(params)
+
+
+def param_leaves(params) -> List[Tensor]:
     """The reference's ``jax.tree.leaves`` order: layers in order, each
-    dict's keys sorted (``W`` before ``b``); a subsampling layer's empty
-    dict gives none."""
-    return [layer[key] for layer in params for key in sorted(layer)]
+    dict's keys sorted (``W`` before ``b`` before ``vb``); a subsampling
+    layer's empty dict gives none.  ``params`` is a list of layer dicts
+    or one layer's dict."""
+    return [layer[key] for layer in _layers(params) for key in sorted(layer)]
 
 
-def num_params(params: List[Params]) -> int:
+def num_params(params) -> int:
     return sum(int(p.numel()) for p in param_leaves(params))
 
 
-def pack_params(params: List[Params]) -> Tensor:
+def pack_params(params) -> Tensor:
     """All leaves flattened into one vector, in :func:`param_leaves`
     order (``MultiLayerNetwork.pack``, MultiLayerNetwork.java:773)."""
     leaves = param_leaves(params)
@@ -131,15 +151,17 @@ def pack_params(params: List[Params]) -> Tensor:
     return torch.cat([p.reshape(-1) for p in leaves])
 
 
-def unpack_params(flat: Tensor, like: List[Params]) -> List[Params]:
-    """Inverse of :func:`pack_params` on ``like``'s shapes, dtypes and
-    device (``unPack:817``)."""
+def unpack_params(flat: Tensor, like):
+    """Inverse of :func:`pack_params` on ``like``'s structure, shapes,
+    dtypes and device (``unPack:817``): a list of layer dicts, or one
+    dict.  The leaves are views of ``flat`` where no conversion is
+    needed."""
     total = num_params(like)
     if flat.numel() != total:
         raise ValueError(f"flat vector holds {flat.numel()} values, the "
                          f"network {total}")
     out, i = [], 0
-    for layer in like:
+    for layer in _layers(like):
         new = {}
         for key in sorted(layer):
             leaf = layer[key]
@@ -148,7 +170,7 @@ def unpack_params(flat: Tensor, like: List[Params]) -> List[Params]:
                 device=leaf.device, dtype=leaf.dtype)
             i += n
         out.append(new)
-    return out
+    return out[0] if isinstance(like, Mapping) else out
 
 
 def params_from_numpy(tree: Sequence[Mapping[str, Any]],
@@ -156,7 +178,8 @@ def params_from_numpy(tree: Sequence[Mapping[str, Any]],
     """A JAX ``MultiLayerNetwork``'s params as numpy (``jax.tree.map(
     np.asarray, net.params)``, or ``runtime.checkpoint.load_numpy_tree``
     with its ``"0"``, ``"1"``, ... keys in order) -> the port's, on
-    ``device``.  The layouts are the same, so this is a copy."""
+    ``device``.  The layouts are the same, so this is a copy of every
+    key, the RBM's and autoencoder's visible bias ``vb`` included."""
     dev = resolve_device(device)
     return [{key: torch.tensor(np.asarray(val), device=dev)
              for key, val in layer.items()} for layer in tree]

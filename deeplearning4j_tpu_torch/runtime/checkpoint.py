@@ -46,12 +46,12 @@ import shutil
 import threading
 import time
 import zlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.ops.updaters import tree_map
+from deeplearning4j_tpu_torch.ops.updaters import tree_leaves, tree_map
 
 log = logging.getLogger(__name__)
 
@@ -522,17 +522,73 @@ class SnapshotHandle:
         return self.path
 
 
+def _host_empty(shape, dtype) -> torch.Tensor:
+    """A host buffer for a staged leaf: pinned where a card can copy
+    into it asynchronously."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=torch.cuda.is_available())
+
+
+class PinnedPool:
+    """Host buffers kept between snapshots, so only the first snapshot of
+    a state (or :meth:`AsyncCheckpointer.reserve`, before training) pays
+    their allocation: pinned host memory is slow to allocate (a 1.49 GB
+    state's took 378-711 ms on an H100 80GB HBM3 host), and the training
+    thread stages.
+
+    A *set* holds the buffers of one snapshot, keyed by (shape, dtype),
+    a list each (a tree has several leaves of one shape).  A snapshot
+    takes a free set and the writer gives it back after the commit, so
+    at most ``max_in_flight`` sets exist.  ``allocations`` and
+    ``nbytes`` count what the pool allocated."""
+
+    def __init__(self):
+        self._free: List[Dict[Tuple, List[torch.Tensor]]] = []
+        self._lock = threading.Lock()
+        self.allocations = 0
+        self.nbytes = 0
+
+    def take(self) -> Dict[Tuple, List[torch.Tensor]]:
+        with self._lock:
+            return self._free.pop() if self._free else {}
+
+    def give(self, bufset: Dict[Tuple, List[torch.Tensor]]) -> None:
+        with self._lock:
+            self._free.append(bufset)
+
+    def buffers(self, bufset, leaves: Sequence[torch.Tensor]
+                ) -> List[torch.Tensor]:
+        """A buffer of each leaf's shape and dtype from ``bufset``, the
+        missing ones allocated (and kept in the set)."""
+        used: Dict[Tuple, int] = {}
+        out = []
+        for leaf in leaves:
+            key = (tuple(leaf.shape), leaf.dtype)
+            i = used.get(key, 0)
+            used[key] = i + 1
+            have = bufset.setdefault(key, [])
+            if i == len(have):
+                have.append(_host_empty(leaf.shape, leaf.dtype))
+                with self._lock:
+                    self.allocations += 1
+                    self.nbytes += leaf.numel() * leaf.element_size()
+            out.append(have[i])
+        return out
+
+
 class _Staged:
     """One staged snapshot: the host tree the writer serializes, the
-    device clones it was copied from, and the side-stream events the
-    writer waits on before touching the host tree."""
+    device clones it was copied from, the side-stream events the writer
+    waits on before touching the host tree, and the pool's buffer set
+    the host tree lives in."""
 
-    __slots__ = ("host", "clones", "events")
+    __slots__ = ("host", "clones", "events", "bufset")
 
-    def __init__(self, host, clones, events):
+    def __init__(self, host, clones, events, bufset):
         self.host = host
         self.clones = clones
         self.events = events
+        self.bufset = bufset
 
     def wait(self) -> PyTree:
         for ev in self.events:
@@ -558,6 +614,12 @@ class AsyncCheckpointer:
     through ``CheckpointManager.save``: ONE commit protocol for sync and
     async paths.
 
+    The host buffers come from a :class:`PinnedPool` the checkpointer
+    keeps: one set per in-flight snapshot, reused by the next, so a
+    state's snapshots after the first allocate no host memory;
+    :meth:`reserve` allocates the sets from a template state up front,
+    so the first does not either.
+
     In-flight snapshots are bounded by ``max_in_flight`` (which also
     bounds the extra device memory to that many copies of the state): a
     save request finding the bound exhausted BLOCKS (backpressure;
@@ -577,6 +639,21 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self._closed = False
         self._streams: Dict[torch.device, Any] = {}
+        self.pool = PinnedPool()
+
+    def reserve(self, template: PyTree) -> int:
+        """Allocate the host buffers of ``max_in_flight`` snapshots of
+        ``template`` (a state of the shapes and dtypes the saves will
+        stage) now, before training, instead of on the training thread
+        at the first save.  Returns the bytes the pool holds."""
+        leaves = [x for x in tree_leaves(template)
+                  if isinstance(x, torch.Tensor)]
+        sets = [self.pool.take() for _ in range(self.max_in_flight)]
+        for bufset in sets:
+            self.pool.buffers(bufset, leaves)
+        for bufset in sets:
+            self.pool.give(bufset)
+        return self.pool.nbytes
 
     # -- staging (training thread) ------------------------------------------
     def _side_stream(self, dev: torch.device):
@@ -586,38 +663,51 @@ class AsyncCheckpointer:
         return s
 
     def _stage(self, tree: PyTree) -> Tuple[_Staged, int]:
-        """Decouple the snapshot from live buffers: every tensor is
-        cloned (a CUDA one on the current stream, after the step that
-        wrote it), then each device's side stream waits for all the
-        clones and copies them into pinned host memory; numpy arrays get
-        a host copy.  Returns (staged, nbytes)."""
+        """Decouple the snapshot from live buffers: a CUDA tensor is
+        cloned on the current stream (after the step that wrote it),
+        then each device's side stream waits for all the clones and
+        copies them into the pool's pinned buffers; a host tensor is
+        copied into a pool buffer, a numpy array gets a host copy.
+        Returns (staged, nbytes)."""
         nbytes = [0]
         clones: List[torch.Tensor] = []
+        hosts_in: List[torch.Tensor] = []
 
         def clone(leaf):
             if isinstance(leaf, torch.Tensor):
-                c = leaf.detach().clone()
-                nbytes[0] += c.numel() * c.element_size()
-                if c.device.type == "cuda":
+                nbytes[0] += leaf.numel() * leaf.element_size()
+                if leaf.device.type == "cuda":
+                    c = leaf.detach().clone()
                     clones.append(c)
-                return c
+                    return c
+                hosts_in.append(leaf)
+                return leaf
             if isinstance(leaf, np.ndarray):
                 c = np.array(leaf)
                 nbytes[0] += c.nbytes
                 return c
             return leaf
         cloned = tree_map(clone, tree)
+        bufset = self.pool.take()
+        try:
+            bufs = self.pool.buffers(bufset, hosts_in + clones)
+        except BaseException:
+            self.pool.give(bufset)
+            raise
         hosts: Dict[int, torch.Tensor] = {}
+        for leaf, h in zip(hosts_in, bufs):
+            h.copy_(leaf.detach())
+            hosts[id(leaf)] = h
         events = []
+        dev_bufs = bufs[len(hosts_in):]
         for dev in {c.device for c in clones}:
             side = self._side_stream(dev)
             # after EVERY clone: a copy may not read a clone in flight
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                for c in clones:
+                for c, h in zip(clones, dev_bufs):
                     if c.device != dev:
                         continue
-                    h = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
                     h.copy_(c, non_blocking=True)
                     c.record_stream(side)
                     hosts[id(c)] = h
@@ -626,7 +716,7 @@ class AsyncCheckpointer:
             events.append(ev)
         host = tree_map(lambda x: hosts.get(id(x), x)
                         if isinstance(x, torch.Tensor) else x, cloned)
-        return _Staged(host, clones, events), nbytes[0]
+        return _Staged(host, clones, events, bufset), nbytes[0]
 
     def save(self, step: int, tree: PyTree,
              meta: Optional[Dict] = None) -> SnapshotHandle:
@@ -686,6 +776,9 @@ class AsyncCheckpointer:
                 log.error("async checkpoint for step %d failed: %s: %s",
                           handle.step, type(e).__name__, e)
             finally:
+                # the commit has read the host buffers: the next snapshot
+                # may reuse them
+                self.pool.give(staged.bufset)
                 del staged
                 host = None
                 self._sem.release()

@@ -291,7 +291,11 @@ class _Graph:
 
 def _meta(leaf, donated: bool):
     if isinstance(leaf, torch.Tensor):
-        return ("T", tuple(leaf.shape), leaf.stride(), leaf.dtype,
+        # a size-1 dim's stride addresses nothing (numpy's x[..., None]
+        # gives it 0, a stack gives it 1): one signature for both
+        stride = tuple(0 if n == 1 else st
+                       for n, st in zip(leaf.shape, leaf.stride()))
+        return ("T", tuple(leaf.shape), stride, leaf.dtype,
                 leaf.device, donated)
     if isinstance(leaf, torch.Generator):
         return ("G", leaf.device)

@@ -44,6 +44,11 @@ from deeplearning4j_tpu_torch.runtime.metrics import (checkpoint_metrics,
                                                 resilience_metrics,
                                                 serving_metrics)
 
+#: default directory journals land in (gitignored); override with
+#: $DL4J_TPU_TELEMETRY_DIR
+DEFAULT_JOURNAL_DIR = os.environ.get("DL4J_TPU_TELEMETRY_DIR",
+                                     ".dl4j_telemetry")
+
 #: ring-buffer bound — a week-long serving process must not grow the
 #: record list without bound; 64k spans ≈ a few tens of MB journal
 DEFAULT_CAPACITY = 65536

@@ -308,6 +308,43 @@ def test_async_commit_matches_sync_save(tmp_path):
     assert snap["in_flight"] == 0 and snap["bytes_staged"] > 0
 
 
+def test_async_host_buffers_are_pooled_and_reservable(tmp_path,
+                                                    monkeypatch):
+    """A second snapshot of a state allocates no host buffer (the pool
+    keeps the first one's), and a pool reserved from a template makes
+    the first snapshot allocate none; the files are unchanged by the
+    reuse."""
+    allocs = []
+    real = tckpt._host_empty
+    monkeypatch.setattr(tckpt, "_host_empty",
+                        lambda shape, dtype: allocs.append(1)
+                        or real(shape, dtype))
+    n_leaves = sum(isinstance(x, torch.Tensor)
+                   for x in updaters.tree_leaves(_torch_tree(0)))
+    mgr = tckpt.CheckpointManager(str(tmp_path / "a"), max_to_keep=5)
+    with tckpt.AsyncCheckpointer(mgr, max_in_flight=1) as ac:
+        ac.save(1, _torch_tree(1))
+        ac.wait_until_finished()
+        assert len(allocs) == ac.pool.allocations == n_leaves
+        ac.save(2, _torch_tree(2))
+        ac.wait_until_finished()
+        assert len(allocs) == n_leaves
+    for step in (1, 2):
+        got, _ = mgr.restore(step=step, like=_torch_tree(0))
+        _assert_bitwise(got, _torch_tree(step))
+    allocs.clear()
+    mgr = tckpt.CheckpointManager(str(tmp_path / "b"))
+    with tckpt.AsyncCheckpointer(mgr, max_in_flight=2) as ac:
+        nbytes = ac.reserve(_torch_tree(0))
+        assert len(allocs) == 2 * n_leaves and nbytes == ac.pool.nbytes > 0
+        ac.save(1, _torch_tree(3))
+        ac.save(2, _torch_tree(4))
+        ac.wait_until_finished()
+        assert len(allocs) == 2 * n_leaves
+    got, _ = mgr.restore(step=2, like=_torch_tree(0))
+    _assert_bitwise(got, _torch_tree(4))
+
+
 def test_async_backpressure_bounded_at_max_in_flight(tmp_path, monkeypatch):
     mgr = tckpt.CheckpointManager(str(tmp_path / "ck"), max_to_keep=10)
     gate = threading.Event()

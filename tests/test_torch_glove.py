@@ -180,7 +180,7 @@ def test_glove_devices_and_kernel_modes_raise_where_they_must():
     with pytest.raises(ValueError, match="kernel='cuda'"):
         tg.Glove(CORPUS, tg.GloveConfig(vector_size=8, epochs=1,
                                         kernel="cuda"), device="cpu").fit()
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tg.Glove(CORPUS, tg.GloveConfig(vector_size=8, epochs=1),
                  device="cpu").fit(mesh=object())
     state, rows, cols, x, mask = _chunk()

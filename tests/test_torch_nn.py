@@ -131,12 +131,13 @@ def test_bad_confs_raise_value_error():
         tconf.MultiLayerConfiguration.from_json(json.dumps(bad))
 
 
-@pytest.mark.parametrize("kind", ["rbm", "autoencoder", "lstm",
-                                  "batch_norm", "embedding"])
-def test_unported_layer_kinds_raise_not_implemented(kind):
+@pytest.mark.parametrize("kind,item", [
+    ("recursive_autoencoder", "A5b"), ("lstm", "A5b"),
+    ("batch_norm", "A6"), ("embedding", "A6")])
+def test_unported_layer_kinds_raise_not_implemented(kind, item):
     conf = tconf.NeuralNetConfiguration(kind=tconf.LayerKind(kind),
                                         n_in=4, n_out=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A[56]"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
         tmake_layer(conf)
 
 
@@ -144,11 +145,9 @@ def test_unported_fit_paths_raise_not_implemented():
     net = TNet(_dense_conf(tconf), device="cpu").init(0)
     data = tds.DataSet(np.zeros((4, 12), np.float32),
                        np.eye(4, dtype=np.float32))
-    for call in (lambda: net.fit(data), lambda: net.pretrain(data),
-                 lambda: net.finetune(data),
-                 lambda: net.fit_hessian_free(data),
-                 lambda: net.fit_backprop(data, mesh="auto")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for call in (lambda: net.fit_backprop(data, mesh="auto"),
+                 lambda: net._resolve_fit_mesh(object(), 4)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             call()
     for field, value in (("grad_accum", 2), ("mixed_precision", "bf16")):
         conf = _dense_conf(tconf)

@@ -314,7 +314,7 @@ def test_devices_and_kernel_modes_raise_where_they_must():
     with pytest.raises(ValueError, match="kernel must be one of"):
         tw.Word2Vec(CORPUS, tw.Word2VecConfig(kernel="pallas"),
                     device="cpu").fit()
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tw.Word2Vec(CORPUS, cfg, device="cpu").fit(mesh=object())
     c = {k: torch.from_numpy(v) for k, v in _rand_chunk().items()}
     before = fw.launches
