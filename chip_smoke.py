@@ -168,7 +168,36 @@ Phases, each fatal on failure:
    here (the path is cuBLAS, cuDNN and torch ops): their launch counts
    must stay 0.
 
-Phases 4-10 run through the compile engine as a user's calls do: every
+14. GPT-2 small serving at scale (bf16, seeded weights; the draft
+   distilgpt2's published shape, 6 x 768): (1) phase 10(b)'s burst through
+   a pinned DecodeEngine, a paged one (257 pages of 32 tokens) and one of
+   129 pages: every request token-identical across the three, no
+   KVPagesExhausted reaches a client, every page back after the drain;
+   KV bytes, peak pages, one decode step at bucket 1024 (host ms, device
+   ms, kernels) and tokens/s each; (2) 32 requests of one 512-token system
+   prompt and 32-96-token tails, cold (harvesting off) and warm, pinned
+   with a PrefixCache and paged with resident mounts: warm tokens equal
+   cold, >= 31 hits, TTFT p50/p99, the mount's ms; (3) speculative
+   decoding, k = 4, 8 prompts of 128 and 128 tokens out, with the
+   distilgpt2-shaped draft and with the target as its own: agreement with
+   plain in bf16 (greedy and sampled at 0.8) printed; fp32 greedy and
+   sampled (0.8), pinned and paged, token-identical to the plain fp32
+   engine up to each request's first step of top-2 margin < 1e-3 in its
+   drawn scores, the sampled runs holding an acceptance below 1 (the
+   reject path); paged + spec + int8 weights and KV through the batcher;
+   acceptance, tokens a round, ms a round, tokens/s; (4) rebind_params of
+   the part-2 paged engine to a second seeded tree: a busy engine raises,
+   0 new captures, the resident registry empty, no hit on the old
+   weights' pages, 4 greedy requests equal a fresh engine's; (5)
+   Router.replicate(n_replicas=2) on the card, 64 requests from 8 client
+   threads (served counts within a quarter), max_queue_depth=2 sheds
+   typed OverloadedErrors booked in requests_shed, and an evacuated
+   replica's requests replay on the other with the undisturbed tokens;
+   (6) cli generate in subprocesses: --train-steps 50 --save-params, then
+   --params --temperature 0 twice, identical.  No hand kernel launches in
+   parts 1-5; the CLI's training launches are printed and counted.
+
+Phases 4-10 and 14 run through the compile engine as a user's calls do: every
 serving dispatch, training step, decode and prefill dispatch and
 embedding chunk is a CUDA graph replay after its signature's capture,
 and the kernel wrappers' launch counts are booked once per replay.
@@ -2307,22 +2336,23 @@ def burst_requests(cfg):
     return reqs
 
 
-def serve_burst(torch, eng, reqs):
+def serve_burst(torch, eng, reqs, tokens: int = BURST_TOKENS):
     """Every request submitted at once to a ContinuousBatcher over
-    ``eng``: (outputs, wall s, decode_metrics snapshot)."""
+    ``eng``, ``tokens`` each: (outputs, wall s, decode_metrics
+    snapshot)."""
     from deeplearning4j_tpu_torch.runtime.metrics import decode_metrics
     from deeplearning4j_tpu_torch.serving.decode import ContinuousBatcher
 
     decode_metrics.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with ContinuousBatcher(eng, default_max_tokens=BURST_TOKENS) as cb:
-        handles = [cb.submit(p, max_tokens=BURST_TOKENS, temperature=t,
+    with ContinuousBatcher(eng, default_max_tokens=tokens) as cb:
+        handles = [cb.submit(p, max_tokens=tokens, temperature=t,
                              seed=s) for p, t, s in reqs]
         outs = [h.result(timeout=600) for h in handles]
     wall = time.perf_counter() - t0
     for o in outs:
-        check(o.shape == (BURST_TOKENS,), f"burst output shape {o.shape}")
+        check(o.shape == (tokens,), f"burst output shape {o.shape}")
         check(bool(((o >= 0) & (o < eng.cfg.vocab_size)).all()),
               "burst token out of the vocabulary")
     check(eng.n_active() == 0 and all(
@@ -4165,6 +4195,647 @@ def fit_phase(torch, ln, card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: GPT-2 small serving at scale
+# ---------------------------------------------------------------------------
+
+#: the device phase 14 runs on (a CPU rehearsal substitutes "cpu")
+SERVE_DEVICE = "cuda"
+#: part 1's small pool: 129 pages of 32 tokens, half the default's
+SMALL_POOL = 129
+#: part 1's decode-step profile: every slot of bucket 1024 holding a
+#: prompt of this many tokens (8 x 15 pages and a page each to grow fit
+#: the small pool)
+PROFILE_PROMPT = 480
+#: part 2: one 512-token system prompt, 32 requests with 32-96-token
+#: tails, 32 greedy tokens each
+SYS_LEN, SYS_REQS, SYS_TAIL, SYS_TOKENS = 512, 32, (32, 96), 32
+#: part 3: 8 prompts of 128 tokens, 128 tokens out, 4 proposals a round
+SPEC_PROMPTS, SPEC_LEN, SPEC_TOKENS, SPEC_K = 8, 128, 128, 4
+SPEC_BUCKETS = (256,)
+#: part 5: 64 requests from 8 client threads, prompts 16-128, 32 tokens
+ROUTER_REQS, ROUTER_THREADS, ROUTER_TOKENS = 64, 8, 32
+ROUTER_BUCKETS = (64, 128, 256)
+#: part 6: the CLI's training steps
+CLI_STEPS = 50
+
+
+def serve_sync(torch) -> None:
+    if SERVE_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def draft_config(gpt):
+    """distilgpt2's published shape (Sanh et al. 2019; the Hugging Face
+    distilgpt2 config): GPT-2 small's width, heads, vocabulary and
+    positions at 6 layers."""
+    cfg = gen_config(gpt)
+    return dataclasses.replace(cfg, n_layers=cfg.n_layers // 2)
+
+
+def seeded_params(torch, gpt, cfg, seed: int):
+    gen = torch.Generator(device=SERVE_DEVICE)
+    gen.manual_seed(seed)
+    return gpt.init_params(gen, cfg, device=SERVE_DEVICE)
+
+
+def step_profile(torch, cfg, eng):
+    """(host ms, device ms, kernels) of one decode step with every slot
+    of the largest bucket active (prompts of PROFILE_PROMPT)."""
+    bucket = eng.buckets[-1]
+    rng = np.random.default_rng(9)
+    placed = [eng.start(rng.integers(0, cfg.vocab_size, PROFILE_PROMPT),
+                        max_tokens=BURST_TOKENS, temperature=BURST_TEMP,
+                        seed=i)[:2] for i in range(GEN_SLOTS)]
+    check(all(b == bucket for b, _ in placed), "profile slots off-bucket")
+    for _ in range(3):
+        eng.advance(bucket)
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        eng.advance(bucket)
+        host.append((time.perf_counter() - t0) * 1e3)
+    by, _ = profile_kernels(torch, lambda: eng.advance(bucket))
+    check(all(eng.last_ran(bucket)), "a profiled slot stalled")
+    for b, s in placed:
+        eng.release(b, s)
+    return (float(np.median(host)), sum(ms for ms, _ in by.values()),
+            sum(n for _, n in by.values()))
+
+
+def paged_against_pinned(torch, gpt, cfg, params, reqs, say) -> None:
+    """Part 1: phase 10(b)'s burst through a pinned engine, a paged one
+    with the default pool and one with SMALL_POOL pages: every request's
+    tokens equal across the three; the small pool's requests wait for
+    pages and none fails; every page comes back."""
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeEngine, default_length_buckets)
+
+    ladder = default_length_buckets(cfg.max_len)
+    outs, steps = {}, {}
+    for name, kw in (("pinned", {}), ("paged", {"paged": True}),
+                     (f"paged, {SMALL_POOL} pages", {"n_pages": SMALL_POOL})):
+        eng = DecodeEngine(cfg, params, n_slots=GEN_SLOTS, buckets=ladder,
+                           device=SERVE_DEVICE, **kw)
+        w = eng.warmup()
+        got, wall, snap = serve_burst(torch, eng, reqs)
+        kv = (eng.pool_bytes if eng.paged else GEN_SLOTS * sum(
+            gpt.slots_bytes_per_slot(cfg, t) for t in ladder))
+        host, dev, n_k = step_profile(torch, cfg, eng)
+        steps[name] = dev
+        pages = ""
+        if eng.paged:
+            eng.drop_residents()
+            check(eng._alloc.in_use() == 0 and eng.pages_unaccounted() == 0,
+                  f"{name}: pages held after the drain: "
+                  f"{eng._alloc.in_use()}")
+            pages = (f"; pool {eng.n_kv_pages} pages of "
+                     f"{eng.page_tokens} tokens, peak {snap['pages_in_use_hw']}"
+                     f" in use, page utilization "
+                     f"{snap['page_utilization']:.3f}, pages_leaked "
+                     f"{snap['pages_leaked']}, in_use after the drain and "
+                     f"drop_residents 0")
+        say(f"(1) {name}: KV {kv} B ({kv / 2 ** 20:.1f} MiB); warmup "
+            f"{w['compiles']} captures in {w['warmup_ms']:.0f} ms; burst "
+            f"{wall:.3f} s, {BURST * BURST_TOKENS / wall:.1f} tokens/s, "
+            f"TTFT p50 {snap['ttft_p50_ms']:.2f} ms, step p50 "
+            f"{snap['tok_p50_ms']:.2f} ms{pages}; one decode step at bucket "
+            f"{eng.buckets[-1]}, {GEN_SLOTS} slots of {PROFILE_PROMPT}-token "
+            f"prompts: "
+            f"host {host:.3f} ms (median of 10), device {dev:.3f} ms in "
+            f"{n_k} kernels (profiler)")
+        outs[name] = got
+        del eng
+    names = list(outs)
+    for n in names[1:]:
+        diff = [i for i, (a, b) in enumerate(zip(outs[names[0]], outs[n]))
+                if not np.array_equal(a, b)]
+        check(not diff, f"{n}: requests {diff} differ from the pinned "
+                        f"engine's tokens")
+    ratio = steps["paged"] / steps["pinned"] if steps["pinned"] else 0.0
+    say(f"(1) all {BURST} requests token-identical across the three "
+        f"engines (bf16, greedy and sampled); paged step device / pinned "
+        f"{ratio:.3f}")
+
+
+def system_prompt_requests(cfg):
+    """SYS_REQS greedy requests: one SYS_LEN-token system prompt and a
+    distinct tail each."""
+    rng = np.random.default_rng(14)
+    system = rng.integers(0, cfg.vocab_size, SYS_LEN).astype(np.int32)
+    return [(np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, int(rng.integers(SYS_TAIL[0], SYS_TAIL[1] + 1))
+    ).astype(np.int32)]), 0.0, 2000 + i) for i in range(SYS_REQS)]
+
+
+def mount_ms(torch, eng, store, prompt):
+    """(host ms, device ms, bytes) of one stored prefix's upload into the
+    card as a hit mounts it (CUDA events around it, and the host clock).
+    On the card the store's entries are page-locked, so the upload copies
+    straight from them: no staging buffer is made."""
+    from deeplearning4j_tpu_torch.serving.decode import _kv_leaves
+
+    hit = store.lookup(prompt, eng.prefill_chunk, eng._prefix_space)
+    check(hit is not None, "the system prompt is not in the store")
+    like = _kv_leaves(gen_slots_like(torch, eng))
+    eng._upload(hit[1], like)               # the allocations, once
+    serve_sync(torch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    eng._upload(hit[1], like)
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    if SERVE_DEVICE == "cuda":
+        check(not eng._stage and all(
+            torch.from_numpy(p.view(np.uint8)).is_pinned()
+            for p in hit[1]),
+            "a host-store mount went through a staging copy")
+    return host, start.elapsed_time(end), sum(p.nbytes for p in hit[1])
+
+
+def gen_slots_like(torch, eng):
+    """The engine's cache buffers of its largest bucket (their dtypes)."""
+    if eng.paged:
+        return eng._pool_state()[0]
+    with torch.inference_mode():
+        return eng._state(eng._buckets[eng.buckets[-1]])[0]
+
+
+def prefix_part(torch, gpt, cfg, params, say):
+    """Part 2: the system-prompt traffic cold (harvesting off) and warm
+    (after one request harvested the prefix) on a pinned engine with a
+    host PrefixCache and a paged one mounting resident prefixes (and the
+    same store).  Returns the paged engine and its store for part 4."""
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeEngine, PrefixCache, default_length_buckets)
+
+    reqs = system_prompt_requests(cfg)
+    ladder = default_length_buckets(cfg.max_len)
+    kept = None
+    for name, paged in (("pinned + PrefixCache", False),
+                        ("paged, resident mounts", True)):
+        store = PrefixCache()
+        eng = DecodeEngine(cfg, params, n_slots=GEN_SLOTS, buckets=ladder,
+                           prefix_cache=store, paged=paged,
+                           device=SERVE_DEVICE)
+        eng.warmup()
+        eng.harvest_enabled = False
+        cold, wall_c, snap_c = serve_burst(torch, eng, reqs, SYS_TOKENS)
+        eng.harvest_enabled = True
+        serve_burst(torch, eng, reqs[:1], SYS_TOKENS)
+        eng.flush_harvests()
+        warm, wall_w, snap_w = serve_burst(torch, eng, reqs, SYS_TOKENS)
+        diff = [i for i, (a, b) in enumerate(zip(cold, warm))
+                if not np.array_equal(a, b)]
+        check(not diff, f"{name}: warm requests {diff} differ from cold")
+        check(snap_w["prefix_hits"] >= SYS_REQS - 1,
+              f"{name}: {snap_w['prefix_hits']} hits on the warm pass")
+        host, dev, nbytes = mount_ms(torch, eng, store, reqs[0][0])
+        say(f"(2) {name}: {SYS_REQS} requests of a {SYS_LEN}-token system "
+            f"prompt + {SYS_TAIL[0]}-{SYS_TAIL[1]}-token tails, "
+            f"{SYS_TOKENS} greedy tokens: cold {wall_c:.3f} s, TTFT p50 "
+            f"{snap_c['ttft_p50_ms']:.2f} p99 {snap_c['ttft_p99_ms']:.2f} "
+            f"ms, {snap_c['prefill_dispatches']} prefill chunks; warm "
+            f"{wall_w:.3f} s, TTFT p50 {snap_w['ttft_p50_ms']:.2f} p99 "
+            f"{snap_w['ttft_p99_ms']:.2f} ms, {snap_w['prefill_dispatches']}"
+            f" prefill chunks, {snap_w['prefix_hits']} hits, "
+            f"tokens_saved {snap_w['prefill_tokens_saved']}; warm tokens "
+            f"equal cold; a {SYS_LEN}-token mount from the host store: "
+            f"{nbytes} B in {dev:.3f} ms on the card, {host:.3f} ms on "
+            f"the serving thread (CUDA events and host clock; copied "
+            f"straight from the page-locked entry)")
+        if paged:
+            kept = (eng, store, reqs)
+        else:
+            eng.close()
+            del eng
+    return kept
+
+
+def rebind_part(torch, gpt, cfg, eng, store, sys_reqs, reqs, say) -> None:
+    """Part 4: rebind the part-2 paged engine to a second seeded tree:
+    a busy engine raises; no new capture; the resident registry is empty
+    and the store's system prompt of the old weights does not hit; 4
+    greedy requests give a fresh engine's tokens on the new tree."""
+    from deeplearning4j_tpu_torch.runtime.metrics import (compile_metrics,
+                                                          decode_metrics)
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+    params2 = seeded_params(torch, gpt, cfg, 1)
+    check(eng._alloc.in_use() > 0 and store.stats()["entries"] > 0,
+          "part 2 left no resident prefix or store entry to invalidate")
+    bucket, slot, _ = eng.start(reqs[0][0], max_tokens=8)
+    try:
+        eng.rebind_params(params2)
+        raise SmokeFailure("rebind_params on a busy engine did not raise")
+    except RuntimeError as e:
+        check("busy" in str(e), f"rebind on a busy engine: {e}")
+    eng.release(bucket, slot)
+    c0 = compile_metrics.compile_count
+    t0 = time.perf_counter()
+    eng.rebind_params(params2)
+    rebind_ms = (time.perf_counter() - t0) * 1e3
+    check(eng._alloc.in_use() == 0 and not eng._resident,
+          f"the resident registry holds {eng._alloc.in_use()} pages after "
+          f"the rebind")
+    greedy = [r for r in reqs if r[1] == 0.0][:4]
+    h0 = decode_metrics.snapshot()["prefix_hits"]
+    outs, _, _ = serve_burst(torch, eng, sys_reqs[:1] + greedy)
+    hits = decode_metrics.snapshot()["prefix_hits"] - h0
+    check(hits == 0, f"{hits} prefix hits on pages of the old weights")
+    new_captures = compile_metrics.compile_count - c0
+    check(new_captures == 0, f"the rebind cost {new_captures} captures")
+    fresh = DecodeEngine(cfg, params2, n_slots=GEN_SLOTS,
+                         buckets=eng.buckets, paged=True,
+                         device=SERVE_DEVICE)
+    fresh.warmup()
+    ref, _, _ = serve_burst(torch, fresh, greedy)
+    for i, (a, b) in enumerate(zip(outs[1:], ref)):
+        check(np.array_equal(a, b), f"rebound request {i} differs from a "
+                                    f"fresh engine's")
+    say(f"(4) rebind_params to a second seeded tree: {rebind_ms:.1f} ms "
+        f"(host clock; the tree cast on the calling thread), a busy engine "
+        f"raised, 0 new captures, resident registry emptied, 0 hits on the "
+        f"old system prompt, 4 greedy requests equal a fresh engine's")
+    eng.close()
+
+
+def spec_round_ms(torch, eng, prompts, spec: bool):
+    """(ms a round or step with every prompt's slot active, tokens
+    committed a slot a round), host clock over 10 after 2."""
+    placed = [eng.start(p, max_tokens=SPEC_TOKENS)[:2] for p in prompts]
+    bucket = placed[0][0]
+    n_c, times = [], []
+    for i in range(12):
+        t0 = time.perf_counter()
+        if spec:
+            _, c = eng.advance_spec(bucket)
+            n_c.append(float(np.mean(c[[s for _, s in placed]])))
+        else:
+            eng.advance(bucket)
+            n_c.append(1.0)
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    for b, s in placed:
+        eng.release(b, s)
+    return float(np.median(times)), float(np.mean(n_c))
+
+
+def first_near_tie(torch, gpt, logits, temperature: float, seed: int
+                   ) -> int:
+    """The first of a request's steps (``logits`` ``[n, vocab]``, its
+    prompt SPEC_LEN long) whose drawn scores have a top-2 margin below
+    PARITY_MARGIN, in logit units, or ``n``.  Greedy draws score the
+    logits; sampled ones ``logits + temperature * g``, with ``g`` the
+    Gumbel noise of (seed, position) that ``gpt.sample_token`` adds to
+    ``logits / temperature``."""
+    scores = logits.double()
+    if temperature > 0.0:
+        pos = torch.arange(SPEC_LEN - 1, SPEC_LEN - 1 + logits.shape[0],
+                           device=logits.device)
+        keys = gpt._slot_key(torch.full_like(pos, seed), pos)
+        scores = scores + temperature * gpt._gumbel(
+            keys, logits.shape[-1], logits.device)
+    top = torch.topk(scores, 2, dim=-1).values
+    low = (top[:, 0] - top[:, 1] < PARITY_MARGIN).nonzero()
+    return int(low[0, 0]) if low.numel() else logits.shape[0]
+
+
+def spec_part(torch, gpt, cfg, params, say) -> None:
+    """Part 3: speculative decoding, k = SPEC_K, with the
+    distilgpt2-shaped draft and with the target as its own draft."""
+    from deeplearning4j_tpu_torch.runtime.metrics import decode_metrics
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, cfg.vocab_size, SPEC_LEN).astype(np.int32)
+               for _ in range(SPEC_PROMPTS)]
+    cfg_d = draft_config(gpt)
+    params_d = seeded_params(torch, gpt, cfg_d, 2)
+    kw = dict(n_slots=GEN_SLOTS, buckets=SPEC_BUCKETS, device=SERVE_DEVICE)
+
+    def run(eng, temp):
+        return serve_burst(torch, eng, [(p, temp, 3000 + i) for i, p in
+                                        enumerate(prompts)], SPEC_TOKENS)
+
+    def agree(a, b):
+        lead = []
+        for x, y in zip(a, b):
+            d = np.nonzero(x != y)[0]
+            lead.append(int(d[0]) if d.size else SPEC_TOKENS)
+        return sum(lead), len(lead) * SPEC_TOKENS
+
+    plain = DecodeEngine(cfg, params, **kw)
+    plain.warmup()
+    base = {t: run(plain, t) for t in (0.0, BURST_TEMP)}
+    plain_ms, _ = spec_round_ms(torch, plain, prompts, False)
+    n_tok = SPEC_PROMPTS * SPEC_TOKENS
+    say(f"(3) plain bf16: {n_tok / base[0.0][1]:.1f} tokens/s greedy, "
+        f"{n_tok / base[BURST_TEMP][1]:.1f} sampled; {plain_ms:.3f} ms a "
+        f"step with {SPEC_PROMPTS} slots (host clock)")
+    del plain
+    for name, draft in (("distilgpt2-shaped draft", (cfg_d, params_d)),
+                        ("the target as its own draft", (cfg, params))):
+        eng = DecodeEngine(cfg, params, draft=draft, draft_k=SPEC_K, **kw)
+        w = eng.warmup()
+        line = []
+        for t in (0.0, BURST_TEMP):
+            outs, wall, snap = run(eng, t)
+            same, total = agree(outs, base[t][0])
+            line.append(f"temperature {t}: {n_tok / wall:.1f} tokens/s "
+                        f"({base[t][1] / wall:.2f}x plain), acceptance "
+                        f"{snap['draft_accept_rate']:.3f}, agreement with "
+                        f"plain {same}/{total} tokens up to each request's "
+                        f"first difference")
+        ms, per = spec_round_ms(torch, eng, prompts, True)
+        say(f"(3) {name}, k={SPEC_K}, bf16 ({w['compiles']} captures): "
+            + "; ".join(line) + f"; {ms:.3f} ms a round, {per:.2f} tokens "
+            f"committed a slot a round (host clock, {SPEC_PROMPTS} slots)")
+        del eng
+    # fp32 (no TF32): spec equals plain, greedy and sampled, pinned and
+    # paged, up to each request's first near-tie of the plain chain
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    d32 = dataclasses.replace(cfg_d, compute_dtype="float32")
+    temps = (0.0, BURST_TEMP)
+    plain32 = DecodeEngine(c32, params, **kw)
+    plain32.warmup()
+    ref32 = {t: run(plain32, t)[0] for t in temps}
+    del plain32
+    cuts = {t: [] for t in temps}
+    for i, p in enumerate(prompts):
+        for t in temps:
+            _, logits = gpt.generate(
+                c32, params, torch.from_numpy(p[None]).to(SERVE_DEVICE),
+                SPEC_TOKENS, seed=3000 + i, temperature=t,
+                max_len=SPEC_BUCKETS[-1], return_logits=True)
+            cuts[t].append(first_near_tie(torch, gpt, logits[0], t,
+                                          3000 + i))
+    for name, draft, paged, ts in (
+            ("distilgpt2-shaped", (d32, params_d), False, temps),
+            ("distilgpt2-shaped, paged", (d32, params_d), True, temps),
+            ("self", (c32, params), False, temps[:1])):
+        eng = DecodeEngine(c32, params, draft=draft, draft_k=SPEC_K,
+                           paged=paged, **kw)
+        eng.warmup()
+        for t in ts:
+            outs, _, snap = run(eng, t)
+            for i, (a, b, n) in enumerate(zip(outs, ref32[t], cuts[t])):
+                check(np.array_equal(a[:n], b[:n]),
+                      f"fp32 spec ({name}, temperature {t}) request {i} "
+                      f"differs from plain within its first {n} tokens")
+            acc = snap["draft_accept_rate"]
+            if t > 0.0:
+                check(acc < 1.0, f"fp32 sampled spec ({name}) accepted "
+                                 f"every proposal: no reject round ran")
+            say(f"(3) fp32, {name} draft, temperature {t}: token-identical "
+                f"to the plain fp32 engine over {sum(cuts[t])}/{n_tok} "
+                f"tokens (each request up to its first step of top-2 "
+                f"margin < {PARITY_MARGIN} in the drawn scores; "
+                f"{sum(c < SPEC_TOKENS for c in cuts[t])} cut); acceptance "
+                f"{acc:.3f}")
+        if paged:
+            eng.drop_residents()
+            check(eng._alloc.in_use() == 0 and eng.pages_unaccounted() == 0,
+                  f"fp32 spec ({name}): pages held after the drain")
+        del eng
+    # paged + spec + int8 weights + int8 KV through the batcher
+    eng = DecodeEngine(cfg, params, paged=True, quantize="int8",
+                       kv_dtype="int8", draft=(cfg_d, params_d),
+                       draft_k=SPEC_K, **kw)
+    eng.warmup()
+    outs, wall, snap = run(eng, 0.0)
+    check(eng.n_active() == 0, "paged spec int8: slots left active")
+    eng.drop_residents()
+    check(eng._alloc.in_use() == 0 and eng.pages_unaccounted() == 0,
+          "paged spec int8: pages held after the drain")
+    same, total = agree(outs, base[0.0][0])
+    say(f"(3) paged + spec (distilgpt2-shaped) + int8 weights + int8 KV "
+        f"through the batcher: {n_tok / wall:.1f} tokens/s, acceptance "
+        f"{snap['draft_accept_rate']:.3f}, every slot and page freed, "
+        f"agreement with bf16 plain {same}/{total} tokens up to each "
+        f"request's first difference")
+    del eng
+
+
+def router_part(torch, gpt, cfg, params, say) -> None:
+    """Part 5: Router.replicate with 2 replicas on the card, client
+    threads, the typed shed, and an evacuated replica's requests
+    replayed on the other."""
+    from deeplearning4j_tpu_torch.runtime.metrics import decode_metrics
+    from deeplearning4j_tpu_torch.serving.decode import _ReplayRequest
+    from deeplearning4j_tpu_torch.serving.router import (OverloadedError,
+                                                         Router)
+
+    rng = np.random.default_rng(16)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129))
+                          ).astype(np.int32),
+             0.0 if i % 2 == 0 else BURST_TEMP, 4000 + i)
+            for i in range(ROUTER_REQS)]
+    serve_sync(torch)
+    m0 = torch.cuda.memory_allocated() if SERVE_DEVICE == "cuda" else 0
+    t0 = time.perf_counter()
+    router = Router.replicate(cfg, params, 2, device=SERVE_DEVICE,
+                              n_slots=GEN_SLOTS, buckets=ROUTER_BUCKETS,
+                              default_max_tokens=ROUTER_TOKENS)
+    build = time.perf_counter() - t0
+    m1 = torch.cuda.memory_allocated() if SERVE_DEVICE == "cuda" else 0
+    outs = [None] * ROUTER_REQS
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(k, ROUTER_REQS, ROUTER_THREADS):
+                p, t, s = reqs[i]
+                outs[i] = router.submit(p, max_tokens=ROUTER_TOKENS,
+                                        temperature=t, seed=s).result(600)
+        except Exception as e:          # noqa: BLE001 -- held below
+            errors.append(e)
+
+    decode_metrics.reset()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(ROUTER_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not errors, f"router clients failed: {errors[:2]}")
+    check(all(o is not None and o.shape == (ROUTER_TOKENS,) for o in outs),
+          "a routed request did not complete")
+    a, b = router.routed
+    check(abs(a - b) <= ROUTER_REQS // 8,
+          f"replicas served {router.routed}: more than a quarter apart")
+    say(f"(5) Router.replicate(n_replicas=2) on one card: {build:.1f} s to "
+        f"build and warm both, {(m1 - m0) / 2 / 2 ** 20:.1f} MiB a replica "
+        f"(memory_allocated, params shared); {ROUTER_REQS} requests from "
+        f"{ROUTER_THREADS} client threads in {wall:.3f} s "
+        f"({ROUTER_REQS * ROUTER_TOKENS / wall:.1f} tokens/s), served "
+        f"{router.routed}")
+    # the shed
+    shed = Router(router.batchers, max_queue_depth=2)
+    s0 = decode_metrics.snapshot()["requests_shed"]
+    accepted, rejected = [], 0
+    for p, t, s in reqs:
+        try:
+            accepted.append(shed.submit(p, max_tokens=ROUTER_TOKENS,
+                                        temperature=t, seed=s))
+        except OverloadedError as e:
+            check(e.bound == 2 and e.replicas == 2, f"shed: {e}")
+            rejected += 1
+    done = [h.result(600) for h in accepted]
+    n_shed = decode_metrics.snapshot()["requests_shed"] - s0
+    check(rejected > 0 and n_shed == rejected,
+          f"shed {rejected} rejections, requests_shed {n_shed}")
+    check(all(d.shape == (ROUTER_TOKENS,) for d in done),
+          "an accepted request did not complete")
+    say(f"(5) max_queue_depth=2 under a {ROUTER_REQS}-request burst: "
+        f"{len(accepted)} accepted and completed, {rejected} typed "
+        f"OverloadedError, requests_shed {n_shed}")
+    # evacuate replica 0 mid-burst; its requests finish on replica 1
+    moving = reqs[:16]
+    expect = [router.batchers[1].submit(p, max_tokens=ROUTER_TOKENS,
+                                        temperature=t, seed=s)
+              for p, t, s in moving]
+    expect = [h.result(600) for h in expect]
+    r0 = decode_metrics.snapshot()["requests_replayed"]
+    handles = [router.batchers[0].submit(p, max_tokens=ROUTER_TOKENS,
+                                         temperature=t, seed=s)
+               for p, t, s in moving]
+    deadline = time.time() + 120
+    while len(handles[0]._tokens) < 4 and time.time() < deadline:
+        time.sleep(0.001)
+    moved = router.batchers[0].evacuate()
+    for r in moved:
+        router.batchers[1].resubmit(_ReplayRequest(r))
+        decode_metrics.note_request_replayed()
+    got = [h.result(600) for h in handles]
+    diff = [i for i, (x, y) in enumerate(zip(got, expect))
+            if not np.array_equal(x, y)]
+    check(moved and not diff,
+          f"evacuated {len(moved)}; replayed requests {diff} differ from "
+          f"the undisturbed run")
+    say(f"(5) evacuate() of replica 0 mid-burst: {len(moved)} of "
+        f"{len(moving)} requests resubmitted to replica 1 (greedy and "
+        f"sampled), all {len(moving)} token-identical to the undisturbed "
+        f"run; requests_replayed "
+        f"{decode_metrics.snapshot()['requests_replayed'] - r0}")
+    router.close()
+
+
+def cli_generate(torch, tmp, say) -> dict:
+    """Part 6: cli generate in subprocesses on the card: train a
+    char-GPT CLI_STEPS steps and save it, then serve the saved npz
+    greedily twice.  Returns the training run's hand-kernel launches."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    npz = os.path.join(tmp, "g.npz")
+    device = [] if SERVE_DEVICE == "cuda" else ["--device", SERVE_DEVICE]
+    prompts = ["--prompt", "the quick ", "--prompt", "a lazy dog "]
+    # cli.main in a subprocess, then the process's kernel launch counts
+    counted = ("import json, sys\n"
+               "from deeplearning4j_tpu_torch import cli\n"
+               "from deeplearning4j_tpu_torch.ops import flash_attention "
+               "as fa\n"
+               "rc = cli.main(sys.argv[1:])\n"
+               "print('hand-kernel launches ' + json.dumps("
+               "fa.launch_counts()))\n"
+               "sys.exit(rc)\n")
+
+    def run(args):
+        t0 = time.perf_counter()
+        res = subprocess.run(args, cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=600)
+        check(res.returncode == 0, f"cli generate failed: "
+                                   f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    out, s_train = run([sys.executable, "-c", counted, "generate",
+                        "--train-steps", str(CLI_STEPS), "--save-params",
+                        npz, "--replicas", "1", *prompts, *device])
+    launches = json.loads(out.split("hand-kernel launches ", 1)[1]
+                          .splitlines()[0])
+    texts = []
+    secs = []
+    for _ in range(2):
+        o, s = run([sys.executable, "-m", "deeplearning4j_tpu_torch.cli",
+                    "generate", "--params", npz, "--temperature", "0",
+                    *prompts, *device])
+        texts.append([ln for ln in o.splitlines() if " -> " in ln])
+        secs.append(s)
+    check(len(texts[0]) == 2 and texts[0] == texts[1],
+          f"cli generate --params --temperature 0 differs between runs: "
+          f"{texts}")
+    loss = [ln for ln in out.splitlines() if "final LM loss" in ln]
+    say(f"(6) cli generate --train-steps {CLI_STEPS} --save-params: "
+        f"{s_train:.1f} s ({loss}), hand-kernel launches {launches} (the "
+        f"char-GPT's training through make_train_step's defaults); "
+        f"--params --temperature 0 twice: {secs[0]:.1f} s / {secs[1]:.1f} "
+        f"s, identical: {texts[0]}")
+    return launches
+
+
+def serving_scale_phase(torch, fa, fw, fg, card: str) -> dict:
+    """Phase 14 (see the module docstring).  Returns the hand-kernel
+    launches of its CLI run."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models import gpt
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    cfg = gen_config(gpt)
+    params = seeded_params(torch, gpt, cfg, 0)
+    if SERVE_DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    from deeplearning4j_tpu_torch.serving.decode import (
+        default_length_buckets)
+
+    kv_tok = gpt.slots_bytes_per_slot(cfg, 1)
+    ladder = default_length_buckets(cfg.max_len)
+    pool = GEN_SLOTS * (ladder[-1] // gpt.PREFILL_CHUNK) + 1
+    say(f"KV a token {kv_tok} B (bf16); the pinned ladder "
+        f"{GEN_SLOTS * kv_tok * sum(ladder)} B, the default pool ({pool} "
+        f"pages) {pool * gpt.PREFILL_CHUNK * kv_tok} B, the {SMALL_POOL}-"
+        f"page pool {SMALL_POOL * gpt.PREFILL_CHUNK * kv_tok} B")
+    for mod in (fa, fw, fg):
+        mod.reset_launches()
+    wall = []
+    t0 = time.perf_counter()
+    paged_against_pinned(torch, gpt, cfg, params, burst_requests(cfg), say)
+    wall.append(time.perf_counter() - t0)
+    kept = prefix_part(torch, gpt, cfg, params, say)
+    wall.append(time.perf_counter() - t0 - sum(wall))
+    spec_part(torch, gpt, cfg, params, say)
+    wall.append(time.perf_counter() - t0 - sum(wall))
+    rebind_part(torch, gpt, cfg, *kept, burst_requests(cfg), say)
+    del kept
+    wall.append(time.perf_counter() - t0 - sum(wall))
+    router_part(torch, gpt, cfg, params, say)
+    wall.append(time.perf_counter() - t0 - sum(wall))
+    hand = {**fa.launch_counts(), "w2v": fw.launches, "glove": fg.launches}
+    say(f"hand-kernel launches during parts 1-5: {hand} (no TPU kernel lies "
+        f"on the decode paths)")
+    check(not any(hand.values()), f"a hand kernel ran in parts 1-5: {hand}")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-14-")
+    try:
+        launches = cli_generate(torch, tmp, say)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall.append(time.perf_counter() - t0 - sum(wall))
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 20
+            if SERVE_DEVICE == "cuda" else 0.0)
+    say(f"phase 14 wall: paged vs pinned {wall[0]:.1f} s, prefix store "
+        f"{wall[1]:.1f} s, speculative {wall[2]:.1f} s, rebind "
+        f"{wall[3]:.1f} s, router {wall[4]:.1f} s, CLI {wall[5]:.1f} s "
+        f"({sum(wall):.1f} s in all); peak memory {peak:.1f} MB")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4296,6 +4967,10 @@ def main() -> int:
           f"lies on fit's path)")
     check(not any(hand.values()), f"a hand kernel ran during phase 13: "
                                   f"{hand}")
+    print("phase 14: GPT-2 small serving at scale: paged KV, the prefix "
+          "store, speculative decoding, rebind, the router, cli generate")
+    for name, n in serving_scale_phase(torch, fa, fw, fg, card).items():
+        launches[name] += n
 
     kernels = [{
         "name": "flash_attention_fwd",

@@ -1,4 +1,4 @@
-"""Command-line interface: train / test / predict / telemetry.
+"""Command-line interface: train / test / predict / generate / telemetry.
 
 Port of ``deeplearning4j_tpu/cli.py`` (``deeplearning4j-cli``'s args4j
 subcommands ``cli/subcommands/{Train,Test,Predict}.java``).  Every
@@ -19,10 +19,20 @@ CSVDataFetcher convention) or the name of a built-in dataset
 JSON.  Model files are the reference's (``MultiLayerNetwork.to_bytes``),
 so either package's ``train`` output loads in the other's ``test``.
 
+``generate`` serves a char-level GPT through ``serving/router.Router``
+replicas of ``DecodeEngine`` (every ``--prompt`` decodes concurrently),
+trained on the fly from ``--input`` text or loaded from ``--params``, an
+npz that either package's ``generate --save-params`` writes:
+
+    python -m deeplearning4j_tpu_torch.cli generate --train-steps 300 \
+        --save-params g.npz --prompt "the quick " --prompt "a lazy "
+    python -m deeplearning4j_tpu_torch.cli generate --params g.npz \
+        --temperature 0 --prompt "the quick "
+
 Not ported: multi-process training (``--coordinator`` /
-``--num-processes`` / ``--process-id`` beyond one process, ROADMAP A7)
-and ``generate``, which serves through ``serving/router.Router``
-(ROADMAP A4); both stay in the parser and exit naming their item.
+``--num-processes`` / ``--process-id`` beyond one process, ROADMAP A7);
+the flags stay in the parser and more than one process exits naming
+the item.
 """
 
 from __future__ import annotations
@@ -208,10 +218,157 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def _gpt_save_npz(path: str, cfg, params, chars: str) -> None:
+    """A char-GPT as one .npz (cli.py:213): the nested params flattened
+    to slash-joined keys, plus a JSON header with the config and the
+    vocabulary; the JAX package's ``_gpt_load_npz`` reads it."""
+    import dataclasses
+
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else k, v)
+        else:
+            flat[prefix] = (node.detach().cpu().numpy()
+                            if hasattr(node, "detach") else np.asarray(node))
+
+    walk("", params)
+    header = json.dumps({"cfg": dataclasses.asdict(cfg), "chars": chars})
+    np.savez(path, __conf__=np.asarray(header), **flat)
+
+
+def _gpt_load_npz(path: str):
+    """``(cfg, params as numpy, chars)`` of an npz :func:`_gpt_save_npz`
+    (or the JAX package's) wrote."""
+    from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+
+    data = np.load(path, allow_pickle=False)
+    meta = json.loads(str(data["__conf__"]))
+    params: dict = {}
+    for key in data.files:
+        if key == "__conf__":
+            continue
+        node = params
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = data[key]
+    return TransformerConfig(**meta["cfg"]), params, meta["chars"]
+
+
+def _train_char_gpt(args, text: str, device):
+    """A char-level ``gpt_tiny`` trained ``--train-steps`` steps on
+    ``text`` through ``gpt.make_train_step`` (its defaults: adamw, the
+    flash kernels on CUDA where the shape suits them): ``(cfg, params
+    as numpy, chars)``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import gpt
+
+    chars = "".join(sorted(set(text)))
+    stoi = {c: i for i, c in enumerate(chars)}
+    ids = np.asarray([stoi[c] for c in text], np.int32)
+    cfg = gpt.gpt_tiny(vocab_size=len(chars), max_len=args.max_len)
+    init_fn, step_fn = gpt.make_train_step(cfg, device=device)
+    state = init_fn(torch.Generator(device=device).manual_seed(args.seed))
+    T = min(32, cfg.max_len)
+    reps = -(-(T + 1) // ids.size)
+    if reps > 1:
+        ids = np.tile(ids, reps)
+    n = max((ids.size - 1) // T, 1)
+    x = torch.from_numpy(ids[:n * T].reshape(n, T)).to(device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    print(f"training char-GPT ({args.train_steps} steps, vocab "
+          f"{len(chars)}, {n} x {T} tokens a step) ...")
+    loss = None
+    for _ in range(args.train_steps):
+        state, loss = step_fn(state, x, gen)
+    if loss is not None:
+        print(f"final LM loss: {float(loss):.3f}")
+    params = {grp: {k: v.detach().cpu().numpy() for k, v in leaves.items()}
+              for grp, leaves in state.params.items()}
+    return cfg, params, chars
+
+
 def cmd_generate(args) -> int:
-    raise SystemExit(
-        "generate serves through serving/router.Router, which is not "
-        "ported to the PyTorch package yet (ROADMAP A4)")
+    """Continuous-batching text generation (serving/decode.py, cli.py:
+    261): every ``--prompt`` is served concurrently through ``Router``
+    replicas of the slot-structured ``DecodeEngine``, joining the
+    running decode batch mid-flight.  The model is a char-level GPT,
+    loaded from ``--params`` or trained on the fly from ``--input``
+    text (default: a built-in phrase)."""
+    import time as _time
+
+    from deeplearning4j_tpu_torch.runtime import telemetry
+    from deeplearning4j_tpu_torch.runtime.metrics import decode_metrics
+    from deeplearning4j_tpu_torch.serving.router import (OverloadedError,
+                                                         Router)
+
+    device = _device(args)
+    tracer = None
+    journal_dir = args.telemetry
+    if journal_dir is True:
+        journal_dir = telemetry.DEFAULT_JOURNAL_DIR
+    if journal_dir:
+        tracer = telemetry.enable()
+
+    if args.params:
+        cfg, params, chars = _gpt_load_npz(args.params)
+        print(f"loaded char-GPT from {args.params} "
+              f"(vocab {cfg.vocab_size}, max_len {cfg.max_len})")
+    else:
+        if args.input:
+            with open(args.input) as fh:
+                text = fh.read()
+        else:
+            text = "the quick brown fox jumps over the lazy dog. " * 64
+        cfg, params, chars = _train_char_gpt(args, text, device)
+        if args.save_params:
+            _gpt_save_npz(args.save_params, cfg, params, chars)
+            print(f"saved params to {args.save_params}")
+
+    stoi = {c: i for i, c in enumerate(chars)}
+    prompts = args.prompt or ["the quick "]
+    enc = [np.asarray([stoi.get(c, 0) for c in p], np.int32)
+           for p in prompts]
+
+    telemetry.registry.mark()
+    router = Router.replicate(
+        cfg, params, args.replicas, n_slots=args.slots,
+        max_queue_depth=args.max_queue_depth,
+        default_max_tokens=args.max_tokens, device=device)
+    t0 = _time.perf_counter()
+    with router:
+        handles = []
+        for p, e in zip(prompts, enc):
+            try:
+                handles.append((p, router.submit(
+                    e, max_tokens=args.max_tokens,
+                    temperature=args.temperature, seed=args.seed)))
+            except OverloadedError as err:
+                print(f"SHED  {p!r}: {err}")
+        for p, h in handles:
+            toks = h.result(args.timeout)
+            text_out = "".join(chars[t] if t < len(chars) else "?"
+                               for t in toks)
+            print(f"{p!r} -> {p + text_out!r}")
+    wall = _time.perf_counter() - t0
+    snap = decode_metrics.snapshot()
+    print(f"\n{snap['tokens_out']} tokens in {wall:.2f}s "
+          f"({snap['tokens_out'] / max(wall, 1e-9):.1f} tok/s) | "
+          f"ttft p50/p99 {snap['ttft_p50_ms']}/{snap['ttft_p99_ms']} ms | "
+          f"slot occupancy {snap['slot_occupancy']:.2f} | "
+          f"joins {snap['joins']} | compile_delta "
+          f"{snap.get('compile_delta_since_mark')}")
+    if tracer is not None:
+        os.makedirs(journal_dir, exist_ok=True)
+        journal = os.path.join(journal_dir, f"{tracer.run_id}.jsonl")
+        tracer.export_journal(journal,
+                              snapshot=telemetry.registry.snapshot())
+        print(f"telemetry journal: {journal}")
+    return 0
 
 
 def cmd_telemetry(args) -> int:
@@ -280,7 +437,8 @@ def _device_arg(p) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
-        description="deeplearning4j on PyTorch/CUDA: train/test/predict")
+        description="deeplearning4j on PyTorch/CUDA: train/test/predict/"
+                    "generate")
     sub = p.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="fit a model from a conf JSON")
@@ -345,23 +503,39 @@ def build_parser() -> argparse.ArgumentParser:
 
     g = sub.add_parser(
         "generate",
-        help="continuous-batching char-GPT text generation (not ported: "
-             "ROADMAP A4)")
-    g.add_argument("--input", default=None)
-    g.add_argument("--params", default=None, metavar="NPZ")
-    g.add_argument("--save-params", default=None, metavar="NPZ")
-    g.add_argument("--prompt", action="append", default=None)
+        help="continuous-batching char-GPT text generation "
+             "(serving/decode.py): all --prompt requests decode "
+             "concurrently in one slot-structured batch")
+    g.add_argument("--input", default=None,
+                   help="text file to build the char vocab from and "
+                        "train on (default: a built-in demo phrase)")
+    g.add_argument("--params", default=None, metavar="NPZ",
+                   help="load a char-GPT saved by --save-params instead "
+                        "of training")
+    g.add_argument("--save-params", default=None, metavar="NPZ",
+                   help="save the freshly trained char-GPT for reuse")
+    g.add_argument("--prompt", action="append", default=None,
+                   help="prompt text (repeatable; each one is a "
+                        "concurrent request)")
     g.add_argument("--max-tokens", type=int, default=48)
-    g.add_argument("--temperature", type=float, default=0.3)
+    g.add_argument("--temperature", type=float, default=0.3,
+                   help="0 = greedy argmax")
     g.add_argument("--seed", type=int, default=0)
-    g.add_argument("--max-len", type=int, default=128)
+    g.add_argument("--max-len", type=int, default=128,
+                   help="model context length (prompt + continuation "
+                        "must fit)")
     g.add_argument("--train-steps", type=int, default=300)
-    g.add_argument("--replicas", type=int, default=1)
-    g.add_argument("--slots", type=int, default=8)
-    g.add_argument("--max-queue-depth", type=int, default=64)
+    g.add_argument("--replicas", type=int, default=1,
+                   help="decode engine replicas behind the router")
+    g.add_argument("--slots", type=int, default=8,
+                   help="concurrent sequences per engine")
+    g.add_argument("--max-queue-depth", type=int, default=64,
+                   help="router load-shed bound (OverloadedError above)")
     g.add_argument("--timeout", type=float, default=300.0)
     g.add_argument("--telemetry", nargs="?", default=None, const=True,
-                   metavar="DIR")
+                   metavar="DIR",
+                   help="enable the run tracer and write a JSONL journal")
+    _device_arg(g)
     g.set_defaults(fn=cmd_generate)
 
     m = sub.add_parser(

@@ -205,6 +205,37 @@ def _store(buf: Tensor, index, val: Tensor,
     buf[index] = val
 
 
+def _store_kv(cache, layer: int, index, k1: Tensor, v1: Tensor,
+              cdt: torch.dtype, drop: Optional[Tensor] = None) -> None:
+    """Store a layer's fresh fp32 K/V rows at ``index`` of the layer's
+    rows (quantized with their scales for an int8 cache, else cast to
+    ``cdt``); ``cache`` is any tuple with ``k``/``v`` (and
+    ``k_scale``/``v_scale``) fields: slots, a dense cache, a page pool."""
+    k_scale = getattr(cache, "k_scale", None)
+    if k_scale is None:
+        _store(cache.k[layer], index, k1.to(cdt), drop)
+        _store(cache.v[layer], index, v1.to(cdt), drop)
+        return
+    for buf, sbuf, x in ((cache.k, k_scale, k1),
+                         (cache.v, cache.v_scale, v1)):
+        q, s = _kv_quant(x)
+        _store(buf[layer], index, q, drop)
+        _store(sbuf[layer], index, s, drop)
+
+
+def _read_kv(cache, layer: int, cdt: torch.dtype, rows=None
+             ) -> Tuple[Tensor, Tensor]:
+    """A layer's K/V in ``cdt`` for attention: every leading row, or
+    ``rows(t)`` of each buffer (an index or gather of its leading
+    axes)."""
+    k_scale = getattr(cache, "k_scale", None)
+    pick = rows or (lambda t: t)
+    if k_scale is None:
+        return pick(cache.k[layer]), pick(cache.v[layer])
+    return (_kv_load(pick(cache.k[layer]), pick(k_scale[layer]), cdt),
+            _kv_load(pick(cache.v[layer]), pick(cache.v_scale[layer]), cdt))
+
+
 def _write_kv(cache, layer: int, index, k1: Tensor, v1: Tensor,
               cdt: torch.dtype, drop: Optional[Tensor] = None,
               select: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
@@ -212,22 +243,9 @@ def _write_kv(cache, layer: int, index, k1: Tensor, v1: Tensor,
     T_max]`` rows (quantized for an int8 cache, else cast to ``cdt``)
     and return the layer's K/V in ``cdt`` for attention: every row, or
     the leading rows ``select`` (an index tensor)."""
-    k_scale = getattr(cache, "k_scale", None)
-
-    def rows(t):
-        return t if select is None else t.index_select(0, select)
-
-    if k_scale is None:
-        _store(cache.k[layer], index, k1.to(cdt), drop)
-        _store(cache.v[layer], index, v1.to(cdt), drop)
-        return rows(cache.k[layer]), rows(cache.v[layer])
-    for buf, sbuf, x in ((cache.k, k_scale, k1),
-                         (cache.v, cache.v_scale, v1)):
-        q, s = _kv_quant(x)
-        _store(buf[layer], index, q, drop)
-        _store(sbuf[layer], index, s, drop)
-    return (_kv_load(rows(cache.k[layer]), rows(k_scale[layer]), cdt),
-            _kv_load(rows(cache.v[layer]), rows(cache.v_scale[layer]), cdt))
+    _store_kv(cache, layer, index, k1, v1, cdt, drop)
+    return _read_kv(cache, layer, cdt, None if select is None
+                    else (lambda t: t.index_select(0, select)))
 
 
 def _heads_fp32(x: Tensor) -> Tensor:
@@ -599,24 +617,15 @@ def slot_decode(cfg: TransformerConfig, params: Params,
     cdt = tfm.compute_dtype(cfg)
     S = slots.tokens.shape[0]
     T_max = slots.k.shape[2]
-    dev = slots.tokens.device
     pos = slots.pos.long()
-    e = params["embed"]
-    x = (e["tok"][slots.tokens.long()]
-         + e["pos"][torch.clamp(pos, 0, cfg.max_len - 1)])
-    x = tfm.layer_norm(x, e["ln_g"], e["ln_b"],
-                       cfg.layer_norm_eps)[:, None, :]
-    masked = (torch.arange(T_max, device=dev)[None, :]
-              > pos[:, None])[:, None, None, :]
-    index = (torch.arange(S, device=dev), torch.clamp(pos, max=T_max - 1))
+    index = (torch.arange(S, device=pos.device),
+             torch.clamp(pos, max=T_max - 1))
     drop = pos >= T_max
-    x = _cached_stack(cfg, params, x, lambda layer, k1, v1: _write_kv(
-        slots, layer, index, k1[:, 0], v1[:, 0], cdt, drop), masked)
-    logits = lm_logits(cfg, params, x)[:, 0, :]
-    nxt = sample_token(logits, _slot_key(seeds, pos), temperature)
-    out = torch.where(active, nxt, slots.tokens)
-    slots.tokens.copy_(out)
-    slots.pos.add_(active.to(slots.pos.dtype))
+    out, logits = _decode_rows(
+        cfg, params, slots.tokens, slots.pos,
+        lambda layer, k1, v1: _write_kv(slots, layer, index, k1[:, 0],
+                                        v1[:, 0], cdt, drop),
+        T_max, active, temperature, seeds)
     return (slots, out, logits) if return_logits else (slots, out)
 
 
@@ -633,3 +642,354 @@ def make_slot_fns(cfg: TransformerConfig):
         return slot_decode(cfg, params, slots, active, temperature, seeds)
 
     return prefill_fn, decode_fn
+
+
+def slot_read_pages(slots: DecodeSlots, slot, m: Optional[int] = None):
+    """A copy of one slot's first ``m`` cache rows (default all) for
+    the prefix store (:643): ``(k, v)`` ``[L, m, NH, D]``, plus
+    ``(k_scale, v_scale)`` ``[L, m]`` for an int8 cache.  ``slot`` is an
+    int or a 0-d integer tensor.  A pure read into fresh buffers: later
+    dispatches that update the slots in place cannot reach the copy."""
+    sel = torch.as_tensor(slot, device=slots.k.device).long().reshape(1)
+    m = slots.k.shape[2] if m is None else int(m)
+    leaves = (slots.k, slots.v) if slots.k_scale is None else (
+        slots.k, slots.v, slots.k_scale, slots.v_scale)
+    return tuple(t[:, :, :m].index_select(1, sel)[:, 0] for t in leaves)
+
+
+def slot_write_pages(slots: DecodeSlots, slot, k: Tensor, v: Tensor,
+                     k_scale: Optional[Tensor] = None,
+                     v_scale: Optional[Tensor] = None) -> DecodeSlots:
+    """Copy stored prefix rows ``[L, m, NH, D]`` (and ``[L, m]`` scales
+    for an int8 cache) over ``slot``'s first ``m`` rows, in place: the
+    prefix HIT path (:661).  The slot's later rows keep what they held;
+    a row is attended only at positions ``<= pos``, and every position
+    up to ``pos`` past the prefix is written by the remaining prefill
+    chunks and decode steps before it is reached.  ``tokens``/``pos``
+    are untouched (the last prefill chunk sets them)."""
+    m = k.shape[1]
+    sel = torch.as_tensor(slot, device=slots.k.device).long()
+    pairs = [(slots.k, k), (slots.v, v)]
+    if slots.k_scale is not None:
+        pairs += [(slots.k_scale, k_scale), (slots.v_scale, v_scale)]
+    for dst, src in pairs:
+        dst[:, :, :m].index_copy_(1, sel.reshape(1),
+                                  src.to(dst.device, non_blocking=True
+                                         )[:, None])
+    return slots
+
+
+# ---------------------------------------------------------------------------
+# paged KV storage
+# ---------------------------------------------------------------------------
+
+class PagedKV(NamedTuple):
+    """A pool of fixed-size KV pages ``[L, P, C, NH, D]``, C tokens a
+    page (:704).  A slot's cache is a host-side page table mapping its
+    chunk-aligned position ranges onto pool pages, so memory holds only
+    the pages live tokens occupy.  Page 0 is the reserved trash page:
+    unused table entries point at it and writes of inactive slots and
+    out-of-range positions land in it, so a freed page can go to another
+    slot without scrubbing.  int8 pools carry per-row scales ``[L, P,
+    C]`` (the grid of :class:`QKVCache`)."""
+    k: Tensor
+    v: Tensor
+    k_scale: Optional[Tensor] = None
+    v_scale: Optional[Tensor] = None
+
+
+def init_pages(cfg: TransformerConfig, n_pages: int, page_tokens: int,
+               kv_dtype: Optional[str] = None,
+               device: DeviceLike = None) -> PagedKV:
+    """A zeroed pool of ``n_pages`` pages of ``page_tokens`` rows
+    (:723)."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, n_pages, page_tokens, cfg.n_heads, cfg.head_dim)
+    if _kv_dtype(kv_dtype) is None:
+        cdt = tfm.compute_dtype(cfg)
+        return PagedKV(torch.zeros(shape, dtype=cdt, device=dev),
+                       torch.zeros(shape, dtype=cdt, device=dev))
+    sshape = shape[:3]
+    return PagedKV(torch.zeros(shape, dtype=torch.int8, device=dev),
+                   torch.zeros(shape, dtype=torch.int8, device=dev),
+                   torch.zeros(sshape, dtype=torch.float32, device=dev),
+                   torch.zeros(sshape, dtype=torch.float32, device=dev))
+
+
+def pages_bytes(cfg: TransformerConfig, n_pages: int, page_tokens: int,
+                kv_dtype: Optional[str] = None) -> int:
+    """Bytes of a pool (:737), the paged engine's memory denominator
+    (the gathered attention views are transient)."""
+    return n_pages * slots_bytes_per_slot(cfg, page_tokens, kv_dtype)
+
+
+def _paged_view(pool: PagedKV, ptab: Tensor, layer: int, cdt: torch.dtype
+                ) -> Tuple[Tensor, Tensor]:
+    """One layer's slot-structured view ``[S, TBL*C, NH, D]`` in ``cdt``
+    of the pages ``ptab`` ``[S, TBL]`` names (:758).  The reference
+    gathers every layer at once; here the view is one layer's, built
+    right after the layer's fresh rows are scattered into the pool
+    (:func:`_paged_write`), so the transient is one layer, not L.  At 8
+    slots x bucket 1024 in bf16 GPT-2 small's gather reads and writes
+    25.2 MB a layer, about 604 MB a decode step."""
+    S, TBL = ptab.shape
+    idx = ptab.long()
+
+    def rows(t):
+        g = t[idx]                              # [S, TBL, C, ...]
+        return g.reshape((S, TBL * g.shape[2]) + g.shape[3:])
+
+    return _read_kv(pool, layer, cdt, rows)
+
+
+def _paged_write(pool: PagedKV, ptab: Tensor, posw: Tensor, ok: Tensor,
+                 cdt: torch.dtype) -> Callable:
+    """The ``write`` callback of :func:`_cached_stack` over a pool
+    (:772, ``_pool_write_back``): slot s's fresh row w goes to page
+    ``ptab[s, posw[s, w] // C]`` at offset ``posw % C``, or to the trash
+    page where ``ok`` is False or the position is past the table (a
+    freed page may already belong to another live slot, so a stale write
+    is not harmless here); then the layer's view is gathered."""
+    C = pool.k.shape[2]
+    TBL = ptab.shape[1]
+    pw = torch.clamp(posw, 0, TBL * C - 1)
+    ok = ok & (posw >= 0) & (posw < TBL * C)
+    pids = torch.where(ok, torch.gather(ptab.long(), 1, pw // C),
+                       torch.zeros_like(pw))
+    index = (pids, pw % C)
+
+    def write(layer, k1, v1):
+        _store_kv(pool, layer, index, k1, v1, cdt)
+        return _paged_view(pool, ptab, layer, cdt)
+
+    return write
+
+
+def _row_inputs(cfg: TransformerConfig, params: Params, toks: Tensor,
+                posw: Tensor) -> Tensor:
+    """Embeddings ``[S, W, H]`` of tokens ``toks`` at positions ``posw``
+    (both ``[S, W]``), positions clamped to the table."""
+    e = params["embed"]
+    x = (e["tok"][toks.long()]
+         + e["pos"][torch.clamp(posw, 0, cfg.max_len - 1)])
+    return tfm.layer_norm(x, e["ln_g"], e["ln_b"], cfg.layer_norm_eps)
+
+
+def paged_prefill(cfg: TransformerConfig, params: Params, pool: PagedKV,
+                  ptab_s: Tensor, toks: Tensor, start, n_valid,
+                  temperature, seed):
+    """:func:`slot_prefill` over a pool (:814): one chunk ``toks``
+    ``[C]`` (C is the page width; the engine aligns its prefill chunk to
+    it) of the slot whose page table is ``ptab_s`` ``[TBL]``, at a
+    chunk-aligned ``start``: the chunk's K/V rows are exactly page
+    ``ptab_s[start // C]``.  Returns ``(pool, first_token)``; the pool
+    is updated in place."""
+    cdt = tfm.compute_dtype(cfg)
+    dev = toks.device
+    C = toks.shape[0]
+    start = torch.as_tensor(start, device=dev).long()
+    n_valid = torch.as_tensor(n_valid, device=dev).long()
+    rows = start + torch.arange(C, device=dev)
+    ptab = ptab_s.reshape(1, -1)
+    x = tfm.embed(cfg, params, toks[None, :], None, start)
+    masked = torch.arange(ptab.shape[1] * C, device=dev)[None, :] \
+        > rows[:, None]
+    write = _paged_write(pool, ptab, rows[None, :],
+                         torch.ones((1, C), dtype=torch.bool, device=dev),
+                         cdt)
+    x = _cached_stack(cfg, params, x, write, masked)
+    logits = lm_logits(cfg, params, x)[0]
+    last = logits.index_select(0, (n_valid - 1).reshape(1))[0]
+    first = sample_token(last, _slot_key(seed, start + n_valid - 1),
+                         temperature)
+    return pool, first
+
+
+def _decode_rows(cfg: TransformerConfig, params: Params, tokens: Tensor,
+                 pos: Tensor, write: Callable, t_view: int, active: Tensor,
+                 temperature: Tensor, seeds: Tensor):
+    """The body of :func:`slot_decode` and :func:`paged_decode`: every
+    slot's current token at its position through the stack (``write``
+    stores the fresh rows and returns the layer's view of ``t_view``
+    rows), one draw a slot, ``tokens``/``pos`` advanced in place for the
+    active slots.  Returns ``(out [S], logits [S, vocab])``."""
+    dev = tokens.device
+    pos64 = pos.long()
+    x = _row_inputs(cfg, params, tokens[:, None], pos64[:, None])
+    masked = (torch.arange(t_view, device=dev)[None, :]
+              > pos64[:, None])[:, None, None, :]
+    x = _cached_stack(cfg, params, x, write, masked)
+    logits = lm_logits(cfg, params, x)[:, 0, :]
+    nxt = sample_token(logits, _slot_key(seeds, pos64), temperature)
+    out = torch.where(active, nxt, tokens)
+    tokens.copy_(out)
+    pos.add_(active.to(pos.dtype))
+    return out, logits
+
+
+def paged_decode(cfg: TransformerConfig, params: Params, pool: PagedKV,
+                 ptab: Tensor, tokens: Tensor, pos: Tensor, active: Tensor,
+                 temperature: Tensor, seeds: Tensor,
+                 return_logits: bool = False):
+    """:func:`slot_decode` over a pool (:856): each active slot's row
+    goes to its page, inactive slots write to the trash page, and every
+    layer attends its gathered view.  ``tokens``/``pos`` ``[S]`` are the
+    slots' current tokens and positions on the device (the reference
+    tracks them on the host) and advance in place.  Returns ``(pool,
+    tokens [S])`` (and the ``[S, vocab]`` logits)."""
+    cdt = tfm.compute_dtype(cfg)
+    write = _paged_write(pool, ptab, pos.long()[:, None], active[:, None],
+                         cdt)
+    out, logits = _decode_rows(cfg, params, tokens, pos, write,
+                               ptab.shape[1] * pool.k.shape[2], active,
+                               temperature, seeds)
+    return (pool, out, logits) if return_logits else (pool, out)
+
+
+def paged_read_pages(pool: PagedKV, pids: Tensor):
+    """A copy of pages ``pids`` ``[n]`` of the pool (:866): ``(k, v)``
+    ``[L, n, C, NH, D]`` (plus ``[L, n, C]`` scales for int8)."""
+    idx = pids.to(pool.k.device).long()
+    leaves = pool if pool.k_scale is not None else pool[:2]
+    return tuple(t.index_select(1, idx) for t in leaves)
+
+
+def paged_write_pages(pool: PagedKV, pids: Tensor, k: Tensor, v: Tensor,
+                      k_scale: Optional[Tensor] = None,
+                      v_scale: Optional[Tensor] = None) -> PagedKV:
+    """Scatter prefix pages ``[L, n, C, ...]`` into pool pages ``pids``
+    ``[n]``, in place (:876): the host-store hit of a paged engine."""
+    idx = pids.to(pool.k.device).long()
+    srcs = (k, v) if pool.k_scale is None else (k, v, k_scale, v_scale)
+    for dst, src in zip(pool, srcs):
+        dst.index_copy_(1, idx, src.to(dst.device, non_blocking=True))
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding
+# ---------------------------------------------------------------------------
+
+def _verify_rows(cfg: TransformerConfig, params: Params, tokens: Tensor,
+                 pos: Tensor, drafts: Tensor, write: Callable, t_view: int,
+                 active: Tensor, temperature: Tensor, seeds: Tensor):
+    """The body of :func:`slot_verify` and :func:`paged_verify`.
+    Returns ``(t [S, W], n_commit [S], logits [S, W, vocab])`` and
+    advances ``tokens``/``pos`` in place."""
+    dev = tokens.device
+    S, k = drafts.shape
+    W = k + 1
+    posw = pos.long()[:, None] + torch.arange(W, device=dev)
+    toks_w = torch.cat([tokens[:, None], drafts.to(tokens.dtype)], dim=1)
+    x = _row_inputs(cfg, params, toks_w, posw)
+    masked = (torch.arange(t_view, device=dev)[None, None, :]
+              > posw[:, :, None])[:, None]
+    x = _cached_stack(cfg, params, x, write, masked)
+    logits = lm_logits(cfg, params, x)                    # [S, W, V]
+    keys = _slot_key(seeds.long()[:, None], posw)
+    t = sample_token(logits, keys, temperature[:, None].expand(S, W))
+    matches = (t[:, :k] == drafts.to(t.dtype)).long()
+    n_acc = torch.cumprod(matches, dim=1).sum(dim=1)
+    n_commit = torch.where(active, n_acc + 1, torch.zeros_like(n_acc))
+    last = torch.gather(t, 1, n_acc[:, None])[:, 0]
+    tokens.copy_(torch.where(active, last, tokens))
+    pos.add_(n_commit.to(pos.dtype))
+    return t, n_commit, logits
+
+
+def slot_verify(cfg: TransformerConfig, params: Params, slots: DecodeSlots,
+                active: Tensor, temperature: Tensor, seeds: Tensor,
+                drafts: Tensor, return_logits: bool = False):
+    """Target-model verify (:883): every slot's current token plus its
+    k draft proposals ``drafts`` ``[S, k]``, W = k + 1 rows a slot, in
+    one pass.  Row w consumes the token at ``pos + w`` and draws the
+    target's own token t_w with the key of ``(seed, pos + w)``, the key
+    plain decoding uses at that position, so the committed chain is the
+    plain chain at any temperature.  With n_acc the count of leading
+    drafts equal to t, tokens t_0..t_{n_acc} commit (``n_commit = n_acc
+    + 1``, 0 for inactive slots).  Rows past the accepted ones hold
+    rejected tokens' K/V, rewritten before they are attended.  Writes
+    past ``T_max`` drop: the rows are stored one w at a time, so a
+    dropped row never races a real one at the clamped index.  Returns
+    ``(slots, t [S, W], n_commit [S])`` (and the ``[S, W, vocab]``
+    logits); the slots are updated in place."""
+    cdt = tfm.compute_dtype(cfg)
+    S = slots.tokens.shape[0]
+    T_max = slots.k.shape[2]
+    dev = slots.tokens.device
+    W = drafts.shape[1] + 1
+    posw = slots.pos.long()[:, None] + torch.arange(W, device=dev)
+    rows = torch.arange(S, device=dev)
+
+    def write(layer, k1, v1):
+        for w in range(W):
+            p = posw[:, w]
+            _store_kv(slots, layer, (rows, torch.clamp(p, max=T_max - 1)),
+                      k1[:, w], v1[:, w], cdt, p >= T_max)
+        return _read_kv(slots, layer, cdt)
+
+    t, n_commit, logits = _verify_rows(cfg, params, slots.tokens, slots.pos,
+                                       drafts, write, T_max, active,
+                                       temperature, seeds)
+    return ((slots, t, n_commit, logits) if return_logits
+            else (slots, t, n_commit))
+
+
+def paged_verify(cfg: TransformerConfig, params: Params, pool: PagedKV,
+                 ptab: Tensor, tokens: Tensor, pos: Tensor, active: Tensor,
+                 temperature: Tensor, seeds: Tensor, drafts: Tensor):
+    """:func:`slot_verify` over a pool (:971): the W rows of each active
+    slot go to its pages (the engine allocates them through ``pos + k``
+    first, so rejected rows stay in the slot's own pages).
+    ``tokens``/``pos`` advance in place.  Returns ``(pool, t [S, W],
+    n_commit [S])``."""
+    cdt = tfm.compute_dtype(cfg)
+    W = drafts.shape[1] + 1
+    posw = pos.long()[:, None] + torch.arange(W, device=pos.device)
+    write = _paged_write(pool, ptab, posw, active[:, None].expand(-1, W),
+                         cdt)
+    t, n_commit, _ = _verify_rows(cfg, params, tokens, pos, drafts, write,
+                                  ptab.shape[1] * pool.k.shape[2], active,
+                                  temperature, seeds)
+    return pool, t, n_commit
+
+
+def _greedy_args(tokens: Tensor):
+    S = tokens.shape[0]
+    return (torch.zeros(S, dtype=torch.float32, device=tokens.device),
+            torch.zeros(S, dtype=torch.int64, device=tokens.device))
+
+
+def draft_propose(cfg_d: TransformerConfig, params_d: Params,
+                  dslots: DecodeSlots, active: Tensor, n_steps: int):
+    """The draft's proposals (:1004): ``n_steps`` greedy
+    :func:`slot_decode` steps from the draft's mirror of the committed
+    stream, a Python loop over a static count (the reference scans).
+    Its rows at accepted positions consumed exactly the committed
+    tokens, so once ``tokens``/``pos`` are reset to the commit frontier
+    every row below it is right.  Returns ``(dslots, proposals [S,
+    n_steps])``; the proposals stay on the device."""
+    temps, seeds = _greedy_args(dslots.tokens)
+    props = []
+    for _ in range(n_steps):
+        dslots, t = slot_decode(cfg_d, params_d, dslots, active, temps,
+                                seeds)
+        props.append(t)
+    return dslots, torch.stack(props, dim=1)
+
+
+def paged_draft_propose(cfg_d: TransformerConfig, params_d: Params,
+                        dpool: PagedKV, ptab: Tensor, tokens: Tensor,
+                        pos: Tensor, active: Tensor, n_steps: int):
+    """:func:`draft_propose` over the draft's pool, which shares the
+    target's page tables (:1029): same positions, same page ids, one
+    allocator for both.  ``tokens``/``pos`` are the draft's working
+    copies of the frontier and advance in place.  Returns ``(dpool,
+    proposals [S, n_steps])``."""
+    temps, seeds = _greedy_args(tokens)
+    props = []
+    for _ in range(n_steps):
+        dpool, t = paged_decode(cfg_d, params_d, dpool, ptab, tokens, pos,
+                                active, temps, seeds)
+        props.append(t)
+    return dpool, torch.stack(props, dim=1)

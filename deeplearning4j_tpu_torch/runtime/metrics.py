@@ -281,8 +281,21 @@ class DecodeMetrics:
     - time-to-first-token and per-step latency reservoirs ->
       ``ttft_p50_ms``/``ttft_p99_ms`` and ``tok_p50_ms``/``tok_p99_ms``;
     - tier 2: ``kv_bytes_per_slot`` (gauge: KV bytes a slot of the
-      newest engine's largest bucket).  The prefix-store and router
-      counters come with their bookers (ROADMAP A4);
+      newest engine's largest bucket); ``requests_shed`` (the router's
+      typed load shed); ``prefix_hits`` / ``prefix_misses`` /
+      ``prefill_tokens_saved`` (the prefix store, a hit saving its
+      prefix's prefill);
+    - tier 3: ``pages_in_use`` / ``pages_in_use_hw`` (gauge and
+      high-water of allocated KV pages), ``snapshot()["page_utilization"]``
+      (live token rows over allocated page rows, summed over paged
+      dispatches), ``draft_proposed`` / ``draft_accepted`` and
+      ``snapshot()["draft_accept_rate"]`` (speculative decoding);
+    - ``requests_replayed``: in-flight requests re-dispatched as (prompt
+      + tokens emitted so far) after a failed dispatch or an evacuation,
+      continuing bit for bit; ``pages_leaked`` (gauge: allocator page
+      references no live slot or resident prefix accounts for after the
+      last release).  The fleet counters (swaps, replacements,
+      brownout, autoscaling) come with ROADMAP A4b;
     - ``deadline_expirations``: requests whose ``deadline_ms`` passed
       while queued or mid-decode (the one-shot batcher books here too);
     - ``compile_mark``: as :class:`ServingMetrics`'s, for the decode
@@ -310,6 +323,18 @@ class DecodeMetrics:
             self.max_queue_depth = 0
             self.kv_bytes_per_slot = 0
             self.deadline_expirations = 0
+            self.requests_shed = 0
+            self.prefix_hits = 0
+            self.prefix_misses = 0
+            self.prefill_tokens_saved = 0
+            self.pages_in_use = 0
+            self.pages_in_use_hw = 0
+            self.page_token_rows = 0
+            self.page_capacity_rows = 0
+            self.draft_proposed = 0
+            self.draft_accepted = 0
+            self.requests_replayed = 0
+            self.pages_leaked = 0
             self._ttft_ms: List[float] = []
             self._tok_ms: List[float] = []
             self._compile_mark: Optional[int] = None
@@ -330,6 +355,40 @@ class DecodeMetrics:
     def note_deadline_expiration(self) -> None:
         with self._lock:
             self.deadline_expirations += 1
+
+    def note_shed(self) -> None:
+        with self._lock:
+            self.requests_shed += 1
+
+    def note_prefix_hit(self, tokens_saved: int) -> None:
+        with self._lock:
+            self.prefix_hits += 1
+            self.prefill_tokens_saved += int(tokens_saved)
+
+    def note_prefix_miss(self) -> None:
+        with self._lock:
+            self.prefix_misses += 1
+
+    def note_pages(self, in_use: int, live_rows: int,
+                   page_tokens: int) -> None:
+        with self._lock:
+            self.pages_in_use = int(in_use)
+            self.pages_in_use_hw = max(self.pages_in_use_hw, int(in_use))
+            self.page_token_rows += int(live_rows)
+            self.page_capacity_rows += int(in_use) * int(page_tokens)
+
+    def note_spec(self, proposed: int, accepted: int) -> None:
+        with self._lock:
+            self.draft_proposed += int(proposed)
+            self.draft_accepted += int(accepted)
+
+    def note_request_replayed(self) -> None:
+        with self._lock:
+            self.requests_replayed += 1
+
+    def note_pages_leaked(self, n: int) -> None:
+        with self._lock:
+            self.pages_leaked = int(n)
 
     def note_complete(self, tokens: int) -> None:
         with self._lock:
@@ -386,8 +445,24 @@ class DecodeMetrics:
                 "slot_occupancy": round(occ, 4),
                 "queue_depth": self.queue_depth,
                 "max_queue_depth": self.max_queue_depth,
+                "requests_shed": self.requests_shed,
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefill_tokens_saved": self.prefill_tokens_saved,
                 "kv_bytes_per_slot": self.kv_bytes_per_slot,
+                "pages_in_use": self.pages_in_use,
+                "pages_in_use_hw": self.pages_in_use_hw,
+                "page_utilization": round(
+                    self.page_token_rows / self.page_capacity_rows, 4)
+                if self.page_capacity_rows else 0.0,
+                "draft_proposed": self.draft_proposed,
+                "draft_accepted": self.draft_accepted,
+                "draft_accept_rate": round(
+                    self.draft_accepted / self.draft_proposed, 4)
+                if self.draft_proposed else 0.0,
                 "deadline_expirations": self.deadline_expirations,
+                "requests_replayed": self.requests_replayed,
+                "pages_leaked": self.pages_leaked,
                 "ttft_p50_ms": pct(ttft, 0.50),
                 "ttft_p99_ms": pct(ttft, 0.99),
                 "tok_p50_ms": pct(tok, 0.50),

@@ -2,5 +2,8 @@
 ``InferenceEngine`` (engine.py), a shape-bucketed forward with host-side
 padding, warmup and optional weight quantization; ``DynamicBatcher``
 (batcher.py), which coalesces concurrent requests into micro-batches;
-and continuous-batching decode serving (decode.py: ``DecodeEngine``,
-``ContinuousBatcher``).  The router comes later."""
+continuous-batching decode serving (decode.py: ``DecodeEngine`` with
+paged KV, the prefix store and speculative decoding,
+``ContinuousBatcher``); and ``Router`` (router.py), least-depth dispatch
+over replicas with load shedding.  The fleet half of router.py
+(autoscaling, the live weight swap, replica health) comes later."""

@@ -12,9 +12,13 @@ Iris CSV written to ``tmp_path``:
   populated directory with a one-line exit, ``--resume`` continues, and
   ``--resume`` refuses an empty directory;
 - ``telemetry`` summarizes a ``train --telemetry`` journal;
-- the stubs: more than one process exits naming ROADMAP A7, ``generate``
-  naming A4, and without a card the default ``--device cuda`` exits with
-  one line.
+- ``generate --device cpu`` trains a char-GPT for a few steps, saves it
+  and serves two prompts through the router; its npz loads in the JAX
+  package's ``_gpt_load_npz`` and a JAX-written npz in the port's
+  ``generate --params``, and both packages give the same greedy text
+  (fp32);
+- the stubs: more than one process exits naming ROADMAP A7, and without
+  a card the default ``--device cuda`` exits with one line.
 Predictions across the packages are compared as classes (argmax), equal.
 """
 
@@ -23,11 +27,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu import cli as jcli
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
 from deeplearning4j_tpu_torch.datasets.fetchers import IrisDataFetcher
 from deeplearning4j_tpu_torch.nn.conf import configuration as tconf
@@ -125,13 +131,81 @@ def test_stubs_name_their_roadmap_items(iris):
                  "--output", "m.bin", "--device", "cpu", "--num-processes",
                  "2", cwd=iris, check=False)
     assert multi.returncode == 1 and "ROADMAP A7" in multi.stderr
-    gen = _cli("generate", "--prompt", "hi", cwd=iris, check=False)
-    assert gen.returncode == 1 and "ROADMAP A4" in gen.stderr
     if not torch.cuda.is_available():
         card = _cli("test", "--input", "iris.csv", "--model", "m.bin",
                     cwd=iris, check=False)
         assert card.returncode == 1 and "CUDA is not available" in \
             card.stderr and "Traceback" not in card.stderr
+
+
+def test_generate_trains_saves_and_serves(tmp_path):
+    out = _cli("generate", "--device", "cpu", "--train-steps", "5",
+               "--save-params", "g.npz", "--prompt", "the quick ",
+               "--prompt", "a lazy ", "--max-tokens", "12",
+               "--replicas", "1", cwd=tmp_path).stdout
+    assert "final LM loss" in out and "saved params to g.npz" in out
+    lines = [ln for ln in out.splitlines() if " -> " in ln]
+    assert len(lines) == 2 and lines[0].startswith("'the quick ' -> ")
+    assert "compile_delta 0" in out
+    cfg, params, chars = jcli._gpt_load_npz(str(tmp_path / "g.npz"))
+    assert cfg.vocab_size == len(chars) and params["blocks"]["wq"].ndim == 4
+
+
+def _greedy_text(cfg, params, chars, prompt, n):
+    """JAX's greedy continuation of ``prompt`` (the reference's
+    ``generate``)."""
+    from deeplearning4j_tpu.models import gpt as jgpt
+
+    stoi = {c: i for i, c in enumerate(chars)}
+    ids = np.asarray([[stoi.get(c, 0) for c in prompt]], np.int32)
+    out = jgpt.generate(cfg, jax.tree.map(jnp.asarray, params), ids, n,
+                        jax.random.key(0), temperature=0.0)
+    return prompt + "".join(chars[t] for t in np.asarray(out)[0])
+
+
+def test_generate_npz_crosses_packages(tmp_path):
+    """An fp32 char-GPT saved by either package loads in the other, and
+    the port's ``generate --params --temperature 0`` prints JAX's greedy
+    text for it."""
+    import dataclasses
+
+    from deeplearning4j_tpu.models.transformer import TransformerConfig
+    from deeplearning4j_tpu_torch import cli as tcli
+    from deeplearning4j_tpu_torch.models.transformer import \
+        TransformerConfig as TCfg
+    from test_torch_decode import numpy_params
+
+    chars = " abcdefghijklmnopqrstuvwxyz."
+    kw = dict(vocab_size=len(chars), max_len=64, hidden=32, n_layers=2,
+              n_heads=2, ffn_dim=64, dropout=0.0, compute_dtype="float32",
+              causal=True, type_vocab_size=1)
+    tree = numpy_params(TCfg(**kw), 5)
+    prompts = ["the quick ", "a lazy dog"]
+    for writer, name in ((tcli._gpt_save_npz, "port.npz"),
+                         (jcli._gpt_save_npz, "jax.npz")):
+        cfg = (TCfg if writer is tcli._gpt_save_npz
+               else TransformerConfig)(**kw)
+        writer(str(tmp_path / name), cfg, tree, chars)
+        jcfg, jparams, jchars = jcli._gpt_load_npz(str(tmp_path / name))
+        tcfg, tparams, tchars = tcli._gpt_load_npz(str(tmp_path / name))
+        assert jchars == tchars == chars
+        assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+        assert dataclasses.asdict(tcfg).items() >= kw.items()
+        for grp in tree:
+            for leaf in tree[grp]:
+                np.testing.assert_array_equal(tparams[grp][leaf],
+                                              tree[grp][leaf])
+                np.testing.assert_array_equal(jparams[grp][leaf],
+                                              tree[grp][leaf])
+        args = ["generate", "--device", "cpu", "--params", name,
+                "--temperature", "0", "--max-tokens", "16"]
+        for p in prompts:
+            args += ["--prompt", p]
+        out = _cli(*args, cwd=tmp_path).stdout
+        got = [ln.split(" -> ", 1)[1] for ln in out.splitlines()
+               if " -> " in ln]
+        assert got == [repr(_greedy_text(jcfg, jparams, chars, p, 16))
+                       for p in prompts], name
 
 
 def test_cli_imports_no_jax():

@@ -303,12 +303,19 @@ def test_bucket_chunk_divisibility_and_knobs(params):
     assert eng.prefill_chunk == 16
     with pytest.raises(ValueError, match="exceeds the model"):
         DecodeEngine(CFG, params, buckets=(128,), device="cpu")
-    for kw, item in ((dict(prefix_cache=True), "A4"),
-                     (dict(paged=True), "A4"), (dict(n_pages=9), "A4"),
-                     (dict(draft=(CFG, params)), "A4"),
-                     (dict(mesh=object()), "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            DecodeEngine(CFG, params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A7"):
+        DecodeEngine(CFG, params, mesh=object(), device="cpu")
+    # the serving tier's knobs: the page width is the shrunk chunk, the
+    # default pool the pinned capacity plus the trash page
+    eng = DecodeEngine(CFG, params, buckets=(24, 64), prefill_chunk=16,
+                       paged=True, prefix_cache=True,
+                       draft=(CFG, params), device="cpu")
+    assert eng.page_tokens == 8 and eng.n_kv_pages == 8 * (64 // 8) + 1
+    assert DecodeEngine(CFG, params, n_pages=9,
+                        device="cpu").n_kv_pages == 9
+    with pytest.raises(ValueError, match="draft_k"):
+        DecodeEngine(CFG, params, draft=(CFG, params), draft_k=0,
+                     device="cpu")
     with pytest.raises(ValueError, match="kv_dtype"):
         DecodeEngine(CFG, params, kv_dtype="fp8", device="cpu")
     with pytest.raises(ValueError, match="quantize mode"):

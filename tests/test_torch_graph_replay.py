@@ -17,6 +17,8 @@ every replay, as the engine does.
 Covered: the LeNet train step (with a momentum schedule that switches
 inside the replayed steps), ``slot_prefill`` at two slots and two
 offsets and ``slot_decode`` through the decode engine's functions, the
+paged engine's prefill, draft prefill, speculative round and step over
+changing page tables, slots and masks, the
 adamw train step of a 2-layer transformer without dropout, and the
 word2vec pair chunk with a decaying learning rate and in-graph
 negatives.
@@ -126,8 +128,8 @@ def _decode_setup():
     return cfg, eng, eng.current_params()
 
 
-def _prefill_args(slots, toks, slot, start, n_valid, temp, seed):
-    return (slots, toks,
+def _prefill_args(state, toks, slot, start, n_valid, temp, seed):
+    return (state, toks,
             torch.tensor([slot, start, n_valid, seed], dtype=torch.int64),
             torch.tensor(temp, dtype=torch.float32))
 
@@ -135,7 +137,8 @@ def _prefill_args(slots, toks, slot, start, n_valid, temp, seed):
 def test_slot_prefill_and_decode_replay_like_eager():
     cfg, eng, params = _decode_setup()
     prefill, decode = eng._prefill.fn, eng._decode.fn
-    slots = tgpt.init_slots(cfg, 2, 64, device="cpu")
+    # the engine's pinned state: (slots, the draft's slots or None)
+    slots = (tgpt.init_slots(cfg, 2, 64, device="cpu"), None)
     rng = np.random.default_rng(3)
     chunks = [torch.from_numpy(rng.integers(0, 64, 8).astype(np.int32))
               for _ in range(5)]
@@ -161,7 +164,60 @@ def test_slot_prefill_and_decode_replay_like_eager():
         ref = decode(params, eager, active, temps, seeds)
         out = dreplay(params, graph, active, temps, seeds)
         _assert_equal(out, ref, f"decode step {k}")
-    assert graph.pos.tolist() == [23, 15]
+    assert graph[0].pos.tolist() == [23, 15]
+
+
+def test_paged_and_speculative_entries_replay_like_eager():
+    """The paged engine's prefill, draft prefill, speculative round and
+    step, traced once and replayed over chunks and rounds whose page
+    tables, slots, offsets and masks differ from the traced ones."""
+    cfg, _, params = _decode_setup()
+    cfg_d = dataclasses.replace(cfg, n_layers=1)
+    params_d = tgpt.init_params(torch.Generator().manual_seed(1), cfg_d,
+                                "cpu")
+    eng = DecodeEngine(cfg, params, n_slots=2, buckets=(64,),
+                       prefill_chunk=8, paged=True, draft=(cfg_d, params_d),
+                       draft_k=3, device="cpu")
+    params, pd = eng.current_params(), eng._draft_params()
+    state = eng._pool_state()
+    rng = np.random.default_rng(5)
+    tables = [torch.tensor([[1, 2, 3, 0, 0, 0, 0, 0], [4, 5, 0, 0, 0, 0, 0,
+                                                       0]],
+                           dtype=torch.int32),
+              torch.tensor([[1, 2, 3, 6, 0, 0, 0, 0], [4, 5, 7, 8, 0, 0, 0,
+                                                       0]],
+                           dtype=torch.int32)]
+    chunks = [torch.from_numpy(rng.integers(0, 64, 8).astype(np.int32))
+              for _ in range(5)]
+    calls = [(0, 0, 8, 0.0, 3), (1, 0, 8, 0.7, 5), (0, 8, 8, 0.0, 3),
+             (1, 8, 5, 0.9, 5), (0, 16, 3, 1.0, 7)]
+    eager, graph = _clone(state), _clone(state)
+    entries = {}
+    for toks, call in zip(chunks, calls):
+        st, ptab = _prefill_args(None, toks, *call)[1:], tables[0]
+        sc = st[1]
+        for name, fn, rest in (
+                ("prefill", eng._prefill.fn, (ptab, toks, sc, st[2], 0)),
+                ("draft", eng._draft_prefill.fn, (ptab, toks, sc, pd, 0))):
+            if name not in entries:
+                entries[name] = _Replay(fn, (params, _clone(eager)) + rest)
+            ref = fn(params, eager, *rest)
+            out = entries[name](params, graph, *rest)
+            _assert_equal(out, ref, f"{name} {call}")
+    temps = torch.tensor([0.0, 0.8])
+    seeds = torch.tensor([3, 5], dtype=torch.int64)
+    for k, (ptab, active) in enumerate(
+            [(tables[0], [True, True]), (tables[1], [True, True]),
+             (tables[1], [True, False]), (tables[1], [False, True])]):
+        active = torch.tensor(active)
+        for name, fn, rest in (
+                ("spec", eng._spec.fn, (ptab, active, temps, seeds, pd, 0)),
+                ("step", eng._decode.fn, (ptab, active, temps, seeds, 0))):
+            if name not in entries:
+                entries[name] = _Replay(fn, (params, _clone(eager)) + rest)
+            ref = fn(params, eager, *rest)
+            out = entries[name](params, graph, *rest)
+            _assert_equal(out, ref, f"{name} round {k}")
 
 
 def test_transformer_adamw_step_replays_like_eager():
