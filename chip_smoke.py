@@ -196,11 +196,35 @@ Phases, each fatal on failure:
    (6) cli generate in subprocesses: --train-steps 50 --save-params, then
    --params --temperature 0 twice, identical.  No hand kernel launches in
    parts 1-5; the CLI's training launches are printed and counted.
+15. the GPT-2 small serving fleet (bf16, seeded weights, a second seeded
+   tree as the new checkpoint): (1) the reference's tier2.autoscale
+   drill (bench.py:2233-2290) at full width: 4-slot replicas of one
+   32-token bucket, 16-token prompts, 16 tokens out, one submit every 5
+   ms, half sampled at 0.8, at least 1,000 requests and five spawn
+   times, through a static one-replica Router and an AutoscalingRouter
+   of 1-3 replicas (depth bound 5): the autoscaler sheds fewer, every
+   shed a typed OverloadedError, every accepted request token-identical
+   to one undisturbed engine (they were served while spawns captured),
+   captures exactly W a factory replica; sheds, TTFT, each spawn's
+   factory and capture ms and the submits held behind the emergency
+   spawn printed; then shrunk to one replica and a replica replaced, each
+   time memory_allocated back within 64 MiB; (2) swap_weights of two
+   paged replicas under a greedy client, bf16 and int8: nothing fails,
+   one swap booked, 0 captures, 4 greedy requests equal a fresh engine's
+   on the new tree; a one-replica fleet swaps through a temporary replica
+   at W captures, its memory given back; (3) the chaos gate
+   (serving/chaos_gate.py) at full width; (4) the brownout ladder on a
+   paged replica with the distilgpt2-shaped draft and a prefix store:
+   levels 0 -> 1 -> 2, no speculative round and no harvest past their
+   rung, a typed shed, walked back by idle ticks, 0 captures, every page
+   back; (5) eight clients racing close(): each submit completes or
+   raises RouterClosed.  No hand kernel launches in phase 15.
 
-Phases 4-10 and 14 run through the compile engine as a user's calls do: every
-serving dispatch, training step, decode and prefill dispatch and
-embedding chunk is a CUDA graph replay after its signature's capture,
-and the kernel wrappers' launch counts are booked once per replay.
+Phases 4-10, 14 and 15 run through the compile engine as a user's calls
+do: every serving dispatch, training step, decode and prefill dispatch
+and embedding chunk is a CUDA graph replay after its signature's
+capture, and the kernel wrappers' launch counts are booked once per
+replay.
 
 Phase 3 also holds the backward kernels B2 (dK/dV) and B3 (dQ) against
 their plain twins on the same 17 cases (bf16 within 3e-2 of the case's
@@ -4836,6 +4860,584 @@ def serving_scale_phase(torch, fa, fw, fg, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the GPT-2 small serving fleet
+# ---------------------------------------------------------------------------
+
+#: part 1's replica (tier2.autoscale at full width, bench.py:2233-2290):
+#: 4 slots, one bucket of 32, 16-token prompts, 16 tokens out, one
+#: submit every 5 ms; the load lasts at least FLEET_SPAWNS spawn times
+#: and FLEET_MIN_REQS requests (5 s: a spawn under load takes up to
+#: ~0.5 s, and the submits it holds back arrive at once after it)
+FLEET_SLOTS, FLEET_BUCKETS, FLEET_PROMPT, FLEET_TOKENS = 4, (32,), 16, 16
+FLEET_GAP_S, FLEET_SPAWNS, FLEET_MIN_REQS, FLEET_DEPTH = 0.005, 5, 1000, 5
+#: requests a replica in part 1's saturated throughput
+SATURATED = 128
+#: a retired replica's memory must come back within this of the
+#: one-replica level (memory_allocated after gc.collect())
+FLEET_MEM_SLACK = 64 * 2 ** 20
+#: part 4: a prompt of more than one 32-token page, so its first chunk
+#: is harvested, in one bucket of 64
+BROWNOUT_PROMPT, BROWNOUT_BUCKETS = 40, (64,)
+#: part 5: client threads submitting while close() runs
+RACE_THREADS = 8
+
+
+def fleet_factory(torch, cfg, params, stats, label, **kw):
+    """A zero-argument replica factory: DecodeEngine(n_slots=FLEET_SLOTS,
+    buckets=FLEET_BUCKETS, label=...) + warmup() + ContinuousBatcher.
+    Each build appends {"factory_ms", "warmup_ms", "compiles", "thread"}
+    to ``stats`` (numbers only: no reference to the replica)."""
+    from deeplearning4j_tpu_torch.serving.decode import (ContinuousBatcher,
+                                                         DecodeEngine)
+
+    kw.setdefault("buckets", FLEET_BUCKETS)
+
+    def factory():
+        t0 = time.perf_counter()
+        eng = DecodeEngine(cfg, params, n_slots=FLEET_SLOTS, label=label,
+                           device=SERVE_DEVICE, **kw)
+        w = eng.warmup()
+        b = ContinuousBatcher(eng, default_max_tokens=FLEET_TOKENS)
+        stats.append({"factory_ms": (time.perf_counter() - t0) * 1e3,
+                      "warmup_ms": w["warmup_ms"], "compiles": w["compiles"],
+                      "thread": threading.current_thread().name})
+        return b
+    return factory
+
+
+def fleet_memory(torch) -> int:
+    """Device bytes allocated once garbage is collected (0 on the CPU)."""
+    import gc
+
+    gc.collect()
+    if SERVE_DEVICE != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def wait_drains(router, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while any(t.is_alive() for t in list(router._drains)):
+        check(time.monotonic() < deadline, "a retired replica's drain hung")
+        time.sleep(0.01)
+
+
+def check_memory(torch, base: int, what: str, say) -> None:
+    now = fleet_memory(torch)
+    say(f"{what}: memory_allocated {now / 2 ** 20:.1f} MiB against "
+        f"{base / 2 ** 20:.1f} MiB with one replica ({(now - base) / 2 ** 20:+.1f}"
+        f" MiB)")
+    check(abs(now - base) <= FLEET_MEM_SLACK,
+          f"{what}: {(now - base) / 2 ** 20:.1f} MiB not given back")
+
+
+def fleet_requests(cfg, n: int):
+    """n requests of FLEET_PROMPT tokens, half greedy, half sampled at
+    BURST_TEMP with their own seeds."""
+    rng = np.random.default_rng(15)
+    return [(rng.integers(0, cfg.vocab_size, FLEET_PROMPT).astype(np.int32),
+             0.0 if i % 2 == 0 else BURST_TEMP, 5000 + i) for i in range(n)]
+
+
+def offer_load(router, reqs):
+    """Submit ``reqs`` one every FLEET_GAP_S from one client thread.
+    Returns (handles by index, shed indices, submit ms by index,
+    other errors)."""
+    from deeplearning4j_tpu_torch.serving.router import OverloadedError
+
+    handles, shed, submit_ms, errors = {}, [], [], []
+    t0 = time.perf_counter()
+    for i, (p, t, s) in enumerate(reqs):
+        wait = t0 + i * FLEET_GAP_S - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        a = time.perf_counter()
+        try:
+            handles[i] = router.submit(p, max_tokens=FLEET_TOKENS,
+                                       temperature=t, seed=s)
+        except OverloadedError:
+            shed.append(i)
+        except Exception as e:          # noqa: BLE001 -- held by the caller
+            errors.append(e)
+        submit_ms.append((time.perf_counter() - a) * 1e3)
+    return handles, shed, submit_ms, errors
+
+
+def saturated(torch, factory, reqs, say) -> None:
+    """Requests/s of 1 and 3 factory replicas on the card, each queue
+    filled at once (SATURATED requests a replica), each engine on its
+    own stream; then 3 with their engines on the default stream, and 3
+    whose signatures go through torch's pytree instead of the compile
+    engine's own walk."""
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    rates = {}
+    walk = compile_cache._walk
+    for name, n, own, fast in (
+            ("1 replica", 1, True, True), ("3 replicas", 3, True, True),
+            ("3 on the default stream", 3, False, True),
+            ("3 with pytree signatures", 3, True, False)):
+        bs = [factory() for _ in range(n)]
+        if not own:
+            for b in bs:
+                b.engine._stream = None
+        if not fast:
+            compile_cache._walk = lambda a, struct, leaves: False
+        m = SATURATED * n
+        t0 = time.perf_counter()
+        try:
+            hs = [bs[i % n].submit(p, max_tokens=FLEET_TOKENS,
+                                   temperature=t, seed=s)
+                  for i, (p, t, s) in enumerate(reqs[:m])]
+            for h in hs:
+                h.result(600)
+        finally:
+            compile_cache._walk = walk
+        rates[name] = m / (time.perf_counter() - t0)
+        for b in bs:
+            b.close()
+        del bs, hs
+    say("(1) saturated, each replica's queue filled at once: "
+        + ", ".join(f"{k} {v:.1f} requests/s" for k, v in rates.items()))
+
+
+def autoscale_part(torch, cfg, params, say):
+    """Part 1: the same load through a static one-replica Router and an
+    AutoscalingRouter; sheds, TTFT, spawns; every accepted request's
+    tokens against one undisturbed engine; W captures a spawn; then the
+    fleet shrinks to one and a replica is replaced, each giving its
+    memory back."""
+    from deeplearning4j_tpu_torch.runtime.metrics import (compile_metrics,
+                                                          decode_metrics)
+    from deeplearning4j_tpu_torch.serving.router import (AutoscalePolicy,
+                                                         AutoscalingRouter,
+                                                         Router)
+
+    stats = []
+    factory = fleet_factory(torch, cfg, params, stats, "fleet")
+    ref = factory()                     # the undisturbed engine
+    W = stats[0]["compiles"]
+    spawn_s = stats[0]["factory_ms"] / 1e3
+    n = max(FLEET_MIN_REQS, int(np.ceil(FLEET_SPAWNS * spawn_s / FLEET_GAP_S)))
+    reqs = fleet_requests(cfg, n)
+    say(f"(1) one factory call: {stats[0]['factory_ms']:.1f} ms, its warm-up "
+        f"{stats[0]['warmup_ms']:.1f} ms for W = {W} captures; load: {n} "
+        f"requests, one every {FLEET_GAP_S * 1e3:.0f} ms "
+        f"({n * FLEET_GAP_S:.2f} s, {n * FLEET_GAP_S / spawn_s:.1f} spawn "
+        f"times)")
+    check(W == 2 * len(FLEET_BUCKETS), f"W = {W}, not prefill + step")
+    saturated(torch, factory, reqs, say)
+    results = {}
+    for name in ("static", "autoscaling"):
+        decode_metrics.reset()
+        fleet_memory(torch)
+        c0, n0 = compile_metrics.compile_count, len(stats)
+        if name == "static":
+            router = Router([factory()], max_queue_depth=FLEET_DEPTH)
+        else:
+            router = AutoscalingRouter(factory, AutoscalePolicy(
+                1, 3, high_depth=3.0, low_depth=1.0, up_after=2,
+                down_after=10 ** 6, cooldown_s=0.2, interval_s=0.02),
+                max_queue_depth=FLEET_DEPTH)
+            m_one = fleet_memory(torch)
+        t0 = time.perf_counter()
+        handles, shed, submit_ms, errors = offer_load(router, reqs)
+        outs = {i: h.result(600) for i, h in handles.items()}
+        wall = time.perf_counter() - t0
+        snap = decode_metrics.snapshot()
+        check(not errors, f"{name}: submits failed: {errors[:2]}")
+        check(all(o.shape == (FLEET_TOKENS,) for o in outs.values()),
+              f"{name}: an accepted request did not complete")
+        results[name] = (outs, shed)
+        spawned = stats[n0:]
+        line = (f"(1) {name}: {len(shed)} of {n} shed (typed "
+                f"OverloadedError), {len(outs)} completed in {wall:.2f} s "
+                f"({len(outs) * FLEET_TOKENS / wall:.1f} tokens/s); TTFT p50 "
+                f"{snap['ttft_p50_ms']:.2f} ms, p99 {snap['ttft_p99_ms']:.2f} "
+                f"ms; submit ms p50 {np.median(submit_ms):.3f}, max "
+                f"{max(submit_ms):.1f}")
+        if name == "autoscaling":
+            line += (f"; replicas added {snap['replicas_added']}, "
+                     f"shed_by_policy {snap['shed_by_policy']}")
+            check(snap["shed_by_policy"] == len(shed),
+                  "a shed was not booked by policy")
+            delta = compile_metrics.compile_count - c0
+            check(all(s["compiles"] == W for s in spawned)
+                  and delta == W * len(spawned),
+                  f"{delta} captures over {len(spawned)} factory replicas "
+                  f"({[s['compiles'] for s in spawned]}): not W = {W} each")
+            # a policy spawn that lands at the ceiling the emergency
+            # path reached meanwhile is built, then closed
+            discarded = len(spawned) - 1 - snap["replicas_added"]
+            check(discarded >= 0, "more replicas added than built")
+            check(snap["compile_delta_since_mark"] == 0,
+                  "a capture after the last spawn's warm-up")
+            for s in spawned[1:]:
+                kind = ("policy" if s["thread"] == "dl4j-replica-spawn"
+                        else "emergency, on the submitting thread")
+                say(f"(1) spawn ({kind}): factory {s['factory_ms']:.1f} ms, "
+                    f"warm-up (W = {s['compiles']} captures) "
+                    f"{s['warmup_ms']:.1f} ms")
+            slow = sorted(submit_ms)[-3:]
+            line += (f"; {delta} captures = W x {len(spawned)} factory "
+                     f"replicas (the first, {snap['replicas_added']} added, "
+                     f"{discarded} landed at the ceiling and closed); the "
+                     f"slowest submits (the emergency spawn "
+                     f"holds the lock): {', '.join(f'{x:.1f}' for x in slow)}"
+                     f" ms, {sum(x > 5 for x in submit_ms)} over 5 ms")
+        say(line)
+        if name == "static":
+            router.close()
+            del router
+            continue
+        # every accepted request on the undisturbed engine
+        hs = {i: ref.submit(reqs[i][0], max_tokens=FLEET_TOKENS,
+                            temperature=reqs[i][1], seed=reqs[i][2])
+              for i in outs}
+        diff = [i for i, h in hs.items()
+                if not np.array_equal(h.result(600), outs[i])]
+        check(not diff, f"autoscaling: requests {diff[:8]} differ from the "
+                        f"undisturbed engine's tokens")
+        say(f"(1) all {len(outs)} accepted requests (greedy and sampled, "
+            f"served while spawns captured) token-identical to one "
+            f"undisturbed engine")
+        # grown to the ceiling (by the load, else by hand), then shrunk
+        # back to one replica
+        grown = router.n_replicas()
+        while router.n_replicas() < 3:
+            with router._lock:
+                router._scale_up("drill")
+        say(f"(1) the load grew the fleet to {grown} replicas")
+        router.policy.down_after, router.policy.cooldown_s = 1, 0.0
+        deadline = time.monotonic() + 60
+        while router.n_replicas() > 1:
+            check(time.monotonic() < deadline, "the fleet did not shrink")
+            router.tick()
+            time.sleep(0.03)
+        wait_drains(router)
+        check_memory(torch, m_one, "(1) grown to 3, shrunk to 1", say)
+        c1 = compile_metrics.compile_count
+        check(router.replace_replica(router.batchers[0], reason="drill"),
+              "replace_replica refused")
+        wait_drains(router)
+        check(compile_metrics.compile_count - c1 == W,
+              "a replacement did not cost exactly W captures")
+        check_memory(torch, m_one, "(1) after replace_replica", say)
+        router.close()
+        del router
+    check(len(results["autoscaling"][1]) < len(results["static"][1]),
+          f"the autoscaler shed {len(results['autoscaling'][1])}, the "
+          f"static router {len(results['static'][1])}")
+    ref.close()
+
+
+def swap_drill(torch, cfg, params, params_2, say, quantize=None):
+    """Part 2 on one weight format: a two-replica paged fleet swaps to
+    params_2 under a greedy client loop; no request fails, one swap is
+    booked, 0 captures; 4 greedy requests equal a fresh engine's on
+    params_2."""
+    from deeplearning4j_tpu_torch.runtime import quantize as qz
+    from deeplearning4j_tpu_torch.runtime.metrics import (compile_metrics,
+                                                          decode_metrics)
+    from deeplearning4j_tpu_torch.serving.router import (AutoscalePolicy,
+                                                         AutoscalingRouter)
+
+    what = quantize or "bf16"
+    stats = []
+    factory = fleet_factory(torch, cfg, params, stats, f"fleet-swap-{what}",
+                            paged=True, quantize=quantize)
+    router = AutoscalingRouter(factory, AutoscalePolicy(2, 2))
+    nbytes = qz.tree_bytes(router.batchers[0].engine.current_params())
+    decode_metrics.reset()
+    c0 = compile_metrics.compile_count
+    reqs = fleet_requests(cfg, 64)
+    stop = threading.Event()
+    served, errors = [], []
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            p = reqs[i % len(reqs)][0]
+            i += 1
+            try:
+                served.append(router.generate(p, timeout=600,
+                                              max_tokens=FLEET_TOKENS))
+            except Exception as e:      # noqa: BLE001 -- held below
+                errors.append(e)
+
+    t = threading.Thread(target=client)
+    t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while len(served) < 4 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t0 = time.perf_counter()
+        swapped = router.swap_weights(params_2)
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        n = len(served)
+        while len(served) < n + 4 and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        stop.set()
+        t.join(600)
+    check(not t.is_alive(), "the swap's client hung")
+    snap = decode_metrics.snapshot()
+    check(not errors, f"{what} swap: requests failed: {errors[:2]}")
+    check(swapped == 2 and snap["swaps_completed"] == 1,
+          f"{what} swap: {swapped} swapped, {snap['swaps_completed']} booked")
+    check(compile_metrics.compile_count == c0, f"{what} swap captured")
+    prompts = [r[0] for r in reqs[:4]]
+    got = [router.generate(p, timeout=600, max_tokens=FLEET_TOKENS)
+           for p in prompts]
+    router.close()
+    del router
+    fresh = fleet_factory(torch, cfg, params_2, [], f"fleet-fresh-{what}",
+                          paged=True, quantize=quantize)()
+    expect = [fresh.generate(p, timeout=600, max_tokens=FLEET_TOKENS)
+              for p in prompts]
+    fresh.close()
+    diff = [i for i, (a, b) in enumerate(zip(got, expect))
+            if not np.array_equal(a, b)]
+    check(not diff, f"{what} swap: requests {diff} differ from a fresh "
+                    f"engine on the new tree")
+    say(f"(2) {what}: swap_weights of 2 paged replicas under a greedy "
+        f"client: {swap_ms:.1f} ms wall, {len(served)} requests served, 0 "
+        f"failed, requests_during_swap {snap['requests_during_swap']}, 0 "
+        f"captures; served weights {nbytes} B a replica; 4 greedy "
+        f"requests token-identical to a fresh engine on the new tree")
+    return stats[0]["compiles"]
+
+
+def swap_part(torch, cfg, params, params_2, say):
+    """Part 2: the swap under traffic (bf16, then int8), and a
+    one-replica fleet's swap through a temporary replica."""
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+    from deeplearning4j_tpu_torch.serving.router import (AutoscalePolicy,
+                                                         AutoscalingRouter)
+
+    W = swap_drill(torch, cfg, params, params_2, say)
+    stats = []
+    router = AutoscalingRouter(
+        fleet_factory(torch, cfg, params, stats, "fleet-swap-one",
+                      paged=True), AutoscalePolicy(1, 2))
+    m_one = fleet_memory(torch)
+    c0 = compile_metrics.compile_count
+    t0 = time.perf_counter()
+    n = router.swap_weights(params_2)
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    check(n == 2 and router.n_replicas() == 1,
+          f"one-replica swap: {n} swapped, {router.n_replicas()} left")
+    check(compile_metrics.compile_count - c0 == W,
+          "the temporary replica did not cost exactly W captures")
+    wait_drains(router)
+    say(f"(2) one-replica fleet: swap_weights returned 2 in {swap_ms:.1f} "
+        f"ms (the temporary replica's factory "
+        f"{stats[1]['factory_ms']:.1f} ms), W = {W} captures, 1 replica "
+        f"left")
+    check_memory(torch, m_one, "(2) the temporary replica retired", say)
+    router.close()
+    del router
+    swap_drill(torch, cfg, params, params_2, say, quantize="int8")
+
+
+def chaos_part(torch, cfg, params, say) -> None:
+    """Part 3: serving/chaos_gate's drill at GPT-2 small's width."""
+    from deeplearning4j_tpu_torch.serving import chaos_gate
+
+    t0 = time.perf_counter()
+    rc = chaos_gate.main(SERVE_DEVICE, cfg=cfg, params=params,
+                         say=lambda m: say(f"(3) {m}"))
+    check(rc == 0, "the chaos drill failed")
+    say(f"(3) the drill took {time.perf_counter() - t0:.1f} s")
+
+
+def brownout_part(torch, gpt, cfg, params, say) -> None:
+    """Part 4: one paged replica with the distilgpt2-shaped draft and a
+    shared PrefixCache at max_replicas=1: with its pages held, submits
+    climb the ladder (speculation off, harvesting off), then shed;
+    released, idle ticks walk it back.  Every admitted request
+    completes; its agreement with a plain engine is printed."""
+    from deeplearning4j_tpu_torch.parallel.chaos import ServingChaos
+    from deeplearning4j_tpu_torch.runtime.metrics import (compile_metrics,
+                                                          decode_metrics)
+    from deeplearning4j_tpu_torch.serving.decode import PrefixCache
+    from deeplearning4j_tpu_torch.serving.router import (AutoscalePolicy,
+                                                         AutoscalingRouter,
+                                                         OverloadedError)
+
+    dcfg = draft_config(gpt)
+    draft = (dcfg, seeded_params(torch, gpt, dcfg, 2))
+    store = PrefixCache()
+    stats = []
+    factory = fleet_factory(torch, cfg, params, stats, "fleet-brownout",
+                            buckets=BROWNOUT_BUCKETS, paged=True,
+                            draft=draft, prefix_cache=store)
+    router = AutoscalingRouter(factory, AutoscalePolicy(1, 1),
+                               max_queue_depth=1)
+    b = router.batchers[0]
+    eng = b.engine
+    rounds, harvests = [], []
+    spec, harvest = eng.advance_spec, eng._harvest
+
+    def counted_spec(bucket):
+        rounds.append(router.brownout_level())
+        return spec(bucket)
+
+    def counted_harvest(*a, **kw):
+        harvests.append(router.brownout_level())
+        return harvest(*a, **kw)
+
+    eng.advance_spec, eng._harvest = counted_spec, counted_harvest
+    rng = np.random.default_rng(18)
+    prompt = rng.integers(0, cfg.vocab_size, BROWNOUT_PROMPT).astype(np.int32)
+    decode_metrics.reset()
+    c0 = compile_metrics.compile_count
+    chaos = ServingChaos(b)
+    try:
+        first = router.generate(prompt, timeout=600, max_tokens=FLEET_TOKENS)
+        check(rounds and set(rounds) == {0},
+              "no speculative round at level 0")
+        chaos.exhaust_pages()
+        handles = [router.submit(prompt, max_tokens=FLEET_TOKENS)]
+        levels = [router.brownout_level()]
+        for _ in range(2):
+            handles.append(router.submit(prompt, max_tokens=FLEET_TOKENS))
+            levels.append(router.brownout_level())
+        check(levels == [0, 1, 2], f"brownout levels {levels}")
+        check(not eng.spec_enabled and not eng.harvest_enabled,
+              "level 2 left speculation or harvesting on")
+        try:
+            router.submit(prompt, max_tokens=FLEET_TOKENS)
+            check(False, "level 2 did not shed")
+        except OverloadedError:
+            pass
+        n_rounds, n_harvests = len(rounds), len(harvests)
+        chaos.release_pages()
+        outs = [h.result(600) for h in handles]
+        check(len(rounds) == n_rounds, "a speculative round ran at level >= 1")
+        check(len(harvests) == n_harvests, "a harvest was queued at level 2")
+        deadline = time.monotonic() + 30
+        while router.brownout_level():
+            check(time.monotonic() < deadline, "the ladder did not walk back")
+            router.tick()
+            time.sleep(0.03)
+        check(eng.spec_enabled and eng.harvest_enabled, "knobs not restored")
+        snap = decode_metrics.snapshot()
+        check(snap["brownout_transitions"] == 4 and
+              snap["shed_by_policy"] == 1,
+              f"booked {snap['brownout_transitions']} transitions, "
+              f"{snap['shed_by_policy']} sheds")
+        again = router.generate(prompt, timeout=600, max_tokens=FLEET_TOKENS)
+        check(len(rounds) > n_rounds, "speculation did not come back")
+    finally:
+        chaos.restore()
+        router.close()
+    check(compile_metrics.compile_count == c0,
+          "a brownout transition captured")
+    eng.flush_harvests()
+    eng.drop_residents()
+    check(eng._alloc.in_use() == 0 and eng.pages_unaccounted() == 0,
+          "brownout: pages held after the drain")
+    plain = fleet_factory(torch, cfg, params, [], "fleet-plain",
+                          buckets=BROWNOUT_BUCKETS, paged=True)()
+    expect = plain.generate(prompt, timeout=600, max_tokens=FLEET_TOKENS)
+    plain.close()
+    agree = [float(np.mean(o == expect)) for o in [first, *outs, again]]
+    say(f"(4) brownout: levels 0 -> 1 -> 2 on three submits at depth 1, "
+        f"the fourth shed (shed_by_policy 1), {n_rounds} speculative rounds "
+        f"before level 1 and none after, harvests {n_harvests} before level "
+        f"2 and none after; released, idle ticks walked 2 -> 1 -> 0 (4 "
+        f"transitions booked), speculation back; 0 captures; every page "
+        f"back.  Agreement with a plain bf16 engine, token by token: "
+        f"{', '.join(f'{a:.3f}' for a in agree)} (level 0, the three "
+        f"admitted under pressure, level 0 again; held equal only in "
+        f"fp32, on the CPU)")
+
+
+def race_part(torch, cfg, params, say) -> None:
+    """Part 5: RACE_THREADS clients submit while close() runs: each
+    submit completes or raises RouterClosed; every join is timed."""
+    from deeplearning4j_tpu_torch.serving.router import (AutoscalePolicy,
+                                                         AutoscalingRouter,
+                                                         RouterClosed)
+
+    router = AutoscalingRouter(
+        fleet_factory(torch, cfg, params, [], "fleet-race"),
+        AutoscalePolicy(1, 1), max_queue_depth=10 ** 6)
+    prompt = fleet_requests(cfg, 1)[0][0]
+    accepted, outcome = [], {}
+    lock = threading.Lock()
+
+    def hammer(k):
+        try:
+            for _ in range(10 ** 4):
+                h = router.submit(prompt, max_tokens=4)
+                with lock:
+                    accepted.append(h)
+                time.sleep(0.01)
+            outcome[k] = "exhausted"
+        except RouterClosed:
+            outcome[k] = "typed"
+        except BaseException as e:      # noqa: BLE001 -- held below
+            outcome[k] = repr(e)
+
+    threads = [threading.Thread(target=hammer, args=(k,))
+               for k in range(RACE_THREADS)]
+    for t in threads:
+        t.start()
+    time.sleep(0.1)
+    t0 = time.perf_counter()
+    router.close(timeout=120)
+    close_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(120)
+    check(not any(t.is_alive() for t in threads), "a racing submit hung")
+    check(set(outcome.values()) == {"typed"}, f"racing submits: {outcome}")
+    outs = [h.result(120) for h in accepted]
+    check(all(np.array_equal(o, outs[0]) for o in outs),
+          "an accepted greedy request differs")
+    say(f"(5) {RACE_THREADS} client threads racing close(): {len(outs)} "
+        f"accepted and completed, every thread then got RouterClosed; "
+        f"close() drained in {close_s:.2f} s")
+
+
+def fleet_phase(torch, fa, fw, fg, card: str) -> None:
+    """Phase 15 (see the module docstring)."""
+    from deeplearning4j_tpu_torch.models import gpt
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    cfg = gen_config(gpt)
+    params = seeded_params(torch, gpt, cfg, 0)
+    params_2 = seeded_params(torch, gpt, cfg, 1)
+    if SERVE_DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for mod in (fa, fw, fg):
+        mod.reset_launches()
+    wall = []
+    t0 = time.perf_counter()
+    for part in (lambda: autoscale_part(torch, cfg, params, say),
+                 lambda: swap_part(torch, cfg, params, params_2, say),
+                 lambda: chaos_part(torch, cfg, params, say),
+                 lambda: brownout_part(torch, gpt, cfg, params, say),
+                 lambda: race_part(torch, cfg, params, say)):
+        part()
+        wall.append(time.perf_counter() - t0 - sum(wall))
+    hand = {**fa.launch_counts(), "w2v": fw.launches, "glove": fg.launches}
+    say(f"hand-kernel launches during parts 1-5: {hand} (no TPU kernel lies "
+        f"on the decode paths)")
+    check(not any(hand.values()), f"a hand kernel ran in phase 15: {hand}")
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 20
+            if SERVE_DEVICE == "cuda" else 0.0)
+    say(f"phase 15 wall: autoscaling {wall[0]:.1f} s, swaps {wall[1]:.1f} s, "
+        f"chaos drill {wall[2]:.1f} s, brownout {wall[3]:.1f} s, close race "
+        f"{wall[4]:.1f} s ({sum(wall):.1f} s in all); peak memory "
+        f"{peak:.1f} MB")
+
+
 def main() -> int:
     import torch
 
@@ -4971,6 +5573,9 @@ def main() -> int:
           "store, speculative decoding, rebind, the router, cli generate")
     for name, n in serving_scale_phase(torch, fa, fw, fg, card).items():
         launches[name] += n
+    print("phase 15: the GPT-2 small serving fleet: autoscaling, the hot "
+          "weight swap, the chaos drill, the brownout ladder, close")
+    fleet_phase(torch, fa, fw, fg, card)
 
     kernels = [{
         "name": "flash_attention_fwd",

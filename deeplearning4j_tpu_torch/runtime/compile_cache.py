@@ -20,31 +20,34 @@ kernel launches behind Python.  Both services report into
 - :func:`get_or_build` shares any engine bundle by key (LRU bounded by
   :data:`MAX_ENTRIES`).
 
-**Signatures.**  The arguments are flattened with ``torch.utils.
-_pytree`` (tuples, lists, dicts, named tuples).  A signature is the tree
-structure, the shape, stride, dtype and device of every tensor, the
-device of every ``torch.Generator``, and the value of every other leaf
-(a conf, a bucket, a flag).  So a value that changes from call to call
-must reach ``fn`` as a tensor: a learning rate that decays, an
-iteration, a position, a slot, a seed, a chunk offset.  ``fn`` never
-reads a tensor's value on the host: no ``.item()``, ``.tolist()``,
+**Signatures.**  The arguments are flattened as ``torch.utils._pytree``
+flattens them (tuples, lists, dicts and named tuples by a walk of the
+engine's own, read on every call; any other container by the pytree).  A
+signature is the tree structure, the shape, stride, dtype and device of
+every tensor, the device of every ``torch.Generator``, and the value of
+every other leaf (a conf, a bucket, a flag).  So a value that changes
+from call to call must reach ``fn`` as a tensor: a learning rate that
+decays, an iteration, a position, a slot, a seed, a chunk offset.  ``fn``
+never reads a tensor's value on the host: no ``.item()``, ``.tolist()``,
 ``.cpu()``, no Python branch on a tensor's value (a graph replays the
 branch taken at capture).
 
 **On the card**, a new signature is (1) run ``WARMUP_RUNS`` times on a
-side stream, on clones of the donated buffers and with every generator
-state saved and restored, so warm-up advances neither the training state
-nor a random stream; (2) captured with ``capture_error_mode=
-"thread_local"`` (a batcher's worker and the caller's thread both use
-the card), into one memory pool per entry that all its signatures share
-(an entry replays one graph at a time, under its lock); (3) kept with its
-static input and output buffers, and replayed for this call.  A later
-call copies its tensors into the static inputs, skipping those that
-already hold them, replays, and hands back the outputs.  A capture that
-fails raises, naming the label and the signature: nothing runs eagerly
-on the card in its place.  ``share=`` makes entries one entry for all of
-this (one lock, pool and set of buffers): a decode engine's prefill and
-step update the same KV cache.
+side stream (the caller's own stream when it runs on one, as a decode
+engine does, else a pool stream), on clones of the donated buffers and
+with every generator state saved and restored, so warm-up advances
+neither the training state nor a random stream; (2) captured on that
+stream with ``capture_error_mode="thread_local"`` (other threads replay
+their graphs meanwhile), one capture at a time in the process, into one
+memory pool per entry that all its signatures share (an entry replays
+one graph at a time, under its lock), cuBLAS's workspace included; (3)
+kept with its static input and output buffers, and replayed for this
+call.  A later call copies its tensors into the static inputs, skipping
+those that already hold them, replays, and hands back the outputs.  A
+capture that fails raises, naming the label and the signature: nothing
+runs eagerly on the card in its place.  ``share=`` makes entries one
+entry for all of this (one lock, pool and set of buffers): a decode
+engine's prefill and step update the same KV cache.
 
 **On the CPU** (the tests) ``fn`` runs directly; the first call of each
 signature counts as its compile, as JAX traces on the CPU.
@@ -117,6 +120,7 @@ MAX_SIGNATURES = 64
 WARMUP_RUNS = 2
 
 _LOCK = threading.RLock()
+_CAPTURE_LOCK = threading.Lock()
 _ENGINES: "OrderedDict[Hashable, Any]" = OrderedDict()
 
 _COUNTERS: List[Tuple[Callable[[], Dict[str, int]],
@@ -169,11 +173,16 @@ def _record(fn: Callable, args, kwargs, warm_args: Callable, gens,
             device: torch.device, pool):
     """Warm ``fn`` up on a side stream (``warm_args()`` gives each run
     its arguments), then capture ``fn(*args, **kwargs)``: ``(graph,
-    out)``.  ``gens`` are the static generators the graph draws from."""
+    out)``.  ``gens`` are the static generators the graph draws from.
+
+    The side stream is the caller's own when it runs on one (a decode
+    engine's), so the graph is captured on the stream it replays on;
+    on the default stream (which cannot capture) it is a pool stream."""
     saved = [g.get_state() for g in gens]
     default_state = torch.cuda.get_rng_state(device)
     cur = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
+    side = (cur if cur != torch.cuda.default_stream(device)
+            else torch.cuda.Stream(device))
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         for _ in range(WARMUP_RUNS):
@@ -186,18 +195,29 @@ def _record(fn: Callable, args, kwargs, warm_args: Callable, gens,
     graph = torch.cuda.CUDAGraph()
     for g in gens:
         graph.register_generator_state(g)
-    # no garbage collection inside the capture: collecting a dead
-    # entry's graph there destroys it (cudaGraphExecDestroy, cudaFree),
-    # which invalidates the capture
-    gc_on = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, pool=pool, stream=side,
-                              capture_error_mode="thread_local"):
-            out = fn(*args, **kwargs)
-    finally:
-        if gc_on:
-            gc.enable()
+    with _CAPTURE_LOCK:
+        # no garbage collection inside the capture: collecting a dead
+        # entry's graph there destroys it (cudaGraphExecDestroy,
+        # cudaFree), which invalidates the capture.  The switch is
+        # process-wide, hence one capture at a time.
+        gc_on = gc.isenabled()
+        gc.disable()
+        # cuBLAS keeps a workspace a (handle, stream), and a graph keeps
+        # the address its capture used.  Cleared before, the capture
+        # allocates the workspace its products need inside this entry's
+        # pool, so no other graph or eager product shares it and it goes
+        # when the entry goes; cleared after, the process-wide map keeps
+        # no reference into the pool (the discipline of PyTorch's own
+        # CUDA-graph trees)
+        torch._C._cuda_clearCublasWorkspaces()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = fn(*args, **kwargs)
+        finally:
+            torch._C._cuda_clearCublasWorkspaces()
+            if gc_on:
+                gc.enable()
     return graph, out
 
 
@@ -289,14 +309,48 @@ class _Graph:
         self.launched = launched
 
 
+#: leaf types the signature's own walk knows torch's pytree leaves alone
+#: (None among them where this torch's pytree makes it a leaf)
+_LEAVES = (torch.Tensor, torch.Generator, int, float, bool, str, bytes,
+           torch.dtype, torch.device) + (
+    (type(None),) if pytree.tree_flatten(None)[0] == [None] else ())
+
+
+def _walk(a, struct: list, leaves: list) -> bool:
+    """Flatten ``a`` as torch's pytree does (dict values in insertion
+    order, lists, tuples, named tuples), appending a node description to
+    ``struct`` and each leaf to ``leaves``.  False for any other type
+    (another container, an object the pytree may know): the caller then
+    asks the pytree.  A step's signature is read on every call, and this
+    walk costs a fraction of ``tree_flatten`` and of hashing its
+    ``TreeSpec``."""
+    t = type(a)
+    if t is dict:
+        struct.append(("d", tuple(a)))
+        return all(_walk(v, struct, leaves) for v in a.values())
+    if t is list or t is tuple:
+        struct.append((t, len(a)))
+        return all(_walk(v, struct, leaves) for v in a)
+    if isinstance(a, _LEAVES):
+        struct.append(0)
+        leaves.append(a)
+        return True
+    if pytree.is_namedtuple_instance(a):
+        struct.append((t, len(a)))
+        return all(_walk(v, struct, leaves) for v in a)
+    return False
+
+
 def _meta(leaf, donated: bool):
     if isinstance(leaf, torch.Tensor):
-        # a size-1 dim's stride addresses nothing (numpy's x[..., None]
-        # gives it 0, a stack gives it 1): one signature for both
-        stride = tuple(0 if n == 1 else st
-                       for n, st in zip(leaf.shape, leaf.stride()))
-        return ("T", tuple(leaf.shape), stride, leaf.dtype,
-                leaf.device, donated)
+        shape, stride = leaf.shape, leaf.stride()
+        if 1 in shape:
+            # a size-1 dim's stride addresses nothing (numpy's x[...,
+            # None] gives it 0, a stack gives it 1): one signature for
+            # both
+            stride = tuple(0 if n == 1 else st
+                           for n, st in zip(shape, stride))
+        return ("T", shape, stride, leaf.dtype, leaf.device, donated)
     if isinstance(leaf, torch.Generator):
         return ("G", leaf.device)
     return ("C", leaf)
@@ -325,23 +379,37 @@ class GraphFn:
 
     # -- signature ---------------------------------------------------------
     def _signature(self, args, kwargs):
+        """``(signature, leaves, metas)``: the structure of every
+        argument (its own walk, or the pytree's ``TreeSpec`` for a
+        container type the walk does not know) and each leaf's meta."""
         leaves: list = []
-        specs = []
+        structs = []
         metas = []
         for i, a in enumerate(list(args) + [kwargs]):
-            lv, spec = pytree.tree_flatten(a)
-            specs.append(spec)
+            struct: list = []
+            lv: list = []
+            if _walk(a, struct, lv):
+                structs.append(tuple(struct))
+            else:
+                lv, spec = pytree.tree_flatten(a)
+                structs.append(spec)
             leaves.extend(lv)
-            metas.extend(_meta(x, i in self.donate and i < len(args))
-                         for x in lv)
+            donated = i in self.donate and i < len(args)
+            metas.extend(_meta(x, donated) for x in lv)
         try:
-            sig = (tuple(specs), tuple(metas))
+            sig = (tuple(structs), tuple(metas))
             hash(sig)
         except TypeError as e:
             raise TypeError(
                 f"{self.label}: every non-tensor argument must be hashable "
                 f"(it is part of the signature): {e}") from None
-        return sig, specs, leaves, metas
+        return sig, leaves, metas
+
+    @staticmethod
+    def _specs(args, kwargs):
+        """The arguments' ``TreeSpec`` s, which rebuild them from leaves
+        (at a capture, and on the CPU)."""
+        return [pytree.tree_structure(a) for a in list(args) + [kwargs]]
 
     @staticmethod
     def _call_args(specs, leaves):
@@ -354,10 +422,11 @@ class GraphFn:
 
     # -- call --------------------------------------------------------------
     def __call__(self, *args, **kwargs):
-        sig, specs, leaves, metas = self._signature(args, kwargs)
+        sig, leaves, metas = self._signature(args, kwargs)
         devs = [m[4] for m in metas if m[0] == "T"]
         if not any(_graphs_on(d) for d in devs):
-            return self._call_cpu(sig, specs, leaves, metas)
+            return self._call_cpu(sig, self._specs(args, kwargs), leaves,
+                                  metas)
         sh = self._sh
         with sh.lock:
             don = [((i, m), leaf) for i, (leaf, m)
@@ -367,7 +436,8 @@ class GraphFn:
             g = self._graphs.get(gkey)
             if g is None:
                 t0 = time.perf_counter()
-                g = self._capture(sig, specs, leaves, metas, z)
+                g = self._capture(sig, self._specs(args, kwargs), leaves,
+                                  metas, z)
                 self._graphs[gkey] = g
                 while len(self._graphs) > MAX_SIGNATURES:
                     self._graphs.popitem(last=False)

@@ -294,8 +294,17 @@ class DecodeMetrics:
       + tokens emitted so far) after a failed dispatch or an evacuation,
       continuing bit for bit; ``pages_leaked`` (gauge: allocator page
       references no live slot or resident prefix accounts for after the
-      last release).  The fleet counters (swaps, replacements,
-      brownout, autoscaling) come with ROADMAP A4b;
+      last release);
+    - the fleet (``serving/router.AutoscalingRouter``):
+      ``replicas_added`` / ``replicas_removed`` (scale events, temporary
+      swap replicas and replacements included), ``shed_by_policy``
+      (sheds at the replica ceiling; ``note_shed(by_policy=True)`` books
+      ``requests_shed`` too), ``swaps_completed`` /
+      ``requests_during_swap`` (hot weight swaps finished, and requests
+      accepted while one ran), ``replicas_replaced`` (unhealthy replicas
+      the health monitor retired and respawned), ``brownout_transitions``
+      / ``brownout_level`` (moves of the brownout ladder and its level:
+      0 normal, 1 speculative decoding off, 2 prefix harvesting off too);
     - ``deadline_expirations``: requests whose ``deadline_ms`` passed
       while queued or mid-decode (the one-shot batcher books here too);
     - ``compile_mark``: as :class:`ServingMetrics`'s, for the decode
@@ -335,6 +344,14 @@ class DecodeMetrics:
             self.draft_accepted = 0
             self.requests_replayed = 0
             self.pages_leaked = 0
+            self.replicas_added = 0
+            self.replicas_removed = 0
+            self.shed_by_policy = 0
+            self.swaps_completed = 0
+            self.requests_during_swap = 0
+            self.replicas_replaced = 0
+            self.brownout_transitions = 0
+            self.brownout_level = 0
             self._ttft_ms: List[float] = []
             self._tok_ms: List[float] = []
             self._compile_mark: Optional[int] = None
@@ -356,9 +373,33 @@ class DecodeMetrics:
         with self._lock:
             self.deadline_expirations += 1
 
-    def note_shed(self) -> None:
+    def note_shed(self, by_policy: bool = False) -> None:
         with self._lock:
             self.requests_shed += 1
+            if by_policy:
+                self.shed_by_policy += 1
+
+    def note_replicas(self, added: int = 0, removed: int = 0) -> None:
+        with self._lock:
+            self.replicas_added += added
+            self.replicas_removed += removed
+
+    def note_swap(self) -> None:
+        with self._lock:
+            self.swaps_completed += 1
+
+    def note_request_during_swap(self) -> None:
+        with self._lock:
+            self.requests_during_swap += 1
+
+    def note_replica_replaced(self) -> None:
+        with self._lock:
+            self.replicas_replaced += 1
+
+    def note_brownout(self, level: int) -> None:
+        with self._lock:
+            self.brownout_transitions += 1
+            self.brownout_level = int(level)
 
     def note_prefix_hit(self, tokens_saved: int) -> None:
         with self._lock:
@@ -463,6 +504,14 @@ class DecodeMetrics:
                 "deadline_expirations": self.deadline_expirations,
                 "requests_replayed": self.requests_replayed,
                 "pages_leaked": self.pages_leaked,
+                "replicas_added": self.replicas_added,
+                "replicas_removed": self.replicas_removed,
+                "shed_by_policy": self.shed_by_policy,
+                "swaps_completed": self.swaps_completed,
+                "requests_during_swap": self.requests_during_swap,
+                "replicas_replaced": self.replicas_replaced,
+                "brownout_transitions": self.brownout_transitions,
+                "brownout_level": self.brownout_level,
                 "ttft_p50_ms": pct(ttft, 0.50),
                 "ttft_p99_ms": pct(ttft, 0.99),
                 "tok_p50_ms": pct(tok, 0.50),

@@ -21,20 +21,20 @@ Port of ``deeplearning4j_tpu/serving/decode.py``:
 Every dispatch runs through the compile engine (``runtime/
 compile_cache``, the reference's :734-779): on the card each bucket's
 decode step is one CUDA graph (``decode.step``), its prefill chunk
-another (``decode.prefill``), and with a draft model the draft's
-prefill chunk (``decode.draft_prefill``) and the speculative round
-(``decode.spec_round``) two more, captured by ``warmup()`` and replayed
-after.  A prefill's slot, start, valid length, seed and temperature
-reach its graph as device scalars, so one capture serves every slot and
-chunk.  The engine's device state is donated to every entry, which
-share their buffers (``share=``): each entry takes ``(params, state,
-...)``, so the state's leaves sit at the same places in every
-signature, and the KV cache lives in one place that every entry updates
-in place.  The params, the page tables and the activity, temperature
-and seed arrays are read-only arguments, copied in only when their
-version moves (a join, a release, a page allocation), so a steady step
-copies nothing to the device; its one sync is the token fetch, outside
-the graph, which is the stream.
+another (``decode.prefill``), and with a draft model the draft's prefill
+chunk (``decode.draft_prefill``) and the speculative round
+(``decode.spec_round``) two more (``decode`` is the engine's ``label``),
+captured by ``warmup()`` and replayed after.  A prefill's slot, start,
+valid length, seed and temperature reach its graph as device scalars, so
+one capture serves every slot and chunk.  The engine's device state is
+donated to every entry, which share their buffers (``share=``): each
+entry takes ``(params, state, ...)``, so the state's leaves sit at the
+same places in every signature, and the KV cache lives in one place that
+every entry updates in place.  The params, the page tables and the
+activity, temperature and seed arrays are read-only arguments, copied in
+only when their version moves (a join, a release, a page allocation), so
+a steady step copies nothing to the device; its one sync is the token
+fetch, outside the graph, which is the stream.
 
 Tier 2: ``quantize="int8"|"bf16"`` serves post-training quantized
 weights (``runtime/quantize.py``), quantized once per distinct params
@@ -51,19 +51,26 @@ and per-slot page tables, and mounts pool-resident prefixes by
 reference; ``draft=(cfg_d, params_d)`` decodes speculatively (``draft_k``
 proposals a round, verified in one pass, token-identical to plain
 decoding at any temperature); ``rebind_params`` swaps the weights of an
-idle engine with no new capture.  ``mesh=`` is ROADMAP A7; the fleet
-half (autoscaling, the weight swap of a live fleet, health-checked
-replacement, the brownout ladder) is ROADMAP A4b.
+idle engine with no new capture.  ``mesh=`` is ROADMAP A7.  The fleet
+over these engines (autoscaling, the weight swap of a live fleet,
+health-checked replacement, the brownout ladder) is
+``serving/router.AutoscalingRouter``.
 
 Threading: ``torch.inference_mode`` is thread-local, so the engine's
 entry points enter it themselves and the batcher's worker enters it for
-its whole loop.  Exactly one thread drives ``start``/``advance``/
-``advance_spec``/``release``; the prefix harvester runs on a thread of
-its own and touches only the copies the serving thread hands it.
+its whole loop.  On the card each engine runs on a CUDA stream of its own
+(its entries enter it, after the caller's stream): its graphs are
+captured and replayed there, so several replicas on one card overlap
+instead of queueing on the default stream.  Exactly one thread drives
+``start``/``advance``/``advance_spec``/``release``; the prefix harvester
+runs on a thread of its own and touches only the copies the serving
+thread hands it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import hashlib
 import math
 import queue
@@ -81,8 +88,7 @@ from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.runtime import compile_cache
 from deeplearning4j_tpu_torch.runtime import quantize as qz
 from deeplearning4j_tpu_torch.runtime import telemetry
-from deeplearning4j_tpu_torch.runtime.metrics import (compile_metrics,
-                                                      decode_metrics)
+from deeplearning4j_tpu_torch.runtime.metrics import decode_metrics
 from deeplearning4j_tpu_torch.serving.batcher import (BatcherClosed,
                                                       DeadlineExceeded)
 
@@ -522,6 +528,21 @@ class _Bucket:
         return int(self.active.sum())
 
 
+def _on_engine_stream(wait: bool = False):
+    """Run an engine entry on the engine's own CUDA stream: its graphs
+    are captured and replayed there, so replicas on one card run side by
+    side instead of one after another on the default stream.  ``wait``:
+    after the caller's stream's work so far, for an entry that takes
+    tensors the caller made (the params)."""
+    def deco(method):
+        @functools.wraps(method)
+        def run(self, *args, **kwargs):
+            with self._on_stream(wait):
+                return method(self, *args, **kwargs)
+        return run
+    return deco
+
+
 def _leaves(tree) -> List[torch.Tensor]:
     return [t for t in torch.utils._pytree.tree_leaves(tree)
             if isinstance(t, torch.Tensor)]
@@ -551,13 +572,15 @@ class DecodeEngine:
     (by default ``n_slots * (largest bucket // chunk) + 1`` pages, the
     pinned capacity plus the trash page); ``draft=(cfg_d, params_d)``
     with ``draft_k`` proposals a round turns on speculative decoding
-    (the draft stays in full precision).
+    (the draft stays in full precision).  ``label`` prefixes the capture
+    labels (``{label}.prefill``, ``.step``, ``.draft_prefill``,
+    ``.spec_round``).
     """
 
     def __init__(self, cfg, params: Any, *, n_slots: int = 8,
                  buckets: Optional[Sequence[int]] = None,
                  prefill_chunk: int = gpt.PREFILL_CHUNK,
-                 mesh=None,
+                 label: str = "decode", mesh=None,
                  quantize: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
                  prefix_cache: Any = None,
@@ -570,7 +593,12 @@ class DecodeEngine:
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1: {n_slots}")
         self.cfg = cfg
+        self.label = label
         self.device = resolve_device(device)
+        #: the engine's own stream on the card (None on the CPU): every
+        #: entry runs on it (``_on_engine_stream``)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.n_slots = int(n_slots)
         self.quantize = qz.check_mode(quantize)
         self.kv_dtype = gpt._kv_dtype(kv_dtype)
@@ -579,10 +607,13 @@ class DecodeEngine:
         self.draft_k = int(draft_k)
         if draft is not None and self.draft_k < 1:
             raise ValueError(f"draft_k must be >= 1: {draft_k}")
-        #: harvest prompt prefixes into the store and the resident
-        #: registry (:479); a plain bool the caller (ROADMAP A4b's
-        #: brownout ladder) may flip between requests: it changes cost,
-        #: never tokens
+        #: the brownout knobs (:472-479): run speculative rounds (with a
+        #: draft), and harvest prompt prefixes into the store and the
+        #: resident registry.  Plain bools the router's brownout ladder
+        #: writes and the batcher's worker reads each pass; a torn read
+        #: costs one pass at the old setting, and both settings give the
+        #: same tokens (they change cost only), so no lock is needed
+        self.spec_enabled = True
         self.harvest_enabled = True
         self._transform = (
             (lambda raw: gpt.serving_params(cfg, raw))
@@ -665,6 +696,24 @@ class DecodeEngine:
         self._stage: Dict[int, torch.Tensor] = {}
         self._uploading: Sequence[np.ndarray] = ()
         self._stage_event = None
+        self._live_params = callable(params)
+        if self._stream is not None:    # the buffers made above
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    @contextlib.contextmanager
+    def _on_stream(self, wait: bool = False):
+        """The engine's stream (a no-op on the CPU).  ``wait``, or live
+        params (a callable's trees are the caller's at every entry):
+        after the caller's stream's work so far.  A step does not wait:
+        an event on the default stream at every step would hold the
+        replicas of a card back."""
+        if self._stream is None:
+            yield
+            return
+        if wait or self._live_params:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            yield
 
     # -- the captured entries ----------------------------------------------
     def _build_entries(self) -> None:
@@ -756,17 +805,18 @@ class DecodeEngine:
         # one entry in four: all update the engine's state, which lives
         # in the buffers they share
         self._prefill = compile_cache.cached_graph(
-            prefill_fn, label="decode.prefill", donate_argnums=(1,))
+            prefill_fn, label=f"{self.label}.prefill", donate_argnums=(1,))
         self._decode = compile_cache.cached_graph(
-            decode_fn, label="decode.step", donate_argnums=(1,),
+            decode_fn, label=f"{self.label}.step", donate_argnums=(1,),
             share=self._prefill)
         self._draft_prefill = self._spec = None
         if self.draft is not None:
             self._draft_prefill = compile_cache.cached_graph(
-                draft_prefill_fn, label="decode.draft_prefill",
+                draft_prefill_fn, label=f"{self.label}.draft_prefill",
                 donate_argnums=(1,), share=self._prefill)
             self._spec = compile_cache.cached_graph(
-                spec_fn, label="decode.spec_round", donate_argnums=(1,),
+                spec_fn, label=f"{self.label}.spec_round",
+                donate_argnums=(1,),
                 share=self._prefill)
 
     # -- params ------------------------------------------------------------
@@ -787,6 +837,7 @@ class DecodeEngine:
     def _draft_params(self) -> Any:
         return self._draft_served.get()
 
+    @_on_engine_stream(wait=True)
     def rebind_params(self, params: Any, draft_params: Any = None) -> None:
         """Swap the weights of an IDLE engine (:1098; a busy engine
         raises): the new tree is transformed (quantized or cast) here,
@@ -803,6 +854,7 @@ class DecodeEngine:
                 f"active slot(s)): drain first")
         if draft_params is not None and self.draft is None:
             raise ValueError("engine built without draft=")
+        self._live_params = callable(params)
         self._served = qz.ServedParams(params, self._transform)
         self.current_params()
         if draft_params is not None:
@@ -1149,18 +1201,21 @@ class DecodeEngine:
         return out
 
     # -- warmup ------------------------------------------------------------
+    @_on_engine_stream(wait=True)
     def warmup(self) -> dict:
         """Run every entry once in every bucket (on the card: capture
         each graph) on an all-inactive state, then zero the state so
         serving starts from zeros.  A paged warm-up runs with zero page
         tables: every write lands in the trash page, and the allocator
-        is untouched.  Returns ``{"buckets": n, "compiles": captures
-        booked, "warmup_ms": wall}``."""
+        is untouched.  Returns ``{"buckets": n, "compiles": this engine's
+        new captures, "warmup_ms": wall}`` (its own entries' count, so
+        another engine warming up in another thread does not add to
+        it)."""
         if self.n_active():
             raise RuntimeError("warmup on a busy engine: drain first")
         params = self.current_params()
         t0 = time.perf_counter()
-        c0 = compile_metrics.compile_count
+        c0 = self._captures()
         if self.paged:
             self._free_residents()          # their pages are zeroed below
         with torch.inference_mode(), \
@@ -1187,8 +1242,15 @@ class DecodeEngine:
             self._sync()
         decode_metrics.mark_compiles()
         return {"buckets": len(self.buckets),
-                "compiles": compile_metrics.compile_count - c0,
+                "compiles": self._captures() - c0,
                 "warmup_ms": (time.perf_counter() - t0) * 1e3}
+
+    def _captures(self) -> int:
+        """Signatures this engine's entries hold (captures on the card,
+        first calls on the CPU)."""
+        return sum(e.signatures() for e in (self._prefill, self._decode,
+                                            self._draft_prefill, self._spec)
+                   if e is not None)
 
     def _keep(self, b: _Bucket, state) -> None:
         if self.paged:
@@ -1212,6 +1274,7 @@ class DecodeEngine:
                           self._draft_params())
 
     # -- serving -----------------------------------------------------------
+    @_on_engine_stream()
     def start(self, prompt: np.ndarray, *, max_tokens: int,
               temperature: float = 0.0, seed: int = 0,
               owner: Any = True) -> Tuple[int, int, int]:
@@ -1398,6 +1461,7 @@ class DecodeEngine:
         decode_metrics.note_pages(self._alloc.in_use(), 0, 0)
         return first_tok
 
+    @_on_engine_stream()
     def advance(self, bucket: int) -> np.ndarray:
         """One decode dispatch for ``bucket``: every active (and, paged,
         runnable) slot emits its next token (:1567).  Returns the ``[S]``
@@ -1432,6 +1496,7 @@ class DecodeEngine:
                                       self._live_rows(), self.page_tokens)
         return toks
 
+    @_on_engine_stream()
     def advance_spec(self, bucket: int) -> Tuple[np.ndarray, np.ndarray]:
         """One speculative round for ``bucket`` (:1622): the draft's
         ``draft_k`` greedy steps and the target's verify of the k + 1
@@ -1475,6 +1540,7 @@ class DecodeEngine:
                                       self._live_rows(), self.page_tokens)
         return toks, n_c
 
+    @_on_engine_stream()
     def release(self, bucket: int, slot: int) -> None:
         """Free a finished slot (:1701).  Its cache rows need no
         scrubbing: the next occupant prefills over them, and decode never
@@ -1855,7 +1921,9 @@ class ContinuousBatcher:
                 self._pending[:0] = replay
 
     def _advance_all(self) -> None:
-        spec = self.engine.draft is not None
+        # the brownout ladder's first rung turns speculation off between
+        # passes: plain steps give the same tokens
+        spec = self.engine.draft is not None and self.engine.spec_enabled
         for bucket in self.engine.active_buckets():
             t0 = time.perf_counter()
             try:

@@ -111,6 +111,33 @@ def test_one_compile_per_signature_then_cached_dispatches():
     assert g.fn is f and g.label == "t.scale"
 
 
+def test_signature_walk_flattens_as_the_pytree():
+    """The signature's own walk gives the pytree's leaves in its order
+    (dicts in insertion order, lists, tuples, named tuples, None), tells
+    structures apart as the pytree does, and leaves any other container
+    to the pytree."""
+    from collections import OrderedDict, namedtuple
+    from torch.utils import _pytree as pytree
+
+    Pair = namedtuple("Pair", "k v")
+    t = torch.zeros(2, 1)
+    tree = ({"b": [t, 3], "a": Pair(t, None)}, (t, "x", torch.float32))
+    struct, leaves = [], []
+    assert compile_cache._walk(tree, struct, leaves)
+    ref = pytree.tree_leaves(tree)
+    assert len(leaves) == len(ref)
+    assert all(x is y for x, y in zip(leaves, ref))
+    g = compile_cache.cached_graph(lambda *a: a[0] * 2, label="t.walk")
+    sig = g._signature((t, {"a": 1, "b": 2}), {})[0]
+    assert sig != g._signature((t, {"b": 2, "a": 1}), {})[0]
+    assert sig != g._signature((t, [1, 2]), {})[0]
+    assert sig == g._signature((t.clone(), {"a": 1, "b": 2}), {})[0]
+    assert not compile_cache._walk(OrderedDict(a=t), [], [])
+    sig_od, lv, _ = g._signature((OrderedDict(a=t),), {})
+    assert lv == [t] and sig_od[0][0] == pytree.tree_structure(
+        OrderedDict(a=t))
+
+
 def test_clear_size_and_shared_keys():
     a = compile_cache.cached_graph(lambda x: x + 1, key="k1", label="a")
     b = compile_cache.cached_graph(lambda x: x + 2, key="k1", label="b")

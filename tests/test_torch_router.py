@@ -11,7 +11,8 @@ registry is freed and a host-store entry of the old weights no longer
 hits); ``evacuate`` / ``resubmit`` of a replica's unfinished requests,
 greedy and sampled, continuing with the tokens of an undisturbed run;
 a failed dispatch returning its pages and replaying its requests bit
-for bit; and the messages of what is not ported (ROADMAP A4b, A7).
+for bit; and the messages of what is not ported (ROADMAP A7), beside
+the fleet's names, which import.
 """
 
 import threading
@@ -251,10 +252,12 @@ def test_failed_dispatch_returns_pages_and_replays(params):
 # -- what is not ported -------------------------------------------------------
 
 def test_stub_messages_name_their_items(tree, params):
+    # the fleet half is ported: its names import
+    from deeplearning4j_tpu_torch.serving.router import (  # noqa: F401
+        AutoscalePolicy, AutoscalingRouter, ReplicaHealth, SwapFailed)
     for name in ("AutoscalingRouter", "AutoscalePolicy", "ReplicaHealth",
                  "SwapFailed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-            getattr(trouter, name)
+        assert isinstance(getattr(trouter, name), type)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Router.replicate(CFG, tree, 1, model_degree=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
