@@ -219,8 +219,35 @@ Phases, each fatal on failure:
    rung, a typed shed, walked back by idle ticks, 0 captures, every page
    back; (5) eight clients racing close(): each submit completes or
    raises RouterClosed.  No hand kernel launches in phase 15.
+16. ResNet-50 and the Mixture-of-Experts LM: (1) ResNet-50 fp32 at B=2
+   224x224, card against CPU on one seeded tree, train mode (logits and
+   new batch statistics) and inference mode, relative L2 within 1e-3;
+   (2) the 7x7/s2 stem against the space-to-depth stem at B=128 (bf16,
+   forward and forward+backward ms, the faster printed); (3) ResNet-50
+   bf16 B=128 224x224 training through make_train_step's defaults
+   (SGD-Nesterov 0.1/0.9, bench.py:443-496's shape), 30 timed steps:
+   losses finite, the last below the first timed, no capture after the
+   warm-up; step ms, images/s, MFU at bench.py:481's FLOPs, peak memory,
+   a profile by layer kind and eager against captured; (4) the trained
+   net served through InferenceEngine in buckets 1-64: 7 captures at
+   warm-up, requests of 1-64 rows within 5e-2 of the unpadded forward,
+   argmax agreement >= 99%, p50/p99 a bucket; (5) three steps captured
+   against eager, cuDNN deterministic, at 1e-6; no hand kernel launches
+   on ResNet's path; (6) the MoE LM at GPT-2 small's widths (768 x 12,
+   12 heads, vocabulary 50,257, 1,024 positions; 8 experts of 3,072,
+   top-2, capacity 1.25, aux 1e-2, remat, bf16), B=8 T=1024 through
+   make_train_step's defaults (flash attention, adamw 1e-3): 10 timed
+   steps, losses finite and falling, B1 2 a layer a step and B2, B3 1,
+   no capture after the warm-up; the aux loss and the choices dropped at
+   capacity; a profile (B1-B3, products); routing, dispatch + combine
+   and the experts of one layer profiled alone beside the reference's
+   dense one-hot dispatch; two steps captured against eager at 1e-6;
+   the bf16 loss at full depth through the kernels against plain
+   attention within 5e-2 with the routing assignments that differ
+   printed; fp32 at depth 2, the gradients through the kernels against
+   plain attention's within relative L2 1e-4.
 
-Phases 4-10, 14 and 15 run through the compile engine as a user's calls
+Phases 4-10 and 14-16 run through the compile engine as a user's calls
 do: every serving dispatch, training step, decode and prefill dispatch
 and embedding chunk is a CUDA graph replay after its signature's
 capture, and the kernel wrappers' launch counts are booked once per
@@ -5438,6 +5465,616 @@ def fleet_phase(torch, fa, fw, fg, card: str) -> None:
         f"{peak:.1f} MB")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: ResNet-50 training and serving; the MoE LM at GPT-2 small's
+# widths
+# ---------------------------------------------------------------------------
+
+#: the device phase 16 runs on (a CPU rehearsal substitutes "cpu")
+RESNET_MOE_DEVICE = "cuda"
+#: bench.py:443-496's shape: ResNet-50, bf16, B=128 at 224x224.  At
+#: SGD-Nesterov lr 0.1 with no warm-up the loss on one batch of random
+#: labels first rises for about ten steps (the reference's step does the
+#: same), then falls: 30 timed steps, the last held below the first
+RESNET_B, RESNET_IMAGE, RESNET_STEPS = 128, 224, 30
+#: bench.py:481: ResNet-50 forward ~4.1 GMAC an image, training 3x
+RESNET_FLOPS_PER_IMAGE = 3 * 2 * 4.1e9
+#: fp32 logits, card against CPU: relative L2 (convolution algorithms
+#: sum in other orders)
+RESNET_PARITY_TOL = 1e-3
+RESNET_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+RESNET_SERVE_SIZES = (1, 3, 5, 8, 13, 24, 40, 64)
+RESNET_LATENCY_CALLS = 20
+#: captured against eager: cuDNN deterministic for both, as phase 11's
+#: LeNet; the loss and the parameters' change held at 1e-6 relative
+RESNET_GRAPH_STEPS = 3
+#: the MoE LM at GPT-2 small's widths, B=8 T=1024, trained with the
+#: reference's default adamw(1e-3, weight_decay=0.01) (moe.py:274)
+MOE_B, MOE_T, MOE_STEPS = 8, 1024, 10
+#: bf16 full depth, kernels against plain attention: the losses (a top-2
+#: choice between near-equal gates may flip when attention rounds
+#: differently, so the gradients are held in fp32 at depth 2)
+MOE_LOSS_TOL = 5e-2
+MOE_GRAPH_STEPS = 2
+
+
+def tree_rel_l2(torch, updaters, got, ref) -> float:
+    """Relative L2 difference over two trees' leaves (on the CPU)."""
+    return rel_diff(torch, [g.cpu() for g in updaters.tree_leaves(got)],
+                    [r.cpu() for r in updaters.tree_leaves(ref)])[1]
+
+
+def resnet_parity(torch, res, updaters, say) -> None:
+    """ResNet-50 fp32 at B=2 224x224: card against CPU, train mode
+    (logits and new statistics) and inference mode (on those
+    statistics)."""
+    cfg = dataclasses.replace(res.resnet50(), compute_dtype="float32")
+    params, stats = res.init_params(torch.Generator().manual_seed(0), cfg,
+                                    device="cpu")
+    x, _ = res.synthetic_batch(1, cfg, 2, RESNET_IMAGE, device="cpu")
+    def to_dev(tree):
+        return updaters.tree_map(lambda t: t.to(RESNET_MOE_DEVICE), tree)
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cpu_train, cpu_stats = res.forward(cfg, params, stats, x, train=True)
+        cpu_inf, _ = res.forward(cfg, params, cpu_stats, x, train=False)
+        cpu_s = time.perf_counter() - t0
+        dev_train, dev_stats = res.forward(cfg, to_dev(params), to_dev(stats),
+                                           to_dev(x), train=True)
+        dev_inf, _ = res.forward(cfg, to_dev(params), to_dev(cpu_stats),
+                                 to_dev(x), train=False)
+    rows = {"train": tree_rel_l2(torch, updaters, dev_train, cpu_train),
+            "inference": tree_rel_l2(torch, updaters, dev_inf, cpu_inf),
+            "new stats": tree_rel_l2(torch, updaters, dev_stats, cpu_stats)}
+    say(f"ResNet-50 fp32 B=2 {RESNET_IMAGE}x{RESNET_IMAGE}, card against "
+        f"CPU (relative L2, tolerance {RESNET_PARITY_TOL:g}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rows.items())
+        + f"; the CPU's two forwards took {cpu_s:.1f} s")
+    check(max(rows.values()) <= RESNET_PARITY_TOL,
+          f"ResNet-50 fp32 card against CPU: {rows}")
+
+
+def stem_times(torch, res, say) -> None:
+    """The 7x7/s2 stem against the space-to-depth one at B=128 224x224,
+    bf16: agreement, and forward and forward+backward device ms."""
+    dev = RESNET_MOE_DEVICE
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((RESNET_B, RESNET_IMAGE, RESNET_IMAGE, 3),
+                    generator=g).to(dev)
+    w = (torch.randn((7, 7, 3, 64), generator=g) * 0.05).to(dev)
+    w.requires_grad_(True)
+    cdt = torch.bfloat16
+    stems = {"plain 7x7/s2": lambda: res._conv(x.permute(0, 3, 1, 2), w, 2,
+                                               cdt),
+             "space-to-depth 4x4/s1": lambda: res._stem_s2d_conv(x, w, cdt)}
+    with torch.no_grad():
+        a, b = (f() for f in stems.values())
+    agree = rel_diff(torch, [b], [a])[1]
+    times = {}
+    for name, f in stems.items():
+        def fwd_bwd(f=f):
+            f().float().square().mean().backward()
+        with torch.no_grad():
+            fwd = time_ms(torch, f, iters=20)
+        times[name] = (fwd, time_ms(torch, fwd_bwd, iters=20))
+    fastest = min(times, key=lambda k: times[k][1])
+    say(f"ResNet-50 stem, bf16 B={RESNET_B}: space-to-depth against plain, "
+        f"relative L2 {agree:.3e}; " + "; ".join(
+            f"{k} forward {f:.3f} ms, forward+backward {fb:.3f} ms"
+            for k, (f, fb) in times.items())
+        + f" (CUDA events, 20 calls); faster: {fastest}")
+    check(agree <= 1e-2, f"space-to-depth stem differs by {agree}")
+
+
+def conv_kind(name: str) -> str:
+    """A ResNet step kernel's layer, by its name: cuDNN's convolutions
+    (its own kernels and the CUTLASS / nvjet products it runs, the FC's
+    one product among them), batch norm, elementwise work, the rest."""
+    low = name.lower()
+    if "norm" in low or "welford" in low:
+        return "batch norm"
+    if any(m in low for m in ("conv", "xmma", "implicit", "wgrad", "dgrad",
+                              "fprop", "cudnn", "gemm", "cublas", "nvjet",
+                              "cutlass")):
+        return "convolutions and products"
+    if "elementwise" in low or "reduce_kernel" in low:
+        return "elementwise and reductions"
+    return "the rest"
+
+
+def resnet_train(torch, res, updaters, say):
+    """ResNet-50 bf16 B=128 through make_train_step's defaults
+    (SGD-Nesterov 0.1/0.9, captured): warm-up, timed steps, loss,
+    throughput, MFU, device busy share, eager against captured times.
+    Returns the trained state."""
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    cfg = res.resnet50()
+    init_fn, step_fn = res.make_train_step(cfg, device=RESNET_MOE_DEVICE)
+    state = init_fn(torch.Generator().manual_seed(0))
+    x, y = res.synthetic_batch(0, cfg, RESNET_B, RESNET_IMAGE,
+                               device=RESNET_MOE_DEVICE)
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARMUP_STEPS):
+        state, loss = step_fn(state, x, y)
+        losses.append(float(loss))
+    c0 = compile_metrics.compile_count
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, x, y)
+        losses.append(float(loss))         # synchronizes
+        step_s.append(time.perf_counter() - t0)
+    caps = compile_metrics.compile_count - c0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(step_s)) * 1e3
+    flops = RESNET_FLOPS_PER_IMAGE * RESNET_B
+    say(f"ResNet-50 bf16 B={RESNET_B} {RESNET_IMAGE}x{RESNET_IMAGE} "
+        f"({res.param_count(state.params) / 1e6:.2f} M params): losses "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f" ({WARMUP_STEPS} warm-up, {RESNET_STEPS} timed); step {ms:.2f} "
+          f"ms (median, host clock, synchronized; min "
+          f"{min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}), "
+          f"{RESNET_B / (ms / 1e3):.1f} images/s, MFU "
+          f"{flops / (ms / 1e3) / PEAK_BF16_FLOPS:.2%} at bench.py:481's "
+          f"{flops / 1e12:.3f} TFLOP a step; peak memory {peak:.2f} GB; "
+          f"captures over the timed steps {caps}")
+    check(all(np.isfinite(losses)), f"ResNet-50: non-finite loss {losses}")
+    check(losses[-1] < losses[WARMUP_STEPS],
+          f"ResNet-50: loss did not fall over the timed steps: {losses}")
+    check(caps == 0, f"ResNet-50: {caps} captures after the warm-up")
+
+    holder = [state]
+
+    def captured():
+        holder[0], _ = step_fn(holder[0], x, y)
+
+    by = device_ms_by_kernel(torch, captured)
+    if by:
+        busy = sum(by.values())
+        kinds = {}
+        for k, v in by.items():
+            kinds[conv_kind(k)] = kinds.get(conv_kind(k), 0.0) + v
+        say(f"ResNet-50 profile of one captured step: device busy "
+            f"{busy:.2f} ms = {busy / ms:.1%} of the median step; "
+            + ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
+                        for k, v in sorted(kinds.items(),
+                                           key=lambda kv: -kv[1])))
+        for key, v in sorted(by.items(), key=lambda kv: -kv[1])[:16]:
+            print(f"    {v:8.3f} ms  {key[:110]}")
+    else:
+        say("ResNet-50 profile: no device time reported (not measured)")
+    graph = step_fn.graph
+    st = updaters.tree_map(torch.clone, (holder[0].params,
+                                         holder[0].batch_stats,
+                                         holder[0].opt_state))
+    graph_times(torch, f"ResNet-50 bf16 B={RESNET_B} step",
+                {"eager": lambda: graph.fn(*st, x, y),
+                 "captured": captured}, 5, 2, say)
+    del st
+    return holder[0]
+
+
+def resnet_graph_equal(torch, res, updaters, say) -> None:
+    """Three ResNet-50 B=128 steps through the raw step and through its
+    graph from the same state, cuDNN deterministic for both."""
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = res.resnet50()
+        init_fn, step_fn = res.make_train_step(cfg, device=RESNET_MOE_DEVICE)
+        graph = step_fn.graph
+        s0 = init_fn(torch.Generator().manual_seed(3))
+        x, y = res.synthetic_batch(2, cfg, RESNET_B, RESNET_IMAGE,
+                                   device=RESNET_MOE_DEVICE)
+        out = {}
+        for how, fn in (("eager", graph.fn), ("captured", graph)):
+            st = updaters.tree_map(torch.clone, (s0.params, s0.batch_stats,
+                                                 s0.opt_state))
+            losses = []
+            for k in range(RESNET_GRAPH_STEPS):
+                if k == 1:
+                    c1 = compile_metrics.compile_count
+                *st, loss = fn(*st, x, y)
+                losses.append(float(loss))
+            out[how] = (np.array(losses), st[0], st[1])
+            del st
+        caps = compile_metrics.compile_count - c1
+        lrel = float(np.max(np.abs(out["captured"][0] - out["eager"][0])
+                            / np.abs(out["eager"][0])))
+        urel = update_rel(torch, updaters, s0.params, out["captured"][1],
+                          out["eager"][1])
+        srel = tree_rel_l2(torch, updaters, out["captured"][2],
+                           out["eager"][2])
+        say(f"ResNet-50 B={RESNET_B}, {RESNET_GRAPH_STEPS} steps captured vs "
+            f"eager (cuDNN deterministic): losses " + " / ".join(
+                f"{a:.5f}:{b:.5f}" for a, b in zip(out["eager"][0],
+                                                   out["captured"][0]))
+            + f"; largest relative loss difference {lrel:.3e}, relative L2 "
+              f"of p_k - p_0 {urel:.3e}, of the batch stats {srel:.3e} (bar "
+              f"{GRAPH_TRAIN_RTOL:g}); captures after the first step {caps}")
+        check(max(lrel, urel, srel) <= GRAPH_TRAIN_RTOL,
+              f"ResNet-50: captured steps differ from eager "
+              f"({lrel}, {urel}, {srel})")
+        check(caps == 0, f"ResNet-50: {caps} captures after the first step")
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def resnet_serving(torch, res, updaters, state, say) -> None:
+    """The trained ResNet-50 (bf16) through InferenceEngine in buckets
+    1-64: every bucket captured at warm-up, padded rows against the
+    unpadded forward (logits and argmax), and p50/p99 latency a
+    bucket."""
+    from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = res.resnet50()
+    served = updaters.tree_map(torch.clone, (state.params,
+                                             state.batch_stats))
+    apply_fn, _ = res.make_serving_apply(cfg)
+    eng = InferenceEngine(apply_fn, params=served, buckets=RESNET_BUCKETS,
+                          device=RESNET_MOE_DEVICE)
+    warm = eng.warmup(input_shape=(RESNET_IMAGE, RESNET_IMAGE, 3))
+    say(f"ResNet-50 serving warm-up: {warm['buckets']} buckets, "
+        f"{warm['compiles']} captures, {warm['warmup_ms']:.0f} ms")
+    check(warm["compiles"] == len(RESNET_BUCKETS),
+          f"ResNet-50 serving warm-up captured {warm['compiles']}")
+    images, _ = res.synthetic_batch(5, cfg, max(RESNET_SERVE_SIZES),
+                                    RESNET_IMAGE, device=RESNET_MOE_DEVICE)
+    err, scale, same, n = 0.0, 0.0, 0, 0
+    for rows in RESNET_SERVE_SIZES:
+        got = eng.infer(images[:rows])
+        with torch.inference_mode():
+            ref, _ = res.forward(cfg, *served, images[:rows], train=False)
+        e = float((got - ref).abs().max())
+        check(torch.allclose(got, ref, rtol=LOGITS_TOL, atol=LOGITS_TOL),
+              f"ResNet-50 serving, {rows} rows: logits differ from the "
+              f"unpadded forward by up to {e}")
+        err, scale = max(err, e), max(scale, float(ref.abs().max()))
+        same, n = same + int((got.argmax(-1) == ref.argmax(-1)).sum()), \
+            n + rows
+    say(f"ResNet-50 serving, requests of {RESNET_SERVE_SIZES} rows against "
+        f"the unpadded forward: max|diff| {err:.3e} over logits up to "
+        f"{scale:.3e} (rtol and atol {LOGITS_TOL}); argmax agreement "
+        f"{same}/{n} = {same / n:.4f} (need >= {MIN_ARGMAX_AGREE})")
+    check(same / n >= MIN_ARGMAX_AGREE,
+          f"ResNet-50 serving: argmax agreement {same / n}")
+    parts = []
+    for b in RESNET_BUCKETS:
+        lat = []
+        for _ in range(RESNET_LATENCY_CALLS):
+            t0 = time.perf_counter()
+            eng.infer(images[:b], sync=True)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        parts.append(f"B={b} p50 {np.percentile(lat, 50):.2f} / p99 "
+                     f"{np.percentile(lat, 99):.2f} ms")
+    say(f"ResNet-50 serving latency, {RESNET_LATENCY_CALLS} synchronized "
+        f"requests a bucket (host clock, device-resident images): "
+        + "; ".join(parts))
+
+
+def moe_config(moe):
+    """The MoE LM at GPT-2 small's published widths (hidden 768, 12
+    layers, 12 heads, vocabulary 50,257, 1,024 positions), each FFN 8
+    experts of GPT-2's FFN width 3,072, at the reference's defaults:
+    top-2, capacity 1.25, aux weight 1e-2, remat, bf16."""
+    return moe.MoETransformerConfig(
+        vocab_size=50257, max_len=1024, hidden=768, n_layers=12, n_heads=12,
+        d_ff=3072, n_experts=8, top_k=2, capacity_factor=1.25,
+        aux_loss_weight=1e-2, remat=True, compute_dtype="bfloat16")
+
+
+def routing_census(torch, moe, ex, cfg, params, ids, attn):
+    """One forward (no grad): (loss, each layer's expert choices ``[N,
+    k]``, mean aux, dropped choices)."""
+    rec = []
+
+    def ffn(lp, tok):
+        C = ex.compute_capacity(tok.shape[0], cfg.n_experts, cfg.top_k,
+                                cfg.capacity_factor)
+        rec.append(ex.route(ex.router_gates(lp, tok), cfg.top_k, C))
+        return ex.moe_ffn(lp, tok, cfg.moe)
+
+    with torch.no_grad():
+        loss = float(moe.lm_loss(cfg, params, ids, attn, ffn))
+    aux = float(torch.stack([r.aux for r in rec]).mean())
+    dropped = int(sum(int((~r.keep).sum()) for r in rec))
+    return loss, [r.expert for r in rec], aux, dropped
+
+
+def moe_components(torch, ex, cfg, params, say) -> None:
+    """One layer's routing, dispatch and experts at the main path's
+    shapes (N = B T tokens), forward + backward, each profiled alone;
+    and the reference's dense one-hot dispatch beside the index form."""
+    dev = RESNET_MOE_DEVICE
+    N, H, E, k = MOE_B * MOE_T, cfg.hidden, cfg.n_experts, cfg.top_k
+    C = ex.compute_capacity(N, E, k, cfg.capacity_factor)
+    g = torch.Generator(device=dev).manual_seed(7)
+    tok = torch.randn((N, H), generator=g, device=dev).bfloat16()
+    tok.requires_grad_(True)
+    blk = params["blocks"]
+    lp = {"router": blk["router"][0].detach().clone().requires_grad_(True),
+          "wi": blk["wi"][0].detach().clone().requires_grad_(True),
+          "wo": blk["wo_e"][0].detach().clone().requires_grad_(True)}
+    with torch.no_grad():
+        gates = ex.router_gates(lp, tok)
+        r = ex.route(gates, k, C)
+        inbox = ex.dispatch(tok, r, E)
+        out = ex._expert_ffn(lp["wi"], lp["wo"], inbox)
+    out.requires_grad_(True)
+    inbox.requires_grad_(True)
+    gates = gates.detach().requires_grad_(True)
+
+    def routing():
+        rr = ex.route(ex.router_gates(lp, tok), k, C)
+        (rr.weight.float().sum() + rr.aux).backward()
+
+    def dispatch():
+        rr = r._replace(weight=r.weight.detach().requires_grad_(True))
+        (ex.dispatch(tok, rr, E).float().sum()
+         + ex.combine(out, rr).float().sum()).backward()
+
+    def experts():
+        ex._expert_ffn(lp["wi"], lp["wo"], inbox).float().sum().backward()
+
+    def dense():
+        d, c, _ = ex.route_topk(gates, k, C)
+        (torch.einsum("nec,nd->ecd", d, tok).float().sum()
+         + torch.einsum("nec,ecd->nd", c, out).float().sum()).backward()
+
+    rows = {}
+    for name, run in (("routing", routing), ("dispatch + combine", dispatch),
+                      ("experts", experts),
+                      ("dense one-hot dispatch + combine", dense)):
+        ms, kernels = device_ms(torch, run, 3)
+        rows[name] = ms
+        if ms is not None:
+            print(f"    {name}: {ms:.3f} ms in {kernels:.0f} kernels")
+    if None in rows.values():
+        say("MoE components: no device time reported (not measured)")
+        return
+    ratio = rows["dense one-hot dispatch + combine"] / \
+        rows["dispatch + combine"]
+    say(f"MoE layer components at N={N}, E={E}, C={C}, d={H}, f={cfg.d_ff} "
+        f"(forward + backward, profiler, 3 calls each): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in rows.items())
+        + f"; the index form is {ratio:.1f}x faster than the dense form; a "
+          f"step runs each {cfg.n_layers} x (2 forwards under remat + 1 "
+          f"backward)")
+
+
+def moe_graph_equal(torch, moe, updaters, step_fn, state, ids, say):
+    """MOE_GRAPH_STEPS steps through the raw step (on a copy of the
+    state) and through its graph (on the state, already captured):
+    losses and the parameters' change at 1e-6 relative, no capture."""
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    graph = step_fn.graph
+    p0 = updaters.tree_map(torch.clone, state.params)
+    st = updaters.tree_map(torch.clone, (state.params, state.opt_state))
+    eager = []
+    for _ in range(MOE_GRAPH_STEPS):
+        *st, loss = graph.fn(*st, ids, None)
+        eager.append(float(loss))
+    c0 = compile_metrics.compile_count
+    captured = []
+    for _ in range(MOE_GRAPH_STEPS):
+        state, loss = step_fn(state, ids)
+        captured.append(float(loss))
+    caps = compile_metrics.compile_count - c0
+    lrel = float(np.max(np.abs(np.array(captured) - np.array(eager))
+                        / np.abs(np.array(eager))))
+    urel = update_rel(torch, updaters, p0, state.params, st[0])
+    say(f"MoE LM, {MOE_GRAPH_STEPS} steps captured vs eager from one state: "
+        f"losses " + " / ".join(f"{a:.5f}:{b:.5f}"
+                                for a, b in zip(eager, captured))
+        + f"; largest relative loss difference {lrel:.3e}, relative L2 of "
+          f"p_k - p_0 {urel:.3e} (bar {GRAPH_TRAIN_RTOL:g}); captures {caps}")
+    check(max(lrel, urel) <= GRAPH_TRAIN_RTOL,
+          f"MoE LM: captured steps differ from eager ({lrel}, {urel})")
+    check(caps == 0, f"MoE LM: {caps} captures after the warm-up")
+    return state
+
+
+def moe_fp32_check(torch, fa, moe, ex, updaters, cfg, ids, say) -> None:
+    """fp32 at full width, depth 2: one step's gradients through the
+    CUDA-core flash kernels against the plain attention, within 1e-4."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+
+    c32 = dataclasses.replace(cfg, compute_dtype="float32", n_layers=2)
+    params = moe.init_params(
+        torch.Generator(device=RESNET_MOE_DEVICE).manual_seed(2), c32,
+        device=RESNET_MOE_DEVICE)
+    before = fa.launch_counts()
+    lk, gk = tfm.value_and_grad(lambda p: moe.lm_loss(
+        c32, p, ids, fa.make_attn_fn("auto")), params)
+    after = fa.launch_counts()
+    lp, gp = tfm.value_and_grad(lambda p: moe.lm_loss(
+        c32, p, ids, tfm.attention), params)
+    rel, leaf, leaf_rel = grad_agreement(updaters, gk, gp)
+    del gk, gp
+    _, ek, _, _ = routing_census(torch, moe, ex, c32, params, ids,
+                                 fa.make_attn_fn("auto"))
+    _, ep, _, _ = routing_census(torch, moe, ex, c32, params, ids,
+                                 tfm.attention)
+    flips = sum(int((a != b).sum()) for a, b in zip(ek, ep))
+    launched = {k: after[k] - before[k] for k in after}
+    say(f"MoE LM fp32, full width, depth 2: loss {float(lk):.7f} vs "
+        f"{float(lp):.7f}; gradients' global relative L2 error {rel:.3e} "
+        f"(tolerance {GRAD_TOL_FP32:g}); largest error in {leaf} (relative "
+        f"{leaf_rel:.3e}); routing assignments that differ {flips} of "
+        f"{c32.n_layers * ids.numel() * c32.top_k}; fp32 kernel launches "
+        f"{launched}")
+    expect = launches_per_step(c32)
+    check(all(launched[k] == expect[k] for k in launched),
+          f"MoE fp32 step's launches {launched} are not {expect}")
+    check(rel <= GRAD_TOL_FP32, f"MoE fp32 kernel-path gradients differ by "
+                                f"{rel}")
+
+
+def moe_train(torch, fa, moe, ex, updaters, say):
+    """The MoE LM at GPT-2 small's widths through make_train_step's
+    defaults (flash attention, adamw 1e-3): warm-up, the counted timed
+    steps, the aux loss and the dropped tokens, a profile, the
+    components, captured against eager, fp32 gradients at depth 2 and
+    bf16 losses at full depth against plain attention.  Returns the
+    launch counts of the timed steps."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    cfg = moe_config(moe)
+    ids = moe.synthetic_ids(0, cfg, MOE_B, MOE_T, device=RESNET_MOE_DEVICE)
+    init_fn, step_fn = moe.make_train_step(cfg, device=RESNET_MOE_DEVICE)
+    state = init_fn(torch.Generator(device=RESNET_MOE_DEVICE).manual_seed(0))
+    n_params = sum(p.numel() for p in updaters.tree_leaves(state.params))
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARMUP_STEPS):
+        state, loss = step_fn(state, ids)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+
+    # -- the main path, counted ------------------------------------------
+    c0 = compile_metrics.compile_count
+    fa.reset_launches()
+    for _ in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, ids)
+        losses.append(float(loss))         # synchronizes
+        step_s.append(time.perf_counter() - t0)
+    counts = fa.launch_counts()
+    caps = compile_metrics.compile_count - c0
+
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(step_s)) * 1e3
+    say(f"MoE LM at GPT-2 small's widths ({n_params / 1e6:.1f} M params, "
+        f"{cfg.n_experts} experts of {cfg.d_ff}, top-{cfg.top_k}, capacity "
+        f"{cfg.capacity_factor}) B={MOE_B} T={MOE_T}: losses "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f" ({WARMUP_STEPS} warm-up, {MOE_STEPS} timed); step {ms:.2f} ms "
+          f"(median, host clock, synchronized; min {min(step_s) * 1e3:.2f}, "
+          f"max {max(step_s) * 1e3:.2f}), {ids.numel() / (ms / 1e3):.1f} "
+          f"tokens/s; peak memory {peak:.2f} GB; captures over the timed "
+          f"steps {caps}")
+    say(f"MoE LM launches over the {MOE_STEPS} timed steps: {counts} "
+        f"({cfg.n_layers} layers, remat)")
+    check(all(np.isfinite(losses)), f"MoE LM: non-finite loss {losses}")
+    check(losses[-1] < losses[WARMUP_STEPS],
+          f"MoE LM: loss did not fall over the timed steps: {losses}")
+    check(caps == 0, f"MoE LM: {caps} captures after the warm-up")
+    expect = launches_per_step(cfg)
+    for name, n in counts.items():
+        check(n == expect[name] * MOE_STEPS,
+              f"MoE LM: {name} = {n}, not {expect[name]} per step")
+
+    kernel_attn = fa.make_attn_fn("auto")
+    lk, ek, aux, dropped = routing_census(torch, moe, ex, cfg, state.params,
+                                          ids, kernel_attn)
+    choices = cfg.n_layers * ids.numel() * cfg.top_k
+    say(f"MoE LM after the timed steps: mean aux loss {aux:.5f} (1.0 is "
+        f"balanced), choices dropped at capacity {dropped} of {choices} "
+        f"({dropped / choices:.2%})")
+    check(np.isfinite(aux), f"MoE LM: aux loss {aux}")
+
+    holder = [state]
+
+    def captured():
+        holder[0], _ = step_fn(holder[0], ids)
+
+    by = device_ms_by_kernel(torch, captured)
+    if by:
+        busy = sum(by.values())
+
+        def named(mark):
+            return sum(v for k, v in by.items() if mark in k)
+
+        b1, b2, b3 = (named("flash_fwd"), named("flash_bwd_dkv"),
+                      named("flash_bwd_dq"))
+        say(f"MoE LM profile of one captured step: device busy {busy:.2f} "
+            f"ms = {busy / ms:.1%} of the median step; B1 {b1:.3f} ms, B2 "
+            f"{b2:.3f} ms, B3 {b3:.3f} ms ({(b1 + b2 + b3) / busy:.1%}); "
+            f"products {gemm_ms(by):.3f} ms ({gemm_ms(by) / busy:.1%})")
+        for key, v in sorted(by.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"    {v:8.3f} ms  {key[:100]}")
+    else:
+        say("MoE LM profile: no device time reported (not measured)")
+    moe_components(torch, ex, cfg, holder[0].params, say)
+    state = moe_graph_equal(torch, moe, updaters, step_fn, holder[0], ids,
+                            say)
+    del holder
+
+    # -- bf16 full depth: kernels against plain attention ------------------
+    lp, ep, _, _ = routing_census(torch, moe, ex, cfg, state.params, ids,
+                                  tfm.attention)
+    lk, ek, _, _ = routing_census(torch, moe, ex, cfg, state.params, ids,
+                                  kernel_attn)
+    flips = sum(int((a != b).sum()) for a, b in zip(ek, ep))
+    lrel = abs(lk - lp) / abs(lp)
+    say(f"MoE LM bf16, full depth, kernels vs plain attention: loss "
+        f"{lk:.6f} vs {lp:.6f} (relative {lrel:.3e}, tolerance "
+        f"{MOE_LOSS_TOL:g}); routing assignments that differ {flips} of "
+        f"{choices}")
+    check(lrel <= MOE_LOSS_TOL, f"MoE LM bf16: kernel-path loss differs "
+                                f"by {lrel}")
+    del state, step_fn, init_fn
+    gc_cuda(torch)
+    moe_fp32_check(torch, fa, moe, ex, updaters, cfg, ids, say)
+    return counts
+
+
+def gc_cuda(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resnet_moe_phase(torch, fa, fw, fg, card: str) -> dict:
+    """Phase 16 (see the module docstring)."""
+    from deeplearning4j_tpu_torch.models import moe
+    from deeplearning4j_tpu_torch.models import resnet as res
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.parallel import expert as ex
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    # earlier phases' shared engine entries hold their graphs' memory
+    compile_cache.clear()
+    gc_cuda(torch)
+    say(f"phase 16 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
+    t = [time.perf_counter()]
+    for mod in (fa, fw, fg):
+        mod.reset_launches()
+    resnet_parity(torch, res, updaters, say)
+    stem_times(torch, res, say)
+    state = resnet_train(torch, res, updaters, say)
+    resnet_serving(torch, res, updaters, state, say)
+    del state
+    gc_cuda(torch)
+    resnet_graph_equal(torch, res, updaters, say)
+    hand = {**fa.launch_counts(), "w2v": fw.launches, "glove": fg.launches}
+    say(f"hand-kernel launches during ResNet-50: {hand} (no TPU kernel "
+        f"lies on ResNet's path)")
+    check(not any(hand.values()), f"a hand kernel ran on ResNet's path: "
+                                  f"{hand}")
+    gc_cuda(torch)
+    t.append(time.perf_counter())
+    counts = moe_train(torch, fa, moe, ex, updaters, say)
+    t.append(time.perf_counter())
+    gc_cuda(torch)
+    say(f"phase 16 wall: ResNet-50 {t[1] - t[0]:.1f} s, MoE LM "
+        f"{t[2] - t[1]:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -5576,6 +6213,10 @@ def main() -> int:
     print("phase 15: the GPT-2 small serving fleet: autoscaling, the hot "
           "weight swap, the chaos drill, the brownout ladder, close")
     fleet_phase(torch, fa, fw, fg, card)
+    print("phase 16: ResNet-50 training and serving; the MoE LM at GPT-2 "
+          "small's widths")
+    for name, n in resnet_moe_phase(torch, fa, fw, fg, card).items():
+        launches[name] += n
 
     kernels = [{
         "name": "flash_attention_fwd",

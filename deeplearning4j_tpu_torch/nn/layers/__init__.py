@@ -1,6 +1,6 @@
 """Layers of the port; importing this package registers the kinds it
-has (dense, output, convolution, subsampling, RBM, autoencoder) with the
-factory."""
+has (dense, output, convolution, subsampling, RBM, autoencoder,
+embedding, batch norm) with the factory."""
 
 from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     Layer, PretrainLayer, register_layer, make_layer,
@@ -13,4 +13,7 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.rbm import RBMLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.autoencoder import (  # noqa: F401
     AutoEncoderLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.extras import (  # noqa: F401
+    BatchNormLayer, EmbeddingLayer,
 )

@@ -42,8 +42,6 @@ _LAYER_REGISTRY: Dict[LayerKind, Type["Layer"]] = {}
 _NOT_PORTED = {
     LayerKind.RECURSIVE_AUTOENCODER: "A5b",
     LayerKind.LSTM: "A5b",
-    LayerKind.EMBEDDING: "A6",
-    LayerKind.BATCH_NORM: "A6",
 }
 
 

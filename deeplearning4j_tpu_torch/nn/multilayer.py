@@ -71,6 +71,7 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import (
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import make_preprocessor
 from deeplearning4j_tpu_torch.nn.layers import make_layer
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, PretrainLayer
+from deeplearning4j_tpu_torch.nn.layers.extras import batch_moments
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
 from deeplearning4j_tpu_torch.nn.params import (pack_params, param_leaves,
                                                 unpack_params)
@@ -584,12 +585,27 @@ class MultiLayerNetwork:
         """One step: (params, ustate, loss, skipped), all on the device;
         ``skipped`` is an int32 flag, 1 where the guard dropped the
         update.  ``iteration`` (the momentum schedule's clock) is an int
-        or a 0-d device tensor."""
+        or a 0-d device tensor.
+
+        A batch-norm layer's running statistics follow the moments of
+        the batch entering it in this training forward (one forward, as
+        the reference's :520-563): ``running = 0.9 running + 0.1
+        batch``, with the biased variance, set after the updater and
+        before the guard, so a skipped step leaves them as they were."""
         live = [tree_map(lambda t: t.detach().requires_grad_(True), p)
                 for p in params]
         leaves = param_leaves(live)
+        last = len(self.layers) - 1
         with torch.enable_grad():
-            score = self.loss(live, x, y, gen, train=True)
+            acts = self.feed_forward(live, x, gen, train=True, upto=last)
+            h = acts[-1]
+            if last in self._in_pre:
+                h = self._in_pre[last](h, gen)
+            score = self.output_layer.loss(live[-1], h, y)
+        with torch.no_grad():
+            bn_stats = {i: batch_moments(acts[i])
+                        for i, c in enumerate(self.conf.confs)
+                        if c.kind is LayerKind.BATCH_NORM}
         # a pretrain layer's visible bias takes no part in the supervised
         # loss: its gradient is zero, as jax.grad gives it
         grads_flat = [torch.zeros_like(p) if g is None else g for p, g in
@@ -604,6 +620,13 @@ class MultiLayerNetwork:
                 u_i, s_i = upd.update(u, g, p, iteration, 1)
                 new_params.append(apply_descent(p, u_i))
                 new_ustate.append(s_i)
+            for i, (mean, var) in bn_stats.items():
+                new_params[i] = dict(
+                    new_params[i],
+                    running_mean=0.9 * new_params[i]["running_mean"]
+                    + 0.1 * mean,
+                    running_var=0.9 * new_params[i]["running_var"]
+                    + 0.1 * var)
             new_params, new_ustate, skipped = resilience.guard_update(
                 params, ustate, new_params, new_ustate,
                 (score, list(grads_flat)))

@@ -7,10 +7,11 @@ that transformation, step for step, as optax 0.2.6 computes it
 ``scale_by_learning_rate``), so the two packages take the same steps
 from the same gradients.  ``torch.optim.AdamW`` is not used: it folds
 the decay into the parameter before the Adam step and keeps its own
-step-count rules.  :func:`dl4j_updater` is the reference's
-``ops/updaters.py:dl4j_updater`` (:41-118), the GradientAdjustment chain
-that ``nn/multilayer`` trains with; its updates are subtracted
-(:func:`apply_descent`).
+step-count rules.  ResNet trains with ``optax.sgd`` with Nesterov
+momentum (``models/resnet.py:287``): :func:`sgd`.  :func:`dl4j_updater`
+is the reference's ``ops/updaters.py:dl4j_updater`` (:41-118), the
+GradientAdjustment chain that ``nn/multilayer`` trains with; its
+updates are subtracted (:func:`apply_descent`).
 
 An optimizer is a :class:`GradientTransformation` of two functions, as
 in optax: ``init(params) -> state`` and ``update(grads, state, params)
@@ -131,6 +132,38 @@ def adamw(learning_rate: float, weight_decay: float = 1e-4, b1: float = 0.9,
 
         updates = tree_map(step, mu, nu, params)
         return updates, AdamWState(count=count, mu=mu, nu=nu)
+
+    return GradientTransformation(init, update)
+
+
+class TraceState(NamedTuple):
+    """optax's ``TraceState``: the momentum trace, a tree of the params'
+    structure (None when :func:`sgd` runs without momentum)."""
+    trace: Optional[Tree]
+
+
+def sgd(learning_rate: float, momentum: Optional[float] = None,
+        nesterov: bool = False) -> GradientTransformation:
+    """``optax.sgd(learning_rate, momentum, nesterov)``: optax's
+    ``trace`` then ``scale_by_learning_rate``.  Per leaf, with momentum
+    m: the trace t' = g + m t; the update is -lr (g + m t') with
+    Nesterov, else -lr t'.  Without momentum the update is -lr g and
+    the state holds no trace.  The trace keeps the params' dtype, as
+    optax's (``accumulator_dtype=None``)."""
+
+    def init(params: Tree) -> TraceState:
+        if momentum is None:
+            return TraceState(trace=None)
+        return TraceState(trace=tree_map(torch.zeros_like, params))
+
+    def update(grads: Tree, state: TraceState, params: Tree = None):
+        if momentum is None:
+            return tree_map(lambda g: g * -learning_rate, grads), state
+        trace = tree_map(lambda g, t: g + momentum * t, grads, state.trace)
+        upd = (tree_map(lambda g, t: g + momentum * t, grads, trace)
+               if nesterov else trace)
+        return (tree_map(lambda u: u * -learning_rate, upd),
+                TraceState(trace=trace))
 
     return GradientTransformation(init, update)
 

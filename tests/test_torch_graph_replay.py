@@ -19,9 +19,12 @@ inside the replayed steps), ``slot_prefill`` at two slots and two
 offsets and ``slot_decode`` through the decode engine's functions, the
 paged engine's prefill, draft prefill, speculative round and step over
 changing page tables, slots and masks, the
-adamw train step of a 2-layer transformer without dropout, and the
+adamw train step of a 2-layer transformer without dropout, the
 word2vec pair chunk with a decaying learning rate and in-graph
-negatives.
+negatives, a ``MultiLayerNetwork`` step with a batch-norm layer (its
+running statistics), the ResNet SGD-Nesterov step (batch statistics
+and the momentum trace) and the MoE LM's adamw step (routing, slot
+counts and the gather dispatch over changing ids).
 """
 
 import dataclasses
@@ -33,7 +36,12 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from deeplearning4j_tpu_torch.models import bert as tbert
 from deeplearning4j_tpu_torch.models import gpt as tgpt
 from deeplearning4j_tpu_torch.models import lenet as tlenet
+from deeplearning4j_tpu_torch.models import moe as tmoe
+from deeplearning4j_tpu_torch.models import resnet as tres
 from deeplearning4j_tpu_torch.nlp import word2vec as tw2v
+from deeplearning4j_tpu_torch.nn.conf import (LayerKind,
+                                              MultiLayerConfiguration,
+                                              NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
@@ -117,6 +125,81 @@ def test_lenet_train_step_replays_like_eager():
         out = replay(*graph, x, y, gen)
         _assert_equal(out, ref, f"step {k}")
     assert int(graph[2]) == 4
+
+
+def test_batch_norm_network_step_replays_like_eager():
+    def layer(kind, n_in, n_out, **kw):
+        b = (NeuralNetConfiguration.builder().kind(kind).n_in(n_in)
+             .n_out(n_out).lr(0.1).use_adagrad(False)
+             .compute_dtype("float32"))
+        for name, val in kw.items():
+            b = getattr(b, name)(val)
+        return b.build()
+
+    conf = MultiLayerConfiguration(confs=[
+        layer(LayerKind.DENSE, 4, 8, activation="tanh"),
+        layer(LayerKind.BATCH_NORM, 8, 8),
+        layer(LayerKind.OUTPUT, 8, 3, activation="softmax",
+              loss_function="mcxent")], pretrain=False, backprop=True)
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    step = net._machinery()[0].fn
+    params, ustate, it, gen = net._fit_state(2)
+
+    def batch(seed):
+        rng = np.random.default_rng(seed)
+        x = rng.normal(1.0, 2.0, (8, 4)).astype(np.float32)
+        y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)]
+        return torch.from_numpy(x), torch.from_numpy(y)
+
+    eager = _clone((params, ustate, it))
+    graph = _clone((params, ustate, it))
+    replay = _Replay(step, _clone((params, ustate, it)) + batch(0)
+                     + (gen,))
+    for k in range(1, 5):
+        x, y = batch(k)
+        ref = step(*eager, x, y, gen)
+        out = replay(*graph, x, y, gen)
+        _assert_equal(out, ref, f"step {k}")
+    assert not torch.equal(graph[0][1]["running_mean"],
+                           params[1]["running_mean"])
+
+
+def test_resnet_sgd_step_replays_like_eager():
+    cfg = dataclasses.replace(tres.resnet_tiny(n_classes=4),
+                              compute_dtype="float32")
+    init, step_fn = tres.make_train_step(cfg, device="cpu")
+    state = init(torch.Generator().manual_seed(0))
+    step = step_fn.graph.fn
+    batches = [tres.synthetic_batch(k, cfg, 4, 16, device="cpu")
+               for k in range(5)]
+    trees = (state.params, state.batch_stats, state.opt_state)
+    eager, graph = _clone(trees), _clone(trees)
+    replay = _Replay(step, _clone(trees) + batches[0])
+    for k in range(1, 5):
+        ref = step(*eager, *batches[k])
+        out = replay(*graph, *batches[k])
+        _assert_equal(out, ref, f"step {k}")
+
+
+def test_moe_adamw_step_replays_like_eager():
+    cfg = tmoe.MoETransformerConfig(vocab_size=64, max_len=16, hidden=32,
+                                    n_layers=2, n_heads=4, d_ff=32,
+                                    n_experts=4, compute_dtype="float32")
+    init, step_fn = tmoe.make_train_step(cfg, attn_fn=fa.flash_attention,
+                                         device="cpu")
+    state = init(torch.Generator().manual_seed(0))
+    step = step_fn.graph.fn
+    ids = [tmoe.synthetic_ids(k, cfg, 2, 16, device="cpu")
+           for k in range(5)]
+    eager = _clone((state.params, state.opt_state))
+    graph = _clone((state.params, state.opt_state))
+    replay = _Replay(step, _clone((state.params, state.opt_state))
+                     + (ids[0], None))
+    for k in range(1, 5):
+        ref = step(*eager, ids[k], None)
+        out = replay(*graph, ids[k], None)
+        _assert_equal(out, ref, f"step {k}")
+    assert int(graph[1].count) == 4
 
 
 def _decode_setup():
