@@ -246,8 +246,35 @@ Phases, each fatal on failure:
    attention within 5e-2 with the routing assignments that differ
    printed; fp32 at depth 2, the gradients through the kernels against
    plain attention's within relative L2 1e-4.
+17. the sharded-fit spine: (1) GPT-2 small (gpt_config(), 124 M
+   params, remat, dropout 0.1) through models/lm_fit.CausalLM.
+   fit_backprop with bf16 mixed precision, B=8 T=1024, 4 batches of
+   seeded random ids x 3 epochs, SGD lr 0.05 momentum 0.9, after a
+   one-step warm-up fit: losses finite, the last epoch's mean below the
+   first's, no guard skip, the loss scale at next_loss_scale's value
+   for 12 good steps, B1 24 and B2, B3 12 launches a step, no capture;
+   step ms, tokens/s, MFU, peak memory and one step's profile by kind;
+   (2) at depth 2, two captured steps against the raw step (1e-6), then
+   an inf planted in one param: the guard skips, params and momentum
+   stay, the scale halves, the next clean step proceeds; (3) fp32 depth
+   2: grad_accum=2 against 1 after 3 steps (relative L2 1e-5); (4) part
+   1's fit on make_mesh(MeshSpec(data=1)) over an NCCL group of one
+   rank (file:// rendezvous in a temp dir): params torch.equal to
+   mesh=None, the NCCL kernels' ms in one step's profile; (5) the MoE
+   LM of phase 16 through CausalLM, bf16, 3 batches x 2 epochs: losses
+   fall, B1 2 and B2, B3 1 a layer a step, no capture, aux and dropped
+   choices printed; (6) MultiLayerNetwork's data-parallel bundle, card
+   against CPU: LeNet (phase 9's conf and seeded batches) with bf16
+   mixed precision (losses 5e-2) and with grad_accum=2 (1e-4), and a
+   conv + batch-norm conf's running statistics through bn_collective
+   (1e-4); (7) ResilientFit over GPT-2 small bf16, 10 steps, a snapshot
+   every 4, a slice stopped after 6 and resumed: torch.equal to the
+   uninterrupted run, no capture after the warm-up; (8) fp32 depth 2,
+   T=256, 3 steps, the kernels on the card against plain attention on
+   the CPU (params' relative L2 1e-4).  B1-B3 launches of parts 1 and 5
+   join the kernels line.
 
-Phases 4-10 and 14-16 run through the compile engine as a user's calls
+Phases 4-10 and 14-17 run through the compile engine as a user's calls
 do: every serving dispatch, training step, decode and prefill dispatch
 and embedding chunk is a CUDA graph replay after its signature's
 capture, and the kernel wrappers' launch counts are booked once per
@@ -6075,6 +6102,621 @@ def resnet_moe_phase(torch, fa, fw, fg, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the sharded-fit spine
+# ---------------------------------------------------------------------------
+
+#: the device phase 17 runs on (a CPU rehearsal substitutes "cpu")
+SPINE_DEVICE = "cuda"
+#: GPT-2 small CausalLM, bf16 mixed precision: B=8 T=1024, 4 batches of
+#: seeded random ids for 3 epochs, SGD lr 0.05 momentum 0.9 (the
+#: reference bench's CausalLM settings, bench.py:2368)
+SPINE_B, SPINE_T, SPINE_BATCHES, SPINE_EPOCHS = 8, 1024, 4, 3
+SPINE_LR, SPINE_MOMENTUM = 0.05, 0.9
+#: the MoE CausalLM: 3 batches for 2 epochs
+SPINE_MOE_BATCHES, SPINE_MOE_EPOCHS = 3, 2
+#: grad_accum=2 against 1, fp32 at depth 2: params' relative L2 (the
+#: microbatch sums add in another order)
+SPINE_ACCUM_TOL = 1e-5
+#: card against CPU, fp32 at depth 2, T=256: params' relative L2 (the
+#: kernels against plain attention, cuBLAS against the CPU's products)
+SPINE_CARD_CPU_TOL = 1e-4
+SPINE_CARD_CPU_B, SPINE_CARD_CPU_T, SPINE_CARD_CPU_STEPS = 4, 256, 3
+#: ResilientFit: 10 steps (5 batches, 2 epochs), a snapshot every 4, the
+#: slice stopped after 6 and resumed
+SPINE_RF_BATCHES, SPINE_RF_EVERY, SPINE_RF_KILL = 5, 4, 6
+SPINE_LENET_BATCHES = 4
+#: replays timed of the mesh-of-one step
+SPINE_MESH_TIMED = 5
+SPINE_BN_B = 64
+#: a spine step's device kernels by kind, first match wins
+SPINE_KINDS = (("B1", ("flash_fwd",)), ("B2", ("flash_bwd_dkv",)),
+               ("B3", ("flash_bwd_dq",)), ("NCCL", ("nccl",)),
+               ("products", GEMM_MARKS), ("casts and copies", ("copy",)),
+               ("softmax", ("softmax", "Softmax")),
+               ("layer norm", ("layer_norm", "LayerNorm")),
+               ("finite checks", ("ReduceOp<bool", "isfinite")),
+               ("elementwise (update, guard, masks)", ("elementwise",)),
+               ("reductions", ("reduce",)))
+
+
+class ScoreLog:
+    """A listener keeping every step's score."""
+
+    def __init__(self):
+        self.seen = []
+
+    def iteration_done(self, model, i, score):
+        self.seen.append(float(score))
+
+
+def spine_ids(vocab: int, n: int, b: int, t: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, (b, t)).astype(np.int32)
+            for _ in range(n)]
+
+
+def spine_batches(ids):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    return [DataSet(x, x) for x in ids]
+
+
+def spine_lm(lm_fit, cfg, **kw):
+    kw = {"lr": SPINE_LR, "momentum": SPINE_MOMENTUM, **kw}
+    return lm_fit.CausalLM(cfg, device=SPINE_DEVICE, **kw)
+
+
+def spine_sync(torch) -> None:
+    if SPINE_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def spine_kind(name: str) -> str:
+    for kind, marks in SPINE_KINDS:
+        if any(m in name for m in marks):
+            return kind
+    return "other"
+
+
+def spine_profile(torch, what, run, step_ms, say):
+    """One call of ``run`` by kernel kind (torch.profiler); returns
+    ``(device ms by kind, device ms by kernel)``, empty when no device
+    time is reported."""
+    by = device_ms_by_kernel(torch, run)
+    if not by:
+        say(f"{what} profile: no device time reported (not measured)")
+        return {}, {}
+    kinds = {}
+    for k, v in by.items():
+        kinds[spine_kind(k)] = kinds.get(spine_kind(k), 0.0) + v
+    busy = sum(by.values())
+    say(f"{what} profile of one step: device busy {busy:.2f} ms = "
+        f"{busy / step_ms:.1%} of the mean step; "
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                    for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    for key, v in sorted(by.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {v:8.3f} ms  {key[:100]}")
+    return kinds, by
+
+
+def spine_state(torch, step, params, ids):
+    """``(params, ustate, it, batch)`` for direct calls of a CausalLM
+    step, the params copied."""
+    from deeplearning4j_tpu_torch.ops import updaters
+
+    params = updaters.tree_map(torch.clone, params)
+    x = torch.as_tensor(ids).to(SPINE_DEVICE)
+    n = torch.full((), x.shape[0], dtype=torch.int32, device=SPINE_DEVICE)
+    return (params, step.init_ustate(params),
+            torch.zeros((), dtype=torch.int32, device=SPINE_DEVICE),
+            (x, x, n))
+
+
+def spine_gpt(torch, fa, gpt, lm_fit, sf, say):
+    """Part 1: GPT-2 small through CausalLM.fit_backprop, bf16."""
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    cfg = gpt.gpt_config()
+    ids = spine_ids(cfg.vocab_size, SPINE_BATCHES, SPINE_B, SPINE_T)
+    batches = spine_batches(ids)
+    lm = spine_lm(lm_fit, cfg, mixed_precision="bf16").init(0)
+    p0 = updaters.tree_map(torch.clone, lm.params)
+    n_params = sum(t.numel() for t in updaters.tree_leaves(p0))
+    spine_sync(torch)
+    if SPINE_DEVICE == "cuda":
+        # from before the capture: the graph's pool is allocated there
+        torch.cuda.reset_peak_memory_stats()
+    # the warm-up: a one-step fit captures the step
+    lm.fit_backprop(batches[:1])
+    lm.params = updaters.tree_map(torch.clone, p0)
+    lm.guard_skips = 0
+    log = ScoreLog()
+    lm.listeners = [log]
+
+    # -- the main path, counted ------------------------------------------
+    c0 = compile_metrics.compile_count
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    lm.fit_backprop(batches, num_epochs=SPINE_EPOCHS)
+    spine_sync(torch)
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    caps = compile_metrics.compile_count - c0
+    lm.listeners = []
+
+    steps = SPINE_EPOCHS * SPINE_BATCHES
+    step_ms = wall / steps * 1e3
+    tokens = SPINE_B * SPINE_T / (step_ms / 1e3)
+    mfu = gpt_train_flops(cfg, SPINE_B, SPINE_T) / (step_ms / 1e3) / 989e12
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if SPINE_DEVICE == "cuda" else float("nan"))
+    losses = np.array(log.seen).reshape(SPINE_EPOCHS, SPINE_BATCHES)
+    want = sf.init_loss_scale("cpu")
+    for _ in range(steps):
+        want = sf.next_loss_scale(want, torch.zeros((), dtype=torch.int32))
+    scale = float(lm.loss_scale["scale"])
+    say(f"GPT-2 small CausalLM ({n_params / 1e6:.1f} M params), bf16 mixed "
+        f"precision, B={SPINE_B} T={SPINE_T}, {SPINE_BATCHES} batches x "
+        f"{SPINE_EPOCHS} epochs, SGD lr {SPINE_LR} momentum "
+        f"{SPINE_MOMENTUM}: losses by epoch "
+        + " | ".join(" ".join(f"{v:.4f}" for v in row) for row in losses)
+        + f"; step {step_ms:.2f} ms (fit wall / {steps}, host clock, "
+          f"synchronized), {tokens:.1f} tokens/s, MFU {mfu:.1%} of 989 "
+          f"TFLOP/s; peak memory {peak:.2f} GB (capture included); guard "
+          f"skips "
+          f"{lm.guard_skips}; loss scale {scale:g} (expected "
+          f"{float(want['scale']):g}), good steps "
+          f"{int(lm.loss_scale['good_steps'])}; captures in the fit {caps}")
+    say(f"GPT-2 small CausalLM launches over the fit: {counts}")
+    check(np.isfinite(losses).all(), f"CausalLM: non-finite loss {losses}")
+    check(losses[-1].mean() < losses[0].mean(),
+          f"CausalLM: the last epoch's mean loss is not below the first's "
+          f"{losses}")
+    check(lm.guard_skips == 0, f"CausalLM: {lm.guard_skips} guard skips")
+    check(scale == float(want["scale"]) and int(lm.loss_scale["good_steps"])
+          == int(want["good_steps"]), f"CausalLM: loss scale {lm.loss_scale}")
+    check(caps == 0, f"CausalLM: {caps} captures after the first epoch")
+    expect = launches_per_step(cfg)
+    for name, n in counts.items():
+        check(n == expect[name] * steps,
+              f"CausalLM: {name} = {n}, not {expect[name]} per step")
+
+    step, _ = lm._backprop_machinery()
+    gen = torch.Generator(device=SPINE_DEVICE).manual_seed(0)
+    held = list(spine_state(torch, step, lm.params, ids[0]))
+
+    def one():
+        held[0], held[1], held[2], _, _ = step(*held, gen)
+
+    one()
+    spine_profile(torch, "GPT-2 small CausalLM bf16", one, step_ms, say)
+    del held, step
+    return counts, cfg, p0, batches, lm.params_flat(), step_ms
+
+
+def spine_graph_and_guard(torch, gpt, lm_fit, say) -> None:
+    """Part 2: at depth 2, two captured steps against the raw step from
+    one state, then an inf planted in one param leaf: the guard skips
+    the step, params and momentum stay, the scale halves, and the next
+    clean step proceeds."""
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    cfg = dataclasses.replace(gpt.gpt_config(), n_layers=2)
+    lm = spine_lm(lm_fit, cfg, mixed_precision="bf16").init(1)
+    step, _ = lm._backprop_machinery()
+    ids = spine_ids(cfg.vocab_size, 1, SPINE_B, SPINE_T, seed=1)[0]
+    eager = list(spine_state(torch, step, lm.params, ids))
+    held = list(spine_state(torch, step, lm.params, ids))
+    g_e = torch.Generator(device=SPINE_DEVICE).manual_seed(3)
+    g_c = torch.Generator(device=SPINE_DEVICE).manual_seed(3)
+    le, lc = [], []
+    for _ in range(2):
+        eager[0], eager[1], eager[2], s, _ = step.fn(*eager, g_e)
+        le.append(float(s))
+    held[0], held[1], held[2], s, _ = step(*held, g_c)   # captures
+    lc.append(float(s))
+    c0 = compile_metrics.compile_count
+    held[0], held[1], held[2], s, _ = step(*held, g_c)
+    lc.append(float(s))
+    caps = compile_metrics.compile_count - c0
+    rel = tree_rel_l2(torch, updaters, held[0], eager[0])
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(lc, le))
+    say(f"CausalLM depth 2, bf16: 2 captured steps against the raw step "
+        f"from one state: losses {le} vs {lc} (largest relative difference "
+        f"{lrel:.3e}), params' relative L2 {rel:.3e} (bar "
+        f"{GRAPH_TRAIN_RTOL:g}); captures after the first {caps}")
+    check(max(rel, lrel) <= GRAPH_TRAIN_RTOL,
+          f"CausalLM: captured steps differ from the raw step ({rel}, {lrel})")
+    check(caps == 0, f"CausalLM: {caps} captures after the first step")
+    del eager
+
+    w1 = held[0]["blocks"]["w1"]
+    saved = float(w1[0, 0, 0])
+    w1[0, 0, 0] = float("inf")
+    before_p = updaters.tree_map(torch.clone, held[0])
+    before_m = updaters.tree_map(torch.clone, held[1][0])
+    scale0 = float(held[1][1]["scale"])
+    held[0], held[1], held[2], s, skipped = step(*held, g_c)
+    same_p = all(torch.equal(a, b) for a, b in zip(
+        updaters.tree_leaves(held[0]), updaters.tree_leaves(before_p)))
+    same_m = all(torch.equal(a, b) for a, b in zip(
+        updaters.tree_leaves(held[1][0]), updaters.tree_leaves(before_m)))
+    scale1 = float(held[1][1]["scale"])
+    say(f"poisoned step (inf in blocks/w1): skipped {int(skipped)}, loss "
+        f"{float(s)}, params unchanged {same_p}, momentum unchanged "
+        f"{same_m}, loss scale {scale0:g} -> {scale1:g}")
+    check(int(skipped) == 1 and same_p and same_m,
+          "CausalLM: the guard did not hold the poisoned step")
+    check(scale1 == scale0 / 2, f"CausalLM: the scale went {scale0} -> "
+                                f"{scale1}, not halved")
+    w1 = held[0]["blocks"]["w1"]
+    w1[0, 0, 0] = saved
+    before_p = updaters.tree_map(torch.clone, held[0])
+    held[0], held[1], held[2], s, skipped = step(*held, g_c)
+    moved = tree_rel_l2(torch, updaters, held[0], before_p)
+    say(f"the next clean step: skipped {int(skipped)}, loss {float(s):.4f}, "
+        f"params moved by relative L2 {moved:.3e}, scale "
+        f"{float(held[1][1]['scale']):g}, good steps "
+        f"{int(held[1][1]['good_steps'])}")
+    check(int(skipped) == 0 and moved > 0 and np.isfinite(float(s)),
+          "CausalLM: the clean step after the poisoned one did not proceed")
+
+
+def spine_accum(torch, gpt, lm_fit, say) -> None:
+    """Part 3: fp32 at depth 2, B=8: grad_accum=2 against 1, 3 steps."""
+    cfg = dataclasses.replace(gpt.gpt_config(), n_layers=2,
+                              compute_dtype="float32", dropout=0.0)
+    batches = spine_batches(spine_ids(cfg.vocab_size, 3, SPINE_B, SPINE_T,
+                                      seed=2))
+    flats = []
+    for accum in (1, 2):
+        lm = spine_lm(lm_fit, cfg, grad_accum=accum).init(2)
+        lm.fit_backprop(batches)
+        flats.append(lm.params_flat())
+    p1 = spine_lm(lm_fit, cfg).init(2).params_flat()
+    rel = float((flats[1] - flats[0]).norm() / flats[0].norm())
+    moved = float((flats[0] - p1).norm() / p1.norm())
+    say(f"grad_accum=2 against 1, fp32, depth 2, B={SPINE_B} T={SPINE_T}, 3 "
+        f"steps: params' relative L2 {rel:.3e} (bar {SPINE_ACCUM_TOL:g}); "
+        f"the steps moved the params by {moved:.3e}")
+    check(rel <= SPINE_ACCUM_TOL, f"CausalLM: grad_accum=2 differs by {rel}")
+    check(moved > 0, "CausalLM: the accumulation fit did not move")
+
+
+def spine_mesh_of_one(torch, lm_fit, pm, cfg, p0, batches, ref_flat,
+                      step_ms, say) -> float:
+    """Part 4: the same fit as part 1 on a data mesh of one rank (NCCL on
+    the card), bit for bit; then its captured step timed beside part
+    1's ``step_ms`` and profiled.  Returns the NCCL kernels' device ms
+    in one step (nan when the profiler reports no device time)."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.ops import updaters
+
+    tmp = tempfile.mkdtemp(prefix="spine-rdv-")
+    pm.initialize_distributed(f"file://{tmp}/rdv", 1, 0,
+                              device=SPINE_DEVICE)
+    try:
+        mesh = pm.make_mesh(pm.MeshSpec(data=1))
+        lm = spine_lm(lm_fit, cfg, mixed_precision="bf16")
+        lm.params = updaters.tree_map(torch.clone, p0)
+        t0 = time.perf_counter()
+        lm.fit_backprop(batches, num_epochs=SPINE_EPOCHS, mesh=mesh)
+        spine_sync(torch)
+        wall = time.perf_counter() - t0
+        flat = lm.params_flat()
+        same = torch.equal(flat, ref_flat)
+        diff = float((flat - ref_flat).abs().max())
+        say(f"data mesh of one ({mesh.backend}, {mesh!r}), the part-1 fit: "
+            f"params equal to mesh=None bit for bit: {same} (largest "
+            f"difference {diff:g}); fit wall {wall:.2f} s with its capture; "
+            f"the all-reduce is captured inside the step's CUDA graph")
+        check(same, f"CausalLM: the mesh of one differs from mesh=None by "
+                    f"{diff}")
+        step, _ = lm._backprop_machinery(mesh)
+        held = list(spine_state(torch, step, lm.params,
+                                batches[0].features))
+
+        def one():
+            held[0], held[1], held[2], _, _ = step(*held, None)
+
+        one()
+        spine_sync(torch)
+        t0 = time.perf_counter()
+        for _ in range(SPINE_MESH_TIMED):
+            one()
+        spine_sync(torch)
+        mesh_ms = (time.perf_counter() - t0) / SPINE_MESH_TIMED * 1e3
+        kinds, by = spine_profile(torch, "mesh-of-one CausalLM", one,
+                                  mesh_ms, say)
+        nccl_kernels = [k for k in by if "nccl" in k.lower()]
+        nccl = kinds.get("NCCL", 0.0) if by else float("nan")
+        say(f"mesh-of-one step {mesh_ms:.2f} ms against mesh=None's "
+            f"{step_ms:.2f} ms (host clock, {SPINE_MESH_TIMED} synchronized "
+            f"replays); NCCL kernels in its profile: {len(nccl_kernels)}, "
+            f"{nccl:.3f} ms of device time (an in-place all-reduce over "
+            f"one rank has nothing to move)")
+        del held, step
+        return nccl
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def spine_moe(torch, fa, moe, lm_fit, ex, say):
+    """Part 5: the MoE CausalLM at GPT-2 small's widths, bf16."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa_mod
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    cfg = moe_config(moe)
+    ids = spine_ids(cfg.vocab_size, SPINE_MOE_BATCHES, SPINE_B, SPINE_T,
+                    seed=5)
+    batches = spine_batches(ids)
+    lm = spine_lm(lm_fit, cfg, mixed_precision="bf16").init(5)
+    p0 = updaters.tree_map(torch.clone, lm.params)
+    lm.fit_backprop(batches[:1])                      # the warm-up
+    lm.params = p0
+    log = ScoreLog()
+    lm.listeners = [log]
+    c0 = compile_metrics.compile_count
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    lm.fit_backprop(batches, num_epochs=SPINE_MOE_EPOCHS)
+    spine_sync(torch)
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    caps = compile_metrics.compile_count - c0
+    lm.listeners = []
+    steps = SPINE_MOE_BATCHES * SPINE_MOE_EPOCHS
+    losses = np.array(log.seen).reshape(SPINE_MOE_EPOCHS, SPINE_MOE_BATCHES)
+    x = torch.as_tensor(ids[0]).to(SPINE_DEVICE)
+    _, _, aux, dropped = routing_census(torch, moe, ex, cfg, lm.params, x,
+                                        fa_mod.make_attn_fn("auto"))
+    choices = cfg.n_layers * x.numel() * cfg.top_k
+    step_ms = wall / steps * 1e3
+    say(f"MoE CausalLM at GPT-2 small's widths, bf16 mixed precision, "
+        f"B={SPINE_B} T={SPINE_T}, {SPINE_MOE_BATCHES} batches x "
+        f"{SPINE_MOE_EPOCHS} epochs: losses by epoch "
+        + " | ".join(" ".join(f"{v:.4f}" for v in row) for row in losses)
+        + f"; step {step_ms:.2f} ms (fit wall / {steps}); mean aux loss "
+          f"{aux:.5f}, choices dropped at capacity {dropped} of {choices}; "
+          f"guard skips {lm.guard_skips}; captures in the fit {caps}; "
+          f"launches {counts}")
+    check(np.isfinite(losses).all(), f"MoE CausalLM: non-finite loss "
+                                     f"{losses}")
+    check(losses[-1].mean() < losses[0].mean(),
+          f"MoE CausalLM: the loss did not fall {losses}")
+    check(caps == 0, f"MoE CausalLM: {caps} captures after the warm-up")
+    expect = launches_per_step(cfg)
+    for name, n in counts.items():
+        check(n == expect[name] * steps,
+              f"MoE CausalLM: {name} = {n}, not {expect[name]} per step")
+    return counts
+
+
+def spine_bn_conf(tconf, accum: int):
+    """A ResNet-style MultiLayerNetwork: conv 3x3x8 -> batch norm ->
+    conv 3x3x8 -> batch norm -> softmax 10, NHWC 28x28x1."""
+    C, K = tconf.NeuralNetConfiguration, tconf.LayerKind
+
+    def conv(n_ch):
+        return (C.builder().kind(K.CONVOLUTION).n_channels(n_ch)
+                .n_filters(8).kernel_size((3, 3)).stride((1, 1))
+                .padding("SAME").activation("relu").lr(0.1)
+                .use_adagrad(False).compute_dtype("float32").build())
+
+    def bn():
+        return (C.builder().kind(K.BATCH_NORM).n_in(8).n_out(8).lr(0.1)
+                .use_adagrad(False).compute_dtype("float32").build())
+
+    out = (C.builder().kind(K.OUTPUT).n_in(28 * 28 * 8).n_out(10)
+           .activation("softmax").loss_function("mcxent").lr(0.1)
+           .use_adagrad(False).compute_dtype("float32").build())
+    return tconf.MultiLayerConfiguration(
+        confs=[conv(1), bn(), conv(8), bn(), out],
+        input_preprocessors={4: {"name": "flatten"}}, pretrain=False,
+        backprop=True, grad_accum=accum)
+
+
+def spine_lenet(torch, ln, say) -> None:
+    """Part 6: MultiLayerNetwork's data-parallel bundle, card against
+    CPU: LeNet with bf16 mixed precision and with grad_accum=2 (phase
+    9's conf and seeded batches), and batch norm's running statistics
+    of a ResNet-style conf through the bundle."""
+    from deeplearning4j_tpu_torch.nn.conf import configuration as tconf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.listeners import \
+        CollectScoresListener
+
+    params = ln.lenet(device="cpu").params
+    batches = lenet_random_batches(SPINE_LENET_BATCHES)
+    for what, field, value, tol in (
+            ("bf16 mixed precision", "mixed_precision", "bf16",
+             LENET_LOSS_RTOL["bfloat16"]),
+            ("grad_accum=2, fp32", "grad_accum", 2,
+             LENET_LOSS_RTOL["float32"])):
+        losses = []
+        for dev in (SPINE_DEVICE, "cpu"):
+            conf = ln.lenet_conf(compute_dtype="float32")
+            setattr(conf, field, value)
+            net = MultiLayerNetwork(conf, params=[
+                {k: v.to(dev) for k, v in p.items()} for p in params],
+                device=dev)
+            col = CollectScoresListener()
+            net.set_listeners([col])
+            net.fit_backprop(batches)
+            losses.append(np.array([v for _, v in col.scores]))
+        rel = float(np.max(np.abs(losses[0] - losses[1]) / np.abs(losses[1])))
+        say(f"LeNet {what}, card against CPU, {len(batches)} steps: losses "
+            + " ".join(f"{a:.5f}:{b:.5f}" for a, b in zip(*losses))
+            + f"; largest relative difference {rel:.3e} (bar {tol:g})")
+        check(np.isfinite(losses[0]).all() and rel <= tol,
+              f"LeNet {what}: card and CPU differ by {rel}")
+
+    rng = np.random.default_rng(7)
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    bn_batches = [DataSet(rng.random((SPINE_BN_B, 28, 28, 1),
+                                     dtype=np.float32),
+                          np.eye(10, dtype=np.float32)[
+                              rng.integers(0, 10, SPINE_BN_B)])
+                  for _ in range(2)]
+    stats = []
+    p_cpu = MultiLayerNetwork(spine_bn_conf(tconf, 2), device="cpu").init(3)
+    for dev in (SPINE_DEVICE, "cpu"):
+        net = MultiLayerNetwork(spine_bn_conf(tconf, 2), params=[
+            {k: v.to(dev) for k, v in p.items()} for p in p_cpu.params],
+            device=dev)
+        net.fit_backprop(bn_batches, num_epochs=2)
+        stats.append([net.params[i][k].cpu() for i in (1, 3)
+                      for k in ("running_mean", "running_var")])
+    rel = max(float((a - b).norm() / b.norm()) for a, b in zip(*stats))
+    say(f"batch norm through the data-parallel bundle (grad_accum=2, "
+        f"bn_collective's masked moments), depth 2, card against CPU: "
+        f"running statistics' largest relative L2 {rel:.3e} (bar "
+        f"{LENET_LOSS_RTOL['float32']:g})")
+    check(rel <= LENET_LOSS_RTOL["float32"],
+          f"batch norm running statistics differ by {rel}")
+
+
+def spine_resilient(torch, gpt, lm_fit, say) -> None:
+    """Part 7: ResilientFit over GPT-2 small bf16: a slice stopped after
+    SPINE_RF_KILL steps and resumed against an uninterrupted run."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.runtime import resilience
+    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+
+    cfg = gpt.gpt_config()
+    batches = spine_batches(spine_ids(cfg.vocab_size, SPINE_RF_BATCHES,
+                                      SPINE_B, SPINE_T, seed=7))
+    tmp = tempfile.mkdtemp(prefix="spine-rf-")
+
+    def run(d, **kw):
+        lm = spine_lm(lm_fit, cfg, mixed_precision="bf16").init(7)
+        rf = resilience.ResilientFit(lm, resilience.ResilienceConfig(
+            checkpoint_dir=os.path.join(tmp, d),
+            checkpoint_every=SPINE_RF_EVERY, max_to_keep=2, **kw))
+        rf.fit(batches, num_epochs=2)
+        return lm, rf
+
+    try:
+        t0 = time.perf_counter()
+        whole, _ = run("whole")
+        resilience.compiled_all_finite(whole.params)   # the restore check
+        c0 = compile_metrics.compile_count
+        part, rf = run("part", max_steps=SPINE_RF_KILL)
+        resumed, rf2 = run("part", resume=True)
+        caps = compile_metrics.compile_count - c0
+        same = torch.equal(resumed.params_flat(), whole.params_flat())
+        say(f"ResilientFit over GPT-2 small CausalLM bf16, "
+            f"{2 * SPINE_RF_BATCHES} steps, a snapshot every "
+            f"{SPINE_RF_EVERY}: slice of {rf.steps_run} steps then resume "
+            f"of {rf2.steps_run}: equal to the uninterrupted run bit for "
+            f"bit: {same}; captures after the warm-up {caps}; wall "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(rf.steps_run == SPINE_RF_KILL, "ResilientFit: the slice ran "
+                                             f"{rf.steps_run} steps")
+        check(same, "ResilientFit: the resumed CausalLM differs from the "
+                    "uninterrupted run")
+        check(caps == 0, f"ResilientFit: {caps} captures after the warm-up")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def spine_card_vs_cpu(torch, gpt, lm_fit, say) -> None:
+    """Part 8: fp32 at depth 2, widths 768 / 12 heads, T=256, 3 steps:
+    the kernels on the card against plain attention on the CPU."""
+    from deeplearning4j_tpu_torch.ops import updaters
+
+    cfg = dataclasses.replace(gpt.gpt_config(), n_layers=2,
+                              compute_dtype="float32", dropout=0.0)
+    batches = spine_batches(spine_ids(
+        cfg.vocab_size, SPINE_CARD_CPU_STEPS, SPINE_CARD_CPU_B,
+        SPINE_CARD_CPU_T, seed=8))
+    cpu = lm_fit.CausalLM(cfg, lr=SPINE_LR, momentum=SPINE_MOMENTUM,
+                          device="cpu").init(8)
+    card = spine_lm(lm_fit, cfg)
+    card.params = updaters.tree_map(lambda t: t.to(SPINE_DEVICE), cpu.params)
+    p0 = cpu.params_flat()
+    logs = []
+    for lm in (card, cpu):
+        log = ScoreLog()
+        lm.listeners = [log]
+        lm.fit_backprop(batches)
+        logs.append(log.seen)
+    a, b = card.params_flat(), cpu.params_flat()
+    rel = float((a - b).norm() / b.norm())
+    moved = float((b - p0).norm() / p0.norm())
+    say(f"CausalLM fp32 depth 2, T={SPINE_CARD_CPU_T}, "
+        f"{SPINE_CARD_CPU_STEPS} steps, card (kernels) against CPU (plain "
+        f"attention): losses "
+        + " ".join(f"{x:.6f}:{y:.6f}" for x, y in zip(*logs))
+        + f"; params' relative L2 {rel:.3e} (bar {SPINE_CARD_CPU_TOL:g}); "
+          f"the steps moved the params by {moved:.3e}")
+    check(rel <= SPINE_CARD_CPU_TOL, f"CausalLM: card and CPU differ by "
+                                     f"{rel}")
+
+
+def spine_phase(torch, fa, card: str) -> dict:
+    """Phase 17 (see the module docstring)."""
+    from deeplearning4j_tpu_torch.models import gpt, lm_fit, moe
+    from deeplearning4j_tpu_torch.models import lenet as ln
+    from deeplearning4j_tpu_torch.parallel import expert as ex
+    from deeplearning4j_tpu_torch.parallel import mesh as pm
+    from deeplearning4j_tpu_torch.parallel import sharded_fit as sf
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    compile_cache.clear()
+    if SPINE_DEVICE == "cuda":
+        gc_cuda(torch)
+    t = [time.perf_counter()]
+    counts, cfg, p0, batches, ref_flat, step_ms = spine_gpt(
+        torch, fa, gpt, lm_fit, sf, say)
+    t.append(time.perf_counter())
+    spine_graph_and_guard(torch, gpt, lm_fit, say)
+    spine_accum(torch, gpt, lm_fit, say)
+    t.append(time.perf_counter())
+    nccl = spine_mesh_of_one(torch, lm_fit, pm, cfg, p0, batches, ref_flat,
+                             step_ms, say)
+    del p0, batches
+    compile_cache.clear()
+    if SPINE_DEVICE == "cuda":
+        gc_cuda(torch)
+    t.append(time.perf_counter())
+    for name, n in spine_moe(torch, fa, moe, lm_fit, ex, say).items():
+        counts[name] += n
+    compile_cache.clear()
+    if SPINE_DEVICE == "cuda":
+        gc_cuda(torch)
+    t.append(time.perf_counter())
+    fa.reset_launches()
+    spine_lenet(torch, ln, say)
+    t.append(time.perf_counter())
+    spine_resilient(torch, gpt, lm_fit, say)
+    compile_cache.clear()
+    if SPINE_DEVICE == "cuda":
+        gc_cuda(torch)
+    t.append(time.perf_counter())
+    spine_card_vs_cpu(torch, gpt, lm_fit, say)
+    t.append(time.perf_counter())
+    names = ("GPT-2 small fit", "graph, guard and accumulation",
+             "mesh of one", "MoE", "LeNet and batch norm", "ResilientFit",
+             "card vs CPU")
+    say("phase 17 wall: " + ", ".join(
+        f"{n} {b - a:.1f} s" for n, a, b in zip(names, t, t[1:]))
+        + f"; total {t[-1] - t[0]:.1f} s; NCCL in a mesh-of-one step "
+          f"{nccl:.3f} ms")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -6216,6 +6858,11 @@ def main() -> int:
     print("phase 16: ResNet-50 training and serving; the MoE LM at GPT-2 "
           "small's widths")
     for name, n in resnet_moe_phase(torch, fa, fw, fg, card).items():
+        launches[name] += n
+    print("phase 17: the sharded-fit spine: CausalLM, bf16 with the loss "
+          "scale, accumulation, a data mesh of one, the MoE LM, the "
+          "MultiLayerNetwork bundle, ResilientFit")
+    for name, n in spine_phase(torch, fa, card).items():
         launches[name] += n
 
     kernels = [{

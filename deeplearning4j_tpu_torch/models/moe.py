@@ -75,7 +75,7 @@ class MoETransformerConfig:
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet: expert "
-        f"parallelism comes with the mesh slice (ROADMAP A7)")
+        f"parallelism comes with the mesh's expert axis (ROADMAP A7.1)")
 
 
 #: leaf names of the two groups (moe.py:84-106)

@@ -467,8 +467,9 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
     that many optimizer steps per call and returns the ``[n_steps]``
     losses, as JAX's scan does.  ``generator`` draws the dropout masks,
     on the batch's device; a config with dropout needs one, as JAX's
-    step needs its key.  ``mesh=`` raises ``NotImplementedError``: it
-    comes with the parallel slice.
+    step needs its key.  ``mesh=`` raises ``NotImplementedError``: the
+    model-axis sharding of this step is ROADMAP A7.1 (data-parallel
+    LM training runs through ``models/lm_fit.CausalLM``).
 
     The optimizer step runs through the compile engine
     (``runtime/compile_cache``, as ``label``): on the card it is one
@@ -481,8 +482,9 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
     (``.fn`` the raw step)."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh-sharded training is not ported yet: it comes with the "
-            "parallel slice of the port (ROADMAP Queue A)")
+            "mesh-sharded training of this step is not ported yet: its "
+            "model-axis sharding (gpt.shard_specs) is ROADMAP A7.1; the "
+            "data-parallel slice trains through models/lm_fit.CausalLM")
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
     dev = resolve_device(device)

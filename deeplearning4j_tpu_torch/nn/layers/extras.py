@@ -6,12 +6,17 @@ reads (their gradient is zero); the train step
 (``nn/multilayer.MultiLayerNetwork._train_step``) refreshes them from
 the training forward's own batch moments, as the reference's (:520-563).
 
-:func:`bn_collective`, the reference's cross-replica context for the
-data-parallel step, comes with that step (ROADMAP A7).
+:func:`bn_collective` is the reference's cross-replica context (:27-50):
+the data-parallel step (``MultiLayerNetwork``'s DP bundle) runs its
+training forward inside it, and every batch-norm layer then normalizes
+with the masked moments of the GLOBAL batch: padded rows excluded, the
+sums taken in fp32 and summed over the mesh's data axis.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -28,12 +33,49 @@ Params = Dict[str, Tensor]
 BN_EPS = 1e-5
 
 
-def bn_collective(axis_name, mask):
-    """Cross-replica batch norm (reference :26-50) belongs to the
-    data-parallel train step, which is ROADMAP A7."""
-    raise NotImplementedError(
-        "bn_collective (cross-replica batch norm for the data-parallel "
-        "step) is not ported to the PyTorch package yet (ROADMAP A7)")
+#: the context the data-parallel step installs around its training
+#: forward (thread-local: the forward runs on the caller's thread)
+_BN_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def bn_collective(axis, mask: Tensor):
+    """Cross-replica batch norm (reference :27-50): inside the context a
+    training forward's batch-norm layers normalize with masked GLOBAL
+    moments.  ``mask`` ``[rows]`` weights each row (0 for a padded row);
+    ``axis`` is None (this process's rows only), a data ``Mesh`` or
+    ``"data"`` (the sums go through ``collectives.psum`` over that axis,
+    differentiably).  Another axis name raises naming ROADMAP A7."""
+    if axis is not None:
+        from deeplearning4j_tpu_torch.parallel.collectives import _group
+        _group(axis)
+    prev = getattr(_BN_CTX, "ctx", None)
+    _BN_CTX.ctx = (axis, mask)
+    try:
+        yield
+    finally:
+        _BN_CTX.ctx = prev
+
+
+def _collective_moments(x: Tensor, axis, mask: Tensor):
+    """fp32 (mean, biased variance) of the masked rows of ``x`` over the
+    data axis, as E[x^2] - E[x]^2 of fp32 sums (the reference's :83-105:
+    at bf16 the difference of squares would cancel)."""
+    red = tuple(range(x.ndim - 1))
+    xf = x.float()
+    m = mask.float().reshape(mask.shape + (1,) * (x.ndim - 1))
+    spatial = 1.0
+    for s in x.shape[1:-1]:
+        spatial *= float(s)
+    s1 = (xf * m).sum(dim=red)
+    s2 = (xf * xf * m).sum(dim=red)
+    cnt = mask.float().sum() * spatial
+    if axis is not None:
+        from deeplearning4j_tpu_torch.parallel.collectives import psum
+        s1, s2, cnt = psum((s1, s2, cnt), axis)
+    cnt = torch.clamp(cnt, min=1.0)
+    mean = s1 / cnt
+    return mean, torch.clamp(s2 / cnt - mean * mean, min=0.0)
 
 
 def batch_moments(x: Tensor):
@@ -82,6 +124,12 @@ class BatchNormLayer(Layer):
     def activate(self, params: Params, x: Tensor,
                  gen: Optional[torch.Generator] = None,
                  train: bool = False) -> Tensor:
+        ctx = getattr(_BN_CTX, "ctx", None) if train else None
+        if ctx is not None:
+            # normalize in fp32, return in the input's dtype
+            mean, var = _collective_moments(x, *ctx)
+            xn = ((x.float() - mean) * torch.rsqrt(var + BN_EPS)).to(x.dtype)
+            return xn * params["scale"] + params["bias"]
         if train:
             mean, var = batch_moments(x)
         else:

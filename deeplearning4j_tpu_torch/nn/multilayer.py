@@ -1,11 +1,12 @@
 """MultiLayerNetwork: a stack of layers and an output layer.
 
-Port of the single-device part of ``deeplearning4j_tpu/nn/multilayer.py``:
-the constructor and size wiring (:62-113), ``init``, ``feed_forward``,
-``hidden_activations`` and ``loss`` (:134-174), ``output`` / ``predict``
-/ ``score`` through the serving engine (:206-251), ``fit_backprop``'s
-single-device path (:879-978), ``fit_iterator`` (:1134-1236),
-``evaluate`` and the params plumbing and serialization (:1267-1315).
+Port of ``deeplearning4j_tpu/nn/multilayer.py``: the constructor and
+size wiring (:62-113), ``init``, ``feed_forward``, ``hidden_activations``
+and ``loss`` (:134-174), ``output`` / ``predict`` / ``score`` through the
+serving engine (:206-251), ``fit_backprop`` (:879-1082) and
+``fit_iterator`` (:1134-1236) with their data-parallel, accumulation and
+mixed-precision paths, ``evaluate`` and the params plumbing and
+serialization (:1267-1315).
 
 Params are a list of per-layer dicts of fp32 tensors on the network's
 ``device`` (None = CUDA), in the reference's layouts, so
@@ -50,14 +51,33 @@ index, conf JSON); its random stream is a generator re-seeded with
 seed give equal params.  ``prepare_resilient_fit`` is ``fit``'s front
 half for ``runtime/resilience.ResilientFit``.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP A7): the
-data-parallel, accumulation and mixed-precision fit paths (``mesh``,
-``grad_accum > 1``, ``mixed_precision="bf16"``).
+**The data-parallel bundle** (reference :612-829) takes over whenever
+a fit has a data ``mesh`` (``parallel/mesh.make_mesh``, or ``"auto"``:
+every rank of an initialized process group of two or more),
+``conf.grad_accum > 1`` or ``conf.mixed_precision == "bf16"``.  Its step
+takes ``(x, y, n_valid)``: the batch is zero-padded to a multiple of
+``data degree x grad_accum`` rows, each rank takes its contiguous row
+block, and the loss is a masked SUM (padded rows weigh 0).  Microbatches
+accumulate in fp32; the loss sum, the gradients and batch norm's
+statistics are summed over the data axis (``parallel/collectives.psum``)
+and divided once by the global row count, which also undoes the loss
+scale under bf16.  The guard's verdict is taken after the sum, so every
+rank skips together; the dynamic loss scale's transition bypasses the
+guard (a skipped step must still halve the scale).  Under bf16 the fp32
+masters are cast inside the differentiated function and the updater
+state is ``(layer states, loss scale)``.  Batch norm normalizes with the
+masked global moments (``nn/layers/extras.bn_collective``).  A rank's
+dropout stream is ``fold(seed, rank)`` (rank 0 without a mesh), so a
+mesh of one trains bit for bit as ``mesh=None``.
+
+Not ported (each raises ``NotImplementedError`` naming ROADMAP A7): a
+mesh with a model, pipe, seq or expert axis above 1.
 """
 
 from __future__ import annotations
 
 import io
+import time
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -71,7 +91,8 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import (
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import make_preprocessor
 from deeplearning4j_tpu_torch.nn.layers import make_layer
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, PretrainLayer
-from deeplearning4j_tpu_torch.nn.layers.extras import batch_moments
+from deeplearning4j_tpu_torch.nn.layers.extras import (batch_moments,
+                                                       bn_collective)
 from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
 from deeplearning4j_tpu_torch.nn.params import (pack_params, param_leaves,
                                                 unpack_params)
@@ -81,8 +102,15 @@ from deeplearning4j_tpu_torch.ops.updaters import (apply_descent,
 from deeplearning4j_tpu_torch.optimize.listeners import IterationListener
 from deeplearning4j_tpu_torch.optimize.solver import (Objective, Solver,
                                                       value_and_grad)
+from deeplearning4j_tpu_torch.parallel import collectives, sharded_fit
+from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                    auto_data_mesh,
+                                                    check_data_mesh,
+                                                    mesh_signature, pad_rows,
+                                                    shard_rows)
 from deeplearning4j_tpu_torch.runtime import (compile_cache, resilience,
                                               telemetry)
+from deeplearning4j_tpu_torch.runtime.metrics import dp_metrics
 
 Tensor = torch.Tensor
 Params = List[Dict[str, Tensor]]
@@ -97,6 +125,20 @@ def _nbytes(a) -> int:
     if isinstance(a, torch.Tensor):
         return a.numel() * a.element_size()
     return int(np.asarray(a).nbytes)
+
+
+def _grads(obj: Tensor, leaves: List[Tensor]) -> List[Tensor]:
+    """``d obj / d leaf`` for each leaf; a leaf the objective does not
+    read (a pretrain layer's visible bias) gets zeros, as ``jax.grad``
+    gives it."""
+    return [torch.zeros_like(p) if g is None else g for p, g in
+            zip(leaves, torch.autograd.grad(obj, leaves, allow_unused=True))]
+
+
+def _unflat(flat: List[Tensor], params: Params) -> Params:
+    """Per-layer dicts of ``flat`` in :func:`param_leaves` order."""
+    it = iter(flat)
+    return [{key: next(it) for key in sorted(p)} for p in params]
 
 
 def _as_tensor(a, device: torch.device) -> Tensor:
@@ -133,6 +175,7 @@ class MultiLayerNetwork:
                          for i, spec in conf.output_preprocessors.items()}
         self._serving_engine_memo = None
         self._machinery_memo = None
+        self._dp_memo: Dict = {}
         #: in-step guard skips summed over this network's fits
         self.guard_skips = 0
 
@@ -252,21 +295,46 @@ class MultiLayerNetwork:
                                            label="serving.forward"))
 
     def _backprop_machinery(self, mesh=None):
-        """``(train_step, updaters)``: the captured engine step
-        ``train_step(params, ustate, iteration, x, y, gen) -> (params,
-        ustate, iteration, score, skipped)`` shared by conf JSON, and this
-        conf's per-layer updaters; the counterpart of the reference's
-        ``_backprop_machinery`` (:442-470; the scanned ``train_epochs``
-        has no counterpart: the staged loop replays the step).  A
-        ``mesh`` raises (data-parallel machinery, ROADMAP A7)."""
+        """``(train_step, updaters)``, the counterpart of the reference's
+        ``_backprop_machinery`` (:442-492).  Without a mesh, accumulation
+        or bf16 it is the captured engine step ``train_step(params,
+        ustate, iteration, x, y, gen) -> (params, ustate, iteration,
+        score, skipped)`` shared by conf JSON.  Otherwise it is the
+        data-parallel step ``train_step(params, ustate, iteration, (x, y,
+        n_valid), gen)`` (``takes_n_valid``; ``init_ustate`` builds its
+        state; ``epochs`` is its staged-fit loop), shared by (conf JSON,
+        mesh signature, accumulation, precision policy).  The scanned
+        ``train_epochs`` of the reference is the staged loop."""
         self._check_fit_conf(mesh)
-        return self._machinery()[0], self._updaters()
+        if not self._dp_path(mesh):
+            return self._machinery()[0], self._updaters()
+        return self._dp_bundle(mesh), self._updaters()
+
+    def _mp_on(self) -> bool:
+        return getattr(self.conf, "mixed_precision", "off") == "bf16"
+
+    def _dp_path(self, mesh) -> bool:
+        return mesh is not None or self.conf.grad_accum > 1 or self._mp_on()
+
+    def _dp_bundle(self, mesh):
+        accum = max(self.conf.grad_accum, 1)
+        memo_key = (mesh_signature(mesh), accum, self._mp_on())
+        step = self._dp_memo.get(memo_key)
+        if step is None:
+            step = self._dp_memo[memo_key] = compile_cache.get_or_build(
+                ("multilayer_backprop_dp", self.conf.to_json())
+                + memo_key, lambda: self._build_dp_machinery(mesh))
+        return step
 
     @staticmethod
     def _init_ustate(train_step, updaters, params):
-        """Fresh updater state for an engine step: the per-layer list
-        (the reference's mixed-precision step carries its own
-        initializer, ROADMAP A7)."""
+        """Fresh updater state for an engine step: the step's own
+        initializer when it has one (the data-parallel step's, which
+        under bf16 adds the loss-scale state), else the per-layer
+        list."""
+        init = getattr(train_step, "init_ustate", None)
+        if init is not None:
+            return init(params)
         return [u.init(p) for u, p in zip(updaters, params)]
 
     @staticmethod
@@ -547,27 +615,49 @@ class MultiLayerNetwork:
         return batches, mesh
 
     def _resolve_fit_mesh(self, mesh, min_batch: int):
-        """The reference's sharded-by-default policy (:831-866) on one
-        device: ``None``/``False``/``"auto"`` give None (the single-
-        device path); an explicit mesh raises (ROADMAP A7)."""
-        if mesh is None or mesh is False or mesh == "auto":
+        """The reference's sharded-by-default policy (:831-866):
+        ``None``/``False`` give no mesh; ``"auto"`` the data mesh over
+        every rank of an initialized process group when it has two or
+        more ranks and every batch gives each rank a row, else None; an
+        explicit mesh is the caller's, and a batch smaller than its data
+        degree raises."""
+        if mesh is None or mesh is False:
             return None
-        raise _not_ported("data-parallel fit (mesh=)", "A7")
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be a Mesh, 'auto', None or "
+                                 f"False, got {mesh!r}")
+            m = auto_data_mesh()
+            if m is None or min_batch < m.shape[DATA_AXIS]:
+                return None
+            return m
+        check_data_mesh(mesh)
+        if min_batch < mesh.shape[DATA_AXIS]:
+            raise ValueError(
+                f"batch of {min_batch} cannot shard over data-parallel "
+                f"degree {mesh.shape[DATA_AXIS]}: every device needs at "
+                f"least one example — use a bigger batch, a smaller mesh, "
+                f"or mesh=None")
+        return mesh
+
+    @staticmethod
+    def _pad_chunk(mesh, accum: int) -> int:
+        """Row-count multiple every dispatched batch is padded to."""
+        ndp = mesh.shape[DATA_AXIS] if mesh is not None else 1
+        return ndp * max(accum, 1)
+
+    @staticmethod
+    def _pad_rows(arr, target: int) -> Tensor:
+        return pad_rows(arr, target)
 
     # -- backprop training ---------------------------------------------------
-    def _check_fit_conf(self, mesh) -> None:
+    def _check_fit_conf(self, mesh=None) -> None:
         policy = getattr(self.conf, "mixed_precision", "off")
         if policy not in MIXED_PRECISION_POLICIES:
             raise ValueError(
                 f"mixed_precision must be one of "
                 f"{MIXED_PRECISION_POLICIES}, got {policy!r}")
-        if mesh is not None:
-            raise _not_ported("data-parallel fit (mesh=)", "A7")
-        if self.conf.grad_accum > 1:
-            raise _not_ported("gradient accumulation (grad_accum > 1)",
-                              "A7")
-        if policy == "bf16":
-            raise _not_ported('mixed_precision="bf16"', "A7")
+        check_data_mesh(mesh)
 
     def _updaters(self):
         """Each layer's own updater from its conf (ConfOverride parity:
@@ -604,59 +694,212 @@ class MultiLayerNetwork:
             score = self.output_layer.loss(live[-1], h, y)
         with torch.no_grad():
             bn_stats = {i: batch_moments(acts[i])
-                        for i, c in enumerate(self.conf.confs)
-                        if c.kind is LayerKind.BATCH_NORM}
-        # a pretrain layer's visible bias takes no part in the supervised
-        # loss: its gradient is zero, as jax.grad gives it
-        grads_flat = [torch.zeros_like(p) if g is None else g for p, g in
-                      zip(leaves, torch.autograd.grad(score, leaves,
-                                                      allow_unused=True))]
+                        for i in self._bn_layers()}
+        grads_flat = _grads(score, leaves)
         score = score.detach()
-        it = iter(grads_flat)
-        grads = [{key: next(it) for key in sorted(p)} for p in params]
         with torch.no_grad():
-            new_params, new_ustate = [], []
-            for upd, p, u, g in zip(updaters, params, ustate, grads):
-                u_i, s_i = upd.update(u, g, p, iteration, 1)
-                new_params.append(apply_descent(p, u_i))
-                new_ustate.append(s_i)
-            for i, (mean, var) in bn_stats.items():
-                new_params[i] = dict(
-                    new_params[i],
-                    running_mean=0.9 * new_params[i]["running_mean"]
-                    + 0.1 * mean,
-                    running_var=0.9 * new_params[i]["running_var"]
-                    + 0.1 * var)
+            new_params, new_ustate = self._apply_step(
+                updaters, params, ustate, _unflat(grads_flat, params),
+                iteration, bn_stats)
             new_params, new_ustate, skipped = resilience.guard_update(
                 params, ustate, new_params, new_ustate,
                 (score, list(grads_flat)))
         return new_params, new_ustate, score, skipped
 
+    def _bn_layers(self) -> List[int]:
+        return [i for i, c in enumerate(self.conf.confs)
+                if c.kind is LayerKind.BATCH_NORM]
+
+    @staticmethod
+    def _apply_step(updaters, params, ustate, grads, iteration, bn_stats):
+        """Each layer's updater on its gradients (batch size 1: the
+        losses are already means), then batch norm's running statistics
+        ``0.9 running + 0.1 batch`` from ``bn_stats`` ``{layer: (mean,
+        var)}``: the candidate ``(params, ustate)`` the guard selects."""
+        new_params, new_ustate = [], []
+        for upd, p, u, g in zip(updaters, params, ustate, grads):
+            u_i, s_i = upd.update(u, g, p, iteration, 1)
+            new_params.append(apply_descent(p, u_i))
+            new_ustate.append(s_i)
+        for i, (mean, var) in bn_stats.items():
+            new_params[i] = dict(
+                new_params[i],
+                running_mean=0.9 * new_params[i]["running_mean"] + 0.1 * mean,
+                running_var=0.9 * new_params[i]["running_var"] + 0.1 * var)
+        return new_params, new_ustate
+
+    def _build_dp_machinery(self, mesh):
+        """The data-parallel step (reference :612-829; the module
+        docstring has its contract), through ``parallel/sharded_fit``.
+        It closes over a replica rebuilt from the conf JSON and over the
+        mesh, never over ``self``."""
+        net = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(self.conf.to_json()),
+            device="cpu")
+        updaters = net._updaters()
+        bn_layers = net._bn_layers()
+        accum = max(net.conf.grad_accum, 1)
+        mp_on = net._mp_on()
+        rank = mesh.rank if mesh is not None else 0
+        last = len(net.layers) - 1
+
+        def micro(params, x, y, mask, gen, scale):
+            """Masked loss SUM, batch norm's masked stat sums and the
+            gradients of (loss sum x scale) for one microbatch: the unit
+            accumulation and the data axis both combine by summing."""
+            live = [tree_map(lambda t: t.detach().requires_grad_(True), p)
+                    for p in params]
+            leaves = param_leaves(live)
+            with torch.enable_grad():
+                p = sharded_fit.mp_cast(live) if mp_on else live
+                if mp_on and x.is_floating_point():
+                    x = x.to(torch.bfloat16)
+                with bn_collective(mesh, mask):
+                    acts = net.feed_forward(p, x, gen, train=True, upto=last)
+                h = acts[-1]
+                if last in net._in_pre:
+                    h = net._in_pre[last](h, gen)
+                per = net.output_layer.per_example_loss(p[-1], h, y)
+                loss_sum = torch.sum(per * mask)
+                obj = loss_sum * scale if mp_on else loss_sum
+            stats = {}
+            with torch.no_grad():
+                for i in bn_layers:
+                    h_in = acts[i]
+                    m = mask.reshape(mask.shape + (1,) * (h_in.ndim - 1))
+                    red = tuple(range(h_in.ndim - 1))
+                    # the spatial extent divided out here, so the step's
+                    # combine is sum / rows: mean = sum(h) / (rows * HW)
+                    spatial = float(np.prod(h_in.shape[1:-1])) \
+                        if h_in.ndim > 2 else 1.0
+                    stats[i] = (torch.sum(h_in * m, dim=red) / spatial,
+                                torch.sum(torch.square(h_in) * m, dim=red)
+                                / spatial)
+            return loss_sum.detach(), stats, _grads(obj, leaves)
+
+        def dp_step(params, ustate, batch, gen, iteration):
+            if mp_on:
+                layer_u, ls = ustate
+                scale = ls["scale"]
+            else:
+                layer_u, ls, scale = ustate, None, None
+            x, y, n_valid = batch
+            local = x.shape[0]
+            # this rank's rows sit at [rank * local, (rank + 1) * local)
+            # of the padded global batch; only the padded tail is masked
+            mask = ((rank * local + torch.arange(local, device=x.device))
+                    < n_valid).float()
+            count = n_valid.float()
+            if accum == 1:
+                loss_sum, stats, grads = micro(params, x, y, mask, gen,
+                                               scale)
+            else:
+                mb = local // accum
+                loss_sum, stats, grads = None, {}, None
+                for i in range(accum):
+                    sl = slice(i * mb, (i + 1) * mb)
+                    s, st, g = micro(params, x[sl], y[sl], mask[sl], gen,
+                                     scale)
+                    # fp32 sum accumulators, zero-started as the
+                    # reference's scan carry
+                    if grads is None:
+                        grads = [torch.zeros(gg.shape, dtype=torch.float32,
+                                             device=gg.device) + gg.float()
+                                 for gg in g]
+                        loss_sum = 0.0 + s
+                        stats = st
+                    else:
+                        grads = [a + gg.float() for a, gg in zip(grads, g)]
+                        loss_sum = loss_sum + s
+                        stats = {k: tuple(a + b for a, b in zip(stats[k], v))
+                                 for k, v in st.items()}
+                grads = [g.to(p.dtype) for g, p in
+                         zip(grads, param_leaves(params))]
+            if mesh is not None:
+                loss_sum, grads, stats = collectives.psum(
+                    (loss_sum, grads, stats), mesh)
+            denom = torch.clamp(count, min=1.0)
+            score = loss_sum / denom
+            # one divide finishes the mean and undoes the loss scale; an
+            # overflowed bf16 backward leaves inf/NaN, which the guard
+            # below turns into a skip on every rank
+            gdenom = denom * scale if mp_on else denom
+            grads = [g / gdenom for g in grads]
+            bn_stats = {}
+            for i, (sum_h, sum_h2) in stats.items():
+                mean = sum_h / denom
+                bn_stats[i] = (mean, sum_h2 / denom - torch.square(mean))
+            new_params, new_u = net._apply_step(
+                updaters, params, layer_u, _unflat(grads, params),
+                iteration, bn_stats)
+            new_params, new_u, skipped = resilience.guard_update(
+                params, layer_u, new_params, new_u, (score, grads))
+            if mp_on:
+                # the scale's transition bypasses the guard: a skipped
+                # step must still halve it
+                return (new_params,
+                        (new_u, sharded_fit.next_loss_scale(ls, skipped)),
+                        score, skipped)
+            return new_params, new_u, score, skipped
+
+        step = sharded_fit.build_sharded_step(
+            dp_step, mesh, label="multilayer.train_step_dp")
+        epochs = sharded_fit.build_scanned_epochs(
+            dp_step, mesh, label="multilayer.train_epochs", step=step)
+
+        def init_ustate(params):
+            layer_u = [u.init(p) for u, p in zip(updaters, params)]
+            if mp_on:
+                return (layer_u, sharded_fit.init_loss_scale(
+                    param_leaves(params)[0].device))
+            return layer_u
+
+        step.takes_n_valid = True
+        step.init_ustate = init_ustate
+        step.mixed_precision = mp_on
+        step.epochs = epochs
+        return step
+
     def fit_backprop(self, data: Union[DataSet, Sequence[DataSet]],
                      num_epochs: int = 1, seed: int = 2,
-                     mesh=None) -> None:
+                     mesh="auto") -> None:
         """Supervised minibatch training of the whole network on its
         device.  A uniform list of batches (same shapes, within
         ``SCAN_MAX_DATASET_BYTES``) is staged on the device once and
         listeners are replayed from the per-step losses after the steps;
         a ragged list or a lone DataSet moves batch by batch.  ``seed``
-        seeds the dropout generator.  ``mesh`` must be None (the
-        data-parallel path is ROADMAP A7)."""
-        self._check_fit_conf(mesh)
+        seeds the dropout generator.
+
+        With a data mesh (``mesh=``, or ``"auto"``: see
+        :meth:`_resolve_fit_mesh`), ``grad_accum > 1`` or bf16 the fit
+        runs the data-parallel step: every rank passes the same global
+        batches and trains on its row block of each; a smaller trailing
+        batch is zero-padded into the staged list and masked out."""
+        self._check_fit_conf()
         batches = [data] if isinstance(data, DataSet) else list(data)
         if not batches:
             return
         self._notify_fit_start()
-        with telemetry.span("multilayer.fit", path="single",
+        rmesh = self._resolve_fit_mesh(
+            mesh, min(int(b.features.shape[0]) for b in batches))
+        dp = self._dp_path(rmesh)
+        with telemetry.span("multilayer.fit", path="dp" if dp else "single",
                             epochs=num_epochs, batches=len(batches)):
-            self._fit_backprop_single(batches, num_epochs, seed)
+            if dp:
+                self._fit_backprop_dp(batches, num_epochs, seed, rmesh)
+            else:
+                self._fit_backprop_single(batches, num_epochs, seed)
 
-    def _fit_state(self, seed: int):
+    def _fit_state(self, seed: int, init_ustate=None):
         """A fit's working state: a copy of the network's params (the
-        step donates them), fresh updater state, the device iteration
-        counter and the dropout generator."""
+        step donates them), fresh updater state (``init_ustate(params)``
+        when given), the device iteration counter and the dropout
+        generator."""
         params = [tree_map(torch.clone, p) for p in self._require_params()]
-        ustate = [u.init(p) for u, p in zip(self._updaters(), params)]
+        if init_ustate is None:
+            ustate = [u.init(p) for u, p in zip(self._updaters(), params)]
+        else:
+            ustate = init_ustate(params)
         it = torch.zeros((), dtype=torch.int32, device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return params, ustate, it, gen
@@ -699,9 +942,7 @@ class MultiLayerNetwork:
                             skips.append(skipped)
                 self._note_skips(skips)
             if self.listeners and scores:
-                for j, s in enumerate(torch.stack(scores).tolist()):
-                    for ls in self.listeners:
-                        ls.iteration_done(self, j, s)
+                self._replay_listeners(torch.stack(scores))
         else:
             for epoch in range(num_epochs):
                 if stop:
@@ -714,6 +955,109 @@ class MultiLayerNetwork:
                         params, ustate, it = self._step_and_notify(
                             step, params, ustate, it, batch, gen, n, skips)
                         n += 1
+            self._note_skips(skips)
+        self._set_trained(params)
+
+    def _replay_listeners(self, scores: Tensor) -> None:
+        for j, s in enumerate(scores.reshape(-1).tolist()):
+            for ls in self.listeners:
+                ls.iteration_done(self, j, s)
+
+    def _dp_fit_state(self, seed: int, rmesh):
+        """``(step, params, ustate, it, gen)`` of a data-parallel fit: the
+        rank's dropout stream is ``fold(seed, rank)``."""
+        step = self._dp_bundle(rmesh)
+        params, ustate, it, gen = self._fit_state(seed, step.init_ustate)
+        rank = rmesh.rank if rmesh is not None else 0
+        gen.manual_seed(resilience.fold(seed, rank))
+        return step, params, ustate, it, gen
+
+    def _dp_batch(self, x, y, n_valid: int, target: int, rmesh):
+        """``(x, y, n_valid)`` for the data-parallel step: zero-padded
+        to ``target`` rows, this rank's row block, on the device."""
+        x, y = self._pad_rows(x, target), self._pad_rows(y, target)
+        if rmesh is not None:
+            x, y = shard_rows(x, rmesh), shard_rows(y, rmesh)
+        return (_as_tensor(x, self.device), _as_tensor(y, self.device),
+                torch.full((), n_valid, dtype=torch.int32,
+                           device=self.device))
+
+    def _fit_backprop_dp(self, batches, num_epochs: int, seed: int,
+                         rmesh) -> None:
+        """The data-parallel / accumulation / bf16 fit body (reference
+        :980-1082): a uniform list (a smaller trailing batch allowed) is
+        padded, stacked, cut to this rank's rows and staged on the device
+        once, then replayed; anything more ragged moves batch by batch."""
+        step, params, ustate, it, gen = self._dp_fit_state(seed, rmesh)
+        accum = max(self.conf.grad_accum, 1)
+        ndp = rmesh.shape[DATA_AXIS] if rmesh is not None else 1
+        chunk = self._pad_chunk(rmesh, accum)
+        sizes = [int(b.features.shape[0]) for b in batches]
+        pad_to = [-(-s // chunk) * chunk for s in sizes]
+        total_bytes = sum(_nbytes(b.features) + _nbytes(b.labels)
+                          for b in batches)
+        uniform = (len(batches) > 1
+                   and total_bytes <= self.SCAN_MAX_DATASET_BYTES
+                   and len({(tuple(b.features.shape[1:]),
+                             tuple(b.labels.shape[1:]))
+                            for b in batches}) == 1
+                   and len(set(sizes[:-1])) == 1
+                   and sizes[-1] <= sizes[0])
+        if uniform:
+            target = max(pad_to)
+            with telemetry.span("multilayer.stage", sharded=rmesh is not None,
+                                batches=len(batches)) as sp:
+                t0 = time.perf_counter()
+                xs = torch.stack([self._pad_rows(b.features, target)
+                                  for b in batches])
+                ys = torch.stack([self._pad_rows(b.labels, target)
+                                  for b in batches])
+                if rmesh is not None:
+                    xs, ys = shard_rows(xs, rmesh, 1), shard_rows(ys, rmesh, 1)
+                xs = _as_tensor(xs, self.device)
+                ys = _as_tensor(ys, self.device)
+                nvs = torch.tensor(sizes, dtype=torch.int32,
+                                   device=self.device)
+                nbytes = _nbytes(xs) + _nbytes(ys)
+                sp.set(bytes=nbytes)
+                if rmesh is not None:
+                    dp_metrics.note_staged(
+                        nbytes, (time.perf_counter() - t0) * 1e3,
+                        batches=len(batches))
+            with telemetry.span("multilayer.dispatch", staged=True,
+                                data_degree=ndp, accum=accum,
+                                steps=num_epochs * len(batches)):
+                params, ustate, it, scores, skips = step.epochs(
+                    params, ustate, it, (xs, ys, nvs), gen, num_epochs)
+                dp_metrics.note_dispatch(steps=int(scores.numel()),
+                                         accum=accum, data_degree=ndp)
+                self._note_skips(skips)
+            if self.listeners:
+                self._replay_listeners(scores)
+        else:
+            skips = []
+            n = 0
+            stop = False
+            for epoch in range(num_epochs):
+                if stop:
+                    break
+                with telemetry.span("multilayer.epoch", epoch=epoch,
+                                    data_degree=ndp):
+                    for b, size, target in zip(batches, sizes, pad_to):
+                        if self._preempt_stop("fit_backprop_dp"):
+                            stop = True
+                            break
+                        params, ustate, it, score, skipped = step(
+                            params, ustate, it,
+                            self._dp_batch(b.features, b.labels, size,
+                                           target, rmesh), gen)
+                        skips.append(skipped)
+                        if self.listeners:
+                            for ls in self.listeners:
+                                ls.iteration_done(self, n, float(score))
+                        n += 1
+                        dp_metrics.note_dispatch(steps=1, accum=accum,
+                                                 data_degree=ndp)
             self._note_skips(skips)
         self._set_trained(params)
 
@@ -748,39 +1092,98 @@ class MultiLayerNetwork:
                 hook(self)
 
     def fit_iterator(self, it, num_epochs: int = 1, seed: int = 2,
-                     mesh=None) -> None:
+                     mesh="auto", prefetch_depth: int = 2) -> None:
         """Streaming supervised backprop from a ``DataSetIterator``: each
         pulled batch moves to the device and takes one step; updater
         state persists over the whole call.  Pretrain confs raise, as in
-        the reference."""
+        the reference.
+
+        Under a data mesh (``mesh=``; ``"auto"`` shards only when the
+        iterator tells its batch size) the stream runs through a
+        ``PrefetchIterator`` of depth ``prefetch_depth`` whose thread
+        pads each batch and moves this rank's rows to the device while
+        the previous step runs (reference :1181-1236)."""
+        from deeplearning4j_tpu_torch.datasets.iterator import \
+            PrefetchIterator
+
         if self.conf.pretrain or not self.conf.backprop:
             raise ValueError(
                 "fit_iterator is the streaming backprop trainer; this "
                 "conf wants pretrain/finetune (pretrain="
                 f"{self.conf.pretrain}, backprop={self.conf.backprop})")
-        self._check_fit_conf(mesh)
+        self._check_fit_conf()
         self._notify_fit_start()
-        step = self._machinery()[0]
-        params, ustate, counter, gen = self._fit_state(seed)
+        batch_hint = getattr(it, "batch", 0) or 0
+        if isinstance(mesh, str) and mesh == "auto" and batch_hint <= 0:
+            rmesh = None
+        else:
+            rmesh = self._resolve_fit_mesh(
+                mesh, batch_hint if batch_hint > 0 else (1 << 30))
+        dp = self._dp_path(rmesh)
+        accum = max(self.conf.grad_accum, 1)
+        chunk = self._pad_chunk(rmesh, accum)
+        if dp:
+            step, params, ustate, counter, gen = self._dp_fit_state(seed,
+                                                                    rmesh)
+        else:
+            step = self._machinery()[0]
+            params, ustate, counter, gen = self._fit_state(seed)
+        src = it
+        if rmesh is not None and not (isinstance(it, PrefetchIterator)
+                                      and it.sharding is not None):
+            src = PrefetchIterator(it, depth=prefetch_depth,
+                                   sharding=sharded_fit.batch_sharding(
+                                       rmesh, self.device),
+                                   pad_rows_to=chunk)
         n = 0
         skips = []
         stop = False
-        with telemetry.span("multilayer.fit", path="iterator",
-                            epochs=num_epochs):
-            for epoch in range(num_epochs):
-                if stop:
-                    break
-                with telemetry.span("multilayer.epoch", epoch=epoch):
-                    it.reset()
-                    while it.has_next():
-                        if self._preempt_stop("fit_iterator"):
-                            stop = True
-                            break
-                        params, ustate, counter = self._step_and_notify(
-                            step, params, ustate, counter, it.next(), gen,
-                            n, skips)
-                        n += 1
-            self._note_skips(skips)
+        ndp = rmesh.shape[DATA_AXIS] if rmesh is not None else 1
+        try:
+            with telemetry.span("multilayer.fit", path="iterator",
+                                epochs=num_epochs, sharded=rmesh is not None):
+                for epoch in range(num_epochs):
+                    if stop:
+                        break
+                    with telemetry.span("multilayer.epoch", epoch=epoch):
+                        src.reset()
+                        while src.has_next():
+                            if self._preempt_stop("fit_iterator"):
+                                stop = True
+                                break
+                            batch = src.next()
+                            if not dp:
+                                params, ustate, counter = \
+                                    self._step_and_notify(
+                                        step, params, ustate, counter, batch,
+                                        gen, n, skips)
+                                n += 1
+                                continue
+                            n_valid = getattr(batch, "n_valid", None)
+                            if getattr(batch, "staged", False):
+                                dp_batch = (batch.features, batch.labels,
+                                            torch.full((), int(n_valid),
+                                                       dtype=torch.int32,
+                                                       device=self.device))
+                            else:
+                                if n_valid is None:
+                                    n_valid = int(batch.features.shape[0])
+                                dp_batch = self._dp_batch(
+                                    batch.features, batch.labels, n_valid,
+                                    -(-int(n_valid) // chunk) * chunk, rmesh)
+                            params, ustate, counter, score, skipped = step(
+                                params, ustate, counter, dp_batch, gen)
+                            skips.append(skipped)
+                            if self.listeners:
+                                for ls in self.listeners:
+                                    ls.iteration_done(self, n, float(score))
+                            n += 1
+                            dp_metrics.note_dispatch(steps=1, accum=accum,
+                                                     data_degree=ndp)
+                self._note_skips(skips)
+        finally:
+            if src is not it:
+                src.close()
         self._set_trained(params)
 
     # -- evaluation ----------------------------------------------------------

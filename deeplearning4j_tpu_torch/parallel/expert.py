@@ -56,7 +56,7 @@ EXPERT_AXIS = "expert"
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet: expert "
-        f"parallelism comes with the mesh slice (ROADMAP A7)")
+        f"parallelism comes with the mesh's expert axis (ROADMAP A7.1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +131,7 @@ def route_topk(gates: Tensor, top_k: int, capacity: int,
                ) -> Tuple[Tensor, Tensor, Tensor]:
     """The reference's dense form: ``(dispatch [N, E, C] {0, 1}, combine
     [N, E, C] gate-weighted, aux)``, in the gates' dtype.  ``stat_axes``
-    (token shards) is the mesh slice's (ROADMAP A7)."""
+    (token shards) comes with the mesh's expert axis (ROADMAP A7.1)."""
     if stat_axes:
         raise _not_ported("route_topk over token shards (stat_axes)")
     r = route(gates, top_k, capacity)

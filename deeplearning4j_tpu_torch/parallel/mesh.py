@@ -1,0 +1,366 @@
+"""The device mesh: a ``data`` axis over a ``torch.distributed`` group.
+
+Port of the data-axis half of ``deeplearning4j_tpu/parallel/mesh.py``.
+The reference's mesh is a grid of JAX devices with five named axes; the
+port's is a thin object over an initialized process group: one process a
+device, every rank on the ``data`` axis.  A rank holds its own replica
+of the params and its own row slice of each global batch, and the
+collectives of ``parallel/collectives.py`` run over the group.
+
+- :func:`initialize_distributed` starts the group with
+  ``torch.distributed.init_process_group``: NCCL for CUDA, gloo for the
+  CPU, with a ``file://``, ``tcp://`` or ``env://`` rendezvous.
+- :func:`make_mesh` wraps the group as a :class:`Mesh`.  Its ``shape``
+  maps each of the five axis names to its size, so code written against
+  the reference's ``mesh.shape[...]`` reads it unchanged.
+- The padding contract is the reference's: a global batch that does not
+  divide by the data degree is zero-padded at its tail
+  (:func:`pad_rows`) and the padded rows are masked out of the loss.
+
+Not ported (each raises ``NotImplementedError`` naming ROADMAP A7): a
+``model``, ``pipe`` or ``expert`` axis above 1 (A7.1), a ``seq`` axis
+above 1 (ring attention, A7.5), and the elastic re-mesh after a device loss
+(:func:`surviving_devices`, :func:`elastic_remesh`, A7.3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from deeplearning4j_tpu_torch import DeviceLike, resolve_device
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
+SEQ_AXIS = "seq"
+EXPERT_AXIS = "expert"
+
+ALL_AXES = (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, EXPERT_AXIS)
+
+#: the ROADMAP item that holds each axis other than ``data``
+_AXIS_ITEM = {MODEL_AXIS: "A7.1", PIPE_AXIS: "A7.1", SEQ_AXIS: "A7.5",
+              EXPERT_AXIS: "A7.1"}
+
+
+def _not_ported(what: str, item: str = "A7") -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Logical parallelism degrees. ``data=-1`` means "absorb remaining
+    devices" (the reference's :39-68)."""
+
+    data: int = -1
+    model: int = 1
+    pipe: int = 1
+    seq: int = 1
+    expert: int = 1
+
+    def resolve(self, n_devices: int) -> Dict[str, int]:
+        for name in ("model", "pipe", "seq", "expert"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} degree must be >= 1, got "
+                                 f"{getattr(self, name)}")
+        if self.data != -1 and self.data < 1:
+            raise ValueError(f"data degree must be >= 1 or -1 (absorb), "
+                             f"got {self.data}")
+        fixed = self.model * self.pipe * self.seq * self.expert
+        if n_devices % fixed != 0:
+            raise ValueError(
+                f"{n_devices} devices not divisible by model*pipe*seq*expert="
+                f"{fixed}")
+        data = self.data if self.data > 0 else n_devices // fixed
+        if data * fixed != n_devices:
+            raise ValueError(
+                f"mesh {data}x{fixed} != {n_devices} devices")
+        return {DATA_AXIS: data, MODEL_AXIS: self.model, PIPE_AXIS: self.pipe,
+                SEQ_AXIS: self.seq, EXPERT_AXIS: self.expert}
+
+
+def _check_data_only(sizes) -> None:
+    """Raise naming the ROADMAP item of the first axis other than
+    ``data`` whose size is above 1."""
+    for axis, item in _AXIS_ITEM.items():
+        n = int(dict(sizes).get(axis, 1))
+        if n > 1:
+            raise _not_ported(f"a {axis!r} mesh axis of {n} (the port's mesh "
+                              f"is the data axis of one process group)",
+                              item)
+
+
+class Mesh:
+    """The data axis of an initialized process group.
+
+    ``shape`` maps every axis name to its size (``data`` = the group's
+    size, the others 1); ``size`` is their product; ``rank`` is this
+    process's index on the data axis and ``ranks`` the group's global
+    ranks in axis order; ``device`` is where this rank's tensors live;
+    ``group`` is the process group the collectives use (None: the
+    default group)."""
+
+    axis_names = ALL_AXES
+
+    def __init__(self, sizes: Dict[str, int], group, ranks: Tuple[int, ...],
+                 rank: int, device: torch.device, backend: str):
+        self.shape = {a: int(sizes.get(a, 1)) for a in ALL_AXES}
+        self.group = group
+        self.ranks = tuple(ranks)
+        self.rank = int(rank)
+        self.device = device
+        self.backend = backend
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.shape[DATA_AXIS]}, rank={self.rank}, "
+                f"device={self.device}, backend={self.backend})")
+
+
+def _default_backend(device: torch.device) -> str:
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def _local_cuda(rank: int) -> torch.device:
+    """This rank's card: ranks are spread over the visible cards."""
+    return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None, *,
+                           device: DeviceLike = None,
+                           backend: Optional[str] = None) -> bool:
+    """Join (or start) the process group: the counterpart of the
+    reference's ``jax.distributed.initialize`` (:98-106).
+    ``coordinator_address`` is a rendezvous URL (``file:///path``,
+    ``tcp://host:port`` or ``env://``); a bare ``host:port`` is taken as
+    ``tcp://``.  ``device`` (None = CUDA, raising without it) picks the
+    backend: NCCL on CUDA, gloo on the CPU.  Returns False, doing
+    nothing, without an address; True once the group is up.  A group
+    already up is an error: one process joins one group."""
+    if coordinator_address is None:
+        return False
+    if dist.is_initialized():
+        raise RuntimeError("torch.distributed is already initialized; "
+                           "destroy_process_group() first")
+    dev = resolve_device(device)
+    url = coordinator_address
+    if "://" not in url:
+        url = f"tcp://{url}"
+    kw = {}
+    if dev.type == "cuda":
+        dev = _local_cuda(int(process_id or 0))
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev
+    dist.init_process_group(backend or _default_backend(dev),
+                            init_method=url,
+                            world_size=int(num_processes or 1),
+                            rank=int(process_id or 0), **kw)
+    return True
+
+
+def initialize_from_env(device: DeviceLike = None) -> bool:
+    """Cluster wiring from the environment the launch scripts export:
+    ``DL4J_TPU_COORDINATOR`` (a rendezvous URL or host:port),
+    ``DL4J_TPU_NUM_PROCESSES`` and ``DL4J_TPU_PROCESS_ID`` (the
+    reference's trio, :109-128).  False, doing nothing, when the
+    coordinator is unset."""
+    addr = os.environ.get("DL4J_TPU_COORDINATOR")
+    if not addr:
+        return False
+    return initialize_distributed(
+        addr, int(os.environ.get("DL4J_TPU_NUM_PROCESSES", "1")),
+        int(os.environ.get("DL4J_TPU_PROCESS_ID", "0")), device=device)
+
+
+def make_mesh(spec: Optional[MeshSpec] = None, group=None,
+              device: DeviceLike = None) -> Mesh:
+    """A :class:`Mesh` over ``group`` (default: the whole default group,
+    which :func:`initialize_distributed` started).  The spec must resolve
+    to the group's size with every axis but ``data`` at 1.  ``device``
+    defaults to this rank's card under NCCL and the CPU under gloo."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh needs an initialized process group: call "
+            "parallel.mesh.initialize_distributed(...) first")
+    spec = spec or MeshSpec()
+    n = dist.get_world_size(group)
+    sizes = spec.resolve(n)
+    _check_data_only(sizes)
+    backend = dist.get_backend(group)
+    rank = dist.get_rank(group)
+    if group is None:
+        ranks = tuple(range(n))
+    else:
+        ranks = tuple(dist.get_process_group_ranks(group))
+    if device is None:
+        dev = (_local_cuda(dist.get_rank()) if backend == "nccl"
+               else torch.device("cpu"))
+    else:
+        dev = resolve_device(device)
+    return Mesh(sizes, group, ranks, rank, dev, backend)
+
+
+def _data(mesh) -> int:
+    return int(mesh.shape[DATA_AXIS])
+
+
+def local_batch_size(global_batch: int, mesh, *, pad: bool = True) -> int:
+    """Per-shard rows of a global batch over ``mesh``'s data axis
+    (:131-156): the ceiling when the batch does not divide (the tail
+    shard is zero-padded), an error with ``pad=False``; a batch smaller
+    than the data degree is always an error."""
+    n = _data(mesh)
+    if global_batch < n:
+        raise ValueError(
+            f"global batch {global_batch} < data-parallel degree {n}: "
+            f"at least one example per shard is required — use a bigger "
+            f"batch or a smaller mesh (MeshSpec(data=...))")
+    if global_batch % n != 0:
+        if not pad:
+            raise ValueError(
+                f"global batch {global_batch} not divisible by "
+                f"data-parallel degree {n} (pad=False)")
+        return -(-global_batch // n)
+    return global_batch // n
+
+
+def padded_global_batch(global_batch: int, mesh, multiple: int = 1) -> int:
+    """Smallest size >= ``global_batch`` divisible by ``data_degree *
+    multiple`` (``multiple``: the accumulation factor) (:159-166)."""
+    local_batch_size(global_batch, mesh)
+    chunk = _data(mesh) * max(multiple, 1)
+    return -(-global_batch // chunk) * chunk
+
+
+def pad_rows(arr, target: int) -> torch.Tensor:
+    """``arr`` (a tensor or an array) with its leading axis zero-padded
+    up to ``target`` rows (:169-180): the padding every data-parallel
+    path shares.  Padded rows carry zero weight in the masked loss."""
+    t = torch.as_tensor(arr)
+    b = t.shape[0]
+    if b == target:
+        return t
+    pad = torch.zeros((target - b,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    return torch.cat([t, pad])
+
+
+def pad_global_batch(x, y, mesh, multiple: int = 1):
+    """``(x_pad, y_pad, n_valid)``: both zero-padded to
+    :func:`padded_global_batch` rows (:183-190)."""
+    b = int(x.shape[0])
+    target = padded_global_batch(b, mesh, multiple)
+    return pad_rows(x, target), pad_rows(y, target), b
+
+
+def shard_rows(arr, mesh, axis: int = 0) -> torch.Tensor:
+    """This rank's contiguous block of ``arr`` along ``axis`` (the rows
+    of a padded global batch, axis 1 of a stacked ``[NB, B, ...]``
+    one): rank ``r`` of ``n`` takes ``[r b/n, (r+1) b/n)``, the block
+    the reference's ``P("data")`` places on device ``r``."""
+    t = torch.as_tensor(arr)
+    n = _data(mesh)
+    if t.shape[axis] % n:
+        raise ValueError(f"{t.shape[axis]} rows do not split over a data "
+                         f"axis of {n}: pad them first (pad_rows)")
+    local = t.shape[axis] // n
+    return t.narrow(axis, mesh.rank * local, local)
+
+
+def mesh_signature(mesh):
+    """Hashable identity for engine keys (:193-207): the axis sizes, the
+    group's global ranks, this process's rank and its device.  None
+    without a mesh."""
+    if mesh is None:
+        return None
+    return (tuple((a, int(mesh.shape[a])) for a in mesh.axis_names),
+            tuple(mesh.ranks), int(mesh.rank), str(mesh.device))
+
+
+def model_degree(mesh) -> int:
+    """Tensor-parallel degree of ``mesh`` (1 when absent/None)."""
+    return 1 if mesh is None else int(mesh.shape.get(MODEL_AXIS, 1))
+
+
+def pipe_degree(mesh) -> int:
+    """Pipeline-parallel degree of ``mesh`` (1 when absent/None)."""
+    return 1 if mesh is None else int(mesh.shape.get(PIPE_AXIS, 1))
+
+
+def expert_degree(mesh) -> int:
+    """Expert-parallel degree of ``mesh`` (1 when absent/None)."""
+    return 1 if mesh is None else int(mesh.shape.get(EXPERT_AXIS, 1))
+
+
+def seq_degree(mesh) -> int:
+    """Sequence-parallel degree of ``mesh`` (1 when absent/None)."""
+    return 1 if mesh is None else int(mesh.shape.get(SEQ_AXIS, 1))
+
+
+def check_data_mesh(mesh) -> None:
+    """Raise naming the ROADMAP item when ``mesh`` (anything with a
+    ``shape`` mapping) has an axis other than ``data`` above 1."""
+    if mesh is not None:
+        _check_data_only(getattr(mesh, "shape", {}))
+
+
+def per_device_bytes(tree) -> Dict[int, int]:
+    """Bytes each card holds for the tensors of ``tree``, by CUDA device
+    index (:239-259).  Host tensors and other leaves count nothing, as
+    the reference's host-resident leaves."""
+    from deeplearning4j_tpu_torch.ops.updaters import tree_leaves
+
+    out: Dict[int, int] = {}
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
+            idx = int(leaf.device.index or 0)
+            out[idx] = out.get(idx, 0) + leaf.numel() * leaf.element_size()
+    return out
+
+
+_AUTO_MESH: Optional[Tuple[Tuple[int, int], Mesh]] = None
+
+
+def auto_data_mesh(devices=None) -> Optional[Mesh]:
+    """The default-fit mesh (:262-287): every rank of the initialized
+    default group on the data axis, or None when no group is up or it
+    has one rank (nothing to shard over).  Memoized per (world size,
+    rank).  ``devices=`` (the reference's survivors of a device loss)
+    is the elastic path, ROADMAP A7.3."""
+    global _AUTO_MESH
+    if devices is not None:
+        raise _not_ported("auto_data_mesh(devices=) over the survivors of "
+                          "a device loss", "A7.3")
+    if not dist.is_initialized() or dist.get_world_size() < 2:
+        return None
+    ident = (dist.get_world_size(), dist.get_rank())
+    if _AUTO_MESH is None or _AUTO_MESH[0] != ident:
+        _AUTO_MESH = (ident, make_mesh(MeshSpec(data=-1)))
+    return _AUTO_MESH[1]
+
+
+class RemeshError(ValueError):
+    """A device loss that shrinking the data axis cannot recover from
+    (the reference's :292-299; raised by the elastic path, A7.3)."""
+
+
+def surviving_devices(mesh, lost_ids) -> list:
+    """The mesh's devices minus the lost ones (:302): ROADMAP A7.3."""
+    raise _not_ported("surviving_devices (elastic re-mesh)", "A7.3")
+
+
+def elastic_remesh(mesh, lost_ids, grad_accum: int = 1):
+    """Re-mesh over the survivors of a device loss (:308): ROADMAP
+    A7.3."""
+    raise _not_ported("elastic_remesh (re-mesh after a device loss)", "A7.3")

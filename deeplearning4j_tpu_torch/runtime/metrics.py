@@ -17,9 +17,12 @@ of the reference is here with its singleton, so
   protocol and preemption;
 - ``mfu_metrics`` (:759) with :func:`chip_peak_flops` /
   :func:`estimate_mfu`, keyed on CUDA device names;
-- ``dp_metrics``, ``multihost_metrics`` and ``ingest_metrics`` (:545,
-  :822, :890): listed now; the code that bumps them comes with the
-  sharded and multi-host slice (ROADMAP A7).
+- ``dp_metrics`` (:545): booked by the data-parallel fit paths
+  (``nn/multilayer``'s bundle, ``models/lm_fit.CausalLM``,
+  ``parallel/data_parallel``) and ``datasets/iterator.PrefetchIterator``;
+- ``multihost_metrics`` and ``ingest_metrics`` (:822, :890): listed
+  now; the code that bumps them comes with the multi-host slice
+  (ROADMAP A7.3-A7.4).
 
 :func:`device_memory_stats` / :func:`peak_bytes_in_use` read
 ``torch.cuda.memory_stats``; :class:`ScalarsLogger`,
@@ -529,8 +532,10 @@ class DataParallelMetrics:
     """Process-wide counters for the sharded training paths and the
     mesh-aware ingestion stage: ``bytes_staged`` / ``batches_staged`` /
     ``stage_ms`` (host->device staging), ``dispatches`` / ``steps``,
-    ``accum_factor`` / ``data_degree`` of the latest dispatch.  Nothing
-    in the port bumps them yet: the data-parallel fit is ROADMAP A7."""
+    ``accum_factor`` / ``data_degree`` of the latest dispatch.  The
+    data-parallel fits book a dispatch per staged fit (its steps) or
+    per streamed step, and the staging of stacked or prefetched batches
+    onto a data mesh."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -574,7 +579,7 @@ class DataParallelMetrics:
             }
 
 
-#: process-wide singleton of the sharded fit paths (ROADMAP A7)
+#: process-wide singleton of the data-parallel fit paths
 dp_metrics = DataParallelMetrics()
 
 

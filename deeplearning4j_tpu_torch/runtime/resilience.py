@@ -39,7 +39,7 @@ dropout.
 Every skip, rollback and snapshot is counted in
 ``runtime.metrics.resilience_metrics`` / ``checkpoint_metrics``.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP A7):
+Not ported (each raises ``NotImplementedError`` naming ROADMAP A7.3):
 ``ResilientFit``'s ``mesh=`` and ``cluster=``, the distributed data
 service input, a :class:`DeviceLossError` from ``fault_hook`` and the
 elastic and host-loss recovery behind it (reference :773-987).
@@ -74,7 +74,7 @@ PyTree = Any
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP A7: "
+        f"{what} is not ported to the PyTorch package yet (ROADMAP A7.3: "
         f"sharded, elastic and multi-host training)")
 
 
@@ -444,14 +444,17 @@ def fold(*parts: int) -> int:
 
 
 class ResilientFit:
-    """Self-healing supervised training over a ``MultiLayerNetwork``: the
-    per-step loop of ``fit_backprop`` plus auto-checkpointing, loss-spike
-    detection, rollback, resume and preemption.
+    """Self-healing supervised training over a ``MultiLayerNetwork`` or a
+    ``models/lm_fit.CausalLM``: the per-step loop of ``fit_backprop``
+    plus auto-checkpointing, loss-spike detection, rollback, resume and
+    preemption.
 
-    ResilientFit consumes the network's captured engine step
+    ResilientFit consumes the model's captured engine step
     (``_backprop_machinery``), so the in-step guard and the compile
     engine's state handling apply unchanged; what it adds is host
-    policy.  Checkpoints carry ``(params, updater state)`` with the step
+    policy.  A data-parallel step (``takes_n_valid``: accumulation,
+    bf16, ``CausalLM``) gets each batch zero-padded to the model's row
+    multiple with its real row count beside it.  Checkpoints carry ``(params, updater state)`` with the step
     and rollback count in the sidecar meta, so a killed run resumes
     exactly (the momentum schedule's clock is the step; the random
     streams are derived from the step, see the module docstring).
@@ -561,15 +564,30 @@ class ResilientFit:
 
     # -- machinery ---------------------------------------------------------
     def _build_dispatch(self, net):
-        """``(dispatch, updaters)`` over the network's captured step."""
+        """``(dispatch, updaters)`` over the network's captured step.  A
+        data-parallel step (``takes_n_valid``: accumulation, bf16, a
+        ``CausalLM``) gets ``(x, y, n_valid)`` with the batch zero-padded
+        to the network's row multiple (reference :674-752)."""
+        from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor
+
         train_step, updaters = net._backprop_machinery(self.mesh)
         self._train_step = train_step
+        dp_mode = getattr(train_step, "takes_n_valid", False)
+        chunk = net._pad_chunk(self.mesh, max(net.conf.grad_accum, 1)) \
+            if dp_mode else 1
+        dev = net.device
 
         def dispatch(params, ustate, it, batch, gen):
-            from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor
-            return train_step(params, ustate, it,
-                              _as_tensor(batch.features, net.device),
-                              _as_tensor(batch.labels, net.device), gen)
+            x = _as_tensor(batch.features, dev)
+            y = _as_tensor(batch.labels, dev)
+            if not dp_mode:
+                return train_step(params, ustate, it, x, y, gen)
+            b = int(x.shape[0])
+            target = -(-b // chunk) * chunk
+            return train_step(
+                params, ustate, it,
+                (net._pad_rows(x, target), net._pad_rows(y, target),
+                 torch.full((), b, dtype=torch.int32, device=dev)), gen)
         return dispatch, updaters
 
     def _make_ustate(self, updaters, params):
@@ -580,7 +598,7 @@ class ResilientFit:
         """Restore the newest COMMITTED checkpoint (corrupt or
         uncommitted steps fall back to the previous good one) against
         fresh templates on the network's device."""
-        tpl_p = [tree_map(torch.clone, p) for p in net._require_params()]
+        tpl_p = tree_map(torch.clone, net._require_params())
         tpl_u = self._make_ustate(updaters, tpl_p)
         (params, ustate), meta = self.manager.restore(like=(tpl_p, tpl_u))
         self._check_restored(params, meta.get("step"))
@@ -621,7 +639,7 @@ class ResilientFit:
 
         dev = net.device
         # a caller's state: the engine copies it into its own buffers
-        params = [tree_map(torch.clone, p) for p in net._require_params()]
+        params = tree_map(torch.clone, net._require_params())
         dispatch, updaters = self._build_dispatch(net)
         ustate = self._make_ustate(updaters, params)
         gen = torch.Generator(device=dev)
@@ -768,7 +786,7 @@ class ResilientFit:
         # trained params belong to the caller regardless of the writer's
         # health; a clone, so the step's state set is free for the next
         # fit of this conf
-        net.params = [tree_map(torch.clone, p) for p in params]
+        net.params = tree_map(torch.clone, params)
         params = ustate = it = None
         # every async snapshot committed before fit returns; a fresh
         # checkpointer takes the writer's place for a later fit

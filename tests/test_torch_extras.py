@@ -99,8 +99,12 @@ def test_batch_moments_are_biased_like_jnp_var():
 
 
 def test_bn_collective_raises_naming_a7():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        extras.bn_collective("data", None)
+    """``bn_collective`` is ported for the data axis (its contracts are
+    in tests/test_torch_dp_fit.py); another axis raises naming A7."""
+    for axis in ("model", "seq", "expert"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            with extras.bn_collective(axis, None):
+                pass
 
 
 def _bn_conf(pkg, embedding: bool):

@@ -1,0 +1,455 @@
+"""The port's mesh and collectives against the JAX reference, and the
+multi-process harness the data-parallel tests share.
+
+``parallel/mesh.py``: ``MeshSpec.resolve``, ``pad_rows``,
+``local_batch_size``, ``padded_global_batch`` and ``mesh_signature`` on
+the same inputs as the reference's (on its 8-device CPU mesh; the
+port's shape helpers read only ``mesh.shape``, so a ``Mesh`` of 8 ranks
+is built without a group), exactly equal; axes other than ``data``
+raise naming ROADMAP A7.  ``parallel/collectives.py``: every collective
+on a real 2-rank gloo group against numpy, exactly (sums of two fp32
+values), and ``psum``'s backward.
+
+The harness (:func:`run_ranks`) starts a gloo group of ``world`` CPU
+processes with ``multiprocessing``'s spawn, a ``file://`` rendezvous in
+the test's ``tmp_path`` and one torch thread a rank; each rank runs a
+rank program of this module (the module imports no JAX, so a rank does
+not either) and pickles its result.  Every rank is joined with a
+deadline (:data:`DEADLINE_S`); on expiry all are killed and the test
+fails.  The rank programs of ``test_torch_dp_fit.py``,
+``test_torch_data_parallel.py`` and ``test_torch_lm_fit.py`` live here
+too, with the data both sides use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import multiprocessing
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu_torch.parallel import collectives as tcol
+from deeplearning4j_tpu_torch.parallel import mesh as tmesh
+from deeplearning4j_tpu_torch.parallel import sharded_fit as tsf
+
+torch.set_num_threads(2)
+
+#: seconds a spawned group may take before it is killed
+DEADLINE_S = 60.0
+
+
+# ---------------------------------------------------------------------------
+# the multi-process harness
+# ---------------------------------------------------------------------------
+
+def _rank_entry(rank: int, world: int, rdv: str, fn, args, out: str):
+    torch.set_num_threads(1)
+    try:
+        tmesh.initialize_distributed(f"file://{rdv}", world, rank,
+                                     device="cpu")
+        try:
+            result = fn(tmesh.make_mesh(), *args)
+        finally:
+            torch.distributed.destroy_process_group()
+        payload = ("ok", result)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        payload = ("error", traceback.format_exc())
+    with open(out, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def run_ranks(fn, world: int, tmp_path, *args):
+    """``fn(mesh, *args)`` on each rank of a fresh ``world``-rank gloo
+    group; the list of their results, by rank."""
+    ctx = multiprocessing.get_context("spawn")
+    rdv = str(tmp_path / f"rdv-{fn.__name__}")
+    outs = [str(tmp_path / f"{fn.__name__}-rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(r, world, rdv, fn, args, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DEADLINE_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    if hung:
+        pytest.fail(f"ranks {hung} of {fn.__name__} still running after "
+                    f"{DEADLINE_S} s: killed")
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if not os.path.exists(out):
+            pytest.fail(f"rank {r} of {fn.__name__} exited with "
+                        f"{p.exitcode} and no result")
+        with open(out, "rb") as f:
+            status, value = pickle.load(f)
+        if status != "ok":
+            pytest.fail(f"rank {r} of {fn.__name__} failed:\n{value}")
+        results.append(value)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# data and confs both packages build (pkg: either package's module)
+# ---------------------------------------------------------------------------
+
+def dense_conf(conf_mod, accum: int = 1, mp: str = "off", bn: bool = False):
+    """The reference tests/test_dp_fit.py's ``_conf`` (and ``_bn_conf``
+    with ``bn``) at fp32 compute."""
+    b = (conf_mod.NeuralNetConfiguration.builder()
+         .n_in(4).lr(0.1).momentum(0.5).use_adagrad(False).dropout(0.0)
+         .num_iterations(1).activation("tanh").compute_dtype("float32"))
+    K = conf_mod.LayerKind
+    if bn:
+        lb = (b.list(4).hidden_layer_sizes(8, 8, 6)
+              .override(1, kind=K.BATCH_NORM)
+              .override(3, kind=K.OUTPUT, n_out=3, activation="softmax",
+                        loss_function="mcxent"))
+    else:
+        lb = (b.list(3).hidden_layer_sizes(8, 6)
+              .override(2, kind=K.OUTPUT, n_out=3, activation="softmax",
+                        loss_function="mcxent", dropout=0.0))
+    lb = lb.pretrain(False).backward(True).grad_accum(accum)
+    if mp != "off":
+        lb = lb.mixed_precision(mp)
+    return lb.build()
+
+
+def dense_batches(n: int = 4, rows: int = 32, seed: int = 0, poison=(),
+                  poison_row: int = 0):
+    """``[(x [rows, 4] fp32, y [rows, 3] one-hot)]``; batch ``b`` in
+    ``poison`` has a NaN at ``x[poison_row, 0]``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for b in range(n):
+        x = rng.randn(rows, 4).astype(np.float32)
+        if b in poison:
+            x[poison_row, 0] = np.nan
+        y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, rows)]
+        out.append((x, y))
+    return out
+
+
+def lm_ids(vocab: int, n: int = 3, rows: int = 8, seq: int = 32,
+           seed: int = 0):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, (rows, seq)).astype(np.int32)
+            for _ in range(n)]
+
+
+def softmax_loss(params, x, y, gen):
+    """The reference tests/test_parallel.py's ``_softmax_loss``."""
+    logp = torch.log_softmax(x @ params["W"] + params["b"], dim=-1)
+    return -torch.mean(torch.sum(y * logp, dim=-1))
+
+
+def iris_batches(n_batches: int, batch: int):
+    """The reference test_parallel.py's ``_iris_batches`` (numpy), from
+    the port's Iris fetcher (the same synthetic rows as the
+    reference's)."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import IrisDataFetcher
+    f = IrisDataFetcher()
+    f.fetch(150)
+    data = f.next().normalize_zero_mean_unit_variance()
+    feats = np.asarray(data.features, np.float32)
+    labels = np.asarray(data.labels, np.float32)
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n_batches):
+        idx = rng.integers(0, 150, size=batch)
+        out.append((feats[idx], labels[idx]))
+    return out, (feats, labels)
+
+
+# ---------------------------------------------------------------------------
+# rank programs
+# ---------------------------------------------------------------------------
+
+def collectives_rank(mesh):
+    r = mesh.rank
+    x = torch.arange(8, dtype=torch.float32).reshape(2, 4) + 10 * r
+    out = {
+        "rank": tcol.axis_index(mesh),
+        "size": tcol.axis_size("data"),
+        "psum": tcol.psum(x, mesh).numpy(),
+        "pmean": tcol.pmean({"a": x}, "data")["a"].numpy(),
+        "grad_share": tcol.grad_share([x], mesh)[0].numpy(),
+        "all_gather": tcol.all_gather(x, mesh).numpy(),
+        "all_gather_stacked": tcol.all_gather(x, mesh, tiled=False).numpy(),
+        "reduce_scatter": tcol.reduce_scatter(x, mesh).numpy(),
+        "ring": tcol.ring_permute(x, mesh).numpy(),
+        "all_to_all": tcol.all_to_all(x, mesh, split_axis=1,
+                                      concat_axis=0).numpy(),
+    }
+    w = torch.tensor([1.0, 2.0], requires_grad=True)
+    y = tcol.psum(w * (r + 1), mesh)
+    (g,) = torch.autograd.grad((y * y).sum(), [w])
+    out["psum_grad"] = g.numpy()
+    out["signature"] = tmesh.mesh_signature(mesh)
+    return out
+
+
+def dp_fit_rank(mesh, p0, p0_bn):
+    """The data-parallel MultiLayerNetwork fits of test_torch_dp_fit.py
+    on this rank: the plain fit, the ragged batch-norm fit, a fit whose
+    poisoned row lies in rank 1's rows, and ``fit_iterator``."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import configuration as tconf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.params import params_from_numpy
+    from deeplearning4j_tpu_torch.runtime.metrics import dp_metrics
+
+    def net(p, **kw):
+        return MultiLayerNetwork(dense_conf(tconf, **kw),
+                                 params=params_from_numpy(p, "cpu"),
+                                 device="cpu")
+
+    def ds(bs):
+        return [DataSet(x, y) for x, y in bs]
+
+    out = {}
+    dp_metrics.reset()
+    n = net(p0)
+    n.fit_backprop(ds(dense_batches()), num_epochs=2, mesh=mesh)
+    out["plain"] = n.params_flat().numpy()
+    out["metrics"] = dp_metrics.snapshot()
+    auto = net(p0)
+    auto.fit_backprop(ds(dense_batches()), num_epochs=2)   # mesh="auto"
+    out["auto"] = auto.params_flat().numpy()
+    n = net(p0_bn, bn=True)
+    n.fit_backprop(ds(dense_batches(2, rows=21)), num_epochs=2, mesh=mesh)
+    out["bn"] = n.params_flat().numpy()
+    n = net(p0)
+    n.fit_backprop(ds(dense_batches(4, poison={2}, poison_row=20)),
+                   num_epochs=2, mesh=mesh)
+    out["poison"] = n.params_flat().numpy()
+    out["poison_skips"] = n.guard_skips
+    n = net(p0)
+    n.fit_iterator(ListDataSetIterator(ds(dense_batches()), batch_size=32),
+                   num_epochs=2, mesh=mesh)
+    out["iterator"] = n.params_flat().numpy()
+    return out
+
+
+def data_parallel_rank(mesh, w0):
+    """DataParallelTrainer and ParameterAveragingTrainer on this rank
+    (the reference tests/test_parallel.py:59-112 cases)."""
+    from deeplearning4j_tpu_torch.ops.updaters import dl4j_updater
+    from deeplearning4j_tpu_torch.parallel import (DataParallelTrainer,
+                                                   ParameterAveragingTrainer)
+
+    def p0():
+        return {"W": torch.from_numpy(w0.copy()), "b": torch.zeros(3)}
+
+    def acc(p, data):
+        feats, labels = data
+        pred = (torch.from_numpy(feats) @ p["W"] + p["b"]).argmax(-1)
+        return float((pred.numpy() == labels.argmax(-1)).mean())
+
+    out = {}
+    tr = DataParallelTrainer(
+        softmax_loss, dl4j_updater(lr=0.5, momentum=0.9, use_adagrad=False),
+        mesh)
+    bs, data = iris_batches(30, 80)
+    out["sharing_acc"] = acc(tr.fit(p0(), bs, 0), data)
+    upd = dl4j_updater(lr=0.1, momentum=0.0, use_adagrad=False)
+    tr = DataParallelTrainer(softmax_loss, upd, mesh)
+    (x, y), = iris_batches(1, 80)[0]
+    p, _, score, skipped = tr.step(p0(), tr.init_state(p0()), x, y, 3, 0)
+    out["step"] = {k: v.numpy() for k, v in p.items()}
+    out["step_score"] = float(score)
+    small, _ = iris_batches(4, 80)
+    tr = DataParallelTrainer(
+        softmax_loss, dl4j_updater(lr=0.3, momentum=0.0, use_adagrad=False),
+        mesh)
+    out["scan"] = {k: v.numpy() for k, v in tr.fit(p0(), small, 5).items()}
+    out["loop"] = {k: v.numpy() for k, v in
+                   tr.fit(p0(), small, 5, scan=False).items()}
+    for name, steps, each, n_b in (("avg_rounds", 5, True, 12),
+                                   ("avg_once", 10, False, 6)):
+        pa = ParameterAveragingTrainer(
+            softmax_loss, dl4j_updater(lr=0.5, momentum=0.0,
+                                       use_adagrad=False),
+            mesh, local_steps=steps, average_each_round=each)
+        trained = pa.fit(p0(), iris_batches(n_b, 80)[0], 1)
+        out[name] = {k: v.numpy() for k, v in trained.items()}
+        out[name + "_acc"] = acc(trained, data)
+    return out
+
+
+def lm_fit_rank(mesh, params_np, ids):
+    """A 2-rank CausalLM GPT fit (fp32, momentum) from carried params."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import gpt, lm_fit
+    from deeplearning4j_tpu_torch.ops.updaters import tree_map
+
+    cfg = dataclasses.replace(gpt.gpt_tiny(), compute_dtype="float32")
+    lm = lm_fit.CausalLM(cfg, lr=0.05, momentum=0.9, device="cpu")
+    lm.params = tree_map(torch.from_numpy, params_np)
+    lm.fit_backprop([DataSet(x, x) for x in ids], num_epochs=2, mesh=mesh)
+    return lm.params_flat().numpy()
+
+
+# ---------------------------------------------------------------------------
+# tests
+# ---------------------------------------------------------------------------
+
+def _fake_mesh(n: int) -> tmesh.Mesh:
+    """A port ``Mesh`` of ``n`` data ranks without a group: enough for
+    the helpers that read only ``shape``."""
+    return tmesh.Mesh({tmesh.DATA_AXIS: n}, None, tuple(range(n)), 0,
+                      torch.device("cpu"), "gloo")
+
+
+@pytest.mark.parametrize("spec,n", [
+    (dict(), 8), (dict(data=2), 2), (dict(data=-1, model=2), 8),
+    (dict(model=2, pipe=2), 8), (dict(data=4, expert=2), 8),
+    (dict(model=3), 8), (dict(data=3), 8), (dict(data=0), 8),
+    (dict(seq=0), 8)])
+def test_mesh_spec_resolve_matches_reference(spec, n):
+    from deeplearning4j_tpu.parallel import mesh as jmesh
+    try:
+        want = jmesh.MeshSpec(**spec).resolve(n)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            tmesh.MeshSpec(**spec).resolve(n)
+        assert str(got.value) == str(e)
+        return
+    assert tmesh.MeshSpec(**spec).resolve(n) == want
+    assert tmesh.ALL_AXES == jmesh.ALL_AXES
+
+
+@pytest.mark.parametrize("shape,target,dtype", [
+    ((5, 3), 8, np.float32), ((4, 2, 3), 4, np.float32),
+    ((3, 7), 6, np.int32), ((1,), 3, np.float32)])
+def test_pad_rows_matches_reference(shape, target, dtype):
+    from deeplearning4j_tpu.parallel import mesh as jmesh
+    a = (np.random.RandomState(0).randn(*shape) * 10).astype(dtype)
+    want = np.asarray(jmesh.pad_rows(a, target))
+    got = tmesh.pad_rows(torch.from_numpy(a), target)
+    assert got.dtype == torch.from_numpy(a).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_batch_sizes_match_reference_on_eight_devices():
+    from deeplearning4j_tpu.parallel import mesh as jmesh
+    jm = jmesh.make_mesh(jmesh.MeshSpec(data=8))
+    tm = _fake_mesh(8)
+    for b in (8, 20, 32, 33, 64):
+        assert tmesh.local_batch_size(b, tm) == jmesh.local_batch_size(b, jm)
+        for mult in (1, 2, 3):
+            assert (tmesh.padded_global_batch(b, tm, mult)
+                    == jmesh.padded_global_batch(b, jm, mult))
+    for call in (lambda m, f: f.local_batch_size(5, m),
+                 lambda m, f: f.local_batch_size(20, m, pad=False)):
+        with pytest.raises(ValueError) as want:
+            call(jm, jmesh)
+        with pytest.raises(ValueError) as got:
+            call(tm, tmesh)
+        assert str(got.value) == str(want.value)
+    x = np.ones((20, 4), np.float32)
+    jx, jy, jn = jmesh.pad_global_batch(x, x[:, :3], jm)
+    tx, ty, tn = tmesh.pad_global_batch(torch.from_numpy(x),
+                                        torch.from_numpy(x[:, :3]), tm)
+    assert tn == jn == 20
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+
+
+def test_mesh_signature_matches_reference_layout():
+    from deeplearning4j_tpu.parallel import mesh as jmesh
+    jsig = jmesh.mesh_signature(jmesh.make_mesh(jmesh.MeshSpec(data=8)))
+    tsig = tmesh.mesh_signature(_fake_mesh(8))
+    assert tsig[0] == jsig[0]               # axis names and sizes
+    assert tsig[1] == jsig[1]               # ranks in the devices' order
+    assert tmesh.mesh_signature(None) is None
+    assert tmesh.mesh_signature(_fake_mesh(4)) != tsig
+
+
+def test_shard_rows_takes_each_ranks_contiguous_block():
+    x = torch.arange(24).reshape(8, 3)
+    m = _fake_mesh(4)
+    for r in range(4):
+        m.rank = r
+        assert torch.equal(tmesh.shard_rows(x, m), x[2 * r:2 * r + 2])
+        assert torch.equal(tmesh.shard_rows(x[None], m, 1)[0],
+                           x[2 * r:2 * r + 2])
+    with pytest.raises(ValueError, match="pad them first"):
+        tmesh.shard_rows(x[:7], m)
+
+
+def test_non_data_axes_and_elastic_helpers_raise_naming_a7():
+    for axis, item in (("model", "A7.1"), ("pipe", "A7.1"),
+                       ("seq", "A7.5"), ("expert", "A7.1")):
+        m = _fake_mesh(1)
+        m.shape[axis] = 2
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            tmesh.check_data_mesh(m)
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            tcol.psum(torch.ones(2), m)
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            tcol.psum(torch.ones(2), axis)
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            tsf.build_sharded_step(lambda *a: a, m, label="x")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7.1"):
+        tsf.build_sharded_step(lambda *a: a, None, label="x",
+                               param_specs={"w": None})
+    for call in (lambda: tmesh.elastic_remesh(_fake_mesh(2), [1]),
+                 lambda: tmesh.surviving_devices(_fake_mesh(2), [1]),
+                 lambda: tmesh.auto_data_mesh(devices=[0, 1])):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7.3"):
+            call()
+    assert tmesh.model_degree(None) == tmesh.pipe_degree(None) == 1
+    assert tmesh.expert_degree(_fake_mesh(2)) == tmesh.seq_degree(None) == 1
+
+
+def test_no_group_means_no_auto_mesh_and_make_mesh_raises():
+    if torch.distributed.is_initialized():
+        pytest.skip("a process group is up in this process")
+    assert tmesh.auto_data_mesh() is None
+    assert not tmesh.initialize_distributed(None)
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        tmesh.make_mesh()
+
+
+def test_collectives_on_two_gloo_ranks(tmp_path):
+    r0, r1 = run_ranks(collectives_rank, 2, tmp_path)
+    x = [np.arange(8, dtype=np.float32).reshape(2, 4) + 10 * r
+         for r in range(2)]
+    for r, res in enumerate((r0, r1)):
+        assert res["rank"] == r and res["size"] == 2
+        np.testing.assert_array_equal(res["psum"], x[0] + x[1])
+        np.testing.assert_array_equal(res["pmean"], (x[0] + x[1]) / 2)
+        np.testing.assert_array_equal(res["grad_share"], (x[0] + x[1]) / 2)
+        np.testing.assert_array_equal(res["all_gather"],
+                                      np.concatenate(x))
+        np.testing.assert_array_equal(res["all_gather_stacked"],
+                                      np.stack(x))
+        np.testing.assert_array_equal(res["reduce_scatter"],
+                                      (x[0] + x[1])[r:r + 1])
+        np.testing.assert_array_equal(res["ring"], x[1 - r])
+        np.testing.assert_array_equal(
+            res["all_to_all"],
+            np.concatenate([xi[:, 2 * r:2 * r + 2] for xi in x], axis=0))
+        # y = (1 + 2) w summed over ranks; d/dw of sum(y^2) on rank r is
+        # (r + 1) * psum(2 y): the backward sums the cotangent too
+        w = np.array([1.0, 2.0], np.float32)
+        np.testing.assert_array_equal(res["psum_grad"],
+                                      (r + 1) * 2 * (2 * 3 * w))
+        assert res["signature"] == (
+            tuple((a, 2 if a == "data" else 1) for a in tmesh.ALL_AXES),
+            (0, 1), r, "cpu")

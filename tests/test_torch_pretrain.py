@@ -26,6 +26,7 @@ Tolerances (fp32): CD-k and AE score and grads 1e-5; fit scores rtol
 
 import os
 import subprocess
+import types
 import sys
 from pathlib import Path
 
@@ -307,7 +308,8 @@ def test_prepare_resilient_fit_matches_reference():
     assert all(a is b for a, b in zip(tbatches, tb))
     _assert_nets_close(tnet, jnet)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tnet._resolve_fit_mesh(object(), 8)
+        tnet._resolve_fit_mesh(
+            types.SimpleNamespace(shape={"data": 1, "model": 2}), 8)
 
 
 # -- the port's own contracts ----------------------------------------------------
