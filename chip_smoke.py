@@ -273,8 +273,36 @@ Phases, each fatal on failure:
    T=256, 3 steps, the kernels on the card against plain attention on
    the CPU (params' relative L2 1e-4).  B1-B3 launches of parts 1 and 5
    join the kernels line.
+18. the rest of the MultiLayerNetwork surface: (a) the char-LSTM
+   through nn/api.LSTMSequenceClassifier on data/text8 at the widths of
+   DL4J's GravesLSTMCharModellingExample (hidden 200, batch 32, sequence
+   1,000; 27 symbols one-hot in and out), bf16 products, truncate_bptt
+   on, Adam: one fit step (warm-up runs and the capture of the whole
+   step), then 5 timed steps: ms a step, characters/s, captured or
+   eager, the loss falls; 200 sampled characters; one step's loss and
+   gradients at T=50 on the card against the CPU (fp32 1e-4, the bf16
+   loss 2e-2); (b) runtime/native builds native/dl4j_native.cpp into
+   build/native/ (a failed build fails the phase with the compiler's
+   stderr), LFWDataFetcher decodes data/lfw's 120 JPEGs natively, the
+   reference's accuracy tier (784-48-12 relu, lr 0.05, 300 epochs of
+   fit_backprop, tests/test_jpeg_lfw.py:160-193) reaches > 0.8, and a
+   fresh net through fit_iterator over NativeBatchIterator (the native
+   producer) 100 epochs, > 0.8; decode and training times; (c) the
+   recursive autoencoder at B=256 T=20 D=100 pretrained through
+   MultiLayerNetwork.pretrain (the loss falls), one
+   pretrain_value_and_grad card against CPU (1e-4); (d) GraphBuilder's
+   docstring graph, compile and grad on the card against the CPU (1e-5),
+   20 gradient steps lower the loss; no hand kernel launches in (a)-(d);
+   (e) runtime/autotune.sweep_attention, bf16 fwd+bwd, the plain
+   attention against B1-B3 (never a library attention) at BERT-base's
+   (B=32 T=128) and GPT-2 small's (B=8 T=1024 causal) training shapes
+   into a temporary cache: both candidates' ms and the winner; a fresh
+   process on that cache sweeps nothing and make_attn_fn(autotune=True)
+   reports source="autotuned".  Phases 1-17 run with the autotune cache
+   off (and make_attn_fn reads no cache unless asked), so no winner
+   routes them.
 
-Phases 4-10 and 14-17 run through the compile engine as a user's calls
+Phases 4-10 and 14-18 run through the compile engine as a user's calls
 do: every serving dispatch, training step, decode and prefill dispatch
 and embedding chunk is a CUDA graph replay after its signature's
 capture, and the kernel wrappers' launch counts are booked once per
@@ -6717,6 +6745,426 @@ def spine_phase(torch, fa, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the MultiLayerNetwork surface
+# ---------------------------------------------------------------------------
+
+#: the device phase 18 runs on (a CPU rehearsal substitutes "cpu")
+SLICE_DEVICE = "cuda"
+#: the char-LSTM at the widths of DL4J's public
+#: GravesLSTMCharModellingExample (lstmLayerSize=200, miniBatchSize=32,
+#: exampleLength=1000) on data/text8, whose 27 symbols are one-hot in
+#: and out; Adam, bf16 products, each time step recomputed in the
+#: backward (truncate_bptt)
+CHAR_VOCAB = " abcdefghijklmnopqrstuvwxyz"
+CHAR_HIDDEN, CHAR_B, CHAR_T = 200, 32, 1000
+CHAR_LR, CHAR_STEPS, CHAR_SAMPLE = 2e-3, 5, 200
+#: card against CPU at T=50 (depth cut for this check only): loss and
+#: gradients' relative L2 with fp32 products; the loss with bf16's
+CHAR_CHECK_T, CHAR_FP32_TOL, CHAR_BF16_TOL = 50, 1e-4, 2e-2
+#: the LFW accuracy tier of tests/test_jpeg_lfw.py:160-193
+LFW_SIZE, LFW_HIDDEN, LFW_LR, LFW_EPOCHS, LFW_MIN_ACC = 28, 48, 0.05, 300, 0.8
+#: fit_iterator over NativeBatchIterator trains a fresh net: batches of
+#: 20, 100 epochs (a fit's updater state starts anew, and one epoch from
+#: the fitted net would undo it: the first AdaGrad steps are lr-sized)
+LFW_ITER_BATCH, LFW_ITER_EPOCHS = 20, 100
+#: the recursive autoencoder at phase 7's embedding width
+RAE_B, RAE_T, RAE_D, RAE_LR, RAE_ITERS, RAE_TOL = 256, 20, 100, 0.05, 30, 1e-4
+#: the GraphBuilder docstring graph: card against CPU, then descent
+GRAPH_TOL, GRAPH_LR, GRAPH_STEPS = 1e-5, 0.5, 20
+#: autotune shapes: (what, B, T, heads, head dim, causal)
+TUNE_SHAPES = (("BERT-base training", 32, 128, 12, 64, False),
+               ("GPT-2 small training", 8, 1024, 12, 64, True))
+
+
+def slice_sync(torch) -> None:
+    if SLICE_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def char_batch(text: str, b: int, t: int, seed: int):
+    """``b`` windows of ``t + 1`` symbols of ``text`` at seeded offsets:
+    one-hot inputs ``[b, t, 27]`` and next-symbol ids ``[b, t]``."""
+    table = np.full(256, -1, np.int64)
+    for i, ch in enumerate(CHAR_VOCAB):
+        table[ord(ch)] = i
+    ids = table[np.frombuffer(text.encode(), np.uint8)]
+    check(bool((ids >= 0).all()), "data/text8 holds a symbol outside a-z "
+                                  "and space")
+    starts = np.random.default_rng(seed).integers(0, len(ids) - t - 1, b)
+    w = ids[starts[:, None] + np.arange(t + 1)]
+    eye = np.eye(len(CHAR_VOCAB), dtype=np.float32)
+    return eye[w[:, :-1]], w[:, 1:]
+
+
+def rel_l2(torch, got, ref) -> float:
+    """Global relative L2 of two lists of tensors, on the CPU."""
+    num = sum(float(torch.sum((g.cpu().double() - r.cpu().double()) ** 2))
+              for g, r in zip(got, ref))
+    den = sum(float(torch.sum(r.cpu().double() ** 2)) for r in ref)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def char_card_vs_cpu(torch, params, text, say) -> None:
+    """One step's loss and gradients at T=CHAR_CHECK_T on the card and on
+    the CPU from the same params."""
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        LayerKind, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers.lstm import LSTMLayer
+
+    xs, ys = char_batch(text, CHAR_B, CHAR_CHECK_T, seed=1)
+    got = {}
+    for cdt in ("float32", "bfloat16"):
+        conf = (NeuralNetConfiguration.builder().kind(LayerKind.LSTM)
+                .n_in(27).n_out(27).hidden_size(CHAR_HIDDEN)
+                .activation("softmax").truncate_bptt(1)
+                .compute_dtype(cdt).build())
+        layer = LSTMLayer(conf)
+        for dev in (SLICE_DEVICE, "cpu"):
+            p = {k: v.detach().to(dev).requires_grad_(True)
+                 for k, v in params.items()}
+            x = torch.from_numpy(xs).to(dev)
+            y = torch.nn.functional.one_hot(torch.from_numpy(ys).to(dev),
+                                            27).float()
+            loss = layer.sequence_loss(p, x, y)
+            grads = torch.autograd.grad(loss, [p[k] for k in sorted(p)])
+            got[cdt, dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    (l_card, g_card), (l_cpu, g_cpu) = (got["float32", SLICE_DEVICE],
+                                        got["float32", "cpu"])
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_rel = rel_l2(torch, g_card, g_cpu)
+    bf16_rel = (abs(got["bfloat16", SLICE_DEVICE][0]
+                    - got["bfloat16", "cpu"][0])
+                / abs(got["bfloat16", "cpu"][0]))
+    say(f"(a) card vs CPU at T={CHAR_CHECK_T}, fp32 products: loss "
+        f"{l_card:.7f} / {l_cpu:.7f} (rel {loss_rel:.3e}), gradients' "
+        f"relative L2 {grad_rel:.3e} (tolerance {CHAR_FP32_TOL}); bf16 "
+        f"products: loss {got['bfloat16', SLICE_DEVICE][0]:.7f} / "
+        f"{got['bfloat16', 'cpu'][0]:.7f} (rel {bf16_rel:.3e}, tolerance "
+        f"{CHAR_BF16_TOL})")
+    check(loss_rel <= CHAR_FP32_TOL and grad_rel <= CHAR_FP32_TOL,
+          f"char-LSTM fp32 step: card and CPU disagree ({loss_rel:.3e}, "
+          f"{grad_rel:.3e})")
+    check(bf16_rel <= CHAR_BF16_TOL,
+          f"char-LSTM bf16 loss: card and CPU disagree ({bf16_rel:.3e})")
+
+
+def char_lstm(torch, say) -> None:
+    """(a): the char-LSTM's fit, sampling and card-vs-CPU step."""
+    from deeplearning4j_tpu_torch.nn.api import LSTMSequenceClassifier
+
+    with open(TEXT8) as f:
+        text = f.read()
+    xs, ys = char_batch(text, CHAR_B, CHAR_T, seed=0)
+    clf = LSTMSequenceClassifier(
+        len(CHAR_VOCAB), len(CHAR_VOCAB), hidden=CHAR_HIDDEN,
+        learning_rate=CHAR_LR, seed=0, truncate_bptt=1,
+        compute_dtype="bfloat16", device=SLICE_DEVICE)
+    t0 = time.perf_counter()
+    losses = clf.fit(xs, ys, epochs=1)      # warm-up runs, capture, replay
+    slice_sync(torch)
+    t1 = time.perf_counter()
+    losses += clf.fit(xs, ys, epochs=CHAR_STEPS)
+    slice_sync(torch)
+    t2 = time.perf_counter()
+    step_ms = (t2 - t1) / CHAR_STEPS * 1e3
+    graphs = clf._train_step.signatures()
+    how = (f"captured ({graphs} CUDA graph(s) of the whole step)"
+           if SLICE_DEVICE == "cuda" else "eager (CPU)")
+    say(f"(a) char-LSTM B={CHAR_B} T={CHAR_T} H={CHAR_HIDDEN}, vocab "
+        f"{len(CHAR_VOCAB)}, bf16, truncate_bptt on, Adam lr {CHAR_LR}: "
+        f"first step {(t1 - t0) * 1e3:.1f} ms (warm-up and capture), then "
+        f"{step_ms:.3f} ms a step, "
+        f"{CHAR_B * CHAR_T / (step_ms / 1e3):,.1f} characters/s over "
+        f"{CHAR_STEPS} steps; {how}; losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    check(all(np.isfinite(losses)), f"char-LSTM loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"char-LSTM loss did not fall: {losses}")
+    check(SLICE_DEVICE != "cuda" or graphs >= 1,
+          "the char-LSTM step was not captured")
+    gen = torch.Generator(device=SLICE_DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    ids = clf.classifier().sample(clf.params, gen, CHAR_SAMPLE,
+                                  start_id=CHAR_VOCAB.index("t"))
+    ids = ids.tolist()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(len(ids) == CHAR_SAMPLE
+          and all(0 <= i < len(CHAR_VOCAB) for i in ids),
+          f"char-LSTM sample: bad ids {ids[:20]}")
+    say(f"(a) sample of {CHAR_SAMPLE} characters in {ms:.1f} ms: "
+        f"{''.join(CHAR_VOCAB[i] for i in ids)!r}")
+    char_card_vs_cpu(torch, clf.params, text, say)
+
+
+def lfw_native(torch, say) -> None:
+    """(b): LFW through the native JPEG decode, the accuracy tier and
+    one epoch of NativeBatchIterator."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import (LFWDataFetcher,
+                                                            find_lfw)
+    from deeplearning4j_tpu_torch.datasets.iterator import \
+        NativeBatchIterator
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        LayerKind, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    check(ok, f"the native library did not build:\n{native.build_error}")
+    t0 = time.perf_counter()
+    f = LFWDataFetcher(image_size=LFW_SIZE)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    n, dim = f.features.shape
+    check(not f.synthetic and n == 120 and dim == LFW_SIZE * LFW_SIZE,
+          f"LFW: synthetic={f.synthetic}, features {f.features.shape}")
+    f.fetch(n)
+    ds = f.next().normalize_zero_mean_unit_variance()
+    k = f.labels.shape[1]
+    conf = (NeuralNetConfiguration.builder()
+            .n_in(dim).lr(LFW_LR).activation("relu").list(2)
+            .hidden_layer_sizes(LFW_HIDDEN)
+            .override(1, kind=LayerKind.OUTPUT, n_out=k,
+                      activation="softmax", loss_function="mcxent")
+            .pretrain(False).backward(True).build())
+    net = MultiLayerNetwork(conf, device=SLICE_DEVICE).init()
+    t0 = time.perf_counter()
+    net.fit_backprop([ds], num_epochs=LFW_EPOCHS)
+    slice_sync(torch)
+    train_s = time.perf_counter() - t0
+    acc = net.evaluate(ds).accuracy()
+    net2 = MultiLayerNetwork(conf, device=SLICE_DEVICE).init()
+    it = NativeBatchIterator(np.asarray(ds.features), np.asarray(ds.labels),
+                             batch_size=LFW_ITER_BATCH, seed=0,
+                             device=SLICE_DEVICE)
+    try:
+        check(it.uses_native, "NativeBatchIterator is not on the native "
+                              "producer")
+        t0 = time.perf_counter()
+        net2.fit_iterator(it, num_epochs=1)
+        slice_sync(torch)
+        t1 = time.perf_counter()
+        net2.fit_iterator(it, num_epochs=LFW_ITER_EPOCHS - 1)
+        slice_sync(torch)
+        t2 = time.perf_counter()
+    finally:
+        it.close()
+    acc_iter = net2.evaluate(ds).accuracy()
+    say(f"(b) native library {native.library_path().name} ready in "
+        f"{build_s:.1f} s; LFW {find_lfw()}: {n} JPEGs of {k} people "
+        f"decoded and resized to {LFW_SIZE}x{LFW_SIZE} in {decode_ms:.1f} "
+        f"ms; {dim}-{LFW_HIDDEN}-{k} relu, lr {LFW_LR}, {LFW_EPOCHS} epochs "
+        f"of fit_backprop in {train_s:.2f} s: accuracy {acc:.4f}; "
+        f"fit_iterator over NativeBatchIterator (native producer, batch "
+        f"{LFW_ITER_BATCH}, {it.batches_per_epoch} batches an epoch) on a "
+        f"fresh net: first epoch {(t1 - t0) * 1e3:.1f} ms (with its "
+        f"capture), then {(t2 - t1) / (LFW_ITER_EPOCHS - 1) * 1e3:.2f} ms "
+        f"an epoch; accuracy after {LFW_ITER_EPOCHS} epochs {acc_iter:.4f}")
+    check(acc_iter > LFW_MIN_ACC, f"LFW accuracy through "
+                                  f"NativeBatchIterator {acc_iter:.4f}")
+    check(acc > LFW_MIN_ACC, f"LFW accuracy {acc:.4f} <= {LFW_MIN_ACC}")
+
+
+def recursive_ae(torch, say) -> None:
+    """(c): the recursive autoencoder's pretraining and a card-vs-CPU
+    value and gradient."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        LayerKind, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder()
+            .kind(LayerKind.RECURSIVE_AUTOENCODER).n_in(RAE_D).n_out(RAE_D)
+            .activation("tanh").lr(RAE_LR).num_iterations(RAE_ITERS)
+            .compute_dtype("float32").list(1).pretrain(True)
+            .backward(False).build())
+    net = MultiLayerNetwork(conf, device=SLICE_DEVICE).init()
+    layer = net.layers[0]
+    x = np.random.default_rng(0).normal(
+        0.0, 0.5, (RAE_B, RAE_T, RAE_D)).astype(np.float32)
+    xd = torch.from_numpy(x).to(SLICE_DEVICE)
+    p0 = {k: v.clone() for k, v in net.params[0].items()}
+    card = layer.pretrain_value_and_grad(p0, None, xd)
+    cpu = layer.pretrain_value_and_grad(
+        {k: v.cpu() for k, v in p0.items()}, None, torch.from_numpy(x))
+    keys = sorted(card[1])
+    loss_rel = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    grad_rel = rel_l2(torch, [card[1][k] for k in keys],
+                      [cpu[1][k] for k in keys])
+    with torch.no_grad():
+        before = float(layer.fold(net.params[0], xd)[1])
+    t0 = time.perf_counter()
+    net.pretrain(DataSet(x, x))
+    slice_sync(torch)
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        after = float(layer.fold(net.params[0], xd)[1])
+    say(f"(c) recursive autoencoder B={RAE_B} T={RAE_T} D={RAE_D}: "
+        f"reconstruction loss {before:.6f} -> {after:.6f} after "
+        f"{RAE_ITERS} pretrain steps (lr {RAE_LR}) in {pre_ms:.1f} ms; "
+        f"card vs CPU pretrain_value_and_grad: loss rel {loss_rel:.3e}, "
+        f"gradients' relative L2 {grad_rel:.3e} (tolerance {RAE_TOL})")
+    check(np.isfinite(after) and after < before,
+          f"recursive AE pretraining did not lower the loss: {before} -> "
+          f"{after}")
+    check(loss_rel <= RAE_TOL and grad_rel <= RAE_TOL,
+          f"recursive AE card vs CPU: {loss_rel:.3e}, {grad_rel:.3e}")
+
+
+def graph_builder(torch, say) -> None:
+    """(d): the GraphBuilder docstring graph on the card against the CPU,
+    then a few gradient steps."""
+    from deeplearning4j_tpu_torch.ops.graph import GraphBuilder
+
+    rng = np.random.default_rng(0)
+    w0 = rng.normal(size=(4, 2)).astype(np.float32)
+    xs = rng.normal(size=(8, 4)).astype(np.float32)
+    ts = rng.normal(size=(8, 2)).astype(np.float32)
+
+    def build(dev):
+        g = GraphBuilder(device=dev)
+        x = g.placeholder("x", (8, 4))
+        w = g.variable("w", w0)
+        b = g.variable("b", np.zeros(2, np.float32))
+        y = g.softmax(g.add(g.matmul(x, w), b))
+        loss = g.mean(g.square(g.sub(y, g.placeholder("t", (8, 2)))))
+        return g, loss
+
+    got = {}
+    for dev in (SLICE_DEVICE, "cpu"):
+        g, loss = build(dev)
+        got[dev] = (float(g.compile(loss)(x=xs, t=ts)),
+                    {k: v.cpu() for k, v in g.grad(loss)(x=xs, t=ts).items()})
+    val_rel = (abs(got[SLICE_DEVICE][0] - got["cpu"][0])
+               / abs(got["cpu"][0]))
+    grad_rel = rel_l2(torch, [got[SLICE_DEVICE][1][k] for k in "bw"],
+                      [got["cpu"][1][k] for k in "bw"])
+    g, loss = build(SLICE_DEVICE)
+    f, gradfn = g.compile(loss), g.grad(loss)
+    first = float(f(x=xs, t=ts))
+    for _ in range(GRAPH_STEPS):
+        grads = gradfn(x=xs, t=ts)
+        for name, gr in grads.items():
+            g.set_variable(name, g.variables[name] - GRAPH_LR * gr)
+    last = float(f(x=xs, t=ts))
+    say(f"(d) GraphBuilder: compile {got[SLICE_DEVICE][0]:.7f} / CPU "
+        f"{got['cpu'][0]:.7f} (rel {val_rel:.3e}), grad relative L2 "
+        f"{grad_rel:.3e} (tolerance {GRAPH_TOL}); {GRAPH_STEPS} steps at "
+        f"lr {GRAPH_LR}: loss {first:.6f} -> {last:.6f}; fx graph of "
+        f"{g.fx_graph(loss).count(chr(10))} lines")
+    check(val_rel <= GRAPH_TOL and grad_rel <= GRAPH_TOL,
+          f"GraphBuilder card vs CPU: {val_rel:.3e}, {grad_rel:.3e}")
+    check(last < first, f"GraphBuilder descent: {first} -> {last}")
+
+
+#: run in a fresh process over the sweep's cache: each shape's lookup and
+#: make_attn_fn's decision, and the process's sweep count
+AUTOTUNE_PROBE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from deeplearning4j_tpu_torch.ops.flash_attention import make_attn_fn
+from deeplearning4j_tpu_torch.runtime import autotune as at
+from deeplearning4j_tpu_torch.runtime.metrics import mfu_metrics
+rows = []
+for B, T, NH, D, causal in json.loads(sys.argv[3]):
+    rec = at.lookup_attention(T, T, D, causal, rows=B * NH,
+                              kind=at.device_kind(sys.argv[2]))
+    d = make_attn_fn(autotune=True).describe((B, T, NH, D), (B, T, NH, D), causal,
+                                device=sys.argv[2], dtype=torch.bfloat16)
+    rows.append([rec["impl"] if rec else None, d.impl, d.source])
+print(json.dumps({"rows": rows, "sweeps": mfu_metrics.count("sweeps"),
+                  "cache_hits": mfu_metrics.count("cache_hits")}))
+"""
+
+
+def autotune_part(torch, say) -> None:
+    """(e): the attention sweep at BERT-base's and GPT-2 small's training
+    shapes into a temporary cache, then a fresh process that finds both
+    winners without sweeping."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.runtime import autotune as at
+    from deeplearning4j_tpu_torch.runtime.metrics import mfu_metrics
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ[at.AUTOTUNE_CACHE_ENV] = tmp
+    at.reset_memo()
+    mfu_metrics.reset()
+    try:
+        winners = []
+        for what, B, T, NH, D, causal in TUNE_SHAPES:
+            rec = at.sweep_attention(T, T, D, causal, batch=B, n_heads=NH,
+                                     dtype=torch.bfloat16,
+                                     device=SLICE_DEVICE)
+            c = rec["candidates"]
+            winners.append(rec["impl"])
+            say(f"(e) autotune {what} B={B} T={T} heads={NH} D={D} "
+                f"{'causal' if causal else 'full'} bf16, fwd+bwd: "
+                + ", ".join(f"{n} {c[n].get('step_ms', c[n].get('error'))}"
+                            + (" ms" if "step_ms" in c[n] else "")
+                            for n in c)
+                + f"; winner {rec['impl']} ({rec['blocks']})")
+            check(set(c) <= {"plain", "cuda"},
+                  f"a library attention was a candidate: {sorted(c)}")
+            check(SLICE_DEVICE != "cuda" or "cuda" in c,
+                  f"the kernel was not timed at {what}")
+        check(mfu_metrics.count("sweeps") == len(TUNE_SHAPES),
+              f"sweeps {mfu_metrics.count('sweeps')}")
+        shapes = json.dumps([s[1:] for s in TUNE_SHAPES])
+        proc = subprocess.run(
+            [sys.executable, "-c", AUTOTUNE_PROBE, REPO, SLICE_DEVICE,
+             shapes], capture_output=True, text=True, timeout=300,
+            env=dict(os.environ))
+        check(proc.returncode == 0,
+              f"autotune probe failed:\n{proc.stderr[-3000:]}")
+        probe = json.loads(proc.stdout.strip().splitlines()[-1])
+        say(f"(e) a fresh process on the same cache: {probe}")
+        # each shape is consulted twice there: lookup_attention, then
+        # make_attn_fn's describe
+        check(probe["sweeps"] == 0
+              and probe["cache_hits"] == 2 * len(TUNE_SHAPES),
+              f"the warmed process swept or missed: {probe}")
+        for (looked, impl, source), won in zip(probe["rows"], winners):
+            check(looked == won and impl == won and source == "autotuned",
+                  f"make_attn_fn did not follow the cached winner: "
+                  f"{probe['rows']} against {winners}")
+    finally:
+        os.environ[at.AUTOTUNE_CACHE_ENV] = "off"
+        at.reset_memo()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def slice_phase(torch, fa, fw, fg, card: str) -> None:
+    """Phase 18 (see the module docstring)."""
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    compile_cache.clear()
+    if SLICE_DEVICE == "cuda":
+        gc_cuda(torch)
+    for mod in (fa, fw, fg):
+        mod.reset_launches()
+    t = [time.perf_counter()]
+    for part in (char_lstm, lfw_native, recursive_ae, graph_builder):
+        part(torch, say)
+        t.append(time.perf_counter())
+    hand = {**fa.launch_counts(), "w2v": fw.launches, "glove": fg.launches}
+    say(f"hand-kernel launches during (a)-(d): {hand} (no TPU kernel lies "
+        f"on these paths)")
+    check(not any(hand.values()), f"a hand kernel ran during phase 18 "
+                                  f"(a)-(d): {hand}")
+    autotune_part(torch, say)
+    t.append(time.perf_counter())
+    names = ("char-LSTM", "LFW", "recursive AE", "GraphBuilder", "autotune")
+    say("phase 18 wall: " + ", ".join(
+        f"{n} {b - a:.1f} s" for n, a, b in zip(names, t, t[1:]))
+        + f"; total {t[-1] - t[0]:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -6731,6 +7179,10 @@ def main() -> int:
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
     resolve_device("cuda")         # fp32 products in full fp32 (no TF32)
+    # no autotune winner may route phases 1-17 (phase 18 sweeps into a
+    # temporary cache of its own)
+    from deeplearning4j_tpu_torch.runtime import autotune
+    os.environ[autotune.AUTOTUNE_CACHE_ENV] = "off"
 
     print("phase 1: environment")
     card = subprocess.run(
@@ -6864,6 +7316,11 @@ def main() -> int:
           "MultiLayerNetwork bundle, ResilientFit")
     for name, n in spine_phase(torch, fa, card).items():
         launches[name] += n
+    print("phase 18: the rest of the MultiLayerNetwork surface: the char-LSTM "
+          "through LSTMSequenceClassifier, LFW through the native JPEG "
+          "path, the recursive autoencoder, GraphBuilder, the attention "
+          "autotuner")
+    slice_phase(torch, fa, fw, fg, card)
 
     kernels = [{
         "name": "flash_attention_fwd",

@@ -1,11 +1,11 @@
 """Dataset fetchers: a cursor over a source that materializes the next
 chunk as a ``DataSet``.
 
-Port of ``deeplearning4j_tpu/datasets/fetchers.py`` but its LFW
-fetcher (ROADMAP A5b: it needs the native JPEG decode): ``DataSetFetcher``,
+Port of ``deeplearning4j_tpu/datasets/fetchers.py``: ``DataSetFetcher``,
 ``ArrayFetcher``, ``MnistDataFetcher`` (:26-99), ``IrisDataFetcher``,
-``CSVDataFetcher``, ``CurvesDataFetcher`` (:102-166) and the labelled
-CSV reader (:243-263).  A fetched chunk holds CPU tensors over the
+``CSVDataFetcher``, ``CurvesDataFetcher`` (:102-166), ``find_lfw`` and
+``LFWDataFetcher`` (:168-241, JPEG through the native decoder) and the
+labelled CSV reader (:243-263).  A fetched chunk holds CPU tensors over the
 fetcher's numpy arrays; the fit moves each batch to its device.  Zero
 egress: files are read from local paths, or a deterministic surrogate is
 made from numpy's seeded generator (the same arrays as the reference's).
@@ -22,6 +22,8 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets import mnist as mnist_io
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, one_hot
+from deeplearning4j_tpu_torch.utils.image import (load_image_directory,
+                                                  load_lfw_archive)
 
 
 class DataSetFetcher:
@@ -168,6 +170,83 @@ class CurvesDataFetcher(ArrayFetcher):
 
     def total_outcomes(self) -> int:
         return self.features.shape[-1]
+
+
+def find_lfw() -> Optional[str]:
+    """Tiered local discovery (reference :168-198, the pattern of
+    mnist.find_mnist_dir): $LFW_DIR, ./data/lfw, the repo's committed
+    data/lfw, ~/.dl4j-tpu/lfw; each may be an extracted
+    person-subdirectory tree, a directory containing an ``lfw*.tgz``
+    archive, or a path directly to the archive.  Returns the usable path
+    (dir or archive) or None."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    candidates = [os.environ.get("LFW_DIR"),
+                  os.path.join(os.getcwd(), "data", "lfw"),
+                  # the committed tiny corpus ships with the repo: found
+                  # whatever the caller's cwd
+                  os.path.join(repo_root, "data", "lfw"),
+                  os.path.expanduser("~/.dl4j-tpu/lfw")]
+    exts = (".jpg", ".jpeg", ".pgm", ".ppm")
+    for c in candidates:
+        if not c:
+            continue
+        if os.path.isfile(c) and c.endswith((".tgz", ".tar.gz", ".tar")):
+            return c
+        if not os.path.isdir(c):
+            continue
+        for entry in sorted(os.listdir(c)):
+            full = os.path.join(c, entry)
+            if entry.lower().startswith("lfw") and \
+                    entry.endswith((".tgz", ".tar.gz", ".tar")):
+                return full
+            if os.path.isdir(full) and any(
+                    f.lower().endswith(exts) for f in os.listdir(full)):
+                return c
+    return None
+
+
+class LFWDataFetcher(ArrayFetcher):
+    """LFW faces (datasets/fetchers/LFWDataFetcher.java parity, reference
+    :201-241): reads a directory of per-person subdirectories of images
+    (or an lfw.tgz archive, decoded in memory) through ``utils/image``
+    (native JPEG decode first); discovers a local copy with
+    ``find_lfw()``; makes seeded synthetic face-like blobs otherwise
+    (``synthetic`` says which), the reference's arrays value for
+    value."""
+
+    def __init__(self, image_dir: Optional[str] = None, image_size: int = 28,
+                 n: int = 256, num_people: int = 8, seed: int = 5):
+        image_dir = image_dir or find_lfw()
+        if image_dir and os.path.isfile(image_dir) and \
+                image_dir.endswith((".tgz", ".tar.gz", ".tar")):
+            x, labels, self.names = load_lfw_archive(image_dir, image_size)
+            y = one_hot(labels, int(labels.max()) + 1)
+            self.synthetic = False
+        elif image_dir and os.path.isdir(image_dir):
+            x, labels, self.names = load_image_directory(image_dir,
+                                                         image_size)
+            y = one_hot(labels, int(labels.max()) + 1)
+            self.synthetic = False
+        else:
+            rng = np.random.default_rng(seed)
+            labels = rng.integers(0, num_people, size=n)
+            yy, xx = np.mgrid[0:image_size, 0:image_size].astype(np.float32)
+            c = image_size / 2.0
+            x = np.empty((n, image_size * image_size), dtype=np.float32)
+            for i, lbl in enumerate(labels):
+                face = np.exp(-((yy - c) ** 2 + (xx - c) ** 2)
+                              / (2 * (c * 0.7) ** 2))
+                eye_dx = 3 + (lbl % 4)
+                for s in (-1, 1):
+                    face += 0.8 * np.exp(-((yy - c + 4) ** 2 +
+                                           (xx - c + s * eye_dx) ** 2) / 4.0)
+                face += rng.normal(0, 0.05, face.shape)
+                x[i] = face.ravel()
+            y = one_hot(labels, num_people)
+            self.names = [f"person_{i}" for i in range(num_people)]
+            self.synthetic = True
+        super().__init__(x, y)
 
 
 def _read_labeled_csv(path: str, label_last: bool = True,

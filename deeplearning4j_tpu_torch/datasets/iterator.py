@@ -1,24 +1,36 @@
 """DataSetIterator SPI and its in-memory and MNIST implementations.
 
-Port of ``deeplearning4j_tpu/datasets/iterator.py`` (:31-127, :228-420):
-``DataSetIterator``, ``BaseDatasetIterator``, ``ListDataSetIterator``,
-``PrefetchIterator`` (what the data-parallel ``fit_iterator`` needs) and
-``MnistDataSetIterator``.  ``NativeBatchIterator`` and the sampling and
-multi-epoch iterators are not ported yet (ROADMAP A5b).
+Port of ``deeplearning4j_tpu/datasets/iterator.py``: ``DataSetIterator``,
+``BaseDatasetIterator``, ``ListDataSetIterator``,
+``SamplingDataSetIterator``, ``MultipleEpochsIterator``,
+``ReconstructionDataSetIterator``, ``PrefetchIterator`` (what the
+data-parallel ``fit_iterator`` needs), ``MnistDataSetIterator``,
+``IrisDataSetIterator`` and ``NativeBatchIterator`` (the native library's
+threaded batch producer).  The fetcher-backed iterators hand out CPU
+tensors that the fit moves; the sampling and native iterators put their
+batches on their ``device`` (None means ``"cuda"``).  Random draws use
+numpy's ``default_rng`` with the reference's seeds, so a seed gives the
+reference's batches, not just batches alike.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 import time
 from typing import Callable, Iterator as PyIterator, Optional, Sequence
 
+import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.fetchers import (DataSetFetcher,
+                                                        IrisDataFetcher,
                                                         MnistDataFetcher)
+
+log = logging.getLogger(__name__)
 
 
 class DataSetIterator:
@@ -127,6 +139,112 @@ def _tensor_on(a, device) -> torch.Tensor:
     if t.dtype == torch.float64:
         t = t.float()
     return t.to(device)
+
+
+class SamplingDataSetIterator(DataSetIterator):
+    """Random with-replacement sampling from a source DataSet
+    (SamplingDataSetIterator.java parity, reference :129-163): batch
+    rows drawn by ``np.random.default_rng(seed)``, on ``device``."""
+
+    def __init__(self, source: DataSet, batch_size: int,
+                 total_samples: int, seed: int = 0,
+                 device: DeviceLike = None):
+        super().__init__(batch_size)
+        self.source = source
+        self.total_samples = total_samples
+        self.device = resolve_device(device)
+        self._x = _tensor_on(source.features, self.device)
+        self._y = _tensor_on(source.labels, self.device)
+        self._seed = seed
+        self._drawn = 0
+        self._rng = np.random.default_rng(seed)
+
+    def has_next(self) -> bool:
+        return self._drawn < self.total_samples
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        n = num or self.batch
+        idx = self._rng.integers(0, self.source.num_examples(), size=n)
+        self._drawn += n
+        idx = torch.from_numpy(idx).to(self.device)
+        return self._post(DataSet(self._x[idx], self._y[idx]))
+
+    def reset(self) -> None:
+        self._drawn = 0
+        self._rng = np.random.default_rng(self._seed)
+
+    def total_examples(self) -> int:
+        return self.total_samples
+
+    def input_columns(self) -> int:
+        return self.source.num_inputs()
+
+    def total_outcomes(self) -> int:
+        return self.source.num_outcomes()
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """``inner`` for ``num_epochs`` passes (MultipleEpochsIterator.java
+    parity, reference :166-198)."""
+
+    def __init__(self, num_epochs: int, inner: DataSetIterator):
+        super().__init__(inner.batch)
+        self.inner = inner
+        self.num_epochs = num_epochs
+        self._epoch = 0
+
+    def has_next(self) -> bool:
+        if self.inner.has_next():
+            return True
+        if self._epoch + 1 < self.num_epochs:
+            self._epoch += 1
+            self.inner.reset()
+            return self.inner.has_next()
+        return False
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        return self.inner.next(num)
+
+    def reset(self) -> None:
+        self._epoch = 0
+        self.inner.reset()
+
+    def total_examples(self) -> int:
+        return self.inner.total_examples() * self.num_epochs
+
+    def input_columns(self) -> int:
+        return self.inner.input_columns()
+
+    def total_outcomes(self) -> int:
+        return self.inner.total_outcomes()
+
+
+class ReconstructionDataSetIterator(DataSetIterator):
+    """labels := features (ReconstructionDataSetIterator.java parity,
+    reference :201-225)."""
+
+    def __init__(self, inner: DataSetIterator):
+        super().__init__(inner.batch)
+        self.inner = inner
+
+    def has_next(self) -> bool:
+        return self.inner.has_next()
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        ds = self.inner.next(num)
+        return self._post(DataSet(ds.features, ds.features))
+
+    def reset(self) -> None:
+        self.inner.reset()
+
+    def total_examples(self) -> int:
+        return self.inner.total_examples()
+
+    def input_columns(self) -> int:
+        return self.inner.input_columns()
+
+    def total_outcomes(self) -> int:
+        return self.inner.input_columns()
 
 
 class PrefetchIterator(DataSetIterator):
@@ -298,3 +416,118 @@ class MnistDataSetIterator(BaseDatasetIterator):
         super().__init__(batch, num_examples,
                          MnistDataFetcher(binarize=binarize, train=train,
                                           **kw))
+
+
+class IrisDataSetIterator(BaseDatasetIterator):
+    """Iris in batches of ``batch``; keyword arguments go to
+    ``IrisDataFetcher``."""
+
+    def __init__(self, batch: int, num_examples: int = 0, **kw):
+        super().__init__(batch, num_examples, IrisDataFetcher(**kw))
+
+
+_python_producer_noted = False
+
+
+def _warn_python_producer(err: Exception) -> None:
+    """Log, once a process, that NativeBatchIterator draws in Python."""
+    global _python_producer_noted
+    if not _python_producer_noted:
+        _python_producer_noted = True
+        log.warning("NativeBatchIterator: the native library is "
+                    "unavailable (%s); batches come from the Python "
+                    "producer, in another order for the same seed", err)
+
+
+class NativeBatchIterator(DataSetIterator):
+    """Shuffled minibatches assembled by the native library's producer
+    thread (``runtime/native.NativeBatcher``, reference :432-520): the
+    gather runs off the Python thread and overlaps device work.  Where
+    the library is unavailable it draws the same way in Python (a numpy
+    permutation an epoch, ``default_rng(seed + epoch)``), so callers
+    never branch; ``uses_native`` says which runs, and the first Python
+    producer of a process logs a warning.  The two producers give
+    different batch orders for the same seed (the native one draws with
+    its own generator), so whether the library built changes the order
+    a fit sees, not the batches' contents or count.  Batches land on
+    ``device``.
+
+    ``has_next`` is epoch-scoped like BaseDatasetIterator: one epoch of
+    full batches, then ``reset()`` rewinds the epoch counter (the native
+    stream keeps producing across epochs).
+    """
+
+    def __init__(self, features: np.ndarray, labels: np.ndarray,
+                 batch_size: int, seed: int = 0, shuffle: bool = True,
+                 device: DeviceLike = None):
+        from deeplearning4j_tpu_torch.runtime.native import NativeBatcher
+
+        super().__init__(batch_size)
+        self.device = resolve_device(device)
+        self._x = np.ascontiguousarray(features, dtype=np.float32)
+        self._y = np.ascontiguousarray(labels, dtype=np.float32)
+        if self._y.ndim == 1:
+            self._y = self._y[:, None]
+        self._seed = seed
+        self._shuffle = shuffle
+        self._native = None
+        self._closed = False
+        # the Python state is always set: next() takes it both when the
+        # library is absent and after close()
+        self.batches_per_epoch = max(len(self._x) // batch_size, 1)
+        self._epoch = 0
+        self._order = self._make_order()
+        try:
+            self._native = NativeBatcher(self._x, self._y, batch_size,
+                                         seed=seed, shuffle=shuffle)
+            self.batches_per_epoch = self._native.batches_per_epoch
+        except RuntimeError as e:
+            _warn_python_producer(e)
+        self._cursor = 0
+
+    def _make_order(self) -> np.ndarray:
+        if not self._shuffle:
+            return np.arange(len(self._x))
+        rng = np.random.default_rng(self._seed + self._epoch)
+        return rng.permutation(len(self._x))
+
+    @property
+    def uses_native(self) -> bool:
+        return self._native is not None
+
+    def has_next(self) -> bool:
+        return self._cursor < self.batches_per_epoch
+
+    def next(self, num: Optional[int] = None) -> DataSet:
+        if self._closed:
+            raise RuntimeError("NativeBatchIterator is closed")
+        if self._native is not None:
+            bx, by = self._native.next()
+        else:
+            b, n = self.batch, len(self._x)
+            idx = self._order[(self._cursor * b + np.arange(b)) % n]
+            bx, by = self._x[idx], self._y[idx]
+            if self._cursor + 1 >= self.batches_per_epoch:
+                self._epoch += 1
+                self._order = self._make_order()
+        self._cursor += 1
+        return self._post(DataSet(torch.from_numpy(bx).to(self.device),
+                                  torch.from_numpy(by).to(self.device)))
+
+    def reset(self) -> None:
+        self._cursor = 0
+
+    def total_examples(self) -> int:
+        return len(self._x)
+
+    def input_columns(self) -> int:
+        return self._x.shape[1]
+
+    def total_outcomes(self) -> int:
+        return self._y.shape[1]
+
+    def close(self) -> None:
+        self._closed = True
+        if self._native is not None:
+            self._native.close()
+            self._native = None

@@ -1,12 +1,13 @@
 """MNIST idx-format file readers and writers.
 
-Port of ``deeplearning4j_tpu/datasets/mnist.py`` (numpy only): readers
-for the idx1/idx3 binary formats (``datasets/mnist/MnistDbFile.java``
-and its kin in the reference), their inverse writers, discovery of a
-local idx tree and a synthetic surrogate.  Zero egress, as in the
-reference: nothing is downloaded; files are read from a local
-directory.  The reference's native (ctypes) reader is not ported
-(ROADMAP A3); the Python readers give the same arrays.
+Port of ``deeplearning4j_tpu/datasets/mnist.py``: readers for the
+idx1/idx3 binary formats (``datasets/mnist/MnistDbFile.java`` and its
+kin in the reference), their inverse writers, discovery of a local idx
+tree and a synthetic surrogate.  Zero egress, as in the reference:
+nothing is downloaded; files are read from a local directory.
+:func:`load_mnist` parses uncompressed files with the native C++ reader
+(``runtime/native.py``) when the library is available, as the reference
+does, and with the Python readers otherwise; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -102,7 +103,8 @@ def find_mnist_dir() -> Optional[str]:
 def load_mnist(data_dir: str, train: bool = True
                ) -> Tuple[np.ndarray, np.ndarray]:
     """(images uint8 [N,28,28], labels uint8 [N]) from idx files,
-    plain or .gz."""
+    plain or .gz; uncompressed files through the native reader when the
+    library is available."""
     img_key = "train_images" if train else "test_images"
     lbl_key = "train_labels" if train else "test_labels"
 
@@ -115,6 +117,14 @@ def load_mnist(data_dir: str, train: bool = True
         raise FileNotFoundError(f"no idx file for {key} in {data_dir}")
 
     img_path, lbl_path = resolve(img_key), resolve(lbl_key)
+    if not img_path.endswith(".gz") and not lbl_path.endswith(".gz"):
+        from deeplearning4j_tpu_torch.runtime import native
+
+        if native.available():
+            imgs = native.parse_idx_images_u8(img_path)  # [N, rows, cols]
+            lbls = native.parse_idx_labels(lbl_path)
+            if imgs is not None and lbls is not None:
+                return imgs, lbls.astype(np.uint8)
     return read_idx_images(img_path), read_idx_labels(lbl_path)
 
 

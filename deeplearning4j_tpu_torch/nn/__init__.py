@@ -1,2 +1,3 @@
-"""Neural-network core of the port: configuration, layers and
-``MultiLayerNetwork`` (counterpart of ``deeplearning4j_tpu/nn``)."""
+"""Neural-network core of the port: configuration, layers,
+``MultiLayerNetwork``, the sequence-classifier API (``api``) and the
+gradient container (counterpart of ``deeplearning4j_tpu/nn``)."""

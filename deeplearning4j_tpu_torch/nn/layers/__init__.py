@@ -1,6 +1,6 @@
 """Layers of the port; importing this package registers the kinds it
 has (dense, output, convolution, subsampling, RBM, autoencoder,
-embedding, batch norm) with the factory."""
+recursive autoencoder, LSTM, embedding, batch norm) with the factory."""
 
 from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     Layer, PretrainLayer, register_layer, make_layer,
@@ -12,8 +12,9 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.nn.layers.rbm import RBMLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.autoencoder import (  # noqa: F401
-    AutoEncoderLayer,
+    AutoEncoderLayer, RecursiveAutoEncoderLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.lstm import LSTMLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.extras import (  # noqa: F401
     BatchNormLayer, EmbeddingLayer,
 )

@@ -39,10 +39,7 @@ Params = Dict[str, Tensor]
 _LAYER_REGISTRY: Dict[LayerKind, Type["Layer"]] = {}
 
 #: the ROADMAP item that ports each layer kind this package lacks
-_NOT_PORTED = {
-    LayerKind.RECURSIVE_AUTOENCODER: "A5b",
-    LayerKind.LSTM: "A5b",
-}
+_NOT_PORTED: Dict[LayerKind, str] = {}
 
 
 def register_layer(kind: LayerKind):

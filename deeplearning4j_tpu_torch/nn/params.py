@@ -123,6 +123,26 @@ def convolution_params(gen: torch.Generator, conf: NeuralNetConfiguration,
     }
 
 
+def lstm_params(gen: torch.Generator, conf: NeuralNetConfiguration,
+                device: DeviceLike = None) -> Params:
+    """LSTMParamInitializer (reference ``params.py:112-129``): one fused
+    recurrent matrix ``recurrent_W`` ``[n_in + H, 4H]`` for the gates in
+    the order i, f, o, g, their bias ``recurrent_b`` ``[4H]``, and the
+    decoder ``decoder_W`` ``[H, n_out]`` + ``decoder_b``; H is
+    ``hidden_size`` or ``n_out``."""
+    dev, dtype = resolve_device(device), _dtype(conf.dtype)
+    hidden = conf.hidden_size or conf.n_out
+    return {
+        "recurrent_W": init_weight(gen, (conf.n_in + hidden, 4 * hidden),
+                                   conf.weight_init, conf.dist,
+                                   dtype).to(dev),
+        "recurrent_b": torch.zeros((4 * hidden,), dtype=dtype, device=dev),
+        "decoder_W": init_weight(gen, (hidden, conf.n_out),
+                                 conf.weight_init, conf.dist, dtype).to(dev),
+        "decoder_b": torch.zeros((conf.n_out,), dtype=dtype, device=dev),
+    }
+
+
 def _layers(params) -> List[Params]:
     """A network's list of layer dicts, or one layer's dict as a list of
     one (the solver packs a single layer: ``finetune``'s output layer,
@@ -173,13 +193,21 @@ def unpack_params(flat: Tensor, like):
     return out[0] if isinstance(like, Mapping) else out
 
 
-def params_from_numpy(tree: Sequence[Mapping[str, Any]],
-                      device: DeviceLike = None) -> List[Params]:
+def params_from_numpy(tree, device: DeviceLike = None):
     """A JAX ``MultiLayerNetwork``'s params as numpy (``jax.tree.map(
     np.asarray, net.params)``, or ``runtime.checkpoint.load_numpy_tree``
     with its ``"0"``, ``"1"``, ... keys in order) -> the port's, on
-    ``device``.  The layouts are the same, so this is a copy of every
-    key, the RBM's and autoencoder's visible bias ``vb`` included."""
+    ``device``; one layer's dict (an ``LSTMLayer``'s, a recursive
+    autoencoder's) gives one dict.  The layouts are the same, so this is
+    a copy of every key: the RBM's and autoencoder's visible bias
+    ``vb``, the LSTM's fused ``recurrent_W`` (gates i, f, o, g) and
+    decoder, the recursive autoencoder's ``W``, ``b``, ``U``, ``c``."""
     dev = resolve_device(device)
-    return [{key: torch.tensor(np.asarray(val), device=dev)
-             for key, val in layer.items()} for layer in tree]
+
+    def layer(d: Mapping[str, Any]) -> Params:
+        return {key: torch.tensor(np.asarray(val), device=dev)
+                for key, val in d.items()}
+
+    if isinstance(tree, Mapping):
+        return layer(tree)
+    return [layer(d) for d in tree]

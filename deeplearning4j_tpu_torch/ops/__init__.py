@@ -6,4 +6,5 @@ the shared dispatch policy; ``cuda_build`` compiles the CUDA sources
 under ``csrc/``; ``updaters`` the optax-exact ``adamw`` and the
 reference's ``dl4j_updater``; ``registry``, ``losses`` and ``random`` the
 named activations, the loss functions and the generator-driven draws
-of the ``MultiLayerNetwork`` spine."""
+of the ``MultiLayerNetwork`` spine; ``graph`` the symbolic
+``GraphBuilder``."""

@@ -565,17 +565,25 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
 class AttnDecision:
     """What the attention dispatch decided for one shape: ``impl`` is
     what runs (``"cuda"`` or ``"plain"``), ``source`` why (``"forced"``,
-    ``"heuristic"``, or the reason the kernel was passed over)."""
+    ``"heuristic"``, ``"autotuned"``, or the reason the kernel was
+    passed over)."""
     impl: str
     source: str
 
 
-def make_attn_fn(kernel: str = "auto", mesh=None):
+def make_attn_fn(kernel: str = "auto", mesh=None, *, autotune: bool = False):
     """An ``attn(q, k, v, mask=None, causal=False)`` drop-in for
     ``models/transformer.attention`` that dispatches per call through
     ``kernel_select.resolve_kernel``: ``"plain"`` forces the plain
     attention, ``"cuda"`` forces the kernel and raises where it cannot
     run, ``"auto"`` takes the kernel on CUDA for every supported shape.
+    ``autotune=True`` opts in to the autotuner's cache
+    (``runtime/autotune.lookup_attention``): where it holds a winner for
+    this card and this shape's buckets (rows = batch x heads, sequence
+    lengths), that winner runs and the source is ``"autotuned"``.  The
+    cache is consulted only for shapes the kernel supports on CUDA, once
+    per shape and dtype (as the reference consults at trace time); by
+    default nothing is read and no file decides the route.
     ``attn.describe(q_shape, k_shape, causal, device=, dtype=)`` returns
     the :class:`AttnDecision` without running anything.  ``mesh=`` (the
     shard_map placement of ``:446-623``) comes with the parallel slice.
@@ -587,24 +595,42 @@ def make_attn_fn(kernel: str = "auto", mesh=None):
     if kernel not in ks.KERNELS:
         raise ValueError(
             f"kernel must be one of {ks.KERNELS}, got {kernel!r}")
+    decisions: Dict[tuple, AttnDecision] = {}
 
     def describe(q_shape, k_shape, causal: bool = False, *,
                  device="cuda", dtype=torch.bfloat16) -> AttnDecision:
-        _, Tq, _, D = q_shape
+        B, Tq, NH, D = q_shape
         Tk = k_shape[1]
-        on_cuda = torch.device(device).type == "cuda"
+        dev = torch.device(device)
+        memo = (B * NH, Tq, Tk, D, bool(causal), str(dev), dtype)
+        d = decisions.get(memo)
+        if d is not None:
+            return d
+        on_cuda = dev.type == "cuda"
         aligned = kernel_supports(Tq, Tk, D, dtype)
-        impl = ks.resolve_kernel(kernel, aligned=aligned,
-                                      on_cuda=on_cuda,
-                                      desc="transformer attention")
+        record = None
+        # a decision asked for a card this process cannot see (a CPU
+        # host describing a CUDA shape) has no card name to look up
+        if (autotune and kernel == "auto" and aligned and on_cuda
+                and torch.cuda.is_available()):
+            from deeplearning4j_tpu_torch.runtime import autotune as at
+            record = at.lookup_attention(Tq, Tk, D, causal, rows=B * NH,
+                                         kind=at.device_kind(dev))
+        impl = ks.resolve_kernel(kernel, aligned=aligned, on_cuda=on_cuda,
+                                 desc="transformer attention",
+                                 autotuned=record["impl"] if record
+                                 else None)
         if kernel != "auto":
             source = "forced"
+        elif record is not None:
+            source = "autotuned"
         elif impl == "cuda":
             source = "heuristic"
         else:
             source = ("shape or dtype not supported by the kernel"
                       if not aligned else "off-cuda")
-        return AttnDecision(impl=impl, source=source)
+        d = decisions[memo] = AttnDecision(impl=impl, source=source)
+        return d
 
     def attn(q, k, v, mask=None, causal=False):
         d = describe(q.shape, k.shape, causal, device=q.device,

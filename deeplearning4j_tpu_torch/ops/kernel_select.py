@@ -11,7 +11,10 @@ no interpreter, so a forced ``"cuda"`` on CPU tensors raises (the JAX
 policy runs Pallas interpreted there).  ``"ring"`` comes with the
 parallel slice.  The TPU's measured crossover (``FLASH_MIN_SEQ``) is
 not carried over: on CUDA, auto takes the kernel for every shape it
-supports until the H100 crossover is measured.
+supports, unless the caller opted in to the autotuner
+(``make_attn_fn(autotune=True)``, ``runtime/autotune.py``) and it
+measured the plain attention faster on this card at this shape bucket
+(``autotuned="plain"``).
 
 For word2vec and GloVe the TPU policy also held a VMEM budget: the
 Pallas kernels kept the whole tables in VMEM, so ``choose_block``
@@ -28,14 +31,19 @@ name it returns (``"cuda"`` or ``"plain"``) is what a fit records as
 
 from __future__ import annotations
 
+from typing import Optional
+
 KERNELS = ("auto", "cuda", "plain")
 
 
 def resolve_kernel(kernel: str, *, aligned: bool, on_cuda: bool,
-                   desc: str = "flash attention") -> str:
+                   desc: str = "flash attention",
+                   autotuned: Optional[str] = None) -> str:
     """The implementation (``"cuda"`` or ``"plain"``) for a requested
     ``kernel`` mode.  ``aligned`` is the kernel's verdict on the shape
-    and dtype, ``on_cuda`` whether the tensors lie on a CUDA device."""
+    and dtype, ``on_cuda`` whether the tensors lie on a CUDA device,
+    ``autotuned`` a measured winner for ``"auto"`` to follow (None when
+    nothing was measured)."""
     if kernel not in KERNELS:
         raise ValueError(
             f"kernel must be one of {KERNELS}, got {kernel!r}")
@@ -52,5 +60,7 @@ def resolve_kernel(kernel: str, *, aligned: bool, on_cuda: bool,
                 f"shape or dtype not supported — never a silent fallback "
                 f"on an explicit request")
         return "cuda"
-    return "cuda" if (aligned and on_cuda) else "plain"
+    if not (aligned and on_cuda):
+        return "plain"
+    return "plain" if autotuned == "plain" else "cuda"
 

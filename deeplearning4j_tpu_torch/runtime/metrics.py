@@ -726,7 +726,10 @@ def estimate_mfu(flops_per_step: float, step_s: float, device_kind: str,
 class MfuMetrics:
     """Per-label MFU estimates (``note_mfu``: analytic FLOPs / measured
     step time / device peak, last value per label with its inputs) and
-    open-ended counters (``note``; the autotuner's, ROADMAP A3.4)."""
+    open-ended counters (``note``): the attention autotuner's
+    (``runtime/autotune.py``) ``sweeps``, ``candidates_timed``,
+    ``consults``, ``cache_hits``, ``cache_misses`` and
+    ``winners_persisted``."""
 
     def __init__(self):
         self._lock = threading.Lock()

@@ -339,6 +339,9 @@ def test_small_pool_requests_wait_for_pages(params):
     ref.warmup()
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, 64, int(n)) for n in (5, 9, 3, 12, 7, 4)]
+    # the high-water mark is process-wide: clear what engines of earlier
+    # tests in this process left in it, so it reads this engine's pool
+    decode_metrics.reset()
     with ContinuousBatcher(eng) as cb:
         reqs = [cb.submit(p, max_tokens=10) for p in prompts]
         outs = [list(r.result(120)) for r in reqs]
