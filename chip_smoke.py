@@ -298,9 +298,30 @@ Phases, each fatal on failure:
    (B=32 T=128) and GPT-2 small's (B=8 T=1024 causal) training shapes
    into a temporary cache: both candidates' ms and the winner; a fresh
    process on that cache sweeps nothing and make_attn_fn(autotune=True)
-   reports source="autotuned".  Phases 1-17 run with the autotune cache
-   off (and make_attn_fn reads no cache unless asked), so no winner
-   routes them.
+   reports source="autotuned".  Phases 1-17 and 19 run with the
+   autotune cache off (and make_attn_fn reads no cache unless asked), so
+   no winner routes them.
+19. the model axis (parallel/tensor_parallel.py), on two rank processes
+   sharing the one card over gloo with CUDA tensors: (a) a two-rank NCCL
+   group on the card, whose error is printed (NCCL refuses two ranks on
+   one device); B1-B3 against their plain twins at a rank's shapes (6 of
+   GPT-2 small's 12 heads, B=8 T=1024 causal, fp32 and bf16, phase 3's
+   tolerances); then, every result held against a mesh=None run on the
+   card in this process: (b) GPT-2 small at depth 2 in fp32 through
+   CausalLM on data=1 x model=2, 3 seeded batches: the gathered params
+   within 1e-5 relative L2, the replicated leaves bit-equal across the
+   ranks, B1 2 L launches a step on each rank and B2, B3 L each; (c) the
+   same at full depth in bf16 mixed precision, one batch 3 times: the
+   loss finite and falling, each step's loss within 2e-2 relative; step
+   ms (host clock, eager: a step over gloo is not captured), the model
+   axis's collectives a step (calls, bytes, and gloo's ms in one timed
+   step), peak memory, and a rank's param bytes against replicated (<=
+   0.70; the odd vocabulary keeps the embedding replicated); (d)
+   DecodeEngine(mesh=) at GPT-2 small in fp32, 4 prompts x 16 greedy
+   tokens equal to the replicated engine's, half its KV bytes a slot;
+   (e) BERT-base's make_train_step(cfg, mesh) on model=2, bf16: the loss
+   and the gathered gradients within 3e-2 relative L2, then 2 steps'
+   losses.  The ranks' launches on (b)-(e) join the kernels line.
 
 Phases 4-10 and 14-18 run through the compile engine as a user's calls
 do: every serving dispatch, training step, decode and prefill dispatch
@@ -483,11 +504,11 @@ FWD_CASES = KERNEL_CASES + [
 ]
 
 
-def kernel_phase(torch, fa):
+def kernel_phase(torch, fa, cases=FWD_CASES):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     worst = 0.0
-    for name, B, NH, Tq, Tk, D, dt, causal, lens in FWD_CASES:
+    for name, B, NH, Tq, Tk, D, dt, causal, lens in cases:
         dtype = getattr(torch, dt)
 
         def rand(T):
@@ -583,7 +604,7 @@ def bwd_error(torch, got, ref, dt: str):
     return err, ok and bool(got.isfinite().all())
 
 
-def kernel_bwd_phase(torch, fa):
+def kernel_bwd_phase(torch, fa, cases=KERNEL_CASES):
     """B2 and B3 on the kernel cases, against the tile-exact plain twins
     (causal_tile=CAUSAL_TILE) fed the same o and lse (B1's), through the
     [BH, T, D] entry point and through autograd on [B, T, NH, D]; each
@@ -591,7 +612,7 @@ def kernel_bwd_phase(torch, fa):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     worst = {"dkv": 0.0, "dq": 0.0}
-    for name, B, NH, Tq, Tk, D, dt, causal, lens in KERNEL_CASES:
+    for name, B, NH, Tq, Tk, D, dt, causal, lens in cases:
         dtype = getattr(torch, dt)
 
         def rand(T):
@@ -7165,6 +7186,630 @@ def slice_phase(torch, fa, fw, fg, card: str) -> None:
         + f"; total {t[-1] - t[0]:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the model axis, two ranks on one card
+# ---------------------------------------------------------------------------
+
+#: the device phase 19 runs on (a CPU rehearsal substitutes "cpu")
+MA_DEVICE = "cuda"
+#: (b) GPT-2 small at depth 2 in fp32 and (c) at full depth in bf16
+#: mixed precision: B=8 T=1024, SGD lr 0.05; (b) takes 3 seeded batches
+#: once, (c) one batch 3 times (its loss must fall)
+MA_B, MA_T, MA_STEPS, MA_LR, MA_DEPTH_FP32 = 8, 1024, 3, 0.05, 2
+#: (d) 4 prompts, 16 greedy tokens each, fp32, one bucket of 64
+MA_PROMPTS, MA_TOKENS, MA_BUCKET = 4, 16, 64
+#: (e) BERT-base MLM, bf16, dropout 0: B=32 T=128, 2 steps
+MA_BERT_B, MA_BERT_T, MA_BERT_STEPS = 32, 128, 2
+#: tolerances: (b) gathered params, relative L2; (c) per-step losses;
+#: (e) loss and gradients, relative L2
+MA_PARAMS_TOL, MA_LOSS_TOL, MA_BERT_TOL = 1e-5, 2e-2, 3e-2
+#: (c) the change of the gathered params over the 3 steps against
+#: mesh=None's, relative L2 of the difference to mesh=None's change, read
+#: apart over the model-split leaves and over the replicated ones: the
+#: limit lies between the sound runs' readings (3.5e-3 / 2.9e-3 on the
+#: H100) and the two controls' (the split leaves left at their init,
+#: 1.0; a run whose column-parallel inputs' gradients skip their sum
+#: over model, 0.44 / 0.44); PERF.md records them
+MA_DELTA_TOL = 3e-2
+#: what a rank's share of GPT-2 small's params may be of the replicated
+MA_SHARE_MAX = 0.70
+#: seconds the two ranks may take
+MA_DEADLINE_S = 900.0
+#: B1-B3 at a rank's shapes: 6 of GPT-2 small's 12 heads, B=8 T=1024
+MA_KERNEL_CASES = [
+    ("GPT-2 small, one rank's 6 heads, fp32", 8, 6, 1024, 1024, 64,
+     "float32", True, None),
+    ("GPT-2 small, one rank's 6 heads, bf16", 8, 6, 1024, 1024, 64,
+     "bfloat16", True, None),
+]
+
+
+def ma_settings() -> dict:
+    """What the rank processes need to know of this run (a spawned
+    process does not see a rehearsal's changes to this module)."""
+    return {"device": MA_DEVICE, "B": MA_B, "T": MA_T, "steps": MA_STEPS,
+            "lr": MA_LR, "depth": MA_DEPTH_FP32, "prompts": MA_PROMPTS,
+            "tokens": MA_TOKENS, "bucket": MA_BUCKET, "bert_B": MA_BERT_B,
+            "bert_T": MA_BERT_T, "bert_steps": MA_BERT_STEPS,
+            "gpt": None, "bert": None}
+
+
+def ma_configs(gpt, bert, st):
+    """(GPT fp32 at (b)'s depth, GPT bf16 at full depth, GPT fp32 for
+    decoding, BERT-base bf16 without dropout)."""
+    base = gpt.gpt_config() if st["gpt"] is None else st["gpt"]
+    fp32 = dataclasses.replace(base, compute_dtype="float32")
+    shallow = dataclasses.replace(fp32, n_layers=st["depth"])
+    bcfg = bert.bert_base() if st["bert"] is None else st["bert"]
+    return (shallow, dataclasses.replace(base, compute_dtype="bfloat16"),
+            fp32, dataclasses.replace(bcfg, dropout=0.0))
+
+
+def ma_ids(vocab: int, n: int, b: int, t: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, (b, t), dtype=np.int32) for _ in range(n)]
+
+
+def ma_prompts(vocab: int, n: int):
+    rng = np.random.default_rng(19)
+    return [rng.integers(0, vocab, int(rng.integers(8, 33)), dtype=np.int32)
+            for _ in range(n)]
+
+
+def ma_flat(torch, tree):
+    """Every leaf as one fp32 CPU vector, dict keys sorted."""
+    from deeplearning4j_tpu_torch.models import lm_fit
+    return torch.cat([t.detach().reshape(-1).float().cpu()
+                      for t in lm_fit._sorted_leaves(tree)])
+
+
+def ma_rel(torch, got, ref) -> float:
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+class MaLog:
+    def __init__(self):
+        self.seen = []
+
+    def iteration_done(self, model, i, score):
+        self.seen.append(float(score))
+
+
+def ma_sync(torch, st) -> None:
+    if st["device"] == "cuda":
+        torch.cuda.synchronize()
+
+
+def ma_references(torch, st, tmp: str) -> dict:
+    """The mesh=None runs, in this process on the card: written to
+    ``tmp`` for the ranks to hold theirs against."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import bert, gpt, lm_fit
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops.flash_attention import make_attn_fn
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+    dev = st["device"]
+    shallow, deep, fp32, bcfg = ma_configs(gpt, bert, st)
+    out = {}
+    lm = lm_fit.CausalLM(shallow, lr=st["lr"], device=dev).init(0)
+    log = MaLog()
+    lm.listeners = [log]
+    ids = ma_ids(shallow.vocab_size, st["steps"], st["B"], st["T"], 0)
+    lm.fit_backprop([DataSet(x, x) for x in ids], num_epochs=1)
+    torch.save(lm.params_flat(), os.path.join(tmp, "b_flat.pt"))
+    out["b_losses"] = log.seen
+    del lm
+    lm = lm_fit.CausalLM(deep, lr=st["lr"], mixed_precision="bf16",
+                         device=dev).init(0)
+    log = MaLog()
+    lm.listeners = [log]
+    one = ma_ids(deep.vocab_size, 1, st["B"], st["T"], 1)
+    ma_sync(torch, st)
+    t0 = time.perf_counter()
+    lm.fit_backprop([DataSet(x, x) for x in one], num_epochs=st["steps"])
+    ma_sync(torch, st)
+    out["c_step_ms"] = (time.perf_counter() - t0) / st["steps"] * 1e3
+    out["c_losses"] = log.seen
+    torch.save(lm.params_flat(), os.path.join(tmp, "c_flat.pt"))
+    del lm
+    params = gpt.init_params(torch.Generator(device=dev).manual_seed(1),
+                             fp32, dev)
+    eng = DecodeEngine(fp32, params, n_slots=st["prompts"],
+                       buckets=(st["bucket"],), prefill_chunk=16, device=dev)
+    out["d_tokens"] = ma_decode(eng, ma_prompts(fp32.vocab_size,
+                                                st["prompts"]), st["tokens"])
+    out["d_kv"] = eng.kv_bytes_per_slot
+    del eng, params
+    params = bert.init_params(torch.Generator(device=dev).manual_seed(2),
+                              bcfg, dev)
+    batch = bert.synthetic_batch(5, bcfg, st["bert_B"], st["bert_T"],
+                                 device=dev)
+    attn = make_attn_fn("auto")
+    loss, grads = tfm.value_and_grad(
+        lambda p: bert.mlm_loss(bcfg, p, batch, None, attn), params)
+    torch.save(ma_flat(torch, grads), os.path.join(tmp, "e_grads.pt"))
+    out["e_loss"] = float(loss)
+    _, step = bert.make_train_step(bcfg, device=dev)
+    from deeplearning4j_tpu_torch.ops import updaters
+    state = tfm.TrainState(params, updaters.adamw(1e-4, weight_decay=0.01)
+                           .init(params), 0)
+    losses = []
+    for _ in range(st["bert_steps"]):
+        state, l_ = step(state, batch)
+        losses.append(float(l_))
+    out["e_losses"] = losses
+    return out
+
+
+def ma_decode(eng, prompts, n: int):
+    """Every prompt started in a slot of the engine's one bucket, then
+    the bucket advanced until each has ``n`` greedy tokens."""
+    placed = []
+    for p in prompts:
+        bucket, slot, first = eng.start(p, max_tokens=n, temperature=0.0,
+                                        seed=0)
+        placed.append((bucket, slot, [int(first)]))
+    bucket = placed[0][0]
+    for _ in range(n - 1):
+        toks = eng.advance(bucket)
+        for _, slot, seen in placed:
+            seen.append(int(toks[slot]))
+    for b, slot, _ in placed:
+        eng.release(b, slot)
+    return [seen for _, _, seen in placed]
+
+
+def ma_nccl_probe(rank: int, rdv: str, out: str) -> None:
+    """Rank ``rank`` of a two-rank NCCL group on card 0: what NCCL says."""
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{rdv}",
+                                world_size=2, rank=rank,
+                                device_id=torch.device("cuda", 0))
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        msg = f"ok: all_reduce gave {x.tolist()}"
+    except Exception as e:  # noqa: BLE001 — the error is the result
+        msg = f"{type(e).__name__}: {e}"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out, "w") as f:
+        f.write(msg)
+
+
+def ma_spawn(target, tmp: str, tag: str, args=()) -> list:
+    """``target(rank, rdv, out, *args)`` in two spawned processes; their
+    outputs (files), or a failure if a rank dies or outlives the
+    deadline."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    rdv = os.path.join(tmp, f"rdv-{tag}")
+    outs = [os.path.join(tmp, f"{tag}-{r}.out") for r in range(2)]
+    procs = [ctx.Process(target=target, args=(r, rdv, outs[r]) + tuple(args))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MA_DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    check(not hung, f"phase 19 {tag}: ranks {hung} still running after "
+                    f"{MA_DEADLINE_S} s: killed")
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(os.path.exists(out), f"phase 19 {tag}: rank {r} exited with "
+                                   f"{p.exitcode} and no result")
+        if tag == "nccl":
+            with open(out) as f:
+                results.append(f.read())
+            continue
+        with open(out, "rb") as f:
+            status, value = pickle.load(f)
+        check(status == "ok", f"phase 19 {tag}: rank {r} failed:\n{value}")
+        results.append(value)
+    return results
+
+
+def ma_rank(rank: int, rdv: str, out: str, tmp: str, st: dict) -> None:
+    """One rank of the ``model=2`` group: (b)-(e), results pickled."""
+    import pickle
+    import traceback
+
+    try:
+        value = ma_rank_body(rank, rdv, tmp, st)
+        payload = ("ok", value)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        payload = ("error", traceback.format_exc())
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def ma_rank_body(rank: int, rdv: str, tmp: str, st: dict) -> dict:
+    sys.path.insert(0, REPO)
+    import hashlib
+
+    import torch
+
+    from deeplearning4j_tpu_torch import resolve_device
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import bert, gpt, lm_fit
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.parallel import mesh as pm
+    from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+    dev = st["device"]
+    torch.set_num_threads(2)
+    resolve_device(dev)
+    pm.initialize_distributed(f"file://{rdv}", 2, rank, device=dev,
+                              backend="gloo")
+    mesh = pm.make_mesh(pm.MeshSpec(data=1, model=2), device=dev)
+    shallow, deep, fp32, bcfg = ma_configs(gpt, bert, st)
+    res = {"mesh": repr(mesh), "captures": pm.mesh_captures(mesh),
+           "launches": {"launches": 0, "launches_dkv": 0, "launches_dq": 0}}
+
+    def book(counts):
+        for k, v in counts.items():
+            res["launches"][k] += v
+
+    # (b) fp32 at depth 2 against mesh=None's gathered params
+    ids = ma_ids(shallow.vocab_size, st["steps"], st["B"], st["T"], 0)
+    lm = lm_fit.CausalLM(shallow, lr=st["lr"], device=dev).init(0)
+    log = MaLog()
+    lm.listeners = [log]
+    step, _ = lm._backprop_machinery(mesh)
+    res["b_local_wq"] = tuple(step.shard_state(lm.params)["blocks"]["wq"]
+                              .shape)
+    fa.reset_launches()
+    lm.fit_backprop([DataSet(x, x) for x in ids], num_epochs=1, mesh=mesh)
+    ma_sync(torch, st)
+    counts = fa.launch_counts()
+    book(counts)
+    res["b_launches"] = counts
+    res["b_losses"] = log.seen
+    res["b_rel"] = ma_rel(torch, lm.params_flat(),
+                          torch.load(os.path.join(tmp, "b_flat.pt")))
+    specs = step.param_specs
+    repl = [t for grp in ("embed", "blocks") for name, t in
+            sorted(lm.params[grp].items())
+            if "model" not in tuple(specs[grp][name])]
+    res["b_repl_sha"] = hashlib.sha256(b"".join(
+        t.detach().float().cpu().numpy().tobytes() for t in repl)).hexdigest()
+    del lm, step
+
+    # (c) full depth, bf16
+    one = ma_ids(deep.vocab_size, 1, st["B"], st["T"], 1)
+    lm = lm_fit.CausalLM(deep, lr=st["lr"], mixed_precision="bf16",
+                         device=dev).init(0)
+    replicated_bytes = lm.num_param_bytes()
+    init_flat = lm.params_flat()
+    step, _ = lm._backprop_machinery(mesh)
+    local = step.shard_state(lm.params)
+    res["c_param_bytes"] = pm.per_device_bytes(local, mesh)
+    res["c_replicated_bytes"] = replicated_bytes
+    del local
+    log = MaLog()
+    lm.listeners = [log]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tpar.stats.reset()
+    fa.reset_launches()
+    ma_sync(torch, st)
+    t0 = time.perf_counter()
+    lm.fit_backprop([DataSet(x, x) for x in one], num_epochs=st["steps"],
+                    mesh=mesh)
+    ma_sync(torch, st)
+    res["c_step_ms"] = (time.perf_counter() - t0) / st["steps"] * 1e3
+    book(fa.launch_counts())
+    res["c_launches"] = fa.launch_counts()
+    ref_flat = torch.load(os.path.join(tmp, "c_flat.pt"))
+    split = ma_flat(torch, tpar._spec_map(
+        lambda leaf, spec: torch.full(
+            (leaf.numel(),), spec is not None
+            and tpar._model_dim(spec) is not None),
+        lm.params, step.param_specs)).bool()
+    res["c_split_share"] = float(split.float().mean())
+
+    def delta_rel(flat):
+        """(model-split leaves, replicated leaves): relative L2 of
+        ``flat - ref_flat`` to mesh=None's change over the same leaves."""
+        gap, moved = flat - ref_flat, ref_flat - init_flat
+        return tuple(float(gap[m].norm() / moved[m].norm())
+                     for m in (split, ~split))
+
+    mesh_flat = lm.params_flat()
+    res["c_delta_rel"] = delta_rel(mesh_flat)
+    # control 1: every model-split leaf left at its init (a step that
+    # skipped the sharded leaves' update)
+    res["c_ctrl_frozen"] = delta_rel(
+        torch.where(split, init_flat, mesh_flat))[0]
+    del mesh_flat
+    res["c_losses"] = log.seen
+    res["c_stats"] = tpar.stats.snapshot()
+    res["c_scale"] = float(lm.loss_scale["scale"])
+    res["c_skips"] = lm.guard_skips
+    res["c_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                        if dev == "cuda" else float("nan"))
+    # one more step with the model axis's collectives timed
+    lm.listeners = []
+    tpar.stats.reset()
+    fa.reset_launches()
+    with tpar.timed():
+        ma_sync(torch, st)
+        t0 = time.perf_counter()
+        lm.fit_backprop([DataSet(x, x) for x in one], num_epochs=1,
+                        mesh=mesh)
+        ma_sync(torch, st)
+        res["c_timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+    book(fa.launch_counts())
+    res["c_timed"] = tpar.stats.snapshot()
+    # a fit ends by gathering the params (one all-gather a split leaf):
+    # its share of the counts above, taken out of the per-step figures
+    tpar.stats.reset()
+    step.gather_state(step.shard_state(lm.params))
+    res["c_gather"] = tpar.stats.snapshot()
+    del lm, step
+    # control 2: the 3 steps again from the init with copy_to_model's
+    # backward returning this rank's partial gradient, not its sum over
+    # model (a step that reduced wrongly); restored at once, its
+    # launches booked nowhere
+    lm = lm_fit.CausalLM(deep, lr=st["lr"], mixed_precision="bf16",
+                         device=dev).init(0)
+    sound = vars(tpar._CopyToModel)["backward"]
+    tpar._CopyToModel.backward = staticmethod(lambda ctx, g: (g, None))
+    try:
+        lm.fit_backprop([DataSet(x, x) for x in one],
+                        num_epochs=st["steps"], mesh=mesh)
+    finally:
+        tpar._CopyToModel.backward = sound
+    res["c_ctrl_unsummed"] = delta_rel(lm.params_flat())
+    del lm, ref_flat, init_flat, split
+
+    # (d) the head-sharded decode engine
+    params = gpt.init_params(torch.Generator(device=dev).manual_seed(1),
+                             fp32, dev)
+    eng = DecodeEngine(fp32, params, n_slots=st["prompts"],
+                       buckets=(st["bucket"],), prefill_chunk=16, mesh=mesh,
+                       device=dev)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    res["d_tokens"] = ma_decode(eng, ma_prompts(fp32.vocab_size,
+                                                st["prompts"]), st["tokens"])
+    res["d_s"] = time.perf_counter() - t0
+    book(fa.launch_counts())
+    res["d_kv"] = eng.kv_bytes_per_slot
+    res["d_slot_k"] = tuple(eng._state(eng._buckets[st["bucket"]])[0].k.shape)
+    del eng, params
+
+    # (e) BERT-base make_train_step on model=2
+    params = bert.init_params(torch.Generator(device=dev).manual_seed(2),
+                              bcfg, dev)
+    batch = bert.synthetic_batch(5, bcfg, st["bert_B"], st["bert_T"],
+                                 device=dev)
+    opt = updaters.adamw(1e-4, weight_decay=0.01)
+    _, bstep = bert.make_train_step(bcfg, mesh, optimizer=opt, device=dev)
+    local = tfm.shard_tree(params, bstep.specs, mesh)
+    del params
+    attn = fa.make_attn_fn("auto", mesh=mesh)
+    tp = tpar.model_group(mesh)
+    loss, grads = tfm.value_and_grad(
+        lambda p: bert.mlm_loss(bcfg, p, batch, None, attn, tp), local)
+    grads = tfm.gather_tree(grads, bstep.specs, mesh)
+    res["e_loss"] = float(loss)
+    res["e_grad_rel"] = ma_rel(torch, ma_flat(torch, grads),
+                               torch.load(os.path.join(tmp, "e_grads.pt")))
+    del grads
+    state = tfm.TrainState(local, opt.init(local), 0)
+    losses = []
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(st["bert_steps"]):
+        state, l_ = bstep(state, batch)
+        losses.append(float(l_))
+    res["e_step_ms"] = (time.perf_counter() - t0) / st["bert_steps"] * 1e3
+    book(fa.launch_counts())
+    res["e_launches"] = fa.launch_counts()
+    res["e_losses"] = losses
+    res["e_local_tok"] = tuple(state.params["embed"]["tok"].shape)
+    return res
+
+
+def model_axis_phase(torch, fa, card: str) -> dict:
+    """Phase 19 (see the module docstring).  Returns the ranks' B1-B3
+    launches on the main paths (b)-(e), summed over both ranks."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models import bert, gpt
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    compile_cache.clear()
+    if MA_DEVICE == "cuda":
+        gc_cuda(torch)
+    check(not torch.distributed.is_initialized(),
+          "phase 19 needs no process group up in this process")
+    st = ma_settings()
+    tmp = tempfile.mkdtemp(prefix="model-axis-")
+    t = [time.perf_counter()]
+    try:
+        if MA_DEVICE == "cuda":
+            for r, msg in enumerate(ma_spawn(ma_nccl_probe, tmp, "nccl")):
+                say(f"(a) NCCL, two ranks on one card, rank {r}: "
+                    + " ".join(msg.split())[:400])
+        t.append(time.perf_counter())
+        worst = kernel_phase(torch, fa, MA_KERNEL_CASES)
+        worst_bwd = kernel_bwd_phase(torch, fa, MA_KERNEL_CASES)
+        t.append(time.perf_counter())
+        ref = ma_references(torch, st, tmp)
+        if MA_DEVICE == "cuda":
+            gc_cuda(torch)
+        t.append(time.perf_counter())
+        r0, r1 = ma_spawn(ma_rank, tmp, "model2", (tmp, st))
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    shallow, deep, fp32, bcfg = ma_configs(gpt, bert, st)
+    L = shallow.n_layers
+    say(f"group: {r0['mesh']} and {r1['mesh']}; gloo over CUDA tensors "
+        f"(NCCL refuses two ranks on one card); step capture "
+        f"{'on' if r0['captures'] else 'off'}: gloo's collectives cannot "
+        f"enter a CUDA graph (parallel.mesh.mesh_captures, keyed on the "
+        f"group's backend); gloo took every collective on CUDA tensors "
+        f"itself, no host staging (parallel/tensor_parallel.py)")
+    check(not r0["captures"], "a gloo step must not be captured")
+
+    # (b)
+    want_b = {"launches": 2 * L * st["steps"],
+              "launches_dkv": L * st["steps"],
+              "launches_dq": L * st["steps"]}
+    for r, res in enumerate((r0, r1)):
+        say(f"(b) rank {r}: GPT-2 small depth {L} fp32, B={st['B']} "
+            f"T={st['T']}, {st['steps']} steps: local wq "
+            f"{res['b_local_wq']} ({res['b_local_wq'][2]} of "
+            f"{shallow.n_heads} heads, B1-B3 at {st['B']} x "
+            f"{res['b_local_wq'][2]} rows); gathered params against "
+            f"mesh=None's: relative L2 {res['b_rel']:.3e} (<= "
+            f"{MA_PARAMS_TOL:g}); losses {res['b_losses']} (mesh=None "
+            f"{ref['b_losses']}); launches {res['b_launches']} (expected "
+            f"{want_b})")
+        check(res["b_rel"] <= MA_PARAMS_TOL,
+              f"(b) rank {r}: params differ from mesh=None by "
+              f"{res['b_rel']}")
+        check(res["b_launches"] == want_b,
+              f"(b) rank {r}: launches {res['b_launches']} != {want_b}")
+        check(res["b_local_wq"][2] == shallow.n_heads // 2,
+              f"(b) rank {r} holds {res['b_local_wq']}")
+    check(r0["b_repl_sha"] == r1["b_repl_sha"],
+          "(b) the replicated leaves differ between the ranks")
+    say(f"(b) replicated leaves bit-equal across the ranks: sha256 "
+        f"{r0['b_repl_sha'][:16]}")
+
+    # (c): remat runs B1 twice a layer a step
+    n = st["steps"]
+    Ld = deep.n_layers
+    want_c = {"launches": 2 * Ld * n, "launches_dkv": Ld * n,
+              "launches_dq": Ld * n}
+    for r, res in enumerate((r0, r1)):
+        losses = np.array(res["c_losses"])
+        rel = np.abs(losses - np.array(ref["c_losses"])) / np.abs(
+            np.array(ref["c_losses"]))
+        share = res["c_param_bytes"]
+        mine = share[sorted(share)[r]]
+        frac = mine / res["c_replicated_bytes"]
+        dsplit, drepl = res["c_delta_rel"]
+        usplit, urepl = res["c_ctrl_unsummed"]
+        s, ts, g = res["c_stats"], res["c_timed"], res["c_gather"]
+        calls = (s["calls"] - g["calls"]) / n
+        mb = (s["bytes"] - g["bytes"]) / n / 1e6
+        say(f"(c) rank {r}: GPT-2 small depth {deep.n_layers} bf16 mixed "
+            f"precision, one batch x {n}: losses {losses.tolist()} "
+            f"(mesh=None {ref['c_losses']}; largest relative difference "
+            f"{rel.max():.3e} <= {MA_LOSS_TOL:g}); the params' change "
+            f"against mesh=None's, relative L2 over the model-split leaves "
+            f"({res['c_split_share']:.3f} of the params) "
+            f"{dsplit:.3e}, over the replicated ones {drepl:.3e} (each <= "
+            f"{MA_DELTA_TOL:g}); controls: the split leaves left at init "
+            f"{res['c_ctrl_frozen']:.3e}, column-parallel input gradients "
+            f"not summed over model {usplit:.3e} / {urepl:.3e} (each "
+            f"control > {MA_DELTA_TOL:g} on the split leaves); step "
+            f"{res['c_step_ms']:.1f} ms (host clock after synchronize, "
+            f"eager, gloo-bound; mesh=None "
+            f"{ref['c_step_ms']:.1f} ms, its capture included); model-axis "
+            f"collectives {calls:g} a step, {mb:.1f} MB a step (the fit's "
+            f"closing gather of the params {g['calls']} calls, "
+            f"{g['bytes'] / 1e6:.1f} MB, aside); one more step under "
+            f"tensor_parallel.timed() {res['c_timed_step_ms']:.1f} ms "
+            f"(the device synchronized around each collective, which "
+            f"slows it from the plain {res['c_step_ms']:.1f} ms) of which "
+            f"gloo {ts['seconds'] * 1e3:.1f} ms, the gather included "
+            f"({ts['seconds'] * 1e3 / res['c_timed_step_ms']:.1%} of the "
+            f"timed step, inflated by its synchronizes); peak memory "
+            f"{res['c_peak_gb']:.2f} GB; params {mine:,} bytes of "
+            f"{res['c_replicated_bytes']:,} replicated ({frac:.3f} <= "
+            f"{MA_SHARE_MAX}); guard skips {res['c_skips']}, loss scale "
+            f"{res['c_scale']:g}; launches {res['c_launches']}")
+        check(np.isfinite(losses).all(), f"(c) rank {r}: non-finite loss")
+        check(losses[-1] < losses[0], f"(c) rank {r}: the loss did not "
+                                      f"fall: {losses}")
+        check(rel.max() <= MA_LOSS_TOL,
+              f"(c) rank {r}: losses differ from mesh=None by {rel.max()}")
+        check(max(dsplit, drepl) <= MA_DELTA_TOL,
+              f"(c) rank {r}: the params' change differs from mesh=None's "
+              f"by {dsplit} (split) / {drepl} (replicated)")
+        check(min(res["c_ctrl_frozen"], usplit) > MA_DELTA_TOL,
+              f"(c) rank {r}: a control reads {res['c_ctrl_frozen']} / "
+              f"{usplit}, inside the limit {MA_DELTA_TOL}")
+        check(res["c_launches"] == want_c,
+              f"(c) rank {r}: launches {res['c_launches']} != {want_c}")
+        check(frac <= MA_SHARE_MAX, f"(c) rank {r} holds {frac} of the "
+                                    f"params")
+
+    # (d)
+    half = gpt.slots_bytes_per_slot(fp32, st["bucket"]) // 2
+    for r, res in enumerate((r0, r1)):
+        same = res["d_tokens"] == ref["d_tokens"]
+        say(f"(d) rank {r}: DecodeEngine(mesh=) fp32, {st['prompts']} "
+            f"prompts x {st['tokens']} greedy tokens in {res['d_s']:.1f} s: "
+            f"equal to the replicated engine's: {same}; KV {res['d_kv']:,} "
+            f"bytes a slot against {ref['d_kv']:,} replicated; slot cache "
+            f"{res['d_slot_k']}")
+        check(same, f"(d) rank {r}: tokens {res['d_tokens']} != "
+                    f"{ref['d_tokens']}")
+        check(res["d_kv"] == half == ref["d_kv"] // 2,
+              f"(d) rank {r}: {res['d_kv']} KV bytes a slot")
+
+    # (e): the launches of the bstep calls alone
+    Lb, nb = bcfg.n_layers, st["bert_steps"]
+    want_e = {"launches": 2 * Lb * nb, "launches_dkv": Lb * nb,
+              "launches_dq": Lb * nb}
+    for r, res in enumerate((r0, r1)):
+        lrel = abs(res["e_loss"] - ref["e_loss"]) / abs(ref["e_loss"])
+        srel = max(abs(a - b) / abs(b) for a, b in
+                   zip(res["e_losses"], ref["e_losses"]))
+        say(f"(e) rank {r}: BERT-base make_train_step(cfg, mesh) bf16, "
+            f"B={st['bert_B']} T={st['bert_T']}: loss {res['e_loss']:.5f} "
+            f"(mesh=None {ref['e_loss']:.5f}), gradients' relative L2 "
+            f"{res['e_grad_rel']:.3e}, step losses {res['e_losses']} "
+            f"(mesh=None {ref['e_losses']}); step {res['e_step_ms']:.1f} "
+            f"ms; token table {res['e_local_tok']} (vocab over model); "
+            f"launches {res['e_launches']} (expected {want_e})")
+        check(res["e_launches"] == want_e,
+              f"(e) rank {r}: launches {res['e_launches']} != {want_e}")
+        check(max(lrel, srel, res["e_grad_rel"]) <= MA_BERT_TOL,
+              f"(e) rank {r}: loss {lrel}, steps {srel}, gradients "
+              f"{res['e_grad_rel']} > {MA_BERT_TOL}")
+
+    launches = {k: r0["launches"][k] + r1["launches"][k]
+                for k in r0["launches"]}
+    names = ("NCCL probe", "B1-B3 at a rank's shapes", "mesh=None references",
+             "two ranks (b)-(e)")
+    say("phase 19 wall: " + ", ".join(
+        f"{n_} {b - a:.1f} s" for n_, a, b in zip(names, t, t[1:]))
+        + f"; total {t[-1] - t[0]:.1f} s; launches on the ranks' main paths "
+          f"{launches}")
+    return launches, worst, worst_bwd
+
+
 def main() -> int:
     import torch
 
@@ -7321,6 +7966,14 @@ def main() -> int:
           "path, the recursive autoencoder, GraphBuilder, the attention "
           "autotuner")
     slice_phase(torch, fa, fw, fg, card)
+    print("phase 19: the model axis: tensor-parallel GPT-2 small training "
+          "through CausalLM, the head-sharded DecodeEngine and BERT-base's "
+          "make_train_step on two gloo ranks sharing the card")
+    counts, worst_19, worst_bwd_19 = model_axis_phase(torch, fa, card)
+    for name, n in counts.items():
+        launches[name] += n
+    worst = max(worst, worst_19)
+    worst_bwd = {k: max(v, worst_bwd_19[k]) for k, v in worst_bwd.items()}
 
     kernels = [{
         "name": "flash_attention_fwd",

@@ -5,8 +5,11 @@ Port of ``deeplearning4j_tpu/models/bert.py``: configs, params (the
 same tree, so JAX weights carry over with :func:`params_from_numpy`),
 the MLM head over tied token embeddings, the MLM loss, synthetic
 batches, the one-device training step (:175-241) and the serving
-forward.  The pipeline and sequence-parallel steps (:248-430) come with
-the parallel slice.
+forward.  On a ``data x model`` mesh (:func:`shard_specs`) the encoder
+is the transformer's tensor-parallel one and the MLM transform is
+column-parallel, its output gathered before its LayerNorm.  The
+pipeline and sequence-parallel steps (:248-430) are ROADMAP A7.1b and
+A7.5.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
+from deeplearning4j_tpu_torch.parallel.mesh import MODEL_AXIS
+from deeplearning4j_tpu_torch.parallel.tensor_parallel import P
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -63,6 +69,34 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
 params_from_numpy = tfm.params_from_numpy
 
 
+def param_specs(cfg: TransformerConfig) -> Params:
+    """The reference's degree-free rules (:62-68): the encoder's, with
+    the MLM head and the pooler replicated."""
+    specs = tfm.param_specs(cfg)
+    specs["mlm"] = {"w": P(None, None), "b": P(None), "ln_g": P(None),
+                    "ln_b": P(None), "out_b": P(None)}
+    specs["pooler"] = {"w": P(None, None), "b": P(None)}
+    return specs
+
+
+def shard_specs(cfg: TransformerConfig, model_degree: int = 1,
+                pipe_degree: int = 1) -> Params:
+    """The data x model layout of the BERT family (:71-90): the
+    encoder's (``transformer.shard_specs``), the MLM transform
+    column-parallel (``w`` ``P(None, model)``, ``b`` over ``model``),
+    its output bias over vocab alongside the tied projection when the
+    degree divides the vocabulary; LayerNorms and the pooler
+    replicated."""
+    specs = tfm.shard_specs(cfg, model_degree, pipe_degree)
+    m = MODEL_AXIS if model_degree > 1 else None
+    vocab_ok = model_degree > 1 and cfg.vocab_size % model_degree == 0
+    specs["mlm"] = {"w": P(None, m), "b": P(m), "ln_g": P(None),
+                    "ln_b": P(None),
+                    "out_b": P(MODEL_AXIS) if vocab_ok else P(None)}
+    specs["pooler"] = {"w": P(None, None), "b": P(None)}
+    return specs
+
+
 class Batch(NamedTuple):
     """MLM batch. ``mlm_mask`` marks the (already-corrupted) predict
     positions; ``labels`` holds original ids everywhere (ignored where
@@ -76,28 +110,36 @@ class Batch(NamedTuple):
 
 def forward_hidden(cfg: TransformerConfig, params: Params, batch: Batch,
                    generator: Optional[torch.Generator] = None,
-                   attn_fn=tfm.attention) -> Tensor:
+                   attn_fn=tfm.attention, tp=None) -> Tensor:
     return tfm.encode(cfg, params, batch.token_ids, batch.attention_mask,
-                      batch.type_ids, generator, attn_fn=attn_fn)
+                      batch.type_ids, generator, attn_fn=attn_fn, tp=tp)
 
 
 def mlm_logits(cfg: TransformerConfig, params: Params,
-               hidden: Tensor) -> Tensor:
+               hidden: Tensor, tp=None) -> Tensor:
     """``[B, T, H]`` -> ``[B, T, vocab]`` fp32 via the transform and the
     tied embeddings (:116-125).  JAX's transform product (``@``) returns
-    the compute dtype before its fp32 bias, as this one does."""
+    the compute dtype before its fp32 bias, as this one does.  On a
+    model rank (``tp``) the transform's columns are the rank's, gathered
+    before the LayerNorm, and a vocab-sharded table gives the rank's
+    logit columns, gathered after the bias."""
     cdt = tfm.compute_dtype(cfg)
     m = params["mlm"]
-    h = torch.matmul(hidden.to(cdt), m["w"].to(cdt)).float() + m["b"]
-    h = F.gelu(h, approximate="tanh")
+    x = tpar.copy_to_model(hidden, tp)
+    h = torch.matmul(x.to(cdt), m["w"].to(cdt)).float() + m["b"]
+    h = tpar.gather_last(F.gelu(h, approximate="tanh"),
+                         tp if m["w"].shape[1] != cfg.hidden else None)
     h = tfm.layer_norm(h, m["ln_g"], m["ln_b"], cfg.layer_norm_eps)
-    logits = tfm._matmul(h, params["embed"]["tok"].t(), cdt)
-    return logits + m["out_b"]
+    if not tfm.vocab_sharded(cfg, params):
+        return tfm._matmul(h, params["embed"]["tok"].t(), cdt) + m["out_b"]
+    local = tfm._matmul(tpar.copy_to_model(h, tp),
+                        params["embed"]["tok"].t(), cdt) + m["out_b"]
+    return tpar.gather_last(local, tp)
 
 
 def mlm_loss_from_hidden(cfg: TransformerConfig, params: Params,
-                         hidden: Tensor, batch: Batch) -> Tensor:
-    logits = mlm_logits(cfg, params, hidden)
+                         hidden: Tensor, batch: Batch, tp=None) -> Tensor:
+    logits = mlm_logits(cfg, params, hidden, tp)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, batch.labels.long()[..., None])[..., 0]
     denom = torch.clamp(batch.mlm_mask.sum(), min=1.0)
@@ -106,9 +148,9 @@ def mlm_loss_from_hidden(cfg: TransformerConfig, params: Params,
 
 def mlm_loss(cfg: TransformerConfig, params: Params, batch: Batch,
              generator: Optional[torch.Generator] = None,
-             attn_fn=tfm.attention) -> Tensor:
-    hidden = forward_hidden(cfg, params, batch, generator, attn_fn)
-    return mlm_loss_from_hidden(cfg, params, hidden, batch)
+             attn_fn=tfm.attention, tp=None) -> Tensor:
+    hidden = forward_hidden(cfg, params, batch, generator, attn_fn, tp)
+    return mlm_loss_from_hidden(cfg, params, hidden, batch, tp)
 
 
 #: the training state ``(params, opt_state, step)`` (:144)
@@ -119,15 +161,19 @@ def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
                     attn_fn=None, n_steps: int = 1,
                     device: DeviceLike = None) -> Tuple[Callable, Callable]:
     """``(init_fn(generator) -> TrainState, step_fn(state, batch,
-    generator=None) -> (state, loss))`` for the MLM loss on one device,
-    after ``make_train_step`` (:175-241): ``optimizer`` defaults to
+    generator=None) -> (state, loss))`` for the MLM loss, after
+    ``make_train_step`` (:175-241): ``optimizer`` defaults to
     ``updaters.adamw(1e-4, weight_decay=0.01)`` (JAX's ``optax.adamw(1e-4,
     weight_decay=0.01)``), ``attn_fn=None`` to the flash kernels on CUDA
     (``transformer.make_train_step`` has the rest); the batch lives on
-    ``device`` (``None`` means ``"cuda"``)."""
+    ``device`` (``None`` means ``"cuda"``, or the mesh's device).  On a
+    ``data x model`` mesh the state is laid out by :func:`shard_specs`,
+    and a data shard's loss weighs by its count of predicted
+    positions, so the step's loss is the global batch's."""
     return tfm.make_train_step(cfg, init_params, mlm_loss, 1e-4, mesh,
                                optimizer, attn_fn, n_steps, device,
-                               label="bert.train_step")
+                               label="bert.train_step", specs_fn=shard_specs,
+                               weight_fn=lambda b: b.mlm_mask.sum())
 
 
 def synthetic_batch(seed: int, cfg: TransformerConfig, batch_size: int,

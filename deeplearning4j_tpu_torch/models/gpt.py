@@ -48,6 +48,9 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
+from deeplearning4j_tpu_torch.parallel.mesh import MODEL_AXIS
+from deeplearning4j_tpu_torch.parallel.tensor_parallel import P
 from deeplearning4j_tpu_torch.runtime import quantize as qz
 
 Tensor = torch.Tensor
@@ -84,24 +87,60 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     return tfm.init_params(generator, cfg, device)
 
 
+def shard_specs(cfg: TransformerConfig, model_degree: int = 1,
+                pipe_degree: int = 1) -> Params:
+    """The data x model layout of the GPT family (:56-79): the GPT tree
+    is the transformer's, so ``transformer.shard_specs`` (heads and the
+    ffn axis over ``model``, the tied embedding over vocab when the
+    degree divides it)."""
+    return tfm.shard_specs(cfg, model_degree, pipe_degree)
+
+
+def slot_specs(cfg: TransformerConfig, kv_dtype: Optional[str] = None):
+    """The layout of a model-sharded engine's :class:`DecodeSlots`
+    (:81-100): the cache's head axis over ``model``, tokens, positions
+    and int8 scales replicated."""
+    h = P(None, None, None, MODEL_AXIS, None)
+    if kv_dtype == "int8":
+        return DecodeSlots(k=h, v=h, tokens=P(), pos=P(), k_scale=P(),
+                           v_scale=P())
+    return DecodeSlots(k=h, v=h, tokens=P(), pos=P())
+
+
+def paged_specs(cfg: TransformerConfig, kv_dtype: Optional[str] = None):
+    """The layout of a model-sharded page pool (:744-752): heads over
+    ``model``, scales replicated."""
+    h = P(None, None, None, MODEL_AXIS, None)
+    if kv_dtype == "int8":
+        return PagedKV(k=h, v=h, k_scale=P(), v_scale=P())
+    return PagedKV(k=h, v=h)
+
+
 def lm_logits(cfg: TransformerConfig, params: Params,
-              hidden: Tensor) -> Tensor:
+              hidden: Tensor, tp=None) -> Tensor:
     """Tied-embedding readout ``[B, T, H]`` -> ``[B, T, vocab]`` fp32
-    (:84)."""
-    return tfm._matmul(hidden, params["embed"]["tok"].t(),
-                       tfm.compute_dtype(cfg))
+    (:84).  A vocab-sharded table (``shard_specs`` at a degree that
+    divides the vocabulary) gives this rank's vocab columns, gathered
+    over ``tp`` into the full logits."""
+    cdt = tfm.compute_dtype(cfg)
+    tok = params["embed"]["tok"]
+    if not tfm.vocab_sharded(cfg, params):
+        return tfm._matmul(hidden, tok.t(), cdt)
+    local = tfm._matmul(tpar.copy_to_model(hidden, tp), tok.t(), cdt)
+    return tpar.gather_last(local, tp)
 
 
 def lm_loss(cfg: TransformerConfig, params: Params, token_ids: Tensor,
             mask: Optional[Tensor] = None,
             generator: Optional[torch.Generator] = None,
-            attn_fn=tfm.attention) -> Tensor:
+            attn_fn=tfm.attention, tp=None) -> Tensor:
     """Next-token cross-entropy (:92): predict ``token_ids[:, 1:]`` from
     positions ``[:, :-1]``; with ``mask`` ``[B, T]`` the mean is over
-    the targets ``mask[:, 1:]`` keeps."""
+    the targets ``mask[:, 1:]`` keeps.  ``tp``: this rank's model group
+    when ``params`` is its shard."""
     hidden = tfm.encode(cfg, params, token_ids, mask, None, generator,
-                        attn_fn=attn_fn)
-    logits = lm_logits(cfg, params, hidden[:, :-1])
+                        attn_fn=attn_fn, tp=tp)
+    logits = lm_logits(cfg, params, hidden[:, :-1], tp)
     targets = token_ids[:, 1:].long()
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, targets[..., None])[..., 0]
@@ -115,18 +154,19 @@ def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
                     attn_fn=None,
                     device: DeviceLike = None) -> Tuple[Callable, Callable]:
     """``(init_fn(generator) -> TrainState, step_fn(state, token_ids,
-    generator=None) -> (state, loss))`` for the next-token loss on one
-    device, after ``make_train_step`` (:115-160): ``optimizer`` defaults
-    to ``updaters.adamw(3e-4, weight_decay=0.01)``, ``attn_fn=None`` to
-    the causal flash kernels on CUDA (``transformer.make_train_step``
-    has the rest)."""
+    generator=None) -> (state, loss))`` for the next-token loss, after
+    ``make_train_step`` (:115-160): ``optimizer`` defaults to
+    ``updaters.adamw(3e-4, weight_decay=0.01)``, ``attn_fn=None`` to
+    the causal flash kernels on CUDA.  On a ``data x model`` mesh the
+    params and the AdamW moments are laid out by :func:`shard_specs`
+    (``transformer.make_train_step`` has the rest)."""
 
-    def loss_fn(c, params, token_ids, generator, attn):
-        return lm_loss(c, params, token_ids, None, generator, attn)
+    def loss_fn(c, params, token_ids, generator, attn, tp=None):
+        return lm_loss(c, params, token_ids, None, generator, attn, tp)
 
     return tfm.make_train_step(cfg, init_params, loss_fn, 3e-4, mesh,
                                optimizer, attn_fn, device=device,
-                               label="gpt.train_step")
+                               label="gpt.train_step", specs_fn=shard_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -177,13 +217,15 @@ def _kv_dtype(kv_dtype: Optional[str]) -> Optional[str]:
 def init_cache(cfg: TransformerConfig, batch: int,
                max_len: Optional[int] = None,
                kv_dtype: Optional[str] = None,
-               device: DeviceLike = None):
+               device: DeviceLike = None, model_degree: int = 1):
     """A zeroed :class:`KVCache` (``kv_dtype=None``) or
     :class:`QKVCache` (``"int8"``) of ``max_len`` rows (default
-    ``cfg.max_len``) on ``device`` (:207)."""
+    ``cfg.max_len``) on ``device`` (:207); a model rank's holds its
+    ``n_heads / model_degree`` heads."""
     dev = resolve_device(device)
     T = max_len or cfg.max_len
-    shape = (cfg.n_layers, batch, T, cfg.n_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, T, cfg.n_heads // model_degree,
+             cfg.head_dim)
     if _kv_dtype(kv_dtype) is None:
         cdt = tfm.compute_dtype(cfg)
         return KVCache(torch.zeros(shape, dtype=cdt, device=dev),
@@ -271,14 +313,17 @@ def _cache_attention(q: Tensor, k: Tensor, v: Tensor,
 
 
 def _cached_stack(cfg: TransformerConfig, params: Params, x: Tensor,
-                  write: Callable, masked: Tensor) -> Tensor:
+                  write: Callable, masked: Tensor, tp=None) -> Tensor:
     """Every block over ``x`` ``[B, C, H]`` fp32 at cached positions:
     ``write(layer, k1, v1)`` stores the fresh fp32 K/V ``[B, C, NH, D]``
-    and returns the layer's cached K/V to attend (:229-264)."""
+    and returns the layer's cached K/V to attend (:229-264).  ``tp``:
+    the model group of a rank holding a head shard."""
     cdt = tfm.compute_dtype(cfg)
     B, C, H = x.shape
-    NH, D, eps = cfg.n_heads, cfg.head_dim, cfg.layer_norm_eps
     blocks = serving_params(cfg, params)["blocks"]
+    # a model rank's heads (its share of wq's head axis); the products
+    # after wo and w2 are partial sums, summed over tp
+    NH, D, eps = blocks["wq"].shape[2], cfg.head_dim, cfg.layer_norm_eps
     for layer, ws in enumerate(zip(*(torch.unbind(w)
                                      for w in blocks.values()))):
         p = dict(zip(blocks, ws))
@@ -294,11 +339,13 @@ def _cached_stack(cfg: TransformerConfig, params: Params, x: Tensor,
         a = _cache_attention(q.to(cdt), k_read, v_read, masked)
         a = a.transpose(1, 2).to(cdt, memory_format=torch.contiguous_format)
         a = tfm._matmul(a.reshape(B, C, NH * D),
-                        p["wo"].reshape(NH * D, H), cdt) + p["bo"]
+                        p["wo"].reshape(NH * D, H), cdt)
+        a = tpar.reduce_from_model(a, tp) + p["bo"]
         x = tfm.layer_norm(x + a, p["ln1_g"], p["ln1_b"], eps)
         f = tfm._matmul(x, p["w1"], cdt) + p["b1"]
         f = F.gelu(f, approximate="tanh").to(cdt)
-        f = tfm._matmul(f, p["w2"], cdt) + p["b2"]
+        f = tpar.reduce_from_model(tfm._matmul(f, p["w2"], cdt), tp) \
+            + p["b2"]
         x = tfm.layer_norm(x + f, p["ln2_g"], p["ln2_b"], eps)
     return x
 
@@ -540,9 +587,11 @@ class DecodeSlots(NamedTuple):
 def init_slots(cfg: TransformerConfig, n_slots: int,
                max_len: Optional[int] = None,
                kv_dtype: Optional[str] = None,
-               device: DeviceLike = None) -> DecodeSlots:
-    """Zeroed :class:`DecodeSlots` of ``max_len`` rows (:462)."""
-    c = init_cache(cfg, n_slots, max_len, kv_dtype, device)
+               device: DeviceLike = None,
+               model_degree: int = 1) -> DecodeSlots:
+    """Zeroed :class:`DecodeSlots` of ``max_len`` rows (:462), a model
+    rank's heads of them (:func:`slot_specs`)."""
+    c = init_cache(cfg, n_slots, max_len, kv_dtype, device, model_degree)
     dev = c.k.device
     idx = (torch.zeros(n_slots, dtype=torch.int32, device=dev),
            torch.zeros(n_slots, dtype=torch.int32, device=dev))
@@ -553,10 +602,12 @@ def init_slots(cfg: TransformerConfig, n_slots: int,
 
 
 def slots_bytes_per_slot(cfg: TransformerConfig, t_max: int,
-                         kv_dtype: Optional[str] = None) -> int:
+                         kv_dtype: Optional[str] = None,
+                         model_degree: int = 1) -> int:
     """KV bytes one slot of a ``t_max`` bucket costs (:481), the scale
-    rows of an int8 cache included."""
-    elems = cfg.n_layers * t_max * cfg.n_heads * cfg.head_dim
+    rows of an int8 cache included; on a model rank, its heads'."""
+    elems = (cfg.n_layers * t_max * (cfg.n_heads // model_degree)
+             * cfg.head_dim)
     if _kv_dtype(kv_dtype) == "int8":
         return 2 * elems + 2 * cfg.n_layers * t_max * 4
     return 2 * elems * torch.empty((), dtype=tfm.compute_dtype(cfg)
@@ -565,7 +616,7 @@ def slots_bytes_per_slot(cfg: TransformerConfig, t_max: int,
 
 def slot_prefill(cfg: TransformerConfig, params: Params,
                  slots: DecodeSlots, toks: Tensor, slot, start, n_valid,
-                 temperature, seed):
+                 temperature, seed, tp=None):
     """Prefill one chunk ``toks`` ``[C]`` of a prompt into ``slot`` at
     positions ``start + [0, n_valid)`` (rows past ``n_valid`` are
     padding), writing the slot's cache rows while the other slots stay
@@ -576,7 +627,8 @@ def slot_prefill(cfg: TransformerConfig, params: Params,
     or 0-d integer tensors on the cache's device, ``temperature`` a
     float or a 0-d fp32 tensor: as tensors, one CUDA graph serves every
     slot and chunk (``serving/decode.DecodeEngine`` passes them so).
-    Returns ``(slots, first_token)``, a 0-d int32 tensor."""
+    ``tp``: the model group of a head-sharded engine.  Returns
+    ``(slots, first_token)``, a 0-d int32 tensor."""
     cdt = tfm.compute_dtype(cfg)
     dev = toks.device
     C = toks.shape[0]
@@ -588,12 +640,12 @@ def slot_prefill(cfg: TransformerConfig, params: Params,
     start = torch.as_tensor(start, device=dev).long()
     n_valid = torch.as_tensor(n_valid, device=dev).long()
     rows = start + torch.arange(C, device=dev)
-    x = tfm.embed(cfg, params, toks[None, :], None, start)
+    x = tfm.embed(cfg, params, toks[None, :], None, start, tp)
     masked = torch.arange(T_max, device=dev)[None, :] > rows[:, None]
     index = (sel[:, None], rows[None, :])
     x = _cached_stack(cfg, params, x, lambda layer, k1, v1: _write_kv(
-        slots, layer, index, k1, v1, cdt, select=sel), masked)
-    logits = lm_logits(cfg, params, x)[0]
+        slots, layer, index, k1, v1, cdt, select=sel), masked, tp)
+    logits = lm_logits(cfg, params, x, tp)[0]
     end = start + n_valid
     last = logits.index_select(0, (n_valid - 1).reshape(1))[0]
     first = sample_token(last, _slot_key(seed, end - 1), temperature)
@@ -604,16 +656,16 @@ def slot_prefill(cfg: TransformerConfig, params: Params,
 
 def slot_decode(cfg: TransformerConfig, params: Params,
                 slots: DecodeSlots, active: Tensor, temperature: Tensor,
-                seeds: Tensor, return_logits: bool = False):
+                seeds: Tensor, return_logits: bool = False, tp=None):
     """Advance every slot one token in one pass (:547): slot s feeds its
     token at ``pos[s]``, stores its K/V at ``(s, pos[s])`` and attends
     its rows ``<= pos[s]``; it samples at ``temperature[s]`` with the
     key of ``(seeds[s], pos[s])`` (``seeds`` int64).  Inactive slots
     compute alongside, and their tokens and positions stay; their writes
     land where the slot's next occupant writes before it reads.  A slot
-    at ``pos >= T_max`` writes nothing.  Returns ``(slots, tokens
-    [S])``: the new tokens of active slots, the current ones of the
-    rest."""
+    at ``pos >= T_max`` writes nothing.  ``tp``: the model group of a
+    head-sharded engine.  Returns ``(slots, tokens [S])``: the new
+    tokens of active slots, the current ones of the rest."""
     cdt = tfm.compute_dtype(cfg)
     S = slots.tokens.shape[0]
     T_max = slots.k.shape[2]
@@ -625,7 +677,7 @@ def slot_decode(cfg: TransformerConfig, params: Params,
         cfg, params, slots.tokens, slots.pos,
         lambda layer, k1, v1: _write_kv(slots, layer, index, k1[:, 0],
                                         v1[:, 0], cdt, drop),
-        T_max, active, temperature, seeds)
+        T_max, active, temperature, seeds, tp)
     return (slots, out, logits) if return_logits else (slots, out)
 
 
@@ -700,11 +752,13 @@ class PagedKV(NamedTuple):
 
 def init_pages(cfg: TransformerConfig, n_pages: int, page_tokens: int,
                kv_dtype: Optional[str] = None,
-               device: DeviceLike = None) -> PagedKV:
+               device: DeviceLike = None,
+               model_degree: int = 1) -> PagedKV:
     """A zeroed pool of ``n_pages`` pages of ``page_tokens`` rows
-    (:723)."""
+    (:723), a model rank's heads of them (:func:`paged_specs`)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, n_pages, page_tokens, cfg.n_heads, cfg.head_dim)
+    shape = (cfg.n_layers, n_pages, page_tokens,
+             cfg.n_heads // model_degree, cfg.head_dim)
     if _kv_dtype(kv_dtype) is None:
         cdt = tfm.compute_dtype(cfg)
         return PagedKV(torch.zeros(shape, dtype=cdt, device=dev),
@@ -717,10 +771,12 @@ def init_pages(cfg: TransformerConfig, n_pages: int, page_tokens: int,
 
 
 def pages_bytes(cfg: TransformerConfig, n_pages: int, page_tokens: int,
-                kv_dtype: Optional[str] = None) -> int:
+                kv_dtype: Optional[str] = None,
+                model_degree: int = 1) -> int:
     """Bytes of a pool (:737), the paged engine's memory denominator
     (the gathered attention views are transient)."""
-    return n_pages * slots_bytes_per_slot(cfg, page_tokens, kv_dtype)
+    return n_pages * slots_bytes_per_slot(cfg, page_tokens, kv_dtype,
+                                          model_degree)
 
 
 def _paged_view(pool: PagedKV, ptab: Tensor, layer: int, cdt: torch.dtype
@@ -766,18 +822,18 @@ def _paged_write(pool: PagedKV, ptab: Tensor, posw: Tensor, ok: Tensor,
 
 
 def _row_inputs(cfg: TransformerConfig, params: Params, toks: Tensor,
-                posw: Tensor) -> Tensor:
+                posw: Tensor, tp=None) -> Tensor:
     """Embeddings ``[S, W, H]`` of tokens ``toks`` at positions ``posw``
     (both ``[S, W]``), positions clamped to the table."""
     e = params["embed"]
-    x = (e["tok"][toks.long()]
+    x = (tfm.token_embed(cfg, params, toks, tp)
          + e["pos"][torch.clamp(posw, 0, cfg.max_len - 1)])
     return tfm.layer_norm(x, e["ln_g"], e["ln_b"], cfg.layer_norm_eps)
 
 
 def paged_prefill(cfg: TransformerConfig, params: Params, pool: PagedKV,
                   ptab_s: Tensor, toks: Tensor, start, n_valid,
-                  temperature, seed):
+                  temperature, seed, tp=None):
     """:func:`slot_prefill` over a pool (:814): one chunk ``toks``
     ``[C]`` (C is the page width; the engine aligns its prefill chunk to
     it) of the slot whose page table is ``ptab_s`` ``[TBL]``, at a
@@ -791,14 +847,14 @@ def paged_prefill(cfg: TransformerConfig, params: Params, pool: PagedKV,
     n_valid = torch.as_tensor(n_valid, device=dev).long()
     rows = start + torch.arange(C, device=dev)
     ptab = ptab_s.reshape(1, -1)
-    x = tfm.embed(cfg, params, toks[None, :], None, start)
+    x = tfm.embed(cfg, params, toks[None, :], None, start, tp)
     masked = torch.arange(ptab.shape[1] * C, device=dev)[None, :] \
         > rows[:, None]
     write = _paged_write(pool, ptab, rows[None, :],
                          torch.ones((1, C), dtype=torch.bool, device=dev),
                          cdt)
-    x = _cached_stack(cfg, params, x, write, masked)
-    logits = lm_logits(cfg, params, x)[0]
+    x = _cached_stack(cfg, params, x, write, masked, tp)
+    logits = lm_logits(cfg, params, x, tp)[0]
     last = logits.index_select(0, (n_valid - 1).reshape(1))[0]
     first = sample_token(last, _slot_key(seed, start + n_valid - 1),
                          temperature)
@@ -807,7 +863,7 @@ def paged_prefill(cfg: TransformerConfig, params: Params, pool: PagedKV,
 
 def _decode_rows(cfg: TransformerConfig, params: Params, tokens: Tensor,
                  pos: Tensor, write: Callable, t_view: int, active: Tensor,
-                 temperature: Tensor, seeds: Tensor):
+                 temperature: Tensor, seeds: Tensor, tp=None):
     """The body of :func:`slot_decode` and :func:`paged_decode`: every
     slot's current token at its position through the stack (``write``
     stores the fresh rows and returns the layer's view of ``t_view``
@@ -815,11 +871,11 @@ def _decode_rows(cfg: TransformerConfig, params: Params, tokens: Tensor,
     active slots.  Returns ``(out [S], logits [S, vocab])``."""
     dev = tokens.device
     pos64 = pos.long()
-    x = _row_inputs(cfg, params, tokens[:, None], pos64[:, None])
+    x = _row_inputs(cfg, params, tokens[:, None], pos64[:, None], tp)
     masked = (torch.arange(t_view, device=dev)[None, :]
               > pos64[:, None])[:, None, None, :]
-    x = _cached_stack(cfg, params, x, write, masked)
-    logits = lm_logits(cfg, params, x)[:, 0, :]
+    x = _cached_stack(cfg, params, x, write, masked, tp)
+    logits = lm_logits(cfg, params, x, tp)[:, 0, :]
     nxt = sample_token(logits, _slot_key(seeds, pos64), temperature)
     out = torch.where(active, nxt, tokens)
     tokens.copy_(out)
@@ -830,7 +886,7 @@ def _decode_rows(cfg: TransformerConfig, params: Params, tokens: Tensor,
 def paged_decode(cfg: TransformerConfig, params: Params, pool: PagedKV,
                  ptab: Tensor, tokens: Tensor, pos: Tensor, active: Tensor,
                  temperature: Tensor, seeds: Tensor,
-                 return_logits: bool = False):
+                 return_logits: bool = False, tp=None):
     """:func:`slot_decode` over a pool (:856): each active slot's row
     goes to its page, inactive slots write to the trash page, and every
     layer attends its gathered view.  ``tokens``/``pos`` ``[S]`` are the
@@ -842,7 +898,7 @@ def paged_decode(cfg: TransformerConfig, params: Params, pool: PagedKV,
                          cdt)
     out, logits = _decode_rows(cfg, params, tokens, pos, write,
                                ptab.shape[1] * pool.k.shape[2], active,
-                               temperature, seeds)
+                               temperature, seeds, tp)
     return (pool, out, logits) if return_logits else (pool, out)
 
 

@@ -35,15 +35,29 @@ attention on a mesh of one (``lm_fit.py:200-205``); the plain attention
 the CPU runs is what the reference computes there.
 
 A rank's dropout stream is a generator seeded ``fold(seed, rank)``
-(rank 0 without a mesh), so a mesh of one trains bit for bit as
-``mesh=None``.  The params keep the reference's tree, so
+(``rank``: the data index, 0 without a mesh), so a mesh of one trains
+bit for bit as ``mesh=None`` and the ranks of a model group draw the
+same masks.  The params keep the reference's tree, so
 ``runtime/checkpoint``'s ``save_pytree`` / ``load_pytree`` carry them
 between the packages; ``params_flat`` walks the leaves in JAX's order
 (dict keys sorted).
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP A7):
-``pipe_microbatches > 1`` (the pipeline) and meshes with model, pipe,
-seq or expert axes above 1 (``gpt.shard_specs``, ``moe.shard_specs``).
+**The model axis** (the GPT family on a ``data x model`` mesh, run
+SPMD: every rank makes the same calls with the same batches): the
+step's params and momentum are laid out by ``gpt.shard_specs`` (heads
+and the ffn axis over ``model``, the tied embedding over vocab when the
+degree divides it), the forward carries the ``tensor_parallel``
+collectives, gradients are summed over the data axis only, and the
+guard's verdict is reduced over the whole mesh.  ``self.params`` is
+the global tree on every rank: a fit lays it out (``shard_tree``) and
+gathers the result back (``gather_tree``), so ``params_flat`` and the
+checkpoints are the ``mesh=None`` ones.
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP
+item): ``pipe_microbatches > 1`` (the pipeline, A7.1b), the MoE family
+on a model axis (its expert tables shard over ``model``, the expert
+machinery of A7.1b), and meshes with pipe, seq or expert axes above 1
+(A7.1b, A7.5).
 """
 
 from __future__ import annotations
@@ -60,10 +74,12 @@ from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.models.moe import MoETransformerConfig
 from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
 from deeplearning4j_tpu_torch.ops.updaters import tree_leaves, tree_map
-from deeplearning4j_tpu_torch.parallel import collectives, sharded_fit
+from deeplearning4j_tpu_torch.parallel import (collectives, sharded_fit,
+                                               tensor_parallel as tpar)
 from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
-                                                    check_data_mesh,
-                                                    mesh_signature, pad_rows,
+                                                    check_mesh_axes,
+                                                    mesh_signature,
+                                                    model_degree, pad_rows,
                                                     shard_rows)
 from deeplearning4j_tpu_torch.runtime import compile_cache, resilience, \
     telemetry
@@ -115,7 +131,7 @@ class CausalLM:
         if pipe_microbatches > 1:
             raise NotImplementedError(
                 "pipe_microbatches > 1 (the GPipe schedule of a pipe mesh) "
-                "is not ported to the PyTorch package yet (ROADMAP A7.1)")
+                "is not ported to the PyTorch package yet (ROADMAP A7.1b)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lr = float(lr)
@@ -178,8 +194,16 @@ class CausalLM:
         gen)`` shared module-wide by (config signature, mesh signature,
         accumulation); the SGD + momentum update is inside it, so there
         are no per-layer updaters.  ``train_step.epochs`` is the staged
-        fit loop and ``train_step.init_ustate`` builds the state."""
-        check_data_mesh(mesh)
+        fit loop and ``train_step.init_ustate`` builds the state.  On a
+        model axis the step takes this rank's slice of the params and
+        momentum (``train_step.param_specs`` / ``.ustate_specs``, the
+        layout ``shard_state`` / ``gather_state`` apply)."""
+        check_mesh_axes(mesh)
+        if self._is_moe and model_degree(mesh) > 1:
+            raise NotImplementedError(
+                "the MoE family on a model axis (its expert tables shard "
+                "over `model`, moe.shard_specs) is not ported to the "
+                "PyTorch package yet (ROADMAP A7.1b)")
         accum = max(self.conf.grad_accum, 1)
         memo_key = (mesh_signature(mesh), accum)
         if memo_key not in self._bp_cache:
@@ -198,8 +222,11 @@ class CausalLM:
         mp_on = self._mp_on()
         is_moe = self._is_moe
         rank = mesh.rank if mesh is not None else 0
-        attn_fn = make_attn_fn("auto")
+        attn_fn = make_attn_fn("auto", mesh=mesh)
         moe_ffn_fn = make_gspmd_moe_ffn(mesh, cfg.moe) if is_moe else None
+        tp = tpar.model_group(mesh)
+        specs = gpt.shard_specs(cfg, model_degree(mesh)) if tp else None
+        agree = sharded_fit.agree_over_mesh(mesh)
 
         def loss_sum(params, ids, rmask, gen):
             """Masked next-token NLL SUM (+ the MoE aux scaled by the
@@ -211,8 +238,8 @@ class CausalLM:
                                             moe_ffn_fn)
             else:
                 hidden = tfm.encode(cfg, params, ids, None, None, gen,
-                                    attn_fn=attn_fn)
-            logits = gpt.lm_logits(cfg, params, hidden[:, :-1])
+                                    attn_fn=attn_fn, tp=tp)
+            logits = gpt.lm_logits(cfg, params, hidden[:, :-1], tp)
             logp = torch.log_softmax(logits, dim=-1)
             ll = torch.gather(logp, -1, ids[:, 1:].long()[..., None])[..., 0]
             nll = -torch.sum(ll * rmask[:, None])
@@ -272,7 +299,7 @@ class CausalLM:
                           zip(tree_leaves(params), new_mom)]
             new_params, new_mom, skipped = resilience.guard_update(
                 tree_leaves(params), tree_leaves(mom), new_params, new_mom,
-                (score, grads))
+                (score, grads), agree=agree)
             new_params = _like(params, new_params)
             new_mom = _like(mom, new_mom)
             if mp_on:
@@ -281,8 +308,13 @@ class CausalLM:
                         score, skipped)
             return new_params, new_mom, score, skipped
 
+        ustate_specs = specs
+        if specs is not None and mp_on:
+            ustate_specs = (specs, {"scale": tpar.P(),
+                                    "good_steps": tpar.P()})
         step = sharded_fit.build_sharded_step(
-            dp_step, mesh, label="lm.train_step")
+            dp_step, mesh, label="lm.train_step", param_specs=specs,
+            ustate_specs=ustate_specs)
         epochs = sharded_fit.build_scanned_epochs(
             dp_step, mesh, label="lm.train_epochs", step=step)
 
@@ -294,10 +326,23 @@ class CausalLM:
                     tree_leaves(params)[0].device))
             return mom
 
+        def shard_state(tree, which="params"):
+            """This rank's slice of a global params (or updater state)
+            tree."""
+            sp = specs if which == "params" else ustate_specs
+            return tree if sp is None else tpar.shard_tree(tree, sp, mesh)
+
+        def gather_state(tree, which="params"):
+            """The global tree back from this rank's slice."""
+            sp = specs if which == "params" else ustate_specs
+            return tree if sp is None else tpar.gather_tree(tree, sp, mesh)
+
         step.takes_n_valid = True
         step.init_ustate = init_ustate
         step.mixed_precision = mp_on
         step.epochs = epochs
+        step.shard_state = shard_state
+        step.gather_state = gather_state
         return step
 
     # -- training-loop hooks (shared with MultiLayerNetwork) ---------------
@@ -331,13 +376,14 @@ class CausalLM:
         batches = [data] if isinstance(data, DataSet) else list(data)
         if not batches:
             return
-        check_data_mesh(mesh)
+        check_mesh_axes(mesh)
         self._notify_fit_start()
         accum = max(self.conf.grad_accum, 1)
         chunk = self._pad_chunk(mesh, accum)
         ndp = mesh.shape[DATA_AXIS] if mesh is not None else 1
         step, _ = self._backprop_machinery(mesh)
-        params = tree_map(torch.clone, self._require_params())
+        params = step.shard_state(tree_map(torch.clone,
+                                           self._require_params()))
         ustate = step.init_ustate(params)
         sizes = [int(b.features.shape[0]) for b in batches]
         if min(sizes) < ndp:
@@ -369,7 +415,7 @@ class CausalLM:
                 for ls in self.listeners:
                     ls.iteration_done(self, j, s)
         # the API boundary: the step's state is the engine's
-        self.params = tree_map(torch.clone, params)
+        self.params = tree_map(torch.clone, step.gather_state(params))
         self.loss_scale = (tree_map(torch.clone, ustate[1]) if self._mp_on()
                            else None)
 

@@ -16,7 +16,7 @@ block runs under ``torch.utils.checkpoint`` (non-reentrant), returning
 ``ops/flash_attention.make_attn_fn("auto")``: on the card each layer
 launches B1 twice a step (forward and the recompute) and B2 and B3
 once.  The expert-parallel half (``param_specs``, ``shard_specs``, a
-``mesh=`` with an ``expert`` axis) is ROADMAP A7.
+``mesh=`` with an ``expert`` axis) is ROADMAP A7.1b.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ class MoETransformerConfig:
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet: expert "
-        f"parallelism comes with the mesh's expert axis (ROADMAP A7.1)")
+        f"parallelism comes with the mesh's expert axis (ROADMAP A7.1b)")
 
 
 #: leaf names of the two groups (moe.py:84-106)
@@ -125,13 +125,13 @@ def init_params(generator: torch.Generator, cfg: MoETransformerConfig,
 
 
 def param_specs(cfg: MoETransformerConfig):
-    """The reference's shard_map specs (:109-122): ROADMAP A7."""
+    """The reference's shard_map specs (:109-122): ROADMAP A7.1b."""
     raise _not_ported("param_specs (expert tables sharded over a mesh)")
 
 
 def shard_specs(cfg: MoETransformerConfig, model_degree: int = 1,
                 pipe_degree: int = 1, expert_degree: int = 1):
-    """The reference's GSPMD specs (:125-191): ROADMAP A7."""
+    """The reference's GSPMD specs (:125-191): ROADMAP A7.1b."""
     raise _not_ported("shard_specs (the sharded MoE layout)")
 
 
@@ -201,7 +201,7 @@ def make_train_step(cfg: MoETransformerConfig, mesh=None, optimizer=None,
     ``updaters.adamw(1e-3, weight_decay=0.01)``, ``attn_fn=None`` to the
     causal flash kernels on CUDA; the step is one CUDA graph a batch
     shape (``transformer.make_train_step`` has the engine contract).
-    ``mesh=`` (the dp x ep shard_map step) raises: ROADMAP A7."""
+    ``mesh=`` (the dp x ep shard_map step) raises: ROADMAP A7.1b."""
     if mesh is not None:
         raise _not_ported("the mesh-sharded MoE train step (mesh=)")
 

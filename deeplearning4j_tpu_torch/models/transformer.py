@@ -24,6 +24,14 @@ Numerics, site by site, against the JAX forward:
 - Plain attention masks with -1e9 as at :202 (the flash kernel uses
   -1e5; they agree on every row with at least one live key).
 
+**The model axis.**  :func:`param_specs` / :func:`shard_specs` are the
+reference's layout rules (:104-169): heads and the ffn axis over
+``model``, the token embedding over vocab when the degree divides it.
+A rank holds its slice (:func:`shard_tree`), and the same block runs on
+it: the head count is read from ``wq``'s shape, and the
+``tensor_parallel`` collectives sit where GSPMD puts the reference's
+(``tp``: the rank's ``ModelGroup``, None without a model axis).
+
 Dropout takes an explicit ``torch.Generator``; serving passes none.
 Everything here is differentiable, so the training steps
 (``bert.make_train_step``, ``gpt.make_train_step``) take gradients
@@ -46,6 +54,10 @@ from torch.utils import checkpoint as _checkpoint
 
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.ops import updaters
+from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
+from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                    PIPE_AXIS)
+from deeplearning4j_tpu_torch.parallel.tensor_parallel import P
 from deeplearning4j_tpu_torch.runtime import compile_cache
 
 Tensor = torch.Tensor
@@ -130,6 +142,83 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
         "ln2_g": ones(L, H), "ln2_b": zeros(L, H),
     }
     return {"embed": embed, "blocks": blocks}
+
+
+# ---------------------------------------------------------------------------
+# the model axis's layout
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The reference's layout rules (:104-123): heads (``wq``/``wk``/
+    ``wv`` and their biases, ``wo``'s head axis) and the ffn axis
+    (``w1``, ``b1``, ``w2``'s input axis) over ``model``; everything
+    else replicated."""
+    m = MODEL_AXIS
+    embed = {"tok": P(None, None), "pos": P(None, None),
+             "type": P(None, None), "ln_g": P(None), "ln_b": P(None)}
+    blocks = {
+        "wq": P(None, None, m, None), "wk": P(None, None, m, None),
+        "wv": P(None, None, m, None), "wo": P(None, m, None, None),
+        "bq": P(None, m, None), "bk": P(None, m, None),
+        "bv": P(None, m, None), "bo": P(None, None),
+        "ln1_g": P(None, None), "ln1_b": P(None, None),
+        "w1": P(None, None, m), "b1": P(None, m),
+        "w2": P(None, m, None), "b2": P(None, None),
+        "ln2_g": P(None, None), "ln2_b": P(None, None),
+    }
+    return {"embed": embed, "blocks": blocks}
+
+
+def pipe_stage_specs(block_specs, cfg, pipe_degree: int):
+    """The stacked ``[n_layers, ...]`` block leaves over ``pipe``
+    (:126-143), checked as the reference checks them.  Only a pipe
+    degree of 1 is ported: above it the GPipe schedule is ROADMAP
+    A7.1b."""
+    if cfg.n_layers % pipe_degree:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} not divisible by pipe degree "
+            f"{pipe_degree} — stacked layers split into equal "
+            f"contiguous pipeline stages over `pipe`")
+    if pipe_degree > 1:
+        raise NotImplementedError(
+            f"a pipe degree of {pipe_degree} (the GPipe stages) is not "
+            f"ported to the PyTorch package yet (ROADMAP A7.1b)")
+    return tpar.map_specs(lambda s: P(PIPE_AXIS, *tuple(s)[1:]),
+                          block_specs)
+
+
+def shard_specs(cfg: TransformerConfig, model_degree: int = 1,
+                pipe_degree: int = 1) -> Dict[str, Any]:
+    """The data x model layout of the params (:146-169):
+    :func:`param_specs`, with the token embedding (and through the tied
+    readout the logits) over vocab when ``model_degree`` divides the
+    vocabulary, checked up front with the reference's errors.  A pipe
+    degree above 1 raises (:func:`pipe_stage_specs`)."""
+    if model_degree > 1:
+        if cfg.n_heads % model_degree:
+            raise ValueError(
+                f"n_heads={cfg.n_heads} not divisible by model degree "
+                f"{model_degree} — attention heads shard over `model`")
+        if cfg.ffn_dim % model_degree:
+            raise ValueError(
+                f"ffn_dim={cfg.ffn_dim} not divisible by model degree "
+                f"{model_degree} — the MLP hidden shards over `model`")
+    specs = param_specs(cfg)
+    if model_degree > 1 and cfg.vocab_size % model_degree == 0:
+        specs["embed"]["tok"] = P(MODEL_AXIS, None)
+    if pipe_degree > 1:
+        specs["blocks"] = pipe_stage_specs(specs["blocks"], cfg, pipe_degree)
+    return specs
+
+
+#: this rank's slice of a global tree, and the global tree back
+shard_tree = tpar.shard_tree
+gather_tree = tpar.gather_tree
+
+
+def vocab_sharded(cfg, params) -> bool:
+    """Whether ``params`` holds a vocab slice of the token table."""
+    return params["embed"]["tok"].shape[0] != cfg.vocab_size
 
 
 # ---------------------------------------------------------------------------
@@ -249,37 +338,42 @@ def _attention_sublayer(cfg, x: Tensor, p: Dict[str, Tensor],
                         mask: Optional[Tensor],
                         generator: Optional[torch.Generator],
                         attn_fn=attention,
-                        kept: Optional[Tensor] = None) -> Tensor:
-    """Attention + residual + post-LN, the first half of a block (:212)."""
+                        kept: Optional[Tensor] = None, tp=None) -> Tensor:
+    """Attention + residual + post-LN, the first half of a block (:212).
+    On a model rank ``p`` holds the rank's heads; the head count comes
+    from ``wq``'s shape."""
     cdt = compute_dtype(cfg)
     B, T, H = x.shape
     NH, D = p["wq"].shape[1], p["wq"].shape[2]
+    h = tpar.copy_to_model(x, tp)
 
     def proj(w, b):
-        return _matmul(x, w.reshape(H, NH * D), cdt).reshape(B, T, NH, D) + b
+        return _matmul(h, w.reshape(H, NH * D), cdt).reshape(B, T, NH, D) + b
 
     q = proj(p["wq"], p["bq"])
     k = proj(p["wk"], p["bk"])
     v = proj(p["wv"], p["bv"])
     a = attn_fn(q.to(cdt), k.to(cdt), v.to(cdt), mask, cfg.causal)
-    a = _matmul(a.reshape(B, T, NH * D), p["wo"].reshape(NH * D, H),
-                cdt) + p["bo"]
+    a = _matmul(a.reshape(B, T, NH * D), p["wo"].reshape(NH * D, H), cdt)
+    a = tpar.reduce_from_model(a, tp) + p["bo"]
     a = _dropout(a, cfg.dropout, generator, kept)
     return layer_norm(x + a, p["ln1_g"], p["ln1_b"], cfg.layer_norm_eps)
 
 
 def _block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
            mask: Optional[Tensor], generator: Optional[torch.Generator],
-           attn_fn=attention, masks=None) -> Tensor:
+           attn_fn=attention, masks=None, tp=None) -> Tensor:
     """One post-LN encoder block (:244): x ``[B, T, H]`` fp32.  Dropout
     draws from ``generator``, or takes ``masks`` (from
-    :func:`_dropout_masks`) when given."""
+    :func:`_dropout_masks`) when given.  Dropout acts on the replicated
+    sums after ``wo`` and ``w2``, so model ranks given equal generators
+    draw equal masks."""
     cdt = compute_dtype(cfg)
     kept_a, kept_f = masks if masks is not None else (None, None)
-    x = _attention_sublayer(cfg, x, p, mask, generator, attn_fn, kept_a)
-    f = _matmul(x, p["w1"], cdt) + p["b1"]
+    x = _attention_sublayer(cfg, x, p, mask, generator, attn_fn, kept_a, tp)
+    f = _matmul(tpar.copy_to_model(x, tp), p["w1"], cdt) + p["b1"]
     f = F.gelu(f, approximate="tanh").to(cdt)
-    f = _matmul(f, p["w2"], cdt) + p["b2"]
+    f = tpar.reduce_from_model(_matmul(f, p["w2"], cdt), tp) + p["b2"]
     f = _dropout(f, cfg.dropout, generator, kept_f)
     return layer_norm(x + f, p["ln2_g"], p["ln2_b"], cfg.layer_norm_eps)
 
@@ -376,16 +470,27 @@ def value_and_grad(loss_fn: Callable[[Params], Tensor], params: Params):
     return loss.detach(), updaters.tree_unflatten(params, grads)
 
 
+def token_embed(cfg: TransformerConfig, params: Params, token_ids: Tensor,
+                tp=None) -> Tensor:
+    """The token table's rows for ``token_ids``: a vocab-sharded table
+    is read with ``tensor_parallel.vocab_embed`` over ``tp``."""
+    tok = params["embed"]["tok"]
+    if vocab_sharded(cfg, params):
+        return tpar.vocab_embed(tok, token_ids, tp)
+    return tok[token_ids.long()]
+
+
 def embed(cfg: TransformerConfig, params: Params, token_ids: Tensor,
           type_ids: Optional[Tensor] = None,
-          position_offset: int = 0) -> Tensor:
+          position_offset: int = 0, tp=None) -> Tensor:
     """``[B, T]`` ids -> ``[B, T, H]`` fp32 (tok + pos + type, LN) (:263).
     The ids sit at positions ``position_offset + [0, T)``: a KV-cache
     prefill chunk (``gpt._prefill_chunk``) or one decode step embeds its
-    tokens at their absolute positions."""
+    tokens at their absolute positions (:func:`token_embed` reads a
+    vocab-sharded table)."""
     e = params["embed"]
     T = token_ids.shape[-1]
-    x = e["tok"][token_ids.long()]
+    x = token_embed(cfg, params, token_ids, tp)
     idx = torch.arange(T, device=token_ids.device) + position_offset
     x = x + e["pos"][idx]
     if type_ids is not None:
@@ -396,13 +501,14 @@ def embed(cfg: TransformerConfig, params: Params, token_ids: Tensor,
 def encode(cfg: TransformerConfig, params: Params, token_ids: Tensor,
            mask: Optional[Tensor] = None, type_ids: Optional[Tensor] = None,
            generator: Optional[torch.Generator] = None,
-           attn_fn=attention) -> Tensor:
+           attn_fn=attention, tp=None) -> Tensor:
     """Full encoder: ids ``[B, T]`` -> hidden ``[B, T, H]`` fp32 (:280),
     one block per layer of the stacked ``[L, ...]`` params, each under
     :func:`_remat_block` when ``cfg.remat`` is set and grad is enabled
     (a training step then runs each block's forward twice: B1 launches
-    2 L times a step, B2 and B3 L times)."""
-    x = embed(cfg, params, token_ids, type_ids)
+    2 L times a step, B2 and B3 L times).  ``tp``: this rank's model
+    group when ``params`` is its shard (None: the whole model)."""
+    x = embed(cfg, params, token_ids, type_ids, tp=tp)
     blocks = params["blocks"]
     # one unbind per leaf: its backward stacks the L slices' gradients
     # once, where w[layer] would build a full-size zero gradient per layer
@@ -411,15 +517,16 @@ def encode(cfg: TransformerConfig, params: Params, token_ids: Tensor,
     for ws in layers:
         p = dict(zip(blocks, ws))
         if remat:
-            x = _remat_block(cfg, x, p, mask, generator, attn_fn)
+            x = _remat_block(cfg, x, p, mask, generator, attn_fn, tp)
         else:
-            x = _block(cfg, x, p, mask, generator, attn_fn)
+            x = _block(cfg, x, p, mask, generator, attn_fn, tp=tp)
     return x
 
 
 def _remat_block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
                  mask: Optional[Tensor],
-                 generator: Optional[torch.Generator], attn_fn) -> Tensor:
+                 generator: Optional[torch.Generator], attn_fn,
+                 tp=None) -> Tensor:
     """:func:`_block` under ``torch.utils.checkpoint``: the backward runs
     the block's forward again.  The block's dropout masks are drawn
     before the checkpoint, from the caller's generator in the order the
@@ -432,7 +539,7 @@ def _remat_block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
     shape twice a layer, kept to the backward."""
     masks = _dropout_masks(cfg, x, generator)
     return _checkpoint.checkpoint(_block, cfg, x, p, mask, None, attn_fn,
-                                  masks, use_reentrant=False,
+                                  masks, tp, use_reentrant=False,
                                   preserve_rng_state=False)
 
 
@@ -452,8 +559,10 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
                     loss_fn: Callable, learning_rate: float, mesh=None,
                     optimizer=None, attn_fn=None, n_steps: int = 1,
                     device: DeviceLike = None,
-                    label: str = "transformer.train_step"):
-    """The one-device training step BERT and GPT share (bert.py:175-241,
+                    label: str = "transformer.train_step",
+                    specs_fn: Optional[Callable] = None,
+                    weight_fn: Optional[Callable] = None):
+    """The training step BERT and GPT share (bert.py:175-241,
     gpt.py:115-160): ``(init_fn(generator) -> TrainState,
     step_fn(state, batch, generator=None) -> (state, loss))``.
 
@@ -461,46 +570,91 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
     ``loss_fn(cfg, params, batch, generator, attn_fn)`` is the model's
     loss.  ``optimizer`` defaults to ``updaters.adamw(learning_rate,
     weight_decay=0.01)``; ``attn_fn=None`` takes
-    ``ops.flash_attention.make_attn_fn("auto")``, so on CUDA each layer's
-    forward launches B1 (again in the backward under ``cfg.remat``) and
-    its backward B2 and B3.  ``n_steps > 1`` runs
+    ``ops.flash_attention.make_attn_fn("auto", mesh=mesh)``, so on CUDA
+    each layer's forward launches B1 (again in the backward under
+    ``cfg.remat``) and its backward B2 and B3.  ``n_steps > 1`` runs
     that many optimizer steps per call and returns the ``[n_steps]``
     losses, as JAX's scan does.  ``generator`` draws the dropout masks,
     on the batch's device; a config with dropout needs one, as JAX's
-    step needs its key.  ``mesh=`` raises ``NotImplementedError``: the
-    model-axis sharding of this step is ROADMAP A7.1 (data-parallel
-    LM training runs through ``models/lm_fit.CausalLM``).
+    step needs its key.
+
+    **On a mesh** (``data x model``, run SPMD: every rank builds the
+    step and calls it with the same global batch) the params and the
+    optimizer state are laid out by ``specs_fn(cfg, model_degree)``
+    (default :func:`shard_specs`): ``init_fn`` draws the global params
+    and keeps this rank's slice, and a carried global state goes in
+    through :func:`shard_tree`.  A rank trains on its data index's row
+    block; ``loss_fn`` is called with ``tp=`` (the rank's model group)
+    and its loss is weighted by ``weight_fn(rows)`` over the data axis's
+    total (default: the row count), so the sum over the data axis is the
+    loss of the global batch, which the step returns on every rank.
+    Gradients are summed over the data axis only; the model axis's
+    collectives are inside the forward.  ``step_fn.specs`` is the
+    layout (``gather_tree(state.params, step_fn.specs, mesh)`` is the
+    global tree back).  Seed ``generator`` from the data index for
+    independent dropout masks a data shard.
 
     The optimizer step runs through the compile engine
     (``runtime/compile_cache``, as ``label``): on the card it is one
-    CUDA graph a batch shape, B1-B3 inside it.  The state is donated to
-    it: a state the step did not return (``init_fn``'s, or one the
-    caller made) is copied into the engine's buffers and never changes;
-    a returned state is updated in place by the step it is passed to,
-    and stays as it is while other states step (each live state has
-    buffers of its own).  ``step_fn.graph`` is the engine entry
-    (``.fn`` the raw step)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded training of this step is not ported yet: its "
-            "model-axis sharding (gpt.shard_specs) is ROADMAP A7.1; the "
-            "data-parallel slice trains through models/lm_fit.CausalLM")
+    CUDA graph a batch shape, B1-B3 inside it, unless the mesh's
+    collectives cannot be captured (``parallel.mesh.mesh_captures``:
+    gloo), when it runs eagerly.  The state is donated to it: a state
+    the step did not return (``init_fn``'s, or one the caller made) is
+    copied into the engine's buffers and never changes; a returned
+    state is updated in place by the step it is passed to, and stays as
+    it is while other states step (each live state has buffers of its
+    own).  ``step_fn.graph`` is the engine entry (``.fn`` the raw
+    step)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+    from deeplearning4j_tpu_torch.parallel.mesh import (check_mesh_axes,
+                                                        mesh_captures,
+                                                        model_degree,
+                                                        shard_rows)
+
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    dev = resolve_device(device)
+    check_mesh_axes(mesh)
+    dev = resolve_device(device) if mesh is None or device is not None \
+        else mesh.device
     if attn_fn is None:
         from deeplearning4j_tpu_torch.ops.flash_attention import make_attn_fn
-        attn_fn = make_attn_fn("auto")
+        attn_fn = make_attn_fn("auto", mesh=mesh)
     if optimizer is None:
         optimizer = updaters.adamw(learning_rate, weight_decay=0.01)
+    specs = None
+    tp = None
+    extra = {}
+    n_data = 1
+    if mesh is not None:
+        specs = (specs_fn or shard_specs)(cfg, model_degree(mesh))
+        tp = tpar.model_group(mesh)
+        extra = {"tp": tp}
+        n_data = int(mesh.shape[DATA_AXIS])
 
     def init_fn(generator: torch.Generator) -> TrainState:
         params = init_params_fn(generator, cfg, dev)
+        if specs is not None:
+            params = shard_tree(params, specs, mesh)
         return TrainState(params, optimizer.init(params), 0)
 
+    def objective(p, batch, generator):
+        """This rank's share of the global batch's loss."""
+        loss = loss_fn(cfg, p, batch, generator, attn_fn, **extra)
+        if n_data == 1:
+            return loss
+        w = (weight_fn(batch) if weight_fn is not None else torch.full(
+            (), float(updaters.tree_leaves(batch)[0].shape[0]),
+            device=loss.device)).float().detach()
+        total = collectives.psum(w, mesh)
+        return loss * (w / torch.clamp(total, min=1.0))
+
     def graph_step(params, opt_state, batch, generator):
+        if mesh is not None and n_data > 1:
+            batch = updaters.tree_map(lambda t: shard_rows(t, mesh), batch)
         loss, grads = value_and_grad(
-            lambda p: loss_fn(cfg, p, batch, generator, attn_fn), params)
+            lambda p: objective(p, batch, generator), params)
+        if n_data > 1:
+            loss, grads = collectives.psum((loss, grads), mesh)
         updates, new_opt = optimizer.update(grads, opt_state, params)
         new_params = updaters.apply_updates(params, updates)
         with torch.no_grad():
@@ -509,7 +663,8 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
         return params, opt_state, loss
 
     graph = compile_cache.cached_graph(graph_step, label=label,
-                                       donate_argnums=(0, 1))
+                                       donate_argnums=(0, 1),
+                                       capture=mesh_captures(mesh))
 
     def one_step(state: TrainState, batch, generator):
         if cfg.dropout > 0.0 and generator is None:
@@ -531,4 +686,6 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
         return state, torch.stack(losses)
 
     step_fn.graph = graph
+    step_fn.specs = specs
+    step_fn.mesh = mesh
     return init_fn, step_fn

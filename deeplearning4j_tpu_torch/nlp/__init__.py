@@ -2,7 +2,7 @@
 vocab/Huffman, tokenization SPIs, similarity queries.
 
 Port of ``deeplearning4j_tpu/nlp`` (exports as its ``__init__.py:8-27``);
-the bag-of-words/TF-IDF vectorizers are not ported yet (ROADMAP A10).
+the bag-of-words/TF-IDF vectorizers are not ported yet (ROADMAP A8).
 The chunk updates run kernels B4 (word2vec) and B5 (GloVe) on CUDA.
 """
 

@@ -67,11 +67,17 @@ guard (a skipped step must still halve the scale).  Under bf16 the fp32
 masters are cast inside the differentiated function and the updater
 state is ``(layer states, loss scale)``.  Batch norm normalizes with the
 masked global moments (``nn/layers/extras.bn_collective``).  A rank's
-dropout stream is ``fold(seed, rank)`` (rank 0 without a mesh), so a
-mesh of one trains bit for bit as ``mesh=None``.
+dropout stream is ``fold(seed, rank)`` (``rank``: the data index, 0
+without a mesh), so a mesh of one trains bit for bit as ``mesh=None``.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP A7): a
-mesh with a model, pipe, seq or expert axis above 1.
+A ``data x model`` mesh is accepted with the weights replicated over
+``model`` (the reference's dense zoo has no tensor-parallel specs): the
+ranks of a model group train on the same rows, draw the same dropout
+masks and take the same update, and the guard's verdict is reduced over
+the whole mesh (``sharded_fit.agree_over_mesh``).
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP
+item): a mesh with a pipe, seq or expert axis above 1 (A7.1b, A7.5).
 """
 
 from __future__ import annotations
@@ -105,7 +111,7 @@ from deeplearning4j_tpu_torch.optimize.solver import (Objective, Solver,
 from deeplearning4j_tpu_torch.parallel import collectives, sharded_fit
 from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
                                                     auto_data_mesh,
-                                                    check_data_mesh,
+                                                    check_mesh_axes,
                                                     mesh_signature, pad_rows,
                                                     shard_rows)
 from deeplearning4j_tpu_torch.runtime import (compile_cache, resilience,
@@ -631,7 +637,7 @@ class MultiLayerNetwork:
             if m is None or min_batch < m.shape[DATA_AXIS]:
                 return None
             return m
-        check_data_mesh(mesh)
+        check_mesh_axes(mesh)
         if min_batch < mesh.shape[DATA_AXIS]:
             raise ValueError(
                 f"batch of {min_batch} cannot shard over data-parallel "
@@ -657,7 +663,7 @@ class MultiLayerNetwork:
             raise ValueError(
                 f"mixed_precision must be one of "
                 f"{MIXED_PRECISION_POLICIES}, got {policy!r}")
-        check_data_mesh(mesh)
+        check_mesh_axes(mesh)
 
     def _updaters(self):
         """Each layer's own updater from its conf (ConfOverride parity:
@@ -741,6 +747,7 @@ class MultiLayerNetwork:
         accum = max(net.conf.grad_accum, 1)
         mp_on = net._mp_on()
         rank = mesh.rank if mesh is not None else 0
+        agree = sharded_fit.agree_over_mesh(mesh)
         last = len(net.layers) - 1
 
         def micro(params, x, y, mask, gen, scale):
@@ -833,7 +840,8 @@ class MultiLayerNetwork:
                 updaters, params, layer_u, _unflat(grads, params),
                 iteration, bn_stats)
             new_params, new_u, skipped = resilience.guard_update(
-                params, layer_u, new_params, new_u, (score, grads))
+                params, layer_u, new_params, new_u, (score, grads),
+                agree=agree)
             if mp_on:
                 # the scale's transition bypasses the guard: a skipped
                 # step must still halve it

@@ -585,13 +585,19 @@ def make_attn_fn(kernel: str = "auto", mesh=None, *, autotune: bool = False):
     per shape and dtype (as the reference consults at trace time); by
     default nothing is read and no file decides the route.
     ``attn.describe(q_shape, k_shape, causal, device=, dtype=)`` returns
-    the :class:`AttnDecision` without running anything.  ``mesh=`` (the
-    shard_map placement of ``:446-623``) comes with the parallel slice.
+    the :class:`AttnDecision` without running anything.
+
+    ``mesh=`` (the reference's ``shard_map`` placement, :470-623): on a
+    ``data x model`` mesh every rank calls the function on its own rows
+    and its own heads, so the dispatch is this same per-call one on the
+    rank's local shapes, the decision and the autotune lookup keyed on
+    local rows (batch x local heads).  A ``seq`` axis above 1 (ring
+    attention) raises naming ROADMAP A7.5, a ``pipe`` or ``expert`` axis
+    naming A7.1b.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-placed attention is not ported yet: it comes with the "
-            "parallel slice of the port (ROADMAP Queue A)")
+        from deeplearning4j_tpu_torch.parallel.mesh import check_mesh_axes
+        check_mesh_axes(mesh)
     if kernel not in ks.KERNELS:
         raise ValueError(
             f"kernel must be one of {ks.KERNELS}, got {kernel!r}")

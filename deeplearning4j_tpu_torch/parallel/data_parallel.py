@@ -39,7 +39,7 @@ from deeplearning4j_tpu_torch.ops.updaters import (Dl4jUpdater,
 from deeplearning4j_tpu_torch.optimize.solver import value_and_grad
 from deeplearning4j_tpu_torch.parallel import collectives, sharded_fit
 from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
-                                                    check_data_mesh,
+                                                    check_mesh_axes,
                                                     local_batch_size,
                                                     shard_rows)
 from deeplearning4j_tpu_torch.runtime import compile_cache, resilience
@@ -63,7 +63,7 @@ class _Trainer:
     generator and row block."""
 
     def __init__(self, mesh):
-        check_data_mesh(mesh)
+        check_mesh_axes(mesh)
         self.mesh = mesh
         self.device = mesh.device
 
@@ -100,7 +100,7 @@ class DataParallelTrainer(_Trainer):
             # gradient poisons every rank's mean, so all skip together
             new_params, new_ustate, skipped = resilience.guard_update(
                 params, ustate, apply_descent(params, updates), new_ustate,
-                (score, grads))
+                (score, grads), agree=sharded_fit.agree_over_mesh(mesh))
             return new_params, new_ustate, score, skipped
 
         self._step = sharded_fit.build_sharded_step(

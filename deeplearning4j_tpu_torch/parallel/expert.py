@@ -6,7 +6,7 @@ Port of the one-device half of ``deeplearning4j_tpu/parallel/expert.py``:
 ``make_gspmd_moe_ffn`` for no mesh or a mesh whose ``expert`` axis is
 1.  Expert parallelism (an ``expert`` axis above 1, ``axis_name=``,
 ``stat_axes``, ``expert_param_specs``) raises ``NotImplementedError``
-naming ROADMAP A7.
+naming ROADMAP A7.1b.
 
 **Routing** (:func:`route`) is the reference's, exactly: the top-k of
 the gates with ties to the lower expert index (``lax.top_k``; here a
@@ -56,7 +56,7 @@ EXPERT_AXIS = "expert"
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet: expert "
-        f"parallelism comes with the mesh's expert axis (ROADMAP A7.1)")
+        f"parallelism comes with the mesh's expert axis (ROADMAP A7.1b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +131,7 @@ def route_topk(gates: Tensor, top_k: int, capacity: int,
                ) -> Tuple[Tensor, Tensor, Tensor]:
     """The reference's dense form: ``(dispatch [N, E, C] {0, 1}, combine
     [N, E, C] gate-weighted, aux)``, in the gates' dtype.  ``stat_axes``
-    (token shards) comes with the mesh's expert axis (ROADMAP A7.1)."""
+    (token shards) comes with the mesh's expert axis (ROADMAP A7.1b)."""
     if stat_axes:
         raise _not_ported("route_topk over token shards (stat_axes)")
     r = route(gates, top_k, capacity)
@@ -240,7 +240,7 @@ def moe_ffn(params: dict, x: Tensor, cfg: MoEConfig,
             stat_axes: Tuple[str, ...] = ()) -> Tuple[Tensor, Tensor]:
     """MoE FFN over tokens x ``[N, d]`` -> ``(y [N, d], aux)`` on one
     device, in the index form (module docstring).  ``axis_name`` /
-    ``stat_axes`` (the all_to_all path) are ROADMAP A7."""
+    ``stat_axes`` (the all_to_all path) are ROADMAP A7.1b."""
     if axis_name is not None or stat_axes:
         raise _not_ported("moe_ffn across expert shards (axis_name=)")
     E = cfg.n_experts
@@ -251,7 +251,7 @@ def moe_ffn(params: dict, x: Tensor, cfg: MoEConfig,
 
 
 def expert_param_specs(cfg: MoEConfig):
-    """The reference's PartitionSpecs of the expert tables (ROADMAP A7)."""
+    """The reference's PartitionSpecs of the expert tables (ROADMAP A7.1b)."""
     raise _not_ported("expert_param_specs (experts sharded over a mesh)")
 
 
@@ -279,12 +279,12 @@ def _one_device_layer(mesh, cfg: MoEConfig):
 def make_moe_layer(mesh, cfg: MoEConfig):
     """``f(params, x) -> (y, aux)`` for tokens ``x [N, d]`` (:159-199):
     without a mesh or with an ``expert`` axis of 1, :func:`moe_ffn`; a
-    larger expert axis raises (ROADMAP A7)."""
+    larger expert axis raises (ROADMAP A7.1b)."""
     return _one_device_layer(mesh, cfg)
 
 
 def make_gspmd_moe_ffn(mesh, cfg: MoEConfig):
     """The per-layer dispatch hook of the sharded fit (:202-238), as
     ``models/moe.encode(..., ffn_fn=...)`` takes it: on one device it is
-    :func:`moe_ffn`; an ``expert`` axis above 1 raises (ROADMAP A7)."""
+    :func:`moe_ffn`; an ``expert`` axis above 1 raises (ROADMAP A7.1b)."""
     return _one_device_layer(mesh, cfg)

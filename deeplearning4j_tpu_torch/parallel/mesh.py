@@ -1,11 +1,18 @@
-"""The device mesh: a ``data`` axis over a ``torch.distributed`` group.
+"""The device mesh: ``data`` and ``model`` axes over a
+``torch.distributed`` group.
 
-Port of the data-axis half of ``deeplearning4j_tpu/parallel/mesh.py``.
-The reference's mesh is a grid of JAX devices with five named axes; the
-port's is a thin object over an initialized process group: one process a
-device, every rank on the ``data`` axis.  A rank holds its own replica
-of the params and its own row slice of each global batch, and the
-collectives of ``parallel/collectives.py`` run over the group.
+Port of the data and model axes of ``deeplearning4j_tpu/parallel/
+mesh.py``.  The reference's mesh is a grid of JAX devices with five
+named axes; the port's is a thin object over an initialized process
+group: one process a device, laid out as the reference's ``make_mesh``
+lays out its devices, ``data`` first, so the ranks of one model group
+are contiguous (rank ``g`` of a ``data=D x model=M`` mesh sits at data
+index ``g // M``, model index ``g % M``).  Each axis has a process
+group of its own (``Mesh.groups``), created identically on every rank.
+A rank holds the row slice of each global batch for its data index and
+the model-axis slice of the params for its model index
+(``models/transformer.shard_tree``); the collectives of
+``parallel/collectives.py`` run over an axis's group.
 
 - :func:`initialize_distributed` starts the group with
   ``torch.distributed.init_process_group``: NCCL for CUDA, gloo for the
@@ -17,10 +24,10 @@ collectives of ``parallel/collectives.py`` run over the group.
   divide by the data degree is zero-padded at its tail
   (:func:`pad_rows`) and the padded rows are masked out of the loss.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP A7): a
-``model``, ``pipe`` or ``expert`` axis above 1 (A7.1), a ``seq`` axis
-above 1 (ring attention, A7.5), and the elastic re-mesh after a device loss
-(:func:`surviving_devices`, :func:`elastic_remesh`, A7.3).
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP
+item): a ``pipe`` or ``expert`` axis above 1 (A7.1b), a ``seq`` axis
+above 1 (ring attention, A7.5), and the elastic re-mesh after a device
+loss (:func:`surviving_devices`, :func:`elastic_remesh`, A7.3).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -43,9 +50,8 @@ EXPERT_AXIS = "expert"
 
 ALL_AXES = (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, EXPERT_AXIS)
 
-#: the ROADMAP item that holds each axis other than ``data``
-_AXIS_ITEM = {MODEL_AXIS: "A7.1", PIPE_AXIS: "A7.1", SEQ_AXIS: "A7.5",
-              EXPERT_AXIS: "A7.1"}
+#: the ROADMAP item that holds each axis not ported yet
+_AXIS_ITEM = {PIPE_AXIS: "A7.1b", SEQ_AXIS: "A7.5", EXPERT_AXIS: "A7.1b"}
 
 
 def _not_ported(what: str, item: str = "A7") -> NotImplementedError:
@@ -85,45 +91,62 @@ class MeshSpec:
                 SEQ_AXIS: self.seq, EXPERT_AXIS: self.expert}
 
 
-def _check_data_only(sizes) -> None:
-    """Raise naming the ROADMAP item of the first axis other than
-    ``data`` whose size is above 1."""
+def _check_ported_axes(sizes) -> None:
+    """Raise naming the ROADMAP item of the first axis not ported yet
+    (``pipe``, ``seq``, ``expert``) whose size is above 1."""
     for axis, item in _AXIS_ITEM.items():
         n = int(dict(sizes).get(axis, 1))
         if n > 1:
             raise _not_ported(f"a {axis!r} mesh axis of {n} (the port's mesh "
-                              f"is the data axis of one process group)",
-                              item)
+                              f"has the data and model axes)", item)
 
 
 class Mesh:
-    """The data axis of an initialized process group.
+    """The data and model axes of an initialized process group.
 
-    ``shape`` maps every axis name to its size (``data`` = the group's
-    size, the others 1); ``size`` is their product; ``rank`` is this
-    process's index on the data axis and ``ranks`` the group's global
-    ranks in axis order; ``device`` is where this rank's tensors live;
-    ``group`` is the process group the collectives use (None: the
-    default group)."""
+    ``shape`` maps every axis name to its size (``data`` x ``model`` =
+    the group's size, the others 1); ``size`` is their product;
+    ``ranks`` are the mesh's global ranks in mesh order; ``rank`` is
+    this process's index on the data axis (the row block it trains on,
+    the seed of its dropout stream) and ``coords`` its index on every
+    axis; ``device`` is where this rank's tensors live.  ``group`` is
+    the data axis's process group, the one the data-parallel collectives
+    use (None: the default group); ``groups`` maps ``data`` and
+    ``model`` to their groups and ``world`` is the whole mesh's (None:
+    the default group)."""
 
     axis_names = ALL_AXES
 
     def __init__(self, sizes: Dict[str, int], group, ranks: Tuple[int, ...],
-                 rank: int, device: torch.device, backend: str):
+                 rank: int, device: torch.device, backend: str, *,
+                 groups: Optional[Dict[str, Any]] = None, world=None,
+                 coords: Optional[Dict[str, int]] = None):
         self.shape = {a: int(sizes.get(a, 1)) for a in ALL_AXES}
         self.group = group
         self.ranks = tuple(ranks)
         self.rank = int(rank)
         self.device = device
         self.backend = backend
+        self.world = world if groups is not None else group
+        self.groups = dict(groups) if groups is not None else {
+            DATA_AXIS: group, MODEL_AXIS: None}
+        self.coords = dict(coords) if coords is not None else {
+            DATA_AXIS: int(rank), MODEL_AXIS: 0}
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
 
+    @property
+    def model_rank(self) -> int:
+        """This process's index on the model axis."""
+        return int(self.coords.get(MODEL_AXIS, 0))
+
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.shape[DATA_AXIS]}, rank={self.rank}, "
-                f"device={self.device}, backend={self.backend})")
+        return (f"Mesh(data={self.shape[DATA_AXIS]}, "
+                f"model={self.shape[MODEL_AXIS]}, rank={self.rank}, "
+                f"model_rank={self.model_rank}, device={self.device}, "
+                f"backend={self.backend})")
 
 
 def _default_backend(device: torch.device) -> str:
@@ -145,7 +168,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     ``coordinator_address`` is a rendezvous URL (``file:///path``,
     ``tcp://host:port`` or ``env://``); a bare ``host:port`` is taken as
     ``tcp://``.  ``device`` (None = CUDA, raising without it) picks the
-    backend: NCCL on CUDA, gloo on the CPU.  Returns False, doing
+    backend: NCCL on CUDA, gloo on the CPU; ``backend="gloo"`` on CUDA
+    runs gloo over CUDA tensors (several ranks on one card, which NCCL
+    refuses).  Returns False, doing
     nothing, without an address; True once the group is up.  A group
     already up is an error: one process joins one group."""
     if coordinator_address is None:
@@ -158,12 +183,15 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     if "://" not in url:
         url = f"tcp://{url}"
     kw = {}
+    backend = backend or _default_backend(dev)
     if dev.type == "cuda":
         dev = _local_cuda(int(process_id or 0))
         torch.cuda.set_device(dev)
-        kw["device_id"] = dev
-    dist.init_process_group(backend or _default_backend(dev),
-                            init_method=url,
+        if backend == "nccl":
+            # NCCL binds its communicator to the card; a gloo group
+            # bound to one would split its subgroups, which gloo cannot
+            kw["device_id"] = dev
+    dist.init_process_group(backend, init_method=url,
                             world_size=int(num_processes or 1),
                             rank=int(process_id or 0), **kw)
     return True
@@ -187,8 +215,12 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
               device: DeviceLike = None) -> Mesh:
     """A :class:`Mesh` over ``group`` (default: the whole default group,
     which :func:`initialize_distributed` started).  The spec must resolve
-    to the group's size with every axis but ``data`` at 1.  ``device``
-    defaults to this rank's card under NCCL and the CPU under gloo."""
+    to the group's size with every axis but ``data`` and ``model`` at 1.
+    Above a model degree of 1 every rank of the default group must call
+    it, in the same order (it creates one process group per data index
+    and per model index, :func:`torch.distributed.new_group`), and the
+    mesh must span the default group.  ``device`` defaults to this
+    rank's card under NCCL and the CPU under gloo."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialized process group: call "
@@ -196,9 +228,9 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
     spec = spec or MeshSpec()
     n = dist.get_world_size(group)
     sizes = spec.resolve(n)
-    _check_data_only(sizes)
+    _check_ported_axes(sizes)
     backend = dist.get_backend(group)
-    rank = dist.get_rank(group)
+    pos = dist.get_rank(group)
     if group is None:
         ranks = tuple(range(n))
     else:
@@ -208,7 +240,27 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
                else torch.device("cpu"))
     else:
         dev = resolve_device(device)
-    return Mesh(sizes, group, ranks, rank, dev, backend)
+    m = sizes[MODEL_AXIS]
+    if m == 1:
+        return Mesh(sizes, group, ranks, pos, dev, backend)
+    if group is not None:
+        raise ValueError("a mesh with a model axis spans the default "
+                         "process group (make_mesh(spec) with group=None)")
+    d = sizes[DATA_AXIS]
+    groups = {}
+    # data-major: model group i holds ranks [i M, (i + 1) M), data group
+    # j holds ranks j, M + j, ...; every rank makes every group
+    for i in range(d):
+        g = dist.new_group([ranks[i * m + j] for j in range(m)])
+        if i == pos // m:
+            groups[MODEL_AXIS] = g
+    for j in range(m):
+        g = dist.new_group([ranks[i * m + j] for i in range(d)])
+        if j == pos % m:
+            groups[DATA_AXIS] = g
+    return Mesh(sizes, groups[DATA_AXIS], ranks, pos // m, dev, backend,
+                groups=groups, world=group,
+                coords={DATA_AXIS: pos // m, MODEL_AXIS: pos % m})
 
 
 def _data(mesh) -> int:
@@ -280,8 +332,9 @@ def shard_rows(arr, mesh, axis: int = 0) -> torch.Tensor:
 
 def mesh_signature(mesh):
     """Hashable identity for engine keys (:193-207): the axis sizes, the
-    group's global ranks, this process's rank and its device.  None
-    without a mesh."""
+    group's global ranks, this process's data index and its device, so
+    ``data=4`` and ``data=2 x model=2`` over the same ranks are two
+    entries.  None without a mesh."""
     if mesh is None:
         return None
     return (tuple((a, int(mesh.shape[a])) for a in mesh.axis_names),
@@ -308,22 +361,46 @@ def seq_degree(mesh) -> int:
     return 1 if mesh is None else int(mesh.shape.get(SEQ_AXIS, 1))
 
 
-def check_data_mesh(mesh) -> None:
+def check_mesh_axes(mesh) -> None:
     """Raise naming the ROADMAP item when ``mesh`` (anything with a
-    ``shape`` mapping) has an axis other than ``data`` above 1."""
+    ``shape`` mapping) has an axis the port does not carry yet
+    (``pipe``, ``seq``, ``expert``) above 1; ``data`` and ``model``
+    pass."""
     if mesh is not None:
-        _check_data_only(getattr(mesh, "shape", {}))
+        _check_ported_axes(getattr(mesh, "shape", {}))
 
 
-def per_device_bytes(tree) -> Dict[int, int]:
-    """Bytes each card holds for the tensors of ``tree``, by CUDA device
-    index (:239-259).  Host tensors and other leaves count nothing, as
-    the reference's host-resident leaves."""
+def mesh_captures(mesh) -> bool:
+    """Whether a step over ``mesh`` may be captured as a CUDA graph: the
+    one place that choice is made.  gloo's collectives run on the host
+    and cannot enter a graph, so a step over a gloo group runs eagerly;
+    NCCL's are captured with the step (no mesh: captured)."""
+    return mesh is None or mesh.backend != "gloo"
+
+
+def per_device_bytes(tree, mesh=None) -> Dict[int, int]:
+    """Bytes each device holds for the tensors of ``tree`` (:239-259).
+    Without ``mesh``: by CUDA device index, from the tensors of this
+    process (host tensors count nothing, as the reference's host-resident
+    leaves).  With ``mesh``: ``tree`` is this rank's share of a
+    rank-sharded tree, and the result maps each of the mesh's global
+    ranks to the bytes of its share (every tensor leaf, on any device),
+    gathered with one all-gather over the mesh."""
     from deeplearning4j_tpu_torch.ops.updaters import tree_leaves
 
+    leaves = [leaf for leaf in tree_leaves(tree)
+              if isinstance(leaf, torch.Tensor)]
+    if mesh is not None:
+        mine = sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+        dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+        parts = [torch.zeros((), dtype=torch.int64, device=dev)
+                 for _ in mesh.ranks]
+        dist.all_gather(parts, torch.full((), mine, dtype=torch.int64,
+                                          device=dev), group=mesh.world)
+        return {r: int(p) for r, p in zip(mesh.ranks, parts)}
     out: Dict[int, int] = {}
-    for leaf in tree_leaves(tree):
-        if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
+    for leaf in leaves:
+        if leaf.device.type == "cuda":
             idx = int(leaf.device.index or 0)
             out[idx] = out.get(idx, 0) + leaf.numel() * leaf.element_size()
     return out

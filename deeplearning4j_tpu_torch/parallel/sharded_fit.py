@@ -25,7 +25,19 @@ With ``mesh=None`` the step runs on one device (gradient accumulation
 and mixed precision need no mesh).  Under a mesh each rank calls the
 functions with the same step; ``batch`` holds this rank's row slice.
 The guard's skip verdict is taken from values after the all-reduce, so
-every rank skips the same step and the replicas never diverge.
+every rank skips the same step and the replicas never diverge; on a
+``data x model`` mesh, where a rank's gradients are those of its own
+param slice, the verdict is reduced over the whole mesh besides
+(:func:`agree_over_mesh`), so one rank's non-finite shard skips the
+step on every rank of both axes.
+
+``param_specs`` / ``ustate_specs`` (the reference's GSPMD mode) name
+the layout the caller gave the params and the updater state
+(``models/transformer.shard_specs``): the port's step is written against
+a rank's slice (``tensor_parallel.shard_tree``), so the specs are
+checked against the mesh (:func:`validate_specs_against_mesh`) and kept
+on the step (``step.param_specs``) for the caller to gather with.  A
+step over a gloo group runs eagerly (``mesh.mesh_captures``).
 
 Mixed precision (the policy half of ``mixed_precision="bf16"``): the
 steps cast fp32 masters to bf16 inside the differentiated function
@@ -33,9 +45,6 @@ steps cast fp32 masters to bf16 inside the differentiated function
 fp32, and thread the dynamic loss scale (:func:`init_loss_scale`,
 :func:`next_loss_scale`) through the updater state.  The transitions
 are ``torch.where`` selects on device tensors: no host read a step.
-
-``param_specs`` / ``ustate_specs`` (the reference's GSPMD mode, model,
-pipe and expert sharding) raise naming ROADMAP A7.1.
 """
 
 from __future__ import annotations
@@ -47,8 +56,11 @@ import torch
 
 from deeplearning4j_tpu_torch.ops.updaters import (copy_into, tree_leaves,
                                                    tree_map)
-from deeplearning4j_tpu_torch.parallel.mesh import (check_data_mesh,
-                                                    shard_rows)
+from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
+from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                    check_mesh_axes,
+                                                    mesh_captures,
+                                                    model_degree, shard_rows)
 from deeplearning4j_tpu_torch.runtime import compile_cache, resilience, \
     telemetry
 
@@ -124,13 +136,63 @@ def batch_sharding(mesh, device=None) -> BatchSharding:
                          else mesh.device)
 
 
+def spec_axis_names(specs: PyTree) -> set:
+    """Every mesh axis name a ``PartitionSpec`` tree names (:173-184)."""
+    names = set()
+
+    def note(s):
+        for entry in s or ():
+            if entry is None:
+                continue
+            names.update(entry if isinstance(entry, tuple) else (entry,))
+        return s
+
+    tpar.map_specs(note, specs)
+    return names
+
+
+def validate_specs_against_mesh(mesh, specs: PyTree,
+                                what: str = "param_specs") -> None:
+    """Every axis a spec tree names must be an axis of ``mesh``
+    (:187-202), checked when the step is built."""
+    missing = sorted(spec_axis_names(specs) - set(mesh.axis_names))
+    if missing:
+        raise ValueError(
+            f"{what} names mesh axes {missing} that the mesh does not "
+            f"declare (mesh axes: {tuple(mesh.axis_names)}) — build the "
+            f"mesh with those axes (parallel/mesh.make_mesh declares "
+            f"all of data/model/pipe/seq/expert) or drop them from the "
+            f"specs")
+
+
 def _check_specs(mesh, param_specs, ustate_specs) -> None:
-    if param_specs is not None or ustate_specs is not None:
-        raise NotImplementedError(
-            "param_specs / ustate_specs (GSPMD sharding of the params over "
-            "model, pipe or expert axes) are not ported to the PyTorch "
-            "package yet (ROADMAP A7.1)")
-    check_data_mesh(mesh)
+    check_mesh_axes(mesh)
+    for what, tree in (("param_specs", param_specs),
+                       ("ustate_specs", ustate_specs)):
+        if tree is None:
+            continue
+        if mesh is None:
+            raise ValueError(f"{what} lay the params out over a mesh: "
+                             f"pass the mesh too")
+        validate_specs_against_mesh(mesh, tree, what)
+
+
+def agree_over_mesh(mesh):
+    """The guard's agreement over ``mesh``: ``agree(ok) -> ok`` where
+    the returned verdict holds only if it holds on every rank (one
+    all-reduce of the 0-d flag over the whole mesh).  None without a
+    model axis: there the verdict comes from values already summed over
+    the data axis, the same on every rank."""
+    if model_degree(mesh) == 1:
+        return None
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    def agree(ok):
+        bad = collectives.psum((~ok).to(torch.float32),
+                               (mesh, (DATA_AXIS, MODEL_AXIS)))
+        return bad == 0
+
+    return agree
 
 
 def build_sharded_step(shard_step: ShardStep, mesh, *, label: str,
@@ -162,7 +224,8 @@ def build_sharded_step(shard_step: ShardStep, mesh, *, label: str,
 
     graph = compile_cache.cached_graph(
         step, key=engine_key, label=label,
-        donate_argnums=(0, 1, 2) if donate else ())
+        donate_argnums=(0, 1, 2) if donate else (),
+        capture=mesh_captures(mesh))
 
     def dispatch(params, ustate, it, batch, gen=None):
         tr = telemetry.get_tracer()
@@ -173,6 +236,7 @@ def build_sharded_step(shard_step: ShardStep, mesh, *, label: str,
 
     dispatch.graph = graph
     dispatch.fn = step
+    dispatch.param_specs = param_specs
     return dispatch
 
 

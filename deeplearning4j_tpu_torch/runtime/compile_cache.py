@@ -362,9 +362,10 @@ class GraphFn:
     compiles are booked under."""
 
     def __init__(self, fn: Callable, label: str, donate_argnums=(),
-                 share: Optional["GraphFn"] = None):
+                 share: Optional["GraphFn"] = None, capture: bool = True):
         self.fn = fn
         self.label = label
+        self.capture = capture
         self.donate = frozenset(donate_argnums)
         self._sh = share._sh if share is not None else _Shared()
         self._graphs: "OrderedDict[Hashable, _Graph]" = OrderedDict()
@@ -424,7 +425,7 @@ class GraphFn:
     def __call__(self, *args, **kwargs):
         sig, leaves, metas = self._signature(args, kwargs)
         devs = [m[4] for m in metas if m[0] == "T"]
-        if not any(_graphs_on(d) for d in devs):
+        if not self.capture or not any(_graphs_on(d) for d in devs):
             return self._call_cpu(sig, self._specs(args, kwargs), leaves,
                                   metas)
         sh = self._sh
@@ -637,17 +638,22 @@ def _describe(sig) -> str:
 def cached_graph(fn: Callable, *, key: Optional[Hashable] = None,
                  label: Optional[str] = None,
                  donate_argnums: Tuple[int, ...] = (),
-                 share: Optional[GraphFn] = None) -> GraphFn:
+                 share: Optional[GraphFn] = None,
+                 capture: bool = True) -> GraphFn:
     """``fn`` through the engine: the counterpart of ``cached_jit``
     (see the module docstring).  Without ``key`` the wrapper is private
     to the caller but still instrumented; with ``key`` it is shared
     module-wide and the lookup counts as an engine hit or build.
-    ``share`` joins another wrapper's lock, pool and buffers."""
+    ``share`` joins another wrapper's lock, pool and buffers.
+    ``capture=False`` runs ``fn`` eagerly on every device, with the
+    CPU's donation contract (a step over a gloo group, whose
+    collectives cannot enter a CUDA graph)."""
     label = label or getattr(fn, "__name__", "graph")
     if key is None:
-        return GraphFn(fn, label, donate_argnums, share)
+        return GraphFn(fn, label, donate_argnums, share, capture)
     return get_or_build(("graph", key),
-                        lambda: GraphFn(fn, label, donate_argnums, share))
+                        lambda: GraphFn(fn, label, donate_argnums, share,
+                                        capture))
 
 
 def get_or_build(key: Hashable, builder: Callable[[], Any]) -> Any:

@@ -39,10 +39,19 @@ dropout.
 Every skip, rollback and snapshot is counted in
 ``runtime.metrics.resilience_metrics`` / ``checkpoint_metrics``.
 
+**On a mesh** (``ResilientFit(mesh=)``, ``data`` and ``model`` axes,
+run SPMD: every rank makes the same calls) each rank trains on its data
+index's rows and, where the step lays the params out over ``model``
+(``train_step.param_specs``), on its slice of them.  A snapshot holds
+the gathered global tree, under the npz keys a ``mesh=None`` run
+writes, so a checkpoint resumes on any mesh shape; the mesh's first
+rank writes it, and every rank waits at a barrier for a commit before
+it reads one.
+
 Not ported (each raises ``NotImplementedError`` naming ROADMAP A7.3):
-``ResilientFit``'s ``mesh=`` and ``cluster=``, the distributed data
-service input, a :class:`DeviceLossError` from ``fault_hook`` and the
-elastic and host-loss recovery behind it (reference :773-987).
+``ResilientFit``'s ``cluster=``, the distributed data service input, a
+:class:`DeviceLossError` from ``fault_hook`` and the elastic and
+host-loss recovery behind it (reference :773-987).
 """
 
 from __future__ import annotations
@@ -259,13 +268,17 @@ def where_ok(ok: torch.Tensor, new: PyTree, old: PyTree) -> PyTree:
 
 
 def guard_update(params: PyTree, ustate: PyTree, new_params: PyTree,
-                 new_ustate: PyTree, *guard_values: PyTree):
+                 new_ustate: PyTree, *guard_values: PyTree, agree=None):
     """The full in-step guard: check ``guard_values`` (typically
     ``(score, grads)``) for non-finites; on failure keep the incoming
     params and updater state.  Returns ``(params, ustate, skipped)``,
     ``skipped`` an int32 0-d tensor (1 = update dropped), so a fit sums
-    its skips on the device without a host sync a step."""
+    its skips on the device without a host sync a step.  ``agree(ok)``
+    (``parallel.sharded_fit.agree_over_mesh``) turns this rank's verdict
+    into the mesh's."""
     ok = tree_all_finite(guard_values)
+    if agree is not None:
+        ok = agree(ok)
     return (where_ok(ok, new_params, params),
             where_ok(ok, new_ustate, ustate),
             (~ok).to(torch.int32))
@@ -473,28 +486,35 @@ class ResilientFit:
     the next step boundary, drains, writes one final SYNC snapshot and
     returns with ``self.preempted = True``.  ``fault_hook(step)`` runs
     before each step (a drill hook); a :class:`DeviceLossError` from it
-    raises ``NotImplementedError`` (elastic resume, ROADMAP A7), as do
-    ``mesh=`` and ``cluster=``."""
+    raises ``NotImplementedError`` (elastic resume, ROADMAP A7.3), as
+    does ``cluster=``.  ``mesh=`` (``data`` x ``model``) trains SPMD:
+    see the module docstring."""
 
     def __init__(self, net, config: ResilienceConfig,
                  detector: Optional[LossSpikeDetector] = None,
                  mesh=None, fault_hook=None,
                  preemption_guard: Optional[PreemptionGuard] = None,
                  cluster=None):
-        if mesh is not None:
-            raise _not_ported("ResilientFit(mesh=) sharded training")
         if cluster is not None:
             raise _not_ported("ResilientFit(cluster=) multi-host training")
+        if mesh is not None:
+            from deeplearning4j_tpu_torch.parallel.mesh import \
+                check_mesh_axes
+            check_mesh_axes(mesh)
         self.net = net
-        self.mesh = None
+        self.mesh = mesh
         self.cluster = None
         self.config = config
         self.fault_hook = fault_hook
         self.preemption_guard = preemption_guard
+        #: the rank that writes snapshots (every rank of a mesh gathers)
+        self._writer = mesh is None or mesh.ranks.index(
+            torch.distributed.get_rank()) == 0
         self.manager = CheckpointManager(config.checkpoint_dir,
                                          max_to_keep=config.max_to_keep)
-        self.async_ckpt = None if config.sync else AsyncCheckpointer(
-            self.manager, max_in_flight=config.max_in_flight)
+        self.async_ckpt = None if (config.sync or not self._writer) \
+            else AsyncCheckpointer(self.manager,
+                                   max_in_flight=config.max_in_flight)
         self.detector = detector or LossSpikeDetector(
             window=config.spike_window, factor=config.spike_factor,
             patience=config.patience, min_history=config.min_history)
@@ -532,9 +552,15 @@ class ResilientFit:
 
     def _drain(self) -> None:
         """Wait for every in-flight async snapshot to COMMIT (the
-        precondition for any restore and for the final snapshot)."""
+        precondition for any restore and for the final snapshot); on a
+        mesh, every rank waits for the writer's commit."""
         if self.async_ckpt is not None:
             self.async_ckpt.wait_until_finished()
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            torch.distributed.barrier(group=self.mesh.world)
 
     @staticmethod
     def _check_restored(params: PyTree, at_step) -> None:
@@ -570,12 +596,18 @@ class ResilientFit:
         to the network's row multiple (reference :674-752)."""
         from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor
 
-        train_step, updaters = net._backprop_machinery(self.mesh)
+        from deeplearning4j_tpu_torch.parallel.mesh import shard_rows
+
+        mesh = self.mesh
+        train_step, updaters = net._backprop_machinery(mesh)
         self._train_step = train_step
         dp_mode = getattr(train_step, "takes_n_valid", False)
-        chunk = net._pad_chunk(self.mesh, max(net.conf.grad_accum, 1)) \
+        chunk = net._pad_chunk(mesh, max(net.conf.grad_accum, 1)) \
             if dp_mode else 1
         dev = net.device
+
+        def rows(t):
+            return t if mesh is None else shard_rows(t, mesh)
 
         def dispatch(params, ustate, it, batch, gen):
             x = _as_tensor(batch.features, dev)
@@ -586,9 +618,21 @@ class ResilientFit:
             target = -(-b // chunk) * chunk
             return train_step(
                 params, ustate, it,
-                (net._pad_rows(x, target), net._pad_rows(y, target),
+                (rows(net._pad_rows(x, target)),
+                 rows(net._pad_rows(y, target)),
                  torch.full((), b, dtype=torch.int32, device=dev)), gen)
         return dispatch, updaters
+
+    def _layout(self, params, ustate, gather: bool):
+        """``(params, ustate)`` in this rank's layout, or (``gather``)
+        the global trees back: the step's ``shard_state`` /
+        ``gather_state`` where it lays them out over ``model``."""
+        fn = getattr(self._train_step,
+                     "gather_state" if gather else "shard_state", None)
+        if fn is None:
+            return params, ustate
+        return (fn(params, "params"),
+                None if ustate is None else fn(ustate, "ustate"))
 
     def _make_ustate(self, updaters, params):
         """Fresh updater state by the network's own policy."""
@@ -602,6 +646,7 @@ class ResilientFit:
         tpl_u = self._make_ustate(updaters, tpl_p)
         (params, ustate), meta = self.manager.restore(like=(tpl_p, tpl_u))
         self._check_restored(params, meta.get("step"))
+        params, ustate = self._layout(params, ustate, gather=False)
         return params, ustate, meta
 
     def _elastic_resume(self, err: DeviceLossError, net):
@@ -638,17 +683,24 @@ class ResilientFit:
                     hook(net)
 
         dev = net.device
+        mesh = self.mesh
         # a caller's state: the engine copies it into its own buffers
         params = tree_map(torch.clone, net._require_params())
         dispatch, updaters = self._build_dispatch(net)
+        params, _ = self._layout(params, None, gather=False)
         ustate = self._make_ustate(updaters, params)
         gen = torch.Generator(device=dev)
+        # a data shard's dropout stream folds its data index in; the
+        # ranks of a model group share theirs
+        shard = (mesh.rank,) if mesh is not None and \
+            mesh.shape["data"] > 1 else ()
 
         step = 0
         rollbacks = 0
         self.preempted = False
         restored = False
         if cfg.resume:
+            self._barrier()
             latest = self.manager.latest_step()
             if latest is None:
                 log.warning(
@@ -673,19 +725,24 @@ class ResilientFit:
             """Cadence snapshot: async by default, synchronous for the
             preemption / bounded-slice final snapshot."""
             meta = {"rollbacks": rollbacks}
-            if self.async_ckpt is None or sync:
+            tree = self._layout(params, ustate, gather=True)
+            if not self._writer:
+                pass
+            elif self.async_ckpt is None or sync:
                 with telemetry.span("resilience.checkpoint",
                                     step=at_step, mode="sync"):
-                    self.manager.save(at_step, (params, ustate), meta=meta)
+                    self.manager.save(at_step, tree, meta=meta)
             else:
                 with telemetry.span("resilience.checkpoint",
                                     step=at_step, mode="async"):
-                    self.async_ckpt.save(at_step, (params, ustate),
-                                         meta=meta)
+                    self.async_ckpt.save(at_step, tree, meta=meta)
+            if sync:
+                self._barrier()
             resilience_metrics.note("checkpoints_saved")
 
         if not restored:
             existing = self.manager.all_steps()
+            self._barrier()
             if existing:
                 # a fresh run cannot share a directory with another
                 # run's snapshots: retention keys on the step number,
@@ -723,7 +780,7 @@ class ResilientFit:
                 epoch, pos = divmod(step, n_batches)
                 order = self._epoch_order(seed, rollbacks, epoch, n_batches)
                 batch = batches[order[pos]]
-                gen.manual_seed(fold(seed, rollbacks, step))
+                gen.manual_seed(fold(seed, rollbacks, step, *shard))
                 try:
                     if self.fault_hook is not None:
                         self.fault_hook(step)
@@ -786,9 +843,11 @@ class ResilientFit:
         # trained params belong to the caller regardless of the writer's
         # health; a clone, so the step's state set is free for the next
         # fit of this conf
+        params, _ = self._layout(params, None, gather=True)
         net.params = tree_map(torch.clone, params)
         params = ustate = it = None
         # every async snapshot committed before fit returns; a fresh
         # checkpointer takes the writer's place for a later fit
         self._recycle_writer(suppress_errors=False)
+        self._barrier()
         return net

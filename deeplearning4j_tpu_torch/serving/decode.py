@@ -51,7 +51,20 @@ and per-slot page tables, and mounts pool-resident prefixes by
 reference; ``draft=(cfg_d, params_d)`` decodes speculatively (``draft_k``
 proposals a round, verified in one pass, token-identical to plain
 decoding at any temperature); ``rebind_params`` swaps the weights of an
-idle engine with no new capture.  ``mesh=`` is ROADMAP A7.  The fleet
+idle engine with no new capture.
+
+``mesh=`` (the reference's model-sharded engine, :603-730) runs SPMD:
+every rank of the mesh's model group builds the engine with the same
+arguments and makes the same calls.  The params (the global tree)
+are laid out by ``gpt.shard_specs``, and the pinned
+slots' and the page pool's KV caches hold the rank's heads
+(``gpt.slot_specs`` / ``paged_specs``); the cached stack sums the
+row-parallel products over ``model`` (``parallel/tensor_parallel``), so
+every rank samples the same tokens, the replicated engine's.  The
+entries are captured only where the group's collectives can be
+(``parallel.mesh.mesh_captures``: not under gloo).  ``quantize=``,
+``kv_dtype="int8"`` (its per-row scales span every head) and ``draft=``
+on a mesh raise naming ROADMAP A7.1b.  The fleet
 over these engines (autoscaling, the weight swap of a live fleet,
 health-checked replacement, the brownout ladder) is
 ``serving/router.AutoscalingRouter``.
@@ -85,6 +98,11 @@ import torch
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.models import gpt
 from deeplearning4j_tpu_torch.models import transformer as tfm
+from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
+from deeplearning4j_tpu_torch.parallel.mesh import (check_mesh_axes,
+                                                    mesh_captures,
+                                                    mesh_signature,
+                                                    model_degree)
 from deeplearning4j_tpu_torch.runtime import compile_cache
 from deeplearning4j_tpu_torch.runtime import quantize as qz
 from deeplearning4j_tpu_torch.runtime import telemetry
@@ -588,8 +606,22 @@ class DecodeEngine:
                  draft: Optional[Tuple[Any, Any]] = None,
                  draft_k: int = 4,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise _not_ported("mesh=", "A7 (parallelism)")
+        check_mesh_axes(mesh)
+        #: the model group's size and this rank's group (None: replicated)
+        self.mesh = mesh
+        self.model_degree = model_degree(mesh)
+        self._tp = tpar.model_group(mesh)
+        if self._tp is not None:
+            for knob, val in (("quantize=", quantize),
+                              ("kv_dtype='int8'", kv_dtype),
+                              ("draft=", draft)):
+                if val is not None:
+                    raise _not_ported(f"{knob} on a model mesh", "A7.1b")
+            if cfg.n_heads % self.model_degree:
+                raise ValueError(
+                    f"n_heads={cfg.n_heads} not divisible by model "
+                    f"degree {self.model_degree}: the slot KV cache "
+                    f"shards over heads (gpt.slot_specs)")
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1: {n_slots}")
         self.cfg = cfg
@@ -616,7 +648,7 @@ class DecodeEngine:
         self.spec_enabled = True
         self.harvest_enabled = True
         self._transform = (
-            (lambda raw: gpt.serving_params(cfg, raw))
+            (lambda raw: gpt.serving_params(cfg, self._shard(raw)))
             if self.quantize is None
             else (lambda raw: qz.quantize_tree(raw, self.quantize)))
         self._served = qz.ServedParams(params, self._transform)
@@ -678,14 +710,15 @@ class DecodeEngine:
         #: KV bytes one slot of the largest bucket costs, the 'slots per
         #: card' denominator
         self.kv_bytes_per_slot = int(gpt.slots_bytes_per_slot(
-            cfg, self.buckets[-1], self.kv_dtype))
+            cfg, self.buckets[-1], self.kv_dtype, self.model_degree))
         decode_metrics.note_kv_bytes_per_slot(self.kv_bytes_per_slot)
         #: bytes of the page pools (target and draft), the paged
         #: engine's memory denominator
         self.pool_bytes = 0
         if self.paged:
             self.pool_bytes = gpt.pages_bytes(cfg, self.n_kv_pages, chunk,
-                                              self.kv_dtype)
+                                              self.kv_dtype,
+                                              self.model_degree)
             if draft is not None:
                 self.pool_bytes += gpt.pages_bytes(
                     self._draft_cfg, self.n_kv_pages, chunk, self.kv_dtype)
@@ -723,6 +756,7 @@ class DecodeEngine:
         pos [NB, S])``, one pool for every bucket (``bi`` picks the
         bucket's row of tokens and positions)."""
         cfg, cfg_d, k = self.cfg, self._draft_cfg, self.draft_k
+        tp = self._tp
         cdt = tfm.compute_dtype(cfg)
         deq = ((lambda p: p) if self.quantize is None
                else (lambda p: qz.dequantize_tree(p, cdt)))
@@ -733,7 +767,8 @@ class DecodeEngine:
                 sel = scalars[0].reshape(1)
                 _, first = gpt.paged_prefill(
                     cfg, deq(params), pool, ptab.index_select(0, sel)[0],
-                    toks, scalars[1], scalars[2], temperature, scalars[3])
+                    toks, scalars[1], scalars[2], temperature, scalars[3],
+                    tp=tp)
                 tokens[bi].index_put_((sel,), first.to(tokens.dtype
                                                        ).reshape(1))
                 pos[bi].index_put_((sel,), (scalars[1] + scalars[2]).to(
@@ -744,7 +779,7 @@ class DecodeEngine:
                 pool, _, tokens, pos = state
                 _, out = gpt.paged_decode(cfg, deq(params), pool, ptab,
                                           tokens[bi], pos[bi], active,
-                                          temps, seeds)
+                                          temps, seeds, tp=tp)
                 return state, out
 
             def draft_prefill_fn(params, state, ptab, toks, scalars,
@@ -775,12 +810,12 @@ class DecodeEngine:
                 slots, dslots = state
                 _, first = gpt.slot_prefill(
                     cfg, deq(params), slots, toks, scalars[0], scalars[1],
-                    scalars[2], temperature, scalars[3])
+                    scalars[2], temperature, scalars[3], tp=tp)
                 return state, first
 
             def decode_fn(params, state, active, temps, seeds):
                 _, out = gpt.slot_decode(cfg, deq(params), state[0], active,
-                                         temps, seeds)
+                                         temps, seeds, tp=tp)
                 return state, out
 
             def draft_prefill_fn(params, state, toks, scalars, params_d):
@@ -804,11 +839,13 @@ class DecodeEngine:
 
         # one entry in four: all update the engine's state, which lives
         # in the buffers they share
+        cap = mesh_captures(self.mesh)
         self._prefill = compile_cache.cached_graph(
-            prefill_fn, label=f"{self.label}.prefill", donate_argnums=(1,))
+            prefill_fn, label=f"{self.label}.prefill", donate_argnums=(1,),
+            capture=cap)
         self._decode = compile_cache.cached_graph(
             decode_fn, label=f"{self.label}.step", donate_argnums=(1,),
-            share=self._prefill)
+            share=self._prefill, capture=cap)
         self._draft_prefill = self._spec = None
         if self.draft is not None:
             self._draft_prefill = compile_cache.cached_graph(
@@ -822,7 +859,15 @@ class DecodeEngine:
     # -- params ------------------------------------------------------------
     def _space(self):
         return (repr(self.cfg), self.quantize, self.kv_dtype,
-                self._params_gen)
+                self._params_gen, mesh_signature(self.mesh))
+
+    def _shard(self, raw: Any) -> Any:
+        """This rank's slice of the global params tree
+        (``gpt.shard_specs``)."""
+        if self._tp is None:
+            return raw
+        return tpar.shard_tree(raw, gpt.shard_specs(
+            self.cfg, self.model_degree), self.mesh)
 
     def current_params(self) -> Any:
         """The tree the dispatches take: quantized when ``quantize`` is
@@ -943,7 +988,8 @@ class DecodeEngine:
         if b.state is None:
             slots = gpt.init_slots(self.cfg, self.n_slots, b.t_max,
                                    kv_dtype=self.kv_dtype,
-                                   device=self.device)
+                                   device=self.device,
+                                   model_degree=self.model_degree)
             dslots = None
             if self.draft is not None:
                 dslots = gpt.init_slots(self._draft_cfg, self.n_slots,
@@ -959,7 +1005,7 @@ class DecodeEngine:
         if self._pstate is None:
             C, P, S = self.page_tokens, self.n_kv_pages, self.n_slots
             pool = gpt.init_pages(self.cfg, P, C, self.kv_dtype,
-                                  self.device)
+                                  self.device, self.model_degree)
             dpool = (gpt.init_pages(self._draft_cfg, P, C, self.kv_dtype,
                                     self.device)
                      if self.draft is not None else None)
@@ -1732,6 +1778,11 @@ class ContinuousBatcher:
 
     def __init__(self, engine: DecodeEngine, *,
                  default_max_tokens: int = 64):
+        if getattr(engine, "model_degree", 1) > 1:
+            raise NotImplementedError(
+                "ContinuousBatcher over a model-sharded DecodeEngine is not "
+                "ported yet: ROADMAP A7.1b (one rank's schedule broadcast "
+                "to its model group)")
         self.engine = engine
         self.default_max_tokens = int(default_max_tokens)
         self._cv = threading.Condition()

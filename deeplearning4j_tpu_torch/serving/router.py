@@ -40,7 +40,7 @@ graph's own pool, and each replica replays only its own graphs on its
 own buffers.
 
 Not ported here: ``model_degree > 1`` (replicas over device groups with
-model-sharded params) is ROADMAP A7.
+model-sharded params) is ROADMAP A7.1b.
 """
 
 from __future__ import annotations
@@ -195,7 +195,8 @@ class Router:
             raise NotImplementedError(
                 "Router.replicate(model_degree > 1), replicas over device "
                 "groups with model-sharded params, is not ported yet: "
-                "ROADMAP A7 (parallelism)")
+                "ROADMAP A7.1b (a batcher over a model group broadcasts "
+                "its schedule to the group)")
         devs = [resolve_device(d) for d in
                 (devices if devices is not None else [device])]
         if not devs:

@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 import threading
+import types
 from pathlib import Path
 
 import jax
@@ -304,7 +305,8 @@ def test_bucket_chunk_divisibility_and_knobs(params):
     with pytest.raises(ValueError, match="exceeds the model"):
         DecodeEngine(CFG, params, buckets=(128,), device="cpu")
     with pytest.raises(NotImplementedError, match="A7"):
-        DecodeEngine(CFG, params, mesh=object(), device="cpu")
+        DecodeEngine(CFG, params, mesh=types.SimpleNamespace(
+            shape={"data": 1, "pipe": 2}), device="cpu")
     # the serving tier's knobs: the page width is the shrunk chunk, the
     # default pool the pinned capacity plus the trash page
     eng = DecodeEngine(CFG, params, buckets=(24, 64), prefill_chunk=16,

@@ -190,8 +190,8 @@ def test_explicit_mesh_checks():
     with pytest.raises(ValueError, match="cannot shard"):
         net._resolve_fit_mesh(_fake_mesh(4), 2)
     m = _fake_mesh(1)
-    m.shape["model"] = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1"):
+    m.shape["pipe"] = 2
+    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
         net._resolve_fit_mesh(m, 8)
     assert net._resolve_fit_mesh("auto", 8) is None     # no group up
 

@@ -8,6 +8,8 @@ kernel against on the card.  Tolerances are those of
 tests/test_pallas_attention.py: fp32 2e-5, bf16 3e-2.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -183,8 +185,9 @@ def test_make_attn_fn_dispatch():
         fa.make_attn_fn("cuda")(q, q, q)
     with pytest.raises(ValueError, match="kernel must be one of"):
         fa.make_attn_fn("xla")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        fa.make_attn_fn("auto", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A7.5"):
+        fa.make_attn_fn("auto", mesh=types.SimpleNamespace(
+            shape={"data": 1, "seq": 2}))
 
 
 def test_kernel_wrapper_refuses_cpu_and_unsupported_inputs():

@@ -100,8 +100,8 @@ def test_router_swap_weights_zero_drops(tree, params, tree_2):
     stop = threading.Event()
     errors, served = [], []
 
-    def traffic():
-        rng = np.random.default_rng(2)
+    def traffic(seed):
+        rng = np.random.default_rng(seed)
         while not stop.is_set():
             try:
                 served.append(router.generate(rng.integers(1, 64, size=9),
@@ -109,8 +109,12 @@ def test_router_swap_weights_zero_drops(tree, params, tree_2):
             except Exception as e:          # any drop is a failure
                 errors.append(e)
 
-    t = threading.Thread(target=traffic)
-    t.start()
+    # two requests in flight: with one, a single request can straddle the
+    # whole swap, and none is booked as arriving during it
+    threads = [threading.Thread(target=traffic, args=(seed,))
+               for seed in (2, 3)]
+    for t in threads:
+        t.start()
     try:
         assert wait_for(lambda: len(served) >= 2)
         assert router.swap_weights(port(tree_2), timeout=60.0) == 2
@@ -118,8 +122,9 @@ def test_router_swap_weights_zero_drops(tree, params, tree_2):
         assert wait_for(lambda: len(served) >= n + 2)
     finally:
         stop.set()
-        t.join(60.0)
-    assert not t.is_alive()
+        for t in threads:
+            t.join(60.0)
+    assert not any(t.is_alive() for t in threads)
     prompts = [np.arange(1, 8), np.arange(3, 12), np.arange(9, 14),
                np.arange(20, 31)]
     outs = [list(router.generate(p, timeout=60.0, max_tokens=8))

@@ -5,10 +5,11 @@ multi-process harness the data-parallel tests share.
 ``local_batch_size``, ``padded_global_batch`` and ``mesh_signature`` on
 the same inputs as the reference's (on its 8-device CPU mesh; the
 port's shape helpers read only ``mesh.shape``, so a ``Mesh`` of 8 ranks
-is built without a group), exactly equal; axes other than ``data``
-raise naming ROADMAP A7.  ``parallel/collectives.py``: every collective
-on a real 2-rank gloo group against numpy, exactly (sums of two fp32
-values), and ``psum``'s backward.
+is built without a group), exactly equal; the pipe, seq and expert
+axes raise naming their ROADMAP items (the model axis has a file of its
+own, ``test_torch_model_parallel.py``).  ``parallel/collectives.py``:
+every collective on a real 2-rank gloo group against numpy, exactly
+(sums of two fp32 values), and ``psum``'s backward.
 
 The harness (:func:`run_ranks`) starts a gloo group of ``world`` CPU
 processes with ``multiprocessing``'s spawn, a ``file://`` rendezvous in
@@ -64,9 +65,10 @@ def _rank_entry(rank: int, world: int, rdv: str, fn, args, out: str):
         pickle.dump(payload, f)
 
 
-def run_ranks(fn, world: int, tmp_path, *args):
+def run_ranks(fn, world: int, tmp_path, *args, deadline: float = DEADLINE_S):
     """``fn(mesh, *args)`` on each rank of a fresh ``world``-rank gloo
-    group; the list of their results, by rank."""
+    group, killed after ``deadline`` seconds; the list of their results,
+    by rank."""
     ctx = multiprocessing.get_context("spawn")
     rdv = str(tmp_path / f"rdv-{fn.__name__}")
     outs = [str(tmp_path / f"{fn.__name__}-rank{r}.pkl") for r in range(world)]
@@ -75,10 +77,10 @@ def run_ranks(fn, world: int, tmp_path, *args):
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + DEADLINE_S
+    end = time.monotonic() + deadline
     try:
         for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
+            p.join(max(0.0, end - time.monotonic()))
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
     finally:
         for p in procs:
@@ -87,7 +89,7 @@ def run_ranks(fn, world: int, tmp_path, *args):
                 p.join(5)
     if hung:
         pytest.fail(f"ranks {hung} of {fn.__name__} still running after "
-                    f"{DEADLINE_S} s: killed")
+                    f"{deadline} s: killed")
     results = []
     for r, (p, out) in enumerate(zip(procs, outs)):
         if not os.path.exists(out):
@@ -393,19 +395,27 @@ def test_shard_rows_takes_each_ranks_contiguous_block():
 
 
 def test_non_data_axes_and_elastic_helpers_raise_naming_a7():
-    for axis, item in (("model", "A7.1"), ("pipe", "A7.1"),
-                       ("seq", "A7.5"), ("expert", "A7.1")):
+    """The pipe, seq and expert axes raise naming their ROADMAP items;
+    the model axis is ported (tests/test_torch_model_parallel.py), and
+    a collective names it with its mesh."""
+    for axis, item in (("pipe", "A7.1b"), ("seq", "A7.5"),
+                       ("expert", "A7.1b")):
         m = _fake_mesh(1)
         m.shape[axis] = 2
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tmesh.check_data_mesh(m)
+            tmesh.check_mesh_axes(m)
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             tcol.psum(torch.ones(2), m)
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             tcol.psum(torch.ones(2), axis)
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             tsf.build_sharded_step(lambda *a: a, m, label="x")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
+        tcol.psum(torch.ones(2), "model")
+    m = _fake_mesh(1)
+    m.shape["model"] = 2
+    tmesh.check_mesh_axes(m)
+    with pytest.raises(ValueError, match="pass the mesh"):
         tsf.build_sharded_step(lambda *a: a, None, label="x",
                                param_specs={"w": None})
     for call in (lambda: tmesh.elastic_remesh(_fake_mesh(2), [1]),

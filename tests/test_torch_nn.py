@@ -149,14 +149,14 @@ def test_unported_layer_kinds_raise_not_implemented(kind, item):
 
 def test_unported_fit_paths_raise_not_implemented():
     """What stays unported of the fit paths raises naming its ROADMAP
-    item: a mesh with a model axis above 1 (A7.1).  The data-parallel,
+    item: a mesh with a pipe axis above 1 (A7.1b).  The data-parallel,
     accumulation and bf16 paths are ported (tests/test_torch_dp_fit.py):
     they train here without a mesh, and ``mesh="auto"`` without a
     process group is the single-device fit."""
     net = TNet(_dense_conf(tconf), device="cpu").init(0)
     data = tds.DataSet(np.zeros((4, 12), np.float32),
                        np.eye(4, dtype=np.float32))
-    model_mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
+    model_mesh = types.SimpleNamespace(shape={"data": 1, "pipe": 2})
     for call in (lambda: net.fit_backprop(data, mesh=model_mesh),
                  lambda: net._resolve_fit_mesh(model_mesh, 4)):
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):

@@ -309,7 +309,7 @@ def test_prepare_resilient_fit_matches_reference():
     _assert_nets_close(tnet, jnet)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tnet._resolve_fit_mesh(
-            types.SimpleNamespace(shape={"data": 1, "model": 2}), 8)
+            types.SimpleNamespace(shape={"data": 1, "pipe": 2}), 8)
 
 
 # -- the port's own contracts ----------------------------------------------------

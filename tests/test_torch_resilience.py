@@ -21,6 +21,7 @@ import os
 import signal
 import subprocess
 import sys
+import types
 import textwrap
 import threading
 from pathlib import Path
@@ -342,7 +343,8 @@ def test_new_seed_reshuffles_and_rollback_redraws(tmp_path):
 def test_unported_paths_name_roadmap_a7(tmp_path):
     net = _net(1)
     cfg = ResilienceConfig(checkpoint_dir=str(tmp_path))
-    for kw in ({"mesh": object()}, {"cluster": object()}):
+    pipe_mesh = types.SimpleNamespace(shape={"data": 1, "pipe": 2})
+    for kw in ({"mesh": pipe_mesh}, {"cluster": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             ResilientFit(net, cfg, **kw)
 

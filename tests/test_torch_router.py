@@ -17,6 +17,7 @@ the fleet's names, which import.
 
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -261,7 +262,8 @@ def test_stub_messages_name_their_items(tree, params):
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Router.replicate(CFG, tree, 1, model_degree=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        DecodeEngine(CFG, params, mesh=object(), device="cpu")
+        DecodeEngine(CFG, params, mesh=types.SimpleNamespace(
+            shape={"data": 1, "pipe": 2}), device="cpu")
 
 
 def test_router_modules_import_no_jax():

@@ -23,6 +23,7 @@ Tolerances, each with its reason:
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -333,8 +334,9 @@ def test_gpt_params_and_config_match_jax():
 
 def test_train_entry_points_default_to_cuda_and_refuse_a_mesh():
     for mod, cfg in ((tbert, tbert.bert_tiny()), (tgpt, tgpt.gpt_tiny())):
-        with pytest.raises(NotImplementedError, match="parallel slice"):
-            mod.make_train_step(cfg, mesh=object(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
+            mod.make_train_step(cfg, mesh=types.SimpleNamespace(
+                shape={"data": 1, "pipe": 2}), device="cpu")
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 mod.make_train_step(cfg)
