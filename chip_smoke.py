@@ -322,6 +322,37 @@ Phases, each fatal on failure:
    (e) BERT-base's make_train_step(cfg, mesh) on model=2, bf16: the loss
    and the gathered gradients within 3e-2 relative L2, then 2 steps'
    losses.  The ranks' launches on (b)-(e) join the kernels line.
+20. the model axis for a serving fleet and the expert axis, on two rank
+   processes sharing the card over gloo, every result held against a
+   replicated or mesh=None run on the card in this process: (a)
+   collectives.all_to_all on CUDA tensors (bf16 at (c2)'s inbox shape
+   and fp32), split 0 / concat 1 and back, forward and gradient
+   bit-equal to a gather-and-slice, one all_to_all_single a call; (b)
+   GPT-2 small in fp32 served over the model group, 8 concurrent
+   requests x 16 greedy tokens, through Router.replicate(model_degree=2,
+   n_replicas=2) and through DecodeEngine(mesh=) + ContinuousBatcher
+   with int8 weights, int8 KV and the distilgpt2-shaped draft: tokens
+   equal to the replicated engine's with the same knob; KV bytes a slot
+   and weight bytes a rank printed; (c1) the MoE LM at GPT-2 small's
+   widths, depth 2, fp32, capacity 8, 2 SGD steps through
+   moe.make_train_step on data=1 x expert=2: gathered params within
+   1e-5 of mesh=None's; (c2) the same at full depth, bf16 mixed
+   precision, capacity 1.25, one B=8 T=1024 batch x 3 through CausalLM:
+   the loss finite and falling, B1 2 L and B2/B3 L launches a step a
+   rank, a rank's expert-table bytes within 0.45-0.55 of the whole; step
+   ms (host clock, eager), every collective's calls and bytes a step by
+   kind (collectives.stats), and one more step under
+   collectives.timed(): gloo's share of it, in all and by kind; (c3)
+   (c2) at capacity 8 for one step: the gathered params' change within
+   3e-2 relative L2 of mesh=None's, over the expert-split and the
+   replicated leaves apart, with the expert tables left at init as a
+   control that must read above it; (d) the MoE CausalLM at depth 2 in
+   fp32 on data=1 x model=2 within 1e-5 of mesh=None's.  The ranks'
+   launches on (b)-(d) join the kernels line.
+
+Each phase prints its seconds on a line of its own when it ends
+("phase N: S s"), and the script prints every phase's seconds and its
+own before the kernels line.
 
 Phases 4-10 and 14-18 run through the compile engine as a user's calls
 do: every serving dispatch, training step, decode and prefill dispatch
@@ -7382,7 +7413,7 @@ def ma_nccl_probe(rank: int, rdv: str, out: str) -> None:
         f.write(msg)
 
 
-def ma_spawn(target, tmp: str, tag: str, args=()) -> list:
+def ma_spawn(target, tmp: str, tag: str, args=(), phase: int = 19) -> list:
     """``target(rank, rdv, out, *args)`` in two spawned processes; their
     outputs (files), or a failure if a rank dies or outlives the
     deadline."""
@@ -7404,19 +7435,20 @@ def ma_spawn(target, tmp: str, tag: str, args=()) -> list:
         if p.is_alive():
             p.kill()
             p.join(10)
-    check(not hung, f"phase 19 {tag}: ranks {hung} still running after "
-                    f"{MA_DEADLINE_S} s: killed")
+    check(not hung, f"phase {phase} {tag}: ranks {hung} still running "
+                    f"after {MA_DEADLINE_S} s: killed")
     results = []
     for r, (p, out) in enumerate(zip(procs, outs)):
-        check(os.path.exists(out), f"phase 19 {tag}: rank {r} exited with "
-                                   f"{p.exitcode} and no result")
+        check(os.path.exists(out), f"phase {phase} {tag}: rank {r} exited "
+                                   f"with {p.exitcode} and no result")
         if tag == "nccl":
             with open(out) as f:
                 results.append(f.read())
             continue
         with open(out, "rb") as f:
             status, value = pickle.load(f)
-        check(status == "ok", f"phase 19 {tag}: rank {r} failed:\n{value}")
+        check(status == "ok",
+              f"phase {phase} {tag}: rank {r} failed:\n{value}")
         results.append(value)
     return results
 
@@ -7810,6 +7842,719 @@ def model_axis_phase(torch, fa, card: str) -> dict:
     return launches, worst, worst_bwd
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the model axis for a serving fleet, and the expert axis
+# ---------------------------------------------------------------------------
+
+#: the device phase 20 runs on (a CPU rehearsal substitutes "cpu")
+EA_DEVICE = "cuda"
+#: (b) GPT-2 small in fp32 (gen_config's widths and depth): 8 concurrent
+#: requests of 8-32 prompt tokens, 16 greedy tokens each, 8 slots of one
+#: bucket of 64; the draft (distilgpt2's shape) proposes 4 a round
+EA_REQS, EA_TOKENS, EA_BUCKET, EA_DRAFT_K = 8, 16, 64, 4
+#: (c1) the MoE LM at depth 2 in fp32, capacity 8, SGD, through
+#: moe.make_train_step; (d) its CausalLM at depth 2 in fp32 on model=2:
+#: B x T, steps and learning rate of both
+EA_SMALL_B, EA_SMALL_T, EA_SMALL_STEPS, EA_SMALL_LR = 4, 256, 2, 0.05
+#: (c2) the MoE LM at full depth, bf16 mixed precision, capacity 1.25,
+#: through CausalLM on data=1 x expert=2: one batch B x T, 3 steps
+EA_B, EA_T, EA_STEPS, EA_LR = 8, 1024, 3, 0.05
+#: (c1), (d): the gathered params against mesh=None's, relative L2
+EA_PARAMS_TOL = 1e-5
+#: (c2) a rank's share of the expert tables' bytes
+EA_EXPERT_SHARE = (0.45, 0.55)
+#: (a) the all-to-all's test tensors: the inbox of a rank at (c2)'s
+#: shapes ([E, C, d] = 8 x 1280 x 768, bf16) and a small fp32 one
+EA_A2A_SHAPES = (((8, 1280, 768), "bfloat16"), ((8, 6, 3), "float32"))
+
+
+def ea_settings() -> dict:
+    """What the rank processes need to know of this run (a spawned
+    process does not see a rehearsal's changes to this module)."""
+    return {"device": EA_DEVICE, "reqs": EA_REQS, "tokens": EA_TOKENS,
+            "bucket": EA_BUCKET, "draft_k": EA_DRAFT_K,
+            "small_B": EA_SMALL_B, "small_T": EA_SMALL_T,
+            "small_steps": EA_SMALL_STEPS, "small_lr": EA_SMALL_LR,
+            "B": EA_B, "T": EA_T, "steps": EA_STEPS, "lr": EA_LR,
+            "a2a_shapes": EA_A2A_SHAPES, "gpt": None, "moe": None}
+
+
+def ea_configs(gpt, moe, st):
+    """(GPT-2 small fp32, its distilgpt2-shaped draft fp32, the MoE LM
+    bf16 at full depth, the MoE LM fp32 at depth 2 and capacity 8)."""
+    base = gen_config(gpt) if st["gpt"] is None else st["gpt"]
+    fp32 = dataclasses.replace(base, compute_dtype="float32")
+    draft = dataclasses.replace(fp32, n_layers=max(fp32.n_layers // 2, 1))
+    mcfg = moe_config(moe) if st["moe"] is None else st["moe"]
+    small = dataclasses.replace(mcfg, n_layers=2, compute_dtype="float32",
+                                capacity_factor=8.0)
+    return fp32, draft, mcfg, small
+
+
+def ea_sync(torch, st) -> None:
+    if st["device"] == "cuda":
+        torch.cuda.synchronize()
+
+
+def ea_prompts(vocab: int, n: int):
+    rng = np.random.default_rng(20)
+    return [rng.integers(0, vocab, int(rng.integers(8, 33)), dtype=np.int32)
+            for _ in range(n)]
+
+
+def ea_decode(eng, prompts, n: int, spec: bool = False):
+    """Every prompt started in a slot of the engine's one bucket, then
+    the bucket advanced (a plain step or a speculative round) until each
+    has ``n`` greedy tokens."""
+    placed = []
+    for p in prompts:
+        bucket, slot, first = eng.start(p, max_tokens=n, temperature=0.0,
+                                        seed=0)
+        placed.append((bucket, slot, [int(first)]))
+    bucket = placed[0][0]
+    while min(len(seen) for _, _, seen in placed) < n:
+        if spec:
+            out, n_c = eng.advance_spec(bucket)
+            for _, slot, seen in placed:
+                seen.extend(int(t) for t in out[slot, :int(n_c[slot])])
+        else:
+            toks = eng.advance(bucket)
+            for _, slot, seen in placed:
+                seen.append(int(toks[slot]))
+    for b, slot, _ in placed:
+        eng.release(b, slot)
+    return [seen[:n] for _, _, seen in placed]
+
+
+def ea_knobs(st, cfg_d, draft_params):
+    """The engine knobs of (b) after the router's plain run: name ->
+    DecodeEngine keyword arguments."""
+    return {"int8 weights": {"quantize": "int8"},
+            "int8 KV": {"kv_dtype": "int8"},
+            "draft": {"draft": (cfg_d, draft_params),
+                      "draft_k": st["draft_k"]}}
+
+
+def ea_references(torch, st, tmp: str) -> dict:
+    """The replicated and mesh=None runs, in this process on the card:
+    written to ``tmp`` (or returned) for the ranks' results to be held
+    against."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import gpt, lm_fit, moe
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+    dev = st["device"]
+    fp32, cfg_d, mcfg, small = ea_configs(gpt, moe, st)
+    out = {"tokens": {}}
+    params = gpt.init_params(torch.Generator(device=dev).manual_seed(20),
+                             fp32, dev)
+    dparams = gpt.init_params(torch.Generator(device=dev).manual_seed(21),
+                              cfg_d, dev)
+    prompts = ea_prompts(fp32.vocab_size, st["reqs"])
+    geo = dict(n_slots=st["reqs"], buckets=(st["bucket"],),
+               prefill_chunk=16, device=dev)
+    eng = DecodeEngine(fp32, params, **geo)
+    out["tokens"]["plain"] = ea_decode(eng, prompts, st["tokens"])
+    out["kv_plain"] = eng.kv_bytes_per_slot
+    del eng
+    for name, kw in ea_knobs(st, cfg_d, dparams).items():
+        eng = DecodeEngine(fp32, params, **geo, **kw)
+        out["tokens"][name] = ea_decode(eng, prompts, st["tokens"],
+                                        spec="draft" in kw)
+        out[f"kv_{name}"] = eng.kv_bytes_per_slot
+        del eng
+    del params, dparams
+    # (c1): moe.make_train_step without a mesh, SGD
+    gen = torch.Generator(device=dev).manual_seed(22)
+    p0 = moe.init_params(gen, small, dev)
+    ids = torch.as_tensor(ma_ids(small.vocab_size, 1, st["small_B"],
+                                 st["small_T"], 22)[0]).to(dev)
+    opt = updaters.sgd(st["small_lr"])
+    _, step = moe.make_train_step(small, optimizer=opt, device=dev)
+    state = tfm.TrainState(p0, opt.init(p0), 0)
+    losses = []
+    for _ in range(st["small_steps"]):
+        state, loss = step(state, ids)
+        losses.append(float(loss))
+    out["c1_losses"] = losses
+    torch.save(ma_flat(torch, state.params), os.path.join(tmp, "c1.pt"))
+    del state, step, p0
+    # (d): the MoE CausalLM at depth 2, capacity 1.25, without a mesh
+    dcfg = dataclasses.replace(small, capacity_factor=1.25)
+    lm = lm_fit.CausalLM(dcfg, lr=st["small_lr"], device=dev).init(23)
+    batches = [DataSet(x, x) for x in ma_ids(
+        dcfg.vocab_size, st["small_steps"], st["small_B"], st["small_T"],
+        23)]
+    lm.fit_backprop(batches, num_epochs=1)
+    torch.save(lm.params_flat(), os.path.join(tmp, "d.pt"))
+    del lm
+    # (c3): the MoE LM at full depth, bf16, capacity 8, one step
+    # without a mesh
+    c8 = dataclasses.replace(mcfg, capacity_factor=8.0)
+    lm = lm_fit.CausalLM(c8, lr=st["lr"], mixed_precision="bf16",
+                         device=dev).init(24)
+    log = MaLog()
+    lm.listeners = [log]
+    lm.fit_backprop([DataSet(x, x) for x in ma_ids(
+        c8.vocab_size, 1, st["B"], st["T"], 24)], num_epochs=1)
+    torch.save(lm.params_flat(), os.path.join(tmp, "c3.pt"))
+    out["c3_skips"] = lm.guard_skips
+    out["c3_losses"] = log.seen
+    return out
+
+
+def ea_rank(rank: int, rdv: str, out: str, tmp: str, st: dict) -> None:
+    """One rank of the two: (a)-(d), results pickled."""
+    import pickle
+    import traceback
+
+    try:
+        value = ea_rank_body(rank, rdv, tmp, st)
+        payload = ("ok", value)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        payload = ("error", traceback.format_exc())
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def ea_serve(torch, batcher, prompts, n: int):
+    """Every prompt submitted from a client thread of its own at once;
+    each handle's greedy tokens."""
+    results = [None] * len(prompts)
+
+    def client(i):
+        results[i] = batcher.submit(prompts[i], max_tokens=n,
+                                    temperature=0.0).result(600).tolist()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    return results
+
+
+def ea_rank_body(rank: int, rdv: str, tmp: str, st: dict) -> dict:
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch import resolve_device
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import gpt, lm_fit, moe
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.parallel import collectives as col
+    from deeplearning4j_tpu_torch.parallel import mesh as pm
+    from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
+    from deeplearning4j_tpu_torch.runtime.quantize import tree_bytes
+    from deeplearning4j_tpu_torch.serving.decode import (ContinuousBatcher,
+                                                         DecodeEngine)
+    from deeplearning4j_tpu_torch.serving.router import Router
+
+    dev = st["device"]
+    torch.set_num_threads(2)
+    resolve_device(dev)
+    pm.initialize_distributed(f"file://{rdv}", 2, rank, device=dev,
+                              backend="gloo")
+    fp32, cfg_d, mcfg, small = ea_configs(gpt, moe, st)
+    res = {"launches": {"launches": 0, "launches_dkv": 0, "launches_dq": 0},
+           "marks": [("start", time.perf_counter())]}
+
+    def mark(name):
+        """The host clock as part ``name`` ends."""
+        res["marks"].append((name, time.perf_counter()))
+
+    def book(counts):
+        for k, v in counts.items():
+            res["launches"][k] += v
+
+    # (a) the all-to-all on the device's tensors, forward and backward,
+    # against a gather-and-slice
+    emesh = pm.make_mesh(pm.MeshSpec(data=1, expert=2), device=dev)
+
+    def a2a_calls():
+        return col.stats.snapshot()["by_kind"]["all_to_all"]["calls"]
+
+    a2a = []
+    for shape, dt in st["a2a_shapes"]:
+        gen = torch.Generator(device=dev).manual_seed(100 + rank)
+        x = torch.randn(shape, generator=gen, device=dev).to(
+            getattr(torch, dt)).requires_grad_(True)
+        for split, concat in ((0, 1), (1, 0)):
+            c0 = a2a_calls()
+            y = col.all_to_all(x, (emesh, "expert"), split, concat)
+            calls = a2a_calls() - c0
+            parts = [torch.empty_like(x) for _ in range(2)]
+            dist.all_gather(parts, x.detach())
+            want = torch.cat([p.chunk(2, split)[rank] for p in parts], concat)
+            w = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+            (gx,) = torch.autograd.grad((y.float() * w.float()).sum(), x)
+            ws = [torch.empty_like(w) for _ in range(2)]
+            dist.all_gather(ws, w)
+            gwant = torch.cat([ws[j].chunk(2, concat)[rank]
+                               for j in range(2)], split)
+            a2a.append({"shape": shape, "dtype": dt, "split": split,
+                        "concat": concat, "fwd": bool(torch.equal(y, want)),
+                        "bwd": bool(torch.equal(gx, gwant.to(gx.dtype))),
+                        "calls": calls, "device": str(y.device)})
+    res["a2a"] = a2a
+    mark("(a)")
+
+    # (b) GPT-2 small served over the model group
+    params = gpt.init_params(torch.Generator(device=dev).manual_seed(20),
+                             fp32, dev)
+    prompts = ea_prompts(fp32.vocab_size, st["reqs"])
+    geo = dict(n_slots=st["reqs"], buckets=(st["bucket"],),
+               prefill_chunk=16)
+    serve = {}
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    router = Router.replicate(fp32, params, n_replicas=2, model_degree=2,
+                              device=dev, default_max_tokens=st["tokens"],
+                              **geo)
+    serve["router_build_s"] = time.perf_counter() - t0
+    eng0 = router.batchers[0].engine
+    serve["router_weight_bytes"] = tree_bytes(eng0.current_params())
+    serve["router_kv"] = eng0.kv_bytes_per_slot
+    if rank == 0:
+        t0 = time.perf_counter()
+        serve["router_tokens"] = ea_serve(torch, router, prompts,
+                                          st["tokens"])
+        serve["router_s"] = time.perf_counter() - t0
+        serve["router_routed"] = list(router.routed)
+    router.close()
+    del router, eng0
+    mmesh = pm.make_mesh(pm.MeshSpec(data=1, model=2), device=dev)
+    dparams = gpt.init_params(torch.Generator(device=dev).manual_seed(21),
+                              cfg_d, dev)
+    for name, kw in ea_knobs(st, cfg_d, dparams).items():
+        eng = DecodeEngine(fp32, params, mesh=mmesh, device=dev, **geo,
+                           **kw)
+        b = ContinuousBatcher(eng, default_max_tokens=st["tokens"])
+        serve[f"{name}_weight_bytes"] = tree_bytes(eng.current_params())
+        serve[f"{name}_kv"] = eng.kv_bytes_per_slot
+        if b.leads:
+            t0 = time.perf_counter()
+            serve[f"{name}_tokens"] = ea_serve(torch, b, prompts,
+                                               st["tokens"])
+            serve[f"{name}_s"] = time.perf_counter() - t0
+        b.close()
+        del b, eng
+    book(fa.launch_counts())
+    serve["launches"] = fa.launch_counts()
+    res["serve"] = serve
+    res["replicated_weight_bytes"] = tree_bytes(gpt.serving_params(
+        fp32, params))
+    del params, dparams
+    mark("(b)")
+
+    # (c1) the MoE LM at depth 2, fp32, capacity 8, SGD: moe.make_train_step
+    # on data=1 x expert=2 against mesh=None's params
+    gen = torch.Generator(device=dev).manual_seed(22)
+    p0 = moe.init_params(gen, small, dev)
+    ids = torch.as_tensor(ma_ids(small.vocab_size, 1, st["small_B"],
+                                 st["small_T"], 22)[0]).to(dev)
+    opt = updaters.sgd(st["small_lr"])
+    _, step = moe.make_train_step(small, emesh, optimizer=opt, device=dev)
+    local = tpar.shard_tree(p0, step.specs, emesh)
+    del p0
+    state = tfm.TrainState(local, opt.init(local), 0)
+    losses = []
+    fa.reset_launches()
+    for _ in range(st["small_steps"]):
+        state, loss = step(state, ids)
+        losses.append(float(loss))
+    ea_sync(torch, st)
+    book(fa.launch_counts())
+    res["c1_launches"] = fa.launch_counts()
+    res["c1_losses"] = losses
+    res["c1_local_wi"] = tuple(state.params["blocks"]["wi"].shape)
+    res["c1_rel"] = ma_rel(torch, ma_flat(torch, tpar.gather_tree(
+        state.params, step.specs, emesh)), torch.load(
+            os.path.join(tmp, "c1.pt")))
+    del state, step, local
+    mark("(c1)")
+
+    # (c2) the MoE LM at full depth, bf16, capacity 1.25, through CausalLM
+    lm = lm_fit.CausalLM(mcfg, lr=st["lr"], mixed_precision="bf16",
+                         device=dev).init(24)
+    full = {k: lm.params["blocks"][k].numel()
+            * lm.params["blocks"][k].element_size() for k in ("wi", "wo_e")}
+    step, _ = lm._backprop_machinery(emesh)
+    local = step.shard_state(lm.params)
+    res["c2_expert_bytes"] = (sum(
+        local["blocks"][k].numel() * local["blocks"][k].element_size()
+        for k in ("wi", "wo_e")), sum(full.values()))
+    res["c2_local_wi"] = tuple(local["blocks"]["wi"].shape)
+    del local
+    log = MaLog()
+    lm.listeners = [log]
+    one = [DataSet(x, x) for x in ma_ids(mcfg.vocab_size, 1, st["B"],
+                                         st["T"], 24)]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    col.stats.reset()
+    fa.reset_launches()
+    ea_sync(torch, st)
+    t0 = time.perf_counter()
+    lm.fit_backprop(one, num_epochs=st["steps"], mesh=emesh)
+    ea_sync(torch, st)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    counts = fa.launch_counts()
+    book(counts)
+    res["c2_launches"] = counts
+    res["c2_losses"] = log.seen
+    res["c2_stats"] = col.stats.snapshot()
+    # a fit ends by gathering the expert tables (one all-gather a split
+    # leaf): its time, taken out of the step's
+    t0 = time.perf_counter()
+    step.gather_state(step.shard_state(lm.params))
+    ea_sync(torch, st)
+    res["c2_gather_ms"] = (time.perf_counter() - t0) * 1e3
+    res["c2_step_ms"] = (fit_ms - res["c2_gather_ms"]) / st["steps"]
+    res["c2_skips"] = lm.guard_skips
+    res["c2_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                         if dev == "cuda" else float("nan"))
+    # one more step with every collective timed (the device synchronized
+    # around each): the expert axis's all-to-alls, the gathers of the
+    # tokens' outputs and cotangents, the routing statistics' and the
+    # replicated leaves' gradients' all-reduces
+    lm.listeners = []
+    col.stats.reset()
+    fa.reset_launches()
+    with col.timed():
+        ea_sync(torch, st)
+        t0 = time.perf_counter()
+        lm.fit_backprop(one, num_epochs=1, mesh=emesh)
+        ea_sync(torch, st)
+        res["c2_timed_ms"] = (time.perf_counter() - t0) * 1e3
+    book(fa.launch_counts())
+    res["c2_timed"] = col.stats.snapshot()
+    # the closing gather's share, taken out of the per-step figures
+    col.stats.reset()
+    with col.timed():
+        step.gather_state(step.shard_state(lm.params))
+        ea_sync(torch, st)
+    res["c2_gather"] = col.stats.snapshot()
+    del lm, step
+    mark("(c2)")
+
+    # (c3) the same at capacity 8 (no token dropped on either layout),
+    # one step: the change in the gathered params against mesh=None's
+    # (on the card: the flat vectors hold ~0.54 G floats)
+    c8 = dataclasses.replace(mcfg, capacity_factor=8.0)
+    lm = lm_fit.CausalLM(c8, lr=st["lr"], mixed_precision="bf16",
+                         device=dev).init(24)
+    init_flat = lm.params_flat().to(dev)
+    step, _ = lm._backprop_machinery(emesh)
+    split = ma_flat(torch, tpar._spec_map(
+        lambda leaf, spec: torch.full(
+            (leaf.numel(),), spec is not None
+            and bool(tpar._split_dims(spec))),
+        lm.params, step.param_specs)).bool().to(dev)
+    res["c3_split_share"] = float(split.float().mean())
+    ref_flat = torch.load(os.path.join(tmp, "c3.pt")).to(dev)
+    log = MaLog()
+    lm.listeners = [log]
+    fa.reset_launches()
+    lm.fit_backprop(one, num_epochs=1, mesh=emesh)
+    ea_sync(torch, st)
+    counts = fa.launch_counts()
+    book(counts)
+    res["c3_launches"] = counts
+    res["c3_losses"] = log.seen
+    res["c3_skips"] = lm.guard_skips
+    mesh_flat = lm.params_flat().to(dev)
+    del lm, step
+
+    def delta_rel(flat):
+        """(expert-split leaves, replicated leaves): relative L2 of
+        ``flat - ref_flat`` to mesh=None's change over the same leaves."""
+        gap, moved = flat - ref_flat, ref_flat - init_flat
+        return tuple(float(gap[m].norm() / moved[m].norm())
+                     for m in (split, ~split))
+
+    res["c3_delta_rel"] = delta_rel(mesh_flat)
+    # controls: the expert tables left at init (a step that skipped
+    # their update), and their change halved (their gradients averaged
+    # over the expert group, which mixes two ranks' different experts,
+    # or any factor-2 slip)
+    res["c3_ctrl_frozen"] = delta_rel(
+        torch.where(split, init_flat, mesh_flat))[0]
+    res["c3_ctrl_half"] = delta_rel(torch.where(
+        split, init_flat + 0.5 * (mesh_flat - init_flat), mesh_flat))[0]
+    del mesh_flat, init_flat, ref_flat, split
+    mark("(c3)")
+
+    # (d) the MoE CausalLM at depth 2 on model=2 against mesh=None
+    dcfg = dataclasses.replace(small, capacity_factor=1.25)
+    lm = lm_fit.CausalLM(dcfg, lr=st["small_lr"], device=dev).init(23)
+    step, _ = lm._backprop_machinery(mmesh)
+    res["d_local"] = {k: tuple(step.shard_state(lm.params)["blocks"][k]
+                               .shape) for k in ("wi", "wq")}
+    batches = [DataSet(x, x) for x in ma_ids(
+        dcfg.vocab_size, st["small_steps"], st["small_B"], st["small_T"],
+        23)]
+    fa.reset_launches()
+    lm.fit_backprop(batches, num_epochs=1, mesh=mmesh)
+    ea_sync(torch, st)
+    book(fa.launch_counts())
+    res["d_launches"] = fa.launch_counts()
+    res["d_rel"] = ma_rel(torch, lm.params_flat(),
+                          torch.load(os.path.join(tmp, "d.pt")))
+    mark("(d)")
+    return res
+
+
+def expert_axis_phase(torch, fa, card: str) -> dict:
+    """Phase 20 (see the module docstring).  Returns the ranks' B1-B3
+    launches on the main paths (b)-(d), summed over both ranks."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models import gpt, moe
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    compile_cache.clear()
+    if EA_DEVICE == "cuda":
+        gc_cuda(torch)
+    check(not torch.distributed.is_initialized(),
+          "phase 20 needs no process group up in this process")
+    st = ea_settings()
+    tmp = tempfile.mkdtemp(prefix="expert-axis-")
+    t = [time.perf_counter()]
+    try:
+        ref = ea_references(torch, st, tmp)
+        if EA_DEVICE == "cuda":
+            gc_cuda(torch)
+        t.append(time.perf_counter())
+        r0, r1 = ma_spawn(ea_rank, tmp, "expert2", (tmp, st), phase=20)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fp32, cfg_d, mcfg, small = ea_configs(gpt, moe, st)
+
+    # (a)
+    for r, res in enumerate((r0, r1)):
+        for c in res["a2a"]:
+            say(f"(a) rank {r}: collectives.all_to_all on {c['device']} "
+                f"{c['dtype']} {c['shape']}, split {c['split']} concat "
+                f"{c['concat']}: forward bit-equal to gather-and-slice "
+                f"{c['fwd']}, gradient bit-equal to the inverse exchange "
+                f"{c['bwd']}, {c['calls']} all_to_all_single a call")
+            check(c["fwd"] and c["bwd"] and c["calls"] == 1,
+                  f"(a) rank {r}: all_to_all {c}")
+        say(f"(a) rank {r}: gloo took the {st['device']} tensors for "
+            f"all_to_all_single itself: the port stages nothing by hand")
+
+    # (b)
+    s0, s1 = r0["serve"], r1["serve"]
+    rep_bytes = r0["replicated_weight_bytes"]
+    runs = [("plain", "router")] + [(n, n) for n in
+                                    ("int8 weights", "int8 KV", "draft")]
+    for name, key in runs:
+        got = s0[f"{key}_tokens"]
+        want = ref["tokens"][name]
+        same = got == want
+        say(f"(b) GPT-2 small fp32 {name}"
+            + (f" through Router.replicate(model_degree=2, n_replicas=2) "
+               f"(built in {s0['router_build_s']:.1f} s, routed "
+               f"{s0['router_routed']})" if key == "router" else
+               " through DecodeEngine(mesh=) + ContinuousBatcher")
+            + f": {st['reqs']} concurrent requests x {st['tokens']} greedy "
+              f"tokens in {s0[f'{key}_s']:.1f} s, equal to the replicated "
+              f"one-process engine's: {same}; KV "
+              f"{s0[f'{key}_kv']:,} bytes a slot a rank (replicated "
+              f"{ref['kv_' + name]:,}); weights "
+              f"{s0[f'{key}_weight_bytes']:,} bytes a rank ("
+              f"{s0[f'{key}_weight_bytes'] / rep_bytes:.3f} of the "
+              f"replicated fp32 engine's {rep_bytes:,})")
+        check(same, f"(b) {name}: tokens {got} != {want}")
+        check(s0[f"{key}_kv"] == s1[f"{key}_kv"],
+              f"(b) {name}: the ranks' KV bytes differ")
+    say(f"(b) rank 1 followed every schedule; B1-B3 launches while "
+        f"serving (rank 0) {s0['launches']}: decode attends through "
+        f"gpt._cache_attention, no B1")
+
+    # (c1)
+    L = small.n_layers
+    n = st["small_steps"]
+    want_c1 = {"launches": 2 * L * n, "launches_dkv": L * n,
+               "launches_dq": L * n}
+    for r, res in enumerate((r0, r1)):
+        say(f"(c1) rank {r}: the MoE LM at GPT-2 small's widths, depth {L}, "
+            f"fp32, capacity {small.capacity_factor:g}, "
+            f"moe.make_train_step on data=1 x expert=2, B="
+            f"{st['small_B']} T={st['small_T']}, {n} SGD steps: losses "
+            f"{res['c1_losses']} (mesh=None {ref['c1_losses']}); the "
+            f"gathered params against mesh=None's: relative L2 "
+            f"{res['c1_rel']:.3e} (<= {EA_PARAMS_TOL:g}); local wi "
+            f"{res['c1_local_wi']}; launches {res['c1_launches']} "
+            f"(expected {want_c1})")
+        check(res["c1_rel"] <= EA_PARAMS_TOL,
+              f"(c1) rank {r}: params differ by {res['c1_rel']}")
+        check(res["c1_launches"] == want_c1,
+              f"(c1) rank {r}: launches {res['c1_launches']}")
+
+    # (c2)
+    Lf, n = mcfg.n_layers, st["steps"]
+    want_c2 = {"launches": 2 * Lf * n, "launches_dkv": Lf * n,
+               "launches_dq": Lf * n}
+    for r, res in enumerate((r0, r1)):
+        losses = np.array(res["c2_losses"])
+        mine, whole = res["c2_expert_bytes"]
+        s2, ts, g = res["c2_stats"], res["c2_timed"], res["c2_gather"]
+
+        def per_step(kind=None):
+            """(calls, MB) a plain step, the closing gather taken out."""
+            a = s2 if kind is None else s2["by_kind"][kind]
+            b = g if kind is None else g["by_kind"][kind]
+            return ((a["calls"] - b["calls"]) / n,
+                    (a["bytes"] - b["bytes"]) / n / 1e6)
+
+        def timed_ms(kind=None):
+            a = ts if kind is None else ts["by_kind"][kind]
+            b = g if kind is None else g["by_kind"][kind]
+            return (a["seconds"] - b["seconds"]) * 1e3
+
+        step_ms = res["c2_timed_ms"] - g["seconds"] * 1e3
+        one = s2["one_rank"]
+        kinds = "; ".join(
+            f"{k} {per_step(k)[0]:g} calls, {per_step(k)[1]:.1f} MB, "
+            f"{timed_ms(k):.1f} ms ({timed_ms(k) / step_ms:.1%})"
+            for k in ("all_to_all", "all_reduce", "all_gather"))
+        say(f"(c2) rank {r}: the MoE LM at GPT-2 small's widths and depth "
+            f"({Lf} layers, {mcfg.n_experts} experts of {mcfg.d_ff}), bf16 "
+            f"mixed precision, capacity {mcfg.capacity_factor:g}, CausalLM "
+            f"on data=1 x expert=2, one batch B={st['B']} T={st['T']} x "
+            f"{n}: losses {losses.tolist()}; step {res['c2_step_ms']:.1f} "
+            f"ms a rank (host clock after synchronize, eager over gloo; "
+            f"the fit's closing gather, {res['c2_gather_ms']:.1f} ms, "
+            f"taken out); "
+            f"one more step under collectives.timed() {step_ms:.1f} ms "
+            f"(the device synchronized around each collective; the fit's "
+            f"closing gather of the expert tables, {g['calls']} calls, "
+            f"{g['bytes'] / 1e6:.1f} MB, {g['seconds'] * 1e3:.1f} ms, taken "
+            f"out), of which gloo {timed_ms():.1f} ms "
+            f"({timed_ms() / step_ms:.1%}): {per_step()[0]:g} collectives, "
+            f"{per_step()[1]:.1f} MB sent a step a rank; by kind: {kinds}; "
+            f"on a group of one rank (the data axis of data=1: the "
+            f"gradients' sum) {one['calls'] / n:g} calls, "
+            f"{one['bytes'] / n / 1e6:.1f} MB a step, "
+            f"{ts['one_rank']['seconds'] * 1e3:.1f} ms of the timed step; "
+            f"expert tables {mine:,} of {whole:,} bytes "
+            f"({mine / whole:.3f}); local wi {res['c2_local_wi']}; peak "
+            f"memory {res['c2_peak_gb']:.2f} GB; guard skips "
+            f"{res['c2_skips']}; launches {res['c2_launches']} (expected "
+            f"{want_c2})")
+        check(np.isfinite(losses).all(), f"(c2) rank {r}: non-finite loss")
+        check(losses[-1] < losses[0], f"(c2) rank {r}: the loss did not "
+                                      f"fall: {losses}")
+        check(res["c2_launches"] == want_c2,
+              f"(c2) rank {r}: launches {res['c2_launches']} != {want_c2}")
+        check(EA_EXPERT_SHARE[0] <= mine / whole <= EA_EXPERT_SHARE[1],
+              f"(c2) rank {r} holds {mine / whole} of the expert tables")
+    check(r0["c2_losses"] == r1["c2_losses"],
+          "(c2) the ranks' losses differ")
+
+    # (c3)
+    want_c3 = {"launches": 2 * Lf, "launches_dkv": Lf, "launches_dq": Lf}
+    for r, res in enumerate((r0, r1)):
+        dsplit, drepl = res["c3_delta_rel"]
+        say(f"(c3) rank {r}: (c2) at capacity 8 (no token dropped on "
+            f"either layout), one step: loss {res['c3_losses']} (mesh=None "
+            f"{ref['c3_losses']}); the gathered params' change against "
+            f"mesh=None's, relative L2 over the expert-split leaves "
+            f"({res['c3_split_share']:.3f} of the params) {dsplit:.3e}, "
+            f"over the replicated ones {drepl:.3e} (each <= "
+            f"{MA_DELTA_TOL:g}); controls: the expert tables left at init "
+            f"{res['c3_ctrl_frozen']:.3e}, their change halved "
+            f"{res['c3_ctrl_half']:.3e} (each > {MA_DELTA_TOL:g}); guard "
+            f"skips {res['c3_skips']} (mesh=None {ref['c3_skips']}); "
+            f"launches {res['c3_launches']} (expected {want_c3})")
+        check(dsplit <= MA_DELTA_TOL and drepl <= MA_DELTA_TOL,
+              f"(c3) rank {r}: the change differs from mesh=None's by "
+              f"{dsplit} / {drepl}")
+        for name in ("frozen", "half"):
+            check(res[f"c3_ctrl_{name}"] > MA_DELTA_TOL,
+                  f"(c3) rank {r}: the {name} control reads "
+                  f"{res[f'c3_ctrl_{name}']}, inside the limit")
+        check(res["c3_skips"] == ref["c3_skips"],
+              f"(c3) rank {r}: guard skips {res['c3_skips']} != mesh=None's "
+              f"{ref['c3_skips']}")
+        check(res["c3_launches"] == want_c3,
+              f"(c3) rank {r}: launches {res['c3_launches']} != {want_c3}")
+
+    # (d)
+    want_d = {"launches": 2 * L * st["small_steps"],
+              "launches_dkv": L * st["small_steps"],
+              "launches_dq": L * st["small_steps"]}
+    for r, res in enumerate((r0, r1)):
+        say(f"(d) rank {r}: the MoE CausalLM at depth {L}, fp32, capacity "
+            f"1.25 on data=1 x model=2 (local wi {res['d_local']['wi']}, "
+            f"wq {res['d_local']['wq']}), {st['small_steps']} batches: the "
+            f"params against mesh=None's, relative L2 {res['d_rel']:.3e} "
+            f"(<= {EA_PARAMS_TOL:g}); launches {res['d_launches']}")
+        check(res["d_rel"] <= EA_PARAMS_TOL,
+              f"(d) rank {r}: params differ by {res['d_rel']}")
+        check(res["d_launches"] == want_d,
+              f"(d) rank {r}: launches {res['d_launches']} != {want_d}")
+
+    launches = {k: r0["launches"][k] + r1["launches"][k]
+                for k in r0["launches"]}
+    names = ("replicated and mesh=None references", "two ranks (a)-(d)")
+    parts = r0["marks"]
+    say("phase 20 wall: " + ", ".join(
+        f"{n_} {b - a:.1f} s" for n_, a, b in zip(names, t, t[1:]))
+        + " (rank 0: " + ", ".join(
+            f"{n_} {b - a:.1f} s" for (_, a), (n_, b) in zip(parts,
+                                                            parts[1:]))
+        + f"); launches on the ranks' main paths {launches}")
+    return launches
+
+
+class PhaseClock:
+    """Each phase's header when it starts and, when the next one starts
+    (or :meth:`stop`), a line naming the phase with its seconds; the
+    summary lists them all with the whole script's."""
+
+    def __init__(self):
+        self.t_start = time.perf_counter()
+        self.name = None
+        self.t0 = 0.0
+        self.rows = []
+
+    def start(self, name: str, title: str) -> None:
+        self.stop()
+        print(f"phase {name}: {title}")
+        self.name, self.t0 = name, time.perf_counter()
+
+    def stop(self) -> None:
+        if self.name is not None:
+            secs = time.perf_counter() - self.t0
+            self.rows.append((self.name, secs))
+            print(f"phase {self.name}: {secs:.1f} s")
+            self.name = None
+
+    def summary(self) -> None:
+        self.stop()
+        print("phase seconds: " + ", ".join(
+            f"{n} {s:.1f}" for n, s in self.rows)
+            + f"; script {time.perf_counter() - self.t_start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -7829,7 +8574,8 @@ def main() -> int:
     from deeplearning4j_tpu_torch.runtime import autotune
     os.environ[autotune.AUTOTUNE_CACHE_ENV] = "off"
 
-    print("phase 1: environment")
+    clock = PhaseClock()
+    clock.start("1", "environment")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -7839,7 +8585,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}, device "
           f"{torch.cuda.get_device_name(0)}")
 
-    print("phase 2: build")
+    clock.start("2", "build")
     t0 = time.perf_counter()
     seconds = cuda_build.build()
     print(f"  built {sorted(seconds)} in {time.perf_counter() - t0:.1f} s")
@@ -7857,7 +8603,7 @@ def main() -> int:
         print(f"  wgmma B2/B3 at D={D}: {dkv} / {dq} bytes of dynamic "
               f"shared memory a CTA")
 
-    print("phase 3: kernels against their plain twins")
+    clock.start("3", "kernels against their plain twins")
     worst = kernel_phase(torch, fa)
     time_flash(torch, F, fa, B=1, T=128)      # serving's smallest bucket
     time_flash(torch, F, fa, B=32, T=128)
@@ -7869,8 +8615,8 @@ def main() -> int:
     time_flash_bwd(torch, F, fa, B=8, T=512)
     time_flash_bwd(torch, F, fa, B=8, T=1024, causal=True)
 
-    print("phase 3c: B4 (word2vec chunk) and B5 (GloVe chunk) against their "
-          "plain twins")
+    clock.start("3c", "B4 (word2vec chunk) and B5 (GloVe chunk) against "
+                "their plain twins")
     from deeplearning4j_tpu_torch.nlp.glove import count_cooccurrences
     from deeplearning4j_tpu_torch.nlp.text import DefaultTokenizerFactory
     from deeplearning4j_tpu_torch.nlp.vocab import build_huffman, build_vocab
@@ -7903,20 +8649,20 @@ def main() -> int:
 
     # each main path runs with the counts set to 0 just before it and
     # read just after; the line below sums them
-    print("phase 4: BERT-base fill-mask serving")
+    clock.start("4", "BERT-base fill-mask serving")
     launches = {"launches": serving_phase(torch, fa), "launches_dkv": 0,
                 "launches_dq": 0}
-    print("phase 5: BERT-base MLM training")
+    clock.start("5", "BERT-base MLM training")
     for name, n in bert_train_phase(torch, fa).items():
         launches[name] += n
-    print("phase 6: GPT-2 small causal-LM training")
+    clock.start("6", "GPT-2 small causal-LM training")
     for name, n in gpt_train_phase(torch, fa).items():
         launches[name] += n
-    print("phase 7: word2vec and ParagraphVectors training")
+    clock.start("7", "word2vec and ParagraphVectors training")
     launches_w2v = word2vec_phase(torch, fw, t8, zipf_sents)
-    print("phase 8: GloVe training")
+    clock.start("8", "GloVe training")
     launches_glove = glove_phase(torch, fg, t8, zipf_sents)
-    print("phase 9: LeNet-MNIST training, evaluation and serving")
+    clock.start("9", "LeNet-MNIST training, evaluation and serving")
     from deeplearning4j_tpu_torch.models import lenet as ln
 
     for mod in (fa, fw, fg):
@@ -7927,16 +8673,16 @@ def main() -> int:
           f"lies on LeNet's path)")
     check(not any(hand.values()), f"a hand kernel ran on LeNet's path: "
                                   f"{hand}")
-    print("phase 10: GPT-2 small generation serving")
+    clock.start("10", "GPT-2 small generation serving")
     launches["launches"] += generation_phase(torch, fa, card)
-    print("phase 11: the compile engine's CUDA graphs against the raw "
-          "functions")
+    clock.start("11", "the compile engine's CUDA graphs against the raw "
+                "functions")
     graph_phase(torch, ln, t8, card)
-    print("phase 12: self-healing training, checkpoints and run telemetry")
+    clock.start("12", "self-healing training, checkpoints and run telemetry")
     for name, n in resilience_phase(torch, fa, ln, card).items():
         launches[name] += n
-    print("phase 13: fit, the solvers, greedy pretraining, Hessian-free and "
-          "the CLI")
+    clock.start("13", "fit, the solvers, greedy pretraining, Hessian-free and "
+                "the CLI")
     for mod in (fa, fw, fg):
         mod.reset_launches()
     fit_phase(torch, ln, card)
@@ -7945,35 +8691,46 @@ def main() -> int:
           f"lies on fit's path)")
     check(not any(hand.values()), f"a hand kernel ran during phase 13: "
                                   f"{hand}")
-    print("phase 14: GPT-2 small serving at scale: paged KV, the prefix "
-          "store, speculative decoding, rebind, the router, cli generate")
+    clock.start("14", "GPT-2 small serving at scale: paged KV, the prefix "
+                "store, speculative decoding, rebind, the router, cli "
+                "generate")
     for name, n in serving_scale_phase(torch, fa, fw, fg, card).items():
         launches[name] += n
-    print("phase 15: the GPT-2 small serving fleet: autoscaling, the hot "
-          "weight swap, the chaos drill, the brownout ladder, close")
+    clock.start("15", "the GPT-2 small serving fleet: autoscaling, the hot "
+                "weight swap, the chaos drill, the brownout ladder, close")
     fleet_phase(torch, fa, fw, fg, card)
-    print("phase 16: ResNet-50 training and serving; the MoE LM at GPT-2 "
-          "small's widths")
+    clock.start("16", "ResNet-50 training and serving; the MoE LM at GPT-2 "
+                "small's widths")
     for name, n in resnet_moe_phase(torch, fa, fw, fg, card).items():
         launches[name] += n
-    print("phase 17: the sharded-fit spine: CausalLM, bf16 with the loss "
-          "scale, accumulation, a data mesh of one, the MoE LM, the "
-          "MultiLayerNetwork bundle, ResilientFit")
+    clock.start("17", "the sharded-fit spine: CausalLM, bf16 with the loss "
+                "scale, accumulation, a data mesh of one, the MoE LM, the "
+                "MultiLayerNetwork bundle, ResilientFit")
     for name, n in spine_phase(torch, fa, card).items():
         launches[name] += n
-    print("phase 18: the rest of the MultiLayerNetwork surface: the char-LSTM "
-          "through LSTMSequenceClassifier, LFW through the native JPEG "
-          "path, the recursive autoencoder, GraphBuilder, the attention "
-          "autotuner")
+    clock.start("18", "the rest of the MultiLayerNetwork surface: the "
+                "char-LSTM through LSTMSequenceClassifier, LFW through the "
+                "native JPEG path, the recursive autoencoder, GraphBuilder, "
+                "the attention autotuner")
     slice_phase(torch, fa, fw, fg, card)
-    print("phase 19: the model axis: tensor-parallel GPT-2 small training "
-          "through CausalLM, the head-sharded DecodeEngine and BERT-base's "
-          "make_train_step on two gloo ranks sharing the card")
+    clock.start("19", "the model axis: tensor-parallel GPT-2 small "
+                "training through CausalLM, the head-sharded DecodeEngine "
+                "and BERT-base's make_train_step on two gloo ranks sharing "
+                "the card")
     counts, worst_19, worst_bwd_19 = model_axis_phase(torch, fa, card)
     for name, n in counts.items():
         launches[name] += n
     worst = max(worst, worst_19)
     worst_bwd = {k: max(v, worst_bwd_19[k]) for k, v in worst_bwd.items()}
+    clock.start("20", "the model axis for a serving fleet and the expert "
+                "axis: GPT-2 small served over a model group through "
+                "Router.replicate and with int8 weights, int8 KV and a "
+                "draft; the MoE LM expert-parallel through "
+                "moe.make_train_step and CausalLM, and on a model axis; two "
+                "gloo ranks sharing the card")
+    for name, n in expert_axis_phase(torch, fa, card).items():
+        launches[name] += n
+    clock.stop()
 
     kernels = [{
         "name": "flash_attention_fwd",
@@ -8036,6 +8793,7 @@ def main() -> int:
         })
     check(launches_w2v > 0 and launches_glove > 0,
           "B4 or B5 never launched on the main paths")
+    clock.summary()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -191,12 +191,15 @@ class QKVCache(NamedTuple):
     v_scale: Tensor
 
 
-def _kv_quant(x: Tensor) -> Tuple[Tensor, Tensor]:
+def _kv_quant(x: Tensor, tp=None) -> Tuple[Tensor, Tensor]:
     """Fresh K/V rows ``[..., NH, D]`` -> (int8 rows, fp32 scales
     ``[...]``), one symmetric scale a row on the weight quantizer's grid
-    (``runtime/quantize.QMAX``, ``SCALE_EPS``) (:186)."""
+    (``runtime/quantize.QMAX``, ``SCALE_EPS``) (:186).  ``tp``: the
+    model group of a rank holding a head shard; the row's amax is taken
+    over every head of the group (one all-reduce), so the scale is the
+    replicated engine's."""
     x = x.float()
-    amax = x.abs().amax(dim=(-2, -1))
+    amax = tpar.max_over_model(x.abs().amax(dim=(-2, -1)), tp)
     scale = torch.clamp(amax, min=qz.SCALE_EPS) / qz.QMAX
     q = torch.clamp(torch.round(x / scale[..., None, None]),
                     -qz.QMAX, qz.QMAX).to(torch.int8)
@@ -248,11 +251,13 @@ def _store(buf: Tensor, index, val: Tensor,
 
 
 def _store_kv(cache, layer: int, index, k1: Tensor, v1: Tensor,
-              cdt: torch.dtype, drop: Optional[Tensor] = None) -> None:
+              cdt: torch.dtype, drop: Optional[Tensor] = None,
+              tp=None) -> None:
     """Store a layer's fresh fp32 K/V rows at ``index`` of the layer's
     rows (quantized with their scales for an int8 cache, else cast to
     ``cdt``); ``cache`` is any tuple with ``k``/``v`` (and
-    ``k_scale``/``v_scale``) fields: slots, a dense cache, a page pool."""
+    ``k_scale``/``v_scale``) fields: slots, a dense cache, a page pool.
+    ``tp``: the model group whose heads share an int8 row's scale."""
     k_scale = getattr(cache, "k_scale", None)
     if k_scale is None:
         _store(cache.k[layer], index, k1.to(cdt), drop)
@@ -260,7 +265,7 @@ def _store_kv(cache, layer: int, index, k1: Tensor, v1: Tensor,
         return
     for buf, sbuf, x in ((cache.k, k_scale, k1),
                          (cache.v, cache.v_scale, v1)):
-        q, s = _kv_quant(x)
+        q, s = _kv_quant(x, tp)
         _store(buf[layer], index, q, drop)
         _store(sbuf[layer], index, s, drop)
 
@@ -280,12 +285,13 @@ def _read_kv(cache, layer: int, cdt: torch.dtype, rows=None
 
 def _write_kv(cache, layer: int, index, k1: Tensor, v1: Tensor,
               cdt: torch.dtype, drop: Optional[Tensor] = None,
-              select: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+              select: Optional[Tensor] = None,
+              tp=None) -> Tuple[Tensor, Tensor]:
     """Store a layer's fresh fp32 K/V rows at ``index`` of its ``[B,
     T_max]`` rows (quantized for an int8 cache, else cast to ``cdt``)
     and return the layer's K/V in ``cdt`` for attention: every row, or
     the leading rows ``select`` (an index tensor)."""
-    _store_kv(cache, layer, index, k1, v1, cdt, drop)
+    _store_kv(cache, layer, index, k1, v1, cdt, drop, tp)
     return _read_kv(cache, layer, cdt, None if select is None
                     else (lambda t: t.index_select(0, select)))
 
@@ -644,7 +650,7 @@ def slot_prefill(cfg: TransformerConfig, params: Params,
     masked = torch.arange(T_max, device=dev)[None, :] > rows[:, None]
     index = (sel[:, None], rows[None, :])
     x = _cached_stack(cfg, params, x, lambda layer, k1, v1: _write_kv(
-        slots, layer, index, k1, v1, cdt, select=sel), masked, tp)
+        slots, layer, index, k1, v1, cdt, select=sel, tp=tp), masked, tp)
     logits = lm_logits(cfg, params, x, tp)[0]
     end = start + n_valid
     last = logits.index_select(0, (n_valid - 1).reshape(1))[0]
@@ -676,7 +682,7 @@ def slot_decode(cfg: TransformerConfig, params: Params,
     out, logits = _decode_rows(
         cfg, params, slots.tokens, slots.pos,
         lambda layer, k1, v1: _write_kv(slots, layer, index, k1[:, 0],
-                                        v1[:, 0], cdt, drop),
+                                        v1[:, 0], cdt, drop, tp=tp),
         T_max, active, temperature, seeds, tp)
     return (slots, out, logits) if return_logits else (slots, out)
 
@@ -799,7 +805,7 @@ def _paged_view(pool: PagedKV, ptab: Tensor, layer: int, cdt: torch.dtype
 
 
 def _paged_write(pool: PagedKV, ptab: Tensor, posw: Tensor, ok: Tensor,
-                 cdt: torch.dtype) -> Callable:
+                 cdt: torch.dtype, tp=None) -> Callable:
     """The ``write`` callback of :func:`_cached_stack` over a pool
     (:772, ``_pool_write_back``): slot s's fresh row w goes to page
     ``ptab[s, posw[s, w] // C]`` at offset ``posw % C``, or to the trash
@@ -815,7 +821,7 @@ def _paged_write(pool: PagedKV, ptab: Tensor, posw: Tensor, ok: Tensor,
     index = (pids, pw % C)
 
     def write(layer, k1, v1):
-        _store_kv(pool, layer, index, k1, v1, cdt)
+        _store_kv(pool, layer, index, k1, v1, cdt, tp=tp)
         return _paged_view(pool, ptab, layer, cdt)
 
     return write
@@ -852,7 +858,7 @@ def paged_prefill(cfg: TransformerConfig, params: Params, pool: PagedKV,
         > rows[:, None]
     write = _paged_write(pool, ptab, rows[None, :],
                          torch.ones((1, C), dtype=torch.bool, device=dev),
-                         cdt)
+                         cdt, tp)
     x = _cached_stack(cfg, params, x, write, masked, tp)
     logits = lm_logits(cfg, params, x, tp)[0]
     last = logits.index_select(0, (n_valid - 1).reshape(1))[0]
@@ -895,7 +901,7 @@ def paged_decode(cfg: TransformerConfig, params: Params, pool: PagedKV,
     tokens [S])`` (and the ``[S, vocab]`` logits)."""
     cdt = tfm.compute_dtype(cfg)
     write = _paged_write(pool, ptab, pos.long()[:, None], active[:, None],
-                         cdt)
+                         cdt, tp)
     out, logits = _decode_rows(cfg, params, tokens, pos, write,
                                ptab.shape[1] * pool.k.shape[2], active,
                                temperature, seeds, tp)
@@ -928,7 +934,8 @@ def paged_write_pages(pool: PagedKV, pids: Tensor, k: Tensor, v: Tensor,
 
 def _verify_rows(cfg: TransformerConfig, params: Params, tokens: Tensor,
                  pos: Tensor, drafts: Tensor, write: Callable, t_view: int,
-                 active: Tensor, temperature: Tensor, seeds: Tensor):
+                 active: Tensor, temperature: Tensor, seeds: Tensor,
+                 tp=None):
     """The body of :func:`slot_verify` and :func:`paged_verify`.
     Returns ``(t [S, W], n_commit [S], logits [S, W, vocab])`` and
     advances ``tokens``/``pos`` in place."""
@@ -937,11 +944,11 @@ def _verify_rows(cfg: TransformerConfig, params: Params, tokens: Tensor,
     W = k + 1
     posw = pos.long()[:, None] + torch.arange(W, device=dev)
     toks_w = torch.cat([tokens[:, None], drafts.to(tokens.dtype)], dim=1)
-    x = _row_inputs(cfg, params, toks_w, posw)
+    x = _row_inputs(cfg, params, toks_w, posw, tp)
     masked = (torch.arange(t_view, device=dev)[None, None, :]
               > posw[:, :, None])[:, None]
-    x = _cached_stack(cfg, params, x, write, masked)
-    logits = lm_logits(cfg, params, x)                    # [S, W, V]
+    x = _cached_stack(cfg, params, x, write, masked, tp)
+    logits = lm_logits(cfg, params, x, tp)                # [S, W, V]
     keys = _slot_key(seeds.long()[:, None], posw)
     t = sample_token(logits, keys, temperature[:, None].expand(S, W))
     matches = (t[:, :k] == drafts.to(t.dtype)).long()
@@ -955,7 +962,7 @@ def _verify_rows(cfg: TransformerConfig, params: Params, tokens: Tensor,
 
 def slot_verify(cfg: TransformerConfig, params: Params, slots: DecodeSlots,
                 active: Tensor, temperature: Tensor, seeds: Tensor,
-                drafts: Tensor, return_logits: bool = False):
+                drafts: Tensor, return_logits: bool = False, tp=None):
     """Target-model verify (:883): every slot's current token plus its
     k draft proposals ``drafts`` ``[S, k]``, W = k + 1 rows a slot, in
     one pass.  Row w consumes the token at ``pos + w`` and draws the
@@ -966,9 +973,10 @@ def slot_verify(cfg: TransformerConfig, params: Params, slots: DecodeSlots,
     + 1``, 0 for inactive slots).  Rows past the accepted ones hold
     rejected tokens' K/V, rewritten before they are attended.  Writes
     past ``T_max`` drop: the rows are stored one w at a time, so a
-    dropped row never races a real one at the clamped index.  Returns
-    ``(slots, t [S, W], n_commit [S])`` (and the ``[S, W, vocab]``
-    logits); the slots are updated in place."""
+    dropped row never races a real one at the clamped index.  ``tp``:
+    the model group of a head-sharded engine.  Returns ``(slots, t [S,
+    W], n_commit [S])`` (and the ``[S, W, vocab]`` logits); the slots
+    are updated in place."""
     cdt = tfm.compute_dtype(cfg)
     S = slots.tokens.shape[0]
     T_max = slots.k.shape[2]
@@ -981,19 +989,20 @@ def slot_verify(cfg: TransformerConfig, params: Params, slots: DecodeSlots,
         for w in range(W):
             p = posw[:, w]
             _store_kv(slots, layer, (rows, torch.clamp(p, max=T_max - 1)),
-                      k1[:, w], v1[:, w], cdt, p >= T_max)
+                      k1[:, w], v1[:, w], cdt, p >= T_max, tp)
         return _read_kv(slots, layer, cdt)
 
     t, n_commit, logits = _verify_rows(cfg, params, slots.tokens, slots.pos,
                                        drafts, write, T_max, active,
-                                       temperature, seeds)
+                                       temperature, seeds, tp)
     return ((slots, t, n_commit, logits) if return_logits
             else (slots, t, n_commit))
 
 
 def paged_verify(cfg: TransformerConfig, params: Params, pool: PagedKV,
                  ptab: Tensor, tokens: Tensor, pos: Tensor, active: Tensor,
-                 temperature: Tensor, seeds: Tensor, drafts: Tensor):
+                 temperature: Tensor, seeds: Tensor, drafts: Tensor,
+                 tp=None):
     """:func:`slot_verify` over a pool (:971): the W rows of each active
     slot go to its pages (the engine allocates them through ``pos + k``
     first, so rejected rows stay in the slot's own pages).
@@ -1003,10 +1012,10 @@ def paged_verify(cfg: TransformerConfig, params: Params, pool: PagedKV,
     W = drafts.shape[1] + 1
     posw = pos.long()[:, None] + torch.arange(W, device=pos.device)
     write = _paged_write(pool, ptab, posw, active[:, None].expand(-1, W),
-                         cdt)
+                         cdt, tp)
     t, n_commit, _ = _verify_rows(cfg, params, tokens, pos, drafts, write,
                                   ptab.shape[1] * pool.k.shape[2], active,
-                                  temperature, seeds)
+                                  temperature, seeds, tp)
     return pool, t, n_commit
 
 
@@ -1017,26 +1026,29 @@ def _greedy_args(tokens: Tensor):
 
 
 def draft_propose(cfg_d: TransformerConfig, params_d: Params,
-                  dslots: DecodeSlots, active: Tensor, n_steps: int):
+                  dslots: DecodeSlots, active: Tensor, n_steps: int,
+                  tp=None):
     """The draft's proposals (:1004): ``n_steps`` greedy
     :func:`slot_decode` steps from the draft's mirror of the committed
     stream, a Python loop over a static count (the reference scans).
     Its rows at accepted positions consumed exactly the committed
     tokens, so once ``tokens``/``pos`` are reset to the commit frontier
-    every row below it is right.  Returns ``(dslots, proposals [S,
-    n_steps])``; the proposals stay on the device."""
+    every row below it is right.  ``tp``: the model group of a
+    head-sharded draft.  Returns ``(dslots, proposals [S, n_steps])``;
+    the proposals stay on the device."""
     temps, seeds = _greedy_args(dslots.tokens)
     props = []
     for _ in range(n_steps):
         dslots, t = slot_decode(cfg_d, params_d, dslots, active, temps,
-                                seeds)
+                                seeds, tp=tp)
         props.append(t)
     return dslots, torch.stack(props, dim=1)
 
 
 def paged_draft_propose(cfg_d: TransformerConfig, params_d: Params,
                         dpool: PagedKV, ptab: Tensor, tokens: Tensor,
-                        pos: Tensor, active: Tensor, n_steps: int):
+                        pos: Tensor, active: Tensor, n_steps: int,
+                        tp=None):
     """:func:`draft_propose` over the draft's pool, which shares the
     target's page tables (:1029): same positions, same page ids, one
     allocator for both.  ``tokens``/``pos`` are the draft's working
@@ -1046,6 +1058,6 @@ def paged_draft_propose(cfg_d: TransformerConfig, params_d: Params,
     props = []
     for _ in range(n_steps):
         dpool, t = paged_decode(cfg_d, params_d, dpool, ptab, tokens, pos,
-                                active, temps, seeds)
+                                active, temps, seeds, tp=tp)
         props.append(t)
     return dpool, torch.stack(props, dim=1)

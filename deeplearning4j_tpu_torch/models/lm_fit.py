@@ -53,11 +53,22 @@ the global tree on every rank: a fit lays it out (``shard_tree``) and
 gathers the result back (``gather_tree``), so ``params_flat`` and the
 checkpoints are the ``mesh=None`` ones.
 
+**The MoE family on a mesh** (the reference's :183-212): the params
+are laid out by ``moe.shard_specs`` and every MoE layer dispatches
+through ``parallel/expert.make_gspmd_moe_ffn``.  On a ``model`` axis
+the expert tables split over ``model``: each rank runs its ``E / m``
+experts on the replicated tokens and the combine's sum over experts is
+one all-reduce over ``model``.  On a ``data x expert`` mesh the rows of
+a data index are replicated over its expert group; each MoE layer
+routes the rank's block of their tokens, moves them to their experts
+by all-to-all and gathers the outputs back, so every other leaf's
+gradient is the same on the group's ranks, and all gradients sum over
+``data`` only (the expert tables' already hold every shard's
+contribution).  Capacity is the block's own, as in the reference.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``pipe_microbatches > 1`` (the pipeline, A7.1b), the MoE family
-on a model axis (its expert tables shard over ``model``, the expert
-machinery of A7.1b), and meshes with pipe, seq or expert axes above 1
-(A7.1b, A7.5).
+item): ``pipe_microbatches > 1`` (the pipeline, A7.1b) and meshes with
+pipe or seq axes above 1 (A7.1b, A7.5).
 """
 
 from __future__ import annotations
@@ -78,6 +89,7 @@ from deeplearning4j_tpu_torch.parallel import (collectives, sharded_fit,
                                                tensor_parallel as tpar)
 from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
                                                     check_mesh_axes,
+                                                    expert_degree,
                                                     mesh_signature,
                                                     model_degree, pad_rows,
                                                     shard_rows)
@@ -199,11 +211,6 @@ class CausalLM:
         momentum (``train_step.param_specs`` / ``.ustate_specs``, the
         layout ``shard_state`` / ``gather_state`` apply)."""
         check_mesh_axes(mesh)
-        if self._is_moe and model_degree(mesh) > 1:
-            raise NotImplementedError(
-                "the MoE family on a model axis (its expert tables shard "
-                "over `model`, moe.shard_specs) is not ported to the "
-                "PyTorch package yet (ROADMAP A7.1b)")
         accum = max(self.conf.grad_accum, 1)
         memo_key = (mesh_signature(mesh), accum)
         if memo_key not in self._bp_cache:
@@ -225,7 +232,11 @@ class CausalLM:
         attn_fn = make_attn_fn("auto", mesh=mesh)
         moe_ffn_fn = make_gspmd_moe_ffn(mesh, cfg.moe) if is_moe else None
         tp = tpar.model_group(mesh)
-        specs = gpt.shard_specs(cfg, model_degree(mesh)) if tp else None
+        if is_moe and (tp is not None or expert_degree(mesh) > 1):
+            specs = moe_lm.shard_specs(cfg, model_degree(mesh),
+                                       expert_degree=expert_degree(mesh))
+        else:
+            specs = gpt.shard_specs(cfg, model_degree(mesh)) if tp else None
         agree = sharded_fit.agree_over_mesh(mesh)
 
         def loss_sum(params, ids, rmask, gen):
@@ -235,7 +246,7 @@ class CausalLM:
                 params = sharded_fit.mp_cast(params)
             if is_moe:
                 hidden, aux = moe_lm.encode(cfg, params, ids, attn_fn,
-                                            moe_ffn_fn)
+                                            moe_ffn_fn, tp)
             else:
                 hidden = tfm.encode(cfg, params, ids, None, None, gen,
                                     attn_fn=attn_fn, tp=tp)

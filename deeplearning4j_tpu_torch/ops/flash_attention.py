@@ -588,12 +588,13 @@ def make_attn_fn(kernel: str = "auto", mesh=None, *, autotune: bool = False):
     the :class:`AttnDecision` without running anything.
 
     ``mesh=`` (the reference's ``shard_map`` placement, :470-623): on a
-    ``data x model`` mesh every rank calls the function on its own rows
-    and its own heads, so the dispatch is this same per-call one on the
-    rank's local shapes, the decision and the autotune lookup keyed on
-    local rows (batch x local heads).  A ``seq`` axis above 1 (ring
-    attention) raises naming ROADMAP A7.5, a ``pipe`` or ``expert`` axis
-    naming A7.1b.
+    ``data x model`` (or ``data x expert``) mesh every rank calls the
+    function on its own rows and its own heads, so the dispatch is this
+    same per-call one on the rank's local shapes, the decision and the
+    autotune lookup keyed on local rows (batch x local heads); attention
+    stays local to a rank's tokens.  A ``seq`` axis above 1 (ring
+    attention) raises naming ROADMAP A7.5, a ``pipe`` axis naming
+    A7.1b.
     """
     if mesh is not None:
         from deeplearning4j_tpu_torch.parallel.mesh import check_mesh_axes

@@ -6,13 +6,15 @@ ambient axis, so ``axis`` is one of
 
 - a :class:`~deeplearning4j_tpu_torch.parallel.mesh.Mesh`: its data
   axis's process group;
-- ``(mesh, name)``: the group of the named axis, ``"data"`` or
-  ``"model"``, or of the whole mesh for ``("data", "model")``;
+- ``(mesh, name)``: the group of the named axis, ``"data"``,
+  ``"model"`` or ``"expert"``, or of a tuple of them: the token group
+  for ``("data", "expert")`` (the axes an expert-parallel batch and its
+  routing statistics span), the whole mesh for every axis above 1;
 - the string ``"data"``: the default group.
 
-A ``pipe``, ``seq`` or ``expert`` axis raises naming its ROADMAP item
-(A7.1b, A7.5).  An axis of size 1 (the model axis of a data-only mesh)
-is this rank alone: its collectives return a copy of their input.
+A ``pipe`` or ``seq`` axis raises naming its ROADMAP item (A7.1b,
+A7.5).  An axis of size 1 (the model axis of a data-only mesh) is this
+rank alone: its collectives return a copy of their input.
 
 Every function runs its collective whatever the group's size: a group
 of one rank still calls NCCL (or gloo), so one card exercises the same
@@ -25,21 +27,37 @@ tensors.  A tensor that requires grad goes through an autograd function
 whose backward sums the cotangent over the axis too, as the transpose of
 JAX's ``psum``: batch norm's global moments (``nn/layers/extras.
 bn_collective``) are differentiated through it.  :func:`all_gather`,
-:func:`reduce_scatter`, :func:`ring_permute` and :func:`all_to_all`
-compute the reference's tiled results from an all-gather or an
-all-reduce, which every backend has; nothing on the training path calls
-them.
+:func:`reduce_scatter` and :func:`ring_permute` compute the reference's
+tiled results from an all-gather or an all-reduce, which every backend
+has.  :func:`all_to_all` is the expert axis's dispatch: one
+``all_to_all_single`` over contiguous blocks, each block moved once,
+inside an autograd function whose backward is the inverse exchange.
+
+Every collective this module runs on a group of more than one rank is
+booked in one place (:func:`_booked`): :data:`stats` counts its calls
+and bytes, in all and by kind (:data:`KINDS`), and, under :func:`timed`,
+its host seconds after a device synchronize; :func:`issued` counts the
+collectives this process started on a group (a model group's ranks are
+in step when they started as many).  :func:`claim` gives one thread a
+group: another thread's collective on it raises instead of interleaving
+with the owner's (a batcher's worker over a model-sharded engine claims
+the engine's model group).
 """
 
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+import threading
+import time
+from typing import Any, Dict
 
 import torch
 import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.ops.updaters import tree_map
-from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                    EXPERT_AXIS, MODEL_AXIS,
+                                                    TOKEN_AXES,
                                                     check_mesh_axes)
 
 PyTree = Any
@@ -61,15 +79,28 @@ def _group(axis):
     if isinstance(axis, tuple):
         mesh, name = axis
         check_mesh_axes(mesh)
-        if name == (DATA_AXIS, MODEL_AXIS):
-            return mesh.world
-        if name not in (DATA_AXIS, MODEL_AXIS):
-            raise NotImplementedError(
-                f"collectives over the {name!r} axis are not ported to the "
-                f"PyTorch package yet (ROADMAP A7.1b)")
-        if mesh.shape[name] == 1:
+        names = name if isinstance(name, tuple) else (name,)
+        for a in names:
+            if a not in (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS):
+                raise NotImplementedError(
+                    f"collectives over the {a!r} axis are not ported to "
+                    f"the PyTorch package yet (ROADMAP A7.1b)")
+        # the axes the group really spans: those above 1
+        live = tuple(a for a in (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
+                     if a in names and mesh.shape.get(a, 1) > 1)
+        every = tuple(a for a in (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
+                      if mesh.shape.get(a, 1) > 1)
+        if not live:
             return SELF
-        return mesh.groups[name]
+        if live == every and len(live) > 1:
+            return mesh.world
+        if len(live) == 1:
+            return mesh.groups[live[0]]
+        if live == TOKEN_AXES:
+            return mesh.groups[TOKEN_AXES]
+        raise NotImplementedError(
+            f"collectives over the axes {live} of a mesh with axes {every} "
+            f"are not ported to the PyTorch package")
     check_mesh_axes(axis)
     return axis.group
 
@@ -91,6 +122,122 @@ def axis_index(axis) -> int:
     return _rank(_group(axis))
 
 
+# ---------------------------------------------------------------------------
+# accounting
+# ---------------------------------------------------------------------------
+
+#: the kinds of collective :data:`stats` keeps apart
+KINDS = ("all_reduce", "all_gather", "all_to_all")
+
+
+class _Stats:
+    """Calls, bytes sent and (under :func:`timed`) host seconds of every
+    collective of this module, process-wide: in all, by kind in
+    ``by_kind``, and in ``one_rank`` those on a group of one rank (the
+    data axis of ``data=1`` beside another axis still runs its
+    collectives)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.timing = False
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.bytes = 0
+        self.seconds = 0.0
+        self.by_kind = {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
+                        for k in KINDS}
+        self.one_rank = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self.lock:
+            return {"calls": self.calls, "bytes": self.bytes,
+                    "seconds": self.seconds,
+                    "by_kind": {k: dict(v) for k, v in self.by_kind.items()},
+                    "one_rank": dict(self.one_rank)}
+
+
+stats = _Stats()
+
+#: collectives started on each group, and the thread that holds a group
+_issued: Dict[Any, int] = {}
+_claims: Dict[Any, threading.Thread] = {}
+
+
+@contextlib.contextmanager
+def timed():
+    """Time every collective on the host clock, the device synchronized
+    before and after each, into ``stats.seconds`` (the synchronizes cost
+    the overlap they remove; use it to measure, not to train)."""
+    stats.timing = True
+    try:
+        yield stats
+    finally:
+        stats.timing = False
+
+
+def issued(group) -> int:
+    """How many collectives this process has started on ``group``."""
+    with stats.lock:
+        return _issued.get(group, 0)
+
+
+def _held_by_other(group, thread: threading.Thread) -> None:
+    """Raise when another live thread holds ``group`` (under the lock)."""
+    held = _claims.get(group)
+    if held is not None and held is not thread and held.is_alive():
+        raise RuntimeError(
+            f"this process group is held by thread {held.name!r} (a "
+            f"batcher's worker over a model-sharded engine): close that "
+            f"batcher first, or give this engine a mesh of its own (each "
+            f"make_mesh makes fresh groups)")
+
+
+def claim(group, thread: threading.Thread) -> None:
+    """Give ``group`` to ``thread``: a collective on it from any other
+    thread raises until :func:`release`.  A group held by another live
+    thread raises here."""
+    with stats.lock:
+        _held_by_other(group, thread)
+        _claims[group] = thread
+
+
+def release(group, thread: threading.Thread) -> None:
+    with stats.lock:
+        if _claims.get(group) is thread:
+            del _claims[group]
+
+
+def _booked(kind: str, group, t: torch.Tensor, fn):
+    """``fn()``, a collective of ``kind`` over ``t`` on ``group``, booked
+    in :data:`stats` and :func:`issued`."""
+    with stats.lock:
+        _held_by_other(group, threading.current_thread())
+        _issued[group] = _issued.get(group, 0) + 1
+    timing = stats.timing
+    sync = timing and t.device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    out = fn()
+    if sync:
+        torch.cuda.synchronize(t.device)
+    n = t.numel() * t.element_size()
+    dt = time.perf_counter() - t0 if timing else 0.0
+    with stats.lock:
+        stats.calls += 1
+        stats.bytes += n
+        stats.seconds += dt
+        for k in ((stats.by_kind[kind], stats.one_rank)
+                  if dist.get_world_size(group) == 1
+                  else (stats.by_kind[kind],)):
+            k["calls"] += 1
+            k["bytes"] += n
+            k["seconds"] += dt
+    return out
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the group; the backward sums the cotangent likewise."""
 
@@ -110,7 +257,8 @@ def _reduced(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     weight may not be one)."""
     y = x.detach().clone(memory_format=torch.contiguous_format)
     if group is not SELF:
-        dist.all_reduce(y, op=op, group=group)
+        _booked("all_reduce", group, y,
+                lambda: dist.all_reduce(y, op=op, group=group))
     return y
 
 
@@ -156,7 +304,8 @@ def _gather(x: torch.Tensor, group) -> list:
     if group is SELF:
         return [x.clone()]
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    _booked("all_gather", group, x,
+            lambda: dist.all_gather(parts, x, group=group))
     return parts
 
 
@@ -186,12 +335,60 @@ def ring_permute(x: torch.Tensor, axis, shift: int = 1) -> torch.Tensor:
     return _gather(x, group)[(_rank(group) - shift) % _size(group)]
 
 
+def _exchange(x: torch.Tensor, group, split_axis: int,
+              concat_axis: int) -> torch.Tensor:
+    """The all-to-all itself: ``x`` cut into n contiguous blocks along
+    ``split_axis``, block j sent to rank j in one ``all_to_all_single``,
+    the n received blocks concatenated along ``concat_axis`` in rank
+    order."""
+    if group is SELF:
+        return x.detach().clone()
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dimension {split_axis} of size "
+                         f"{x.shape[split_axis]} does not split over {n} "
+                         f"ranks")
+    # [n, s / n, rest...]: block j is send[j], contiguous
+    send = x.detach().movedim(split_axis, 0)
+    moved = list(send.shape)
+    send = send.reshape([n, moved[0] // n] + moved[1:]).contiguous()
+    # gloo takes CUDA tensors here itself (through host memory), as it
+    # does for its other collectives (chip_smoke.py phase 20 (a))
+    recv = torch.empty_like(send)
+    _booked("all_to_all", group, send,
+            lambda: dist.all_to_all_single(recv, send, group=group))
+    # recv[j] is rank j's block for this rank, in the moved layout
+    blocks = recv.movedim(1, split_axis + 1)      # [n, *block]
+    out = blocks.movedim(0, concat_axis)
+    bshape = list(blocks.shape[1:])
+    bshape[concat_axis] *= n
+    return out.reshape(bshape)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange; the backward is the inverse exchange of the
+    cotangent (split along the concatenated axis, concatenate along the
+    split one)."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _exchange(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _exchange(g, group, concat_axis, split_axis), None, None, None
+
+
 def all_to_all(x: torch.Tensor, axis, split_axis: int,
                concat_axis: int) -> torch.Tensor:
-    """Ulysses-style resharding: ``x`` split into n blocks along
+    """The tiled ``lax.all_to_all``: ``x`` split into n blocks along
     ``split_axis``, block ``j`` to rank ``j``, the received blocks
-    concatenated along ``concat_axis`` in rank order."""
+    concatenated along ``concat_axis`` in rank order.  Each block moves
+    once (``all_to_all_single``); differentiable, the backward being the
+    inverse all-to-all."""
     group = _group(axis)
-    n, r = _size(group), _rank(group)
-    return torch.cat([torch.chunk(p, n, dim=split_axis)[r]
-                      for p in _gather(x, group)], dim=concat_axis)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _AllToAll.apply(x, group, split_axis, concat_axis)
+    return _exchange(x, group, split_axis, concat_axis)

@@ -1,18 +1,22 @@
-"""The device mesh: ``data`` and ``model`` axes over a
+"""The device mesh: ``data``, ``model`` and ``expert`` axes over a
 ``torch.distributed`` group.
 
-Port of the data and model axes of ``deeplearning4j_tpu/parallel/
-mesh.py``.  The reference's mesh is a grid of JAX devices with five
-named axes; the port's is a thin object over an initialized process
-group: one process a device, laid out as the reference's ``make_mesh``
-lays out its devices, ``data`` first, so the ranks of one model group
-are contiguous (rank ``g`` of a ``data=D x model=M`` mesh sits at data
-index ``g // M``, model index ``g % M``).  Each axis has a process
-group of its own (``Mesh.groups``), created identically on every rank.
-A rank holds the row slice of each global batch for its data index and
-the model-axis slice of the params for its model index
-(``models/transformer.shard_tree``); the collectives of
-``parallel/collectives.py`` run over an axis's group.
+Port of the data, model and expert axes of ``deeplearning4j_tpu/
+parallel/mesh.py``.  The reference's mesh is a grid of JAX devices with
+five named axes; the port's is a thin object over an initialized
+process group: one process a device, laid out as the reference's
+``make_mesh`` lays out its devices, row-major over ``(data, model,
+pipe, seq, expert)``, so the ranks of one model group are contiguous
+(rank ``g`` of a ``data=D x model=M`` mesh sits at data index ``g //
+M``, model index ``g % M``; of a ``data=D x expert=E`` mesh at data
+index ``g // E``, expert index ``g % E``).  Each axis has a process
+group of its own (``Mesh.groups``), created identically on every rank,
+and so has the token group ``("data", "expert")`` an expert-parallel
+batch shards over.  A rank holds the row slice of each global batch for
+its data index and the model- and expert-axis slices of the params for
+its model and expert indices (``parallel/tensor_parallel.shard_tree``);
+the collectives of ``parallel/collectives.py`` run over an axis's
+group.
 
 - :func:`initialize_distributed` starts the group with
   ``torch.distributed.init_process_group``: NCCL for CUDA, gloo for the
@@ -25,14 +29,15 @@ the model-axis slice of the params for its model index
   (:func:`pad_rows`) and the padded rows are masked out of the loss.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): a ``pipe`` or ``expert`` axis above 1 (A7.1b), a ``seq`` axis
-above 1 (ring attention, A7.5), and the elastic re-mesh after a device
-loss (:func:`surviving_devices`, :func:`elastic_remesh`, A7.3).
+item): a ``pipe`` axis above 1 (A7.1b), a ``seq`` axis above 1 (ring
+attention, A7.5), and the elastic re-mesh after a device loss
+(:func:`surviving_devices`, :func:`elastic_remesh`, A7.3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
 import os
 from typing import Any, Dict, Optional, Tuple
@@ -51,7 +56,13 @@ EXPERT_AXIS = "expert"
 ALL_AXES = (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, EXPERT_AXIS)
 
 #: the ROADMAP item that holds each axis not ported yet
-_AXIS_ITEM = {PIPE_AXIS: "A7.1b", SEQ_AXIS: "A7.5", EXPERT_AXIS: "A7.1b"}
+_AXIS_ITEM = {PIPE_AXIS: "A7.1b", SEQ_AXIS: "A7.5"}
+
+#: the axes a port mesh carries, in the reference's device order
+_GRID_AXES = (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
+
+#: the token group of an expert-parallel batch (``Mesh.groups`` key)
+TOKEN_AXES = (DATA_AXIS, EXPERT_AXIS)
 
 
 def _not_ported(what: str, item: str = "A7") -> NotImplementedError:
@@ -93,34 +104,39 @@ class MeshSpec:
 
 def _check_ported_axes(sizes) -> None:
     """Raise naming the ROADMAP item of the first axis not ported yet
-    (``pipe``, ``seq``, ``expert``) whose size is above 1."""
+    (``pipe``, ``seq``) whose size is above 1."""
     for axis, item in _AXIS_ITEM.items():
         n = int(dict(sizes).get(axis, 1))
         if n > 1:
             raise _not_ported(f"a {axis!r} mesh axis of {n} (the port's mesh "
-                              f"has the data and model axes)", item)
+                              f"has the data, model and expert axes)", item)
 
 
 class Mesh:
-    """The data and model axes of an initialized process group.
+    """The data, model and expert axes of an initialized process group.
 
-    ``shape`` maps every axis name to its size (``data`` x ``model`` =
-    the group's size, the others 1); ``size`` is their product;
-    ``ranks`` are the mesh's global ranks in mesh order; ``rank`` is
-    this process's index on the data axis (the row block it trains on,
-    the seed of its dropout stream) and ``coords`` its index on every
-    axis; ``device`` is where this rank's tensors live.  ``group`` is
-    the data axis's process group, the one the data-parallel collectives
-    use (None: the default group); ``groups`` maps ``data`` and
-    ``model`` to their groups and ``world`` is the whole mesh's (None:
-    the default group)."""
+    ``shape`` maps every axis name to its size (``data`` x ``model`` x
+    ``expert`` = the group's size, the others 1); ``size`` is their
+    product; ``ranks`` are the mesh's global ranks in mesh order;
+    ``rank`` is this process's index on the data axis (the row block it
+    trains on, the seed of its dropout stream) and ``coords`` its index
+    on the data and model axes and, above 1, the expert axis;
+    ``device`` is where this rank's tensors live.
+    ``group`` is the data axis's process group, the one the
+    data-parallel collectives use (None: the default group); ``groups``
+    maps ``data``, ``model``, ``expert`` and the token group
+    ``("data", "expert")`` to their groups (an axis of one: None) and
+    ``world`` is the whole mesh's (None: the default group).
+    ``timeout_s`` bounds each collective on the groups the mesh made
+    (a rank whose peer never joins one raises after it)."""
 
     axis_names = ALL_AXES
 
     def __init__(self, sizes: Dict[str, int], group, ranks: Tuple[int, ...],
                  rank: int, device: torch.device, backend: str, *,
                  groups: Optional[Dict[str, Any]] = None, world=None,
-                 coords: Optional[Dict[str, int]] = None):
+                 coords: Optional[Dict[str, int]] = None,
+                 timeout_s: Optional[float] = None):
         self.shape = {a: int(sizes.get(a, 1)) for a in ALL_AXES}
         self.group = group
         self.ranks = tuple(ranks)
@@ -129,9 +145,13 @@ class Mesh:
         self.backend = backend
         self.world = world if groups is not None else group
         self.groups = dict(groups) if groups is not None else {
-            DATA_AXIS: group, MODEL_AXIS: None}
+            DATA_AXIS: group, MODEL_AXIS: None, EXPERT_AXIS: None,
+            TOKEN_AXES: group}
         self.coords = dict(coords) if coords is not None else {
             DATA_AXIS: int(rank), MODEL_AXIS: 0}
+        self.timeout_s = float(
+            timeout_s if timeout_s is not None
+            else dist.default_pg_timeout.total_seconds())
 
     @property
     def size(self) -> int:
@@ -142,10 +162,17 @@ class Mesh:
         """This process's index on the model axis."""
         return int(self.coords.get(MODEL_AXIS, 0))
 
+    @property
+    def expert_rank(self) -> int:
+        """This process's index on the expert axis."""
+        return int(self.coords.get(EXPERT_AXIS, 0))
+
     def __repr__(self) -> str:
         return (f"Mesh(data={self.shape[DATA_AXIS]}, "
-                f"model={self.shape[MODEL_AXIS]}, rank={self.rank}, "
-                f"model_rank={self.model_rank}, device={self.device}, "
+                f"model={self.shape[MODEL_AXIS]}, "
+                f"expert={self.shape[EXPERT_AXIS]}, rank={self.rank}, "
+                f"model_rank={self.model_rank}, "
+                f"expert_rank={self.expert_rank}, device={self.device}, "
                 f"backend={self.backend})")
 
 
@@ -212,15 +239,21 @@ def initialize_from_env(device: DeviceLike = None) -> bool:
 
 
 def make_mesh(spec: Optional[MeshSpec] = None, group=None,
-              device: DeviceLike = None) -> Mesh:
+              device: DeviceLike = None,
+              timeout: Optional[float] = None) -> Mesh:
     """A :class:`Mesh` over ``group`` (default: the whole default group,
     which :func:`initialize_distributed` started).  The spec must resolve
-    to the group's size with every axis but ``data`` and ``model`` at 1.
-    Above a model degree of 1 every rank of the default group must call
-    it, in the same order (it creates one process group per data index
-    and per model index, :func:`torch.distributed.new_group`), and the
-    mesh must span the default group.  ``device`` defaults to this
-    rank's card under NCCL and the CPU under gloo."""
+    to the group's size with ``pipe`` and ``seq`` at 1.  Above a model
+    or expert degree of 1 every rank of the default group must call it,
+    in the same order (it creates, with
+    :func:`torch.distributed.new_group`, one process group for each line
+    of ranks along each axis, and one token group ``("data", "expert")``
+    for each model index), and the mesh must span the default group.
+    Each call makes groups of its own: two meshes of one shape share no
+    communicator, so two threads may run collectives on them at once.
+    ``device`` defaults to this rank's card under NCCL and the CPU under
+    gloo.  ``timeout`` (seconds; default ``torch.distributed``'s) bounds
+    each collective on the groups it makes."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialized process group: call "
@@ -240,27 +273,44 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
                else torch.device("cpu"))
     else:
         dev = resolve_device(device)
-    m = sizes[MODEL_AXIS]
-    if m == 1:
+    m, e = sizes[MODEL_AXIS], sizes[EXPERT_AXIS]
+    if m == 1 and e == 1:
         return Mesh(sizes, group, ranks, pos, dev, backend)
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=float(timeout))}
     if group is not None:
-        raise ValueError("a mesh with a model axis spans the default "
-                         "process group (make_mesh(spec) with group=None)")
-    d = sizes[DATA_AXIS]
-    groups = {}
-    # data-major: model group i holds ranks [i M, (i + 1) M), data group
-    # j holds ranks j, M + j, ...; every rank makes every group
-    for i in range(d):
-        g = dist.new_group([ranks[i * m + j] for j in range(m)])
-        if i == pos // m:
-            groups[MODEL_AXIS] = g
-    for j in range(m):
-        g = dist.new_group([ranks[i * m + j] for i in range(d)])
-        if j == pos % m:
-            groups[DATA_AXIS] = g
-    return Mesh(sizes, groups[DATA_AXIS], ranks, pos // m, dev, backend,
-                groups=groups, world=group,
-                coords={DATA_AXIS: pos // m, MODEL_AXIS: pos % m})
+        raise ValueError("a mesh with a model or expert axis spans the "
+                         "default process group (make_mesh(spec) with "
+                         "group=None)")
+    dims = tuple(sizes[a] for a in _GRID_AXES)
+    grid = torch.arange(n).reshape(dims)
+    # this rank's index on data, model and (when above 1) expert
+    coords = {a: int(c) for a, c in zip(_GRID_AXES,
+                                        (grid == pos).nonzero()[0])
+              if a != EXPERT_AXIS or e > 1}
+    groups: Dict[Any, Any] = {}
+    # one group for each line of the grid along each axis (and for each
+    # data x expert plane), made by every rank in the same order
+    for key, axes in ((DATA_AXIS, (0,)), (MODEL_AXIS, (1,)),
+                      (EXPERT_AXIS, (2,)), (TOKEN_AXES, (0, 2))):
+        if key == TOKEN_AXES and (dims[0] == 1 or dims[2] == 1):
+            # the plane is a line: the data or the expert axis's group
+            groups[key] = groups[EXPERT_AXIS if dims[0] == 1
+                                 else DATA_AXIS]
+            continue
+        if key != DATA_AXIS and dims[axes[0]] == 1:
+            groups[key] = None
+            continue
+        rest = [a for a in range(3) if a not in axes]
+        lines = grid.permute(*rest, *axes).reshape(-1, math.prod(
+            dims[a] for a in axes))
+        for line in lines.tolist():
+            g = dist.new_group([ranks[i] for i in line], **kw)
+            if pos in line:
+                groups[key] = g
+    return Mesh(sizes, groups[DATA_AXIS], ranks, coords[DATA_AXIS], dev,
+                backend, groups=groups, world=group, coords=coords,
+                timeout_s=timeout)
 
 
 def _data(mesh) -> int:
@@ -333,8 +383,8 @@ def shard_rows(arr, mesh, axis: int = 0) -> torch.Tensor:
 def mesh_signature(mesh):
     """Hashable identity for engine keys (:193-207): the axis sizes, the
     group's global ranks, this process's data index and its device, so
-    ``data=4`` and ``data=2 x model=2`` over the same ranks are two
-    entries.  None without a mesh."""
+    ``data=4``, ``data=2 x model=2`` and ``data=2 x expert=2`` over the
+    same ranks are three entries.  None without a mesh."""
     if mesh is None:
         return None
     return (tuple((a, int(mesh.shape[a])) for a in mesh.axis_names),
@@ -364,7 +414,7 @@ def seq_degree(mesh) -> int:
 def check_mesh_axes(mesh) -> None:
     """Raise naming the ROADMAP item when ``mesh`` (anything with a
     ``shape`` mapping) has an axis the port does not carry yet
-    (``pipe``, ``seq``, ``expert``) above 1; ``data`` and ``model``
+    (``pipe``, ``seq``) above 1; ``data``, ``model`` and ``expert``
     pass."""
     if mesh is not None:
         _check_ported_axes(getattr(mesh, "shape", {}))

@@ -57,8 +57,10 @@ import torch
 from deeplearning4j_tpu_torch.ops.updaters import (copy_into, tree_leaves,
                                                    tree_map)
 from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
-from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
+                                                    MODEL_AXIS,
                                                     check_mesh_axes,
+                                                    expert_degree,
                                                     mesh_captures,
                                                     model_degree, shard_rows)
 from deeplearning4j_tpu_torch.runtime import compile_cache, resilience, \
@@ -181,15 +183,15 @@ def agree_over_mesh(mesh):
     """The guard's agreement over ``mesh``: ``agree(ok) -> ok`` where
     the returned verdict holds only if it holds on every rank (one
     all-reduce of the 0-d flag over the whole mesh).  None without a
-    model axis: there the verdict comes from values already summed over
-    the data axis, the same on every rank."""
-    if model_degree(mesh) == 1:
+    model or expert axis: there the verdict comes from values already
+    summed over the data axis, the same on every rank."""
+    if model_degree(mesh) == 1 and expert_degree(mesh) == 1:
         return None
     from deeplearning4j_tpu_torch.parallel import collectives
 
     def agree(ok):
         bad = collectives.psum((~ok).to(torch.float32),
-                               (mesh, (DATA_AXIS, MODEL_AXIS)))
+                               (mesh, (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)))
         return bad == 0
 
     return agree

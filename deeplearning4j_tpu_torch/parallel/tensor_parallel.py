@@ -24,30 +24,27 @@ on every model rank, so only the data axis all-reduces gradients.
 
 The specs themselves (:class:`PartitionSpec`) and :func:`shard_tree` /
 :func:`gather_tree` (this rank's slice of a global tree, and the global
-tree back) live here too.  The model code takes a rank's group as
+tree back, over the ``model`` and ``expert`` axes) live here too.  The model code takes a rank's group as
 ``tp=`` (a :class:`ModelGroup`, None on a model axis of one), in
 training and decoding alike.
 
 The collectives themselves are ``parallel/collectives``' over the model
-axis's group (the contiguous copy included); this module books each
-one's bytes (and, with :func:`timed`, its host time after a device
-synchronize) in :data:`stats`: the model axis's share of a step.  Under
-gloo the collectives take CUDA tensors directly (gloo copies them
-through host memory itself); nothing here stages them.
+axis's group (the contiguous copy included), booked there with every
+other collective (:data:`stats` and :func:`timed` are
+``collectives``').  Under gloo the collectives take CUDA tensors
+directly (gloo copies them through host memory itself); nothing here
+stages them.
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
-import time
-from typing import Any, Dict, Optional
+from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.parallel import collectives
-from deeplearning4j_tpu_torch.parallel.mesh import (MODEL_AXIS,
-                                                    model_degree)
+from deeplearning4j_tpu_torch.parallel.mesh import EXPERT_AXIS, MODEL_AXIS
 
 Tensor = torch.Tensor
 PyTree = Any
@@ -91,81 +88,34 @@ def model_group(mesh) -> Optional[ModelGroup]:
     """``mesh``'s model axis as a :class:`ModelGroup`; None without a
     mesh or where the axis is this rank alone (``collectives.SELF``):
     the model code then runs no collective at all."""
-    if mesh is None:
-        return None
-    group = collectives._group((mesh, MODEL_AXIS))
-    if group is collectives.SELF:
-        return None
-    return ModelGroup(group, mesh.shape[MODEL_AXIS], mesh.model_rank,
-                      mesh.backend)
+    return _axis_group(mesh, MODEL_AXIS)
 
 
 # ---------------------------------------------------------------------------
-# accounting
+# the collectives
 # ---------------------------------------------------------------------------
 
-class _Stats:
-    """Calls, bytes and (under :func:`timed`) host seconds of the model
-    axis's collectives, process-wide."""
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.timing = False
-        self.reset()
-
-    def reset(self) -> None:
-        self.calls = 0
-        self.bytes = 0
-        self.seconds = 0.0
-
-    def snapshot(self) -> Dict[str, float]:
-        return {"calls": self.calls, "bytes": self.bytes,
-                "seconds": self.seconds}
-
-
-stats = _Stats()
-
-
-@contextlib.contextmanager
-def timed():
-    """Time every collective of this module on the host clock, the
-    device synchronized before and after each, into ``stats.seconds``
-    (the synchronizes cost the overlap they remove; use it to measure,
-    not to train)."""
-    stats.timing = True
-    try:
-        yield stats
-    finally:
-        stats.timing = False
-
-
-def _booked(fn, t: Tensor):
-    """``fn()``, a collective over ``t``, booked in :data:`stats`."""
-    timing = stats.timing
-    sync = timing and t.device.type == "cuda"
-    if sync:
-        torch.cuda.synchronize(t.device)
-    t0 = time.perf_counter()
-    out = fn()
-    if sync:
-        torch.cuda.synchronize(t.device)
-    with stats.lock:
-        stats.calls += 1
-        stats.bytes += t.numel() * t.element_size()
-        if timing:
-            stats.seconds += time.perf_counter() - t0
-    return out
+#: the one count of every collective, re-exported: ``collectives.stats``
+stats = collectives.stats
+timed = collectives.timed
 
 
 def _all_reduce(x: Tensor, tp: ModelGroup) -> Tensor:
     """A contiguous copy of ``x`` summed over the model group."""
-    return _booked(lambda: collectives._reduced(x, tp.group), x)
+    return collectives._reduced(x, tp.group)
+
+
+def max_over_model(x: Tensor, tp: Optional[ModelGroup]) -> Tensor:
+    """The elementwise maximum of ``x`` over the model group (not
+    differentiable): an int8 KV row's amax over every head."""
+    if tp is None:
+        return x
+    return collectives._reduced(x, tp.group, dist.ReduceOp.MAX)
 
 
 def _all_gather_last(x: Tensor, tp: ModelGroup) -> Tensor:
     """Every model rank's ``x``, concatenated on the last axis."""
-    return torch.cat(_booked(lambda: collectives._gather(x, tp.group), x),
-                     dim=-1)
+    return torch.cat(collectives._gather(x, tp.group), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -258,10 +208,26 @@ def vocab_embed(table: Tensor, ids: Tensor,
 # the layout of a tree
 # ---------------------------------------------------------------------------
 
+#: the axes a param spec may split over, and the mesh coordinate of each
+_PARAM_AXES = (MODEL_AXIS, EXPERT_AXIS)
+
+
+def _split_dims(spec):
+    """``[(dim, axis)]``: each dimension a spec splits over ``model`` or
+    ``expert`` (an entry naming one of them, alone or in a tuple)."""
+    out = []
+    for i, a in enumerate(spec):
+        names = a if isinstance(a, tuple) else (a,)
+        for name in _PARAM_AXES:
+            if name in names:
+                out.append((i, name))
+    return out
+
+
 def _model_dim(spec) -> Optional[int]:
     """The dimension a spec splits over ``model`` (None: replicated)."""
-    for i, a in enumerate(spec):
-        if a == MODEL_AXIS or (isinstance(a, tuple) and MODEL_AXIS in a):
+    for i, name in _split_dims(spec):
+        if name == MODEL_AXIS:
             return i
     return None
 
@@ -281,43 +247,70 @@ def _spec_map(fn, tree, specs):
     return fn(tree, specs)
 
 
+def _degree(mesh, axis: str) -> int:
+    return 1 if mesh is None else int(mesh.shape.get(axis, 1))
+
+
+def _coord(mesh, axis: str) -> int:
+    return 0 if mesh is None else int(mesh.coords.get(axis, 0))
+
+
 def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     """This rank's slice of a global tree laid out by ``specs``: each
-    leaf split over ``model`` takes block ``mesh.model_rank`` of its
-    split dimension (a copy); every other leaf is returned as it is.
-    The carry-over of a global tree into the sharded layout:
-    ``params_from_numpy`` of the JAX params, then this."""
-    m, r = model_degree(mesh), (mesh.model_rank if mesh is not None else 0)
+    leaf split over ``model`` (``expert``) takes block
+    ``mesh.model_rank`` (``mesh.expert_rank``) of its split dimension (a
+    copy); every other leaf is returned as it is.  The carry-over of a
+    global tree into the sharded layout: ``params_from_numpy`` of the
+    JAX params, then this."""
 
     def one(leaf, spec):
         if spec is None or not isinstance(leaf, torch.Tensor):
             return leaf
-        d = _model_dim(spec)
-        if d is None or m == 1:
-            return leaf
-        n = leaf.shape[d]
-        if n % m:
-            raise ValueError(f"dimension {d} of size {n} does not split "
-                             f"over a model axis of {m} (spec {spec})")
-        return leaf.narrow(d, r * (n // m), n // m).clone()
+        out = leaf
+        for d, axis in _split_dims(spec):
+            m = _degree(mesh, axis)
+            if m == 1:
+                continue
+            n = out.shape[d]
+            if n % m:
+                raise ValueError(f"dimension {d} of size {n} does not split "
+                                 f"over a {axis} axis of {m} (spec {spec})")
+            out = out.narrow(d, _coord(mesh, axis) * (n // m), n // m)
+        return out if out is leaf else out.clone()
 
     return _spec_map(one, tree, specs)
 
 
+def _axis_group(mesh, axis: str) -> Optional[ModelGroup]:
+    """``mesh``'s ``axis`` (``model`` or ``expert``) as a
+    :class:`ModelGroup`; None where it is this rank alone."""
+    if mesh is None:
+        return None
+    group = collectives._group((mesh, axis))
+    if group is collectives.SELF:
+        return None
+    return ModelGroup(group, mesh.shape[axis], _coord(mesh, axis),
+                      mesh.backend)
+
+
 def gather_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     """The global tree back from every rank's :func:`shard_tree` slice:
-    one all-gather over ``model`` a split leaf (every rank of the model
-    group calls it); replicated leaves are returned as they are."""
-    tp = model_group(mesh)
+    one all-gather over ``model`` (``expert``) a split dimension (every
+    rank of the group calls it); replicated leaves are returned as they
+    are."""
+    groups = {axis: _axis_group(mesh, axis) for axis in _PARAM_AXES}
 
     def one(leaf, spec):
-        if tp is None or spec is None or not isinstance(leaf, torch.Tensor):
+        if spec is None or not isinstance(leaf, torch.Tensor):
             return leaf
-        d = _model_dim(spec)
-        if d is None:
-            return leaf
-        x = leaf.detach().movedim(d, -1)
-        return _all_gather_last(x, tp).movedim(-1, d).contiguous()
+        out = leaf
+        for d, axis in _split_dims(spec):
+            grp = groups[axis]
+            if grp is None:
+                continue
+            x = out.detach().movedim(d, -1)
+            out = _all_gather_last(x, grp).movedim(-1, d).contiguous()
+        return out
 
     return _spec_map(one, tree, specs)
 
@@ -329,4 +322,5 @@ def map_specs(fn, specs: PyTree) -> PyTree:
 
 __all__ = ["P", "PartitionSpec", "ModelGroup", "model_group", "stats",
            "timed", "copy_to_model", "reduce_from_model", "gather_last",
-           "vocab_embed", "shard_tree", "gather_tree", "map_specs"]
+           "max_over_model", "vocab_embed", "shard_tree", "gather_tree",
+           "map_specs"]

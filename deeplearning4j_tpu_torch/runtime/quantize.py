@@ -20,8 +20,14 @@ and tuples of tensors).
   the port runs eagerly, so a serving engine dequantizes the tree once
   per dispatch, an extra pass over the weights.
 
-``quant_specs`` (the sharded layout of a quantized tree) comes with the
-parallel slice.
+- ``quant_specs`` rewrites a ``PartitionSpec`` tree to the structure
+  ``quantize_tree`` gives: the int8 payload keeps its leaf's spec, the
+  per-channel scale takes the spec entries of the axes it indexes (the
+  stack and the channel).  A model-sharded engine quantizes the GLOBAL
+  tree and then slices payloads and scales by these specs: a scale's
+  amax over a dimension the model axis splits (the head axis of ``wq``,
+  ``wo``'s rows) is then the replicated engine's, which a scale taken
+  after the split would not be.
 """
 
 from __future__ import annotations
@@ -137,6 +143,36 @@ def quantize_tree(params: Any, mode: Optional[str]) -> Any:
         return quantize_leaf(w)
 
     return _map_named(f, params)
+
+
+def quant_specs(specs: Any, params: Any, mode: Optional[str]) -> Any:
+    """``specs`` (a tree of ``tensor_parallel.PartitionSpec`` s shaped
+    like ``params``) in the structure ``quantize_tree(params, mode)``
+    gives (:171-194): a quantized leaf's spec ``s`` becomes
+    ``QTensor(s, P(s[-1]))`` for a 2-D leaf and ``QTensor(s, P(s[0],
+    s[-1]))`` for a stacked one (an entry the spec does not cover is
+    None); every other spec, and every spec for ``"bf16"`` or None, is
+    kept."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (P,
+                                                                   is_spec)
+
+    check_mode(mode)
+    if mode != "int8":
+        return specs
+
+    def walk(s, w, name):
+        if is_spec(s):
+            if not _quantizable(w) or _skip_int8_name(name):
+                return s
+            entries = tuple(s) + (None,) * (w.ndim - len(s))
+            if w.ndim == 2:
+                return QTensor(s, P(entries[-1]))
+            return QTensor(s, P(entries[0], entries[-1]))
+        if isinstance(s, dict):
+            return {k: walk(v, w[k], str(k)) for k, v in s.items()}
+        return type(s)(walk(v, x, name) for v, x in zip(s, w))
+
+    return walk(specs, params, "")
 
 
 def dequantize_tree(tree: Any, dtype: torch.dtype = torch.float32) -> Any:

@@ -62,9 +62,19 @@ slots' and the page pool's KV caches hold the rank's heads
 row-parallel products over ``model`` (``parallel/tensor_parallel``), so
 every rank samples the same tokens, the replicated engine's.  The
 entries are captured only where the group's collectives can be
-(``parallel.mesh.mesh_captures``: not under gloo).  ``quantize=``,
-``kv_dtype="int8"`` (its per-row scales span every head) and ``draft=``
-on a mesh raise naming ROADMAP A7.1b.  The fleet
+(``parallel.mesh.mesh_captures``: not under gloo).  ``quantize=``
+quantizes the GLOBAL tree, then slices each int8 payload by its leaf's
+spec and each per-channel scale by ``runtime/quantize.quant_specs``, so
+every scale is the replicated engine's (``rebind_params`` keeps that
+order); ``kv_dtype="int8"`` takes each row's amax over every head of
+the group (one small all-reduce a layer a write), so the replicated
+scales are the replicated engine's; ``draft=`` lays the draft's params
+out by ``gpt.shard_specs`` too and shards its KV over heads beside the
+target's.  A mesh engine's prefix harvests are stored before its next
+admission (``flush_harvests``), so every rank of the group sees the
+same store.  :class:`ContinuousBatcher` over a mesh engine runs one
+rank of the group as the leader and the others as followers of its
+schedule (the class's docstring).  The fleet
 over these engines (autoscaling, the weight swap of a live fleet,
 health-checked replacement, the brownout ladder) is
 ``serving/router.AutoscalingRouter``.
@@ -98,6 +108,7 @@ import torch
 from deeplearning4j_tpu_torch import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.models import gpt
 from deeplearning4j_tpu_torch.models import transformer as tfm
+from deeplearning4j_tpu_torch.parallel import collectives
 from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
 from deeplearning4j_tpu_torch.parallel.mesh import (check_mesh_axes,
                                                     mesh_captures,
@@ -210,11 +221,6 @@ def default_length_buckets(max_len: int, min_bucket: int = 32
     while ladder[-1] < max_len:
         ladder.append(min(ladder[-1] * 2, max_len))
     return tuple(ladder)
-
-
-def _not_ported(knob: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"DecodeEngine({knob}) is not ported yet: ROADMAP {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -612,16 +618,17 @@ class DecodeEngine:
         self.model_degree = model_degree(mesh)
         self._tp = tpar.model_group(mesh)
         if self._tp is not None:
-            for knob, val in (("quantize=", quantize),
-                              ("kv_dtype='int8'", kv_dtype),
-                              ("draft=", draft)):
-                if val is not None:
-                    raise _not_ported(f"{knob} on a model mesh", "A7.1b")
-            if cfg.n_heads % self.model_degree:
+            m_deg = self.model_degree
+            if cfg.n_heads % m_deg:
                 raise ValueError(
                     f"n_heads={cfg.n_heads} not divisible by model "
-                    f"degree {self.model_degree}: the slot KV cache "
+                    f"degree {m_deg}: the slot KV cache "
                     f"shards over heads (gpt.slot_specs)")
+            if draft is not None and draft[0].n_heads % m_deg:
+                raise ValueError(
+                    f"draft n_heads={draft[0].n_heads} not divisible "
+                    f"by model degree {m_deg}: the draft KV shards "
+                    f"over heads alongside the target's")
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1: {n_slots}")
         self.cfg = cfg
@@ -648,9 +655,10 @@ class DecodeEngine:
         self.spec_enabled = True
         self.harvest_enabled = True
         self._transform = (
-            (lambda raw: gpt.serving_params(cfg, self._shard(raw)))
+            (lambda raw: gpt.serving_params(cfg, self._shard(cfg, raw)))
             if self.quantize is None
-            else (lambda raw: qz.quantize_tree(raw, self.quantize)))
+            else (lambda raw: self._shard(cfg, qz.quantize_tree(
+                raw, self.quantize), raw)))
         self._served = qz.ServedParams(params, self._transform)
         if prefix_cache is True:
             prefix_cache = PrefixCache()
@@ -700,7 +708,7 @@ class DecodeEngine:
                     f"positions")
             self._draft_cfg = cfg_d
             self._draft_served = qz.ServedParams(
-                params_d, lambda raw: gpt.serving_params(cfg_d, raw))
+                params_d, self._draft_transform)
         # outside inference_mode: the dispatches read the slot vectors
         # as read-only arguments, copied in only when their version moves
         self._buckets: Dict[int, _Bucket] = {
@@ -721,7 +729,8 @@ class DecodeEngine:
                                               self.model_degree)
             if draft is not None:
                 self.pool_bytes += gpt.pages_bytes(
-                    self._draft_cfg, self.n_kv_pages, chunk, self.kv_dtype)
+                    self._draft_cfg, self.n_kv_pages, chunk, self.kv_dtype,
+                    self.model_degree)
         self._harvester = (_Harvester(self._prefix, self.device)
                            if self._prefix is not None else None)
         #: pinned host staging of prefix mounts, one buffer a leaf
@@ -788,7 +797,7 @@ class DecodeEngine:
                 gpt.paged_prefill(cfg_d, params_d, dpool,
                                   ptab.index_select(0, scalars[0].reshape(
                                       1))[0], toks, scalars[1], scalars[2],
-                                  0.0, 0)
+                                  0.0, 0, tp=tp)
                 return state
 
             def spec_fn(params, state, ptab, active, temps, seeds,
@@ -799,10 +808,10 @@ class DecodeEngine:
                 # a device-to-device copy inside the round
                 _, props = gpt.paged_draft_propose(
                     cfg_d, params_d, dpool, ptab, tok.clone(), ps.clone(),
-                    active, k)
+                    active, k, tp=tp)
                 _, t, n_commit = gpt.paged_verify(
                     cfg, deq(params), pool, ptab, tok, ps, active, temps,
-                    seeds, props)
+                    seeds, props, tp=tp)
                 return state, torch.cat([t, n_commit[:, None].to(t.dtype)],
                                         dim=1)
         else:
@@ -820,7 +829,7 @@ class DecodeEngine:
 
             def draft_prefill_fn(params, state, toks, scalars, params_d):
                 gpt.slot_prefill(cfg_d, params_d, state[1], toks, scalars[0],
-                                 scalars[1], scalars[2], 0.0, 0)
+                                 scalars[1], scalars[2], 0.0, 0, tp=tp)
                 return state
 
             def spec_fn(params, state, active, temps, seeds, params_d):
@@ -831,9 +840,10 @@ class DecodeEngine:
                 dslots.tokens.copy_(slots.tokens)
                 dslots.pos.copy_(slots.pos)
                 _, props = gpt.draft_propose(cfg_d, params_d, dslots, active,
-                                             k)
+                                             k, tp=tp)
                 _, t, n_commit = gpt.slot_verify(cfg, deq(params), slots,
-                                                 active, temps, seeds, props)
+                                                 active, temps, seeds, props,
+                                                 tp=tp)
                 return state, torch.cat([t, n_commit[:, None].to(t.dtype)],
                                         dim=1)
 
@@ -850,24 +860,31 @@ class DecodeEngine:
         if self.draft is not None:
             self._draft_prefill = compile_cache.cached_graph(
                 draft_prefill_fn, label=f"{self.label}.draft_prefill",
-                donate_argnums=(1,), share=self._prefill)
+                donate_argnums=(1,), share=self._prefill, capture=cap)
             self._spec = compile_cache.cached_graph(
                 spec_fn, label=f"{self.label}.spec_round",
-                donate_argnums=(1,),
-                share=self._prefill)
+                donate_argnums=(1,), share=self._prefill, capture=cap)
 
     # -- params ------------------------------------------------------------
     def _space(self):
         return (repr(self.cfg), self.quantize, self.kv_dtype,
                 self._params_gen, mesh_signature(self.mesh))
 
-    def _shard(self, raw: Any) -> Any:
-        """This rank's slice of the global params tree
-        (``gpt.shard_specs``)."""
+    def _shard(self, cfg, tree: Any, raw: Any = None) -> Any:
+        """This rank's slice of a global params tree of ``cfg``
+        (``gpt.shard_specs``); ``raw``: the tree ``tree`` was quantized
+        from (its int8 payloads and scales then slice by
+        ``runtime/quantize.quant_specs``)."""
         if self._tp is None:
-            return raw
-        return tpar.shard_tree(raw, gpt.shard_specs(
-            self.cfg, self.model_degree), self.mesh)
+            return tree
+        specs = gpt.shard_specs(cfg, self.model_degree)
+        if raw is not None:
+            specs = qz.quant_specs(specs, raw, self.quantize)
+        return tpar.shard_tree(tree, specs, self.mesh)
+
+    def _draft_transform(self, raw: Any) -> Any:
+        cfg_d = self._draft_cfg
+        return gpt.serving_params(cfg_d, self._shard(cfg_d, raw))
 
     def current_params(self) -> Any:
         """The tree the dispatches take: quantized when ``quantize`` is
@@ -903,9 +920,8 @@ class DecodeEngine:
         self._served = qz.ServedParams(params, self._transform)
         self.current_params()
         if draft_params is not None:
-            cfg_d = self._draft_cfg
-            self._draft_served = qz.ServedParams(
-                draft_params, lambda raw: gpt.serving_params(cfg_d, raw))
+            self._draft_served = qz.ServedParams(draft_params,
+                                                 self._draft_transform)
             self._draft_params()
         self._params_gen += 1
         self._prefix_space = self._space()
@@ -994,7 +1010,8 @@ class DecodeEngine:
             if self.draft is not None:
                 dslots = gpt.init_slots(self._draft_cfg, self.n_slots,
                                         b.t_max, kv_dtype=self.kv_dtype,
-                                        device=self.device)
+                                        device=self.device,
+                                        model_degree=self.model_degree)
             b.state = (slots, dslots)
         return b.state
 
@@ -1007,7 +1024,7 @@ class DecodeEngine:
             pool = gpt.init_pages(self.cfg, P, C, self.kv_dtype,
                                   self.device, self.model_degree)
             dpool = (gpt.init_pages(self._draft_cfg, P, C, self.kv_dtype,
-                                    self.device)
+                                    self.device, self.model_degree)
                      if self.draft is not None else None)
             nb = len(self.buckets)
             self._pstate = (pool, dpool,
@@ -1194,6 +1211,11 @@ class DecodeEngine:
             event.record()
         self._harvester.put(bufs, event, prefix, self.prefill_chunk,
                             self._prefix_space, paged)
+        if self._tp is not None:
+            # every rank of the group must find the same entries at its
+            # next lookup, so a mesh engine's store is not eventually
+            # consistent
+            self._harvester.flush()
 
     def flush_harvests(self) -> None:
         """Block until every queued harvest is stored: read-your-writes
@@ -1760,6 +1782,389 @@ class _ReplayRequest(DecodeRequest):
         self._orig._force_finish(error)
 
 
+# ---------------------------------------------------------------------------
+# the schedule of a model group
+# ---------------------------------------------------------------------------
+
+#: the ops of a group's schedule
+_OP_NOP, _OP_STOP, _OP_CAN_ADMIT, _OP_START, _OP_ADVANCE, _OP_SPEC, \
+    _OP_RELEASE = range(7)
+
+#: int64 words of a schedule header: op, four arguments, the
+#: temperature's bits, the harvest knob, the prompt's length
+_HEADER = 8
+
+
+class GroupDispatchFailed(RuntimeError):
+    """A dispatch of a model-sharded engine failed on another rank of
+    its group: every rank treats it as failed (the slots it touched are
+    dropped and their requests replayed, as for a local failure)."""
+
+
+class GroupBroken(GroupDispatchFailed):
+    """A dispatch failed partway on some rank of a model group: its ranks
+    started different numbers of the group's collectives (a rank failed
+    before one that the others then waited on until the mesh's timeout),
+    so the group's communicator is out of step.  Every rank's worker
+    stops; the leader resolves every unfinished request with this
+    error."""
+
+
+def _bits(x: float) -> int:
+    return int(np.array(x, np.float64).view(np.int64))
+
+
+def _unbits(w: int) -> float:
+    return float(np.array(w, np.int64).view(np.float64))
+
+
+class _Channel:
+    """The schedule channel of a group, on a process group of its own
+    (no other code runs collectives on it): ``src`` (a global rank)
+    sends each op's header (and a start's prompt) to every member by
+    broadcast; every member takes part in each op's failure agreement;
+    for a remote replica ``result_src`` (the group's model rank 0)
+    broadcasts the op's result back.  Tensors live on the CPU under
+    gloo, on the card under NCCL.  Every wait on the channel is bounded
+    by ``timeout_s`` (then it raises): an idle source sends no-ops
+    (``ContinuousBatcher.GROUP_BEAT_S`` apart), so a member waits that
+    long only when the source is gone.  The agreement waits
+    ``op_timeout_s`` longer, the bound of the engine's own collectives
+    (its mesh's ``timeout_s``): a member that failed before one of them
+    waits there while the others wait that long inside it."""
+
+    def __init__(self, group, src: int, result_src: Optional[int],
+                 device: torch.device, timeout_s: float,
+                 op_timeout_s: float = 0.0):
+        import torch.distributed as dist
+        self.dist = dist
+        self.group = group
+        self.src = int(src)
+        self.result_src = result_src
+        self.device = (device if dist.get_backend(group) == "nccl"
+                       else torch.device("cpu"))
+        self.timeout_s = float(timeout_s)
+        self.op_timeout_s = float(op_timeout_s)
+        self.me = dist.get_rank()
+
+    @property
+    def leads(self) -> bool:
+        return self.me == self.src
+
+    def _wait(self, work, extra_s: float = 0.0) -> None:
+        import datetime
+        work.wait(timeout=datetime.timedelta(seconds=self.timeout_s
+                                             + extra_s))
+
+    def send(self, op: int, *args: int, temperature: float = 0.0,
+             harvest: bool = True, prompt: Optional[np.ndarray] = None
+             ) -> None:
+        hdr = [op] + [int(a) for a in args] + [0] * (4 - len(args))
+        n = 0 if prompt is None else int(prompt.size)
+        hdr += [_bits(temperature), int(harvest), n]
+        t = torch.tensor(hdr, dtype=torch.int64, device=self.device)
+        self._wait(self.dist.broadcast(t, self.src, group=self.group,
+                                       async_op=True))
+        if n:
+            p = torch.from_numpy(prompt.astype(np.int64)).to(self.device)
+            self._wait(self.dist.broadcast(p, self.src, group=self.group,
+                                           async_op=True))
+
+    def recv(self):
+        """``(op, args [4], temperature, harvest, prompt or None)``."""
+        t = torch.zeros(_HEADER, dtype=torch.int64, device=self.device)
+        self._wait(self.dist.broadcast(t, self.src, group=self.group,
+                                       async_op=True))
+        hdr = t.tolist()
+        prompt = None
+        if hdr[7]:
+            p = torch.zeros(hdr[7], dtype=torch.int64, device=self.device)
+            self._wait(self.dist.broadcast(p, self.src, group=self.group,
+                                           async_op=True))
+            prompt = p.cpu().numpy().astype(np.int32)
+        return hdr[0], hdr[1:5], _unbits(hdr[5]), bool(hdr[6]), prompt
+
+    def agree(self, failed: bool, issued: Optional[int]) -> Tuple[bool, bool]:
+        """``(failed, in_step)``: whether the op failed on any member,
+        and whether every member that ran it started as many collectives
+        of the engine's model group (``issued``; None for a source that
+        ran nothing)."""
+        lo = -(1 << 62)
+        t = torch.tensor([int(failed), 0 if issued is None else issued,
+                          lo if issued is None else -issued],
+                         dtype=torch.int64, device=self.device)
+        self._wait(self.dist.all_reduce(t, op=self.dist.ReduceOp.MAX,
+                                        group=self.group, async_op=True),
+                   self.op_timeout_s)
+        failed, most, least = t.tolist()
+        return bool(failed), most == -least
+
+    def result(self, values: Optional[np.ndarray], n: int) -> np.ndarray:
+        """A remote replica's op result, ``n`` int64 words, sent by
+        ``result_src`` (``values``) and returned on every member."""
+        t = (torch.from_numpy(np.asarray(values, np.int64).reshape(-1))
+             .to(self.device) if self.me == self.result_src
+             else torch.zeros(n, dtype=torch.int64, device=self.device))
+        self._wait(self.dist.broadcast(t, self.result_src, group=self.group,
+                                       async_op=True))
+        return t.cpu().numpy()
+
+
+def _undo(engine: "DecodeEngine", bucket: int,
+          slot: Optional[int] = None) -> None:
+    """After a dispatch that failed on some rank of the group, every
+    rank leaves the engine as the failing one did: the slot the op
+    placed (a start) released, the bucket's (a pinned) or the pool's (a
+    paged) state dropped."""
+    b = engine._buckets[bucket]
+    if slot is not None and b.active[slot]:
+        engine.release(bucket, slot)
+    engine._drop_state(b)
+
+
+def _engine_group(engine):
+    """The model group a model-sharded engine's dispatches run their
+    collectives on (None: a remote replica's view, or no mesh)."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None or getattr(engine, "model_degree", 1) <= 1:
+        return None
+    return mesh.groups["model"]
+
+
+def _agreed(chan: _Channel, engine, fn, bucket: int,
+            slot: Optional[int] = None):
+    """``fn()`` (an engine op with dispatches), failed on every rank
+    when it failed on any: the rank's own error, or
+    :class:`GroupDispatchFailed`; :class:`GroupBroken` when the ranks
+    started different numbers of the model group's collectives (a
+    failure partway, after which the group cannot run another)."""
+    group = _engine_group(engine)
+    before = collectives.issued(group) if group is not None else 0
+    out, err = None, None
+    try:
+        out = fn()
+    except Exception as e:          # noqa: BLE001 — agreed, then raised
+        err = e
+    issued = (collectives.issued(group) - before if group is not None
+              else None)
+    failed, in_step = chan.agree(err is not None, issued)
+    if not failed:
+        return out
+    if not in_step:
+        raise GroupBroken(
+            f"a dispatch of bucket {bucket} failed partway on a rank of the "
+            f"model group (its ranks started different numbers of the "
+            f"group's collectives): the group is out of step and stops"
+        ) from err
+    if engine is not None:
+        _undo(engine, bucket, slot)
+    raise err or GroupDispatchFailed(
+        f"a dispatch of bucket {bucket} failed on another rank of the "
+        f"model group")
+
+
+class _GroupOps:
+    """The engine's ops as the group's leader makes them: each is sent
+    to the group first, then made here (on the local engine, or, for a
+    remote replica, by the group, whose result comes back); ops with
+    dispatches are agreed (:func:`_agreed`).  The batcher reads the
+    engine's host state (buckets, active slots) from the engine itself:
+    the group's ranks hold it alike."""
+
+    def __init__(self, engine, chan: _Channel):
+        self.engine = engine
+        self.chan = chan
+
+    def heartbeat(self) -> None:
+        self.chan.send(_OP_NOP)
+
+    def stop(self) -> None:
+        self.chan.send(_OP_STOP)
+
+    def _op(self, fn, bucket: int, slot: Optional[int] = None):
+        """An op with dispatches, agreed over the group; a remote
+        replica's result is received after the agreement."""
+        if isinstance(self.engine, _RemoteEngine):
+            _agreed(self.chan, None, lambda: None, bucket)
+            return fn()
+        return _agreed(self.chan, self.engine, fn, bucket, slot)
+
+    def can_admit(self, bucket: int, prompt_len: int,
+                  max_tokens: int) -> bool:
+        self.chan.send(_OP_CAN_ADMIT, bucket, prompt_len, max_tokens)
+        return self.engine.can_admit(bucket, prompt_len, max_tokens)
+
+    def start(self, prompt: np.ndarray, *, max_tokens: int,
+              temperature: float = 0.0, seed: int = 0, owner: Any = True):
+        eng = self.engine
+        self.chan.send(_OP_START, max_tokens, int(seed) & gpt._M32,
+                       temperature=temperature,
+                       harvest=eng.harvest_enabled, prompt=prompt)
+        bucket = eng.pick_bucket(prompt.size + max_tokens)
+        return self._op(lambda: eng.start(
+            prompt, max_tokens=max_tokens, temperature=temperature,
+            seed=seed, owner=owner), bucket, eng.free_slot(bucket))
+
+    def advance(self, bucket: int) -> np.ndarray:
+        self.chan.send(_OP_ADVANCE, bucket)
+        return self._op(lambda: self.engine.advance(bucket), bucket)
+
+    def advance_spec(self, bucket: int):
+        self.chan.send(_OP_SPEC, bucket)
+        return self._op(lambda: self.engine.advance_spec(bucket), bucket)
+
+    def release(self, bucket: int, slot: int) -> None:
+        self.chan.send(_OP_RELEASE, bucket, slot)
+        self.engine.release(bucket, slot)
+
+
+def _follow(engine: "DecodeEngine", chan: _Channel) -> None:
+    """A follower's loop: make every op of the source's schedule on this
+    rank's engine, in its order, until the stop; the group's model rank
+    0 of a remote replica (which serves no draft) sends each result back
+    to the source."""
+    remote = chan.result_src is not None
+    sends = remote and chan.me == chan.result_src
+    try:
+        _follow_ops(engine, chan, remote, sends)
+    except GroupBroken:
+        pass                        # every rank of the group stops
+    finally:
+        engine.close()
+
+
+def _follow_ops(engine, chan: _Channel, remote: bool, sends: bool) -> None:
+    with torch.inference_mode():
+        while True:
+            op, a, temperature, harvest, prompt = chan.recv()
+            if op == _OP_STOP:
+                return
+            if op == _OP_NOP:
+                continue
+            if op == _OP_RELEASE:
+                engine.release(a[0], a[1])
+                continue
+            if op == _OP_CAN_ADMIT:
+                res = [int(engine.can_admit(a[0], a[1], a[2]))]
+            elif op == _OP_START:
+                engine.harvest_enabled = harvest
+                bucket = engine.pick_bucket(prompt.size + a[0])
+                try:
+                    res = _agreed(chan, engine, lambda: engine.start(
+                        prompt, max_tokens=a[0], temperature=temperature,
+                        seed=a[1]), bucket, engine.free_slot(bucket))
+                except GroupBroken:
+                    raise
+                except Exception:   # noqa: BLE001 — the source replays
+                    continue
+            else:
+                bucket = a[0]
+                step = (engine.advance_spec if op == _OP_SPEC
+                        else engine.advance)
+                try:
+                    out = _agreed(chan, engine, lambda: step(bucket), bucket)
+                except GroupBroken:
+                    raise
+                except Exception:   # noqa: BLE001 — the source replays
+                    continue
+                res = (np.concatenate([out, engine.last_ran(bucket)])
+                       if op == _OP_ADVANCE else None)
+            if remote:
+                res = np.asarray(res, np.int64)
+                chan.result(res if sends else None, res.size)
+
+
+def _model_channel(engine, timeout_s: float) -> _Channel:
+    """The schedule channel of a model-sharded engine's group, on a
+    process group of its own over the same ranks (made by those ranks
+    alone): its model rank 0 sends."""
+    import datetime
+
+    import torch.distributed as dist
+    mesh = engine.mesh
+    ranks = sorted(dist.get_process_group_ranks(mesh.groups["model"]))
+    group = dist.new_group(
+        ranks, use_local_synchronization=True,
+        timeout=datetime.timedelta(seconds=timeout_s + mesh.timeout_s))
+    return _Channel(group, ranks[0], None, mesh.device, timeout_s,
+                    mesh.timeout_s)
+
+
+class _RemoteEngine:
+    """The source's view of a replica whose group does not hold the
+    source (``Router.replicate`` on rank 0): the host bookkeeping a
+    batcher reads (buckets, the active slots, the last run mask) and
+    ops sent to the group, their results received from it.  Pinned
+    engines only (what ``Router.replicate`` builds)."""
+
+    paged = False
+    draft = None
+    spec_enabled = False
+
+    def __init__(self, cfg, chan: _Channel, *, n_slots: int,
+                 buckets: Optional[Sequence[int]], model_degree: int):
+        self.cfg = cfg
+        self.chan = chan
+        self.n_slots = int(n_slots)
+        self.model_degree = int(model_degree)
+        self.harvest_enabled = True
+        self.buckets = tuple(sorted(set(
+            buckets if buckets is not None
+            else default_length_buckets(cfg.max_len))))
+        self._active: Dict[int, np.ndarray] = {
+            t: np.zeros(self.n_slots, bool) for t in self.buckets}
+        self._ran: Dict[int, np.ndarray] = {
+            t: np.zeros(self.n_slots, bool) for t in self.buckets}
+
+    def pick_bucket(self, total_len: int) -> int:
+        for t in self.buckets:
+            if t >= total_len:
+                return t
+        raise ValueError(
+            f"request needs {total_len} positions; largest bucket is "
+            f"{self.buckets[-1]} (model max_len {self.cfg.max_len})")
+
+    def check_capacity(self, prompt_len: int) -> None:
+        return None
+
+    def free_slot(self, bucket: int) -> Optional[int]:
+        free = np.flatnonzero(~self._active[bucket])
+        return int(free[0]) if free.size else None
+
+    def n_active(self) -> int:
+        return int(sum(a.sum() for a in self._active.values()))
+
+    def active_buckets(self) -> List[int]:
+        return [t for t, a in self._active.items() if a.any()]
+
+    def last_ran(self, bucket: int) -> np.ndarray:
+        return self._ran[bucket].copy()
+
+    def can_admit(self, bucket: int, prompt_len: int,
+                  max_tokens: int) -> bool:
+        return bool(self.chan.result(None, 1)[0])
+
+    def start(self, prompt, *, max_tokens, temperature=0.0, seed=0,
+              owner=True):
+        bucket, slot, first = (int(v) for v in self.chan.result(None, 3))
+        self._active[bucket][slot] = True
+        return bucket, slot, first
+
+    def advance(self, bucket: int) -> np.ndarray:
+        res = self.chan.result(None, 2 * self.n_slots)
+        self._ran[bucket] = res[self.n_slots:].astype(bool)
+        return res[:self.n_slots].astype(np.int32)
+
+    def advance_spec(self, bucket: int):
+        raise NotImplementedError("a remote replica serves no draft")
+
+    def release(self, bucket: int, slot: int) -> None:
+        self._active[bucket][slot] = False
+
+    def close(self) -> None:
+        return None
+
+
 class ContinuousBatcher:
     """Streaming front end over a :class:`DecodeEngine` (:1902): one
     worker thread admits pending requests into free slots (prefill joins
@@ -1770,19 +2175,60 @@ class ContinuousBatcher:
     worker exits.  A failed dispatch frees its slots (and pages) and
     replays its requests as prompt + emitted, up to ``MAX_REPLAYS``
     times each; ``evacuate()`` hands every unfinished request back for
-    ``resubmit`` on another replica."""
+    ``resubmit`` on another replica.
+
+    **Over a model-sharded engine** (``DecodeEngine(mesh=)``, SPMD: every
+    rank of the model group builds its batcher over its engine) the
+    group's model rank 0 is the leader: it takes the requests and keeps
+    the queue, admission, expiry and replays.  Before each engine op
+    (an admission check, a start, a step or a round, a release) it
+    broadcasts a fixed-layout header over the group (op, bucket, slot,
+    budget, seed, temperature, the harvest knob, and a start's prompt);
+    the other ranks' workers follow, making the same engine calls in the
+    same order, so every rank samples the same tokens and none travel
+    back.  An op with dispatches fails on every rank when it fails on
+    any (one all-reduce of a flag; the others raise
+    :class:`GroupDispatchFailed` and drop the same state), so the
+    replays and the replay budget stay in step.  A failure partway,
+    which leaves the ranks' model-group collectives out of step, stops
+    every rank's worker instead (:class:`GroupBroken`; the leader
+    resolves every unfinished request with it).  The schedule travels on
+    a process group of its own, and the worker holds the engine mesh's
+    model group (``collectives.claim``): a collective on it from another
+    thread, or a second batcher over an engine of that mesh, raises
+    until ``close()``.  An idle leader sends a no-op every
+    ``GROUP_BEAT_S``; a follower waits at most ``GROUP_TIMEOUT_S`` for
+    its next header, and a failure agreement that long past the mesh's
+    ``timeout_s``, then its worker stops with the error; a leader whose
+    channel fails stops likewise, resolving its requests.  ``close()``
+    on the leader drains and then stops the group; a follower's
+    ``close()`` waits for that stop.  ``submit`` is the leader's."""
 
     #: replays of a request after failed dispatches before its error
     #: resolves it
     MAX_REPLAYS = 2
+    #: seconds between an idle group leader's no-ops, and the most a
+    #: follower waits for a header
+    GROUP_BEAT_S = 0.05
+    GROUP_TIMEOUT_S = 120.0
 
     def __init__(self, engine: DecodeEngine, *,
-                 default_max_tokens: int = 64):
-        if getattr(engine, "model_degree", 1) > 1:
-            raise NotImplementedError(
-                "ContinuousBatcher over a model-sharded DecodeEngine is not "
-                "ported yet: ROADMAP A7.1b (one rank's schedule broadcast "
-                "to its model group)")
+                 default_max_tokens: int = 64, _channel=None):
+        self._thread = threading.Thread(target=self._run,
+                                        name="dl4j-decode-batcher",
+                                        daemon=True)
+        #: the engine's model group, the worker's alone while it runs
+        self._held = _engine_group(engine)
+        if self._held is not None:
+            collectives.claim(self._held, self._thread)
+        chan = _channel
+        if chan is None and self._held is not None:
+            chan = _model_channel(engine, self.GROUP_TIMEOUT_S)
+        self._chan = chan
+        #: the engine ops of the worker: the engine itself, or the
+        #: leader's schedule over the group
+        self._ops = (engine if chan is None or not chan.leads
+                     else _GroupOps(engine, chan))
         self.engine = engine
         self.default_max_tokens = int(default_max_tokens)
         self._cv = threading.Condition()
@@ -1796,9 +2242,23 @@ class ContinuousBatcher:
         #: admitted or advanced anything
         self.dispatch_error_streak = 0
         self._last_progress = time.perf_counter()
-        self._thread = threading.Thread(
-            target=self._loop, name="dl4j-decode-batcher", daemon=True)
         self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            if self.leads:
+                self._loop()
+            else:
+                _follow(self.engine, self._chan)
+        finally:
+            if self._held is not None:
+                collectives.release(self._held, self._thread)
+
+    @property
+    def leads(self) -> bool:
+        """Whether this batcher takes requests: not a follower of a
+        group's schedule."""
+        return self._chan is None or self._chan.leads
 
     # -- client side -------------------------------------------------------
     def submit(self, prompt, max_tokens: Optional[int] = None,
@@ -1808,6 +2268,10 @@ class ContinuousBatcher:
         """Enqueue one prompt ``[T_p]`` of ints; returns its handle.  A
         prompt no bucket fits, an empty prompt, a bad deadline and (paged)
         a prompt larger than the whole pool raise here, synchronously."""
+        if not self.leads:
+            raise RuntimeError("a follower of a model group's schedule "
+                               "takes no requests: submit on the group's "
+                               "model rank 0")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -1893,7 +2357,7 @@ class ContinuousBatcher:
                 for i, r in enumerate(self._pending):
                     bucket = self.engine.pick_bucket(
                         r.prompt.size + r.max_tokens)
-                    if self.engine.can_admit(
+                    if self._ops.can_admit(
                             bucket, r.prompt.size + len(r._tokens),
                             r.max_tokens - len(r._tokens)):
                         req = self._pending.pop(i)
@@ -1907,9 +2371,11 @@ class ContinuousBatcher:
             prompt = (np.concatenate([req.prompt, emitted])
                       if emitted.size else req.prompt)
             try:
-                bucket, slot, first = self.engine.start(
+                bucket, slot, first = self._ops.start(
                     prompt, max_tokens=req.max_tokens - emitted.size,
                     temperature=req.temperature, seed=req.seed, owner=req)
+            except GroupBroken:
+                raise
             except Exception as e:      # resolve, never wedge the client
                 with self._cv:
                     if req in self._admitting:
@@ -1935,7 +2401,7 @@ class ContinuousBatcher:
                       tok: int, n_out: int) -> bool:
         if (req.eos_id is not None and tok == req.eos_id) \
                 or n_out >= req.max_tokens:
-            self.engine.release(bucket, slot)
+            self._ops.release(bucket, slot)
             with self._cv:
                 self._placed.pop((bucket, slot), None)
             decode_metrics.note_complete(n_out)
@@ -1960,7 +2426,7 @@ class ContinuousBatcher:
                 self._placed.pop(k, None)
         replay = []
         for (bk, slot), r in affected:
-            self.engine.release(bk, slot)
+            self._ops.release(bk, slot)
             if r._replays >= self.MAX_REPLAYS:
                 r._finish(e)
             else:
@@ -1979,9 +2445,11 @@ class ContinuousBatcher:
             t0 = time.perf_counter()
             try:
                 if spec:
-                    out, n_c = self.engine.advance_spec(bucket)
+                    out, n_c = self._ops.advance_spec(bucket)
                 else:
-                    toks = self.engine.advance(bucket)
+                    toks = self._ops.advance(bucket)
+            except GroupBroken:
+                raise
             except Exception as e:
                 self._failed(bucket, e)
                 continue
@@ -2022,7 +2490,7 @@ class ContinuousBatcher:
             for k, _ in exp_s:
                 self._placed.pop(k, None)
         for (bucket, slot), _ in exp_s:
-            self.engine.release(bucket, slot)
+            self._ops.release(bucket, slot)
         for r in exp_q + [r for _, r in exp_s]:
             decode_metrics.note_deadline_expiration()
             r._finish(DeadlineExceeded(
@@ -2031,17 +2499,42 @@ class ContinuousBatcher:
                             deadline_ms=r.deadline_ms,
                             tokens=len(r._tokens))
 
+    def _break(self, e: BaseException) -> None:
+        """The group can serve no more (:class:`GroupBroken`, or its
+        channel failed): stop intake and resolve every unfinished
+        request with the error."""
+        for r in self.evacuate():
+            r._force_finish(e)
+        telemetry.event("decode.group_stopped", error=repr(e)[:200])
+
     def _loop(self) -> None:
+        if self._chan is None:
+            return self._serve()
+        try:
+            self._serve()
+        except Exception as e:      # noqa: BLE001 — resolved, not wedged
+            self._break(e)
+
+    def _serve(self) -> None:
         # inference mode is thread-local: the worker enters it itself
+        beat = self.GROUP_BEAT_S if self._chan is not None else None
         with torch.inference_mode():
             while True:
+                idle = False
                 with self._cv:
                     while self._open and not self._pending \
                             and not self._placed:
-                        self._cv.wait()
-                    if not self._open and not self._pending \
+                        if not self._cv.wait(beat) and beat is not None:
+                            idle = True     # a group's leader beats
+                            break
+                    if not idle and not self._open and not self._pending \
                             and not self._placed:
+                        if self._chan is not None:
+                            self._ops.stop()
                         return
+                if idle:
+                    self._ops.heartbeat()
+                    continue
                 self._expire()
                 admitted = self._admit()
                 self._advance_all()
@@ -2061,7 +2554,8 @@ class ContinuousBatcher:
             self._open = False
             self._cv.notify_all()
         self._thread.join(timeout)
-        self.engine.close()
+        if self.leads:
+            self.engine.close()     # a follower's closes on the stop
 
     def __enter__(self) -> "ContinuousBatcher":
         return self

@@ -39,12 +39,26 @@ one capture at a time in the process, with cuBLAS's workspace in the
 graph's own pool, and each replica replays only its own graphs on its
 own buffers.
 
-Not ported here: ``model_degree > 1`` (replicas over device groups with
-model-sharded params) is ROADMAP A7.1b.
+**Model groups.**  ``Router.replicate(model_degree=m > 1)`` runs SPMD
+over an initialized process group of W ranks (every rank calls it with
+the same arguments): the ranks form W / m consecutive groups of m, and
+the replicas go round-robin over the groups, each a model-sharded
+``DecodeEngine`` over its group (a mesh of its own, so two replicas on
+one group share no communicator, whose collectives time out after
+``ContinuousBatcher.GROUP_TIMEOUT_S``) under a ``ContinuousBatcher``
+whose leader broadcasts its schedule.  The router itself runs on global rank
+0, the reference's single controller: a replica on rank 0's group is
+led from rank 0; a replica on another group is led from rank 0 too,
+over a control group of rank 0 and the replica's group, its model rank
+0 sending each op's result (admission, first token, step tokens) back.
+The returned router is the controller on rank 0 and holds the
+followers elsewhere (``submit`` there raises; ``close`` waits for rank
+0's).
 """
 
 from __future__ import annotations
 
+import datetime
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -156,6 +170,9 @@ class Router:
                  max_queue_depth: int = 64):
         if not batchers:
             raise ValueError("Router needs at least one batcher")
+        self._setup(batchers, max_queue_depth)
+
+    def _setup(self, batchers, max_queue_depth: int) -> None:
         if max_queue_depth < 1:
             raise ValueError(
                 f"max_queue_depth must be >= 1: {max_queue_depth}")
@@ -185,18 +202,21 @@ class Router:
         the card); ``n_replicas=None`` gives one a device.  ``params``
         is a tree of tensors or numpy arrays, placed once a device.
         Paged, prefix-store or speculative replicas are built as
-        ``Router([ContinuousBatcher(DecodeEngine(...)), ...])``."""
+        ``Router([ContinuousBatcher(DecodeEngine(...)), ...])``.
+        ``model_degree=m > 1``: replicas over the model groups of the
+        initialized process group (the module docstring; ``device`` is
+        this rank's, ``n_replicas=None`` gives one a group); an ``m``
+        the ranks cannot fill raises ``ValueError``."""
         from deeplearning4j_tpu_torch.models import gpt
 
-        if model_degree != 1:
-            if model_degree < 1:
-                raise ValueError(
-                    f"model_degree must be >= 1: {model_degree}")
-            raise NotImplementedError(
-                "Router.replicate(model_degree > 1), replicas over device "
-                "groups with model-sharded params, is not ported yet: "
-                "ROADMAP A7.1b (a batcher over a model group broadcasts "
-                "its schedule to the group)")
+        if model_degree < 1:
+            raise ValueError(f"model_degree must be >= 1: {model_degree}")
+        if model_degree > 1:
+            return cls._replicate_groups(
+                cfg, params, n_replicas, model_degree, device=device,
+                max_queue_depth=max_queue_depth, n_slots=n_slots,
+                buckets=buckets, prefill_chunk=prefill_chunk,
+                default_max_tokens=default_max_tokens, warmup=warmup)
         devs = [resolve_device(d) for d in
                 (devices if devices is not None else [device])]
         if not devs:
@@ -221,6 +241,68 @@ class Router:
         return cls([ContinuousBatcher(e, default_max_tokens=default_max_tokens)
                     for e in engines], max_queue_depth=max_queue_depth)
 
+    @classmethod
+    def _replicate_groups(cls, cfg, params, n_replicas, m: int, *, device,
+                          max_queue_depth, n_slots, buckets, prefill_chunk,
+                          default_max_tokens, warmup) -> "Router":
+        import torch.distributed as dist
+        from deeplearning4j_tpu_torch.models import gpt
+        from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+        from deeplearning4j_tpu_torch.serving.decode import (_Channel,
+                                                             _RemoteEngine)
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        n_groups = world // m
+        if n_groups < 1 or world % m:
+            raise ValueError(
+                f"model_degree {m} does not fill the {world} rank(s) of the "
+                f"process group with whole groups: a replica needs one "
+                f"whole group")
+        if n_replicas is None:
+            n_replicas = n_groups
+        if n_replicas < 1:
+            raise ValueError(f"n_replicas must be >= 1: {n_replicas}")
+        me = dist.get_rank()
+        chunk = prefill_chunk or gpt.PREFILL_CHUNK
+        placed = None
+        batchers = []
+        wait = ContinuousBatcher.GROUP_TIMEOUT_S
+        for i in range(n_replicas):
+            gi = i % n_groups
+            members = list(range(gi * m, (gi + 1) * m))
+            # every rank makes every replica's groups, in this order; a
+            # model-group collective a peer never joins raises after
+            # `wait` seconds
+            mesh = make_mesh(MeshSpec(data=n_groups, model=m),
+                             device=device, timeout=wait)
+            ctrl = None
+            if 0 not in members:
+                group = dist.new_group(
+                    [0] + members,
+                    timeout=datetime.timedelta(seconds=2 * wait))
+                if me == 0 or me in members:
+                    ctrl = _Channel(group, 0, members[0], mesh.device, wait,
+                                    mesh.timeout_s)
+            if me in members:
+                if placed is None:
+                    placed = _on_device(params, mesh.device)
+                eng = DecodeEngine(cfg, placed, n_slots=n_slots,
+                                   buckets=buckets, prefill_chunk=chunk,
+                                   mesh=mesh, device=mesh.device)
+                if warmup:
+                    eng.warmup()
+                batchers.append(ContinuousBatcher(
+                    eng, default_max_tokens=default_max_tokens,
+                    _channel=ctrl))
+            elif me == 0:
+                batchers.append(ContinuousBatcher(
+                    _RemoteEngine(cfg, ctrl, n_slots=n_slots,
+                                  buckets=buckets, model_degree=m),
+                    default_max_tokens=default_max_tokens, _channel=ctrl))
+        router = cls.__new__(cls)
+        router._setup(batchers, max_queue_depth)
+        return router
+
     # -- dispatch ----------------------------------------------------------
     def depths(self) -> List[int]:
         return [b.depth() for b in self.batchers]
@@ -231,6 +313,9 @@ class Router:
         with self._lock:
             if self._closed:
                 raise RouterClosed("Router is closed")
+            if not all(b.leads for b in self.batchers) or not self.batchers:
+                raise RuntimeError("this rank follows its groups' "
+                                   "schedules: submit on global rank 0")
             depths = self.depths()
             i = int(np.argmin(depths))
             if depths[i] >= self.max_queue_depth:

@@ -395,11 +395,14 @@ def test_shard_rows_takes_each_ranks_contiguous_block():
 
 
 def test_non_data_axes_and_elastic_helpers_raise_naming_a7():
-    """The pipe, seq and expert axes raise naming their ROADMAP items;
-    the model axis is ported (tests/test_torch_model_parallel.py), and
-    a collective names it with its mesh."""
-    for axis, item in (("pipe", "A7.1b"), ("seq", "A7.5"),
-                       ("expert", "A7.1b")):
+    """The pipe and seq axes raise naming their ROADMAP items; the model
+    and expert axes are ported (tests/test_torch_model_parallel.py,
+    tests/test_torch_expert_parallel.py), and a collective names them
+    with their mesh."""
+    m = _fake_mesh(1)
+    m.shape["expert"] = 2
+    tmesh.check_mesh_axes(m)
+    for axis, item in (("pipe", "A7.1b"), ("seq", "A7.5")):
         m = _fake_mesh(1)
         m.shape[axis] = 2
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -410,8 +413,9 @@ def test_non_data_axes_and_elastic_helpers_raise_naming_a7():
             tcol.psum(torch.ones(2), axis)
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             tsf.build_sharded_step(lambda *a: a, m, label="x")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
-        tcol.psum(torch.ones(2), "model")
+    for axis in ("model", "expert"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
+            tcol.psum(torch.ones(2), axis)
     m = _fake_mesh(1)
     m.shape["model"] = 2
     tmesh.check_mesh_axes(m)

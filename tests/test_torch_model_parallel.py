@@ -301,11 +301,14 @@ def _decode_cases(mesh, p):
             out["slot_k"] = tuple(slots.k.shape)
             out["served_wq"] = tuple(
                 eng.current_params()["blocks"]["wq"].shape)
-            try:
-                ContinuousBatcher(eng)
-                out["batcher"] = "built"
-            except NotImplementedError as e:
-                out["batcher"] = str(e)
+            out["coords"] = dict(mesh.coords)
+            # the batcher over the group: model rank 0 leads, rank 1
+            # follows; closed before any other engine of this mesh runs
+            b = ContinuousBatcher(eng)
+            out["batcher"] = (b.generate(p["prompts"][0], max_tokens=8,
+                                         seed=7).tolist()
+                              if b.leads else "follows")
+            b.close()
         else:
             out["pool_bytes"] = eng.pool_bytes
     replicated = DecodeEngine(cfg, params, n_slots=2, buckets=(16,),
@@ -736,4 +739,7 @@ def test_decode_engine_shards_params_and_kv_over_heads(ranks):
         d = r["decode"]
         assert d["kv_bytes_per_slot"] * 2 == d["kv_bytes_replicated"]
         assert d["slot_k"][3] == 2 and d["served_wq"][2] == 2
-        assert "ROADMAP A7.1b" in d["batcher"]
+        # a batcher over the group serves (model rank 0 leads)
+        want = d["tokens_replicated"][0] if d["coords"]["model"] == 0 \
+            else "follows"
+        assert d["batcher"] == want

@@ -293,19 +293,36 @@ def test_one_device_layers_and_a7_refusals():
         for make in (tex.make_moe_layer, tex.make_gspmd_moe_ffn):
             y, aux = make(mesh, tcfg)(tp, xt)
             torch.testing.assert_close(y, ref[0], rtol=0, atol=0)
+    # the expert axis is ported: the specs are the reference's
     mcfg = tmoe.MoETransformerConfig()
+    jcfg = jmoe.MoETransformerConfig()
+
+    def axes(tree):
+        return {k: axes(v) for k, v in tree.items()} \
+            if isinstance(tree, dict) else tuple(tree)
+
+    assert axes(tex.expert_param_specs(tcfg)) \
+        == axes(jex.expert_param_specs(cfg))
+    assert axes(tmoe.param_specs(mcfg)) == axes(jmoe.param_specs(jcfg))
+    for kw in (dict(expert_degree=2), dict(model_degree=2),
+               dict(model_degree=2, expert_degree=4)):
+        assert axes(tmoe.shard_specs(mcfg, **kw)) \
+            == axes(jmoe.shard_specs(jcfg, **kw))
+    # what stays refused: the pipe stages (A7.1b), an axis named without
+    # its mesh, and an expert axis above 1 on anything but a port Mesh
+    for call in (lambda: tmoe.shard_specs(mcfg, pipe_degree=2),
+                 lambda: tex.moe_ffn(tp, xt, tcfg, axis_name="expert")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
+            call()
     for call in (lambda: tex.make_moe_layer({"expert": 2}, tcfg),
                  lambda: tex.make_gspmd_moe_ffn({"expert": 4}, tcfg),
-                 lambda: tex.moe_ffn(tp, xt, tcfg, axis_name="expert"),
                  lambda: tex.moe_ffn(tp, xt, tcfg, stat_axes=("data",)),
                  lambda: tex.route_topk(tex.router_gates(tp, xt), 2, 8,
-                                        stat_axes=("data",)),
-                 lambda: tex.expert_param_specs(tcfg),
-                 lambda: tmoe.param_specs(mcfg),
-                 lambda: tmoe.shard_specs(mcfg, expert_degree=2),
-                 lambda: tmoe.make_train_step(mcfg, mesh=one, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+                                        stat_axes=("data",))):
+        with pytest.raises(ValueError, match="mesh"):
             call()
+    with pytest.raises(ValueError, match="not divisible by expert degree"):
+        tex.make_moe_layer({"expert": 3}, tcfg)
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():
