@@ -349,6 +349,31 @@ Phases, each fatal on failure:
    control that must read above it; (d) the MoE CausalLM at depth 2 in
    fp32 on data=1 x model=2 within 1e-5 of mesh=None's.  The ranks'
    launches on (b)-(d) join the kernels line.
+21. the pipe and seq axes, on two rank processes sharing the card over
+   gloo (the ring shift's send and receive staged through the host),
+   every result held against a mesh=None run on the card in this
+   process: (a) collectives.ring_permute on CUDA tensors, the
+   neighbour's block bit-equal, its gradient the inverse shift, one
+   tensor's bytes booked; ring attention over B1-B3 against the ring
+   over plain blocks at GPT-2 small's attention (B=8 T=1024, 512 tokens
+   a rank, 12 heads, D=64, bf16, causal and not): O within phase 3's B1
+   bound, dQ/dK/dV within its B2/B3 bound, and B1, B2 and B3 launched
+   once a block the schedule visits (causal: 1 on seq rank 0, 2 on rank
+   1); Ulysses against the plain full attention; (b) GPT-2 small
+   (dropout 0) through CausalLM on data=1 x pipe=2, 4 microbatches,
+   B=8 T=1024, SGD 0.05 with momentum 0.9: at depth 2 in fp32 over 3
+   seeded batches the gathered params within 1e-5 relative L2 of
+   mesh=None's (torch.equal printed), and a control, the tied
+   embedding's sum over pipe left out, above it; at full depth in bf16
+   mixed precision, one batch x 3: each step's loss within 2e-2, a
+   rank's block bytes 0.45-0.55 of all the blocks', step ms, every
+   collective's calls and bytes by kind and gloo's share of one step
+   under collectives.timed(); BERT-base's make_pipeline_train_step
+   (B=32 T=128, 4 microbatches): 3 steps' losses within 2e-2 of
+   make_train_step's; (c) the same on data=1 x seq=2 (ring attention
+   over B1-B3 in every layer), and BERT-base's make_sp_train_step (64
+   tokens a rank).  Every path's B1-B3 launches are checked against its
+   schedule and join the kernels line.
 
 Each phase prints its seconds on a line of its own when it ends
 ("phase N: S s"), and the script prints every phase's seconds and its
@@ -4287,30 +4312,46 @@ def cli_runs(torch, ln, tmp, say) -> None:
     r, s_train = run(*train, "--output", model)
     acc_train = [ln_ for ln_ in r.stdout.splitlines()
                  if "accuracy" in ln_]
-    r, s_test = run("test", "--input", "mnist2d-test", "--model", model,
-                    "--raw-pixels")
+
+    def checkpointed():
+        """train --checkpoint-dir, the same again (refused), --resume:
+        one after another, into a model file of their own."""
+        out = []
+        for extra, ok in (((), True), ((), False),
+                          (("--resume", "--epochs", "2"), True)):
+            out.append(run(*train, "--output", model_ck, "--checkpoint-dir",
+                           ck, "--checkpoint-every", "8", *extra, ok=ok))
+        return out
+
+    # test, predict and the checkpointed chain need only the trained
+    # model: the three run side by side (each subprocess's wall time
+    # below is under that contention)
+    from concurrent.futures import ThreadPoolExecutor
+    model_ck = os.path.join(tmp, "m_ck.bin")
+    with ThreadPoolExecutor(3) as pool:
+        f_test = pool.submit(run, "test", "--input", "mnist2d-test",
+                             "--model", model, "--raw-pixels")
+        f_pred = pool.submit(run, "predict", "--input", "mnist2d-test",
+                             "--model", model, "--raw-pixels", "--output",
+                             preds)
+        f_ck = pool.submit(checkpointed)
+        (r, s_test), (_, s_pred) = f_test.result(), f_pred.result()
+        (r_ck, s_ck), (refused, s_ref), (r_res, s_res) = f_ck.result()
     acc_test = [ln_.strip() for ln_ in r.stdout.splitlines()
                 if "Accuracy" in ln_]
-    r, s_pred = run("predict", "--input", "mnist2d-test", "--model", model,
-                    "--raw-pixels", "--output", preds)
     test = mnist_split(False)
     got = np.loadtxt(preds, dtype=np.int64)
     acc_pred = float(np.mean(got == np.asarray(test.labels).argmax(1)))
-    r, s_ck = run(*train, "--output", model, "--checkpoint-dir", ck,
-                  "--checkpoint-every", "8")
-    acc_ck = [ln_ for ln_ in r.stdout.splitlines() if "accuracy" in ln_]
-    refused, s_ref = run(*train, "--output", model, "--checkpoint-dir", ck,
-                         "--checkpoint-every", "8", ok=False)
-    r, s_res = run(*train, "--output", model, "--checkpoint-dir", ck,
-                   "--checkpoint-every", "8", "--resume", "--epochs", "2")
-    acc_res = [ln_ for ln_ in r.stdout.splitlines() if "accuracy" in ln_]
+    acc_ck = [ln_ for ln_ in r_ck.stdout.splitlines() if "accuracy" in ln_]
+    acc_res = [ln_ for ln_ in r_res.stdout.splitlines() if "accuracy" in ln_]
     say(f"cli train {s_train:.1f} s ({acc_train}), test {s_test:.1f} s "
         f"({acc_test}), predict {s_pred:.1f} s (accuracy of the written "
         f"classes {acc_pred:.4f}), train --checkpoint-dir {s_ck:.1f} s "
         f"({acc_ck}), the same again {s_ref:.1f} s (exit "
         f"{refused.returncode}: {refused.stderr.strip()[-160:]!r}), "
         f"--resume {s_res:.1f} s ({acc_res}); wall time of each "
-        f"subprocess, host clock")
+        f"subprocess, host clock (test, predict and the checkpointed three "
+        f"side by side)")
     check(acc_train and acc_test and acc_ck and acc_res,
           "cli: an accuracy line is missing")
     # one model, one test split: predict's classes score what test says
@@ -4915,14 +4956,16 @@ def cli_generate(torch, tmp, say) -> dict:
                         npz, "--replicas", "1", *prompts, *device])
     launches = json.loads(out.split("hand-kernel launches ", 1)[1]
                           .splitlines()[0])
-    texts = []
-    secs = []
-    for _ in range(2):
-        o, s = run([sys.executable, "-m", "deeplearning4j_tpu_torch.cli",
-                    "generate", "--params", npz, "--temperature", "0",
-                    *prompts, *device])
-        texts.append([ln for ln in o.splitlines() if " -> " in ln])
-        secs.append(s)
+    # the two serving runs read the saved npz side by side
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(run, [sys.executable, "-m",
+                                  "deeplearning4j_tpu_torch.cli", "generate",
+                                  "--params", npz, "--temperature", "0",
+                                  *prompts, *device]) for _ in range(2)]
+        runs = [f.result() for f in runs]
+    texts = [[ln for ln in o.splitlines() if " -> " in ln] for o, _ in runs]
+    secs = [s for _, s in runs]
     check(len(texts[0]) == 2 and texts[0] == texts[1],
           f"cli generate --params --temperature 0 differs between runs: "
           f"{texts}")
@@ -4930,8 +4973,8 @@ def cli_generate(torch, tmp, say) -> dict:
     say(f"(6) cli generate --train-steps {CLI_STEPS} --save-params: "
         f"{s_train:.1f} s ({loss}), hand-kernel launches {launches} (the "
         f"char-GPT's training through make_train_step's defaults); "
-        f"--params --temperature 0 twice: {secs[0]:.1f} s / {secs[1]:.1f} "
-        f"s, identical: {texts[0]}")
+        f"--params --temperature 0 twice, side by side: {secs[0]:.1f} s / "
+        f"{secs[1]:.1f} s, identical: {texts[0]}")
     return launches
 
 
@@ -7417,8 +7460,14 @@ def ma_spawn(target, tmp: str, tag: str, args=(), phase: int = 19) -> list:
     """``target(rank, rdv, out, *args)`` in two spawned processes; their
     outputs (files), or a failure if a rank dies or outlives the
     deadline."""
+    return ma_join(ma_start(target, tmp, tag, args), tag, phase)
+
+
+def ma_start(target, tmp: str, tag: str, args=()):
+    """The two processes of :func:`ma_spawn`, started: ``(processes,
+    output files, deadline)`` for :func:`ma_join`, so this process can
+    work while the ranks start up."""
     import multiprocessing
-    import pickle
 
     ctx = multiprocessing.get_context("spawn")
     rdv = os.path.join(tmp, f"rdv-{tag}")
@@ -7427,7 +7476,15 @@ def ma_spawn(target, tmp: str, tag: str, args=(), phase: int = 19) -> list:
              for r in range(2)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + MA_DEADLINE_S
+    return procs, outs, time.monotonic() + MA_DEADLINE_S
+
+
+def ma_join(started, tag: str, phase: int = 19) -> list:
+    """The outputs of :func:`ma_start`'s processes, or a failure naming
+    every rank that died, failed or outlived the deadline."""
+    import pickle
+
+    procs, outs, deadline = started
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -7446,11 +7503,14 @@ def ma_spawn(target, tmp: str, tag: str, args=(), phase: int = 19) -> list:
                 results.append(f.read())
             continue
         with open(out, "rb") as f:
-            status, value = pickle.load(f)
-        check(status == "ok",
-              f"phase {phase} {tag}: rank {r} failed:\n{value}")
-        results.append(value)
-    return results
+            results.append(pickle.load(f))
+    if tag == "nccl":
+        return results
+    failed = [f"rank {r} failed:\n{value}"
+              for r, (status, value) in enumerate(results) if status != "ok"]
+    # every failed rank's error: the first to fail is not always rank 0
+    check(not failed, f"phase {phase} {tag}: " + "\n".join(failed))
+    return [value for _, value in results]
 
 
 def ma_rank(rank: int, rdv: str, out: str, tmp: str, st: dict) -> None:
@@ -7684,17 +7744,21 @@ def model_axis_phase(torch, fa, card: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="model-axis-")
     t = [time.perf_counter()]
     try:
-        if MA_DEVICE == "cuda":
-            for r, msg in enumerate(ma_spawn(ma_nccl_probe, tmp, "nccl")):
-                say(f"(a) NCCL, two ranks on one card, rank {r}: "
-                    + " ".join(msg.split())[:400])
-        t.append(time.perf_counter())
+        # the NCCL probe's processes start up while this process runs
+        # the kernel cases and the references
+        probe = (ma_start(ma_nccl_probe, tmp, "nccl")
+                 if MA_DEVICE == "cuda" else None)
         worst = kernel_phase(torch, fa, MA_KERNEL_CASES)
         worst_bwd = kernel_bwd_phase(torch, fa, MA_KERNEL_CASES)
         t.append(time.perf_counter())
         ref = ma_references(torch, st, tmp)
         if MA_DEVICE == "cuda":
             gc_cuda(torch)
+        t.append(time.perf_counter())
+        if probe is not None:
+            for r, msg in enumerate(ma_join(probe, "nccl")):
+                say(f"(a) NCCL, two ranks on one card, rank {r}: "
+                    + " ".join(msg.split())[:400])
         t.append(time.perf_counter())
         r0, r1 = ma_spawn(ma_rank, tmp, "model2", (tmp, st))
         t.append(time.perf_counter())
@@ -7833,7 +7897,8 @@ def model_axis_phase(torch, fa, card: str) -> dict:
 
     launches = {k: r0["launches"][k] + r1["launches"][k]
                 for k in r0["launches"]}
-    names = ("NCCL probe", "B1-B3 at a rank's shapes", "mesh=None references",
+    names = ("B1-B3 at a rank's shapes", "mesh=None references",
+             "the NCCL probe's rest (started with the kernel cases)",
              "two ranks (b)-(e)")
     say("phase 19 wall: " + ", ".join(
         f"{n_} {b - a:.1f} s" for n_, a, b in zip(names, t, t[1:]))
@@ -8070,8 +8135,14 @@ def ea_rank_body(rank: int, rdv: str, tmp: str, st: dict) -> dict:
            "marks": [("start", time.perf_counter())]}
 
     def mark(name):
-        """The host clock as part ``name`` ends."""
+        """The host clock as part ``name`` ends.  The part's cached blocks
+        are released (``torch.cuda.empty_cache``): each rank's caching
+        allocator otherwise keeps its peak (37.7 GB a rank after (c3) on
+        the H100), and the other rank sharing the card runs out of
+        memory."""
         res["marks"].append((name, time.perf_counter()))
+        if st["device"] == "cuda":
+            gc_cuda(torch)
 
     def book(counts):
         for k, v in counts.items():
@@ -8337,6 +8408,9 @@ def expert_axis_phase(torch, fa, card: str) -> dict:
     t = [time.perf_counter()]
     try:
         ref = ea_references(torch, st, tmp)
+        # the references' captured graphs hold their memory pools until
+        # their engine entries go: the two ranks need the card
+        compile_cache.clear()
         if EA_DEVICE == "cuda":
             gc_cuda(torch)
         t.append(time.perf_counter())
@@ -8522,6 +8596,548 @@ def expert_axis_phase(torch, fa, card: str) -> dict:
             f"{n_} {b - a:.1f} s" for (_, a), (n_, b) in zip(parts,
                                                             parts[1:]))
         + f"); launches on the ranks' main paths {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the pipe and seq axes
+# ---------------------------------------------------------------------------
+
+#: the device phase 21 runs on (a CPU rehearsal substitutes "cpu")
+PS_DEVICE = "cuda"
+#: (b)/(c) GPT-2 small (dropout 0): B=8 T=1024, SGD lr 0.05 momentum
+#: 0.9, 4 pipeline microbatches; depth 2 in fp32 over 3 seeded batches,
+#: full depth in bf16 mixed precision over one batch 3 times
+PS_B, PS_T, PS_STEPS, PS_LR, PS_MOM, PS_MICRO, PS_DEPTH_FP32 = \
+    8, 1024, 3, 0.05, 0.9, 4, 2
+#: BERT-base MLM, bf16, dropout 0: B=32 T=128, 3 steps, 4 microbatches
+PS_BERT_B, PS_BERT_T, PS_BERT_STEPS, PS_BERT_MICRO = 32, 128, 3, 4
+#: (a) ring attention at GPT-2 small's attention: B, T, heads, D
+PS_RING = (8, 1024, 12, 64)
+#: tolerances: the depth-2 params (relative L2 over the tree); every
+#: step's loss (relative)
+PS_PARAMS_TOL, PS_LOSS_TOL = 1e-5, 2e-2
+#: a rank's share of the stacked blocks' bytes on pipe=2
+PS_BLOCK_SHARE = (0.45, 0.55)
+
+
+def ps_settings() -> dict:
+    return {"device": PS_DEVICE, "B": PS_B, "T": PS_T, "steps": PS_STEPS,
+            "lr": PS_LR, "mom": PS_MOM, "micro": PS_MICRO,
+            "depth": PS_DEPTH_FP32, "bert_B": PS_BERT_B,
+            "bert_T": PS_BERT_T, "bert_steps": PS_BERT_STEPS,
+            "bert_micro": PS_BERT_MICRO, "ring": PS_RING, "gpt": None,
+            "bert": None}
+
+
+def ps_configs(gpt, bert, st):
+    """(GPT fp32 at (b)'s depth, GPT bf16 at full depth, BERT-base bf16),
+    all without dropout."""
+    base = gpt.gpt_config() if st["gpt"] is None else st["gpt"]
+    base = dataclasses.replace(base, dropout=0.0)
+    shallow = dataclasses.replace(base, compute_dtype="float32",
+                                  n_layers=st["depth"])
+    bcfg = bert.bert_base() if st["bert"] is None else st["bert"]
+    return (shallow, dataclasses.replace(base, compute_dtype="bfloat16"),
+            dataclasses.replace(bcfg, dropout=0.0))
+
+
+def ps_lm(lm_fit, cfg, st, **kw):
+    return lm_fit.CausalLM(cfg, lr=st["lr"], momentum=st["mom"],
+                           pipe_microbatches=st["micro"],
+                           device=st["device"], **kw).init(0)
+
+
+def ps_gap(torch, got: dict, ref: dict) -> float:
+    """The relative L2 gap of two param trees (flat dicts of leaves), over
+    the whole tree: a leaf whose gradient is zero in exact arithmetic
+    (the key bias) stays near zero, and a gap read leaf by leaf would be
+    its rounding's over nothing."""
+    g = torch.cat([got[k].reshape(-1) for k in sorted(ref)])
+    r = torch.cat([ref[k].reshape(-1) for k in sorted(ref)])
+    return float((g - r).norm() / r.norm().clamp_min(1e-30))
+
+
+def ps_leaves(lm_fit, tree) -> dict:
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}/{k}")
+        else:
+            out[path] = t.detach().float().cpu()
+    walk(tree, "")
+    return out
+
+
+def ps_bert_batch(bert, bcfg, st):
+    return bert.synthetic_batch(7, bcfg, st["bert_B"], st["bert_T"],
+                                device=st["device"])
+
+
+def ps_bert_params(torch, bert, bcfg, st):
+    return bert.init_params(torch.Generator(device=st["device"])
+                            .manual_seed(2), bcfg, st["device"])
+
+
+def ps_references(torch, st, tmp: str) -> dict:
+    """The mesh=None runs, in this process on the card."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import bert, gpt, lm_fit
+    from deeplearning4j_tpu_torch.ops import updaters
+
+    shallow, deep, bcfg = ps_configs(gpt, bert, st)
+    out = {}
+    lm = ps_lm(lm_fit, shallow, st)
+    ids = ma_ids(shallow.vocab_size, st["steps"], st["B"], st["T"], 0)
+    lm.fit_backprop([DataSet(x, x) for x in ids], num_epochs=1)
+    torch.save(ps_leaves(lm_fit, lm.params), os.path.join(tmp, "b.pt"))
+    del lm
+    lm = ps_lm(lm_fit, deep, st, mixed_precision="bf16")
+    log = MaLog()
+    lm.listeners = [log]
+    one = ma_ids(deep.vocab_size, 1, st["B"], st["T"], 1)
+    ma_sync(torch, st)
+    t0 = time.perf_counter()
+    lm.fit_backprop([DataSet(x, x) for x in one], num_epochs=st["steps"])
+    ma_sync(torch, st)
+    out["deep_step_ms"] = (time.perf_counter() - t0) / st["steps"] * 1e3
+    out["deep_losses"] = log.seen
+    del lm
+    params = ps_bert_params(torch, bert, bcfg, st)
+    opt = updaters.adamw(1e-4, weight_decay=0.01)
+    _, step = bert.make_train_step(bcfg, optimizer=opt, device=st["device"])
+    state = bert.TrainState(params, opt.init(params), 0)
+    batch = ps_bert_batch(bert, bcfg, st)
+    losses = []
+    for _ in range(st["bert_steps"]):
+        state, l_ = step(state, batch)
+        losses.append(float(l_))
+    out["bert_losses"] = losses
+    return out
+
+
+def ps_rank(rank: int, rdv: str, out: str, tmp: str, st: dict) -> None:
+    """One rank of the two: (a)-(c), results pickled."""
+    import pickle
+    import traceback
+
+    try:
+        value = ps_rank_body(rank, rdv, tmp, st)
+        payload = ("ok", value)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        payload = ("error", traceback.format_exc())
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def ps_ring_checks(torch, fa, tfm, ra, col, mesh, st) -> list:
+    """(a): ring attention over B1-B3 against the ring over plain
+    blocks, with each kernel's launches, and Ulysses against the plain
+    full attention, at this rank's block of GPT-2 small's attention."""
+    B, T, H, D = st["ring"]
+    n, r = 2, mesh.seq_rank
+    tl = T // n
+    dev = st["device"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    full = [torch.randn((B, T, H, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(4)]
+    q, k, v, do = (t[:, r * tl:(r + 1) * tl].contiguous() for t in full)
+    axis = (mesh, "seq")
+    rows = []
+    for causal in (True, False):
+        res = {"causal": causal}
+        outs = {}
+        for block in ("flash", "plain"):
+            ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            fa.reset_launches()
+            o = ra.ring_attention(*ts, None, causal, axis, block=block)
+            grads = torch.autograd.grad(o, ts, do)
+            ma_sync(torch, st)
+            outs[block] = (o.detach(), grads)
+            if block == "flash":
+                res["launches"] = fa.launch_counts()
+        o_f, g_f = outs["flash"]
+        o_p, g_p = outs["plain"]
+        tol = TOL["bfloat16"]
+        res["o_err"] = float((o_f.float() - o_p.float()).abs().max())
+        res["o_ok"] = bool(torch.allclose(o_f.float(), o_p.float(),
+                                          rtol=tol, atol=tol))
+        res["grads"] = [bwd_error(torch, a, b, "bfloat16")
+                        for a, b in zip(g_f, g_p)]
+        res["blocks"] = r + 1 if causal else n
+        # Ulysses (B1-B3 through FlashAttentionFn) against the plain full
+        # attention, this rank's block
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o_u = ra.ulysses_attention(*ts, None, causal, axis).detach()
+        ref = tfm.attention(*(t.float() for t in full[:3]), None, causal)
+        ref = ref[:, r * tl:(r + 1) * tl]
+        res["u_err"] = float((o_u.float() - ref).abs().max())
+        res["u_ok"] = bool(torch.allclose(o_u.float(), ref, rtol=tol,
+                                          atol=tol))
+        rows.append(res)
+    return rows
+
+
+def ps_fit(torch, fa, lm_fit, lm, ids, st, mesh, epochs, col=None):
+    """One fit on ``mesh``: (losses, step ms, launches, stats)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    log = MaLog()
+    lm.listeners = [log]
+    fa.reset_launches()
+    if col is not None:
+        col.stats.reset()
+    ma_sync(torch, st)
+    t0 = time.perf_counter()
+    lm.fit_backprop([DataSet(x, x) for x in ids], num_epochs=epochs,
+                    mesh=mesh)
+    ma_sync(torch, st)
+    ms = (time.perf_counter() - t0) / (epochs * len(ids)) * 1e3
+    stats = col.stats.snapshot() if col is not None else None
+    return log.seen, ms, fa.launch_counts(), stats
+
+
+def ps_axis(torch, fa, res, key, mesh, st, tmp) -> None:
+    """(b) or (c) on ``mesh`` (``key``: "pipe" or "seq"), into ``res``."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import bert, gpt, lm_fit
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.parallel import collectives as col
+
+    shallow, deep, bcfg = ps_configs(gpt, bert, st)
+    out = res[key] = {"launches": {"launches": 0, "launches_dkv": 0,
+                                   "launches_dq": 0}}
+
+    def book(counts):
+        for k_, v_ in counts.items():
+            out["launches"][k_] += v_
+
+    # depth 2, fp32: the params, for the parent to hold against
+    # mesh=None's (its reference runs while the ranks start)
+    rank = torch.distributed.get_rank()
+    ids = ma_ids(shallow.vocab_size, st["steps"], st["B"], st["T"], 0)
+    lm = ps_lm(lm_fit, shallow, st)
+    losses, _, counts, _ = ps_fit(torch, fa, lm_fit, lm, ids, st, mesh, 1)
+    book(counts)
+    torch.save(ps_leaves(lm_fit, lm.params),
+               os.path.join(tmp, f"{key}-shallow-{rank}.pt"))
+    out["shallow_launches"] = counts
+    del lm
+    if key == "pipe":
+        # the control: the tied embedding's halves not summed over pipe
+        lm = ps_lm(lm_fit, shallow, st)
+        sound = lm_fit._sum_over_pipe
+        lm_fit._sum_over_pipe = lambda grads, m: grads
+        try:
+            ps_fit(torch, fa, lm_fit, lm, ids, st, mesh, 1)
+        finally:
+            lm_fit._sum_over_pipe = sound
+        torch.save(ps_leaves(lm_fit, lm.params),
+                   os.path.join(tmp, f"{key}-control-{rank}.pt"))
+        del lm
+
+    # full depth, bf16
+    one = ma_ids(deep.vocab_size, 1, st["B"], st["T"], 1)
+    lm = ps_lm(lm_fit, deep, st, mixed_precision="bf16")
+    step, _ = lm._backprop_machinery(mesh)
+    local = step.shard_state(lm.params)
+    out["blocks_bytes"] = sum(t.numel() * t.element_size()
+                              for t in local["blocks"].values())
+    out["all_blocks_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in lm.params["blocks"].values())
+    out["rank_bytes"] = sum(t.numel() * t.element_size() for t in
+                            updaters.tree_leaves(local))
+    out["replicated_bytes"] = lm.num_param_bytes()
+    del local
+    if st["device"] == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms, counts, stats = ps_fit(torch, fa, lm_fit, lm, one, st, mesh,
+                                       st["steps"], col)
+    book(counts)
+    out.update(deep_losses=losses, deep_step_ms=ms, deep_launches=counts,
+               deep_stats=stats, deep_scale=float(lm.loss_scale["scale"]),
+               deep_skips=lm.guard_skips,
+               peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                        if st["device"] == "cuda" else float("nan")))
+    lm.listeners = []
+    col.stats.reset()
+    fa.reset_launches()
+    with col.timed():
+        ma_sync(torch, st)
+        t0 = time.perf_counter()
+        lm.fit_backprop([DataSet(x, x) for x in one], num_epochs=1,
+                        mesh=mesh)
+        ma_sync(torch, st)
+        out["timed_ms"] = (time.perf_counter() - t0) * 1e3
+    book(fa.launch_counts())
+    out["timed"] = col.stats.snapshot()
+    del lm, step
+
+    # BERT-base: the pipeline step, or the sequence-parallel one
+    params = ps_bert_params(torch, bert, bcfg, st)
+    batch = ps_bert_batch(bert, bcfg, st)
+    opt = updaters.adamw(1e-4, weight_decay=0.01)
+    if key == "pipe":
+        _, bstep = bert.make_pipeline_train_step(bcfg, mesh,
+                                                 st["bert_micro"], opt,
+                                                 device=st["device"])
+        params = tfm.shard_tree(params, bstep.specs, mesh)
+    else:
+        _, bstep = bert.make_sp_train_step(bcfg, mesh, opt,
+                                           device=st["device"])
+    state = bert.TrainState(params, opt.init(params), 0)
+    losses = []
+    fa.reset_launches()
+    ma_sync(torch, st)
+    t0 = time.perf_counter()
+    for _ in range(st["bert_steps"]):
+        state, l_ = bstep(state, batch)
+        losses.append(float(l_))
+    ma_sync(torch, st)
+    out["bert_step_ms"] = (time.perf_counter() - t0) / st["bert_steps"] * 1e3
+    out["bert_losses"] = losses
+    out["bert_launches"] = fa.launch_counts()
+    book(out["bert_launches"])
+
+
+def ps_rank_body(rank: int, rdv: str, tmp: str, st: dict) -> dict:
+    sys.path.insert(0, REPO)
+    import torch
+
+    from deeplearning4j_tpu_torch import resolve_device
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import collectives as col
+    from deeplearning4j_tpu_torch.parallel import mesh as pm
+    from deeplearning4j_tpu_torch.parallel import ring_attention as ra
+
+    dev = st["device"]
+    torch.set_num_threads(2)
+    resolve_device(dev)
+    pm.initialize_distributed(f"file://{rdv}", 2, rank, device=dev,
+                              backend="gloo")
+    pipe = pm.make_mesh(pm.MeshSpec(data=1, pipe=2), device=dev)
+    seq = pm.make_mesh(pm.MeshSpec(data=1, seq=2), device=dev)
+    res = {"pipe_mesh": repr(pipe), "seq_mesh": repr(seq)}
+
+    # (a) the ring shift on the card's tensors
+    x = (torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3)
+         + 100 * rank).requires_grad_(True)
+    col.stats.reset()
+    y = col.ring_permute(x, (pipe, "pipe"))
+    fwd = dict(col.stats.snapshot()["by_kind"]["ring_permute"])
+    (g,) = torch.autograd.grad((y * (rank + 2)).sum(), [x])
+    other = torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3) \
+        + 100 * (1 - rank)
+    res["shift"] = {"device": str(y.device),
+                    "value": bool(torch.equal(y.detach(), other)),
+                    "grad": bool(torch.equal(g, torch.full_like(
+                        g, float(1 - rank + 2)))),
+                    "calls": fwd["calls"], "bytes": fwd["bytes"],
+                    "nbytes": x.numel() * x.element_size()}
+    # each part's cached blocks are released before the next: the other
+    # rank and the references share the card
+    res["ring"] = ps_ring_checks(torch, fa, tfm, ra, col, seq, st)
+    if dev == "cuda":
+        gc_cuda(torch)
+    ps_axis(torch, fa, res, "pipe", pipe, st, tmp)
+    if dev == "cuda":
+        gc_cuda(torch)
+    ps_axis(torch, fa, res, "seq", seq, st, tmp)
+    return res
+
+
+def ps_share(stats) -> str:
+    """gloo's ms and share of the timed step by kind."""
+    return ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e6:.1f} MB "
+                     f"{v['seconds'] * 1e3:.1f} ms"
+                     for k, v in stats["by_kind"].items() if v["calls"])
+
+
+def pipe_seq_phase(torch, fa, card: str) -> dict:
+    """Phase 21 (see the module docstring).  Returns the ranks' B1-B3
+    launches on the main paths (b) and (c), summed over both ranks."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models import bert, gpt
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    compile_cache.clear()
+    if PS_DEVICE == "cuda":
+        gc_cuda(torch)
+    check(not torch.distributed.is_initialized(),
+          "phase 21 needs no process group up in this process")
+    st = ps_settings()
+    tmp = tempfile.mkdtemp(prefix="pipe-seq-")
+    t = [time.perf_counter()]
+    try:
+        # the ranks start up and run (a) while this process runs the
+        # references; they write their depth-2 params for it to compare
+        started = ma_start(ps_rank, tmp, "pipeseq", (tmp, st))
+        ref = ps_references(torch, st, tmp)
+        # the references' captured graphs hold their memory pools until
+        # their engine entries go: the two ranks share the card
+        compile_cache.clear()
+        if PS_DEVICE == "cuda":
+            gc_cuda(torch)
+        t.append(time.perf_counter())
+        ranks = ma_join(started, "pipeseq", phase=21)
+        t.append(time.perf_counter())
+        b_ref = torch.load(os.path.join(tmp, "b.pt"))
+        for r, res in enumerate(ranks):
+            for key in ("pipe", "seq"):
+                got = torch.load(os.path.join(tmp, f"{key}-shallow-{r}.pt"))
+                res[key]["shallow_gap"] = ps_gap(torch, got, b_ref)
+                res[key]["shallow_equal"] = all(
+                    torch.equal(got[k_], b_ref[k_]) for k_ in b_ref)
+            res["pipe"]["control_gap"] = ps_gap(torch, torch.load(
+                os.path.join(tmp, f"pipe-control-{r}.pt")), b_ref)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    shallow, deep, bcfg = ps_configs(gpt, bert, st)
+    say(f"groups: {ranks[0]['pipe_mesh']}, {ranks[0]['seq_mesh']} and rank "
+        f"1's; gloo over CUDA tensors, eager")
+
+    # (a)
+    for r, res in enumerate(ranks):
+        s = res["shift"]
+        say(f"(a) rank {r}: ring_permute on {s['device']}: the neighbour's "
+            f"block bit-equal {s['value']}, its gradient the inverse shift "
+            f"{s['grad']}, {s['calls']} call of {s['bytes']} bytes (the "
+            f"tensor: {s['nbytes']})")
+        check(s["value"] and s["grad"] and s["calls"] == 1
+              and s["bytes"] == s["nbytes"], f"(a) rank {r}: {s}")
+        for row in res["ring"]:
+            n_b = row["blocks"]
+            want = {"launches": n_b, "launches_dkv": n_b, "launches_dq": n_b}
+            errs = ", ".join(f"{e:.3e}" for e, _ in row["grads"])
+            say(f"(a) rank {r}: ring attention B={st['ring'][0]} "
+                f"T={st['ring'][1]} ({st['ring'][1] // 2} tokens a rank) "
+                f"{st['ring'][2]} heads D={st['ring'][3]} bf16 causal="
+                f"{row['causal']}: B1-B3 blocks against plain blocks, max"
+                f"|dO| {row['o_err']:.3e} (tol {TOL['bfloat16']:g}), dQ/dK/"
+                f"dV {errs} (<= {BWD_TOL['bfloat16']:g} of max|grad|); "
+                f"launches {row['launches']} (the schedule: {n_b} blocks); "
+                f"Ulysses against the plain full attention max "
+                f"{row['u_err']:.3e}")
+            check(row["o_ok"] and all(ok for _, ok in row["grads"]),
+                  f"(a) rank {r}: ring over B1-B3 disagrees with the plain "
+                  f"blocks: {row}")
+            check(row["launches"] == want,
+                  f"(a) rank {r}: launches {row['launches']} != {want}")
+            check(row["u_ok"], f"(a) rank {r}: Ulysses {row['u_err']}")
+
+    launches = {"launches": 0, "launches_dkv": 0, "launches_dq": 0}
+    L, Ld, Lb = shallow.n_layers, deep.n_layers, bcfg.n_layers
+    m, n = st["micro"], st["steps"]
+    for key in ("pipe", "seq"):
+        for r, res in enumerate(ranks):
+            o = res[key]
+            for k_, v_ in o["launches"].items():
+                launches[k_] += v_
+            # remat: B1 twice a layer a slice, B2/B3 once; on pipe a rank
+            # runs its half of the layers, on seq a layer's ring runs
+            # r + 1 blocks (causal)
+            per = (lambda layers: {
+                "launches": 2 * layers * m, "launches_dkv": layers * m,
+                "launches_dq": layers * m}) if key == "pipe" else (
+                lambda layers: {"launches": 2 * layers * m * (r + 1),
+                                "launches_dkv": layers * m * (r + 1),
+                                "launches_dq": layers * m * (r + 1)})
+            lay = (lambda x: x // 2) if key == "pipe" else (lambda x: x)
+            want_b = {k_: v_ * n for k_, v_ in per(lay(L)).items()}
+            want_c = {k_: v_ * n for k_, v_ in per(lay(Ld)).items()}
+            nb = st["bert_steps"]
+            want_e = ({"launches": 2 * lay(Lb) * st["bert_micro"] * nb,
+                       "launches_dkv": lay(Lb) * st["bert_micro"] * nb,
+                       "launches_dq": lay(Lb) * st["bert_micro"] * nb}
+                      if key == "pipe" else
+                      {"launches": 2 * Lb * 2 * nb, "launches_dkv": Lb * 2 * nb,
+                       "launches_dq": Lb * 2 * nb})
+            tag = "(b)" if key == "pipe" else "(c)"
+            ctrl = (f"; control, the tied embedding's sum over pipe left "
+                    f"out: {o['control_gap']:.3e} (> {PS_PARAMS_TOL:g})"
+                    if key == "pipe" else "")
+            say(f"{tag} rank {r}: GPT-2 small depth {L} fp32 on data=1 x "
+                f"{key}=2, B={st['B']} T={st['T']}, {m} microbatches, "
+                f"{n} seeded batches: params torch.equal to mesh=None's "
+                f"{o['shallow_equal']}, relative L2 gap {o['shallow_gap']:.3e} "
+                f"(<= {PS_PARAMS_TOL:g})"
+                f"{ctrl}; launches {o['shallow_launches']} (expected "
+                f"{want_b})")
+            check(o["shallow_gap"] <= PS_PARAMS_TOL,
+                  f"{tag} rank {r}: params gap {o['shallow_gap']}")
+            check(o["shallow_launches"] == want_b,
+                  f"{tag} rank {r}: launches {o['shallow_launches']}")
+            if key == "pipe":
+                check(o["control_gap"] > PS_PARAMS_TOL,
+                      f"(b) rank {r}: the control reads "
+                      f"{o['control_gap']}, inside {PS_PARAMS_TOL}")
+            losses = np.array(o["deep_losses"])
+            rel = np.abs(losses - np.array(ref["deep_losses"])) / np.abs(
+                np.array(ref["deep_losses"]))
+            share = o["blocks_bytes"] / o["all_blocks_bytes"]
+            ts = o["timed"]
+            say(f"{tag} rank {r}: GPT-2 small depth {Ld} bf16 mixed "
+                f"precision, one batch x {n}: losses {losses.tolist()} "
+                f"(mesh=None {ref['deep_losses']}; largest relative "
+                f"difference {rel.max():.3e} <= {PS_LOSS_TOL:g}); step "
+                f"{o['deep_step_ms']:.1f} ms (host clock after synchronize, "
+                f"eager over gloo; mesh=None {ref['deep_step_ms']:.1f} ms, "
+                f"its capture included); collectives a step: "
+                f"{ps_share(o['deep_stats'])} (over {n} steps); one more "
+                f"step under collectives.timed() {o['timed_ms']:.1f} ms, "
+                f"gloo {ts['seconds'] * 1e3:.1f} ms "
+                f"({ts['seconds'] * 1e3 / o['timed_ms']:.1%}): "
+                f"{ps_share(ts)}; block bytes {o['blocks_bytes']:,} of "
+                f"{o['all_blocks_bytes']:,} ({share:.3f}); the rank's params "
+                f"{o['rank_bytes']:,} of {o['replicated_bytes']:,} "
+                f"replicated; peak memory {o['peak_gb']:.2f} GB; guard skips "
+                f"{o['deep_skips']}, loss scale {o['deep_scale']:g}; "
+                f"launches {o['deep_launches']} (expected {want_c})")
+            check(np.isfinite(losses).all(), f"{tag} rank {r}: non-finite")
+            check(rel.max() <= PS_LOSS_TOL,
+                  f"{tag} rank {r}: losses differ by {rel.max()}")
+            check(o["deep_launches"] == want_c,
+                  f"{tag} rank {r}: launches {o['deep_launches']}")
+            if key == "pipe":
+                check(PS_BLOCK_SHARE[0] <= share <= PS_BLOCK_SHARE[1],
+                      f"(b) rank {r} holds {share} of the blocks")
+            else:
+                check(ts["by_kind"]["ring_permute"]["calls"] > 0,
+                      "(c): no ring_permute in the timed step")
+            bl = np.array(o["bert_losses"])
+            brel = np.abs(bl - np.array(ref["bert_losses"])) / np.abs(
+                np.array(ref["bert_losses"]))
+            what = ("make_pipeline_train_step, n_micro="
+                    f"{st['bert_micro']}" if key == "pipe" else
+                    f"make_sp_train_step, {st['bert_T'] // 2} tokens a rank")
+            say(f"{tag} rank {r}: BERT-base {what}, B={st['bert_B']} "
+                f"T={st['bert_T']} bf16: losses {bl.tolist()} "
+                f"(make_train_step at mesh=None {ref['bert_losses']}; "
+                f"largest relative difference {brel.max():.3e} <= "
+                f"{PS_LOSS_TOL:g}); step {o['bert_step_ms']:.1f} ms; "
+                f"launches {o['bert_launches']} (expected {want_e})")
+            check(brel.max() <= PS_LOSS_TOL,
+                  f"{tag} rank {r}: BERT losses differ by {brel.max()}")
+            check(o["bert_launches"] == want_e,
+                  f"{tag} rank {r}: BERT launches {o['bert_launches']}")
+    names = ("mesh=None references (the ranks starting)",
+             "two ranks (a)-(c)")
+    say("phase 21 wall: " + ", ".join(
+        f"{n_} {b - a:.1f} s" for n_, a, b in zip(names, t, t[1:]))
+        + f"; total {t[-1] - t[0]:.1f} s; launches on the ranks' main paths "
+          f"{launches}")
     return launches
 
 
@@ -8729,6 +9345,13 @@ def main() -> int:
                 "moe.make_train_step and CausalLM, and on a model axis; two "
                 "gloo ranks sharing the card")
     for name, n in expert_axis_phase(torch, fa, card).items():
+        launches[name] += n
+    clock.start("21", "the pipe and seq axes: the ring shift, ring and "
+                "Ulysses attention over B1-B3, GPT-2 small through CausalLM "
+                "on data=1 x pipe=2 and data=1 x seq=2, BERT-base's "
+                "pipeline and sequence-parallel steps; two gloo ranks "
+                "sharing the card")
+    for name, n in pipe_seq_phase(torch, fa, card).items():
         launches[name] += n
     clock.stop()
 

@@ -8,8 +8,11 @@ batches, the one-device training step (:175-241) and the serving
 forward.  On a ``data x model`` mesh (:func:`shard_specs`) the encoder
 is the transformer's tensor-parallel one and the MLM transform is
 column-parallel, its output gathered before its LayerNorm.  The
-pipeline and sequence-parallel steps (:248-430) are ROADMAP A7.1b and
-A7.5.
+pipeline step (:func:`make_pipeline_train_step`, :248-344) stages the
+blocks over ``pipe`` through ``parallel/pipeline.pipeline_forward``;
+the sequence-parallel step (:func:`make_sp_train_step`, :347-430) runs
+the encoder on a rank's block of each sequence with ring attention
+(``parallel/ring_attention.py``).
 """
 
 from __future__ import annotations
@@ -174,6 +177,175 @@ def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
                                optimizer, attn_fn, n_steps, device,
                                label="bert.train_step", specs_fn=shard_specs,
                                weight_fn=lambda b: b.mlm_mask.sum())
+
+
+def _local_rows(batch: Batch, mesh) -> Batch:
+    """This rank's data index's rows of a global batch."""
+    from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS, shard_rows
+    if int(mesh.shape[DATA_AXIS]) == 1:
+        return batch
+    return Batch(*(shard_rows(t, mesh) for t in batch))
+
+
+def _step_fns(init_params_fn, optimizer, specs, mesh, dev, grads_of):
+    """``(init_fn, step_fn)`` around ``grads_of(params, batch) -> (loss,
+    grads)``: the params laid out by ``specs`` (None: replicated), the
+    update ``optimizer``'s, run eagerly (the steps' point-to-point shifts
+    stay out of CUDA graphs)."""
+    def init_fn(generator: torch.Generator) -> TrainState:
+        params = init_params_fn(generator, dev)
+        if specs is not None:
+            params = tfm.shard_tree(params, specs, mesh)
+        return TrainState(params, optimizer.init(params), 0)
+
+    def step_fn(state: TrainState, batch: Batch):
+        from deeplearning4j_tpu_torch.ops import updaters
+        loss, grads = grads_of(state.params, batch)
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.params)
+        params = updaters.apply_updates(state.params, updates)
+        return TrainState(params, opt_state, state.step + 1), loss
+
+    step_fn.specs = specs
+    step_fn.mesh = mesh
+    return init_fn, step_fn
+
+
+def make_pipeline_train_step(cfg: TransformerConfig, mesh, n_micro: int,
+                             optimizer=None, device: DeviceLike = None
+                             ) -> Tuple[Callable, Callable]:
+    """The GPipe data x pipe step on BERT (:248-344): ``(init_fn(
+    generator) -> TrainState, step_fn(state, batch) -> (state, loss))``,
+    every rank calling them with the same global batch.  The blocks
+    split into ``mesh.shape["pipe"]`` stages (``shard_specs(...,
+    pipe_degree)``: a rank holds its stage's contiguous layers, the
+    model split kept on a model axis); the embedding, the pooler and the
+    MLM head are replicated over ``pipe``.  A rank embeds its data
+    rows, ``parallel/pipeline.pipeline_forward`` runs the blocks over
+    ``n_micro`` microbatches with the attention mask riding the ring
+    beside the activations, and the last stage takes the masked MLM loss
+    (over the global count of predicted positions).  The replicated
+    leaves' gradients (stage 0's lookup, the last stage's head) are
+    summed over ``pipe``, every gradient over ``data``; the loss is the
+    global batch's on every rank.  ``optimizer`` defaults to
+    ``updaters.adamw(1e-4, weight_decay=0.01)``.  A config with dropout
+    raises, as the reference's does."""
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.ops.flash_attention import make_attn_fn
+    from deeplearning4j_tpu_torch.parallel import collectives
+    from deeplearning4j_tpu_torch.parallel import pipeline as pl
+    from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                        PIPE_AXIS,
+                                                        model_degree)
+
+    optimizer = optimizer or updaters.adamw(1e-4, weight_decay=0.01)
+    n_stages = int(mesh.shape[PIPE_AXIS])
+    if cfg.n_layers % n_stages != 0:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by pipe "
+                         f"degree {n_stages}")
+    if cfg.dropout != 0.0:
+        raise ValueError(
+            f"pipeline train step is dropout-free; got cfg.dropout="
+            f"{cfg.dropout} (use dataclasses.replace(cfg, dropout=0.0))")
+    dev = resolve_device(device) if device is not None else mesh.device
+    specs = shard_specs(cfg, model_degree(mesh), n_stages)
+    tp = tpar.model_group(mesh)
+    attn = make_attn_fn("auto", mesh=mesh)
+    axis = (mesh, PIPE_AXIS)
+    last = mesh.pipe_rank == n_stages - 1
+
+    def stage_fn(blocks, xm):
+        x, mask = xm
+        return tfm.run_blocks(cfg, blocks, x, mask, None, attn, tp), mask
+
+    def objective(params, batch: Batch):
+        x = tfm.embed(cfg, params, batch.token_ids, batch.type_ids, tp=tp)
+        micro = pl.to_microbatches((x, batch.attention_mask.float()),
+                                   n_micro)
+        hidden, _ = pl.from_microbatches(
+            pl.pipeline_forward(stage_fn, params["blocks"], micro, axis))
+        den = collectives.psum(batch.mlm_mask.sum(), mesh)
+        if not last:
+            # every rank's backward walks the schedule's shifts
+            return 0.0 * hidden.sum(), den
+        logits = mlm_logits(cfg, params, hidden, tp)
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, batch.labels.long()[..., None])[..., 0]
+        return -(ll * batch.mlm_mask).sum() / torch.clamp(den, min=1.0), den
+
+    def grads_of(params, batch: Batch):
+        batch = _local_rows(batch, mesh)
+        loss, grads = tfm.value_and_grad(
+            lambda p: objective(p, batch)[0], params)
+        rest = {k: v for k, v in grads.items() if k != "blocks"}
+        grads = dict(collectives.psum(rest, axis), blocks=grads["blocks"])
+        if int(mesh.shape[DATA_AXIS]) > 1:
+            grads = collectives.psum(grads, mesh)
+        loss = collectives.psum(loss, (mesh, (DATA_AXIS, PIPE_AXIS)))
+        return loss, grads
+
+    return _step_fns(lambda g, d: init_params(g, cfg, d), optimizer, specs,
+                     mesh, dev, grads_of)
+
+
+def make_sp_train_step(cfg: TransformerConfig, mesh, optimizer=None,
+                       device: DeviceLike = None
+                       ) -> Tuple[Callable, Callable]:
+    """The data x seq step on BERT (:347-430): ``(init_fn(generator) ->
+    TrainState, step_fn(state, batch) -> (state, loss))``, every rank
+    calling them with the same global batch.  A rank holds ``[B / dp,
+    T / sp]`` tokens, embeds them at ``position_offset = seq_index * T /
+    sp``, and attention is ring attention over ``(mesh, "seq")`` (B1-B3
+    as its block step on the card); the masked MLM loss sums its
+    numerator and denominator over ``("data", "seq")``.  The params are
+    replicated and their gradients summed over ``("data", "seq")``.
+    ``optimizer`` defaults to ``updaters.adamw(1e-4, weight_decay=
+    0.01)``; a config with dropout raises, as the reference's does."""
+    from deeplearning4j_tpu_torch.ops import updaters
+    from deeplearning4j_tpu_torch.parallel import collectives
+    from deeplearning4j_tpu_torch.parallel.mesh import (SEQ_AXIS,
+                                                        SEQ_TOKEN_AXES)
+    from deeplearning4j_tpu_torch.parallel.ring_attention import \
+        make_ring_attn_fn
+
+    optimizer = optimizer or updaters.adamw(1e-4, weight_decay=0.01)
+    if cfg.dropout != 0.0:
+        raise ValueError(
+            f"sp train step is dropout-free; got cfg.dropout="
+            f"{cfg.dropout} (use dataclasses.replace(cfg, dropout=0.0))")
+    dev = resolve_device(device) if device is not None else mesh.device
+    sp = int(mesh.shape[SEQ_AXIS])
+    ring = make_ring_attn_fn((mesh, SEQ_AXIS))
+    tokens = (mesh, SEQ_TOKEN_AXES)
+
+    def local(batch: Batch) -> Batch:
+        batch = _local_rows(batch, mesh)
+        T = batch.token_ids.shape[1]
+        if T % sp:
+            raise ValueError(f"sequence of {T} tokens does not split over "
+                             f"a seq axis of {sp}")
+        tl = T // sp
+        return Batch(*(t.narrow(1, mesh.seq_rank * tl, tl) for t in batch))
+
+    def grads_of(params, batch: Batch):
+        batch = local(batch)
+        off = mesh.seq_rank * batch.token_ids.shape[1]
+
+        def objective(p):
+            hidden = tfm.encode(cfg, p, batch.token_ids, batch.attention_mask,
+                                batch.type_ids, None, attn_fn=ring,
+                                position_offset=off)
+            logits = mlm_logits(cfg, p, hidden)
+            logp = torch.log_softmax(logits, dim=-1)
+            ll = torch.gather(logp, -1, batch.labels.long()[..., None])[..., 0]
+            den = collectives.psum(batch.mlm_mask.sum(), tokens)
+            return -(ll * batch.mlm_mask).sum() / torch.clamp(den, min=1.0)
+
+        loss, grads = tfm.value_and_grad(objective, params)
+        return collectives.psum((loss, grads), tokens)
+
+    return _step_fns(lambda g, d: init_params(g, cfg, d), optimizer, None,
+                     mesh, dev, grads_of)
 
 
 def synthetic_batch(seed: int, cfg: TransformerConfig, batch_size: int,

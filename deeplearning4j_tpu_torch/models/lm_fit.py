@@ -17,9 +17,11 @@ The step (built by ``parallel/sharded_fit``) is the reference's:
   plus for MoE ``aux_loss_weight * aux * valid targets``, divided once
   by the global count of valid targets, which also undoes the loss
   scale under bf16;
-- ``grad_accum`` microbatches accumulate in fp32; under a data mesh the
-  loss sum and the gradients are summed over the data axis before the
-  divide, and the guard's verdict comes after the sum;
+- ``n_micro = grad_accum * pipe_microbatches`` slices of the batch are
+  walked in order, their gradients accumulated in fp32 (:254-283) at
+  any mesh; under a data mesh the loss sum and the gradients are summed
+  over the data axis before the divide, and the guard's verdict comes
+  after the sum;
 - the update is SGD with momentum (``m = mu m + g``, ``p -= lr m``)
   with fp32 state mirroring the params; ``mixed_precision="bf16"``
   casts the fp32 masters inside the differentiated function and threads
@@ -66,9 +68,35 @@ gradient is the same on the group's ranks, and all gradients sum over
 ``data`` only (the expert tables' already hold every shard's
 contribution).  Capacity is the block's own, as in the reference.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``pipe_microbatches > 1`` (the pipeline, A7.1b) and meshes with
-pipe or seq axes above 1 (A7.1b, A7.5).
+**The pipe axis** (the reference lays the stacked blocks out
+stage-major over ``pipe``, ``shard_specs(pipe_degree=)``, and lets XLA
+move the activations; the port runs the GPipe schedule of
+``parallel/pipeline.run_schedule``): a rank holds its stage's
+contiguous layers and runs them for each slice; activations go forward
+by ``collectives.ring_permute`` and their gradients come back through
+its backward.  Stage 0 embeds, the last stage applies the tied readout
+and the loss, and the MoE family's stages each add their layers' aux.
+The reference's contract (``sharded_fit.py:42-46``) holds: a change of
+pipe degree alone is a pure layout change, the fit at ``pipe=2``
+``torch.equal`` to the one at ``pipe=1``.  The port keeps ``pipe=1``'s
+reduction order for that: every tick's block weights enter the graph
+as a leaf of their own, so each slice's gradient comes out whole and
+the slices accumulate in order; the replicated embedding's two halves
+(stage 0's lookup, the last stage's readout) are summed over ``pipe``
+slice by slice, as autograd sums them at ``pipe=1``; and the dropout
+masks are drawn by every stage for every layer in ``pipe=1``'s order,
+each stage keeping its own.  The guard's verdict is agreed over the
+whole mesh.
+
+**The seq axis** (the reference's ``test_seq_sharded_fit_matches_
+reference``): a rank holds its ``T / seq`` tokens of each row through
+the whole stack (embedded at their absolute positions), attention is
+ring attention (``make_attn_fn("auto", mesh)``), the target of a
+block's last position is the next block's first token (every rank has
+the rows' global ids), and the NLL sum and the replicated gradients
+are summed over ``("data", "seq")``.  The dropout masks are drawn a
+rank of the block it holds, so with dropout they are not
+``mesh=None``'s.
 """
 
 from __future__ import annotations
@@ -84,14 +112,18 @@ from deeplearning4j_tpu_torch.models import moe as moe_lm
 from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.models.moe import MoETransformerConfig
 from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
-from deeplearning4j_tpu_torch.ops.updaters import tree_leaves, tree_map
-from deeplearning4j_tpu_torch.parallel import (collectives, sharded_fit,
+from deeplearning4j_tpu_torch.ops.updaters import (tree_leaves, tree_map,
+                                                   tree_unflatten)
+from deeplearning4j_tpu_torch.parallel import (collectives, pipeline,
+                                               sharded_fit,
                                                tensor_parallel as tpar)
-from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
+from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS, PIPE_AXIS,
+                                                    SEQ_TOKEN_AXES,
                                                     check_mesh_axes,
                                                     expert_degree,
                                                     mesh_signature,
                                                     model_degree, pad_rows,
+                                                    pipe_degree, seq_degree,
                                                     shard_rows)
 from deeplearning4j_tpu_torch.runtime import compile_cache, resilience, \
     telemetry
@@ -140,10 +172,6 @@ class CausalLM:
         if pipe_microbatches < 1:
             raise ValueError(
                 f"pipe_microbatches must be >= 1, got {pipe_microbatches}")
-        if pipe_microbatches > 1:
-            raise NotImplementedError(
-                "pipe_microbatches > 1 (the GPipe schedule of a pipe mesh) "
-                "is not ported to the PyTorch package yet (ROADMAP A7.1b)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lr = float(lr)
@@ -229,34 +257,70 @@ class CausalLM:
         mp_on = self._mp_on()
         is_moe = self._is_moe
         rank = mesh.rank if mesh is not None else 0
+        n_micro = accum * self.pipe_microbatches
+        p_deg, s_deg = pipe_degree(mesh), seq_degree(mesh)
         attn_fn = make_attn_fn("auto", mesh=mesh)
         moe_ffn_fn = make_gspmd_moe_ffn(mesh, cfg.moe) if is_moe else None
         tp = tpar.model_group(mesh)
-        if is_moe and (tp is not None or expert_degree(mesh) > 1):
-            specs = moe_lm.shard_specs(cfg, model_degree(mesh),
+        if is_moe and (tp is not None or expert_degree(mesh) > 1
+                       or p_deg > 1):
+            specs = moe_lm.shard_specs(cfg, model_degree(mesh), p_deg,
                                        expert_degree=expert_degree(mesh))
+        elif tp is not None or p_deg > 1:
+            specs = gpt.shard_specs(cfg, model_degree(mesh), p_deg)
         else:
-            specs = gpt.shard_specs(cfg, model_degree(mesh)) if tp else None
+            specs = None
         agree = sharded_fit.agree_over_mesh(mesh)
+        # the gradients' and the loss's sum: over data, and over the
+        # sequence blocks on a seq axis
+        dp_axis = (mesh, SEQ_TOKEN_AXES) if s_deg > 1 else mesh
+
+        def cast(tree):
+            return sharded_fit.mp_cast(tree) if mp_on else tree
+
+        def tokens(ids):
+            """``(this rank's tokens, their targets, position offset)``:
+            the whole rows without a seq axis (targets shifted by one),
+            else the rank's block; the last block has one target less."""
+            T = ids.shape[1]
+            if s_deg == 1:
+                return ids, ids[:, 1:], 0
+            if T % s_deg:
+                raise ValueError(f"sequence of {T} tokens does not split "
+                                 f"over a seq axis of {s_deg}")
+            tl = T // s_deg
+            off = mesh.seq_rank * tl
+            return (ids[:, off:off + tl], ids[:, off + 1:min(off + tl + 1, T)],
+                    off)
+
+        def nll_sum(embed_p, hidden, targets, rmask):
+            """The masked NLL sum of ``hidden``'s first ``targets``
+            positions through the tied readout."""
+            n = targets.shape[1]
+            logits = gpt.lm_logits(cfg, {"embed": embed_p}, hidden[:, :n],
+                                   tp)
+            logp = torch.log_softmax(logits, dim=-1)
+            ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+            return -torch.sum(ll * rmask[:, None])
+
+        def aux_count(ids, rmask):
+            return torch.sum(rmask) * (ids.shape[1] - 1)
 
         def loss_sum(params, ids, rmask, gen):
             """Masked next-token NLL SUM (+ the MoE aux scaled by the
             valid count): the unit microbatches and ranks sum."""
-            if mp_on:
-                params = sharded_fit.mp_cast(params)
+            params = cast(params)
+            loc, targets, off = tokens(ids)
             if is_moe:
-                hidden, aux = moe_lm.encode(cfg, params, ids, attn_fn,
-                                            moe_ffn_fn, tp)
+                hidden, aux = moe_lm.encode(cfg, params, loc, attn_fn,
+                                            moe_ffn_fn, tp, off)
             else:
-                hidden = tfm.encode(cfg, params, ids, None, None, gen,
-                                    attn_fn=attn_fn, tp=tp)
-            logits = gpt.lm_logits(cfg, params, hidden[:, :-1], tp)
-            logp = torch.log_softmax(logits, dim=-1)
-            ll = torch.gather(logp, -1, ids[:, 1:].long()[..., None])[..., 0]
-            nll = -torch.sum(ll * rmask[:, None])
+                hidden = tfm.encode(cfg, params, loc, None, None, gen,
+                                    attn_fn=attn_fn, tp=tp,
+                                    position_offset=off)
+            nll = nll_sum(params["embed"], hidden, targets, rmask)
             if is_moe:
-                count = torch.sum(rmask) * (ids.shape[1] - 1)
-                nll = nll + cfg.aux_loss_weight * aux * count
+                nll = nll + cfg.aux_loss_weight * aux * aux_count(ids, rmask)
             return nll
 
         def grads_of(params, ids, rmask, gen, scale):
@@ -270,6 +334,86 @@ class CausalLM:
                                     allow_unused=True, materialize_grads=True)
             return s.detach(), list(g)
 
+        def pipe_slices(params, ids, rmask, gen, scale):
+            """Each slice's ``(loss sum, grads)`` on a pipe mesh: one
+            GPipe schedule over the ``n_micro`` slices (module
+            docstring), the embedding's gradients summed over ``pipe``
+            slice by slice."""
+            mb = ids.shape[0] // n_micro
+            s = mesh.pipe_rank
+            L = cfg.n_layers
+            lps = L // p_deg
+
+            def leaves_of(tree):
+                return [tree_map(lambda t: t.detach().requires_grad_(True),
+                                 tree) for _ in range(n_micro)]
+
+            emb = leaves_of(params["embed"])
+            blk = leaves_of(params["blocks"])
+            sl = [slice(i * mb, (i + 1) * mb) for i in range(n_micro)]
+            toks = [tokens(ids[q]) for q in sl]
+            like = torch.empty((mb, toks[0][0].shape[1], cfg.hidden),
+                               device=ids.device)
+            masks = None
+            if not is_moe and gen is not None and cfg.dropout > 0.0:
+                masks = [[tfm._dropout_masks(cfg, like, gen)
+                          for _ in range(L)][s * lps:(s + 1) * lps]
+                         for _ in range(n_micro)]
+            terms, sums = [], [torch.zeros((), device=ids.device)
+                               for _ in range(n_micro)]
+
+            def add(i, term):
+                terms.append(term * scale if mp_on else term)
+                sums[i] = sums[i] + term.detach()
+
+            def inject(i):
+                loc, _, off = toks[i]
+                return tfm.embed(cfg, {"embed": cast(emb[i])}, loc, None,
+                                 off, tp=tp)
+
+            def stage(i, x):
+                p = cast(blk[i])
+                if not is_moe:
+                    return tfm.run_blocks(cfg, p, x, None, None, attn_fn, tp,
+                                          masks[i] if masks else None)
+                x, auxs = moe_lm.run_blocks(cfg, p, x, attn_fn, moe_ffn_fn,
+                                            tp)
+                add(i, cfg.aux_loss_weight * auxs.sum() / L
+                    * aux_count(ids[sl[i]], rmask[sl[i]]))
+                return x
+
+            def emit(i, y):
+                add(i, nll_sum(cast(emb[i]), y, toks[i][1], rmask[sl[i]]))
+
+            with torch.enable_grad():
+                anchor = pipeline.run_schedule(stage, n_micro,
+                                               (mesh, PIPE_AXIS), inject,
+                                               like, emit, tie=blk[0])
+                obj = 0.0 * anchor.sum()
+                for term in terms:
+                    obj = obj + term
+            g = torch.autograd.grad(
+                obj, tree_leaves(emb) + tree_leaves(blk), allow_unused=True,
+                materialize_grads=True)
+            n_emb = len(tree_leaves(params["embed"]))
+            g_emb = [torch.stack(g[k::n_emb][:n_micro])
+                     for k in range(n_emb)]
+            g_emb = _sum_over_pipe(g_emb, mesh)
+            g_blk = g[n_micro * n_emb:]
+            n_blk = len(g_blk) // n_micro
+            lsums = collectives.psum(torch.stack(sums), (mesh, PIPE_AXIS))
+
+            def slice_grads(i):
+                """Slice ``i``'s gradients in the params' leaf order."""
+                groups = {
+                    "embed": tree_unflatten(params["embed"],
+                                            [e[i] for e in g_emb]),
+                    "blocks": tree_unflatten(
+                        params["blocks"], g_blk[i * n_blk:(i + 1) * n_blk])}
+                return tree_leaves({k: groups[k] for k in params})
+
+            return [(lsums[i], slice_grads(i)) for i in range(n_micro)]
+
         def dp_step(params, ustate, batch, gen, iteration):
             if mp_on:
                 mom, ls = ustate
@@ -281,14 +425,18 @@ class CausalLM:
             rmask = ((rank * B + torch.arange(B, device=ids.device))
                      < n_valid).float()
             count = n_valid.float() * (T - 1)
-            if accum == 1:
-                lsum, grads = grads_of(params, ids, rmask, gen, scale)
+            if p_deg > 1:
+                slices = pipe_slices(params, ids, rmask, gen, scale)
             else:
-                mb = B // accum
+                mb = B // n_micro
+                slices = (grads_of(params, ids[i * mb:(i + 1) * mb],
+                                   rmask[i * mb:(i + 1) * mb], gen, scale)
+                          for i in range(n_micro))
+            if n_micro == 1:
+                lsum, grads = next(iter(slices))
+            else:
                 lsum, grads = None, None
-                for i in range(accum):
-                    sl = slice(i * mb, (i + 1) * mb)
-                    s, g = grads_of(params, ids[sl], rmask[sl], gen, scale)
+                for s, g in slices:
                     if grads is None:
                         # fp32 accumulators, zero-started as the
                         # reference's scan carry
@@ -300,7 +448,7 @@ class CausalLM:
                         grads = [a + gg.float() for a, gg in zip(grads, g)]
                         lsum = lsum + s
             if mesh is not None:
-                lsum, grads = collectives.psum((lsum, grads), mesh)
+                lsum, grads = collectives.psum((lsum, grads), dp_axis)
             denom = torch.clamp(count, min=1.0)
             score = lsum / denom
             gdenom = denom * scale if mp_on else denom
@@ -429,6 +577,13 @@ class CausalLM:
         self.params = tree_map(torch.clone, step.gather_state(params))
         self.loss_scale = (tree_map(torch.clone, ustate[1]) if self._mp_on()
                            else None)
+
+
+def _sum_over_pipe(grads: List[Tensor], mesh) -> List[Tensor]:
+    """The replicated leaves' ``[n_micro, ...]`` slice gradients summed
+    over ``pipe``: stage 0's lookup half and the last stage's readout
+    half of the tied embedding meet here, slice by slice."""
+    return collectives.psum(grads, (mesh, PIPE_AXIS))
 
 
 def _like(tree, leaves: List[Tensor]):

@@ -31,7 +31,9 @@ of replicated leaves are summed over every token shard and those of the
 expert tables over ``data`` only (the all-to-all's backward has
 already brought every shard's contribution to the rank holding the
 expert), and the AdamW state of the expert tables stays split.  A
-``pipe`` axis above 1 raises naming ROADMAP A7.1b.
+``pipe`` or ``seq`` axis above 1 replicates that step over it; the
+pipeline stages of the family (``shard_specs(pipe_degree=)``,
+:func:`run_blocks`) train through ``models/lm_fit.CausalLM``.
 """
 
 from __future__ import annotations
@@ -162,12 +164,8 @@ def shard_specs(cfg: MoETransformerConfig, model_degree: int = 1,
     expert tables split their expert axis over ``expert`` when
     ``expert_degree > 1``, else over ``model``; attention heads over
     ``model``; the token table over vocab when the model degree divides
-    it.  ``pipe_degree > 1`` (stage specs) is ROADMAP A7.1b."""
-    if pipe_degree > 1:
-        raise NotImplementedError(
-            "moe.shard_specs(pipe_degree > 1), the pipeline stages of the "
-            "MoE family, is not ported to the PyTorch package yet "
-            "(ROADMAP A7.1b)")
+    it; above a ``pipe_degree`` of 1 the stacked blocks split into
+    contiguous stages over ``pipe`` (``transformer.pipe_stage_specs``)."""
     m = MODEL_AXIS if model_degree > 1 else None
     if model_degree > 1:
         if expert_degree == 1 and cfg.n_experts % model_degree:
@@ -201,6 +199,8 @@ def shard_specs(cfg: MoETransformerConfig, model_degree: int = 1,
            and cfg.vocab_size % model_degree == 0 else P(None, None))
     embed = {"tok": tok, "pos": P(None, None), "ln_g": P(None),
              "ln_b": P(None)}
+    if pipe_degree > 1:
+        blocks = tfm.pipe_stage_specs(blocks, cfg, pipe_degree)
     return {"embed": embed, "blocks": blocks}
 
 
@@ -228,14 +228,24 @@ def _block(cfg: MoETransformerConfig, x: Tensor, p: Dict[str, Tensor],
 
 def encode(cfg: MoETransformerConfig, params: Params, token_ids: Tensor,
            attn_fn=tfm.attention, ffn_fn: Optional[Callable] = None,
-           tp=None) -> Tuple[Tensor, Tensor]:
+           tp=None, position_offset: int = 0) -> Tuple[Tensor, Tensor]:
     """ids ``[b, T]`` -> ``(hidden [b, T, H] fp32, mean aux over
     layers)`` (:227-244): token + position embedding and LayerNorm (the
-    transformer's, with no type table), then each block.  ``tp``: this
-    rank's model group when ``params`` is its shard (heads, a vocab
-    slice of the token table)."""
-    x = tfm.embed(cfg, params, token_ids, tp=tp)
-    blocks = params["blocks"]
+    transformer's, with no type table), then :func:`run_blocks`.
+    ``tp``: this rank's model group when ``params`` is its shard (heads,
+    a vocab slice of the token table)."""
+    x = tfm.embed(cfg, params, token_ids, None, position_offset, tp=tp)
+    x, auxs = run_blocks(cfg, params["blocks"], x, attn_fn, ffn_fn, tp)
+    return x, auxs.mean()
+
+
+def run_blocks(cfg: MoETransformerConfig, blocks: Params, x: Tensor,
+               attn_fn=tfm.attention, ffn_fn: Optional[Callable] = None,
+               tp=None) -> Tuple[Tensor, Tensor]:
+    """The stacked blocks ``blocks`` (every layer, or one pipeline
+    stage's) over hidden ``x``: ``(x', [l] aux of each layer)``, each
+    block under ``torch.utils.checkpoint`` when ``cfg.remat`` is set
+    and grad is enabled."""
     layers = zip(*(torch.unbind(w) for w in blocks.values()))
     remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
@@ -248,7 +258,7 @@ def encode(cfg: MoETransformerConfig, params: Params, token_ids: Tensor,
         else:
             x, aux = _block(cfg, x, p, attn_fn, ffn_fn, tp)
         auxs.append(aux)
-    return x, torch.stack(auxs).mean()
+    return x, torch.stack(auxs)
 
 
 def lm_loss(cfg: MoETransformerConfig, params: Params, token_ids: Tensor,
@@ -305,7 +315,8 @@ def _mesh_train_step(cfg: MoETransformerConfig, mesh, optimizer, attn_fn,
     ep = int(mesh.shape.get(EXPERT_AXIS, 1))
     _check_divides(cfg.moe, ep)
     dev = resolve_device(device) if device is not None else mesh.device
-    attn_fn = attn_fn or make_attn_fn("auto", mesh=mesh)
+    attn_fn = attn_fn or make_attn_fn("auto",
+                                      mesh=tfm._local_attention_mesh(mesh))
     optimizer = optimizer or updaters.adamw(1e-3, weight_decay=0.01)
     specs = param_specs(cfg)
     tok_axes = _token_axes(mesh)

@@ -171,29 +171,26 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 
 def pipe_stage_specs(block_specs, cfg, pipe_degree: int):
     """The stacked ``[n_layers, ...]`` block leaves over ``pipe``
-    (:126-143), checked as the reference checks them.  Only a pipe
-    degree of 1 is ported: above it the GPipe schedule is ROADMAP
-    A7.1b."""
+    (:126-143), checked as the reference checks them: each stage holds
+    ``n_layers / pipe_degree`` contiguous layers (``shard_tree`` cuts
+    them), the trailing dimensions keep their model split."""
     if cfg.n_layers % pipe_degree:
         raise ValueError(
             f"n_layers={cfg.n_layers} not divisible by pipe degree "
             f"{pipe_degree} — stacked layers split into equal "
             f"contiguous pipeline stages over `pipe`")
-    if pipe_degree > 1:
-        raise NotImplementedError(
-            f"a pipe degree of {pipe_degree} (the GPipe stages) is not "
-            f"ported to the PyTorch package yet (ROADMAP A7.1b)")
     return tpar.map_specs(lambda s: P(PIPE_AXIS, *tuple(s)[1:]),
                           block_specs)
 
 
 def shard_specs(cfg: TransformerConfig, model_degree: int = 1,
                 pipe_degree: int = 1) -> Dict[str, Any]:
-    """The data x model layout of the params (:146-169):
+    """The data x model (x pipe) layout of the params (:146-169):
     :func:`param_specs`, with the token embedding (and through the tied
     readout the logits) over vocab when ``model_degree`` divides the
-    vocabulary, checked up front with the reference's errors.  A pipe
-    degree above 1 raises (:func:`pipe_stage_specs`)."""
+    vocabulary, and above a ``pipe_degree`` of 1 the stacked blocks
+    stage-major over ``pipe`` (:func:`pipe_stage_specs`), checked up
+    front with the reference's errors."""
     if model_degree > 1:
         if cfg.n_heads % model_degree:
             raise ValueError(
@@ -501,23 +498,38 @@ def embed(cfg: TransformerConfig, params: Params, token_ids: Tensor,
 def encode(cfg: TransformerConfig, params: Params, token_ids: Tensor,
            mask: Optional[Tensor] = None, type_ids: Optional[Tensor] = None,
            generator: Optional[torch.Generator] = None,
-           attn_fn=attention, tp=None) -> Tensor:
-    """Full encoder: ids ``[B, T]`` -> hidden ``[B, T, H]`` fp32 (:280),
-    one block per layer of the stacked ``[L, ...]`` params, each under
-    :func:`_remat_block` when ``cfg.remat`` is set and grad is enabled
-    (a training step then runs each block's forward twice: B1 launches
+           attn_fn=attention, tp=None, position_offset: int = 0) -> Tensor:
+    """Full encoder: ids ``[B, T]`` -> hidden ``[B, T, H]`` fp32 (:280):
+    :func:`embed` at ``position_offset``, then :func:`run_blocks` over
+    the stacked ``[L, ...]`` params (each block under
+    :func:`_remat_block` when ``cfg.remat`` is set and grad is enabled:
+    a training step then runs each block's forward twice, B1 launching
     2 L times a step, B2 and B3 L times).  ``tp``: this rank's model
     group when ``params`` is its shard (None: the whole model)."""
-    x = embed(cfg, params, token_ids, type_ids, tp=tp)
-    blocks = params["blocks"]
-    # one unbind per leaf: its backward stacks the L slices' gradients
+    x = embed(cfg, params, token_ids, type_ids, position_offset, tp=tp)
+    return run_blocks(cfg, params["blocks"], x, mask, generator, attn_fn,
+                      tp)
+
+
+def run_blocks(cfg: TransformerConfig, blocks: Params, x: Tensor,
+               mask: Optional[Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               attn_fn=attention, tp=None, masks=None) -> Tensor:
+    """The stacked blocks ``blocks`` (``[l, ...]`` leaves: every layer,
+    or one pipeline stage's) over hidden ``x`` ``[B, T, H]``.  Dropout
+    draws from ``generator`` layer by layer, or takes ``masks`` (one
+    pair a layer from :func:`_dropout_masks`) when given."""
+    # one unbind per leaf: its backward stacks the l slices' gradients
     # once, where w[layer] would build a full-size zero gradient per layer
     layers = zip(*(torch.unbind(w) for w in blocks.values()))
     remat = cfg.remat and torch.is_grad_enabled()
-    for ws in layers:
+    for i, ws in enumerate(layers):
         p = dict(zip(blocks, ws))
+        m = masks[i] if masks is not None else None
         if remat:
-            x = _remat_block(cfg, x, p, mask, generator, attn_fn, tp)
+            x = _remat_block(cfg, x, p, mask, generator, attn_fn, tp, m)
+        elif m is not None:
+            x = _block(cfg, x, p, mask, None, attn_fn, m, tp)
         else:
             x = _block(cfg, x, p, mask, generator, attn_fn, tp=tp)
     return x
@@ -526,7 +538,7 @@ def encode(cfg: TransformerConfig, params: Params, token_ids: Tensor,
 def _remat_block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
                  mask: Optional[Tensor],
                  generator: Optional[torch.Generator], attn_fn,
-                 tp=None) -> Tensor:
+                 tp=None, masks=None) -> Tensor:
     """:func:`_block` under ``torch.utils.checkpoint``: the backward runs
     the block's forward again.  The block's dropout masks are drawn
     before the checkpoint, from the caller's generator in the order the
@@ -536,8 +548,10 @@ def _remat_block(cfg: TransformerConfig, x: Tensor, p: Dict[str, Tensor],
     happens inside the checkpoint (``preserve_rng_state=False``), and
     no generator state is read or set on the host, so the step can be
     captured as a CUDA graph: the masks cost a bool tensor of ``x``'s
-    shape twice a layer, kept to the backward."""
-    masks = _dropout_masks(cfg, x, generator)
+    shape twice a layer, kept to the backward.  ``masks`` given (drawn
+    ahead by the caller) are taken instead of a draw."""
+    if masks is None:
+        masks = _dropout_masks(cfg, x, generator)
     return _checkpoint.checkpoint(_block, cfg, x, p, mask, None, attn_fn,
                                   masks, tp, use_reentrant=False,
                                   preserve_rng_state=False)
@@ -553,6 +567,14 @@ class TrainState(NamedTuple):
     params: Params
     opt_state: Any
     step: int
+
+
+def _local_attention_mesh(mesh):
+    """The mesh a replicated step's attention dispatches on: ``mesh``,
+    or None above a ``seq`` degree of 1, where ``make_attn_fn`` would
+    take the ring, and the step holds whole sequences."""
+    from deeplearning4j_tpu_torch.parallel.mesh import seq_degree
+    return mesh if seq_degree(mesh) == 1 else None
 
 
 def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
@@ -579,7 +601,12 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
     step needs its key.
 
     **On a mesh** (``data x model``, run SPMD: every rank builds the
-    step and calls it with the same global batch) the params and the
+    step and calls it with the same global batch; a ``pipe`` or ``seq``
+    axis above 1 replicates the step over it, every rank of a data index
+    computing the same rows with the whole sequence, as the reference
+    replicates what its specs do not split; BERT's pipeline and
+    sequence-parallel steps are ``bert.make_pipeline_train_step`` and
+    ``bert.make_sp_train_step``) the params and the
     optimizer state are laid out by ``specs_fn(cfg, model_degree)``
     (default :func:`shard_specs`): ``init_fn`` draws the global params
     and keeps this rank's slice, and a carried global state goes in
@@ -618,7 +645,7 @@ def make_train_step(cfg: TransformerConfig, init_params_fn: Callable,
         else mesh.device
     if attn_fn is None:
         from deeplearning4j_tpu_torch.ops.flash_attention import make_attn_fn
-        attn_fn = make_attn_fn("auto", mesh=mesh)
+        attn_fn = make_attn_fn("auto", mesh=_local_attention_mesh(mesh))
     if optimizer is None:
         optimizer = updaters.adamw(learning_rate, weight_decay=0.01)
     specs = None

@@ -43,9 +43,10 @@ def bn_collective(axis, mask: Tensor):
     """Cross-replica batch norm (reference :27-50): inside the context a
     training forward's batch-norm layers normalize with masked GLOBAL
     moments.  ``mask`` ``[rows]`` weights each row (0 for a padded row);
-    ``axis`` is None (this process's rows only), a data ``Mesh`` or
-    ``"data"`` (the sums go through ``collectives.psum`` over that axis,
-    differentiably).  Another axis name raises naming ROADMAP A7."""
+    ``axis`` is None (this process's rows only), a data ``Mesh``,
+    ``"data"`` or ``(mesh, name)`` (the sums go through
+    ``collectives.psum`` over that axis, differentiably).  Another axis
+    named without its mesh has no group and raises."""
     if axis is not None:
         from deeplearning4j_tpu_torch.parallel.collectives import _group
         _group(axis)

@@ -70,15 +70,13 @@ masked global moments (``nn/layers/extras.bn_collective``).  A rank's
 dropout stream is ``fold(seed, rank)`` (``rank``: the data index, 0
 without a mesh), so a mesh of one trains bit for bit as ``mesh=None``.
 
-A ``data x model`` (or ``data x expert``) mesh is accepted with the
-weights replicated over ``model`` (``expert``; the reference's dense zoo
-has no tensor- or expert-parallel specs): the ranks of a model group
-train on the same rows, draw the same dropout masks and take the same
-update, and the guard's verdict is reduced over the whole mesh
-(``sharded_fit.agree_over_mesh``).
-
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): a mesh with a pipe or seq axis above 1 (A7.1b, A7.5).
+A mesh with a ``model``, ``pipe``, ``seq`` or ``expert`` axis above 1
+beside ``data`` is accepted with the weights replicated over it (the
+reference's dense zoo has no tensor-, pipeline-, sequence- or
+expert-parallel specs, so its ``shard_map`` replicates them): the ranks
+that share a data index train on the same rows, draw the same dropout
+masks and take the same update, and the guard's verdict is reduced over
+the whole mesh (``sharded_fit.agree_over_mesh``).
 """
 
 from __future__ import annotations

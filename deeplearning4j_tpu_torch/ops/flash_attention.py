@@ -511,22 +511,48 @@ def _from_bhtd(x: Tensor, B: int, NH: int) -> Tensor:
     return x.reshape(B, NH, T, D).permute(0, 2, 1, 3)
 
 
+def flash_fwd_heads(q: Tensor, k: Tensor, v: Tensor,
+                    bias: Optional[Tensor] = None,
+                    causal: bool = False) -> Tuple[Tensor, Tensor]:
+    """B1 on ``[B, T, NH, D]`` (the kernel reads the layout through
+    strides): ``(o [B, Tq, NH, D], lse [B*NH, Tq] fp32)``, row ``b * NH
+    + h`` of lse for head ``h`` of batch row ``b``; bias ``[B, Tk]``
+    fp32 or None.  CPU tensors run the plain twin; CUDA tensors launch
+    the kernel or raise."""
+    if q.device.type == "cpu":
+        _check_common(q, k, v, causal, 1)
+        o4, lse = flash_attention_fwd_plain(_to_bhtd(q), _to_bhtd(k),
+                                            _to_bhtd(v), bias, causal)
+        return _from_bhtd(o4, q.shape[0], q.shape[2]), lse
+    return _launch(q, k, v, bias, causal, heads_layout=True)
+
+
+def flash_bwd_heads(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
+                    o: Tensor, lse: Tensor, do: Tensor,
+                    causal: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """B2 then B3 on ``[B, T, NH, D]``: ``(dq, dk, dv)`` from the
+    forward's inputs, an output ``o`` and its lse (those of
+    :func:`flash_fwd_heads`, or a merge of several, as ring attention
+    passes) and the output gradient ``do``.  CPU tensors run the plain
+    twin; CUDA tensors launch the kernels or raise."""
+    if q.device.type == "cpu":
+        grads = flash_attention_bwd_plain(
+            _to_bhtd(q), _to_bhtd(k), _to_bhtd(v), bias, _to_bhtd(o), lse,
+            _to_bhtd(do), causal)
+        return tuple(_from_bhtd(g, q.shape[0], q.shape[2]) for g in grads)
+    return _launch_bwd(q, k, v, bias, o, lse, do, causal, heads_layout=True)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """``_flash_bhtd``'s ``custom_vjp`` (:356-371) on ``[B, T, NH, D]``.
-    The forward (B1 on CUDA, the plain twin on the CPU) saves q, k, v,
-    the bias, o and lse; the backward (B2 then B3 on CUDA, the plain
-    twin on the CPU) returns no gradient for the bias, as at :349."""
+    The forward (:func:`flash_fwd_heads`) saves q, k, v, the bias, o
+    and lse; the backward (:func:`flash_bwd_heads`) returns no gradient
+    for the bias, as at :349."""
 
     @staticmethod
     def forward(ctx, q: Tensor, k: Tensor, v: Tensor,
                 bias: Optional[Tensor], causal: bool) -> Tensor:
-        if q.device.type == "cpu":
-            _check_common(q, k, v, causal, 1)
-            o4, lse = flash_attention_fwd_plain(_to_bhtd(q), _to_bhtd(k),
-                                                _to_bhtd(v), bias, causal)
-            o = _from_bhtd(o4, q.shape[0], q.shape[2])
-        else:
-            o, lse = _launch(q, k, v, bias, causal, heads_layout=True)
+        o, lse = flash_fwd_heads(q, k, v, bias, causal)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.causal = causal
         return o
@@ -535,15 +561,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, do: Tensor):
         q, k, v, bias, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            grads = flash_attention_bwd_plain(
-                _to_bhtd(q), _to_bhtd(k), _to_bhtd(v), bias, _to_bhtd(o),
-                lse, _to_bhtd(do), ctx.causal)
-            dq, dk, dv = (_from_bhtd(g, q.shape[0], q.shape[2])
-                          for g in grads)
-        else:
-            dq, dk, dv = _launch_bwd(q, k, v, bias, o, lse, do, ctx.causal,
-                                     heads_layout=True)
+        dq, dk, dv = flash_bwd_heads(q, k, v, bias, o, lse, do, ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -564,9 +582,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
 @dataclasses.dataclass(frozen=True)
 class AttnDecision:
     """What the attention dispatch decided for one shape: ``impl`` is
-    what runs (``"cuda"`` or ``"plain"``), ``source`` why (``"forced"``,
-    ``"heuristic"``, ``"autotuned"``, or the reason the kernel was
-    passed over)."""
+    what runs (``"ring"``, ``"cuda"`` or ``"plain"``), ``source`` why
+    (``"forced"``, ``"heuristic"``, ``"autotuned"``, ``"seq-sharded
+    ..."``, or the reason the kernel was passed over)."""
     impl: str
     source: str
 
@@ -588,20 +606,26 @@ def make_attn_fn(kernel: str = "auto", mesh=None, *, autotune: bool = False):
     the :class:`AttnDecision` without running anything.
 
     ``mesh=`` (the reference's ``shard_map`` placement, :470-623): on a
-    ``data x model`` (or ``data x expert``) mesh every rank calls the
-    function on its own rows and its own heads, so the dispatch is this
-    same per-call one on the rank's local shapes, the decision and the
-    autotune lookup keyed on local rows (batch x local heads); attention
-    stays local to a rank's tokens.  A ``seq`` axis above 1 (ring
-    attention) raises naming ROADMAP A7.5, a ``pipe`` axis naming
-    A7.1b.
+    ``data x model`` (or ``x pipe``, ``x expert``) mesh every rank
+    calls the function on its own rows and its own heads, so the
+    dispatch is this same per-call one on the rank's local shapes, the
+    decision and the autotune lookup keyed on local rows (batch x local
+    heads); attention stays local to a rank's tokens.  On a mesh whose
+    ``seq`` axis is above 1 a rank holds a block of every sequence and
+    ``"auto"`` (or ``"ring"``) runs ring attention over ``(mesh,
+    "seq")`` (``parallel/ring_attention.ring_attention``: B1-B3 as its
+    block step where the kernel takes the shape, the plain block
+    otherwise; a forced ``"plain"`` runs the ring over plain blocks); a
+    forced ``"cuda"`` there raises, as does a forced ``"ring"`` without
+    such an axis (``kernel_select.resolve_attn_kernel``).  A missing
+    mask is a mask of ones, as at :589-590.
     """
-    if mesh is not None:
-        from deeplearning4j_tpu_torch.parallel.mesh import check_mesh_axes
-        check_mesh_axes(mesh)
-    if kernel not in ks.KERNELS:
+    from deeplearning4j_tpu_torch.parallel.mesh import seq_degree
+
+    if kernel not in ks.ATTN_KERNELS:
         raise ValueError(
-            f"kernel must be one of {ks.KERNELS}, got {kernel!r}")
+            f"kernel must be one of {ks.ATTN_KERNELS}, got {kernel!r}")
+    sp = seq_degree(mesh)
     decisions: Dict[tuple, AttnDecision] = {}
 
     def describe(q_shape, k_shape, causal: bool = False, *,
@@ -619,16 +643,18 @@ def make_attn_fn(kernel: str = "auto", mesh=None, *, autotune: bool = False):
         # a decision asked for a card this process cannot see (a CPU
         # host describing a CUDA shape) has no card name to look up
         if (autotune and kernel == "auto" and aligned and on_cuda
-                and torch.cuda.is_available()):
+                and sp == 1 and torch.cuda.is_available()):
             from deeplearning4j_tpu_torch.runtime import autotune as at
             record = at.lookup_attention(Tq, Tk, D, causal, rows=B * NH,
                                          kind=at.device_kind(dev))
-        impl = ks.resolve_kernel(kernel, aligned=aligned, on_cuda=on_cuda,
-                                 desc="transformer attention",
-                                 autotuned=record["impl"] if record
-                                 else None)
+        impl = ks.resolve_attn_kernel(kernel, aligned=aligned,
+                                      on_cuda=on_cuda, seq_degree=sp,
+                                      autotuned=record["impl"] if record
+                                      else None)
         if kernel != "auto":
             source = "forced"
+        elif impl == "ring":
+            source = f"seq-sharded (seq={sp}: ring owns the axis)"
         elif record is not None:
             source = "autotuned"
         elif impl == "cuda":
@@ -642,6 +668,15 @@ def make_attn_fn(kernel: str = "auto", mesh=None, *, autotune: bool = False):
     def attn(q, k, v, mask=None, causal=False):
         d = describe(q.shape, k.shape, causal, device=q.device,
                      dtype=q.dtype)
+        if d.impl == "ring":
+            from deeplearning4j_tpu_torch.parallel.ring_attention import \
+                ring_attention
+            if mask is None:
+                mask = torch.ones(q.shape[0], k.shape[1],
+                                  dtype=torch.float32, device=q.device)
+            return ring_attention(q, k, v, mask, causal, (mesh, "seq"),
+                                  block="plain" if kernel == "plain"
+                                  else "auto")
         if d.impl == "cuda":
             return flash_attention(q, k, v, mask, causal)
         from deeplearning4j_tpu_torch.models import transformer as tfm

@@ -6,15 +6,16 @@ ambient axis, so ``axis`` is one of
 
 - a :class:`~deeplearning4j_tpu_torch.parallel.mesh.Mesh`: its data
   axis's process group;
-- ``(mesh, name)``: the group of the named axis, ``"data"``,
-  ``"model"`` or ``"expert"``, or of a tuple of them: the token group
-  for ``("data", "expert")`` (the axes an expert-parallel batch and its
-  routing statistics span), the whole mesh for every axis above 1;
+- ``(mesh, name)``: the group of the named axis (any of ``"data"``,
+  ``"model"``, ``"pipe"``, ``"seq"``, ``"expert"``), or of a tuple of
+  them: the token group for ``("data", "expert")`` (the axes an
+  expert-parallel batch and its routing statistics span), the sequence
+  group for ``("data", "seq")`` (the axes a sequence-parallel loss sums
+  over), the whole mesh for every axis above 1;
 - the string ``"data"``: the default group.
 
-A ``pipe`` or ``seq`` axis raises naming its ROADMAP item (A7.1b,
-A7.5).  An axis of size 1 (the model axis of a data-only mesh) is this
-rank alone: its collectives return a copy of their input.
+An axis of size 1 (the model axis of a data-only mesh) is this rank
+alone: its collectives return a copy of their input.
 
 Every function runs its collective whatever the group's size: a group
 of one rank still calls NCCL (or gloo), so one card exercises the same
@@ -26,12 +27,18 @@ NCCL calls are part of the CUDA graph.
 tensors.  A tensor that requires grad goes through an autograd function
 whose backward sums the cotangent over the axis too, as the transpose of
 JAX's ``psum``: batch norm's global moments (``nn/layers/extras.
-bn_collective``) are differentiated through it.  :func:`all_gather`,
-:func:`reduce_scatter` and :func:`ring_permute` compute the reference's
-tiled results from an all-gather or an all-reduce, which every backend
-has.  :func:`all_to_all` is the expert axis's dispatch: one
-``all_to_all_single`` over contiguous blocks, each block moved once,
-inside an autograd function whose backward is the inverse exchange.
+bn_collective``) are differentiated through it.  :func:`all_gather` and
+:func:`reduce_scatter` compute the reference's tiled results from an
+all-gather or an all-reduce, which every backend has.
+:func:`ring_permute` is ``lax.ppermute``'s ring shift: one send and one
+receive a rank (``batch_isend_irecv``), each block moved once, inside an
+autograd function whose backward is the shift the other way; the
+pipeline's stage-to-stage send (``parallel/pipeline.py``) and ring
+attention's K/V rotation (``parallel/ring_attention.py``) ride it.
+:func:`all_to_all` is the expert axis's dispatch (and Ulysses
+attention's): one ``all_to_all_single`` over contiguous blocks, each
+block moved once, inside an autograd function whose backward is the
+inverse exchange.
 
 Every collective this module runs on a group of more than one rank is
 booked in one place (:func:`_booked`): :data:`stats` counts its calls
@@ -54,11 +61,10 @@ from typing import Any, Dict
 import torch
 import torch.distributed as dist
 
-from deeplearning4j_tpu_torch.ops.updaters import tree_map
-from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
-                                                    EXPERT_AXIS, MODEL_AXIS,
-                                                    TOKEN_AXES,
-                                                    check_mesh_axes)
+from deeplearning4j_tpu_torch.ops.updaters import (tree_leaves, tree_map,
+                                                    tree_unflatten)
+from deeplearning4j_tpu_torch.parallel.mesh import (ALL_AXES, DATA_AXIS,
+                                                    PLANES, check_mesh_axes)
 
 PyTree = Any
 
@@ -71,36 +77,35 @@ def _group(axis):
     :data:`SELF` = this rank alone)."""
     if isinstance(axis, str):
         if axis != DATA_AXIS:
-            raise NotImplementedError(
-                f"collectives over the {axis!r} axis by name alone are not "
-                f"ported to the PyTorch package (ROADMAP A7.1b): name the "
-                f"mesh too, (mesh, {axis!r})")
+            raise ValueError(
+                f"a collective over the {axis!r} axis by name alone has no "
+                f"group in the PyTorch package (it has no ambient axis): "
+                f"name the mesh too, (mesh, {axis!r})")
         return None
     if isinstance(axis, tuple):
         mesh, name = axis
         check_mesh_axes(mesh)
         names = name if isinstance(name, tuple) else (name,)
         for a in names:
-            if a not in (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS):
-                raise NotImplementedError(
-                    f"collectives over the {a!r} axis are not ported to "
-                    f"the PyTorch package yet (ROADMAP A7.1b)")
+            if a not in ALL_AXES:
+                raise ValueError(f"unknown mesh axis {a!r}: the axes are "
+                                 f"{ALL_AXES}")
         # the axes the group really spans: those above 1
-        live = tuple(a for a in (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
+        live = tuple(a for a in ALL_AXES
                      if a in names and mesh.shape.get(a, 1) > 1)
-        every = tuple(a for a in (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
-                      if mesh.shape.get(a, 1) > 1)
+        every = tuple(a for a in ALL_AXES if mesh.shape.get(a, 1) > 1)
         if not live:
             return SELF
-        if live == every and len(live) > 1:
-            return mesh.world
         if len(live) == 1:
             return mesh.groups[live[0]]
-        if live == TOKEN_AXES:
-            return mesh.groups[TOKEN_AXES]
+        if live == every:
+            return mesh.world
+        if live in PLANES:
+            return mesh.groups[live]
         raise NotImplementedError(
             f"collectives over the axes {live} of a mesh with axes {every} "
-            f"are not ported to the PyTorch package")
+            f"have no group: the mesh makes one an axis, one a plane of "
+            f"{PLANES} and the whole mesh's")
     check_mesh_axes(axis)
     return axis.group
 
@@ -127,7 +132,7 @@ def axis_index(axis) -> int:
 # ---------------------------------------------------------------------------
 
 #: the kinds of collective :data:`stats` keeps apart
-KINDS = ("all_reduce", "all_gather", "all_to_all")
+KINDS = ("all_reduce", "all_gather", "all_to_all", "ring_permute")
 
 
 class _Stats:
@@ -209,21 +214,24 @@ def release(group, thread: threading.Thread) -> None:
             del _claims[group]
 
 
-def _booked(kind: str, group, t: torch.Tensor, fn):
-    """``fn()``, a collective of ``kind`` over ``t`` on ``group``, booked
-    in :data:`stats` and :func:`issued`."""
+def _booked(kind: str, group, ts, fn):
+    """``fn()``, a collective of ``kind`` over the tensors ``ts`` (a
+    tensor or a list; their bytes are booked) on ``group``, booked in
+    :data:`stats` and :func:`issued`."""
+    ts = [ts] if isinstance(ts, torch.Tensor) else list(ts)
     with stats.lock:
         _held_by_other(group, threading.current_thread())
         _issued[group] = _issued.get(group, 0) + 1
     timing = stats.timing
-    sync = timing and t.device.type == "cuda"
+    dev = ts[0].device
+    sync = timing and dev.type == "cuda"
     if sync:
-        torch.cuda.synchronize(t.device)
+        torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     out = fn()
     if sync:
-        torch.cuda.synchronize(t.device)
-    n = t.numel() * t.element_size()
+        torch.cuda.synchronize(dev)
+    n = sum(t.numel() * t.element_size() for t in ts)
     dt = time.perf_counter() - t0 if timing else 0.0
     with stats.lock:
         stats.calls += 1
@@ -328,11 +336,88 @@ def reduce_scatter(x: torch.Tensor, axis, *,
     return torch.chunk(total, _size(group), dim=scatter_axis)[_rank(group)]
 
 
-def ring_permute(x: torch.Tensor, axis, shift: int = 1) -> torch.Tensor:
+def _shift_many(xs, group, shift: int) -> list:
+    """The ring shift itself: each tensor of ``xs`` sent to rank ``(r +
+    shift) mod n`` and the block of rank ``(r - shift) mod n`` received,
+    by one ``isend`` and one ``irecv`` a tensor in one
+    ``batch_isend_irecv``, booked once with their bytes.  gloo's
+    point-to-point calls take host memory only (unlike its collectives,
+    which copy CUDA tensors themselves), so under gloo a CUDA tensor is
+    staged through the host and back; NCCL sends from the card."""
+    n = _size(group)
+    if group is SELF or shift % n == 0:
+        return [x.detach().clone() for x in xs]
+    dev = xs[0].device
+    staged = dev.type != "cpu" and dist.get_backend(group) == "gloo"
+    sends = [(x.detach().cpu() if staged else x.detach()).contiguous()
+             for x in xs]
+    recvs = [torch.empty_like(x) for x in sends]
+    r = dist.get_rank(group)
+    dst, src = ((r + shift) % n, (r - shift) % n)
+    if group is not None:
+        dst = dist.get_global_rank(group, dst)
+        src = dist.get_global_rank(group, src)
+
+    def run():
+        ops = [op for x, y in zip(sends, recvs)
+               for op in (dist.P2POp(dist.isend, x, dst, group),
+                          dist.P2POp(dist.irecv, y, src, group))]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    _booked("ring_permute", group, xs, run)
+    return [y.to(dev) for y in recvs] if staged else recvs
+
+
+def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """One tensor's ring shift (:func:`_shift_many`)."""
+    return _shift_many([x], group, shift)[0]
+
+
+class _RingPermute(torch.autograd.Function):
+    """The ring shift of every tensor of a tree at once; the backward
+    shifts their cotangents back (``lax.ppermute``'s transpose), again
+    in one batch, so a step's shifts run in one order on every rank."""
+
+    @staticmethod
+    def forward(ctx, group, shift, *xs):
+        ctx.args = (group, shift)
+        out = _shift_many(xs, group, shift)
+        ctx.mark_non_differentiable(*(y for y in out
+                                      if not y.is_floating_point()))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        group, shift = ctx.args
+        live = [i for i, g in enumerate(gs) if ctx.needs_input_grad[2 + i]]
+        back = _shift_many([gs[i] for i in live], group, -shift)
+        out = [None] * len(gs)
+        for i, g in zip(live, back):
+            out[i] = g
+        return (None, None, *out)
+
+
+def ring_permute(x, axis, shift: int = 1):
     """The ``x`` of rank ``(r - shift) mod n``: each shard sent to its
-    ring neighbour ``shift`` ahead."""
-    group = _group(axis)
-    return _gather(x, group)[(_rank(group) - shift) % _size(group)]
+    ring neighbour ``shift`` ahead (:50-55), one send and one receive a
+    rank, each block moved once.  ``x`` is a tensor or a tree of them
+    (its leaves move in one batch).  Differentiable: the backward is the
+    shift by ``-shift``.  Every rank of the axis must call it, and when
+    a leaf requires grad on one rank it must on all of them (the
+    backward is a collective too)."""
+    return _permute(x, _group(axis), shift)
+
+
+def _permute(x, group, shift: int):
+    """:func:`ring_permute` over a resolved group."""
+    leaves = tree_leaves(x)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        out = _RingPermute.apply(group, shift, *leaves)
+    else:
+        out = _shift_many(leaves, group, shift)
+    return tree_unflatten(x, list(out)) if not isinstance(
+        x, torch.Tensor) else out[0]
 
 
 def _exchange(x: torch.Tensor, group, split_axis: int,

@@ -1,22 +1,23 @@
-"""The device mesh: ``data``, ``model`` and ``expert`` axes over a
-``torch.distributed`` group.
+"""The device mesh: the ``data``, ``model``, ``pipe``, ``seq`` and
+``expert`` axes over a ``torch.distributed`` group.
 
-Port of the data, model and expert axes of ``deeplearning4j_tpu/
-parallel/mesh.py``.  The reference's mesh is a grid of JAX devices with
-five named axes; the port's is a thin object over an initialized
-process group: one process a device, laid out as the reference's
-``make_mesh`` lays out its devices, row-major over ``(data, model,
-pipe, seq, expert)``, so the ranks of one model group are contiguous
-(rank ``g`` of a ``data=D x model=M`` mesh sits at data index ``g //
-M``, model index ``g % M``; of a ``data=D x expert=E`` mesh at data
-index ``g // E``, expert index ``g % E``).  Each axis has a process
-group of its own (``Mesh.groups``), created identically on every rank,
-and so has the token group ``("data", "expert")`` an expert-parallel
-batch shards over.  A rank holds the row slice of each global batch for
-its data index and the model- and expert-axis slices of the params for
-its model and expert indices (``parallel/tensor_parallel.shard_tree``);
-the collectives of ``parallel/collectives.py`` run over an axis's
-group.
+Port of ``deeplearning4j_tpu/parallel/mesh.py``.  The reference's mesh
+is a grid of JAX devices with five named axes; the port's is a thin
+object over an initialized process group: one process a device, laid
+out as the reference's ``make_mesh`` lays out its devices (:39-71),
+row-major over ``(data, model, pipe, seq, expert)``, so the ranks of
+one model group are contiguous (rank ``g`` of a ``data=D x model=M``
+mesh sits at data index ``g // M``, model index ``g % M``; of a
+``data=D x pipe=P`` mesh at data index ``g // P``, pipe index
+``g % P``).  Each axis has a process group of its own
+(``Mesh.groups``), created identically on every rank, and so have the
+token group ``("data", "expert")`` an expert-parallel batch shards over
+and the sequence group ``("data", "seq")`` a sequence-parallel loss
+sums over.  A rank holds the row slice of each global batch for its
+data index, the model-, pipe- and expert-axis slices of the params for
+its indices there (``parallel/tensor_parallel.shard_tree``) and, on a
+``seq`` axis, its index's block of every sequence; the collectives of
+``parallel/collectives.py`` run over an axis's group.
 
 - :func:`initialize_distributed` starts the group with
   ``torch.distributed.init_process_group``: NCCL for CUDA, gloo for the
@@ -28,10 +29,9 @@ group.
   divide by the data degree is zero-padded at its tail
   (:func:`pad_rows`) and the padded rows are masked out of the loss.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): a ``pipe`` axis above 1 (A7.1b), a ``seq`` axis above 1 (ring
-attention, A7.5), and the elastic re-mesh after a device loss
-(:func:`surviving_devices`, :func:`elastic_remesh`, A7.3).
+Not ported (each raises ``NotImplementedError`` naming ROADMAP A7.3):
+the elastic re-mesh after a device loss (:func:`surviving_devices`,
+:func:`elastic_remesh`, ``auto_data_mesh(devices=)``).
 """
 
 from __future__ import annotations
@@ -55,14 +55,15 @@ EXPERT_AXIS = "expert"
 
 ALL_AXES = (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, EXPERT_AXIS)
 
-#: the ROADMAP item that holds each axis not ported yet
-_AXIS_ITEM = {PIPE_AXIS: "A7.1b", SEQ_AXIS: "A7.5"}
-
-#: the axes a port mesh carries, in the reference's device order
-_GRID_AXES = (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
-
 #: the token group of an expert-parallel batch (``Mesh.groups`` key)
 TOKEN_AXES = (DATA_AXIS, EXPERT_AXIS)
+
+#: the sequence group a sequence-parallel loss sums over (``Mesh.groups``
+#: key; the reference's ``psum(..., (DATA_AXIS, SEQ_AXIS))``, bert.py:395)
+SEQ_TOKEN_AXES = (DATA_AXIS, SEQ_AXIS)
+
+#: the two-axis groups a mesh makes, beside one group an axis
+PLANES = (TOKEN_AXES, SEQ_TOKEN_AXES)
 
 
 def _not_ported(what: str, item: str = "A7") -> NotImplementedError:
@@ -102,30 +103,20 @@ class MeshSpec:
                 SEQ_AXIS: self.seq, EXPERT_AXIS: self.expert}
 
 
-def _check_ported_axes(sizes) -> None:
-    """Raise naming the ROADMAP item of the first axis not ported yet
-    (``pipe``, ``seq``) whose size is above 1."""
-    for axis, item in _AXIS_ITEM.items():
-        n = int(dict(sizes).get(axis, 1))
-        if n > 1:
-            raise _not_ported(f"a {axis!r} mesh axis of {n} (the port's mesh "
-                              f"has the data, model and expert axes)", item)
-
-
 class Mesh:
-    """The data, model and expert axes of an initialized process group.
+    """The five axes of an initialized process group.
 
-    ``shape`` maps every axis name to its size (``data`` x ``model`` x
-    ``expert`` = the group's size, the others 1); ``size`` is their
-    product; ``ranks`` are the mesh's global ranks in mesh order;
-    ``rank`` is this process's index on the data axis (the row block it
-    trains on, the seed of its dropout stream) and ``coords`` its index
-    on the data and model axes and, above 1, the expert axis;
+    ``shape`` maps every axis name to its size (their product is the
+    group's size); ``size`` is that product; ``ranks`` are the mesh's
+    global ranks in mesh order; ``rank`` is this process's index on the
+    data axis (the row block it trains on, the seed of its dropout
+    stream) and ``coords`` its index on the data and model axes and, on
+    each of ``pipe``, ``seq`` and ``expert`` above 1, that axis;
     ``device`` is where this rank's tensors live.
     ``group`` is the data axis's process group, the one the
     data-parallel collectives use (None: the default group); ``groups``
-    maps ``data``, ``model``, ``expert`` and the token group
-    ``("data", "expert")`` to their groups (an axis of one: None) and
+    maps each axis name and the planes ``("data", "expert")`` and
+    ``("data", "seq")`` to their groups (an axis of one: None) and
     ``world`` is the whole mesh's (None: the default group).
     ``timeout_s`` bounds each collective on the groups the mesh made
     (a rank whose peer never joins one raises after it)."""
@@ -145,8 +136,9 @@ class Mesh:
         self.backend = backend
         self.world = world if groups is not None else group
         self.groups = dict(groups) if groups is not None else {
-            DATA_AXIS: group, MODEL_AXIS: None, EXPERT_AXIS: None,
-            TOKEN_AXES: group}
+            DATA_AXIS: group, MODEL_AXIS: None, PIPE_AXIS: None,
+            SEQ_AXIS: None, EXPERT_AXIS: None, TOKEN_AXES: group,
+            SEQ_TOKEN_AXES: group}
         self.coords = dict(coords) if coords is not None else {
             DATA_AXIS: int(rank), MODEL_AXIS: 0}
         self.timeout_s = float(
@@ -167,13 +159,26 @@ class Mesh:
         """This process's index on the expert axis."""
         return int(self.coords.get(EXPERT_AXIS, 0))
 
+    @property
+    def pipe_rank(self) -> int:
+        """This process's index on the pipe axis: its pipeline stage."""
+        return int(self.coords.get(PIPE_AXIS, 0))
+
+    @property
+    def seq_rank(self) -> int:
+        """This process's index on the seq axis: its sequence block."""
+        return int(self.coords.get(SEQ_AXIS, 0))
+
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.shape[DATA_AXIS]}, "
-                f"model={self.shape[MODEL_AXIS]}, "
-                f"expert={self.shape[EXPERT_AXIS]}, rank={self.rank}, "
-                f"model_rank={self.model_rank}, "
-                f"expert_rank={self.expert_rank}, device={self.device}, "
-                f"backend={self.backend})")
+        axes = ", ".join(f"{a}={self.shape[a]}" for a in ALL_AXES
+                         if a in (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
+                         or self.shape[a] > 1)
+        ranks = "".join(f", {a}_rank={int(self.coords.get(a, 0))}"
+                        for a in ALL_AXES[1:]
+                        if a in (MODEL_AXIS, EXPERT_AXIS)
+                        or self.shape[a] > 1)
+        return (f"Mesh({axes}, rank={self.rank}{ranks}, "
+                f"device={self.device}, backend={self.backend})")
 
 
 def _default_backend(device: torch.device) -> str:
@@ -243,13 +248,12 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
               timeout: Optional[float] = None) -> Mesh:
     """A :class:`Mesh` over ``group`` (default: the whole default group,
     which :func:`initialize_distributed` started).  The spec must resolve
-    to the group's size with ``pipe`` and ``seq`` at 1.  Above a model
-    or expert degree of 1 every rank of the default group must call it,
-    in the same order (it creates, with
-    :func:`torch.distributed.new_group`, one process group for each line
-    of ranks along each axis, and one token group ``("data", "expert")``
-    for each model index), and the mesh must span the default group.
-    Each call makes groups of its own: two meshes of one shape share no
+    to the group's size.  Above a degree of 1 on any axis but ``data``
+    every rank of the default group must call it, in the same order (it
+    creates, with :func:`torch.distributed.new_group`, one process group
+    for each line of ranks along each axis, and one for each plane of
+    :data:`PLANES`), and the mesh must span the default group.  Each
+    call makes groups of its own: two meshes of one shape share no
     communicator, so two threads may run collectives on them at once.
     ``device`` defaults to this rank's card under NCCL and the CPU under
     gloo.  ``timeout`` (seconds; default ``torch.distributed``'s) bounds
@@ -261,7 +265,6 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
     spec = spec or MeshSpec()
     n = dist.get_world_size(group)
     sizes = spec.resolve(n)
-    _check_ported_axes(sizes)
     backend = dist.get_backend(group)
     pos = dist.get_rank(group)
     if group is None:
@@ -273,35 +276,36 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
                else torch.device("cpu"))
     else:
         dev = resolve_device(device)
-    m, e = sizes[MODEL_AXIS], sizes[EXPERT_AXIS]
-    if m == 1 and e == 1:
+    if all(sizes[a] == 1 for a in ALL_AXES[1:]):
         return Mesh(sizes, group, ranks, pos, dev, backend)
     kw = {} if timeout is None else {
         "timeout": datetime.timedelta(seconds=float(timeout))}
     if group is not None:
-        raise ValueError("a mesh with a model or expert axis spans the "
+        raise ValueError("a mesh with an axis besides data spans the "
                          "default process group (make_mesh(spec) with "
                          "group=None)")
-    dims = tuple(sizes[a] for a in _GRID_AXES)
+    dims = tuple(sizes[a] for a in ALL_AXES)
     grid = torch.arange(n).reshape(dims)
-    # this rank's index on data, model and (when above 1) expert
-    coords = {a: int(c) for a, c in zip(_GRID_AXES,
+    # this rank's index on data, model and each other axis above 1
+    coords = {a: int(c) for a, c in zip(ALL_AXES,
                                         (grid == pos).nonzero()[0])
-              if a != EXPERT_AXIS or e > 1}
+              if a in (DATA_AXIS, MODEL_AXIS) or sizes[a] > 1}
     groups: Dict[Any, Any] = {}
     # one group for each line of the grid along each axis (and for each
-    # data x expert plane), made by every rank in the same order
-    for key, axes in ((DATA_AXIS, (0,)), (MODEL_AXIS, (1,)),
-                      (EXPERT_AXIS, (2,)), (TOKEN_AXES, (0, 2))):
-        if key == TOKEN_AXES and (dims[0] == 1 or dims[2] == 1):
-            # the plane is a line: the data or the expert axis's group
-            groups[key] = groups[EXPERT_AXIS if dims[0] == 1
+    # plane), made by every rank in the same order
+    for key in ALL_AXES + PLANES:
+        names = key if isinstance(key, tuple) else (key,)
+        axes = tuple(ALL_AXES.index(a) for a in names)
+        if len(names) > 1 and any(dims[a] == 1 for a in axes):
+            # the plane is a line: the other axis's group (data's when
+            # both are one)
+            groups[key] = groups[names[1] if dims[axes[0]] == 1
                                  else DATA_AXIS]
             continue
         if key != DATA_AXIS and dims[axes[0]] == 1:
             groups[key] = None
             continue
-        rest = [a for a in range(3) if a not in axes]
+        rest = [a for a in range(len(dims)) if a not in axes]
         lines = grid.permute(*rest, *axes).reshape(-1, math.prod(
             dims[a] for a in axes))
         for line in lines.tolist():
@@ -412,12 +416,15 @@ def seq_degree(mesh) -> int:
 
 
 def check_mesh_axes(mesh) -> None:
-    """Raise naming the ROADMAP item when ``mesh`` (anything with a
-    ``shape`` mapping) has an axis the port does not carry yet
-    (``pipe``, ``seq``) above 1; ``data``, ``model`` and ``expert``
-    pass."""
-    if mesh is not None:
-        _check_ported_axes(getattr(mesh, "shape", {}))
+    """Raise ``ValueError`` when ``mesh`` (anything with a ``shape``
+    mapping) names an axis outside :data:`ALL_AXES` or sizes one below
+    1; every axis of the reference's ``MeshSpec`` passes."""
+    if mesh is None:
+        return
+    for axis, n in dict(getattr(mesh, "shape", {})).items():
+        if axis not in ALL_AXES or int(n) < 1:
+            raise ValueError(f"mesh axis {axis!r} of size {n}: the axes are "
+                             f"{ALL_AXES}, each of size >= 1")
 
 
 def mesh_captures(mesh) -> bool:

@@ -26,10 +26,12 @@ and mixed precision need no mesh).  Under a mesh each rank calls the
 functions with the same step; ``batch`` holds this rank's row slice.
 The guard's skip verdict is taken from values after the all-reduce, so
 every rank skips the same step and the replicas never diverge; on a
-``data x model`` mesh, where a rank's gradients are those of its own
-param slice, the verdict is reduced over the whole mesh besides
-(:func:`agree_over_mesh`), so one rank's non-finite shard skips the
-step on every rank of both axes.
+mesh with a model, pipe or expert axis, where a rank's gradients are
+those of its own param slice, the verdict is reduced over the whole
+mesh besides (:func:`agree_over_mesh`), so one rank's non-finite shard
+skips the step on every rank of every axis.  A ``pipe`` or ``seq`` axis
+the caller's step does not split replicates it over that axis, as the
+reference's ``shard_map`` replicates what its specs leave out.
 
 ``param_specs`` / ``ustate_specs`` (the reference's GSPMD mode) name
 the layout the caller gave the params and the updater state
@@ -57,12 +59,12 @@ import torch
 from deeplearning4j_tpu_torch.ops.updaters import (copy_into, tree_leaves,
                                                    tree_map)
 from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
-from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
-                                                    MODEL_AXIS,
+from deeplearning4j_tpu_torch.parallel.mesh import (ALL_AXES,
                                                     check_mesh_axes,
                                                     expert_degree,
                                                     mesh_captures,
-                                                    model_degree, shard_rows)
+                                                    model_degree, pipe_degree,
+                                                    shard_rows)
 from deeplearning4j_tpu_torch.runtime import compile_cache, resilience, \
     telemetry
 
@@ -183,15 +185,16 @@ def agree_over_mesh(mesh):
     """The guard's agreement over ``mesh``: ``agree(ok) -> ok`` where
     the returned verdict holds only if it holds on every rank (one
     all-reduce of the 0-d flag over the whole mesh).  None without a
-    model or expert axis: there the verdict comes from values already
-    summed over the data axis, the same on every rank."""
-    if model_degree(mesh) == 1 and expert_degree(mesh) == 1:
+    model, pipe or expert axis: there the verdict comes from values
+    already summed over the data (and seq) axes, the same on every
+    rank."""
+    if (model_degree(mesh) == 1 and expert_degree(mesh) == 1
+            and pipe_degree(mesh) == 1):
         return None
     from deeplearning4j_tpu_torch.parallel import collectives
 
     def agree(ok):
-        bad = collectives.psum((~ok).to(torch.float32),
-                               (mesh, (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)))
+        bad = collectives.psum((~ok).to(torch.float32), (mesh, ALL_AXES))
         return bad == 0
 
     return agree

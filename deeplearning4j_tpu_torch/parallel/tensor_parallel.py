@@ -24,7 +24,10 @@ on every model rank, so only the data axis all-reduces gradients.
 
 The specs themselves (:class:`PartitionSpec`) and :func:`shard_tree` /
 :func:`gather_tree` (this rank's slice of a global tree, and the global
-tree back, over the ``model`` and ``expert`` axes) live here too.  The model code takes a rank's group as
+tree back, over the ``model``, ``pipe`` and ``expert`` axes) live here
+too: a stacked ``[n_layers, ...]`` leaf with a leading ``pipe`` entry
+is split into the contiguous layers of each stage, the port's
+counterpart of the reference's ``pipeline.stage_param_sharding``.  The model code takes a rank's group as
 ``tp=`` (a :class:`ModelGroup`, None on a model axis of one), in
 training and decoding alike.
 
@@ -44,7 +47,8 @@ import torch
 import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.parallel import collectives
-from deeplearning4j_tpu_torch.parallel.mesh import EXPERT_AXIS, MODEL_AXIS
+from deeplearning4j_tpu_torch.parallel.mesh import (EXPERT_AXIS, MODEL_AXIS,
+                                                    PIPE_AXIS)
 
 Tensor = torch.Tensor
 PyTree = Any
@@ -209,12 +213,13 @@ def vocab_embed(table: Tensor, ids: Tensor,
 # ---------------------------------------------------------------------------
 
 #: the axes a param spec may split over, and the mesh coordinate of each
-_PARAM_AXES = (MODEL_AXIS, EXPERT_AXIS)
+_PARAM_AXES = (MODEL_AXIS, PIPE_AXIS, EXPERT_AXIS)
 
 
 def _split_dims(spec):
-    """``[(dim, axis)]``: each dimension a spec splits over ``model`` or
-    ``expert`` (an entry naming one of them, alone or in a tuple)."""
+    """``[(dim, axis)]``: each dimension a spec splits over ``model``,
+    ``pipe`` or ``expert`` (an entry naming one of them, alone or in a
+    tuple)."""
     out = []
     for i, a in enumerate(spec):
         names = a if isinstance(a, tuple) else (a,)
@@ -257,9 +262,9 @@ def _coord(mesh, axis: str) -> int:
 
 def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     """This rank's slice of a global tree laid out by ``specs``: each
-    leaf split over ``model`` (``expert``) takes block
-    ``mesh.model_rank`` (``mesh.expert_rank``) of its split dimension (a
-    copy); every other leaf is returned as it is.  The carry-over of a
+    leaf split over ``model`` (``pipe``, ``expert``) takes block
+    ``mesh.model_rank`` (``mesh.pipe_rank``, ``mesh.expert_rank``) of its
+    split dimension (a copy); every other leaf is returned as it is.  The carry-over of a
     global tree into the sharded layout: ``params_from_numpy`` of the
     JAX params, then this."""
 
@@ -282,7 +287,7 @@ def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
 
 
 def _axis_group(mesh, axis: str) -> Optional[ModelGroup]:
-    """``mesh``'s ``axis`` (``model`` or ``expert``) as a
+    """``mesh``'s ``axis`` (``model``, ``pipe`` or ``expert``) as a
     :class:`ModelGroup`; None where it is this rank alone."""
     if mesh is None:
         return None
@@ -295,9 +300,9 @@ def _axis_group(mesh, axis: str) -> Optional[ModelGroup]:
 
 def gather_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     """The global tree back from every rank's :func:`shard_tree` slice:
-    one all-gather over ``model`` (``expert``) a split dimension (every
-    rank of the group calls it); replicated leaves are returned as they
-    are."""
+    one all-gather over ``model`` (``pipe``, ``expert``) a split
+    dimension (every rank of the group calls it); replicated leaves are
+    returned as they are."""
     groups = {axis: _axis_group(mesh, axis) for axis in _PARAM_AXES}
 
     def one(leaf, spec):

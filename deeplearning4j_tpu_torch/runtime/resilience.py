@@ -39,10 +39,12 @@ dropout.
 Every skip, rollback and snapshot is counted in
 ``runtime.metrics.resilience_metrics`` / ``checkpoint_metrics``.
 
-**On a mesh** (``ResilientFit(mesh=)``, ``data`` and ``model`` axes,
-run SPMD: every rank makes the same calls) each rank trains on its data
-index's rows and, where the step lays the params out over ``model``
-(``train_step.param_specs``), on its slice of them.  A snapshot holds
+**On a mesh** (``ResilientFit(mesh=)``, any of the ``data``,
+``model``, ``pipe``, ``seq`` and ``expert`` axes, run SPMD: every rank
+makes the same calls) each rank trains on its data index's rows and,
+where the step lays the params out over ``model``, ``pipe`` or
+``expert`` (``train_step.param_specs``), on its slice of them; a net
+whose step splits nothing over an axis is replicated over it.  A snapshot holds
 the gathered global tree, under the npz keys a ``mesh=None`` run
 writes, so a checkpoint resumes on any mesh shape; the mesh's first
 rank writes it, and every rank waits at a barrier for a commit before
@@ -487,8 +489,8 @@ class ResilientFit:
     returns with ``self.preempted = True``.  ``fault_hook(step)`` runs
     before each step (a drill hook); a :class:`DeviceLossError` from it
     raises ``NotImplementedError`` (elastic resume, ROADMAP A7.3), as
-    does ``cluster=``.  ``mesh=`` (``data`` x ``model``) trains SPMD:
-    see the module docstring."""
+    does ``cluster=``.  ``mesh=`` trains SPMD: see the module
+    docstring."""
 
     def __init__(self, net, config: ResilienceConfig,
                  detector: Optional[LossSpikeDetector] = None,
@@ -626,7 +628,7 @@ class ResilientFit:
     def _layout(self, params, ustate, gather: bool):
         """``(params, ustate)`` in this rank's layout, or (``gather``)
         the global trees back: the step's ``shard_state`` /
-        ``gather_state`` where it lays them out over ``model``."""
+        ``gather_state`` where it lays them out over an axis."""
         fn = getattr(self._train_step,
                      "gather_state" if gather else "shard_state", None)
         if fn is None:

@@ -62,8 +62,9 @@ slots' and the page pool's KV caches hold the rank's heads
 row-parallel products over ``model`` (``parallel/tensor_parallel``), so
 every rank samples the same tokens, the replicated engine's.  The
 entries are captured only where the group's collectives can be
-(``parallel.mesh.mesh_captures``: not under gloo).  ``quantize=``
-quantizes the GLOBAL tree, then slices each int8 payload by its leaf's
+(``parallel.mesh.mesh_captures``: not under gloo).  A mesh with a
+``pipe`` or ``seq`` axis above 1 raises, naming ROADMAP A7.1b.4.
+``quantize=`` quantizes the GLOBAL tree, then slices each int8 payload by its leaf's
 spec and each per-channel scale by ``runtime/quantize.quant_specs``, so
 every scale is the replicated engine's (``rebind_params`` keeps that
 order); ``kv_dtype="int8"`` takes each row's amax over every head of
@@ -110,7 +111,8 @@ from deeplearning4j_tpu_torch.models import gpt
 from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.parallel import collectives
 from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
-from deeplearning4j_tpu_torch.parallel.mesh import (check_mesh_axes,
+from deeplearning4j_tpu_torch.parallel.mesh import (PIPE_AXIS, SEQ_AXIS,
+                                                    check_mesh_axes,
                                                     mesh_captures,
                                                     mesh_signature,
                                                     model_degree)
@@ -613,6 +615,14 @@ class DecodeEngine:
                  draft_k: int = 4,
                  device: DeviceLike = None):
         check_mesh_axes(mesh)
+        for axis in (PIPE_AXIS, SEQ_AXIS):
+            n = 1 if mesh is None else int(mesh.shape.get(axis, 1))
+            if n > 1:
+                raise NotImplementedError(
+                    f"DecodeEngine on a mesh with a {axis!r} axis of {n} is "
+                    f"not ported to the PyTorch package yet (ROADMAP "
+                    f"A7.1b.4: serving on such a mesh, the weights "
+                    f"replicated over it)")
         #: the model group's size and this rank's group (None: replicated)
         self.mesh = mesh
         self.model_degree = model_degree(mesh)

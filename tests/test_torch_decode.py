@@ -304,7 +304,7 @@ def test_bucket_chunk_divisibility_and_knobs(params):
     assert eng.prefill_chunk == 16
     with pytest.raises(ValueError, match="exceeds the model"):
         DecodeEngine(CFG, params, buckets=(128,), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A7.1b.4"):
         DecodeEngine(CFG, params, mesh=types.SimpleNamespace(
             shape={"data": 1, "pipe": 2}), device="cpu")
     # the serving tier's knobs: the page width is the shrunk chunk, the

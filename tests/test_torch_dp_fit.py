@@ -160,9 +160,16 @@ def test_bn_collective_moments_exclude_padding():
 
 
 def test_bn_collective_names_a7_for_other_axes():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # an axis by name alone has no group in the port; named with its
+    # mesh, every axis is accepted (the data axis of a data x seq mesh
+    # here)
+    with pytest.raises(ValueError, match="name the mesh too"):
         with textras.bn_collective("model", torch.ones(2)):
             pass
+    mesh = _fake_mesh(2)
+    mesh.shape["seq"] = 2
+    with textras.bn_collective((mesh, "data"), torch.ones(2)):
+        pass
 
 
 def test_prefetch_iterator_stages_this_ranks_rows():
@@ -189,9 +196,12 @@ def test_explicit_mesh_checks():
     net = TNet(dense_conf(tconf), device="cpu").init(0)
     with pytest.raises(ValueError, match="cannot shard"):
         net._resolve_fit_mesh(_fake_mesh(4), 2)
+    # a pipe axis is taken with the weights replicated over it
     m = _fake_mesh(1)
     m.shape["pipe"] = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
+    assert net._resolve_fit_mesh(m, 8) is m
+    m.shape["rows"] = 2
+    with pytest.raises(ValueError, match="the axes are"):
         net._resolve_fit_mesh(m, 8)
     assert net._resolve_fit_mesh("auto", 8) is None     # no group up
 

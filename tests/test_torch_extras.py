@@ -99,10 +99,11 @@ def test_batch_moments_are_biased_like_jnp_var():
 
 
 def test_bn_collective_raises_naming_a7():
-    """``bn_collective`` is ported for the data axis (its contracts are
-    in tests/test_torch_dp_fit.py); another axis raises naming A7."""
+    """``bn_collective`` is ported for every axis named with its mesh
+    (its data-axis contracts are in tests/test_torch_dp_fit.py); an
+    axis named alone has no group in the port and raises."""
     for axis in ("model", "seq", "expert"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        with pytest.raises(ValueError, match="name the mesh too"):
             with extras.bn_collective(axis, None):
                 pass
 

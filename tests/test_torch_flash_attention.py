@@ -185,9 +185,15 @@ def test_make_attn_fn_dispatch():
         fa.make_attn_fn("cuda")(q, q, q)
     with pytest.raises(ValueError, match="kernel must be one of"):
         fa.make_attn_fn("xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.5"):
-        fa.make_attn_fn("auto", mesh=types.SimpleNamespace(
-            shape={"data": 1, "seq": 2}))
+    # a seq axis above 1 hands attention to the ring (test_parallel_4d.py
+    # :201-217); a forced kernel cannot own it, a forced ring needs it
+    seq = types.SimpleNamespace(shape={"data": 1, "seq": 2})
+    d = fa.make_attn_fn("auto", mesh=seq).describe(q.shape, q.shape, True)
+    assert d.impl == "ring" and d.source.startswith("seq-sharded")
+    with pytest.raises(ValueError, match="ring attention owns"):
+        fa.make_attn_fn("cuda", mesh=seq).describe(q.shape, q.shape)
+    with pytest.raises(ValueError, match="no sharded sequence axis"):
+        fa.make_attn_fn("ring").describe(q.shape, q.shape)
 
 
 def test_kernel_wrapper_refuses_cpu_and_unsupported_inputs():

@@ -163,17 +163,21 @@ def test_poisoned_step_skips_and_halves_the_scale():
 
 
 def test_unported_axes_and_pipeline_raise_naming_a7():
-    cfg = tgpt.gpt_tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1"):
-        tlm.CausalLM(cfg, pipe_microbatches=2, device="cpu")
-    lm = tlm.CausalLM(cfg, device="cpu").init(0)
-    # the expert axis is ported (tests/test_torch_expert_parallel.py)
-    for axis, item in (("pipe", "A7.1b"), ("seq", "A7.5")):
-        m = _fake_mesh(1)
-        m.shape[axis] = 2
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            lm.fit_backprop([TDataSet(np.zeros((2, 8), np.int32))] * 2,
-                            mesh=m)
+    # the pipeline's microbatches are ported: at mesh=None
+    # pipe_microbatches=2 walks the same two slices, in the same order,
+    # as grad_accum=2 (the pipe and seq meshes: test_torch_pipeline.py,
+    # test_torch_ring_attention.py)
+    cfg = dataclasses.replace(tgpt.gpt_tiny(), compute_dtype="float32")
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, (4, 16)) \
+        .astype(np.int32)
+    flats = []
+    for kw in (dict(pipe_microbatches=2), dict(grad_accum=2)):
+        lm = tlm.CausalLM(cfg, lr=0.05, momentum=0.9, device="cpu", **kw)
+        lm.init(0).fit_backprop([TDataSet(ids, ids)], num_epochs=2)
+        flats.append(lm.params_flat())
+    assert torch.equal(*flats)
+    with pytest.raises(ValueError, match="pipe_microbatches"):
+        tlm.CausalLM(cfg, pipe_microbatches=0, device="cpu")
     with pytest.raises(ValueError, match="causal"):
         tlm.CausalLM(dataclasses.replace(cfg, causal=False), device="cpu")
     with pytest.raises(ValueError, match="mixed_precision"):

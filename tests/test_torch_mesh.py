@@ -5,11 +5,15 @@ multi-process harness the data-parallel tests share.
 ``local_batch_size``, ``padded_global_batch`` and ``mesh_signature`` on
 the same inputs as the reference's (on its 8-device CPU mesh; the
 port's shape helpers read only ``mesh.shape``, so a ``Mesh`` of 8 ranks
-is built without a group), exactly equal; the pipe, seq and expert
-axes raise naming their ROADMAP items (the model axis has a file of its
-own, ``test_torch_model_parallel.py``).  ``parallel/collectives.py``:
-every collective on a real 2-rank gloo group against numpy, exactly
-(sums of two fp32 values), and ``psum``'s backward.
+is built without a group), exactly equal; every axis of the reference's
+``MeshSpec`` is accepted (the model axis has a file of its own,
+``test_torch_model_parallel.py``; the pipe and seq axes
+``test_torch_pipeline.py`` and ``test_torch_ring_attention.py``), and
+the row-major layout of ranks and groups over ``(data, model, pipe,
+seq, expert)`` is the reference's.  ``parallel/collectives.py``: every
+collective on a real 2-rank gloo group against numpy, exactly (sums of
+two fp32 values), ``psum``'s backward, and ``ring_permute``'s values,
+gradient and booked bytes against JAX's ``ppermute``.
 
 The harness (:func:`run_ranks`) starts a gloo group of ``world`` CPU
 processes with ``multiprocessing``'s spawn, a ``file://`` rendezvous in
@@ -203,6 +207,20 @@ def collectives_rank(mesh):
     return out
 
 
+def ring_permute_rank(mesh, xs, ws, shift):
+    """``ring_permute`` of this rank's block over the data axis: the
+    value, the gradient of ``sum(out * w)`` and the booked calls and
+    bytes of the forward and of the backward."""
+    r = mesh.rank
+    x = torch.from_numpy(xs[r].copy()).requires_grad_(True)
+    tcol.stats.reset()
+    y = tcol.ring_permute(x, mesh, shift)
+    fwd = dict(tcol.stats.snapshot()["by_kind"]["ring_permute"])
+    (g,) = torch.autograd.grad((y * torch.from_numpy(ws[r])).sum(), [x])
+    both = tcol.stats.snapshot()["by_kind"]["ring_permute"]
+    return y.detach().numpy(), g.numpy(), fwd, both
+
+
 def dp_fit_rank(mesh, p0, p0_bn):
     """The data-parallel MultiLayerNetwork fits of test_torch_dp_fit.py
     on this rank: the plain fit, the ragged batch-norm fit, a fit whose
@@ -306,6 +324,155 @@ def lm_fit_rank(mesh, params_np, ids):
     return lm.params_flat().numpy()
 
 
+#: the tiny GPT and BERT configs of the pipe and seq axes' tests (both
+#: packages build them from these fields)
+AXES_LM = dict(hidden=32, n_layers=2, n_heads=4, ffn_dim=64,
+               compute_dtype="float32")
+AXES_BERT = dict(vocab_size=128, max_len=32, hidden=32, n_layers=2,
+                 n_heads=4, ffn_dim=64, dropout=0.0, compute_dtype="float32")
+
+
+def axes_lm_cfg(**kw):
+    from deeplearning4j_tpu_torch.models import gpt
+    return dataclasses.replace(gpt.gpt_tiny(vocab_size=64, max_len=16),
+                               **dict(AXES_LM, **kw))
+
+
+def axes_bert_cfg(**kw):
+    from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(**dict(AXES_BERT, **kw))
+
+
+def seq_block(x, n, r):
+    """Rank ``r``'s block of ``n`` along axis 1."""
+    t = x.shape[1] // n
+    return x[:, r * t:(r + 1) * t]
+
+
+def ring_rank(mesh0, inputs, causal, kind):
+    """test_torch_ring_attention.py: this rank's block of the ring's (or
+    Ulysses') output and of the q/k/v gradients of ``sum(out * w)``, for
+    each block form, on a ``seq`` mesh of every rank."""
+    from deeplearning4j_tpu_torch.parallel import ring_attention as ra
+
+    q, k, v, mask, w = inputs
+    n = torch.distributed.get_world_size()
+    mesh = tmesh.make_mesh(tmesh.MeshSpec(data=1, seq=n))
+    r = mesh.seq_rank
+    out = {}
+    for block in ("plain", "flash"):
+        ts = [torch.from_numpy(seq_block(a, n, r).copy()).requires_grad_(True)
+              for a in (q, k, v)]
+        fn = ra.ring_attention if kind == "ring" else ra.ulysses_attention
+        o = fn(*ts, torch.from_numpy(seq_block(mask, n, r).copy()), causal,
+               (mesh, "seq"), block=block)
+        grads = torch.autograd.grad(
+            (o * torch.from_numpy(seq_block(w, n, r).copy())).sum(), ts)
+        out[block] = (o.detach().numpy(), [g.numpy() for g in grads])
+    return out
+
+
+def lm_axes_rank(mesh0, spec, params_np, ids, pipe_microbatches=1,
+                 moe=None, n_layers=2):
+    """A CausalLM fit (fp32, SGD 0.05 with momentum 0.9, 2 epochs) on a
+    mesh of ``spec`` from carried params: the dense tiny GPT of
+    ``n_layers``, or with ``moe`` (config fields) the MoE family."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import lm_fit
+    from deeplearning4j_tpu_torch.models.moe import MoETransformerConfig
+    from deeplearning4j_tpu_torch.ops.updaters import tree_map
+
+    mesh = tmesh.make_mesh(tmesh.MeshSpec(**spec)) if spec else None
+    cfg = (MoETransformerConfig(**moe) if moe
+           else axes_lm_cfg(n_layers=n_layers))
+    lm = lm_fit.CausalLM(cfg, lr=0.05, momentum=0.9, device="cpu",
+                         pipe_microbatches=pipe_microbatches)
+    lm.params = tree_map(torch.from_numpy, params_np)
+    lm.fit_backprop([DataSet(x, x) for x in ids], num_epochs=2, mesh=mesh)
+    return lm.params_flat().numpy()
+
+
+def lm_seq_rank(mesh0, params_np, ids):
+    """test_torch_ring_attention.py: the CausalLM fit on data=2 x
+    seq=2."""
+    return lm_axes_rank(mesh0, dict(data=2, seq=2), params_np, ids)
+
+
+def bert_step_rank(mesh0, params_np, batch_np, spec, make, steps=2,
+                   n_micro=None):
+    """``steps`` of BERT's ``make_sp_train_step`` or
+    ``make_pipeline_train_step`` (``make``) from carried params: the
+    losses and the gathered params, flat in JAX's leaf order."""
+    from deeplearning4j_tpu_torch.models import bert, lm_fit
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.ops import updaters
+
+    mesh = tmesh.make_mesh(tmesh.MeshSpec(**spec))
+    cfg = axes_bert_cfg()
+    params = bert.params_from_numpy(params_np, "cpu")
+    batch = bert.Batch(*(torch.from_numpy(a) for a in batch_np))
+    if make == "sp":
+        _, step_fn = bert.make_sp_train_step(cfg, mesh, device="cpu")
+    else:
+        _, step_fn = bert.make_pipeline_train_step(cfg, mesh, n_micro,
+                                                   device="cpu")
+    if step_fn.specs is not None:
+        params = tfm.shard_tree(params, step_fn.specs, mesh)
+    opt = updaters.adamw(1e-4, weight_decay=0.01)
+    state = bert.TrainState(params, opt.init(params), 0)
+    losses = []
+    for _ in range(steps):
+        state, loss = step_fn(state, batch)
+        losses.append(float(loss))
+    out = state.params
+    if step_fn.specs is not None:
+        out = tfm.gather_tree(out, step_fn.specs, mesh)
+    flat = torch.cat([t.reshape(-1) for t in lm_fit._sorted_leaves(out)])
+    return losses, flat.numpy()
+
+
+def pipe_fn_rank(mesh0, spec, stacked_np, x, y, n_micro, steps=0):
+    """test_torch_pipeline.py's residual tanh stages through
+    ``make_pipeline_fn``: the output and the global gradient of
+    ``mean((out - y)^2)`` in the stacked params (summed over data and
+    pipe); with ``steps``, that many SGD steps of
+    ``make_pipeline_train_step`` (lr 0.05): the losses and the params."""
+    from deeplearning4j_tpu_torch.ops.updaters import tree_map
+    from deeplearning4j_tpu_torch.parallel import collectives
+    from deeplearning4j_tpu_torch.parallel import pipeline as pl
+
+    mesh = tmesh.make_mesh(tmesh.MeshSpec(**spec))
+
+    def stage(p, h):
+        return h + torch.tanh(h @ p["w"] + p["b"])
+
+    def loss_fn(o, t):
+        return torch.mean((o - t) ** 2)
+
+    params = tree_map(torch.from_numpy, stacked_np)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    if steps:
+        init_opt, step = pl.make_pipeline_train_step(
+            mesh, stage, loss_fn, n_micro, learning_rate=0.05)
+        opt = init_opt(params)
+        losses = []
+        for _ in range(steps):
+            params, opt, loss = step(params, opt, xt, yt)
+            losses.append(float(loss))
+        return losses, tree_map(lambda t: t.numpy(), params)
+    fwd = pl.make_pipeline_fn(mesh, stage, n_micro)
+    live = tree_map(lambda t: t.clone().requires_grad_(True), params)
+    out = fwd(live, xt)
+    grads = torch.autograd.grad(loss_fn(out, yt), [live["w"], live["b"]])
+    grads = collectives.psum(list(grads), (mesh, ("data", "pipe")))
+    return out.detach().numpy(), {"w": grads[0].numpy(),
+                                  "b": grads[1].numpy()}
+
+
+def bert_sp_rank(mesh0, params_np, batch_np, spec):
+    return bert_step_rank(mesh0, params_np, batch_np, spec, "sp")
+
+
 # ---------------------------------------------------------------------------
 # tests
 # ---------------------------------------------------------------------------
@@ -395,30 +562,30 @@ def test_shard_rows_takes_each_ranks_contiguous_block():
 
 
 def test_non_data_axes_and_elastic_helpers_raise_naming_a7():
-    """The pipe and seq axes raise naming their ROADMAP items; the model
-    and expert axes are ported (tests/test_torch_model_parallel.py,
-    tests/test_torch_expert_parallel.py), and a collective names them
-    with their mesh."""
-    m = _fake_mesh(1)
-    m.shape["expert"] = 2
-    tmesh.check_mesh_axes(m)
-    for axis, item in (("pipe", "A7.1b"), ("seq", "A7.5")):
+    """Every axis of the reference's MeshSpec is carried: the pipe and
+    seq axes pass ``check_mesh_axes`` and the step builders, and a
+    collective over an axis of one is this rank alone; an axis named
+    without its mesh has no group, an unknown axis is refused, and the
+    elastic helpers raise naming ROADMAP A7.3."""
+    for axis in ("model", "pipe", "seq", "expert"):
         m = _fake_mesh(1)
         m.shape[axis] = 2
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tmesh.check_mesh_axes(m)
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            tcol.psum(torch.ones(2), m)
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            tcol.psum(torch.ones(2), axis)
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            tsf.build_sharded_step(lambda *a: a, m, label="x")
-    for axis in ("model", "expert"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
+        tmesh.check_mesh_axes(m)
+        step = tsf.build_sharded_step(lambda *a: a, m, label="x")
+        assert step.param_specs is None
+        other = "seq" if axis != "seq" else "pipe"
+        torch.testing.assert_close(tcol.psum(torch.ones(2), (m, other)),
+                                   torch.ones(2))
+        with pytest.raises(ValueError, match="name the mesh too"):
             tcol.psum(torch.ones(2), axis)
     m = _fake_mesh(1)
-    m.shape["model"] = 2
-    tmesh.check_mesh_axes(m)
+    m.shape["pipe"] = 2
+    assert tmesh.pipe_degree(m) == 2 and tmesh.seq_degree(m) == 1
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        tcol.psum(torch.ones(2), (m, "rows"))
+    m.shape["rows"] = 2
+    with pytest.raises(ValueError, match="the axes are"):
+        tmesh.check_mesh_axes(m)
     with pytest.raises(ValueError, match="pass the mesh"):
         tsf.build_sharded_step(lambda *a: a, None, label="x",
                                param_specs={"w": None})
@@ -438,6 +605,41 @@ def test_no_group_means_no_auto_mesh_and_make_mesh_raises():
     assert not tmesh.initialize_distributed(None)
     with pytest.raises(RuntimeError, match="initialize_distributed"):
         tmesh.make_mesh()
+
+
+@pytest.mark.parametrize("shift", [1, -1, 2])
+def test_ring_permute_matches_ppermute(tmp_path, shift):
+    """The repaired ring shift: each rank's value and gradient are those
+    of JAX's ``ppermute`` (as ``collectives.ring_permute`` builds it)
+    under ``shard_map``, and each direction books one tensor's bytes
+    once."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    from deeplearning4j_tpu.compat import shard_map
+    from deeplearning4j_tpu.parallel import collectives as jcol
+    from deeplearning4j_tpu.parallel import mesh as jmesh
+
+    n = 4
+    rng = np.random.default_rng(7)
+    xs = rng.standard_normal((n, 3, 5)).astype(np.float32)
+    ws = rng.standard_normal((n, 3, 5)).astype(np.float32)
+    jm = jmesh.make_mesh(jmesh.MeshSpec(data=n), devices=jax.devices()[:n])
+    f = shard_map(lambda x: jcol.ring_permute(x, "data", shift), mesh=jm,
+                  in_specs=JP("data"), out_specs=JP("data"),
+                  check_vma=False)
+    flat_x, flat_w = xs.reshape(n * 3, 5), ws.reshape(n * 3, 5)
+    want = np.asarray(jax.jit(f)(flat_x)).reshape(n, 3, 5)
+    want_g = np.asarray(jax.jit(jax.grad(
+        lambda x: jnp.sum(f(x) * flat_w)))(flat_x)).reshape(n, 3, 5)
+    for r, (y, g, fwd, both) in enumerate(
+            run_ranks(ring_permute_rank, n, tmp_path, xs, ws, shift)):
+        np.testing.assert_array_equal(y, want[r])
+        np.testing.assert_array_equal(y, xs[(r - shift) % n])
+        np.testing.assert_array_equal(g, want_g[r])
+        assert fwd == {"calls": 1, "bytes": xs[r].nbytes, "seconds": 0.0}
+        assert both["calls"] == 2 and both["bytes"] == 2 * xs[r].nbytes
 
 
 def test_collectives_on_two_gloo_ranks(tmp_path):

@@ -308,12 +308,14 @@ def test_one_device_layers_and_a7_refusals():
                dict(model_degree=2, expert_degree=4)):
         assert axes(tmoe.shard_specs(mcfg, **kw)) \
             == axes(jmoe.shard_specs(jcfg, **kw))
-    # what stays refused: the pipe stages (A7.1b), an axis named without
-    # its mesh, and an expert axis above 1 on anything but a port Mesh
-    for call in (lambda: tmoe.shard_specs(mcfg, pipe_degree=2),
-                 lambda: tex.moe_ffn(tp, xt, tcfg, axis_name="expert")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
-            call()
+    # the pipe stages are ported (stage-major over pipe, the expert split
+    # kept); what stays refused: an axis named without its mesh, and an
+    # expert axis above 1 on anything but a port Mesh
+    for kw in (dict(pipe_degree=2), dict(pipe_degree=2, expert_degree=2)):
+        assert axes(tmoe.shard_specs(mcfg, **kw)) \
+            == axes(jmoe.shard_specs(jcfg, **kw))
+    with pytest.raises(ValueError, match="name the mesh too"):
+        tex.moe_ffn(tp, xt, tcfg, axis_name="expert")
     for call in (lambda: tex.make_moe_layer({"expert": 2}, tcfg),
                  lambda: tex.make_gspmd_moe_ffn({"expert": 4}, tcfg),
                  lambda: tex.moe_ffn(tp, xt, tcfg, stat_axes=("data",)),

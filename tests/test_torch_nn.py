@@ -148,18 +148,21 @@ def test_unported_layer_kinds_raise_not_implemented(kind, item):
 
 
 def test_unported_fit_paths_raise_not_implemented():
-    """What stays unported of the fit paths raises naming its ROADMAP
-    item: a mesh with a pipe axis above 1 (A7.1b).  The data-parallel,
-    accumulation and bf16 paths are ported (tests/test_torch_dp_fit.py):
-    they train here without a mesh, and ``mesh="auto"`` without a
-    process group is the single-device fit."""
+    """The fit paths are ported: a mesh with a pipe axis above 1 is
+    taken with the weights replicated over it (ROADMAP A7.1b.3), a mesh
+    with an axis the reference's MeshSpec lacks raises.  The
+    data-parallel, accumulation and bf16 paths are ported
+    (tests/test_torch_dp_fit.py): they train here without a mesh, and
+    ``mesh="auto"`` without a process group is the single-device fit."""
     net = TNet(_dense_conf(tconf), device="cpu").init(0)
     data = tds.DataSet(np.zeros((4, 12), np.float32),
                        np.eye(4, dtype=np.float32))
     model_mesh = types.SimpleNamespace(shape={"data": 1, "pipe": 2})
-    for call in (lambda: net.fit_backprop(data, mesh=model_mesh),
-                 lambda: net._resolve_fit_mesh(model_mesh, 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    assert net._resolve_fit_mesh(model_mesh, 4) is model_mesh
+    bad_mesh = types.SimpleNamespace(shape={"data": 1, "rows": 2})
+    for call in (lambda: net.fit_backprop(data, mesh=bad_mesh),
+                 lambda: net._resolve_fit_mesh(bad_mesh, 4)):
+        with pytest.raises(ValueError, match="the axes are"):
             call()
     net.fit_backprop(data, mesh="auto")
     for field, value in (("grad_accum", 2), ("mixed_precision", "bf16")):

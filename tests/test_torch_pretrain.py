@@ -307,9 +307,8 @@ def test_prepare_resilient_fit_matches_reference():
     assert mesh is None and len(tbatches) == len(jbatches) == 2
     assert all(a is b for a, b in zip(tbatches, tb))
     _assert_nets_close(tnet, jnet)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tnet._resolve_fit_mesh(
-            types.SimpleNamespace(shape={"data": 1, "pipe": 2}), 8)
+    piped = types.SimpleNamespace(shape={"data": 1, "pipe": 2})
+    assert tnet._resolve_fit_mesh(piped, 8) is piped
 
 
 # -- the port's own contracts ----------------------------------------------------

@@ -343,10 +343,13 @@ def test_new_seed_reshuffles_and_rollback_redraws(tmp_path):
 def test_unported_paths_name_roadmap_a7(tmp_path):
     net = _net(1)
     cfg = ResilienceConfig(checkpoint_dir=str(tmp_path))
-    pipe_mesh = types.SimpleNamespace(shape={"data": 1, "pipe": 2})
-    for kw in ({"mesh": pipe_mesh}, {"cluster": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            ResilientFit(net, cfg, **kw)
+    # every axis of the reference's MeshSpec is taken (the pipe and seq
+    # axes since ROADMAP A7.1b.3 / A7.5); an axis it lacks is refused
+    bad_mesh = types.SimpleNamespace(shape={"data": 1, "rows": 2})
+    with pytest.raises(ValueError, match="the axes are"):
+        ResilientFit(net, cfg, mesh=bad_mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        ResilientFit(net, cfg, cluster=object())
 
     def lose(step):
         if step == 1:

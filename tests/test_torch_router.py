@@ -264,7 +264,7 @@ def test_stub_messages_name_their_items(tree, params):
     # axis stays refused
     with pytest.raises(ValueError, match="model_degree 2"):
         Router.replicate(CFG, tree, 1, model_degree=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b.4"):
         DecodeEngine(CFG, params, mesh=types.SimpleNamespace(
             shape={"data": 1, "pipe": 2}), device="cpu")
 

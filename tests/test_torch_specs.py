@@ -8,8 +8,9 @@ reference's divisibility errors; ``sharded_fit.spec_axis_names`` and
 ``validate_specs_against_mesh`` agree with the reference's; a rank's
 slice (``shard_tree``) is the block the reference's ``NamedSharding``
 places on that device; GPT-2 small at a model degree of 2 keeps
-81,940,992 of its 124,440,576 parameters a rank; and every axis the
-port does not carry yet raises naming its ROADMAP item.
+81,940,992 of its 124,440,576 parameters a rank; the pipe axis lays
+the stacked blocks out stage-major as the reference's specs do; and
+every entry point builds on a mesh with a pipe or seq axis.
 """
 
 import dataclasses
@@ -118,8 +119,12 @@ def test_pipe_stage_specs_at_degree_one_and_above():
         == _axes(jtfm.pipe_stage_specs(blocks_j, jc, 1))
     with pytest.raises(ValueError, match="n_layers=2 not divisible"):
         ttfm.pipe_stage_specs(blocks_t, tc, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
-        ttfm.shard_specs(tc, 2, pipe_degree=2)
+    # above a degree of 1 the stacked blocks go stage-major over pipe,
+    # the model split kept on the trailing dimensions
+    assert _axes(ttfm.shard_specs(tc, 2, pipe_degree=2)) \
+        == _axes(jtfm.shard_specs(jc, 2, pipe_degree=2))
+    assert ttfm.shard_specs(tc, 2, pipe_degree=2)["blocks"]["wq"] \
+        == tpar.P("pipe", None, "model", None)
 
 
 def test_spec_axis_names_and_validation_match_reference():
@@ -203,23 +208,31 @@ def _fake_mesh(**axes):
                                        ("expert", "A7.1b"),
                                        ("seq", "A7.5")])
 def test_unported_axes_raise_naming_their_roadmap_item(axis, item):
-    # the expert axis is ported: beside a pipe axis every entry point
-    # still refuses, naming the pipe's item
+    # the axes of ROADMAP A7.1b and A7.5 are ported: every entry point
+    # builds on a mesh with them (the expert axis beside a pipe axis),
+    # the attention dispatch takes the ring on a seq axis, and a
+    # collective over an axis of one is this rank alone
     m = _fake_mesh(**({axis: 2} if axis != "expert"
                       else {"expert": 2, "pipe": 2}))
-    for call in (lambda: tmesh.check_mesh_axes(m),
-                 lambda: tcol.psum(torch.ones(2), m),
-                 lambda: tsf.build_sharded_step(lambda *a: a, m, label="x"),
-                 lambda: fa.make_attn_fn("auto", mesh=m),
-                 lambda: tlm.CausalLM(tgpt.gpt_tiny(), device="cpu")
-                 ._backprop_machinery(m),
-                 lambda: tgpt.make_train_step(tgpt.gpt_tiny(), mesh=m,
-                                              device="cpu")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
+    tmesh.check_mesh_axes(m)
+    tsf.build_sharded_step(lambda *a: a, m, label="x")
+    step, _ = tlm.CausalLM(tgpt.gpt_tiny(), device="cpu") \
+        ._backprop_machinery(m)
+    piped = axis != "seq"
+    assert (step.param_specs is not None) == piped
+    if piped:
+        assert tuple(step.param_specs["blocks"]["wq"])[0] == "pipe"
+    _, train = tgpt.make_train_step(tgpt.gpt_tiny(), mesh=m, device="cpu")
+    assert tuple(train.specs["blocks"]["wq"])[0] is None  # replicated
+    d = fa.make_attn_fn("auto", mesh=m).describe((2, 16, 4, 8),
+                                                 (2, 16, 4, 8), True,
+                                                 device="cpu",
+                                                 dtype=torch.float32)
+    assert d.impl == ("ring" if axis == "seq" else "plain")
+    torch.testing.assert_close(
         tcol.psum(torch.ones(2), (_fake_mesh(),
-                                  "pipe" if axis == "expert" else axis))
+                                  "pipe" if axis == "expert" else axis)),
+        torch.ones(2))
 
 
 def test_model_axis_is_accepted_and_the_rest_stays_raising():
@@ -230,22 +243,24 @@ def test_model_axis_is_accepted_and_the_rest_stays_raising():
     assert not tmesh.mesh_captures(m)          # gloo
     # the MoE family, the router over model groups and the engine's
     # knobs on a model mesh are ported (tests/test_torch_expert_parallel
-    # .py, tests/test_torch_model_serving.py); a pipe axis beside the
-    # model axis, the pipeline and a group the ranks cannot fill refuse
+    # .py, tests/test_torch_model_serving.py), and so are a pipe axis
+    # beside the model axis and the pipeline's microbatches; serving on
+    # a pipe mesh and a group the ranks cannot fill refuse
     from deeplearning4j_tpu_torch.models import moe as tmoe
     piped = _fake_mesh(model=2, pipe=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
-        tlm.CausalLM(tmoe.MoETransformerConfig(), device="cpu") \
-            ._backprop_machinery(piped)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
-        tlm.CausalLM(tgpt.gpt_tiny(), pipe_microbatches=2, device="cpu")
+    step, _ = tlm.CausalLM(tmoe.MoETransformerConfig(), device="cpu") \
+        ._backprop_machinery(piped)
+    assert step.param_specs["blocks"]["wi"] == tpar.P("pipe", "model", None,
+                                                      None)
+    assert tlm.CausalLM(tgpt.gpt_tiny(), pipe_microbatches=2,
+                        device="cpu").pipe_microbatches == 2
     from deeplearning4j_tpu_torch.serving.router import Router
     with pytest.raises(ValueError, match="model_degree 2"):
         Router.replicate(tgpt.gpt_tiny(), None, 1, model_degree=2,
                          device="cpu")
     for knob in (dict(quantize="int8"), dict(kv_dtype="int8")):
         from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
-        with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7.1b.4"):
             DecodeEngine(tgpt.gpt_tiny(), {}, mesh=piped, device="cpu",
                          **knob)
 

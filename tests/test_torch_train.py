@@ -333,10 +333,19 @@ def test_gpt_params_and_config_match_jax():
 
 
 def test_train_entry_points_default_to_cuda_and_refuse_a_mesh():
+    # a pipe or seq axis is ported: the step builds, replicated over it
+    # (BERT's pipeline and sequence-parallel steps are their own); an
+    # axis the reference's MeshSpec lacks is refused
+    from deeplearning4j_tpu_torch.parallel import mesh as tmesh
     for mod, cfg in ((tbert, tbert.bert_tiny()), (tgpt, tgpt.gpt_tiny())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7.1b"):
+        for axis in ("pipe", "seq"):
+            fake = tmesh.Mesh({"data": 1, axis: 2}, None, (0, 1), 0,
+                              torch.device("cpu"), "gloo")
+            _, step = mod.make_train_step(cfg, mesh=fake, device="cpu")
+            assert tuple(step.specs["blocks"]["wq"])[0] is None
+        with pytest.raises(ValueError, match="the axes are"):
             mod.make_train_step(cfg, mesh=types.SimpleNamespace(
-                shape={"data": 1, "pipe": 2}), device="cpu")
+                shape={"data": 1, "rows": 2}), device="cpu")
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 mod.make_train_step(cfg)
