@@ -374,6 +374,42 @@ Phases, each fatal on failure:
    over B1-B3 in every layer), and BERT-base's make_sp_train_step (64
    tokens a rank).  Every path's B1-B3 launches are checked against its
    schedule and join the kernels line.
+22. sharded snapshots, the cluster control plane and recovery, on gloo
+   rank processes sharing the card (the cluster's key-value store is the
+   rendezvous's FileStore, heartbeats 0.2 s / 5 s), GPT-2 small (dropout
+   0) through CausalLM under ResilientFit(mesh=, cluster=), B=8 T=1024,
+   SGD 0.05 with momentum 0.9, seeded batches in order, every result
+   held against this process: (a) two ranks on data=1 x model=2, depth
+   2 fp32, a snapshot every 2 for 4 steps: the manifest's layout is
+   "sharded", each rank's pieces are 0.45-0.55 of the model-split
+   leaves' bytes (its npz file's share of the replicated tree printed),
+   the snapshot restored whole here is torch.equal to the ranks'
+   gathered params and momentum, and a rank's save ms is printed beside
+   the same state gathered and written by rank 0 and phase 17 (7)'s
+   gathered snapshots; (b) four ranks on data=2 x model=2, depth 2 fp32,
+   ranks 2 and 3 lost at step 5 (DeviceLossChaos on every rank), a
+   snapshot every 2, 8 steps: ranks 2 and 3 leave evicted, ranks 0 and
+   1 re-mesh to data=1 x model=2 with elastic_accum 2, restore step 4
+   from the four ranks' pieces and finish, their gathered params within
+   1e-5 relative L2 of the uninterrupted mesh=None grad_accum=2 run here
+   (torch.equal printed), a control that loses the momentum at the
+   restore outside it (the control with elastic_accum left at 1 is
+   printed), B1-B3 launches before and after the re-mesh checked against
+   the schedule, the recovery's ms by stage; (c) two ranks on data=2,
+   full depth bf16 mixed precision, a snapshot every 3: rank 1 SIGKILLs
+   itself at step 5 (its exit code -9 the one death expected); rank 0's
+   step collective fails, its heartbeat names rank 1, it shrinks to
+   generation 1, restores step 3 and finishes 9 steps alone with
+   grad_accum=2, its losses after the recovery within 2e-2 of the
+   uninterrupted mesh=None grad_accum=2 run's; the ms from the kill to
+   the detection and to the first step after the restore, and the steps
+   lost; (d) two ranks on data=2, depth 2 fp32, PreemptionChaos on rank
+   1 alone: both stop at one step with one final snapshot committed
+   across the cluster, and a resume on data=1 x model=2 finishes within
+   1e-5 of the uninterrupted mesh=None run (torch.equal printed).
+   (a)+(d), (b) and (c) run side by side (eight ranks) while this
+   process runs the references.  The main paths' B1-B3 launches join the
+   kernels line.
 
 Each phase prints its seconds on a line of its own when it ends
 ("phase N: S s"), and the script prints every phase's seconds and its
@@ -6712,7 +6748,8 @@ def spine_resilient(torch, gpt, lm_fit, say) -> None:
     import tempfile
 
     from deeplearning4j_tpu_torch.runtime import resilience
-    from deeplearning4j_tpu_torch.runtime.metrics import compile_metrics
+    from deeplearning4j_tpu_torch.runtime.metrics import (checkpoint_metrics,
+                                                          compile_metrics)
 
     cfg = gpt.gpt_config()
     batches = spine_batches(spine_ids(cfg.vocab_size, SPINE_RF_BATCHES,
@@ -6729,7 +6766,14 @@ def spine_resilient(torch, gpt, lm_fit, say) -> None:
 
     try:
         t0 = time.perf_counter()
+        was = checkpoint_metrics.snapshot()
         whole, _ = run("whole")
+        now = checkpoint_metrics.snapshot()
+        # phase 22 prints these beside its sharded snapshots
+        SPINE_SNAPSHOT.update(
+            commits=now["snapshots_committed"] - was["snapshots_committed"],
+            bytes=now["bytes_written"] - was["bytes_written"],
+            write_ms=now["write_ms"] - was["write_ms"])
         resilience.compiled_all_finite(whole.params)   # the restore check
         c0 = compile_metrics.compile_count
         part, rf = run("part", max_steps=SPINE_RF_KILL)
@@ -7463,27 +7507,30 @@ def ma_spawn(target, tmp: str, tag: str, args=(), phase: int = 19) -> list:
     return ma_join(ma_start(target, tmp, tag, args), tag, phase)
 
 
-def ma_start(target, tmp: str, tag: str, args=()):
-    """The two processes of :func:`ma_spawn`, started: ``(processes,
+def ma_start(target, tmp: str, tag: str, args=(), world: int = 2):
+    """The ``world`` processes of :func:`ma_spawn`, started: ``(processes,
     output files, deadline)`` for :func:`ma_join`, so this process can
     work while the ranks start up."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     rdv = os.path.join(tmp, f"rdv-{tag}")
-    outs = [os.path.join(tmp, f"{tag}-{r}.out") for r in range(2)]
+    outs = [os.path.join(tmp, f"{tag}-{r}.out") for r in range(world)]
     procs = [ctx.Process(target=target, args=(r, rdv, outs[r]) + tuple(args))
-             for r in range(2)]
+             for r in range(world)]
     for p in procs:
         p.start()
     return procs, outs, time.monotonic() + MA_DEADLINE_S
 
 
-def ma_join(started, tag: str, phase: int = 19) -> list:
+def ma_join(started, tag: str, phase: int = 19, dies=None) -> list:
     """The outputs of :func:`ma_start`'s processes, or a failure naming
-    every rank that died, failed or outlived the deadline."""
+    every rank that died, failed or outlived the deadline.  ``dies`` maps
+    a rank expected to die to its exit code (-9: SIGKILL); its result is
+    None, and any other end of it fails."""
     import pickle
 
+    dies = dies or {}
     procs, outs, deadline = started
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
@@ -7496,6 +7543,12 @@ def ma_join(started, tag: str, phase: int = 19) -> list:
                     f"after {MA_DEADLINE_S} s: killed")
     results = []
     for r, (p, out) in enumerate(zip(procs, outs)):
+        if r in dies:
+            check(p.exitcode == dies[r] and not os.path.exists(out),
+                  f"phase {phase} {tag}: rank {r} was to die with "
+                  f"{dies[r]}, but exited with {p.exitcode}")
+            results.append(("ok", None))
+            continue
         check(os.path.exists(out), f"phase {phase} {tag}: rank {r} exited "
                                    f"with {p.exitcode} and no result")
         if tag == "nccl":
@@ -9141,6 +9194,615 @@ def pipe_seq_phase(torch, fa, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: sharded snapshots, the cluster control plane and recovery
+# ---------------------------------------------------------------------------
+
+RC_DEVICE = "cuda"
+#: GPT-2 small (dropout 0) through CausalLM: B=8 T=1024, SGD 0.05 with
+#: momentum 0.9, seeded batches in order (shuffle off); (a), (b) and (d)
+#: at depth 2 in fp32, (c) at full depth in bf16 mixed precision
+RC_B, RC_T, RC_LR, RC_MOM, RC_DEPTH = 8, 1024, 0.05, 0.9, 2
+#: (steps, snapshot cadence, the step a fault fires) of each part
+RC_A = (4, 2, None)
+RC_B_PART = (8, 2, 5)
+RC_C = (9, 3, 5)
+RC_D = (6, 2, 3)
+#: the control plane's deadline and the heartbeat's cadence and timeout
+RC_SYNC_S, RC_HB_INTERVAL_S, RC_HB_TIMEOUT_S = 10.0, 0.2, 5.0
+#: (b)/(d) gathered params against mesh=None's, relative L2; (c) losses
+RC_PARAMS_TOL, RC_LOSS_TOL = 1e-5, 2e-2
+#: (a) a rank's share of the bytes of the leaves split over model
+RC_SHARE = (0.45, 0.55)
+#: phase 17 (7)'s gathered snapshots on the writer thread: bytes and ms
+#: of each commit (``spine_resilient`` fills it)
+SPINE_SNAPSHOT = {}
+
+
+def rc_settings() -> dict:
+    return {"device": RC_DEVICE, "B": RC_B, "T": RC_T, "lr": RC_LR,
+            "mom": RC_MOM, "depth": RC_DEPTH, "a": RC_A, "b": RC_B_PART,
+            "c": RC_C, "d": RC_D, "sync_s": RC_SYNC_S,
+            "hb": (RC_HB_INTERVAL_S, RC_HB_TIMEOUT_S), "gpt": None}
+
+
+def rc_configs(gpt, st):
+    """(GPT-2 small fp32 at depth 2, full depth bf16), dropout 0."""
+    base = gpt.gpt_config() if st["gpt"] is None else st["gpt"]
+    base = dataclasses.replace(base, dropout=0.0)
+    return (dataclasses.replace(base, compute_dtype="float32",
+                                n_layers=st["depth"]),
+            dataclasses.replace(base, compute_dtype="bfloat16"))
+
+
+def rc_lm(lm_fit, cfg, st, **kw):
+    return lm_fit.CausalLM(cfg, lr=st["lr"], momentum=st["mom"],
+                           device=st["device"], **kw).init(0)
+
+
+def rc_batches(cfg, n: int, st, seed: int):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    return [DataSet(x, x) for x in ma_ids(cfg.vocab_size, n, st["B"],
+                                          st["T"], seed)]
+
+
+def rc_config(st, part: str, directory: str, **kw):
+    from deeplearning4j_tpu_torch.runtime.resilience import ResilienceConfig
+    return ResilienceConfig(
+        checkpoint_dir=directory, checkpoint_every=st[part][1],
+        shuffle=False, cluster_timeout_s=st["sync_s"],
+        hb_interval_s=st["hb"][0], hb_timeout_s=st["hb"][1], **kw)
+
+
+class RcLog:
+    """Each step's loss by step (a replayed step keeps its last)."""
+
+    def __init__(self):
+        self.by_step = {}
+
+    def iteration_done(self, model, step, score):
+        self.by_step[int(step)] = float(score)
+
+
+def rc_references(torch, st, tmp: str) -> dict:
+    """The uninterrupted mesh=None runs in this process on the card, at
+    the drills' effective batch with grad_accum=2: (b)'s and (d)'s
+    gathered params, written to ``tmp``, and (c)'s losses."""
+    from deeplearning4j_tpu_torch.models import gpt, lm_fit
+
+    shallow, deep = rc_configs(gpt, st)
+    out = {}
+    for part, seed, n_b in (("b", 22, 4), ("d", 24, 3)):
+        steps = st[part][0]
+        lm = rc_lm(lm_fit, shallow, st, grad_accum=2)
+        lm.fit_backprop(rc_batches(shallow, n_b, st, seed),
+                        num_epochs=steps // n_b)
+        torch.save(lm.params_flat(), os.path.join(tmp, f"{part}_ref.pt"))
+        del lm
+    lm = rc_lm(lm_fit, deep, st, grad_accum=2, mixed_precision="bf16")
+    log = RcLog()
+    lm.listeners = [log]
+    lm.fit_backprop(rc_batches(deep, 3, st, 23), num_epochs=st["c"][0] // 3)
+    out["c_losses"] = log.by_step
+    del lm
+    return out
+
+
+def rc_rank(rank: int, rdv: str, out: str, tmp: str, st: dict, part: str,
+            world: int) -> None:
+    """One rank of phase 22's part ``part`` ("ad", "b" or "c"), results
+    pickled."""
+    import pickle
+    import traceback
+
+    try:
+        value = rc_rank_body(rank, rdv, tmp, st, part, world)
+        payload = ("ok", value)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        payload = ("error", traceback.format_exc())
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def rc_rank_body(rank: int, rdv: str, tmp: str, st: dict, part: str,
+                 world: int) -> dict:
+    sys.path.insert(0, REPO)
+    import torch
+
+    from deeplearning4j_tpu_torch import resolve_device
+    from deeplearning4j_tpu_torch.parallel import mesh as pm
+
+    dev = st["device"]
+    torch.set_num_threads(2)
+    resolve_device(dev)
+    pm.initialize_distributed(f"file://{rdv}", world, rank, device=dev,
+                              backend="gloo")
+    fn = {"ad": rc_sharded_and_preempt, "b": rc_elastic,
+          "c": rc_host_loss}[part]
+    return fn(torch, rank, tmp, st)
+
+
+def rc_cluster(rank: int, members, name: str, st):
+    from deeplearning4j_tpu_torch.parallel import multihost
+    return multihost.Cluster(rank, members, multihost.StoreKV(),
+                             namespace=name, timeout_s=st["sync_s"])
+
+
+def rc_sharded_and_preempt(torch, rank: int, tmp: str, st: dict) -> dict:
+    """(a) and (d) on two ranks."""
+    from deeplearning4j_tpu_torch.models import gpt, lm_fit
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import chaos
+    from deeplearning4j_tpu_torch.parallel import mesh as pm
+    from deeplearning4j_tpu_torch.runtime import checkpoint as tckpt
+    from deeplearning4j_tpu_torch.runtime.resilience import (PreemptionGuard,
+                                                             ResilientFit)
+
+    dev = st["device"]
+    shallow, _ = rc_configs(gpt, st)
+    res = {"launches": {"launches": 0, "launches_dkv": 0, "launches_dq": 0}}
+
+    def book(counts):
+        for k, v in counts.items():
+            res["launches"][k] += v
+
+    # (a) data=1 x model=2: a cluster-committed sharded snapshot
+    steps, _, _ = st["a"]
+    mesh = pm.make_mesh(pm.MeshSpec(data=1, model=2), device=dev)
+    lm = rc_lm(lm_fit, shallow, st)
+    ck = os.path.join(tmp, "a")
+    drv = ResilientFit(lm, rc_config(st, "a", ck, max_steps=steps),
+                       mesh=mesh, cluster=rc_cluster(rank, (0, 1), "a", st))
+    saves = []
+    save = drv.manager.save
+
+    def timed_save(step, tree, meta=None, **kw):
+        t0 = time.perf_counter()
+        path = save(step, tree, meta, **kw)
+        saves.append((step, (time.perf_counter() - t0) * 1e3))
+        return path
+
+    drv.manager.save = timed_save
+    fa.reset_launches()
+    # a bounded slice: the last snapshot is the synchronous one at its end
+    drv.fit(rc_batches(shallow, steps, st, 21), num_epochs=2)
+    ma_sync(torch, st)
+    book(fa.launch_counts())
+    res["a_launches"] = fa.launch_counts()
+    res["a_saves"] = saves
+    res["a_latest"] = drv.manager.latest_step()
+    # the snapshot read back into this rank's layout, gathered: the
+    # momentum the parent's whole restore is held against
+    params, ustate, _ = drv._restore_latest(lm, ())
+    t0 = time.perf_counter()
+    gp, gu = drv._layout(params, ustate, gather=True)
+    ma_sync(torch, st)
+    res["a_gather_ms"] = (time.perf_counter() - t0) * 1e3
+    res["a_restored_equal"] = all(
+        torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+            lm_fit._sorted_leaves(gp), lm_fit._sorted_leaves(lm.params)))
+    if rank == 0:
+        t0 = time.perf_counter()
+        tckpt.save_pytree(os.path.join(tmp, "a-gathered", "g.npz"),
+                          (gp, gu))
+        res["a_gathered_write_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.save({"params": ma_leaves(torch, lm.params),
+                    "momentum": ma_leaves(torch, gu)},
+                   os.path.join(tmp, "a-live.pt"))
+    del drv, lm, params, ustate, gp, gu
+    if dev == "cuda":
+        gc_cuda(torch)
+
+    # (d) data=2: rank 1 alone is preempted, both stop at one boundary
+    steps, _, at = st["d"]
+    mesh = pm.make_mesh(pm.MeshSpec(data=2), device=dev)
+    lm = rc_lm(lm_fit, shallow, st)
+    guard = PreemptionGuard()
+    ck = os.path.join(tmp, "d")
+    drv = ResilientFit(lm, rc_config(st, "d", ck), mesh=mesh,
+                       cluster=rc_cluster(rank, (0, 1), "d", st),
+                       preemption_guard=guard,
+                       fault_hook=(chaos.PreemptionChaos(at, guard)
+                                   if rank == 1 else None))
+    batches = rc_batches(shallow, 3, st, 24)
+    drv.fit(batches, num_epochs=steps // 3)
+    res["d_stop"] = {"preempted": drv.preempted,
+                     "steps": drv.steps_run,
+                     "latest": drv.manager.latest_step()}
+    del drv, lm
+    # the resume on data=1 x model=2 from that snapshot
+    mesh = pm.make_mesh(pm.MeshSpec(data=1, model=2), device=dev)
+    lm = rc_lm(lm_fit, shallow, st)
+    drv = ResilientFit(lm, rc_config(st, "d", ck, resume=True), mesh=mesh,
+                       cluster=rc_cluster(rank, (0, 1), "d2", st))
+    fa.reset_launches()
+    drv.fit(batches, num_epochs=steps // 3)
+    ma_sync(torch, st)
+    book(fa.launch_counts())
+    res["d_launches"] = fa.launch_counts()
+    res["d_resume_steps"] = drv.steps_run
+    if rank == 0:
+        torch.save(lm.params_flat(), os.path.join(tmp, "d_flat.pt"))
+    return res
+
+
+def ma_leaves(torch, tree):
+    """``{path: CPU tensor}`` of a tree, in JAX's flatten order."""
+    from deeplearning4j_tpu_torch.runtime.checkpoint import \
+        _flatten_with_paths
+    return {p: t.detach().cpu().clone()
+            for p, t in _flatten_with_paths(tree)}
+
+
+def rc_elastic(torch, rank: int, tmp: str, st: dict) -> dict:
+    """(b) on four ranks, then its two controls on the survivors."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.models import gpt, lm_fit
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops.updaters import tree_map
+    from deeplearning4j_tpu_torch.parallel import chaos
+    from deeplearning4j_tpu_torch.parallel import mesh as pm
+    from deeplearning4j_tpu_torch.runtime.resilience import ResilientFit
+
+    dev = st["device"]
+    shallow, _ = rc_configs(gpt, st)
+    steps, _, at = st["b"]
+    mesh = pm.make_mesh(pm.MeshSpec(data=2, model=2), device=dev)
+    lm = rc_lm(lm_fit, shallow, st)
+    loss = chaos.DeviceLossChaos(at, [2, 3])
+    before = {}
+
+    def hook(step):
+        if not loss.fired and step >= loss.at_step:
+            before.update(fa.launch_counts())
+        loss(step)
+
+    ck = os.path.join(tmp, "b")
+    drv = ResilientFit(lm, rc_config(st, "b", ck), mesh=mesh,
+                       cluster=rc_cluster(rank, range(4), "b", st),
+                       fault_hook=hook)
+    batches = rc_batches(shallow, 4, st, 22)
+    fa.reset_launches()
+    drv.fit(batches, num_epochs=steps // 4)
+    ma_sync(torch, st)
+    total = fa.launch_counts()
+    res = {"evicted": drv.evicted, "before": dict(before),
+           "after": {k: v - before.get(k, 0) for k, v in total.items()},
+           "launches": total, "recovery": drv.last_recovery,
+           "accum": drv.elastic_accum,
+           "mesh": None if drv.mesh is None else repr(drv.mesh),
+           "members": list(drv.cluster.members)}
+    if drv.evicted:
+        return res
+    if rank == 0:
+        torch.save(lm.params_flat(), os.path.join(tmp, "b_flat.pt"))
+        # the controls resume from a copy of the step the drill restored
+        for name in ("accum1", "momentum0"):
+            d = os.path.join(tmp, f"b-{name}")
+            os.makedirs(d)
+            base = f"ckpt_{drv.last_recovery['restored']}"
+            shutil.copytree(os.path.join(ck, base + ".shards"),
+                            os.path.join(d, base + ".shards"))
+            shutil.copy(os.path.join(ck, base + ".npz.manifest.json"), d)
+    survivors = drv.cluster
+    survivors.barrier("controls")
+    for name in ("accum1", "momentum0"):
+        if dev == "cuda":
+            gc_cuda(torch)
+        lmc = rc_lm(lm_fit, shallow, st)
+        ctl = ResilientFit(lmc, rc_config(st, "b", os.path.join(
+            tmp, f"b-{name}"), resume=True), mesh=drv.mesh,
+            cluster=rc_cluster(rank, survivors.members, name, st))
+        if name == "momentum0":
+            restore = ctl._restore_latest
+
+            def zeroed(net, upd, restore=restore):
+                p, u, meta = restore(net, upd)
+                return p, tree_map(torch.zeros_like, u), meta
+
+            ctl._restore_latest = zeroed
+        ctl.fit(batches, num_epochs=steps // 4)
+        if rank == 0:
+            torch.save(lmc.params_flat(),
+                       os.path.join(tmp, f"b_{name}.pt"))
+    return res
+
+
+def rc_host_loss(torch, rank: int, tmp: str, st: dict) -> dict:
+    """(c) on two ranks: rank 1 SIGKILLs itself at the fault step."""
+    import signal
+
+    from deeplearning4j_tpu_torch.models import gpt, lm_fit
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import mesh as pm
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.runtime.resilience import ResilientFit
+
+    dev = st["device"]
+    _, deep = rc_configs(gpt, st)
+    steps, _, at = st["c"]
+    mesh = pm.make_mesh(pm.MeshSpec(data=2), device=dev)
+    lm = rc_lm(lm_fit, deep, st, mixed_precision="bf16")
+    log = RcLog()
+    lm.listeners = [log]
+    ref = {}
+
+    def kill(step):
+        if rank == 1 and step == at:
+            # its pending commit lands first, so the drill is the same
+            # every run; then a host that says nothing
+            ref["drv"].async_ckpt.wait_until_finished()
+            with open(os.path.join(tmp, "c-kill-time"), "w") as f:
+                f.write(repr(time.time()))
+                f.flush()
+                os.fsync(f.fileno())
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    drv = ResilientFit(lm, rc_config(st, "c", os.path.join(tmp, "c")),
+                       mesh=mesh, cluster=multihost.active_cluster(),
+                       fault_hook=kill)
+    ref["drv"] = drv
+    fa.reset_launches()
+    ma_sync(torch, st)
+    t0 = time.perf_counter()
+    drv.fit(rc_batches(deep, 3, st, 23), num_epochs=steps // 3)
+    ma_sync(torch, st)
+    return {"losses": log.by_step, "recovery": drv.last_recovery,
+            "members": list(drv.cluster.members),
+            "generation": drv.cluster.generation,
+            "accum": drv.elastic_accum,
+            "mesh": None if drv.mesh is None else repr(drv.mesh),
+            "remeshes": drv.remeshes, "launches": fa.launch_counts(),
+            "fit_s": time.perf_counter() - t0}
+
+
+def rc_shares(tmp: str) -> list:
+    """(a): each rank's bytes in ``ckpt_<n>.shards``: its npz file's share
+    of the replicated tree's bytes, and its pieces' share of the leaves
+    split over model (the odd vocabulary keeps the embedding
+    replicated)."""
+    d = os.path.join(tmp, "a", f"ckpt_{RC_A[0]}.shards")
+    with open(os.path.join(d, "index.json")) as f:
+        index = json.load(f)
+    item = [2 if t == "bfloat16" else np.dtype(t).itemsize
+            for t in index["dtypes"]]
+    size = [int(np.prod(s)) * b for s, b in zip(index["shapes"], item)]
+    tables = {}
+    for k in index["writers"]:
+        with open(os.path.join(d, f"shards_p{k}.json")) as f:
+            tables[k] = json.load(f)
+    split = {info["leaf"] for t in tables.values() for info in t.values()
+             if list(info["shape"]) != list(index["shapes"][info["leaf"]])}
+    split_bytes = sum(size[i] for i in split)
+    out = []
+    for k, t in sorted(tables.items()):
+        mine = sum(int(np.prod(info["shape"])) * item[info["leaf"]]
+                   for info in t.values() if info["leaf"] in split)
+        npz = os.path.getsize(os.path.join(d, f"shards_p{k}.npz"))
+        out.append((k, npz / sum(size), mine / split_bytes))
+    return out
+
+
+def recovery_phase(torch, fa, card: str) -> dict:
+    """Phase 22 (see the module docstring).  Returns the ranks' B1-B3
+    launches on the main paths (a)-(d)."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models import gpt, lm_fit
+    from deeplearning4j_tpu_torch.runtime import checkpoint as tckpt
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    compile_cache.clear()
+    if RC_DEVICE == "cuda":
+        gc_cuda(torch)
+    check(not torch.distributed.is_initialized(),
+          "phase 22 needs no process group up in this process")
+    st = rc_settings()
+    shallow, deep = rc_configs(gpt, st)
+    tmp = tempfile.mkdtemp(prefix="recovery-")
+    t = [time.perf_counter()]
+    try:
+        # the three groups' eight ranks start up and run side by side
+        # while this process runs the references
+        started = {"ad": ma_start(rc_rank, tmp, "rc-ad", (tmp, st, "ad", 2)),
+                   "c": ma_start(rc_rank, tmp, "rc-c", (tmp, st, "c", 2)),
+                   "b": ma_start(rc_rank, tmp, "rc-b", (tmp, st, "b", 4),
+                                 world=4)}
+        ref = rc_references(torch, st, tmp)
+        compile_cache.clear()
+        if RC_DEVICE == "cuda":
+            gc_cuda(torch)
+        t.append(time.perf_counter())
+        ad = ma_join(started["ad"], "rc-ad", phase=22)
+        c = ma_join(started["c"], "rc-c", phase=22, dies={1: -9})
+        t.append(time.perf_counter())
+        b = ma_join(started["b"], "rc-b", phase=22)
+        t.append(time.perf_counter())
+        live = torch.load(os.path.join(tmp, "a-live.pt"))
+        tpl = rc_lm(lm_fit, shallow, dict(st, device="cpu")).params
+        whole, meta = tckpt.load_pytree_sharded(
+            os.path.join(tmp, "a", f"ckpt_{RC_A[0]}.shards"),
+            like=(tpl, tpl))
+        got = (ma_leaves(torch, whole[0]), ma_leaves(torch, whole[1]))
+        a_equal = (all(torch.equal(got[0][k], live["params"][k])
+                       for k in live["params"]),
+                   all(torch.equal(got[1][k], live["momentum"][k])
+                       for k in live["momentum"]))
+        with open(os.path.join(tmp, "a", f"ckpt_{RC_A[0]}.npz"
+                                         ".manifest.json")) as f:
+            a_manifest = json.load(f)
+        shares = rc_shares(tmp)
+        sharded_bytes = sum(os.path.getsize(os.path.join(
+            tmp, "a", f"ckpt_{RC_A[0]}.shards", n)) for n in os.listdir(
+            os.path.join(tmp, "a", f"ckpt_{RC_A[0]}.shards")))
+        flats = {k: torch.load(os.path.join(tmp, f"{k}.pt"))
+                 for k in ("b_ref", "b_flat", "b_accum1", "b_momentum0",
+                           "d_ref", "d_flat")}
+        with open(os.path.join(tmp, "c-kill-time")) as f:
+            kill_time = float(f.read())
+        with open(os.path.join(tmp, "d", f"ckpt_{ad[0]['d_stop']['latest']}"
+                                         ".npz.manifest.json")) as f:
+            d_manifest = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"launches": 0, "launches_dkv": 0, "launches_dq": 0}
+
+    def book(counts):
+        for k_, v_ in counts.items():
+            launches[k_] += v_
+
+    # (a)
+    layout = a_manifest["cluster"]["layout"]
+    say(f"(a) GPT-2 small depth {shallow.n_layers} fp32 on data=1 x "
+        f"model=2, B={st['B']} T={st['T']}, ResilientFit(mesh=, "
+        f"cluster=), a snapshot every {RC_A[1]} for {RC_A[0]} steps: "
+        f"manifest layout {layout!r}, members "
+        f"{a_manifest['cluster']['members']}; "
+        + "; ".join(f"rank {k}'s shards_p{k}.npz {npz:.3f} of the "
+                    f"replicated tree's bytes, {sp:.3f} of the model-split "
+                    f"leaves'" for k, npz, sp in shares))
+    check(layout == "sharded", f"(a) manifest layout {layout}")
+    for k, _, sp in shares:
+        check(RC_SHARE[0] <= sp <= RC_SHARE[1],
+              f"(a) rank {k} holds {sp} of the split leaves")
+    say(f"(a) restored whole in this process at mesh=None: params "
+        f"torch.equal to the ranks' gathered live params {a_equal[0]}, "
+        f"momentum to their gathered restore {a_equal[1]}; each rank's own "
+        f"restore equal to its live params "
+        f"{[r['a_restored_equal'] for r in ad]}")
+    check(all(a_equal) and all(r["a_restored_equal"] for r in ad),
+          f"(a) the restore differs: {a_equal}")
+    for r, res in enumerate(ad):
+        ms = ", ".join(f"step {s} {m:.1f} ms" for s, m in res["a_saves"])
+        say(f"(a) rank {r}: cluster-committed sharded saves {ms} "
+            f"(the last synchronous, the others on the writer thread); "
+            f"launches {res['a_launches']}")
+        book(res["launches"])
+    sync_ms = max(res["a_saves"][-1][1] for res in ad)
+    gathered_ms = ad[0]["a_gather_ms"] + ad[0]["a_gathered_write_ms"]
+    spine = (f"{SPINE_SNAPSHOT['write_ms'] / SPINE_SNAPSHOT['commits']:.1f}"
+             f" ms a commit of {SPINE_SNAPSHOT['bytes'] / SPINE_SNAPSHOT['commits'] / 1e6:.1f} MB"
+             if SPINE_SNAPSHOT.get("commits") else "not measured")
+    say(f"(a) the final snapshot: {sharded_bytes / 1e6:.1f} MB in pieces, "
+        f"{sync_ms:.1f} ms a rank (the slower); the same state gathered "
+        f"(all-gather over model, {ad[0]['a_gather_ms']:.1f} ms) and "
+        f"written by rank 0 as one npz ({ad[0]['a_gathered_write_ms']:.1f} "
+        f"ms): {gathered_ms:.1f} ms; phase 17 (7)'s gathered GPT-2 small "
+        f"bf16 snapshots on the writer thread: {spine}")
+
+    # (b)
+    gap = ma_rel(torch, flats["b_flat"], flats["b_ref"])
+    ctl_acc = ma_rel(torch, flats["b_accum1"], flats["b_ref"])
+    ctl_mom = ma_rel(torch, flats["b_momentum0"], flats["b_ref"])
+    per = launches_per_step(shallow)
+    steps, _, at = RC_B_PART
+    for r, res in enumerate(b):
+        rec = res["recovery"] or {}
+        pre = {k_: v_ * at for k_, v_ in per.items()}
+        check(res["before"] == pre, f"(b) rank {r}: launches before the "
+                                    f"loss {res['before']}, expected {pre}")
+        if r >= 2:
+            say(f"(b) rank {r}: evicted {res['evicted']} at step "
+                f"{at}; launches {res['before']} before")
+            check(res["evicted"] and not any(res["after"].values()),
+                  f"(b) rank {r}: {res}")
+            book(res["launches"])
+            continue
+        # two microbatches a step after the re-mesh
+        post = {k_: v_ * 2 * (steps - rec["restored"])
+                for k_, v_ in per.items()}
+        say(f"(b) rank {r}: {res['mesh']}, elastic_accum {res['accum']}, "
+            f"members {res['members']}; lost at step {rec['lost_at']}, "
+            f"restored step {rec['restored']} (four ranks' pieces, "
+            f"resharded); recovery: drain {rec['drain_ms']:.1f} ms, "
+            f"agreement {rec['agree_ms']:.1f} ms, re-mesh and rebuild "
+            f"{rec['remesh_ms']:.1f} ms, restore {rec['restore_ms']:.1f} "
+            f"ms, first step after {rec['first_step_ms']:.1f} ms; B1-B3 "
+            f"launches before the re-mesh {res['before']}, after "
+            f"{res['after']} (expected {post})")
+        check(not res["evicted"] and res["accum"] == 2
+              and rec["restored"] == 4, f"(b) rank {r}: {res}")
+        check(res["after"] == post, f"(b) rank {r}: launches after the "
+                                    f"re-mesh {res['after']}")
+        book(res["launches"])
+    say(f"(b) survivors' gathered params against the uninterrupted "
+        f"mesh=None grad_accum=2 run: torch.equal "
+        f"{torch.equal(flats['b_flat'], flats['b_ref'])}, relative L2 "
+        f"{gap:.3e} (<= {RC_PARAMS_TOL:g}); control, elastic_accum left at "
+        f"1: {ctl_acc:.3e}; control, the momentum lost at the restore: "
+        f"{ctl_mom:.3e} (> {RC_PARAMS_TOL:g})")
+    check(gap <= RC_PARAMS_TOL, f"(b) params gap {gap}")
+    check(ctl_mom > RC_PARAMS_TOL, f"(b) the momentum control reads "
+                                   f"{ctl_mom}, inside the bound")
+
+    # (c)
+    res = c[0]
+    rec = res["recovery"]
+    steps, _, at = RC_C
+    detect_ms = (rec["detected_at"] - kill_time) * 1e3
+    to_step = sum(rec[k] for k in ("drain_ms", "agree_ms", "remesh_ms",
+                                   "restore_ms", "first_step_ms"))
+    after = sorted(s for s in res["losses"] if s >= rec["restored"])
+    rel = max(abs(res["losses"][s] - ref["c_losses"][s])
+              / abs(ref["c_losses"][s]) for s in after)
+    say(f"(c) GPT-2 small full depth bf16 mixed precision on data=2, "
+        f"cluster over the file store, heartbeat {RC_HB_INTERVAL_S} s / "
+        f"{RC_HB_TIMEOUT_S} s: rank 1 SIGKILLed at step {at} (exit -9); "
+        f"rank 0: members {res['members']} generation {res['generation']}, "
+        f"mesh {res['mesh']}, grad_accum {res['accum']}, restored step "
+        f"{rec['restored']}, steps lost {rec['lost_at'] - rec['restored']}; "
+        f"kill to loss detected {detect_ms:.1f} ms; detected to the end of "
+        f"the first step after the restore {to_step:.1f} ms (drain "
+        f"{rec['drain_ms']:.1f}, agreement {rec['agree_ms']:.1f}, re-mesh "
+        f"{rec['remesh_ms']:.1f}, restore {rec['restore_ms']:.1f}, first "
+        f"step {rec['first_step_ms']:.1f}); losses after the recovery "
+        f"{[round(res['losses'][s], 5) for s in after]} against the "
+        f"uninterrupted mesh=None grad_accum=2 run's largest relative "
+        f"difference {rel:.3e} (<= {RC_LOSS_TOL:g}); launches "
+        f"{res['launches']}; fit {res['fit_s']:.1f} s")
+    check(res["members"] == [0] and res["generation"] == 1
+          and res["mesh"] is None and res["accum"] == 2
+          and rec["restored"] == 3 and res["remeshes"] == 1,
+          f"(c) rank 0: {res}")
+    check(max(after) == steps - 1 and rel <= RC_LOSS_TOL
+          and np.isfinite([res["losses"][s] for s in after]).all(),
+          f"(c) losses differ by {rel}: {res['losses']}")
+    book(res["launches"])
+
+    # (d)
+    stops = [r_["d_stop"] for r_ in ad]
+    gap_d = ma_rel(torch, flats["d_flat"], flats["d_ref"])
+    say(f"(d) data=2, PreemptionChaos on rank 1 alone at step "
+        f"{RC_D[2]}: {stops}; the final snapshot's cluster block "
+        f"{d_manifest['cluster']}; resumed on data=1 x model=2 for "
+        f"{ad[0]['d_resume_steps']} steps: torch.equal to the uninterrupted "
+        f"mesh=None run {torch.equal(flats['d_flat'], flats['d_ref'])}, "
+        f"relative L2 {gap_d:.3e} (<= {RC_PARAMS_TOL:g}); launches "
+        f"{[r_['d_launches'] for r_ in ad]}")
+    check(all(s_["preempted"] for s_ in stops)
+          and len({(s_["steps"], s_["latest"]) for s_ in stops}) == 1,
+          f"(d) the ranks stopped apart: {stops}")
+    check(d_manifest["cluster"]["members"] == [0, 1],
+          f"(d) {d_manifest['cluster']}")
+    check(gap_d <= RC_PARAMS_TOL, f"(d) params gap {gap_d}")
+    names = ("mesh=None references (the ranks starting)",
+             "(a)+(d) and (c) after them", "(b) after those")
+    say("phase 22 wall: " + ", ".join(
+        f"{n_} {b_ - a_:.1f} s" for n_, a_, b_ in zip(names, t, t[1:]))
+        + f"; total {t[-1] - t[0]:.1f} s; launches on the ranks' main paths "
+          f"{launches}")
+    return launches
+
+
 class PhaseClock:
     """Each phase's header when it starts and, when the next one starts
     (or :meth:`stop`), a line naming the phase with its seconds; the
@@ -9352,6 +10014,13 @@ def main() -> int:
                 "pipeline and sequence-parallel steps; two gloo ranks "
                 "sharing the card")
     for name, n in pipe_seq_phase(torch, fa, card).items():
+        launches[name] += n
+    clock.start("22", "sharded snapshots, the cluster control plane and "
+                "recovery: GPT-2 small through CausalLM under "
+                "ResilientFit(cluster=) on gloo ranks sharing the card; a "
+                "sharded snapshot, an elastic re-mesh, a real host loss, a "
+                "preemption across the cluster")
+    for name, n in recovery_phase(torch, fa, card).items():
         launches[name] += n
     clock.stop()
 

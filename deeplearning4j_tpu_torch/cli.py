@@ -29,10 +29,17 @@ npz that either package's ``generate --save-params`` writes:
     python -m deeplearning4j_tpu_torch.cli generate --params g.npz \
         --temperature 0 --prompt "the quick "
 
-Not ported: multi-process training (``--coordinator`` /
-``--num-processes`` / ``--process-id`` beyond one process, ROADMAP A7);
-the flags stay in the parser and more than one process exits naming
-the item.
+``train`` spans processes as the reference's does: every process runs
+the same command with its own ``--process-id`` (or the
+``DL4J_TPU_COORDINATOR`` / ``NUM_PROCESSES`` / ``PROCESS_ID`` trio) and
+a ``--checkpoint-dir`` on a filesystem they share; the processes join one
+``torch.distributed`` group (gloo on the CPU, or for several processes
+on one card) and train through ``ResilientFit`` with cluster-committed
+snapshots:
+
+    python -m deeplearning4j_tpu_torch.cli train --input iris.csv \
+        --conf net.json --output model.bin --checkpoint-dir ck \
+        --coordinator file:///shared/rdv --num-processes 2 --process-id 0
 """
 
 from __future__ import annotations
@@ -85,20 +92,39 @@ def _load_model(path: str, device):
         return MultiLayerNetwork.from_bytes(fh.read(), device=device)
 
 
-def _refuse_multi_process(args) -> None:
-    """The reference's multi-host launcher (flags over the DL4J_TPU_*
-    env trio) is not ported: one process trains, more exit."""
-    n = args.num_processes
-    if n is None:
-        n = int(os.environ.get("DL4J_TPU_NUM_PROCESSES") or 1)
-    pid = args.process_id
-    if pid is None:
-        pid = int(os.environ.get("DL4J_TPU_PROCESS_ID") or 0)
-    if n > 1 or pid > 0:
+def _join_cluster(args, device):
+    """The reference's multi-process launcher (:76-100): the flags
+    merged with the ``DL4J_TPU_*`` trio, ``--checkpoint-dir`` required
+    beyond one process, the group joined with a bounded retry (several
+    ranks on one card, or on the CPU, over gloo).  The cluster, or None
+    for one process."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+
+    try:
+        cluster_cfg = multihost.resolve_cluster_config(
+            args.coordinator, args.num_processes, args.process_id)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if cluster_cfg is None or cluster_cfg.num_processes == 1:
+        return None
+    if not args.checkpoint_dir:
         raise SystemExit(
-            f"multi-process training ({n} processes, this one {pid}) is not "
-            "ported to the PyTorch package yet (ROADMAP A7); run one "
-            "process")
+            "multi-process training requires --checkpoint-dir: "
+            "cluster-committed snapshots (on a filesystem every "
+            "host shares) are the substrate preemption and "
+            "host-loss recovery coordinate through")
+    import torch
+
+    backend = ("gloo" if device.type != "cuda" or torch.cuda.device_count()
+               < cluster_cfg.num_processes else None)
+    try:
+        cluster = multihost.initialize(cluster_cfg, device=device,
+                                       backend=backend)
+    except multihost.ClusterJoinError as e:
+        raise SystemExit(f"cluster join failed: {e}")
+    print(f"joined cluster: process {cluster.process_id} of "
+          f"{cluster.process_count} at {cluster_cfg.coordinator}")
+    return cluster
 
 
 def cmd_train(args) -> int:
@@ -117,8 +143,9 @@ def cmd_train(args) -> int:
     if args.checkpoint_dir and args.checkpoint_every <= 0:
         raise SystemExit("--checkpoint-every must be a positive step "
                          "count")
-    _refuse_multi_process(args)
     device = _device(args)
+    # multi-process: join, and hand the cluster to ResilientFit below
+    cluster = _join_cluster(args, device)
     tracer = None
     journal_dir = args.telemetry
     if journal_dir is True:                 # bare --telemetry flag
@@ -163,15 +190,21 @@ def cmd_train(args) -> int:
             # --checkpoint-dir never changes WHAT is trained; on a resume
             # the restore overwrites the finetuned params — harmless
             batch_list, mesh = net.prepare_resilient_fit(batches)
-            driver = ResilientFit(net, ResilienceConfig(
+            resilient = ResilientFit(net, ResilienceConfig(
                 checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every,
                 resume=args.resume, sync=args.sync_checkpoints),
-                mesh=mesh)
-            driver.fit(batch_list, num_epochs=args.epochs, seed=args.seed)
-            if driver.preempted:
+                mesh=mesh, cluster=cluster)
+            resilient.fit(batch_list, num_epochs=args.epochs, seed=args.seed)
+            if resilient.evicted:
+                print("host loss: this process's devices were lost — "
+                      "exiting cleanly; the surviving hosts carry the "
+                      "run (resume from the cluster-committed "
+                      f"snapshots in {args.checkpoint_dir})")
+                return 0
+            if resilient.preempted:
                 print(f"preempted: final snapshot committed at step "
-                      f"{driver.manager.latest_step()} in "
+                      f"{resilient.manager.latest_step()} in "
                       f"{args.checkpoint_dir} — rerun with --resume")
                 # the committed snapshot is this run's output: skip the
                 # model write and the evaluation inside the grace window
@@ -474,15 +507,19 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--sync-checkpoints", action="store_true",
                    help="escape hatch: block the training thread on "
                         "every snapshot instead of the async writer")
-    # the reference's multi-host launcher trio: parsed so the same
-    # command lines work, refused beyond one process (ROADMAP A7)
-    t.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-process coordinator (not ported: ROADMAP "
-                        "A7)")
+    # the multi-process launcher trio (parallel/multihost.py owns the
+    # contract): every process runs the same command with its own
+    # --process-id (or the DL4J_TPU_* environment trio)
+    t.add_argument("--coordinator", default=None, metavar="URL",
+                   help="rendezvous of the process group: file:///path "
+                        "(on a filesystem every process shares), "
+                        "tcp://host:port or host:port (env: "
+                        "DL4J_TPU_COORDINATOR)")
     t.add_argument("--num-processes", type=int, default=None, metavar="N",
-                   help="total processes (only 1 is ported: ROADMAP A7)")
+                   help="total processes in the cluster (env: "
+                        "DL4J_TPU_NUM_PROCESSES)")
     t.add_argument("--process-id", type=int, default=None, metavar="I",
-                   help="this process's rank (only 0 is ported)")
+                   help="this process's rank (env: DL4J_TPU_PROCESS_ID)")
     _device_arg(t)
     t.set_defaults(fn=cmd_train)
 

@@ -10,9 +10,11 @@ reference counterpart: GSPMD inserts them there), the GPipe pipeline
 the sharded-fit step factories with gradient accumulation and the bf16
 loss scale (``sharded_fit.py``), the gradient-sharing and
 parameter-averaging trainers (``data_parallel.py``), the experts
-(``expert.py``) and the serving half of ``chaos.py``.  The elastic
-re-mesh (ROADMAP A7.3), the multi-host runtime (A7.4), the scale-out
-runner and the training fault injectors (A7) are not."""
+(``expert.py``), the elastic re-mesh over the survivors of a loss
+(``mesh.py``), the multi-process control plane (``multihost.py``'s
+launcher, ``Cluster`` and ``HostHeartbeat``) and ``chaos.py``'s serving
+and training injectors.  The multi-host data plane (ROADMAP A7.4) and the
+scale-out runner with its chaos performer (A7.6) are not."""
 
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, MeshSpec,

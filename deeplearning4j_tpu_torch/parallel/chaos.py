@@ -1,7 +1,16 @@
-"""Fault injection for the serving fleet.
+"""Fault injection for training and for the serving fleet.
 
-Port of the serving half of ``deeplearning4j_tpu/parallel/chaos.py``
-(:48-50, :199-424): :class:`ServingChaos` arms one-shot faults against
+Port of ``deeplearning4j_tpu/parallel/chaos.py`` (:52-141, :199-424).
+
+The training injectors are ``ResilientFit`` ``fault_hook`` s that fire
+once, at a step boundary: :class:`DeviceLossChaos` (a
+``DeviceLossError`` naming ranks), :class:`HostLossChaos` (every rank of
+one host: a contiguous block of the mesh's ranks for a virtual host,
+``Cluster.devices_of`` for a real one) and :class:`PreemptionChaos` (a
+``PreemptionGuard`` request).  In a multi-rank drill every rank
+installs the same injector, so all raise at the same step.
+
+For serving, :class:`ServingChaos` arms one-shot faults against
 ONE decode replica (a ``ContinuousBatcher`` over a ``DecodeEngine``):
 worker death, a poisoned dispatch, a stall, an exhausted KV page pool.
 Each fires at the replica's next step boundary ON its own worker thread
@@ -9,9 +18,9 @@ Each fires at the replica's next step boundary ON its own worker thread
 chaos must not become a second).  ``serving/chaos_gate.py`` drives it
 as a drill.
 
-The training injectors (``DeviceLossChaos``, ``HostLossChaos``,
-``PreemptionChaos``, ``ChaosPerformer``, ``chaos_factory``) are ROADMAP
-A7: importing one raises ``NotImplementedError`` naming it.
+``ChaosPerformer`` and ``chaos_factory`` wrap the scale-out runner's
+workers, ROADMAP A7.6: importing one raises ``NotImplementedError``
+naming it.
 """
 
 from __future__ import annotations
@@ -20,7 +29,104 @@ import threading
 import time
 from typing import Callable, Optional
 
-__all__ = ["InjectedFault", "ServingChaos", "WorkerKilled"]
+# defined beside ResilientFit, which catches it (runtime/resilience.py), and
+# re-exported here beside the injectors that raise it
+from deeplearning4j_tpu_torch.runtime.resilience import DeviceLossError
+
+__all__ = ["DeviceLossChaos", "DeviceLossError", "HostLossChaos",
+           "InjectedFault", "PreemptionChaos", "ServingChaos",
+           "WorkerKilled"]
+
+
+class DeviceLossChaos:
+    """Step-boundary device-loss injector (:52-71): raises
+    :class:`DeviceLossError` for ``lost_ids`` (ranks) the first time the
+    step reaches ``at_step``, exactly once (the recovery re-runs the
+    boundary, and a fault that fired forever would starve it)."""
+
+    def __init__(self, at_step: int, lost_ids):
+        self.at_step = at_step
+        self.lost_ids = tuple(int(i) for i in lost_ids)
+        self.fired = False
+
+    def __call__(self, step: int) -> None:
+        if not self.fired and step >= self.at_step:
+            self.fired = True
+            raise DeviceLossError(
+                self.lost_ids,
+                f"injected device loss at step {step}: ids "
+                f"{sorted(self.lost_ids)}")
+
+
+class HostLossChaos:
+    """Step-boundary host-loss injector (:74-124): raises
+    :class:`DeviceLossError` for every device of host ``host_index``,
+    exactly once.  With ``cluster`` (more than one member) the host is a
+    member and its devices are ``cluster.devices_of(host_index)`` (the
+    real topology); otherwise ``devices`` (ranks; default the mesh's
+    ranks, or the default group's) is cut into ``n_hosts`` contiguous
+    blocks (default 2) and the host is block ``host_index``: a virtual
+    host, which lets one group drill the loss of a whole host."""
+
+    def __init__(self, at_step: int, host_index: int,
+                 n_hosts: Optional[int] = None, devices=None, *,
+                 mesh=None, cluster=None):
+        self.at_step = at_step
+        self.host_index = host_index
+        self.fired = False
+        if cluster is not None and cluster.process_count > 1:
+            self.lost_ids = tuple(cluster.devices_of(host_index))
+        else:
+            if devices is None:
+                devices = _default_ranks(mesh)
+            devices = [int(d) for d in devices]
+            n_hosts = n_hosts or 2
+            per = len(devices) // n_hosts
+            if per < 1:
+                raise ValueError(
+                    f"{len(devices)} device(s) cannot form {n_hosts} "
+                    "virtual hosts")
+            self.lost_ids = tuple(
+                devices[host_index * per:(host_index + 1) * per])
+        if not self.lost_ids:
+            raise ValueError(
+                f"host {host_index} owns no devices in this fleet")
+
+    def __call__(self, step: int) -> None:
+        if not self.fired and step >= self.at_step:
+            self.fired = True
+            raise DeviceLossError(
+                self.lost_ids,
+                f"injected loss of host {self.host_index} at step "
+                f"{step}: device ids {sorted(self.lost_ids)}")
+
+
+def _default_ranks(mesh) -> list:
+    """The mesh's ranks, else the initialized default group's, else the
+    one process."""
+    if mesh is not None:
+        return list(mesh.ranks)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return list(range(dist.get_world_size()))
+    return [0]
+
+
+class PreemptionChaos:
+    """Step-boundary preemption drill (:127-141): requests
+    ``ResilientFit``'s ``PreemptionGuard`` at ``at_step`` (once), the
+    signal-free way to run the final-snapshot-and-clean-exit path."""
+
+    def __init__(self, at_step: int, guard):
+        self.at_step = at_step
+        self.guard = guard
+        self.fired = False
+
+    def __call__(self, step: int) -> None:
+        if not self.fired and step >= self.at_step:
+            self.fired = True
+            self.guard.request()
 
 
 class InjectedFault(RuntimeError):
@@ -246,10 +352,8 @@ class ServingChaos:
 
 
 def __getattr__(name: str):
-    if name in ("DeviceLossChaos", "HostLossChaos", "PreemptionChaos",
-                "ChaosPerformer", "chaos_factory", "DeviceLossError"):
+    if name in ("ChaosPerformer", "chaos_factory"):
         raise NotImplementedError(
-            f"parallel.chaos.{name} is not ported yet: ROADMAP A7 "
-            f"(parallelism: the mesh, the data-parallel fit and the "
-            f"training fault injectors)")
+            f"parallel.chaos.{name} is not ported yet: ROADMAP A7.6 (the "
+            f"scale-out runner whose workers it wraps)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -29,9 +29,14 @@ its indices there (``parallel/tensor_parallel.shard_tree``) and, on a
   divide by the data degree is zero-padded at its tail
   (:func:`pad_rows`) and the padded rows are masked out of the loss.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP A7.3):
-the elastic re-mesh after a device loss (:func:`surviving_devices`,
-:func:`elastic_remesh`, ``auto_data_mesh(devices=)``).
+The elastic re-mesh after a device loss (:292-365): in the port a device
+is a rank, so a lost device is a lost rank.  :func:`elastic_plan` is the
+reference's plan as a pure function of the mesh's shape, its ranks and
+the lost ones; :func:`elastic_remesh` builds the smaller mesh with
+``make_mesh(..., ranks=survivors)``, which only the survivors call: it
+makes their groups with ``use_local_synchronization``, so no lost rank
+takes part (the old groups are abandoned, never destroyed: a destroy
+may wait on the dead peer).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import dataclasses
 import datetime
 import math
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -64,11 +69,6 @@ SEQ_TOKEN_AXES = (DATA_AXIS, SEQ_AXIS)
 
 #: the two-axis groups a mesh makes, beside one group an axis
 PLANES = (TOKEN_AXES, SEQ_TOKEN_AXES)
-
-
-def _not_ported(what: str, item: str = "A7") -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +194,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None, *,
                            device: DeviceLike = None,
-                           backend: Optional[str] = None) -> bool:
+                           backend: Optional[str] = None,
+                           timeout: Optional[float] = None) -> bool:
     """Join (or start) the process group: the counterpart of the
     reference's ``jax.distributed.initialize`` (:98-106).
     ``coordinator_address`` is a rendezvous URL (``file:///path``,
@@ -202,9 +203,11 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     ``tcp://``.  ``device`` (None = CUDA, raising without it) picks the
     backend: NCCL on CUDA, gloo on the CPU; ``backend="gloo"`` on CUDA
     runs gloo over CUDA tensors (several ranks on one card, which NCCL
-    refuses).  Returns False, doing
-    nothing, without an address; True once the group is up.  A group
-    already up is an error: one process joins one group."""
+    refuses).  ``timeout`` (seconds; default ``torch.distributed``'s)
+    bounds the rendezvous and every collective of the default group.
+    Returns False, doing nothing, without an address; True once the group
+    is up.  A group already up is an error: one process joins one
+    group."""
     if coordinator_address is None:
         return False
     if dist.is_initialized():
@@ -223,6 +226,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
             # NCCL binds its communicator to the card; a gloo group
             # bound to one would split its subgroups, which gloo cannot
             kw["device_id"] = dev
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=float(timeout))
     dist.init_process_group(backend, init_method=url,
                             world_size=int(num_processes or 1),
                             rank=int(process_id or 0), **kw)
@@ -245,7 +250,8 @@ def initialize_from_env(device: DeviceLike = None) -> bool:
 
 def make_mesh(spec: Optional[MeshSpec] = None, group=None,
               device: DeviceLike = None,
-              timeout: Optional[float] = None) -> Mesh:
+              timeout: Optional[float] = None,
+              ranks: Optional[Sequence[int]] = None) -> Mesh:
     """A :class:`Mesh` over ``group`` (default: the whole default group,
     which :func:`initialize_distributed` started).  The spec must resolve
     to the group's size.  Above a degree of 1 on any axis but ``data``
@@ -257,29 +263,54 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
     communicator, so two threads may run collectives on them at once.
     ``device`` defaults to this rank's card under NCCL and the CPU under
     gloo.  ``timeout`` (seconds; default ``torch.distributed``'s) bounds
-    each collective on the groups it makes."""
+    each collective on the groups it makes.
+
+    ``ranks`` (global ranks, in mesh order) lays the mesh over those
+    ranks alone, and only they call it: each makes only the groups it
+    belongs to, with ``use_local_synchronization``, so a rank outside
+    (the lost ones of :func:`elastic_remesh`) takes no part.  The mesh's
+    ``world`` is then a group of its own over ``ranks``.  Its members
+    must have made the same number of process groups before (torch names
+    such a group by its ranks and that count), as the members of one
+    earlier mesh have."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialized process group: call "
             "parallel.mesh.initialize_distributed(...) first")
     spec = spec or MeshSpec()
-    n = dist.get_world_size(group)
-    sizes = spec.resolve(n)
     backend = dist.get_backend(group)
-    pos = dist.get_rank(group)
-    if group is None:
-        ranks = tuple(range(n))
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=float(timeout))}
+    local = ranks is not None
+    if local:
+        if group is not None:
+            raise ValueError("make_mesh takes group= or ranks=, not both")
+        ranks = tuple(int(r) for r in ranks)
+        if dist.get_rank() not in ranks:
+            raise ValueError(f"rank {dist.get_rank()} is not among the "
+                             f"mesh's ranks {ranks}: only they call it")
+        n = len(ranks)
+        pos = ranks.index(dist.get_rank())
     else:
-        ranks = tuple(dist.get_process_group_ranks(group))
+        n = dist.get_world_size(group)
+        pos = dist.get_rank(group)
+        ranks = (tuple(range(n)) if group is None
+                 else tuple(dist.get_process_group_ranks(group)))
+    sizes = spec.resolve(n)
     if device is None:
         dev = (_local_cuda(dist.get_rank()) if backend == "nccl"
                else torch.device("cpu"))
     else:
         dev = resolve_device(device)
+
+    def new_group(members):
+        return dist.new_group(list(members), use_local_synchronization=True,
+                              **kw)
+
+    world = new_group(ranks) if local else None
     if all(sizes[a] == 1 for a in ALL_AXES[1:]):
-        return Mesh(sizes, group, ranks, pos, dev, backend)
-    kw = {} if timeout is None else {
-        "timeout": datetime.timedelta(seconds=float(timeout))}
+        return Mesh(sizes, world if local else group, ranks, pos, dev,
+                    backend, timeout_s=timeout)
     if group is not None:
         raise ValueError("a mesh with an axis besides data spans the "
                          "default process group (make_mesh(spec) with "
@@ -292,7 +323,7 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
               if a in (DATA_AXIS, MODEL_AXIS) or sizes[a] > 1}
     groups: Dict[Any, Any] = {}
     # one group for each line of the grid along each axis (and for each
-    # plane), made by every rank in the same order
+    # plane), made in the same order by every rank that makes it
     for key in ALL_AXES + PLANES:
         names = key if isinstance(key, tuple) else (key,)
         axes = tuple(ALL_AXES.index(a) for a in names)
@@ -309,11 +340,16 @@ def make_mesh(spec: Optional[MeshSpec] = None, group=None,
         lines = grid.permute(*rest, *axes).reshape(-1, math.prod(
             dims[a] for a in axes))
         for line in lines.tolist():
-            g = dist.new_group([ranks[i] for i in line], **kw)
-            if pos in line:
-                groups[key] = g
+            members = [ranks[i] for i in line]
+            if local:
+                if pos in line:
+                    groups[key] = new_group(members)
+            else:
+                g = dist.new_group(members, **kw)
+                if pos in line:
+                    groups[key] = g
     return Mesh(sizes, groups[DATA_AXIS], ranks, coords[DATA_AXIS], dev,
-                backend, groups=groups, world=group, coords=coords,
+                backend, groups=groups, world=world, coords=coords,
                 timeout_s=timeout)
 
 
@@ -470,12 +506,15 @@ def auto_data_mesh(devices=None) -> Optional[Mesh]:
     """The default-fit mesh (:262-287): every rank of the initialized
     default group on the data axis, or None when no group is up or it
     has one rank (nothing to shard over).  Memoized per (world size,
-    rank).  ``devices=`` (the reference's survivors of a device loss)
-    is the elastic path, ROADMAP A7.3."""
+    rank).  ``devices=`` (global ranks: the survivors of a device loss)
+    lays the data mesh over those ranks alone, unmemoized, and only they
+    call it; fewer than two give None."""
     global _AUTO_MESH
     if devices is not None:
-        raise _not_ported("auto_data_mesh(devices=) over the survivors of "
-                          "a device loss", "A7.3")
+        devices = [int(d) for d in devices]
+        if len(devices) < 2:
+            return None
+        return make_mesh(MeshSpec(data=-1), ranks=devices)
     if not dist.is_initialized() or dist.get_world_size() < 2:
         return None
     ident = (dist.get_world_size(), dist.get_rank())
@@ -484,17 +523,88 @@ def auto_data_mesh(devices=None) -> Optional[Mesh]:
     return _AUTO_MESH[1]
 
 
+# -- elastic re-meshing (device loss / preemption survival) -----------------
+
 class RemeshError(ValueError):
-    """A device loss that shrinking the data axis cannot recover from
-    (the reference's :292-299; raised by the elastic path, A7.3)."""
+    """A device loss that shrinking the data axis cannot recover from:
+    the survivors cannot field even one intact ``model`` x ``pipe`` x
+    ``seq`` x ``expert`` group, or nothing survived (the reference's
+    :292-299)."""
 
 
 def surviving_devices(mesh, lost_ids) -> list:
-    """The mesh's devices minus the lost ones (:302): ROADMAP A7.3."""
-    raise _not_ported("surviving_devices (elastic re-mesh)", "A7.3")
+    """The mesh's ranks minus the lost ones, in mesh order."""
+    lost = set(int(i) for i in lost_ids)
+    return [r for r in mesh.ranks if int(r) not in lost]
 
 
-def elastic_remesh(mesh, lost_ids, grad_accum: int = 1):
-    """Re-mesh over the survivors of a device loss (:308): ROADMAP
-    A7.3."""
-    raise _not_ported("elastic_remesh (re-mesh after a device loss)", "A7.3")
+def elastic_plan(shape: Dict[str, int], ranks: Sequence[int], lost_ids,
+                 grad_accum: int = 1
+                 ) -> Tuple[Optional[Dict[str, int]], list, int]:
+    """The reference's re-mesh plan (:308-365) as a pure function:
+    ``(new_shape, survivors, new_accum)`` for a mesh of axis sizes
+    ``shape`` over ``ranks`` (mesh order) after losing ``lost_ids``.
+
+    Only ``data`` shrinks: whole ``model`` x ``pipe`` x ``seq`` x
+    ``expert`` groups are kept, and the new data degree is the largest
+    group count the survivors field that divides the old effective
+    factor ``data x grad_accum``; ``new_accum = eff // degree``, so the
+    effective batch is kept.  ``survivors`` are the ranks the new mesh
+    uses, the first ``degree x group`` survivors in mesh order (the
+    reference leaves the rest idle; in the port they leave the run).
+    ``new_shape`` is None for a pure data mesh down to one rank (the
+    caller continues without a mesh).  :class:`RemeshError` when nothing
+    survives or no whole group does."""
+    lost = sorted(set(int(i) for i in lost_ids))
+    survivors = [int(r) for r in ranks if int(r) not in set(lost)]
+    if not survivors:
+        raise RemeshError(
+            f"device loss {lost} leaves no survivors in this mesh — "
+            "nothing to resume on")
+    model = int(shape.get(MODEL_AXIS, 1))
+    pipe = int(shape.get(PIPE_AXIS, 1))
+    seq = int(shape.get(SEQ_AXIS, 1))
+    expert = int(shape.get(EXPERT_AXIS, 1))
+    group = model * pipe * seq * expert
+    eff = int(shape[DATA_AXIS]) * max(int(grad_accum), 1)
+    if group > 1:
+        groups = len(survivors) // group
+        if groups < 1:
+            raise RemeshError(
+                f"device loss leaves {len(survivors)} surviving "
+                f"device(s), fewer than one intact model×pipe group of "
+                f"model*pipe*seq*expert={group}: the survivor count must "
+                f"be divisible into groups of {group} (required divisor "
+                f"{group}) to keep the sharded weight layout — restore "
+                f"onto a fleet of at least {group} devices instead")
+        degree = next(n for n in range(groups, 0, -1) if eff % n == 0)
+        return ({DATA_AXIS: degree, MODEL_AXIS: model, PIPE_AXIS: pipe,
+                 SEQ_AXIS: seq, EXPERT_AXIS: expert},
+                survivors[:degree * group], eff // degree)
+    degree = next(n for n in range(len(survivors), 0, -1) if eff % n == 0)
+    if degree < 2:
+        return None, survivors[:1], eff // degree
+    return ({DATA_AXIS: degree, MODEL_AXIS: 1, PIPE_AXIS: 1, SEQ_AXIS: 1,
+             EXPERT_AXIS: 1}, survivors[:degree], eff // degree)
+
+
+def elastic_remesh(mesh, lost_ids, grad_accum: int = 1
+                   ) -> Tuple[Optional[Mesh], int]:
+    """``(new_mesh, new_accum)`` over the survivors of a device loss
+    (:308): :func:`elastic_plan`, then ``make_mesh(..., ranks=
+    survivors)`` on the mesh's device with its collective timeout.  Only
+    the ranks the plan keeps call it (a rank it drops raises
+    ``ValueError``); the new mesh is None for a pure data mesh down to
+    one rank, which continues alone with the whole effective batch as
+    its accumulation."""
+    shape, survivors, new_accum = elastic_plan(mesh.shape, mesh.ranks,
+                                               lost_ids, grad_accum)
+    me = dist.get_rank()
+    if me not in survivors:
+        raise ValueError(f"rank {me} is not among the survivors "
+                         f"{survivors} the re-meshed run keeps")
+    if shape is None:
+        return None, new_accum
+    spec = MeshSpec(**shape)
+    return (make_mesh(spec, device=mesh.device, timeout=mesh.timeout_s,
+                      ranks=survivors), new_accum)

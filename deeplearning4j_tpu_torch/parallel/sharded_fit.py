@@ -242,6 +242,7 @@ def build_sharded_step(shard_step: ShardStep, mesh, *, label: str,
     dispatch.graph = graph
     dispatch.fn = step
     dispatch.param_specs = param_specs
+    dispatch.ustate_specs = ustate_specs
     return dispatch
 
 

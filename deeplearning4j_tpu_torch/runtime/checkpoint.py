@@ -28,10 +28,13 @@ template's dtype and device), numpy arrays, Python numbers.  Without a
 template, leaves come back as CPU tensors in nested dicts keyed by path
 segment (sequence indices stay string keys, as in the reference).
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP A7):
-``save_pytree_sharded`` / ``load_pytree_sharded``, the manager's
-``cluster=`` commit protocol and ``OrbaxCheckpointManager`` (whose
-counterpart for sharded state is ``torch.distributed.checkpoint``).
+Sharded state (reference :191-402): :func:`save_pytree_sharded` writes
+each rank's pieces of a tree laid out by ``tensor_parallel`` specs in the
+reference's format 2, and :func:`load_pytree_sharded` restores each
+rank's slice of any layout.  The manager's ``cluster=`` commit protocol
+takes that layout for model-sharded state.  :class:`OrbaxCheckpointManager`
+keeps the reference's name for its counterpart over
+``torch.distributed.checkpoint``.
 """
 
 from __future__ import annotations
@@ -60,12 +63,6 @@ PyTree = Any
 _SEP = "/"
 #: numpy's dtype for a bf16 array it has no type for: two raw bytes
 _BF16_NP = np.dtype("V2")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP A7: "
-        f"sharded and multi-host state)")
 
 
 class CorruptCheckpointError(RuntimeError):
@@ -289,15 +286,308 @@ def load_pytree(path: str, like: Optional[PyTree] = None
     return root, sidecar["meta"]
 
 
+# -- per-rank sharded checkpoints (reference :191-402) -----------------------
+
+def _leaf_specs(tree: PyTree, specs: PyTree, out: List[Any]) -> None:
+    """The spec of each leaf of ``tree``, in :func:`_flatten_with_paths`
+    order: ``specs`` mirrors the tree down to a ``PartitionSpec`` (or
+    None), which covers the whole subtree under it."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import is_spec
+
+    if tree is None:
+        return
+    if specs is None or is_spec(specs):
+        out.extend([specs] * len(_flatten_with_paths(tree)))
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaf_specs(tree[k], specs[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v, s in zip(tree, specs):
+            _leaf_specs(v, s, out)
+    else:
+        out.append(None)
+
+
+def _splits(spec, mesh) -> List[Tuple[int, str, int, int]]:
+    """``[(dim, axis, degree, coordinate)]``: each dimension ``spec``
+    splits over an axis of ``mesh`` above 1 (``model``, ``pipe`` or
+    ``expert``, as ``tensor_parallel.shard_tree`` splits them)."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import \
+        _split_dims
+
+    if spec is None or mesh is None:
+        return []
+    out = []
+    for d, axis in _split_dims(spec):
+        n = int(mesh.shape.get(axis, 1))
+        if n > 1:
+            out.append((d, axis, n, int(mesh.coords.get(axis, 0))))
+    return out
+
+
+def _dtype_name(leaf) -> str:
+    """The saved dtype's name, as numpy names JAX's (``bfloat16`` for
+    bf16, whose pieces are raw two-byte records)."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return "bfloat16"
+        return str(torch.empty(0, dtype=leaf.dtype).numpy().dtype)
+    return str(np.asarray(leaf).dtype)
+
+
+def _np_dtype(name: str) -> np.dtype:
+    return _BF16_NP if name == "bfloat16" else np.dtype(name)
+
+
+def _writes_replica(spec, mesh) -> bool:
+    """Whether this rank writes its piece of a leaf laid out by ``spec``:
+    the reference's ``replica_id == 0``, the rank whose index is 0 on
+    every axis above 1 that does not split the leaf."""
+    from deeplearning4j_tpu_torch.parallel.mesh import ALL_AXES
+
+    split = {axis for _, axis, _, _ in _splits(spec, mesh)}
+    return all(int(mesh.coords.get(a, 0)) == 0 for a in ALL_AXES
+               if a not in split and int(mesh.shape.get(a, 1)) > 1)
+
+
 def save_pytree_sharded(path: str, tree: PyTree,
-                        meta: Optional[Dict] = None, **kwargs):
-    """Per-process shard save (reference :191): ROADMAP A7."""
-    raise _not_ported("save_pytree_sharded (per-process shards)")
+                        meta: Optional[Dict] = None, *,
+                        mesh=None, specs: PyTree = None,
+                        sync: bool = True,
+                        process_index: Optional[int] = None,
+                        process_count: Optional[int] = None,
+                        writers: Optional[Sequence[int]] = None,
+                        write_index: Optional[bool] = None
+                        ) -> Dict[str, Dict]:
+    """Per-rank shard save: each rank writes only the pieces it holds,
+    so no rank gathers a model-sharded tree.  The layout is the
+    reference's, so either package restores the other's: ``path`` is a
+    directory with ``index.json`` (``"format": 2``, the tree's paths,
+    global shapes and dtypes, ``n_procs``, ``writers``, meta, written by
+    the first writer) and, per writer ``k``, ``shards_p<k>.npz`` with a
+    ``shards_p<k>.json`` piece table (``{"leaf", "start", "shape"}``:
+    each piece's global offset).
+
+    ``tree`` is this rank's share: with ``mesh`` and ``specs`` (a spec
+    tree as ``tensor_parallel.shard_tree`` takes) a leaf split over
+    ``model``, ``pipe`` or ``expert`` is this rank's block of the global
+    leaf; replicas are written once, by the rank whose index is 0 on
+    every other axis of the mesh above 1 (the reference's ``replica_id
+    == 0``).  A leaf with no split (and every leaf without a mesh) is
+    written whole by the first writer.
+
+    ``sync=False`` skips the trailing barrier over the mesh's ranks (the
+    manager's cluster commit barriers on its control plane instead);
+    ``process_index`` (default: this process's global rank), ``writers``
+    (default: ``range(process_count)`` or the group's ranks) and
+    ``write_index`` let a shrunk cluster name its files and index.
+    Returns ``{filename: {"crc32", "bytes"}}`` for the files this rank
+    wrote."""
+    import torch.distributed as dist
+
+    items = _flatten_with_paths(tree)
+    leaf_specs: List[Any] = []
+    _leaf_specs(tree, specs, leaf_specs)
+    up = dist.is_available() and dist.is_initialized()
+    pid = (process_index if process_index is not None
+           else dist.get_rank() if up else 0)
+    if writers is not None:
+        writers = sorted(int(w) for w in writers)
+    else:
+        n = process_count if process_count is not None else (
+            dist.get_world_size() if up else 1)
+        writers = list(range(n))
+    if write_index is None:
+        write_index = pid == writers[0]
+    os.makedirs(path, exist_ok=True)
+    pieces: Dict[str, np.ndarray] = {}
+    table: Dict[str, Dict] = {}
+    shapes = []
+    for i, ((_, leaf), spec) in enumerate(zip(items, leaf_specs)):
+        split = (_splits(spec, mesh) if isinstance(leaf, torch.Tensor)
+                 else [])
+        shape = list(np.shape(leaf) if not isinstance(leaf, torch.Tensor)
+                     else leaf.shape)
+        start = [0] * len(shape)
+        for d, _, n, c in split:
+            start[d] = c * shape[d]
+            shape[d] *= n
+        shapes.append(shape)
+        mine = (_writes_replica(spec, mesh) if split
+                else pid == writers[0])
+        if mine:
+            data = _to_numpy(leaf)
+            pieces[f"l{i}_s0"] = data
+            table[f"l{i}_s0"] = {"leaf": i, "start": start,
+                                 "shape": list(data.shape)}
+
+    files: Dict[str, Dict] = {}
+
+    def commit(write_fn, name: str) -> None:
+        # save_pytree's tmp + fsync + replace + crc re-read: the table is
+        # the manifest input of the cluster commit
+        dst = os.path.join(path, name)
+        tmp = dst + ".tmp"
+        with open(tmp, "wb") as f:
+            write_fn(f)
+        crc, size = _crc32_file(tmp)
+        _replace_with_fsync(tmp, dst)
+        files[name] = {"crc32": crc, "bytes": size}
+
+    commit(lambda f: f.write(json.dumps(table).encode()),
+           f"shards_p{pid}.json")
+    commit(lambda f: np.savez(f, **pieces), f"shards_p{pid}.npz")
+    if write_index:
+        index = {
+            "format": 2,
+            "paths": [p for p, _ in items],
+            "shapes": shapes,
+            "dtypes": [_dtype_name(leaf) for _, leaf in items],
+            "n_procs": len(writers),
+            "writers": writers,
+            "meta": meta or {},
+        }
+        commit(lambda f: f.write(json.dumps(index, indent=1).encode()),
+               "index.json")
+    if sync and up and dist.get_world_size() > 1:
+        dist.barrier(group=None if mesh is None else mesh.world)
+    return files
 
 
-def load_pytree_sharded(path: str, like: Optional[PyTree] = None):
-    """Restore with resharding (reference :312): ROADMAP A7."""
-    raise _not_ported("load_pytree_sharded (restore with resharding)")
+def _assemble(target_index, shape, dtype, pieces):
+    """The slice ``target_index`` (a tuple of slices over the global
+    array) materialized from whatever saved pieces overlap it;
+    ``pieces`` = ``[(start, shape, load_fn)]`` for this leaf."""
+    starts = [0 if s.start is None else int(s.start) for s in target_index]
+    stops = [shape[d] if s.stop is None else int(s.stop)
+             for d, s in enumerate(target_index)]
+    out = np.zeros([b - a for a, b in zip(starts, stops)], dtype)
+    for p_start, p_shape, load in pieces:
+        lo = [max(a, pa) for a, pa in zip(starts, p_start)]
+        hi = [min(b, pa + ps) for b, pa, ps in zip(stops, p_start, p_shape)]
+        if any(l_ >= h for l_, h in zip(lo, hi)):
+            continue
+        dst = tuple(slice(l_ - a, h - a) for l_, h, a in zip(lo, hi, starts))
+        src = tuple(slice(l_ - pa, h - pa)
+                    for l_, h, pa in zip(lo, hi, p_start))
+        out[dst] = load()[src]
+    return out
+
+
+def _restore_leaves(paths, shapes, dtypes, leaf_pieces, like, mesh, specs):
+    """``like``'s leaves read from saved pieces: each leaf split by its
+    spec over ``mesh`` gets this rank's block only; every other leaf is
+    assembled whole.  Each takes its template leaf's kind, dtype and
+    device."""
+    tpl_items = _flatten_with_paths(like)
+    if [p for p, _ in tpl_items] != list(paths):
+        raise StructureMismatchError(
+            "checkpoint structure mismatch:\n saved: "
+            f"{list(paths)[:5]}...\n template: "
+            f"{[p for p, _ in tpl_items][:5]}...")
+    leaf_specs: List[Any] = []
+    _leaf_specs(like, specs, leaf_specs)
+    out = []
+    for i, ((_, tpl), spec) in enumerate(zip(tpl_items, leaf_specs)):
+        idx = [slice(0, s) for s in shapes[i]]
+        if isinstance(tpl, torch.Tensor):
+            for d, _, n, c in _splits(spec, mesh):
+                block = shapes[i][d] // n
+                idx[d] = slice(c * block, (c + 1) * block)
+        arr = _assemble(tuple(idx), shapes[i], dtypes[i],
+                        leaf_pieces.get(i, []))
+        out.append(_from_numpy(arr, tpl))
+    return out
+
+
+def load_pytree_sharded(path: str, like: Optional[PyTree] = None, *,
+                        mesh=None, specs: PyTree = None
+                        ) -> Tuple[PyTree, Dict]:
+    """Restore a :func:`save_pytree_sharded` checkpoint (of either
+    package).  With ``like`` (the TARGET layout: with ``mesh`` and
+    ``specs`` each template leaf is this rank's block, else the global
+    leaf) each rank assembles only the slices it holds, so the saving
+    layout and the restoring one may differ (restore with resharding);
+    leaves take the template's dtype and device.  Without ``like``, full
+    numpy arrays come back as nested dicts (a bf16 leaf as raw two-byte
+    records, ``np.dtype("V2")``).
+
+    Refused, as in the reference: a writer's missing file
+    (``FileNotFoundError``), and pieces that do not cover a leaf
+    (``ValueError``)."""
+    with open(os.path.join(path, "index.json")) as f:
+        index = json.load(f)
+    # read exactly the files this save's writers wrote: a missing one is
+    # a hard error, and stale files of an earlier, wider save are ignored
+    writer_ids = index.get("writers",
+                           list(range(index.get("n_procs", 1))))
+    files = [os.path.join(path, f"shards_p{k}.json") for k in writer_ids]
+    missing = [f for f in files if not os.path.exists(f)]
+    if missing:
+        raise FileNotFoundError(
+            f"sharded checkpoint at {path} is incomplete: expected "
+            f"{len(writer_ids)} per-process shard files, "
+            f"missing {missing}")
+    leaf_pieces: Dict[int, list] = {}
+    opened = []
+    try:
+        for tf in files:
+            data = np.load(tf[:-len(".json")] + ".npz")
+            opened.append(data)
+            with open(tf) as f:
+                table = json.load(f)
+            for key, info in table.items():
+                leaf_pieces.setdefault(info["leaf"], []).append(
+                    (info["start"], info["shape"],
+                     (lambda d=data, k=key: d[k])))
+        paths, shapes = index["paths"], index["shapes"]
+        dtypes = [_np_dtype(d) for d in index["dtypes"]]
+        # the pieces must tile each leaf (disjoint by construction, so
+        # coverage is the sum of their volumes): a truncated table would
+        # otherwise restore its missing regions as zeros
+        for i, shp in enumerate(shapes):
+            total = int(np.prod(shp)) if shp else 1
+            got = sum(int(np.prod(ps)) for _, ps, _ in
+                      leaf_pieces.get(i, []))
+            if got != total:
+                raise ValueError(
+                    f"sharded checkpoint at {path} has incomplete "
+                    f"coverage for leaf {paths[i]!r}: pieces cover {got} "
+                    f"of {total} elements (truncated piece table?)")
+        if like is None:
+            root: Dict[str, Any] = {}
+            for i, p in enumerate(paths):
+                node = root
+                parts = p.split(_SEP)
+                for seg in parts[:-1]:
+                    node = node.setdefault(seg, {})
+                node[parts[-1]] = _assemble(
+                    tuple(slice(0, s) for s in shapes[i]), shapes[i],
+                    dtypes[i], leaf_pieces.get(i, []))
+            return root, index["meta"]
+        leaves = _restore_leaves(paths, shapes, dtypes, leaf_pieces, like,
+                                 mesh, specs)
+        return _unflatten_like(like, leaves), index["meta"]
+    finally:
+        for data in opened:
+            data.close()
+
+
+def _load_npz_into(path: str, like: PyTree, mesh, specs
+                   ) -> Tuple[PyTree, Dict]:
+    """A :func:`save_pytree` file restored into templates laid out by
+    ``specs`` over ``mesh`` (each rank's block of a split leaf): the
+    file as one writer's pieces, each covering its whole leaf."""
+    with open(path + ".json") as f:
+        sidecar = json.load(f)
+    with np.load(path) as data:
+        arrs = [data[f"a{i}"] for i in range(len(sidecar["paths"]))]
+    pieces = {i: [([0] * a.ndim, list(a.shape), (lambda a=a: a))]
+              for i, a in enumerate(arrs)}
+    leaves = _restore_leaves(sidecar["paths"], [list(a.shape) for a in arrs],
+                             [a.dtype for a in arrs], pieces, like, mesh,
+                             specs)
+    return _unflatten_like(like, leaves), sidecar["meta"]
 
 
 class CheckpointManager:
@@ -314,18 +604,42 @@ class CheckpointManager:
     cadence, never the run); ``restore(step=K)`` verifies and RAISES
     :class:`CorruptCheckpointError` instead.
 
-    ``cluster=`` (the multi-host commit protocol) raises
-    ``NotImplementedError`` (ROADMAP A7)."""
+    Cluster commits (``cluster=`` a ``parallel.multihost.Cluster`` of
+    more than one member, reference :405-750): a snapshot is committed
+    only once every member's data files are durable.  Data files first
+    on every member, one control-plane barrier, the manifest (with a
+    ``cluster`` block) written last by the coordinator, a second barrier
+    so no member reports a commit before the manifest exists.  Two
+    layouts, chosen per save:
+
+    - *replicated* (no leaf split over ranks): the coordinator alone
+      writes the one state every member holds, through ``save_pytree``;
+    - *sharded* (:meth:`set_layout` names a mesh and specs that split a
+      leaf over ranks): each member writes its own pieces into
+      ``ckpt_<step>.shards/`` (:func:`save_pytree_sharded`) and
+      publishes their crc table over the control plane; the coordinator
+      merges the tables into the manifest.  A restore reads each rank's
+      slice only, on any mesh shape (:func:`load_pytree_sharded`).
+
+    The barriers ride the cluster's key-value store, not the mesh's
+    collectives: they work from the async writer's thread and for the
+    survivors of a host loss (a silent member raises
+    ``ClusterSyncTimeout``).  A single-member cluster (and
+    ``cluster=None``) keeps the single-process path."""
 
     _PAT = re.compile(r"ckpt_(\d+)\.npz$")
     _PAT_SHARDS = re.compile(r"ckpt_(\d+)\.shards$")
 
     def __init__(self, directory: str, max_to_keep: int = 3,
                  cluster=None):
-        if cluster is not None:
-            raise _not_ported("CheckpointManager(cluster=) cluster commits")
         self.directory = directory
         self.max_to_keep = max_to_keep
+        self.cluster = cluster
+        #: the layout of the trees this manager saves and restores under
+        #: a cluster (:meth:`set_layout`): None = global trees
+        self.mesh = None
+        self.specs = None
+        self._save_seq = 0
         os.makedirs(directory, exist_ok=True)
         # crash recovery: a kill mid-save leaves ckpt_N.*.tmp behind, and
         # if step N is never saved again nothing else removes it
@@ -337,6 +651,31 @@ class CheckpointManager:
                 log.info("swept orphaned checkpoint tmp file %s", f)
             except OSError:
                 pass
+
+    def set_layout(self, mesh, specs: PyTree) -> None:
+        """Trees this manager saves (under a cluster) and restores are
+        laid out by ``specs`` over ``mesh``: each rank's leaves are its
+        blocks of the split ones (``tensor_parallel.shard_tree``).
+        ``mesh=None`` (or no split) means global trees."""
+        self.mesh, self.specs = mesh, specs
+
+    @property
+    def _multi(self) -> bool:
+        return (self.cluster is not None
+                and self.cluster.process_count > 1)
+
+    def _needs_shards(self) -> bool:
+        """Whether the layout splits a leaf over ranks: such state is
+        serialized piecewise (no rank holds it whole)."""
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import \
+            map_specs
+
+        if self.mesh is None or self.specs is None:
+            return False
+        found = []
+        map_specs(lambda s: found.append(bool(_splits(s, self.mesh))),
+                  self.specs)
+        return any(found)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.npz")
@@ -376,9 +715,12 @@ class CheckpointManager:
         t0 = time.perf_counter()
         meta = dict(meta or {})
         meta.update({"step": step, "time": time.time()})
-        files = save_pytree(self._path(step), tree, meta)
-        self._commit_manifest(step, files)
-        self._gc()
+        if self._multi:
+            files = self._save_cluster(step, tree, meta)
+        else:
+            files = save_pytree(self._path(step), tree, meta)
+            self._commit_manifest(step, files)
+            self._gc()
         now = time.perf_counter()
         if not _was_async:
             checkpoint_metrics.note("saves_sync")
@@ -389,12 +731,63 @@ class CheckpointManager:
             was_async=_was_async)
         return self._path(step)
 
-    def _commit_manifest(self, step: int, files: Dict[str, Dict]) -> None:
+    def _commit_manifest(self, step: int, files: Dict[str, Dict],
+                         cluster_info: Optional[Dict] = None) -> None:
         manifest = {"format": 1, "step": step, "files": files}
+        if cluster_info:
+            manifest["cluster"] = cluster_info
         man_tmp = self._manifest_path(step) + ".tmp"
         with open(man_tmp, "w") as f:
             json.dump(manifest, f, indent=1)
         _replace_with_fsync(man_tmp, self._manifest_path(step))
+
+    def _save_cluster(self, step: int, tree: PyTree,
+                      meta: Dict) -> Dict[str, Dict]:
+        """The cluster-commit protocol (class docstring), in the
+        reference's order.  Barrier tags carry a per-manager save number:
+        every member makes the same saves in the same order."""
+        from deeplearning4j_tpu_torch.runtime.metrics import (
+            multihost_metrics)
+
+        cl = self.cluster
+        self._save_seq += 1
+        seq = self._save_seq
+        if self._needs_shards():
+            sdir = self._shards_dir(step)
+            mine = save_pytree_sharded(
+                sdir, tree, meta, mesh=self.mesh, specs=self.specs,
+                sync=False, process_index=cl.process_id,
+                writers=cl.members, write_index=cl.is_coordinator)
+            rel = os.path.basename(sdir)
+            mine = {f"{rel}/{k}": v for k, v in mine.items()}
+            tables = cl.gather(json.dumps(mine), f"ckptcrc_{seq}")
+            files: Dict[str, Dict] = {}
+            if cl.is_coordinator:
+                for blob in tables.values():
+                    files.update(json.loads(blob))
+            layout = "sharded"
+        else:
+            # one state every member holds: the coordinator writes it
+            files = (save_pytree(self._path(step), tree, meta)
+                     if cl.is_coordinator else {})
+            layout = "replicated"
+        cl.barrier(f"ckpt_data_{seq}")
+        if cl.is_coordinator:
+            self._commit_manifest(step, files, cluster_info={
+                "layout": layout, "members": list(cl.members),
+                "coordinator": cl.coordinator})
+        cl.barrier(f"ckpt_commit_{seq}")
+        multihost_metrics.note("cluster_commits")
+        if cl.is_coordinator:
+            self._gc()
+        else:
+            # the committed manifest's files: what the cluster wrote
+            try:
+                with open(self._manifest_path(step)) as f:
+                    files = json.load(f)["files"]
+            except OSError:
+                files = {}
+        return files
 
     def verify(self, step: int) -> None:
         """Raise :class:`CorruptCheckpointError` unless ``step``'s files
@@ -464,10 +857,9 @@ class CheckpointManager:
                 return out
             except Exception as e:  # noqa: BLE001 — corrupt files throw
                 #                     anything (zip, json, ValueError)
-                if isinstance(e, (StructureMismatchError,
-                                  NotImplementedError)):
-                    # a caller bug or an unported layout: every step
-                    # would fail the same way
+                if isinstance(e, StructureMismatchError):
+                    # a caller bug (a renamed layer): every step would
+                    # fail the same way
                     raise
                 last_err = e
                 log.warning("checkpoint step %d unrestorable (%s: %s); "
@@ -478,15 +870,27 @@ class CheckpointManager:
 
     def _load_snapshot(self, step: int, like: Optional[PyTree]
                        ) -> Tuple[PyTree, Dict]:
+        """Either layout, whichever this step was written as (both can
+        sit in one directory across a cluster shrink); templates in the
+        manager's layout (:meth:`set_layout`) get each rank's slice."""
+        sharded = self.mesh is not None and self._needs_shards()
         if os.path.exists(self._path(step)):
+            if like is not None and sharded:
+                return _load_npz_into(self._path(step), like, self.mesh,
+                                      self.specs)
             return load_pytree(self._path(step), like)
         if os.path.isdir(self._shards_dir(step)):
-            raise _not_ported(f"restoring the sharded step {step}")
+            if sharded:
+                return load_pytree_sharded(self._shards_dir(step), like,
+                                           mesh=self.mesh, specs=self.specs)
+            return load_pytree_sharded(self._shards_dir(step), like)
         raise FileNotFoundError(
             f"no checkpoint files for step {step} in {self.directory}")
 
     def _gc(self) -> None:
-        """Retention sweep; tolerates concurrently deleted files."""
+        """Retention sweep; tolerates concurrently deleted files.  In a
+        cluster only the coordinator sweeps (the shared filesystem makes
+        its sweep everyone's)."""
         steps = self.all_steps()
         for s in steps[:-self.max_to_keep] if self.max_to_keep > 0 else []:
             for suffix in (".manifest.json", ".json", ""):
@@ -880,10 +1284,156 @@ def load_model(path: str, device=None):
 
 
 class OrbaxCheckpointManager:
-    """The reference's Orbax-backed manager (:1015).  Its counterpart for
-    sharded state is ``torch.distributed.checkpoint``, which comes with
-    the sharded fit: ROADMAP A7."""
+    """The counterpart of the reference's Orbax-backed manager
+    (:1015-1073): the same surface (``save``, ``all_steps``,
+    ``latest_step``, ``restore(like=)`` with the meta, ``close``) over
+    ``torch.distributed.checkpoint`` (DCP).  A step is the directory
+    ``<dir>/<step>`` (DCP's ``.metadata`` and one ``.distcp`` file a
+    rank) with the meta beside it in ``meta.json``; the state dict's keys
+    are the tree's paths.
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
-        raise _not_ported("OrbaxCheckpointManager (torch.distributed."
-                          "checkpoint)")
+    With ``mesh`` and ``specs`` (as ``tensor_parallel.shard_tree`` takes
+    them) a leaf split over ranks enters the state dict as a DTensor over
+    the mesh (placements from its spec), so each rank writes only its
+    block and a replica is written once; a restore reads the blocks the
+    template's layout needs (restore with resharding), and a restore
+    with ``mesh=None`` assembles global tensors.  Every rank of the
+    mesh (of the default group without one) calls ``save`` and
+    ``restore``."""
+
+    _META = "meta.json"
+
+    def __init__(self, directory: str, max_to_keep: int = 3, *,
+                 mesh=None, specs: PyTree = None):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self.mesh, self.specs = mesh, specs
+        self._dmesh = None
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(int(step)))
+
+    def _group(self):
+        return None if self.mesh is None else self.mesh.world
+
+    def _lead(self) -> bool:
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            return True
+        return dist.get_rank(self._group()) == 0
+
+    def _barrier(self) -> None:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.barrier(group=self._group())
+
+    def _device_mesh(self, device_type: str):
+        """The mesh as a DTensor ``DeviceMesh`` over its ranks (axes
+        ``ALL_AXES``), naming coordinates only: DCP plans over the
+        process group, so the device mesh makes no groups."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from deeplearning4j_tpu_torch.parallel.mesh import ALL_AXES
+
+        if self._dmesh is None or self._dmesh.device_type != device_type:
+            grid = torch.tensor(self.mesh.ranks).reshape(
+                tuple(self.mesh.shape[a] for a in ALL_AXES))
+            self._dmesh = DeviceMesh(device_type, grid,
+                                     mesh_dim_names=ALL_AXES,
+                                     _init_backend=False)
+        return self._dmesh
+
+    def _state_dict(self, tree: PyTree) -> Dict[str, Any]:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from deeplearning4j_tpu_torch.parallel.mesh import ALL_AXES
+
+        leaf_specs: List[Any] = []
+        _leaf_specs(tree, self.specs, leaf_specs)
+        out: Dict[str, Any] = {}
+        for (path, leaf), spec in zip(_flatten_with_paths(tree),
+                                      leaf_specs):
+            split = (_splits(spec, self.mesh)
+                     if isinstance(leaf, torch.Tensor) else [])
+            if not split:
+                out[path] = leaf
+                continue
+            shape = list(leaf.shape)
+            place = [Replicate()] * len(ALL_AXES)
+            for d, axis, n, _ in split:
+                shape[d] *= n
+                place[ALL_AXES.index(axis)] = Shard(d)
+            stride = torch.empty(shape, device="meta").stride()
+            out[path] = DTensor.from_local(
+                leaf.detach().contiguous(),
+                self._device_mesh(leaf.device.type), place,
+                run_check=False, shape=torch.Size(shape), stride=stride)
+        return out
+
+    def save(self, step: int, tree: PyTree,
+             meta: Optional[Dict] = None) -> None:
+        import torch.distributed.checkpoint as dcp
+
+        d = self._step_dir(step)
+        dcp.save(self._state_dict(tree), checkpoint_id=d,
+                 process_group=self._group())
+        if self._lead():
+            tmp = os.path.join(d, self._META + ".tmp")
+            with open(tmp, "w") as f:
+                json.dump(meta or {}, f)
+            _replace_with_fsync(tmp, os.path.join(d, self._META))
+            steps = self.all_steps()
+            for s in steps[:-self.max_to_keep] if self.max_to_keep > 0 \
+                    else []:
+                shutil.rmtree(self._step_dir(s), ignore_errors=True)
+        self._barrier()
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and os.path.exists(
+                          os.path.join(self.directory, n, ".metadata")))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None,
+                like: Optional[PyTree] = None) -> Tuple[PyTree, Dict]:
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.tensor import DTensor
+
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        d = self._step_dir(step)
+        if like is None:
+            # global CPU tensors of the saved sizes, in nested dicts
+            md = dcp.FileSystemReader(d).read_metadata()
+            sd = {k: (torch.empty(v.size, dtype=v.properties.dtype)
+                      if hasattr(v, "size") else None)
+                  for k, v in md.state_dict_metadata.items()}
+            dcp.load(sd, checkpoint_id=d, process_group=self._group())
+            tree: Any = {}
+            for k, v in sd.items():
+                node = tree
+                parts = k.split(_SEP)
+                for seg in parts[:-1]:
+                    node = node.setdefault(seg, {})
+                node[parts[-1]] = v
+        else:
+            sd = self._state_dict(tree_map(
+                lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+                like))
+            dcp.load(sd, checkpoint_id=d, process_group=self._group())
+            vals = [v.to_local() if isinstance(v, DTensor) else v
+                    for v in sd.values()]
+            tree = _unflatten_like(like, vals)
+        with open(os.path.join(d, self._META)) as f:
+            meta = json.load(f)
+        return tree, meta
+
+    def close(self) -> None:
+        """Nothing to release: every save is complete when it returns."""

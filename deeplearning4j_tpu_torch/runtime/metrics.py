@@ -20,9 +20,10 @@ of the reference is here with its singleton, so
 - ``dp_metrics`` (:545): booked by the data-parallel fit paths
   (``nn/multilayer``'s bundle, ``models/lm_fit.CausalLM``,
   ``parallel/data_parallel``) and ``datasets/iterator.PrefetchIterator``;
-- ``multihost_metrics`` and ``ingest_metrics`` (:822, :890): listed
-  now; the code that bumps them comes with the multi-host slice
-  (ROADMAP A7.3-A7.4).
+- ``multihost_metrics`` (:822): booked by ``parallel/multihost``'s
+  join, barriers and flag syncs, the manager's cluster commits and
+  ``ResilientFit``'s host-loss path; ``ingest_metrics`` (:890) is listed
+  for the data service that books it (ROADMAP A7.4).
 
 :func:`device_memory_stats` / :func:`peak_bytes_in_use` read
 ``torch.cuda.memory_stats``; :class:`ScalarsLogger`,
@@ -605,8 +606,8 @@ class CheckpointMetrics:
       and restores that fell back to an older committed step;
     - ``preemptions_requested`` / ``preemption_snapshots``: preemption
       notices seen by a PreemptionGuard and the final snapshots taken;
-    - ``device_losses`` / ``elastic_resumes``: the elastic path's
-      (ROADMAP A7).
+    - ``device_losses`` / ``elastic_resumes``: losses ``ResilientFit``
+      saw and the re-meshed resumes it made of them.
     """
 
     def __init__(self):
@@ -779,10 +780,11 @@ mfu_metrics = MfuMetrics()
 
 
 class MultihostMetrics:
-    """Counters of the multi-host runtime (joins, barriers and their
-    wait, per-step flag syncs, cluster commits, host losses, evictions,
-    stale heartbeats).  Nothing in the port bumps them yet: multi-host
-    is ROADMAP A7."""
+    """Counters of the multi-process runtime (``parallel/multihost.py``,
+    the manager's cluster commits, ``ResilientFit``'s host-loss path):
+    joins and their retries and failures, control-plane barriers and
+    their wait, per-step flag syncs, cluster commits, host losses,
+    evictions, stale heartbeats."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -829,7 +831,7 @@ class MultihostMetrics:
             }
 
 
-#: process-wide singleton of the multi-host runtime (ROADMAP A7)
+#: process-wide singleton of the multi-process runtime
 multihost_metrics = MultihostMetrics()
 
 
@@ -837,7 +839,7 @@ class IngestMetrics:
     """Counters of the distributed data service (bytes and batches
     staged, prefetch high-water, read-plan reassignments, reader-state
     round trips, shuffle-seed agreements).  Nothing in the port bumps
-    them yet: the data service is ROADMAP A7."""
+    them yet: the data service is ROADMAP A7.4."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -884,7 +886,7 @@ class IngestMetrics:
             }
 
 
-#: process-wide singleton of the distributed data service (ROADMAP A7)
+#: process-wide singleton of the distributed data service (ROADMAP A7.4)
 ingest_metrics = IngestMetrics()
 
 

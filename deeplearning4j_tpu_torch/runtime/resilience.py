@@ -44,16 +44,16 @@ Every skip, rollback and snapshot is counted in
 makes the same calls) each rank trains on its data index's rows and,
 where the step lays the params out over ``model``, ``pipe`` or
 ``expert`` (``train_step.param_specs``), on its slice of them; a net
-whose step splits nothing over an axis is replicated over it.  A snapshot holds
-the gathered global tree, under the npz keys a ``mesh=None`` run
-writes, so a checkpoint resumes on any mesh shape; the mesh's first
-rank writes it, and every rank waits at a barrier for a commit before
-it reads one.
+whose step splits nothing over an axis is replicated over it.  Without
+a cluster a snapshot holds the gathered global tree, under the npz keys
+a ``mesh=None`` run writes, so a checkpoint resumes on any mesh shape;
+the mesh's first rank writes it, and every rank waits at a barrier for
+a commit before it reads one.  With ``cluster=`` the snapshot is
+cluster-committed, each rank writing its own pieces of a model-sharded
+state.  A device or host loss re-meshes over the survivors and restores
+(:class:`ResilientFit`).
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP A7.3):
-``ResilientFit``'s ``cluster=``, the distributed data service input, a
-:class:`DeviceLossError` from ``fault_hook`` and the elastic and
-host-loss recovery behind it (reference :773-987).
+Not ported: the distributed data service input (ROADMAP A7.4).
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ import collections
 import contextlib
 import dataclasses
 import logging
+import os
 import signal
 import statistics
 import threading
@@ -83,16 +84,10 @@ log = logging.getLogger(__name__)
 PyTree = Any
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP A7.3: "
-        f"sharded, elastic and multi-host training)")
-
-
 class DeviceLossError(RuntimeError):
     """A device dropped out of the mesh mid-run; ``lost_ids`` names the
-    failed devices.  The elastic recovery that handles it is ROADMAP A7:
-    ``ResilientFit`` raises ``NotImplementedError`` from it."""
+    failed devices, as global ranks (one process drives one device).
+    ``ResilientFit`` recovers from it elastically."""
 
     def __init__(self, lost_ids, message: Optional[str] = None):
         self.lost_ids = tuple(int(i) for i in lost_ids)
@@ -412,8 +407,12 @@ class ResilienceConfig:
     Cadence snapshots are ASYNC by default (``checkpoint.
     AsyncCheckpointer``, at most ``max_in_flight`` pending, with
     backpressure); ``sync=True`` saves on the training thread.  The
-    reference's multi-host knobs (``cluster_timeout_s``, ``hb_*``) come
-    with ROADMAP A7, as does ``data_service``: True raises at ``fit``."""
+    multi-process knobs are read only with a ``cluster`` of more than
+    one member: ``cluster_timeout_s`` bounds every control-plane
+    operation, and the shared-filesystem heartbeat beats every
+    ``hb_interval_s`` and names a member lost after ``hb_timeout_s``
+    without one.  ``data_service`` (the distributed data service input)
+    is ROADMAP A7.4: True raises at ``fit``."""
 
     checkpoint_dir: str
     checkpoint_every: int = 50
@@ -429,6 +428,9 @@ class ResilienceConfig:
     shuffle: bool = True
     sync: bool = False
     max_in_flight: int = 2
+    cluster_timeout_s: float = 120.0
+    hb_interval_s: float = 2.0
+    hb_timeout_s: float = 20.0
     data_service: Optional[bool] = None
 
     def __post_init__(self) -> None:
@@ -458,21 +460,28 @@ def fold(*parts: int) -> int:
     return h >> 1
 
 
+def _global_rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
 class ResilientFit:
     """Self-healing supervised training over a ``MultiLayerNetwork`` or a
     ``models/lm_fit.CausalLM``: the per-step loop of ``fit_backprop``
-    plus auto-checkpointing, loss-spike detection, rollback, resume and
-    preemption.
+    plus auto-checkpointing, loss-spike detection, rollback, resume,
+    preemption and recovery from a device or host loss.
 
     ResilientFit consumes the model's captured engine step
     (``_backprop_machinery``), so the in-step guard and the compile
     engine's state handling apply unchanged; what it adds is host
     policy.  A data-parallel step (``takes_n_valid``: accumulation,
     bf16, ``CausalLM``) gets each batch zero-padded to the model's row
-    multiple with its real row count beside it.  Checkpoints carry ``(params, updater state)`` with the step
-    and rollback count in the sidecar meta, so a killed run resumes
-    exactly (the momentum schedule's clock is the step; the random
-    streams are derived from the step, see the module docstring).
+    multiple with its real row count beside it.  Checkpoints carry
+    ``(params, updater state)`` with the step and rollback count in the
+    sidecar meta, so a killed run resumes exactly (the momentum
+    schedule's clock is the step; the random streams are derived from
+    the step, see the module docstring).
 
     Engine state: the step's params, updater state and iteration counter
     are aliases of the engine's buffers, updated in place by the next
@@ -487,43 +496,101 @@ class ResilientFit:
     ``preemption_guard=`` to share one): on a notice the loop stops at
     the next step boundary, drains, writes one final SYNC snapshot and
     returns with ``self.preempted = True``.  ``fault_hook(step)`` runs
-    before each step (a drill hook); a :class:`DeviceLossError` from it
-    raises ``NotImplementedError`` (elastic resume, ROADMAP A7.3), as
-    does ``cluster=``.  ``mesh=`` trains SPMD: see the module
-    docstring."""
+    before each step (a drill hook).  ``mesh=`` trains SPMD: see the
+    module docstring.
+
+    **A device loss** (a :class:`DeviceLossError` from ``fault_hook``,
+    ``parallel.chaos.DeviceLossChaos``; its ids are global ranks) is an
+    elastic resume (reference :884-987): drain, settle the loss at host
+    level under a cluster, re-mesh over the survivors with
+    ``parallel.mesh.elastic_plan`` (only ``data`` shrinks; the
+    accumulation ``elastic_accum`` keeps the effective batch, and the
+    user's conf is never changed), rebuild the step on the new mesh,
+    restore the newest committed snapshot, reset the detector.  The port
+    runs one process a device, so every rank raises the same error at
+    the same step in a drill, and the ranks split three ways: a rank
+    that is named leaves the fit cleanly with ``self.evicted = True``;
+    so does a survivor the smaller mesh cannot use (where the reference
+    leaves such a device idle, ``survivors[degree * group:]``); the rest
+    build the new mesh's groups among themselves (``make_mesh(...,
+    ranks=)``) and go on.  Refused, as in the reference: ids none of
+    which is in the mesh (a stale detector) and a loss with ``mesh=None``
+    and no cluster re-raise the error.
+
+    **Multi-process** (``cluster=`` a ``parallel.multihost.Cluster`` of
+    more than one member, one member a rank): snapshots are
+    cluster-committed by the manager, in the sharded layout when the
+    step splits a leaf over ranks (each rank writes its own pieces) and
+    replicated otherwise; one member's preemption flag stops every
+    member at the same step boundary (``_cluster_flag``), with one final
+    snapshot committed across the cluster; a shared-filesystem
+    heartbeat runs for the fit.  A host loss is seen in two ways: a
+    control-plane operation times out (``ClusterSyncTimeout``), or, in
+    the port, the step's own collective fails first (gloo reports a dead
+    peer at once).  Either is asked of the heartbeat
+    (``_translate_sync_timeout``): stale members are a host loss, a
+    :class:`DeviceLossError` naming their ranks; with every peer still
+    beating the error is raised again as it is.  A failed collective
+    waits up to one heartbeat timeout for that verdict, which the
+    control plane's deadline gives a sync timeout.  The survivors then
+    agree on the lost ids (every member publishes its whole local view),
+    shrink the cluster to a new generation and resume elastically.
+    Without a cluster a mesh run keeps the gathered snapshot, written by
+    the mesh's first rank."""
 
     def __init__(self, net, config: ResilienceConfig,
                  detector: Optional[LossSpikeDetector] = None,
                  mesh=None, fault_hook=None,
                  preemption_guard: Optional[PreemptionGuard] = None,
                  cluster=None):
-        if cluster is not None:
-            raise _not_ported("ResilientFit(cluster=) multi-host training")
         if mesh is not None:
             from deeplearning4j_tpu_torch.parallel.mesh import \
                 check_mesh_axes
             check_mesh_axes(mesh)
         self.net = net
         self.mesh = mesh
-        self.cluster = None
+        #: ``parallel.multihost.Cluster`` (None: one process); shrunk in
+        #: place by a host loss
+        self.cluster = cluster
         self.config = config
         self.fault_hook = fault_hook
         self.preemption_guard = preemption_guard
-        #: the rank that writes snapshots (every rank of a mesh gathers)
-        self._writer = mesh is None or mesh.ranks.index(
-            torch.distributed.get_rank()) == 0
         self.manager = CheckpointManager(config.checkpoint_dir,
-                                         max_to_keep=config.max_to_keep)
-        self.async_ckpt = None if (config.sync or not self._writer) \
+                                         max_to_keep=config.max_to_keep,
+                                         cluster=cluster)
+        self.async_ckpt = None if (config.sync or not self._writes()) \
             else AsyncCheckpointer(self.manager,
                                    max_in_flight=config.max_in_flight)
         self.detector = detector or LossSpikeDetector(
             window=config.spike_window, factor=config.spike_factor,
             patience=config.patience, min_history=config.min_history)
-        #: filled by fit(): steps run, rollbacks performed, preemption
+        #: filled by fit(): steps run, rollbacks performed, preemption,
+        #: elastic re-meshes, this rank's eviction
         self.steps_run = 0
         self.rollbacks = 0
         self.preempted = False
+        self.remeshes = 0
+        self.evicted = False
+        #: the accumulation an elastic resume set (the user's conf keeps
+        #: its own)
+        self.elastic_accum: Optional[int] = None
+        #: the last recovery's stages: ``lost_at`` and ``restored`` (the
+        #: steps), ``detected_at`` (wall clock), and the ms of ``drain``,
+        #: ``agree``, ``remesh``, ``restore`` and ``first_step``
+        self.last_recovery: Optional[dict] = None
+        self._heartbeat = None
+
+    @property
+    def _multi(self) -> bool:
+        return (self.cluster is not None
+                and self.cluster.process_count > 1)
+
+    def _writes(self) -> bool:
+        """Whether this rank calls the manager's ``save``: every member
+        of a cluster (the commit protocol is collective), else the
+        mesh's first rank, which writes the gathered tree."""
+        return (self._multi or self.mesh is None
+                or self.mesh.ranks.index(_global_rank()) == 0)
 
     def _recycle_writer(self, suppress_errors: bool) -> None:
         """close() the async checkpointer (drain + stop the writer), then
@@ -555,13 +622,15 @@ class ResilientFit:
     def _drain(self) -> None:
         """Wait for every in-flight async snapshot to COMMIT (the
         precondition for any restore and for the final snapshot); on a
-        mesh, every rank waits for the writer's commit."""
+        mesh without a cluster, every rank waits for the writer's commit
+        (under a cluster each member's own commit ends with the
+        cluster's barrier)."""
         if self.async_ckpt is not None:
             self.async_ckpt.wait_until_finished()
         self._barrier()
 
     def _barrier(self) -> None:
-        if self.mesh is not None:
+        if self.mesh is not None and not self._multi:
             torch.distributed.barrier(group=self.mesh.world)
 
     @staticmethod
@@ -592,20 +661,36 @@ class ResilientFit:
 
     # -- machinery ---------------------------------------------------------
     def _build_dispatch(self, net):
-        """``(dispatch, updaters)`` over the network's captured step.  A
-        data-parallel step (``takes_n_valid``: accumulation, bf16, a
-        ``CausalLM``) gets ``(x, y, n_valid)`` with the batch zero-padded
-        to the network's row multiple (reference :674-752)."""
+        """``(dispatch, updaters)`` over the network's captured step on
+        the current mesh and accumulation (rebuilt by an elastic resume;
+        ``elastic_accum`` applies to the build only, the user's conf is
+        left as it was).  A data-parallel step (``takes_n_valid``:
+        accumulation, bf16, a ``CausalLM``) gets ``(x, y, n_valid)`` with
+        the batch zero-padded to the network's row multiple (reference
+        :674-752).  Under a cluster the manager takes the step's layout:
+        a split leaf is saved as each rank's pieces."""
         from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor
 
         from deeplearning4j_tpu_torch.parallel.mesh import shard_rows
 
         mesh = self.mesh
-        train_step, updaters = net._backprop_machinery(mesh)
+        orig_accum = net.conf.grad_accum
+        if self.elastic_accum is not None:
+            net.conf.grad_accum = self.elastic_accum
+        try:
+            train_step, updaters = net._backprop_machinery(mesh)
+            dp_mode = getattr(train_step, "takes_n_valid", False)
+            chunk = net._pad_chunk(mesh, max(net.conf.grad_accum, 1)) \
+                if dp_mode else 1
+        finally:
+            net.conf.grad_accum = orig_accum
         self._train_step = train_step
-        dp_mode = getattr(train_step, "takes_n_valid", False)
-        chunk = net._pad_chunk(mesh, max(net.conf.grad_accum, 1)) \
-            if dp_mode else 1
+        specs = getattr(train_step, "param_specs", None)
+        if self._multi and mesh is not None and specs is not None:
+            self.manager.set_layout(mesh, (specs, getattr(
+                train_step, "ustate_specs", None)))
+        else:
+            self.manager.set_layout(None, None)
         dev = net.device
 
         def rows(t):
@@ -643,17 +728,226 @@ class ResilientFit:
     def _restore_latest(self, net, updaters):
         """Restore the newest COMMITTED checkpoint (corrupt or
         uncommitted steps fall back to the previous good one) against
-        fresh templates on the network's device."""
+        fresh templates on the network's device: in this rank's layout
+        when the manager reads pieces (each rank its slice), else
+        global and then laid out."""
         tpl_p = tree_map(torch.clone, net._require_params())
+        if self.manager.mesh is not None:
+            tpl_p, _ = self._layout(tpl_p, None, gather=False)
+            tpl_u = self._make_ustate(updaters, tpl_p)
+            (params, ustate), meta = self.manager.restore(
+                like=(tpl_p, tpl_u))
+            self._check_restored(params, meta.get("step"))
+            return params, ustate, meta
         tpl_u = self._make_ustate(updaters, tpl_p)
         (params, ustate), meta = self.manager.restore(like=(tpl_p, tpl_u))
         self._check_restored(params, meta.get("step"))
         params, ustate = self._layout(params, ustate, gather=False)
         return params, ustate, meta
 
+    # -- the multi-process runtime (reference :784-884) ---------------------
+    def _translate_sync_timeout(self, err, wait: bool = False
+                                ) -> DeviceLossError:
+        """A control-plane timeout (or a failed collective) on a live
+        cluster means a peer went silent: the heartbeat names it, and
+        stale members become a host loss (their ranks).  With every peer
+        still beating the error is re-raised as it is: "recovering" from
+        a slow but alive peer would fork the run.  ``wait``: poll the
+        heartbeat up to one timeout for its verdict first (a collective
+        fails at once, where a sync timeout has waited out its
+        deadline)."""
+        hb = self._heartbeat
+        if hb is None:
+            raise err
+        stale = hb.stale_members()
+        if wait:
+            deadline = time.monotonic() + hb.timeout_s + 2 * hb.interval_s
+            while not stale and time.monotonic() < deadline:
+                time.sleep(min(0.05, hb.interval_s))
+                stale = hb.stale_members()
+        if not stale:
+            raise err
+        lost = []
+        for m in stale:
+            lost.extend(self.cluster.devices_of(m))
+        log.error(
+            "cluster sync failed and member(s) %s have stale heartbeats "
+            "— treating as host loss (devices %s)", list(stale), lost)
+        return DeviceLossError(
+            lost, f"host loss: members {sorted(stale)} stopped "
+            f"heartbeating ({type(err).__name__}: {err})")
+
+    def _cluster_flag(self, flag: bool) -> bool:
+        """Cluster-wide OR of this member's preemption flag: every member
+        sees the verdict in the same round and stops at the same step
+        boundary.  A control-plane timeout is asked of the heartbeat."""
+        if not self._multi:
+            return flag
+        from deeplearning4j_tpu_torch.parallel.multihost import \
+            ClusterSyncTimeout
+
+        try:
+            return self.cluster.any_flag(
+                flag, "preempt", timeout_s=self.config.cluster_timeout_s)
+        except ClusterSyncTimeout as e:
+            raise self._translate_sync_timeout(e) from e
+
+    def _set_cluster(self, cluster) -> None:
+        self.cluster = cluster
+        self.manager.cluster = cluster
+        if self._heartbeat is not None:
+            self._heartbeat.cluster = cluster
+
+    def _host_loss_update(self, err: DeviceLossError):
+        """The cluster half of a loss: agree on the lost ids with the
+        responsive members (each publishes its whole local view:
+        reported ids and heartbeat findings, so every survivor reads the
+        same union), evict self when its devices are among them, else
+        shrink the cluster to the survivors.  ``(lost_ids, evicted)``."""
+        from deeplearning4j_tpu_torch.runtime.metrics import \
+            multihost_metrics
+
+        cl = self.cluster
+        hb = self._heartbeat
+        suspects = tuple(hb.stale_members()) if hb is not None else ()
+        local_ids = set(int(i) for i in err.lost_ids)
+        if hb is not None:
+            local_ids.update(hb.lost_device_ids())
+        lost = set(cl.agree_lost_ids(
+            sorted(local_ids), suspects=suspects,
+            timeout_s=self.config.cluster_timeout_s))
+        lost_members = list(cl.owners_of(lost))
+        if suspects:
+            lost_members = sorted(set(lost_members) | set(suspects))
+        if cl.process_id in lost_members:
+            multihost_metrics.note("evictions")
+            telemetry.event("resilience.evicted",
+                            lost=sorted(lost), member=cl.process_id)
+            log.warning(
+                "this member's devices are among the lost (%s) — "
+                "exiting the fit cleanly; the survivors carry the run",
+                sorted(lost))
+            return tuple(sorted(lost)), True
+        if lost_members:
+            multihost_metrics.note("host_losses")
+            survivors = cl.shrink(lost_members)
+            log.warning(
+                "host loss: member(s) %s evicted, surviving cluster "
+                "%s (coordinator %d)", lost_members, survivors.members,
+                survivors.coordinator)
+            telemetry.event("resilience.host_loss",
+                            lost_members=lost_members,
+                            survivors=list(survivors.members))
+            self._set_cluster(survivors)
+        return tuple(sorted(lost)), False
+
     def _elastic_resume(self, err: DeviceLossError, net):
-        """Re-mesh over the survivors and restore (reference :884)."""
-        raise _not_ported("elastic resume after a device loss") from err
+        """Device or host loss -> re-mesh over the survivors (effective
+        batch kept by the accumulation) -> restore the newest committed
+        snapshot (reference :884).  ``(dispatch, updaters, params,
+        ustate, step)``, or None when this rank leaves the fit (its
+        device is lost, or the smaller mesh does not use it)."""
+        from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+
+        checkpoint_metrics.note("device_losses")
+        rec = self.last_recovery = {"detected_at": time.time()}
+        t0 = time.perf_counter()
+        # drain first, while the old cluster generation stands: a drill
+        # keeps every rank alive, so pending commits complete; a dead
+        # host times the drain out, the uncommitted snapshot is dropped
+        # and the restore falls back one cadence
+        try:
+            self._drain()
+        except Exception:  # noqa: BLE001 — incl. ClusterSyncTimeout
+            if not self._multi:
+                raise
+            log.warning("in-flight snapshot died with the lost host; "
+                        "restoring the previous committed step")
+            self._recycle_writer(suppress_errors=True)
+        t1 = time.perf_counter()
+        rec["drain_ms"] = (t1 - t0) * 1e3
+        lost_ids = tuple(err.lost_ids)
+        cluster_loss = False
+        if self._multi:
+            lost_ids, evicted = self._host_loss_update(err)
+            if evicted:
+                return None
+            cluster_loss = True
+        t2 = time.perf_counter()
+        rec["agree_ms"] = (t2 - t1) * 1e3
+        if self.mesh is None and not cluster_loss:
+            raise err
+        members = set(self.mesh.ranks) if self.mesh is not None else set()
+        lost = set(int(i) for i in lost_ids)
+        mesh_hit = bool(members & lost)
+        if not mesh_hit and not cluster_loss:
+            # stale or foreign ids: "recovering" would rebuild the same
+            # mesh and retry the same step forever (each genuine loss
+            # strictly shrinks the mesh, which bounds the recovery loop)
+            log.error(
+                "device loss reports ids %s, none of which are in the "
+                "current mesh %s — stale detector? re-raising",
+                sorted(lost), sorted(members))
+            raise err
+        me = _global_rank()
+        if mesh_hit and me in lost:
+            return None
+        old_accum = max(self.elastic_accum or net.conf.grad_accum, 1)
+        if mesh_hit:
+            old_degree = int(self.mesh.shape[mesh_lib.DATA_AXIS])
+            shape, survivors, new_accum = mesh_lib.elastic_plan(
+                self.mesh.shape, self.mesh.ranks, lost, old_accum)
+            if me not in survivors:
+                log.warning("rank %d survives, but the re-meshed run over "
+                            "%s does not use it — leaving the fit", me,
+                            survivors)
+                return None
+            unused = [r for r in self.mesh.ranks
+                      if r not in lost and r not in survivors]
+            if unused and self._multi:
+                # the ranks the smaller mesh leaves out leave the fit, and
+                # the cluster with them
+                self._set_cluster(self.cluster.shrink(
+                    self.cluster.owners_of(unused)))
+            old_mesh = self.mesh
+            self.mesh, new_accum = mesh_lib.elastic_remesh(old_mesh, lost,
+                                                           old_accum)
+            self.elastic_accum = new_accum
+            new_degree = shape[mesh_lib.DATA_AXIS] if shape else 1
+            log.warning(
+                "device loss (ids %s): re-meshing %d->%d data shards "
+                "(model degree %d kept), grad_accum %d->%d (effective "
+                "batch kept); restoring the newest committed snapshot",
+                sorted(lost), old_degree, new_degree,
+                mesh_lib.model_degree(old_mesh), old_accum, new_accum)
+        else:
+            new_degree = (int(self.mesh.shape[mesh_lib.DATA_AXIS])
+                          if self.mesh is not None else 1)
+            new_accum = old_accum
+            log.warning("host loss (ids %s) outside the local mesh: "
+                        "keeping the mesh, restoring the newest committed "
+                        "snapshot", sorted(lost))
+        telemetry.event("resilience.device_loss", lost=sorted(lost),
+                        new_degree=new_degree, new_accum=new_accum,
+                        cluster_loss=cluster_loss)
+        if self.async_ckpt is None and not self.config.sync \
+                and self._writes():
+            # the re-meshed run's first rank now writes the snapshots
+            self.async_ckpt = AsyncCheckpointer(
+                self.manager, max_in_flight=self.config.max_in_flight)
+        dispatch, updaters = self._build_dispatch(net)
+        t3 = time.perf_counter()
+        rec["remesh_ms"] = (t3 - t2) * 1e3
+        with telemetry.span("resilience.restore", elastic=True):
+            params, ustate, meta = self._restore_latest(net, updaters)
+        rec["restore_ms"] = (time.perf_counter() - t3) * 1e3
+        rec["restored"] = int(meta["step"])
+        self.detector.reset()
+        self.remeshes += 1
+        checkpoint_metrics.note("elastic_resumes")
+        telemetry.event("resilience.elastic_resume",
+                        step=int(meta["step"]), new_degree=new_degree)
+        return dispatch, updaters, params, ustate, int(meta["step"])
 
     def _counter(self, step: int, device) -> torch.Tensor:
         """The step's iteration counter (the momentum schedule's clock)
@@ -664,14 +958,18 @@ class ResilientFit:
     def fit(self, data, num_epochs: int = 1, seed: int = 2):
         """Train to completion (or ``max_steps``, or a preemption
         notice), healing as it goes.  Returns the network with trained
-        params set; ``self.preempted`` reports a preemption stop."""
+        params set (an evicted rank's are left as they were);
+        ``self.preempted`` reports a preemption stop and
+        ``self.evicted`` this rank's leaving after a loss."""
         from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 
         cfg = self.config
         net = self.net
         if cfg.data_service or type(data).__name__ == "DataService":
-            raise _not_ported("ResilientFit over the distributed data "
-                              "service")
+            raise NotImplementedError(
+                "ResilientFit over the distributed data service is not "
+                "ported to the PyTorch package yet (ROADMAP A7.4: the "
+                "multi-host data plane)")
         batches = [data] if isinstance(data, DataSet) else list(data)
         n_batches = len(batches)
         total_steps = num_epochs * n_batches
@@ -685,22 +983,29 @@ class ResilientFit:
                     hook(net)
 
         dev = net.device
-        mesh = self.mesh
         # a caller's state: the engine copies it into its own buffers
         params = tree_map(torch.clone, net._require_params())
         dispatch, updaters = self._build_dispatch(net)
         params, _ = self._layout(params, None, gather=False)
         ustate = self._make_ustate(updaters, params)
         gen = torch.Generator(device=dev)
-        # a data shard's dropout stream folds its data index in; the
-        # ranks of a model group share theirs
-        shard = (mesh.rank,) if mesh is not None and \
-            mesh.shape["data"] > 1 else ()
 
         step = 0
         rollbacks = 0
         self.preempted = False
+        self.evicted = False
         restored = False
+        self._heartbeat = None
+        if self._multi:
+            # bound every control-plane operation, the async writer's
+            # commit barriers included, by the config's deadline
+            self.cluster.timeout_s = cfg.cluster_timeout_s
+            from deeplearning4j_tpu_torch.parallel.multihost import \
+                HostHeartbeat
+            self._heartbeat = HostHeartbeat(
+                os.path.join(cfg.checkpoint_dir, "heartbeats"),
+                self.cluster, interval_s=cfg.hb_interval_s,
+                timeout_s=cfg.hb_timeout_s)
         if cfg.resume:
             self._barrier()
             latest = self.manager.latest_step()
@@ -727,8 +1032,9 @@ class ResilientFit:
             """Cadence snapshot: async by default, synchronous for the
             preemption / bounded-slice final snapshot."""
             meta = {"rollbacks": rollbacks}
-            tree = self._layout(params, ustate, gather=True)
-            if not self._writer:
+            tree = ((params, ustate) if self._multi
+                    else self._layout(params, ustate, gather=True))
+            if not self._writes():
                 pass
             elif self.async_ckpt is None or sync:
                 with telemetry.span("resilience.checkpoint",
@@ -754,6 +1060,12 @@ class ResilientFit:
                     f"holds snapshots (steps {existing}); pass "
                     "resume=True to continue that run, or point at a "
                     "fresh directory")
+        if self._multi:
+            # every member has checked (or restored) before any writes
+            # into the shared directory
+            self.cluster.barrier("fit_start",
+                                 timeout_s=cfg.cluster_timeout_s)
+        if not restored:
             # THIS run's rollback target exists before the first cadence
             save(step)
 
@@ -761,10 +1073,38 @@ class ResilientFit:
         skips: List[torch.Tensor] = []
         steps_this_call = 0
         guard = self.preemption_guard or PreemptionGuard()
+        first_step_t0 = None
 
-        with self._writer_guard(), guard:
+        def recover(e: DeviceLossError) -> bool:
+            """The loss recovery every loop site shares: True = go on with
+            the rebuilt state, False = this rank leaves the fit."""
+            nonlocal dispatch, updaters, params, ustate, it, step, \
+                last_good, first_step_t0
+            lost_at = step
+            # drop the step's aliases first: the restored state then
+            # lands in free buffers
+            params = ustate = it = None
+            resumed = self._elastic_resume(e, net)
+            if resumed is None:
+                self.evicted = True
+                return False
+            dispatch, updaters, params, ustate, step = resumed
+            self.last_recovery["lost_at"] = lost_at
+            it = self._counter(step, dev)
+            last_good = step
+            first_step_t0 = time.perf_counter()
+            return True
+
+        with self._writer_guard(), guard, \
+                (self._heartbeat or contextlib.nullcontext()):
             while step < total_steps:
-                if guard.requested():
+                try:
+                    stop = self._cluster_flag(guard.requested())
+                except DeviceLossError as e:
+                    if recover(e):
+                        continue
+                    break
+                if stop:
                     self._drain()
                     save(step, sync=True)
                     checkpoint_metrics.note("preemption_snapshots")
@@ -782,16 +1122,35 @@ class ResilientFit:
                 epoch, pos = divmod(step, n_batches)
                 order = self._epoch_order(seed, rollbacks, epoch, n_batches)
                 batch = batches[order[pos]]
+                # a data shard's dropout stream folds its data index in;
+                # the ranks of a model group share theirs
+                mesh = self.mesh
+                shard = (mesh.rank,) if mesh is not None and \
+                    mesh.shape["data"] > 1 else ()
                 gen.manual_seed(fold(seed, rollbacks, step, *shard))
                 try:
                     if self.fault_hook is not None:
                         self.fault_hook(step)
+                    params, ustate, it, score, skipped = dispatch(
+                        params, ustate, it, batch, gen)
+                    loss = float(score)
                 except DeviceLossError as e:
-                    self._elastic_resume(e, net)
-                params, ustate, it, score, skipped = dispatch(
-                    params, ustate, it, batch, gen)
+                    if recover(e):
+                        continue
+                    break
+                except RuntimeError as e:
+                    # the step's collective failed: under a cluster, a
+                    # dead peer if the heartbeat says so
+                    if not self._multi:
+                        raise
+                    if recover(self._translate_sync_timeout(e, wait=True)):
+                        continue
+                    break
+                if first_step_t0 is not None:
+                    self.last_recovery["first_step_ms"] = (
+                        time.perf_counter() - first_step_t0) * 1e3
+                    first_step_t0 = None
                 skips.append(skipped)
-                loss = float(score)
                 steps_this_call += 1
                 if net.listeners:
                     for ls in net.listeners:
@@ -842,6 +1201,12 @@ class ResilientFit:
             net.guard_skips += n_skipped
         self.steps_run = steps_this_call
         self.rollbacks = rollbacks
+        if self.evicted:
+            # the survivors carry the run: this rank runs no collective
+            # of the mesh it left, and its params stay as they were
+            params = ustate = it = None
+            self._recycle_writer(suppress_errors=False)
+            return net
         # trained params belong to the caller regardless of the writer's
         # health; a clone, so the step's state set is free for the next
         # fit of this conf

@@ -10,7 +10,10 @@ every free page (evicting pool-resident prefixes first) until
 their arguments; ``WorkerKilled`` passes the batcher's replay handler,
 ends the worker with its entry lock free and its traceback silenced;
 ``chaos_gate.main(device="cpu")`` returns 0, as the reference's gate
-does in its tier-1 test; and the training injectors (ROADMAP A7) raise
+does in its tier-1 test; the training injectors fire once at their step
+as the JAX package's do (``DeviceLossChaos``, ``HostLossChaos`` over a
+virtual host, ``PreemptionChaos``), and the scale-out runner's
+``ChaosPerformer`` and ``chaos_factory`` (ROADMAP A7.6) raise
 ``NotImplementedError`` naming their item.
 
 The drill's captures are the port's form of the reference's "zero new
@@ -196,8 +199,48 @@ def test_serving_chaos_gate():
                                   "PreemptionChaos", "ChaosPerformer",
                                   "chaos_factory"])
 def test_training_injectors_name_a7(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        getattr(chaos, name)
+    """The training injectors fire exactly once, at the first step at or
+    past theirs, as the JAX package's do (each port injector is held
+    against the reference's on the same calls); the scale-out runner's
+    two still raise, naming ROADMAP A7.6."""
+    from deeplearning4j_tpu.parallel import chaos as jchaos
+
+    if name in ("ChaosPerformer", "chaos_factory"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7.6"):
+            getattr(chaos, name)
+        assert callable(getattr(jchaos, name))
+    else:
+        def guard():
+            return type("G", (), {"n": 0, "request": lambda self: setattr(
+                self, "n", self.n + 1)})()
+
+        if name == "DeviceLossChaos":
+            pair = [chaos.DeviceLossChaos(3, [2, 5]),
+                    jchaos.DeviceLossChaos(3, [2, 5])]
+        elif name == "HostLossChaos":
+            pair = [chaos.HostLossChaos(3, 1, n_hosts=2, devices=range(8)),
+                    jchaos.HostLossChaos(3, 1, n_hosts=2)]
+        else:
+            gs = [guard(), guard()]
+            pair = [chaos.PreemptionChaos(3, gs[0]),
+                    jchaos.PreemptionChaos(3, gs[1])]
+        seen = []
+        for inj in pair:
+            fired = []
+            for step in (1, 2, 4, 3, 5):
+                try:
+                    inj(step)
+                    fired.append(None)
+                except Exception as e:  # noqa: BLE001 — the fault is the result
+                    fired.append((type(e).__name__,
+                                  sorted(int(i) for i in e.lost_ids)))
+            seen.append((fired, inj.fired))
+        assert seen[0] == seen[1]
+        if name == "PreemptionChaos":
+            assert [g.n for g in gs] == [1, 1]
+        else:
+            assert [f for f in seen[0][0] if f] == [seen[0][0][2]]
+            assert seen[0][0][2][0] == "DeviceLossError"
     with pytest.raises(AttributeError):
         getattr(chaos, "NoSuchInjector")
 

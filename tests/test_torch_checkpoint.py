@@ -13,7 +13,12 @@ errors surfacing), ``ModelSaver`` rotation, ``save_model`` /
 ``load_model`` across the packages (identical predictions) and the
 transformer ``TrainState`` carried across (tiny GPT, fp32: one step in
 each package from a JAX-written state, losses within 1e-5 relative, the
-stepped states within 1e-5) run here on the CPU.
+stepped states within 1e-5) run here on the CPU.  Sharded checkpoints
+(format 2: ``index.json`` and a piece file a rank) written by either
+package restore in the other on another mesh shape, equal to the values;
+the ranks are ``test_torch_mesh.run_ranks``' gloo processes and JAX's
+side runs on the 8 CPU devices.  The DCP-backed ``OrbaxCheckpointManager``
+saves each rank's block and restores it whole on one process.
 """
 
 import dataclasses
@@ -276,13 +281,164 @@ def test_orphaned_tmp_files_are_swept(tmp_path):
 
 
 def test_sharded_and_orbax_paths_name_their_roadmap_item(tmp_path):
-    for call in (lambda: tckpt.save_pytree_sharded(str(tmp_path / "s"), {}),
-                 lambda: tckpt.load_pytree_sharded(str(tmp_path / "s")),
-                 lambda: tckpt.OrbaxCheckpointManager(str(tmp_path / "o")),
-                 lambda: tckpt.CheckpointManager(str(tmp_path / "c"),
-                                                 cluster=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            call()
+    """The paths that were ROADMAP A7 stubs work on one process: a
+    sharded save without a mesh is one writer's whole leaves and restores
+    bit for bit (with and without a template, bf16 as raw V2 records),
+    the DCP-backed manager keeps the reference's surface, and a manager
+    over a one-member cluster keeps the single-process layout."""
+    tree = _torch_tree(4)
+    tree["h"] = torch.arange(6, dtype=torch.float32).to(torch.bfloat16)
+    files = tckpt.save_pytree_sharded(str(tmp_path / "s"), tree, {"m": 2})
+    assert set(files) == {"index.json", "shards_p0.json", "shards_p0.npz"}
+    back, meta = tckpt.load_pytree_sharded(str(tmp_path / "s"), like=tree)
+    assert meta == {"m": 2}
+    _assert_bitwise(_to(back, lambda t: t.float() if t.dtype ==
+                        torch.bfloat16 else t),
+                    _to(tree, lambda t: t.float() if t.dtype ==
+                        torch.bfloat16 else t))
+    assert back["h"].dtype == torch.bfloat16
+    raw, _ = tckpt.load_pytree_sharded(str(tmp_path / "s"))
+    assert raw["h"].dtype == np.dtype("V2")
+    np.testing.assert_array_equal(raw["b"], tree["b"].numpy())
+
+    orbax = tckpt.OrbaxCheckpointManager(str(tmp_path / "o"), max_to_keep=2)
+    for step in (1, 2, 3):
+        orbax.save(step, _torch_tree(step), {"step": step})
+    assert orbax.all_steps() == [2, 3] and orbax.latest_step() == 3
+    got, meta = orbax.restore(like=_torch_tree(0))
+    assert meta == {"step": 3}
+    _assert_bitwise(got, _torch_tree(3))
+    flat, _ = orbax.restore(step=2)
+    np.testing.assert_array_equal(flat["b"].numpy(), _torch_tree(2)["b"])
+    orbax.close()
+    with pytest.raises(FileNotFoundError):
+        tckpt.OrbaxCheckpointManager(str(tmp_path / "none")).restore()
+
+    from deeplearning4j_tpu_torch.parallel import multihost
+    mgr = tckpt.CheckpointManager(str(tmp_path / "c"),
+                                  cluster=multihost.local_cluster())
+    mgr.save(5, tree)
+    assert sorted(os.listdir(tmp_path / "c")) == [
+        "ckpt_5.npz", "ckpt_5.npz.json", "ckpt_5.npz.manifest.json"]
+
+
+# -- sharded checkpoints across the packages (reference :191-402) --------------
+
+def _sharded_np():
+    rng = np.random.default_rng(7)
+    return {"w": rng.standard_normal((8, 12)).astype(np.float32),
+            "b": rng.standard_normal(12).astype(np.float32),
+            "e": rng.standard_normal((6, 4)).astype(np.float32),
+            "n": np.asarray(3, np.int32)}
+
+
+def _jax_sharded(tree_np, model: int):
+    """The tree on JAX's ``data=8/model x model`` mesh of the 8 CPU
+    devices, laid out by ``test_torch_mesh.SHARDED_SPECS``."""
+    from jax.sharding import NamedSharding, PartitionSpec as JP
+
+    from test_torch_mesh import SHARDED_SPECS
+    jmesh = make_mesh(MeshSpec(data=8 // model, model=model))
+    out = {}
+    for k, v in tree_np.items():
+        spec = SHARDED_SPECS[k]
+        axes = [None] * v.ndim
+        if spec is not None:
+            axes[spec[1]] = spec[0]
+        out[k] = jax.device_put(v, NamedSharding(jmesh, JP(*axes)))
+    return out
+
+
+def test_sharded_checkpoints_cross_packages_and_meshes(tmp_path):
+    """JAX's per-process save of a ``data=2 x model=4`` tree restores
+    through the port's ``load_pytree_sharded`` on four ``data=2 x
+    model=2`` gloo ranks (each rank assembling its own slice), equal to
+    the values; the four ranks' own save (replicas written once, by data
+    index 0) restores through JAX's ``load_pytree_sharded`` onto
+    ``data=4 x model=2`` and, whole, in the port; the DCP-backed manager
+    saves each rank's block and restores it, and whole on one process."""
+    from test_torch_mesh import run_ranks, sharded_ckpt_rank
+
+    tree_np = _sharded_np()
+    jax_dir = str(tmp_path / "jax")
+    jckpt.save_pytree_sharded(jax_dir, _jax_sharded(tree_np, 4),
+                              {"tag": "jax"})
+    port_dir, orbax_dir = str(tmp_path / "port"), str(tmp_path / "orbax")
+    ranks = run_ranks(sharded_ckpt_rank, 4, tmp_path, tree_np, jax_dir,
+                      port_dir, orbax_dir)
+    for r, res in enumerate(ranks):
+        assert res["meta"] == {"tag": "jax"}
+        for k in tree_np:
+            np.testing.assert_array_equal(res["from_jax"][k],
+                                          res["local"][k], err_msg=k)
+            np.testing.assert_array_equal(res["orbax"][k],
+                                          res["local"][k], err_msg=k)
+        assert res["orbax_meta"] == {"k": 1}
+        # data index 1 holds replicas only: it writes no piece
+        table = json.loads((tmp_path / "port" /
+                            f"shards_p{r}.json").read_text())
+        assert (len(table) > 0) == (res["coords"]["data"] == 0), table
+    idx = json.loads((tmp_path / "port" / "index.json").read_text())
+    assert idx["format"] == 2 and idx["writers"] == [0, 1, 2, 3]
+    assert idx["shapes"] == [[12], [6, 4], [], [8, 12]]
+    like = jax.tree.map(jnp.zeros_like, _jax_sharded(tree_np, 2))
+    back, meta = jckpt.load_pytree_sharded(port_dir, like)
+    assert meta == {"tag": "port"}
+    for k in tree_np:
+        np.testing.assert_array_equal(np.asarray(back[k]), tree_np[k])
+        assert back[k].sharding == like[k].sharding
+    whole, _ = tckpt.load_pytree_sharded(port_dir)
+    for k in tree_np:
+        np.testing.assert_array_equal(whole[k], tree_np[k])
+    mgr = tckpt.OrbaxCheckpointManager(orbax_dir)
+    assert mgr.all_steps() == [1]
+    flat, meta = mgr.restore()
+    assert meta == {"k": 1}
+    for k in ("w", "b", "e"):
+        np.testing.assert_array_equal(flat[k].numpy(), tree_np[k])
+    got, _ = mgr.restore(like={k: torch.zeros(v.shape, dtype=torch.float32
+                                              if v.dtype == np.float32
+                                              else torch.int32)
+                               for k, v in tree_np.items()})
+    for k in tree_np:
+        np.testing.assert_array_equal(got[k].numpy(), tree_np[k])
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sharded_missing_shard_and_coverage_are_hard_errors(tmp_path,
+                                                             writer):
+    """Both packages refuse, alike (reference test_checkpoint.py:302 and
+    checkpoint.py:330-364): an index naming a writer whose files are
+    missing, and a piece table that no longer covers a leaf.  (The
+    reference's :302 edits ``n_procs`` alone, which an index that names
+    its ``writers`` ignores: the writers are edited here.)"""
+    tree_np = {"w": np.arange(8.0, dtype=np.float32),
+               "v": np.ones((2, 3), np.float32)}
+    p = str(tmp_path / "s")
+    if writer == "jax":
+        jckpt.save_pytree_sharded(p, jax.tree.map(jnp.asarray, tree_np))
+    else:
+        tckpt.save_pytree_sharded(p, {k: torch.from_numpy(v)
+                                      for k, v in tree_np.items()})
+    idx_path = os.path.join(p, "index.json")
+    idx = json.load(open(idx_path))
+    idx["n_procs"], idx["writers"] = 2, [0, 1]
+    json.dump(idx, open(idx_path, "w"))
+    tpl_t = {k: torch.zeros(v.shape) for k, v in tree_np.items()}
+    for load in (lambda: jckpt.load_pytree_sharded(p, tree_np),
+                 lambda: tckpt.load_pytree_sharded(p, tpl_t)):
+        with pytest.raises(FileNotFoundError, match="incomplete"):
+            load()
+    idx["n_procs"], idx["writers"] = 1, [0]
+    json.dump(idx, open(idx_path, "w"))
+    table_path = os.path.join(p, "shards_p0.json")
+    table = json.load(open(table_path))
+    table.pop(sorted(table)[0])
+    json.dump(table, open(table_path, "w"))
+    for load in (lambda: jckpt.load_pytree_sharded(p, tree_np),
+                 lambda: tckpt.load_pytree_sharded(p, tpl_t)):
+        with pytest.raises(ValueError, match="incomplete coverage"):
+            load()
 
 
 # -- the async writer ------------------------------------------------------------

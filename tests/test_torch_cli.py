@@ -17,11 +17,16 @@ Iris CSV written to ``tmp_path``:
   package's ``_gpt_load_npz`` and a JAX-written npz in the port's
   ``generate --params``, and both packages give the same greedy text
   (fp32);
-- the stubs: more than one process exits naming ROADMAP A7, and without
-  a card the default ``--device cuda`` exits with one line.
+- ``train`` over two processes (``--coordinator file://...
+  --num-processes 2 --process-id k``): both join one gloo group, train
+  through ``ResilientFit`` on the data mesh and commit cluster snapshots;
+  without ``--checkpoint-dir`` more than one process exits with the
+  reference's message, and without a card the default ``--device cuda``
+  exits with one line.
 Predictions across the packages are compared as classes (argmax), equal.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -127,10 +132,23 @@ def test_telemetry_journal_summary(iris):
 
 
 def test_stubs_name_their_roadmap_items(iris):
+    """Multi-process ``train`` (ROADMAP A7, now ported) keeps the
+    reference's refusals: without ``--checkpoint-dir`` more than one
+    process exits with its message, and a partial launcher trio names
+    both spellings; without a card the default ``--device cuda`` exits
+    with one line."""
     multi = _cli("train", "--input", "iris.csv", "--conf", "conf.json",
                  "--output", "m.bin", "--device", "cpu", "--num-processes",
-                 "2", cwd=iris, check=False)
-    assert multi.returncode == 1 and "ROADMAP A7" in multi.stderr
+                 "2", "--process-id", "0", "--coordinator",
+                 f"file://{iris}/rdv", cwd=iris, check=False)
+    assert multi.returncode == 1 and "multi-process training requires " \
+        "--checkpoint-dir" in multi.stderr
+    assert "Traceback" not in multi.stderr
+    partial = _cli("train", "--input", "iris.csv", "--conf", "conf.json",
+                   "--output", "m.bin", "--device", "cpu", "--num-processes",
+                   "2", cwd=iris, check=False)
+    assert partial.returncode == 1 and "partial cluster wiring" in \
+        partial.stderr and "DL4J_TPU_PROCESS_ID" in partial.stderr
     if not torch.cuda.is_available():
         card = _cli("test", "--input", "iris.csv", "--model", "m.bin",
                     cwd=iris, check=False)
@@ -222,3 +240,37 @@ def test_cli_imports_no_jax():
                          timeout=120)
     assert res.returncode == 0 and res.stdout.startswith("ok"), \
         res.stdout + res.stderr
+
+
+def test_two_process_train_commits_cluster_snapshots(iris):
+    """Two ``train`` processes join one group (the line "joined cluster:
+    process k of 2"), train on the data mesh of both and commit cluster
+    snapshots whose manifest names both members; each writes its model
+    file."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "train",
+         "--input", "iris.csv", "--conf", "conf.json", "--output",
+         f"m{k}.bin", "--batch", "30", "--device", "cpu", "--epochs", "2",
+         "--checkpoint-dir", "ck", "--checkpoint-every", "4",
+         "--coordinator", f"file://{iris}/rdv", "--num-processes", "2",
+         "--process-id", str(k)], cwd=str(iris), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for k, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err[-2000:]
+        assert f"joined cluster: process {k} of 2" in out
+        assert "train accuracy:" in out and (iris / f"m{k}.bin").exists()
+    manifests = sorted((iris / "ck").glob("ckpt_*.npz.manifest.json"))
+    assert manifests
+    man = json.loads(manifests[-1].read_text())
+    assert man["cluster"] == {"layout": "replicated", "members": [0, 1],
+                              "coordinator": 0}

@@ -69,10 +69,12 @@ def _rank_entry(rank: int, world: int, rdv: str, fn, args, out: str):
         pickle.dump(payload, f)
 
 
-def run_ranks(fn, world: int, tmp_path, *args, deadline: float = DEADLINE_S):
+def run_ranks(fn, world: int, tmp_path, *args, deadline: float = DEADLINE_S,
+              dies=()):
     """``fn(mesh, *args)`` on each rank of a fresh ``world``-rank gloo
     group, killed after ``deadline`` seconds; the list of their results,
-    by rank."""
+    by rank.  A rank of ``dies`` must end killed by SIGKILL (its result
+    is None); any other rank that dies fails the test."""
     ctx = multiprocessing.get_context("spawn")
     rdv = str(tmp_path / f"rdv-{fn.__name__}")
     outs = [str(tmp_path / f"{fn.__name__}-rank{r}.pkl") for r in range(world)]
@@ -96,6 +98,12 @@ def run_ranks(fn, world: int, tmp_path, *args, deadline: float = DEADLINE_S):
                     f"{deadline} s: killed")
     results = []
     for r, (p, out) in enumerate(zip(procs, outs)):
+        if r in dies:
+            if p.exitcode != -9:
+                pytest.fail(f"rank {r} of {fn.__name__} was to be killed, "
+                            f"but exited with {p.exitcode}")
+            results.append(None)
+            continue
         if not os.path.exists(out):
             pytest.fail(f"rank {r} of {fn.__name__} exited with "
                         f"{p.exitcode} and no result")
@@ -477,6 +485,324 @@ def bert_sp_rank(mesh0, params_np, batch_np, spec):
 # tests
 # ---------------------------------------------------------------------------
 
+# -- elastic recovery and the control plane (test_torch_elastic.py,
+# test_torch_multihost.py) ---------------------------------------------------
+
+def elastic_batches(n_batches: int = 4, rows: int = 16):
+    """The reference test_async_checkpoint.py's ``_batches``: ``[(x [rows,
+    4] fp32, y [rows, 3] one-hot)]`` from ``RandomState(0)``."""
+    rng = np.random.RandomState(0)
+    return [(rng.randn(rows, 4).astype(np.float32),
+             np.eye(3, dtype=np.float32)[rng.randint(0, 3, rows)])
+            for _ in range(n_batches)]
+
+
+def _elastic_fit(mesh, p0, fault, ckdir, cluster, epochs, every,
+                 hb_timeout_s=5.0, cluster_timeout_s=30.0, sync=False,
+                 shuffle=True):
+    """One ResilientFit of the reference MLP from carried params; the
+    fit's outcome and the trained params."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import configuration as tconf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.params import params_from_numpy
+    from deeplearning4j_tpu_torch.parallel import chaos
+    from deeplearning4j_tpu_torch.runtime.metrics import checkpoint_metrics
+    from deeplearning4j_tpu_torch.runtime.resilience import (
+        ResilienceConfig, ResilientFit)
+
+    net = MultiLayerNetwork(dense_conf(tconf),
+                            params=params_from_numpy(p0, "cpu"),
+                            device="cpu")
+    hook = fault
+    if isinstance(fault, tuple) and fault[0] == "device":
+        hook = chaos.DeviceLossChaos(fault[1], fault[2])
+    elif isinstance(fault, tuple):
+        hook = chaos.HostLossChaos(fault[1], fault[2], n_hosts=fault[3],
+                                   mesh=mesh)
+    drv = ResilientFit(net, ResilienceConfig(
+        checkpoint_dir=ckdir, checkpoint_every=every,
+        cluster_timeout_s=cluster_timeout_s, hb_interval_s=0.2,
+        hb_timeout_s=hb_timeout_s, sync=sync, shuffle=shuffle), mesh=mesh,
+        fault_hook=hook,
+        cluster=cluster)
+    checkpoint_metrics.reset()
+    drv.fit([DataSet(x, y) for x, y in elastic_batches()],
+            num_epochs=epochs, seed=7)
+    m = drv.mesh
+    return {"evicted": drv.evicted, "remeshes": drv.remeshes,
+            "preempted": drv.preempted, "steps_run": drv.steps_run,
+            "elastic_accum": drv.elastic_accum,
+            "conf_accum": net.conf.grad_accum,
+            "shape": None if m is None else dict(m.shape),
+            "ranks": None if m is None else list(m.ranks),
+            "members": None if drv.cluster is None
+            else list(drv.cluster.members),
+            "generation": None if drv.cluster is None
+            else drv.cluster.generation,
+            "params": net.params_flat().numpy(),
+            "device_losses": checkpoint_metrics.count("device_losses"),
+            "elastic_resumes": checkpoint_metrics.count("elastic_resumes"),
+            "restore_fallbacks": checkpoint_metrics.count(
+                "restore_fallbacks"),
+            "recovery": drv.last_recovery,
+            "latest": drv.manager.latest_step()}
+
+
+def elastic_rank(mesh0, spec, p0, fault, tmp, cluster=False, epochs=3,
+                 every=3):
+    """test_torch_elastic.py: on a mesh of ``spec``, the uninterrupted
+    ResilientFit (``shuffle=False``, as the JAX comparison needs), then
+    the same fit with ``fault`` (``("device", at, ranks)`` or
+    ``("host", at, index, n_hosts)``), each into a fresh directory under
+    ``tmp``; with ``cluster`` over the group's store."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+
+    out = {}
+    for key, f in (("ref", None), ("drill", fault)):
+        mesh = tmesh.make_mesh(tmesh.MeshSpec(**spec))
+        cl = (multihost.Cluster(torch.distributed.get_rank(),
+                                range(torch.distributed.get_world_size()),
+                                multihost.StoreKV(), namespace=key)
+              if cluster else None)
+        out[key] = _elastic_fit(mesh, p0, f, os.path.join(tmp, key), cl,
+                                epochs, every, shuffle=False)
+    return out
+
+
+def elastic_refusal_rank(mesh0, p0, tmp):
+    """test_torch_elastic.py: lost ids none of which is in the ``data=2``
+    mesh (a stale detector) re-raise on every rank, with no re-mesh."""
+    from deeplearning4j_tpu_torch.runtime.metrics import checkpoint_metrics
+    from deeplearning4j_tpu_torch.runtime.resilience import DeviceLossError
+
+    try:
+        _elastic_fit(tmesh.make_mesh(), p0, ("device", 2, [97]), tmp, None,
+                     2, 3)
+        raised = None
+    except DeviceLossError as e:
+        raised = list(e.lost_ids)
+    return {"raised": raised,
+            "elastic_resumes": checkpoint_metrics.count("elastic_resumes")}
+
+
+def elastic_corrupt_rank(mesh0, p0, tmp):
+    """test_torch_elastic.py: rank 0 corrupts the newest on-disk snapshot
+    after step 7's boundary is reached, then every rank of ``data=2 x
+    model=2`` reports ranks 2 and 3 lost: the restore falls back one
+    step (sync snapshots, so the newest is committed when it is hit)."""
+    from deeplearning4j_tpu_torch.runtime.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.runtime.resilience import DeviceLossError
+
+    rank = torch.distributed.get_rank()
+
+    class CorruptThenLose:
+        fired = False
+
+        def __call__(self, step):
+            if step >= 7 and not self.fired:
+                self.fired = True
+                if rank == 0:
+                    mgr = CheckpointManager(tmp)
+                    with open(mgr._path(mgr.latest_step()), "r+b") as f:
+                        f.seek(12)
+                        f.write(b"\xba\xad")
+                raise DeviceLossError([2, 3])
+
+    mesh = tmesh.make_mesh(tmesh.MeshSpec(data=2, model=2))
+    return _elastic_fit(mesh, p0, CorruptThenLose(), tmp, None, 3, 3,
+                        sync=True)
+
+
+def survivor_groups_rank(mesh0):
+    """test_torch_elastic.py: rank 2 of three is SIGKILLed; the others'
+    collective over the old group fails at once, and ``make_mesh(...,
+    ranks=[0, 1])`` builds their groups without it (gloo, a file
+    rendezvous), whose model-axis sum then runs."""
+    import signal
+
+    rank = torch.distributed.get_rank()
+    x = torch.ones(3)
+    torch.distributed.all_reduce(x)
+    if rank == 2:
+        os.kill(os.getpid(), signal.SIGKILL)
+    time.sleep(0.5)
+    t0 = time.monotonic()
+    try:
+        torch.distributed.all_reduce(x)
+        failed = None
+    except RuntimeError as e:
+        failed = (type(e).__name__, time.monotonic() - t0)
+    mesh = tmesh.make_mesh(tmesh.MeshSpec(data=1, model=2), ranks=[0, 1])
+    y = tcol.psum(torch.full((2,), float(rank + 1)), (mesh, "model"))
+    z = tcol.psum(torch.full((1,), 3.0), mesh)
+    return {"failed": failed, "mesh": repr(mesh), "ranks": mesh.ranks,
+            "model_sum": y.tolist(), "data_sum": z.tolist()}
+
+
+def elastic_lm_rank(mesh0, params_np, ids, tmp):
+    """test_torch_elastic.py: a tiny CausalLM GPT (fp32, momentum) on
+    ``data=2 x model=2`` under ``ResilientFit(cluster=)`` with a snapshot
+    every 2 steps, uninterrupted and then with ranks 2 and 3 lost at step
+    5; the drill's snapshot files and its gathered params."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import lm_fit
+    from deeplearning4j_tpu_torch.ops.updaters import tree_map
+    from deeplearning4j_tpu_torch.parallel import chaos, multihost
+    from deeplearning4j_tpu_torch.runtime.resilience import (
+        ResilienceConfig, ResilientFit)
+
+    out = {}
+    for key, hook in (("ref", None),
+                      ("drill", chaos.DeviceLossChaos(5, [2, 3]))):
+        mesh = tmesh.make_mesh(tmesh.MeshSpec(data=2, model=2))
+        cl = multihost.Cluster(torch.distributed.get_rank(), range(4),
+                               multihost.StoreKV(), namespace=key)
+        lm = lm_fit.CausalLM(axes_lm_cfg(), lr=0.05, momentum=0.9,
+                             device="cpu")
+        lm.params = tree_map(torch.from_numpy, params_np)
+        ck = os.path.join(tmp, key)
+        drv = ResilientFit(lm, ResilienceConfig(
+            checkpoint_dir=ck, checkpoint_every=2, shuffle=False,
+            cluster_timeout_s=30), mesh=mesh, fault_hook=hook, cluster=cl)
+        drv.fit([DataSet(x, x) for x in ids], num_epochs=2, seed=3)
+        out[key] = {"evicted": drv.evicted,
+                    "elastic_accum": drv.elastic_accum,
+                    "shape": None if drv.mesh is None
+                    else dict(drv.mesh.shape),
+                    "params": lm.params_flat().numpy(),
+                    "recovery": drv.last_recovery,
+                    "files": sorted(
+                        os.path.relpath(os.path.join(d, f), ck)
+                        for d, _, fs in os.walk(ck) for f in fs)}
+    return out
+
+
+def control_plane_rank(mesh0):
+    """test_torch_multihost.py: the store-backed control plane across
+    real rank processes (the reference's :733 body), and its timeout."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+
+    pid = torch.distributed.get_rank()
+    cluster = multihost.active_cluster(timeout_s=30)
+    out = {"count": cluster.process_count, "pid": cluster.process_id}
+    cluster.barrier("t1")
+    out["flag1"] = cluster.any_flag(pid == 1)
+    out["flag0"] = cluster.any_flag(False)
+    out["gather"] = cluster.gather("blob%d" % pid, "tbl")
+    out["agreed"] = cluster.agree_lost_ids([pid * 10 + 1])
+    out["exchange"] = cluster.exchange(str(pid * 2), "ex")
+    out["broadcast"] = cluster.broadcast("from%d" % pid, "bc")
+    cluster.barrier("t2")
+    if pid == 0:
+        # rank 1 never publishes this tag: a typed timeout
+        t0 = time.monotonic()
+        try:
+            cluster.barrier("alone", timeout_s=0.3)
+            out["timeout"] = None
+        except multihost.ClusterSyncTimeout as e:
+            out["timeout"] = (type(e).__name__, time.monotonic() - t0)
+    cluster.barrier("t3")
+    return out
+
+
+def _mh_fault(pid: int, kind: str, at: int):
+    """Rank 1's drill hook: SIGTERM (a preemption notice) or SIGKILL (a
+    host that says nothing) to itself at step ``at``, before the step's
+    collectives."""
+    import signal
+
+    def hook(step):
+        if pid == 1 and step == at:
+            os.kill(os.getpid(), signal.SIGTERM if kind == "sigterm"
+                    else signal.SIGKILL)
+            if kind == "sigterm":
+                time.sleep(0.05)        # the handler runs
+    return hook
+
+
+def multihost_fit_rank(mesh0, p0, tmp, kind):
+    """test_torch_multihost.py: the reference MLP under ResilientFit on a
+    ``data=2`` mesh with the store-backed cluster, rank 1 sending itself
+    SIGTERM (``kind="sigterm"``, at step 5 of 100) or SIGKILL
+    (``"kill"``, at step 5 of 16); the survivor of a kill then runs the
+    uninterrupted ``mesh=None``, ``grad_accum=2`` fit of the same
+    effective batch in this process for the bit comparison."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import configuration as tconf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.params import params_from_numpy
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.runtime.resilience import (
+        ResilienceConfig, ResilientFit)
+
+    pid = torch.distributed.get_rank()
+    cluster = multihost.active_cluster()
+    epochs = 25 if kind == "sigterm" else 4
+    out = _elastic_fit(tmesh.make_mesh(), p0,
+                       _mh_fault(pid, kind, 5), os.path.join(tmp, kind),
+                       cluster, epochs, 3, hb_timeout_s=1.5,
+                       cluster_timeout_s=10.0)
+    if kind == "kill":
+        net = MultiLayerNetwork(dense_conf(tconf, accum=2),
+                                params=params_from_numpy(p0, "cpu"),
+                                device="cpu")
+        ResilientFit(net, ResilienceConfig(
+            checkpoint_dir=os.path.join(tmp, "ref"),
+            checkpoint_every=3)).fit(
+                [DataSet(x, y) for x, y in elastic_batches()],
+                num_epochs=epochs, seed=7)
+        out["ref_params"] = net.params_flat().numpy()
+    return out
+
+
+#: the sharded-checkpoint tests' layout (test_torch_checkpoint.py): a
+#: column-split matrix, a split vector, a replicated matrix, a scalar
+SHARDED_SPECS = {"w": ("model", 1), "b": ("model", 0), "e": None, "n": None}
+
+
+def sharded_specs():
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import P
+
+    out = {}
+    for k, v in SHARDED_SPECS.items():
+        if v is None:
+            out[k] = None
+        else:
+            axes = [None] * (v[1] + 1)
+            axes[v[1]] = v[0]
+            out[k] = P(*axes)
+    return out
+
+
+def sharded_ckpt_rank(mesh0, tree_np, jax_dir, port_dir, orbax_dir):
+    """test_torch_checkpoint.py on ``data=2 x model=2``: the JAX-written
+    sharded checkpoint restored into this rank's layout, the port's own
+    per-rank save of the same tree, and the DCP-backed manager's save and
+    same-layout restore."""
+    from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
+    from deeplearning4j_tpu_torch.runtime import checkpoint as tckpt
+
+    mesh = tmesh.make_mesh(tmesh.MeshSpec(data=2, model=2))
+    specs = sharded_specs()
+    glob = {k: torch.from_numpy(np.array(v)) for k, v in tree_np.items()}
+    local = tpar.shard_tree(glob, specs, mesh)
+    zeros = {k: torch.zeros_like(v) for k, v in local.items()}
+    got, meta = tckpt.load_pytree_sharded(jax_dir, like=zeros, mesh=mesh,
+                                          specs=specs)
+    out = {"coords": dict(mesh.coords), "meta": meta,
+           "from_jax": {k: v.numpy() for k, v in got.items()},
+           "local": {k: v.numpy() for k, v in local.items()}}
+    out["files"] = tckpt.save_pytree_sharded(
+        port_dir, local, {"tag": "port"}, mesh=mesh, specs=specs)
+    mgr = tckpt.OrbaxCheckpointManager(orbax_dir, mesh=mesh, specs=specs)
+    mgr.save(1, local, {"k": 1})
+    back, meta = mgr.restore(like=zeros)
+    out["orbax"] = {k: v.numpy() for k, v in back.items()}
+    out["orbax_meta"] = meta
+    return out
+
+
 def _fake_mesh(n: int) -> tmesh.Mesh:
     """A port ``Mesh`` of ``n`` data ranks without a group: enough for
     the helpers that read only ``shape``."""
@@ -565,8 +891,10 @@ def test_non_data_axes_and_elastic_helpers_raise_naming_a7():
     """Every axis of the reference's MeshSpec is carried: the pipe and
     seq axes pass ``check_mesh_axes`` and the step builders, and a
     collective over an axis of one is this rank alone; an axis named
-    without its mesh has no group, an unknown axis is refused, and the
-    elastic helpers raise naming ROADMAP A7.3."""
+    without its mesh has no group, an unknown axis is refused.  The
+    elastic helpers (ROADMAP A7.3, now ported) plan over any mesh's
+    shape and ranks; building the smaller mesh needs a process group
+    (``test_torch_elastic.py`` builds them on gloo ranks)."""
     for axis in ("model", "pipe", "seq", "expert"):
         m = _fake_mesh(1)
         m.shape[axis] = 2
@@ -589,10 +917,15 @@ def test_non_data_axes_and_elastic_helpers_raise_naming_a7():
     with pytest.raises(ValueError, match="pass the mesh"):
         tsf.build_sharded_step(lambda *a: a, None, label="x",
                                param_specs={"w": None})
+    assert tmesh.surviving_devices(_fake_mesh(4), [1, 3]) == [0, 2]
+    assert tmesh.elastic_plan(_fake_mesh(2).shape, (0, 1), [1]) == \
+        (None, [0], 2)
+    with pytest.raises(tmesh.RemeshError, match="no survivors"):
+        tmesh.elastic_plan(_fake_mesh(2).shape, (0, 1), [0, 1])
     for call in (lambda: tmesh.elastic_remesh(_fake_mesh(2), [1]),
-                 lambda: tmesh.surviving_devices(_fake_mesh(2), [1]),
                  lambda: tmesh.auto_data_mesh(devices=[0, 1])):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7.3"):
+        with pytest.raises((RuntimeError, ValueError),
+                           match="process group|not been initialized"):
             call()
     assert tmesh.model_degree(None) == tmesh.pipe_degree(None) == 1
     assert tmesh.expert_degree(_fake_mesh(2)) == tmesh.seq_degree(None) == 1

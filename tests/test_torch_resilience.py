@@ -341,6 +341,12 @@ def test_new_seed_reshuffles_and_rollback_redraws(tmp_path):
 
 
 def test_unported_paths_name_roadmap_a7(tmp_path):
+    """What was ROADMAP A7 here is ported: a one-member cluster trains as
+    one process does and a device loss without a mesh re-raises the
+    DeviceLossError (the elastic paths are test_torch_elastic.py's).  The
+    data-service input still raises, naming A7.4."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+
     net = _net(1)
     cfg = ResilienceConfig(checkpoint_dir=str(tmp_path))
     # every axis of the reference's MeshSpec is taken (the pipe and seq
@@ -348,17 +354,24 @@ def test_unported_paths_name_roadmap_a7(tmp_path):
     bad_mesh = types.SimpleNamespace(shape={"data": 1, "rows": 2})
     with pytest.raises(ValueError, match="the axes are"):
         ResilientFit(net, cfg, mesh=bad_mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ResilientFit(net, cfg, cluster=object())
+    solo = ResilientFit(_net(1), ResilienceConfig(
+        checkpoint_dir=str(tmp_path / "c"), checkpoint_every=2),
+        cluster=multihost.local_cluster())
+    solo.fit(_batches(2), num_epochs=2)
+    plain = _net(1)
+    ResilientFit(plain, ResilienceConfig(
+        checkpoint_dir=str(tmp_path / "p"), checkpoint_every=2)).fit(
+            _batches(2), num_epochs=2)
+    assert torch.equal(solo.net.params_flat(), plain.params_flat())
 
     def lose(step):
         if step == 1:
             raise resilience.DeviceLossError([0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(resilience.DeviceLossError):
         ResilientFit(net, ResilienceConfig(
             checkpoint_dir=str(tmp_path / "a")), fault_hook=lose).fit(
                 _batches(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7.4"):
         ResilientFit(net, ResilienceConfig(
             checkpoint_dir=str(tmp_path / "b"),
             data_service=True)).fit(_batches(2))
