@@ -269,9 +269,9 @@ Phases, each fatal on failure:
    against CPU: LeNet (phase 9's conf and seeded batches) with bf16
    mixed precision (losses 5e-2) and with grad_accum=2 (1e-4), and a
    conv + batch-norm conf's running statistics through bn_collective
-   (1e-4); (7) ResilientFit over GPT-2 small bf16, 10 steps, a snapshot
-   every 4, a slice stopped after 6 and resumed: torch.equal to the
-   uninterrupted run, no capture after the warm-up; (8) fp32 depth 2,
+   (1e-4); (7) ResilientFit over GPT-2 small bf16 at depth 2, 10 steps,
+   a snapshot every 4, a slice stopped after 6 and resumed: torch.equal
+   to the uninterrupted run, no capture after the warm-up; (8) fp32 depth 2,
    T=256, 3 steps, the kernels on the card against plain attention on
    the CPU (params' relative L2 1e-4).  B1-B3 launches of parts 1 and 5
    join the kernels line.
@@ -366,7 +366,7 @@ Phases, each fatal on failure:
    B=8 T=1024, SGD 0.05 with momentum 0.9: at depth 2 in fp32 over 3
    seeded batches the gathered params within 1e-5 relative L2 of
    mesh=None's (torch.equal printed), and a control, the tied
-   embedding's sum over pipe left out, above it; at full depth in bf16
+   embedding's sum over pipe left out, above it; at depth 6 in bf16
    mixed precision, one batch x 3: each step's loss within 2e-2, a
    rank's block bytes 0.45-0.55 of all the blocks', step ms, every
    collective's calls and bytes by kind and gloo's share of one step
@@ -444,6 +444,34 @@ Phases, each fatal on failure:
    the word2vec and GloVe fits within 1e-5 relative L2 of mesh=None's
    (B4 and B5 sum with atomics: mesh=None run twice is printed beside).
    The ranks' B1-B5 launches join the kernels line.
+24. The scale-out runtime, every number beside the card's name and power
+   limit: (a) GPT-2 small (full width and depth, bf16, seeded weights)
+   served by two gloo rank processes sharing the card, on data=1 x
+   pipe=2 and then data=1 x seq=2, DecodeEngine(n_slots=8) under
+   ContinuousBatcher (rank 0 leads, rank 1 follows its schedule), the
+   first 8 requests of phase 10's seeded burst: each rank's tokens
+   (recorded on the leader and the follower alike) equal to a mesh=None
+   engine's here on the same weights, each rank holding the whole
+   served tree; seconds for the burst, B1 launches, weight and KV bytes
+   a rank; (b) train_word2vec_distributed (phase 7's text8 config) and
+   train_glove_distributed (phase 8's) over 2 in-process workers and 4
+   shards: B4 / B5 launch once a chunk, no job failed or dropped, the
+   averaged tables within SC_W2V_TOL / SC_GLOVE_TOL relative L2 of the
+   same two rounds run by one worker, words/s and triples/s and how far
+   the workers' jobs overlap; (c) MultiProcessRunner with 2 spawned
+   worker processes on the card (MultiLayerNetworkPerformer, phase 9's
+   LeNet conf, 4 jobs of 512 data/mnist images): one worker SIGKILLed
+   0.2 s into its first job, the reaper requeues it, the run finishes
+   with finite averaged params above chance on the 512-image test
+   split; join ms, kill-to-reap and reap-to-retake ms, bytes across the
+   wire a round; (d) HogwildTrainer with 2 threads on LeNet-MNIST: every
+   job processed, the held-out loss falls, and one worker is
+   torch.equal to a plain loop of the same steps (cuDNN deterministic);
+   (e) the word-count runner under chaos_factory(p_fail=0.25) gives the
+   clean run's counts, and a p_corrupt NaN hook's corruptions are each
+   rejected by the WorkAccumulator.  (a)'s ranks serve while this
+   process runs (a)'s reference and (b)-(e).  B1 launches of (a)'s
+   ranks and B4/B5 launches of (b)'s trainers join the kernels line.
 
 Each phase prints its seconds on a line of its own when it ends
 ("phase N: S s"), and the script prints every phase's seconds and its
@@ -490,6 +518,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -4452,20 +4481,30 @@ def fit_phase(torch, ln, card: str) -> None:
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
+    # part (6)'s subprocesses (the CLI) run beside parts 1-5, their lines
+    # printed after them (the parts' times are under that load)
+    from concurrent.futures import ThreadPoolExecutor
+    cli_lines = []
+    cli_pool = ThreadPoolExecutor(1)
     try:
         t = [time.perf_counter()]
+        cli = cli_pool.submit(cli_runs, torch, ln, tmp, cli_lines.append)
         for part in (lambda: lenet_fit(torch, ln, tmp, say),
                      lambda: dbn(torch, say),
                      lambda: hessian_free(torch, say),
-                     lambda: cli_runs(torch, ln, tmp, say)):
+                     cli.result):
             part()
             t.append(time.perf_counter())
+        for line in cli_lines:
+            say(line)
         wall = [b - a for a, b in zip(t, t[1:])]
         say(f"phase 13 wall: LeNet fit + resilient {wall[0]:.1f} s, DBN + "
-            f"AE + CG/L-BFGS {wall[1]:.1f} s, HF {wall[2]:.1f} s, CLI "
-            f"{wall[3]:.1f} s; peak memory "
+            f"AE + CG/L-BFGS {wall[1]:.1f} s, HF {wall[2]:.1f} s, the "
+            f"CLI's rest after them {wall[3]:.1f} s (it ran beside them); "
+            f"peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MB")
     finally:
+        cli_pool.shutdown()
         torch.backends.cudnn.deterministic = det
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5081,6 +5120,15 @@ def serving_scale_phase(torch, fa, fw, fg, card: str) -> dict:
         f"page pool {SMALL_POOL * gpt.PREFILL_CHUNK * kv_tok} B")
     for mod in (fa, fw, fg):
         mod.reset_launches()
+    # part 6's subprocesses (the CLI) run beside parts 1-5: they count
+    # their own launches, and they take the card and cores meanwhile
+    # (parts 1-5's times below are under that load); their lines print
+    # after part 5
+    from concurrent.futures import ThreadPoolExecutor
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-14-")
+    cli_lines = []
+    cli_pool = ThreadPoolExecutor(1)
+    cli_run = cli_pool.submit(cli_generate, torch, tmp, cli_lines.append)
     wall = []
     t0 = time.perf_counter()
     paged_against_pinned(torch, gpt, cfg, params, burst_requests(cfg), say)
@@ -5098,18 +5146,21 @@ def serving_scale_phase(torch, fa, fw, fg, card: str) -> dict:
     say(f"hand-kernel launches during parts 1-5: {hand} (no TPU kernel lies "
         f"on the decode paths)")
     check(not any(hand.values()), f"a hand kernel ran in parts 1-5: {hand}")
-    tmp = tempfile.mkdtemp(prefix="chip-smoke-14-")
     try:
-        launches = cli_generate(torch, tmp, say)
+        launches = cli_run.result()
     finally:
+        cli_pool.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
+    for line in cli_lines:
+        say(line)
     wall.append(time.perf_counter() - t0 - sum(wall))
     peak = (torch.cuda.max_memory_allocated() / 2 ** 20
             if SERVE_DEVICE == "cuda" else 0.0)
     say(f"phase 14 wall: paged vs pinned {wall[0]:.1f} s, prefix store "
         f"{wall[1]:.1f} s, speculative {wall[2]:.1f} s, rebind "
-        f"{wall[3]:.1f} s, router {wall[4]:.1f} s, CLI {wall[5]:.1f} s "
-        f"({sum(wall):.1f} s in all); peak memory {peak:.1f} MB")
+        f"{wall[3]:.1f} s, router {wall[4]:.1f} s, the CLI's rest after "
+        f"them {wall[5]:.1f} s ({sum(wall):.1f} s in all; the CLI ran "
+        f"beside parts 1-5); peak memory {peak:.1f} MB")
     return launches
 
 
@@ -6381,8 +6432,12 @@ SPINE_ACCUM_TOL = 1e-5
 SPINE_CARD_CPU_TOL = 1e-4
 SPINE_CARD_CPU_B, SPINE_CARD_CPU_T, SPINE_CARD_CPU_STEPS = 4, 256, 3
 #: ResilientFit: 10 steps (5 batches, 2 epochs), a snapshot every 4, the
-#: slice stopped after 6 and resumed
+#: slice stopped after 6 and resumed; GPT-2 small's widths at depth 2 (at
+#: 12 layers the part took 26 s of the script's clock, most of it writing
+#: and reading its gathered snapshots: the bit-equal resume is the same
+#: check at any depth)
 SPINE_RF_BATCHES, SPINE_RF_EVERY, SPINE_RF_KILL = 5, 4, 6
+SPINE_RF_DEPTH = 2
 SPINE_LENET_BATCHES = 4
 #: replays timed of the mesh-of-one step
 SPINE_MESH_TIMED = 5
@@ -6850,7 +6905,7 @@ def spine_resilient(torch, gpt, lm_fit, say) -> None:
     from deeplearning4j_tpu_torch.runtime.metrics import (checkpoint_metrics,
                                                           compile_metrics)
 
-    cfg = gpt.gpt_config()
+    cfg = dataclasses.replace(gpt.gpt_config(), n_layers=SPINE_RF_DEPTH)
     batches = spine_batches(spine_ids(cfg.vocab_size, SPINE_RF_BATCHES,
                                       SPINE_B, SPINE_T, seed=7))
     tmp = tempfile.mkdtemp(prefix="spine-rf-")
@@ -6879,8 +6934,8 @@ def spine_resilient(torch, gpt, lm_fit, say) -> None:
         resumed, rf2 = run("part", resume=True)
         caps = compile_metrics.compile_count - c0
         same = torch.equal(resumed.params_flat(), whole.params_flat())
-        say(f"ResilientFit over GPT-2 small CausalLM bf16, "
-            f"{2 * SPINE_RF_BATCHES} steps, a snapshot every "
+        say(f"ResilientFit over GPT-2 small CausalLM bf16 at depth "
+            f"{cfg.n_layers}, {2 * SPINE_RF_BATCHES} steps, a snapshot every "
             f"{SPINE_RF_EVERY}: slice of {rf.steps_run} steps then resume "
             f"of {rf2.steps_run}: equal to the uninterrupted run bit for "
             f"bit: {same}; captures after the warm-up {caps}; wall "
@@ -8759,9 +8814,12 @@ def expert_axis_phase(torch, fa, card: str) -> dict:
 PS_DEVICE = "cuda"
 #: (b)/(c) GPT-2 small (dropout 0): B=8 T=1024, SGD lr 0.05 momentum
 #: 0.9, 4 pipeline microbatches; depth 2 in fp32 over 3 seeded batches,
-#: full depth in bf16 mixed precision over one batch 3 times
+#: depth 6 in bf16 mixed precision over one batch 3 times (12 until the
+#: script's clock needed room: the losses' 2e-2 holds at any depth, and
+#: a seq=2 step took 4.9 s at 12)
 PS_B, PS_T, PS_STEPS, PS_LR, PS_MOM, PS_MICRO, PS_DEPTH_FP32 = \
     8, 1024, 3, 0.05, 0.9, 4, 2
+PS_DEPTH_BF16 = 6
 #: BERT-base MLM, bf16, dropout 0: B=32 T=128, 3 steps, 4 microbatches
 PS_BERT_B, PS_BERT_T, PS_BERT_STEPS, PS_BERT_MICRO = 32, 128, 3, 4
 #: (a) ring attention at GPT-2 small's attention: B, T, heads, D
@@ -8776,22 +8834,25 @@ PS_BLOCK_SHARE = (0.45, 0.55)
 def ps_settings() -> dict:
     return {"device": PS_DEVICE, "B": PS_B, "T": PS_T, "steps": PS_STEPS,
             "lr": PS_LR, "mom": PS_MOM, "micro": PS_MICRO,
-            "depth": PS_DEPTH_FP32, "bert_B": PS_BERT_B,
+            "depth": PS_DEPTH_FP32, "depth_bf16": PS_DEPTH_BF16,
+            "bert_B": PS_BERT_B,
             "bert_T": PS_BERT_T, "bert_steps": PS_BERT_STEPS,
             "bert_micro": PS_BERT_MICRO, "ring": PS_RING, "gpt": None,
             "bert": None}
 
 
 def ps_configs(gpt, bert, st):
-    """(GPT fp32 at (b)'s depth, GPT bf16 at full depth, BERT-base bf16),
-    all without dropout."""
+    """(GPT fp32 at (b)'s depth, GPT bf16 at PS_DEPTH_BF16 (the base's
+    depth when it is shallower), BERT-base bf16), all without dropout."""
     base = gpt.gpt_config() if st["gpt"] is None else st["gpt"]
     base = dataclasses.replace(base, dropout=0.0)
     shallow = dataclasses.replace(base, compute_dtype="float32",
                                   n_layers=st["depth"])
     bcfg = bert.bert_base() if st["bert"] is None else st["bert"]
-    return (shallow, dataclasses.replace(base, compute_dtype="bfloat16"),
-            dataclasses.replace(bcfg, dropout=0.0))
+    return (shallow, dataclasses.replace(
+        base, compute_dtype="bfloat16",
+        n_layers=min(base.n_layers, st["depth_bf16"])),
+        dataclasses.replace(bcfg, dropout=0.0))
 
 
 def ps_lm(lm_fit, cfg, st, **kw):
@@ -8994,7 +9055,7 @@ def ps_axis(torch, fa, res, key, mesh, st, tmp) -> None:
                    os.path.join(tmp, f"{key}-control-{rank}.pt"))
         del lm
 
-    # full depth, bf16
+    # depth PS_DEPTH_BF16, bf16
     one = ma_ids(deep.vocab_size, 1, st["B"], st["T"], 1)
     lm = ps_lm(lm_fit, deep, st, mixed_precision="bf16")
     step, _ = lm._backprop_machinery(mesh)
@@ -9802,7 +9863,8 @@ def recovery_phase(torch, fa, card: str) -> dict:
         f"(all-gather over model, {ad[0]['a_gather_ms']:.1f} ms) and "
         f"written by rank 0 as one npz ({ad[0]['a_gathered_write_ms']:.1f} "
         f"ms): {gathered_ms:.1f} ms; phase 17 (7)'s gathered GPT-2 small "
-        f"bf16 snapshots on the writer thread: {spine}")
+        f"bf16 snapshots at depth {SPINE_RF_DEPTH} on the writer thread: "
+        f"{spine}")
 
     # (b)
     gap = ma_rel(torch, flats["b_flat"], flats["b_ref"])
@@ -10601,6 +10663,654 @@ def dp_phase(torch, fa, fw, fg, card: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the scale-out runtime
+# ---------------------------------------------------------------------------
+
+SC_DEVICE = "cuda"
+#: (a) GPT-2 small (full width and depth, bf16, seeded weights) served on
+#: data=1 x pipe=2 and data=1 x seq=2 by two gloo ranks: the first 8
+#: requests of phase 10's seeded burst, 64 tokens each, n_slots 8
+SC_REQS, SC_SEED = 8, 24
+#: (b) word2vec (phase 7's text8 config, 3 epochs) and GloVe (phase 8's
+#: defaults) over 2 in-process workers and 4 shards, against the same two
+#: rounds run by one worker: relative L2 of the averaged tables.  B4 and B5
+#: sum a row's hits in the order their atomics hand out slots, so two runs
+#: of one fit part in the last bits (PERF.md section 6: mesh=None twice
+#: 1.2e-8 for word2vec, 1.1e-6-1.6e-6 for GloVe; this phase read
+#: 7.4e-9-7.8e-9 and 5.6e-7-6.5e-7 on the H100)
+SC_WORKERS, SC_SHARDS = 2, 4
+SC_W2V_TOL, SC_GLOVE_TOL = 5e-8, 2e-6
+#: (c) LeNet-MNIST (phase 9's bf16 conf) over 2 spawned worker processes,
+#: 4 jobs of 512 data/mnist images (2 epochs a job); a worker is killed
+#: 0.2 s into its first job; the reaper's window
+SC_MP_JOBS, SC_MP_EPOCHS, SC_MP_KILL_S, SC_STALE_S = 4, 2, 0.2, 3.0
+#: (c) "above chance" on the 512-image test split: twice chance
+SC_MP_MIN_ACC = 0.2
+#: (d) Hogwild on LeNet-MNIST: 2 threads, 16 batches of 128, SGD 0.05
+#: with momentum 0.5 (cuDNN deterministic for the one-worker parity)
+SC_HW_BATCHES, SC_HW_LR, SC_HW_MOM = 16, 0.05, 0.5
+#: (e) the chaos drills: 64 text8 shards
+SC_CHAOS_SHARDS, SC_P_FAIL, SC_P_CORRUPT = 64, 0.25, 0.5
+SC_DEADLINE_S = 600.0
+
+
+def sc_settings() -> dict:
+    return {"device": SC_DEVICE, "gpt": None, "reqs": SC_REQS,
+            "slots": GEN_SLOTS, "tokens": BURST_TOKENS}
+
+
+def sc_gpt(gpt, st):
+    """GPT-2 small, bf16 (phase 10's config)."""
+    return gen_config(gpt) if st["gpt"] is None else st["gpt"]
+
+
+def sc_requests(cfg, st):
+    """The first requests of phase 10's burst, each prompt cut to leave
+    its tokens room in the model (GPT-2 small's 1024 cut none)."""
+    room = cfg.max_len - st["tokens"]
+    return [(p[:room], t, s) for p, t, s in burst_requests(cfg)[:st["reqs"]]]
+
+
+def sc_sync(torch, device) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def sc_record(eng) -> list:
+    """Wrap ``eng``'s start / advance / release so every request's sampled
+    tokens are kept, on a leader and a follower alike: ``[(prompt bytes,
+    tokens)]`` in the order the slots were released."""
+    live, done = {}, []
+    start, advance, release = eng.start, eng.advance, eng.release
+
+    def rec_start(prompt, **kw):
+        bucket, slot, first = start(prompt, **kw)
+        live[(bucket, slot)] = (np.asarray(prompt).tobytes(), [int(first)])
+        return bucket, slot, first
+
+    def rec_advance(bucket):
+        out = advance(bucket)
+        for (b, slot), (_, toks) in live.items():
+            if b == bucket:
+                toks.append(int(out[slot]))
+        return out
+
+    def rec_release(bucket, slot):
+        if (bucket, slot) in live:
+            done.append(live.pop((bucket, slot)))
+        return release(bucket, slot)
+
+    eng.start, eng.advance, eng.release = rec_start, rec_advance, rec_release
+    return done
+
+
+def sc_rank(rank: int, rdv: str, out: str, tmp: str, st: dict) -> None:
+    """One rank of (a), results pickled."""
+    import pickle
+    import traceback
+
+    try:
+        value = sc_rank_body(rank, rdv, tmp, st)
+        payload = ("ok", value)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        payload = ("error", traceback.format_exc())
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def sc_rank_body(rank: int, rdv: str, tmp: str, st: dict) -> dict:
+    sys.path.insert(0, REPO)
+    import torch
+
+    from deeplearning4j_tpu_torch import resolve_device
+    from deeplearning4j_tpu_torch.models import gpt
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import mesh as pm
+    from deeplearning4j_tpu_torch.runtime.quantize import tree_bytes
+    from deeplearning4j_tpu_torch.serving.decode import (ContinuousBatcher,
+                                                         DecodeEngine)
+
+    dev = st["device"]
+    torch.set_num_threads(2)
+    resolve_device(dev)
+    pm.initialize_distributed(f"file://{rdv}", 2, rank, device=dev,
+                              backend="gloo")
+    cfg = sc_gpt(gpt, st)
+    params = gpt.init_params(torch.Generator(device=dev).manual_seed(
+        SC_SEED), cfg, dev)
+    reqs = sc_requests(cfg, st)
+    res = {}
+    for axis in ("pipe", "seq"):
+        mesh = pm.make_mesh(pm.MeshSpec(data=1, **{axis: 2}), device=dev)
+        eng = DecodeEngine(cfg, params, n_slots=st["slots"], mesh=mesh,
+                           device=dev)
+        record = sc_record(eng)
+        fa.reset_launches()
+        sc_sync(torch, dev)
+        t0 = time.perf_counter()
+        b = ContinuousBatcher(eng, default_max_tokens=st["tokens"])
+        part = {"leads": b.leads}
+        if b.leads:
+            handles = [b.submit(p, max_tokens=st["tokens"], temperature=t,
+                                seed=s) for p, t, s in reqs]
+            part["outs"] = [h.result(timeout=600).tolist() for h in handles]
+        b.close()
+        sc_sync(torch, dev)
+        part["s"] = time.perf_counter() - t0
+        part["b1"] = fa.launch_counts()["launches"]
+        part["tokens"] = [(k, t[:st["tokens"]]) for k, t in record]
+        part["weight_bytes"] = tree_bytes(eng.current_params())
+        part["kv_bytes"] = eng.kv_bytes_per_slot * eng.n_slots
+        part["axis_rank"] = mesh.coords[axis]
+        res[axis] = part
+        del b, eng, mesh
+        if dev == "cuda":
+            gc_cuda(torch)
+    res["replicated_bytes"] = tree_bytes(gpt.serving_params(cfg, params))
+    return res
+
+
+def sc_serving_reference(torch, fa, gpt, st, say):
+    """(a)'s mesh=None engine on the same weights and requests: its tokens
+    by prompt, as a list, and its B1 launches."""
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+
+    cfg = sc_gpt(gpt, st)
+    params = gpt.init_params(torch.Generator(device=SC_DEVICE).manual_seed(
+        SC_SEED), cfg, SC_DEVICE)
+    reqs = sc_requests(cfg, st)
+    eng = DecodeEngine(cfg, params, n_slots=st["slots"], device=SC_DEVICE)
+    fa.reset_launches()
+    outs, wall, _ = serve_burst(torch, eng, reqs, st["tokens"])
+    b1 = fa.launch_counts()["launches"]
+    want = {np.asarray(p).tobytes(): o.tolist()
+            for (p, _, _), o in zip(reqs, outs)}
+    say(f"(a) the mesh=None engine here: {len(reqs)} requests of phase "
+        f"10's burst (prompts {min(len(p) for p, _, _ in reqs)}-"
+        f"{max(len(p) for p, _, _ in reqs)} tokens, {st['tokens']} tokens "
+        f"each, half sampled at {BURST_TEMP}) in {wall:.2f} s, B1 "
+        f"launches {b1} (the decode path attends over the KV cache "
+        f"without B1, in both packages)")
+    del eng, params
+    return want, [o.tolist() for o in outs], b1
+
+
+def sc_serving_checks(ranks, want, want_list, ref_b1, say) -> int:
+    """(a) each rank's tokens against mesh=None's; B1 launches a rank."""
+    b1 = 0
+    for axis in ("pipe", "seq"):
+        for r, res in enumerate(ranks):
+            part = res[axis]
+            got = dict(part["tokens"])
+            same = (len(part["tokens"]) == len(want)
+                    and all(got.get(k) == v for k, v in want.items()))
+            say(f"(a) data=1 x {axis}=2, rank {r} ({axis} {part['axis_rank']}"
+                f", {'leader' if part['leads'] else 'follower'}): "
+                f"{len(part['tokens'])} requests in {part['s']:.2f} s, "
+                f"tokens equal to mesh=None's {same}; B1 launches "
+                f"{part['b1']}; weights {part['weight_bytes']} bytes "
+                f"(replicated {res['replicated_bytes']}), KV "
+                f"{part['kv_bytes']} bytes ({GEN_SLOTS} slots)")
+            check(same, f"(a) {axis}=2 rank {r}: tokens differ from "
+                        f"mesh=None's")
+            if part["leads"]:
+                check(part["outs"] == want_list,
+                      f"(a) {axis}=2: the leader's handles differ")
+            check(part["weight_bytes"] == res["replicated_bytes"],
+                  f"(a) {axis}=2 rank {r} holds {part['weight_bytes']} of "
+                  f"{res['replicated_bytes']} weight bytes")
+            check(part["b1"] == ref_b1, f"(a) {axis}=2 rank {r}: B1 launched "
+                                        f"{part['b1']} times, mesh=None "
+                                        f"{ref_b1}")
+            b1 += part["b1"]
+    return b1
+
+
+def sc_rounds_by_one(performer, shards, aggregator, per_round: int):
+    """The runner's rounds (``per_round`` shards each, from the last
+    round's average) made by ONE performer, one job after another."""
+    from deeplearning4j_tpu_torch.parallel.coordinator import Job
+
+    current, jobs = None, []
+    for r in range(0, len(shards), per_round):
+        aggregator.reset()
+        for shard in shards[r:r + per_round]:
+            if current is not None:
+                performer.update(current)
+            job = Job(work=shard)
+            performer.perform(job)
+            jobs.append((performer.chunks, getattr(performer, "words", 0),
+                         getattr(performer, "triples", 0)))
+            aggregator.accumulate(job)
+        current = aggregator.aggregate()
+    return current, jobs
+
+
+def sc_tables_rel(got, want) -> float:
+    num = sum(float(np.sum((np.asarray(g, np.float64)
+                            - np.asarray(w, np.float64)) ** 2))
+              for g, w in zip(got, want) if w is not None)
+    den = sum(float(np.sum(np.asarray(w, np.float64) ** 2))
+              for w in want if w is not None)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+class ScJobClock:
+    """Each ``perform`` of a performer class, (start, end) on the host
+    clock, while installed: how far the runner's worker threads overlap."""
+
+    def __init__(self, cls):
+        self.cls, self.spans, self.lock = cls, [], threading.Lock()
+
+    def __enter__(self):
+        self.orig = self.cls.perform
+        orig, spans, lock = self.orig, self.spans, self.lock
+
+        def perform(perf, job):
+            t0 = time.perf_counter()
+            try:
+                orig(perf, job)
+            finally:
+                with lock:
+                    spans.append((t0, time.perf_counter()))
+        self.cls.perform = perform
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.perform = self.orig
+
+    def overlap(self, wall: float) -> float:
+        return sum(b - a for a, b in self.spans) / max(wall, 1e-9)
+
+
+def sc_embeddings(torch, fw, fg, t8, say) -> dict:
+    """(b): the distributed word2vec and GloVe trainers on text8."""
+    from deeplearning4j_tpu_torch.nlp import distributed as nd
+    from deeplearning4j_tpu_torch.nlp.glove import GloveConfig
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2VecConfig
+
+    out = {}
+    kernel = "cuda" if SC_DEVICE == "cuda" else "plain"
+    cases = (("word2vec", "B4", fw, nd.train_word2vec_distributed,
+              nd.Word2VecPerformer, nd.Word2VecJobAggregator,
+              Word2VecConfig(min_word_frequency=5, epochs=3, kernel=kernel,
+                             **W2V_CONFIG), SC_W2V_TOL, 1),
+             ("GloVe", "B5", fg, nd.train_glove_distributed,
+              nd.GlovePerformer, nd.GloveJobAggregator,
+              GloveConfig(kernel=kernel), SC_GLOVE_TOL, 2))
+    for name, kname, mod, train, perf_cls, agg_cls, cfg, tol, per_unit \
+            in cases:
+        mod.reset_launches()
+        sc_sync(torch, SC_DEVICE)
+        with ScJobClock(perf_cls) as clock:
+            t0 = time.perf_counter()
+            wv = train(t8, cfg, n_workers=SC_WORKERS, n_shards=SC_SHARDS,
+                        device=SC_DEVICE)
+            sc_sync(torch, SC_DEVICE)
+            wall = time.perf_counter() - t0
+        n = mod.launches
+        tr = wv.tracker
+        counts = {k: tr.count(k) for k in ("jobs_done", "jobs_failed",
+                                           "jobs_dropped")}
+        # the same rounds by one worker (a comparison: not counted)
+        ref, jobs = sc_rounds_by_one(
+            perf_cls(wv.cache, cfg, device=SC_DEVICE),
+            nd.shard_sentences(t8, SC_SHARDS), agg_cls(), SC_WORKERS)
+        rel = sc_tables_rel(wv.tables, ref)
+        units = sum(j[per_unit] for j in jobs) * cfg.epochs
+        unit = "words" if per_unit == 1 else "triples"
+        chunks = sum(j[0] for j in jobs)
+        say(f"(b) {name} on text8 D={cfg.vector_size}, {SC_WORKERS} "
+            f"in-process workers, {SC_SHARDS} shards, {cfg.epochs} epochs a "
+            f"job: {wall:.2f} s, {units / wall:.1f} {unit}/s "
+            f"({units} {unit} in all), {kname} launches {n} for {chunks} "
+            f"chunks, tracker {counts}, the workers' jobs overlap "
+            f"{clock.overlap(wall):.2f}x; the averaged tables against the "
+            f"same rounds by one worker: relative L2 {rel:.3e} (<= {tol:g})")
+        check(counts["jobs_done"] == SC_SHARDS and counts["jobs_failed"] == 0
+              and counts["jobs_dropped"] == 0, f"(b) {name}: {counts}")
+        check(n == chunks > 0 or SC_DEVICE != "cuda",
+              f"(b) {name}: {kname} launched {n} times for {chunks} chunks")
+        check(rel <= tol, f"(b) {name}: tables {rel} from one worker's")
+        check(bool(torch.isfinite(wv.vectors).all()),
+              f"(b) {name}: non-finite vectors")
+        out[name] = n
+    return out
+
+
+def sc_multiprocess(torch, ln, say) -> None:
+    """(c): MultiProcessRunner, 2 worker processes, LeNet-MNIST, one
+    worker SIGKILLed mid-job."""
+    import signal
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import scaleout as so
+    from deeplearning4j_tpu_torch.parallel import transport as tp
+    from deeplearning4j_tpu_torch.parallel.performers import (
+        ParameterAveragingAggregator, params_on)
+
+    train, test = mnist_split(True), mnist_split(False)
+    x, y = np.asarray(train.features), np.asarray(train.labels)
+    per = len(x) // SC_MP_JOBS
+    jobs = [DataSet(x[i * per:(i + 1) * per],
+                    y[i * per:(i + 1) * per]).batch_by(LENET_B)
+            for i in range(SC_MP_JOBS)]
+
+    class Recorded(ParameterAveragingAggregator):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def accumulate(self, job):
+            self.seen.append((job.worker_id, job.retries))
+            super().accumulate(job)
+
+    conf = ln.lenet_conf().to_json()
+    spec = ("deeplearning4j_tpu_torch.parallel.performers:"
+            "MultiLayerNetworkPerformer", (conf,),
+            {"num_epochs": SC_MP_EPOCHS, "seed": 0, "device": SC_DEVICE})
+    agg = Recorded()
+    runner = tp.MultiProcessRunner(so.CollectionJobIterator(jobs), spec, agg,
+                                   n_workers=2, stale_after_s=SC_STALE_S)
+    tracker, marks, errors = runner.tracker, {}, []
+
+    def holding(wid):
+        with tracker._lock:
+            return wid in tracker._jobs
+
+    def wait(cond, what):
+        end = time.perf_counter() + 300
+        while not cond():
+            if time.perf_counter() > end:
+                raise TimeoutError(what)
+            time.sleep(0.002)
+        return time.perf_counter()
+
+    def killer():
+        try:
+            t0 = time.perf_counter()
+            marks["join"] = wait(lambda: len(tracker.workers()) >= 2,
+                                 "workers never joined") - t0
+            wait(lambda: holding("proc-worker-1"), "worker 1 never had a job")
+            time.sleep(SC_MP_KILL_S)
+            check(holding("proc-worker-1"), "(c) worker 1 finished its job "
+                                            "before the kill")
+            os.kill(runner.processes[1].pid, signal.SIGKILL)
+            kill = time.perf_counter()
+            reaped = wait(lambda: tracker.count("workers_reaped") >= 1,
+                          "the reaper never fired")
+            taken = wait(requeued_taken, "the requeued job was never taken")
+            marks.update(kill_to_reap=reaped - kill, reap_to_taken=taken
+                         - reaped)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    def requeued_taken():
+        """The reaped worker's job is held by (or done by) another."""
+        with tracker._lock:
+            held = [j.retries for j in tracker._jobs.values()]
+        return any(r >= 1 for r in held + [r for _, r in agg.seen])
+
+    watcher = threading.Thread(target=killer, daemon=True)
+    watcher.start()
+    t0 = time.perf_counter()
+    averaged = runner.run(timeout_s=SC_DEADLINE_S, join_timeout_s=120)
+    wall = time.perf_counter() - t0
+    watcher.join(60)
+    check(not errors, f"(c) {errors}")
+    alive = [p.is_alive() for p in runner.processes]
+    codes = [p.exitcode for p in runner.processes]
+    leaves = [np.asarray(v) for p in averaged for v in p.values()]
+    finite = all(np.isfinite(a).all() for a in leaves)
+    nbytes = sum(a.nbytes for a in leaves)
+    net = MultiLayerNetwork(ln.lenet_conf(), device=SC_DEVICE)
+    net.params = params_on(averaged, net.device)
+    acc = net.evaluate(test).accuracy()
+    counts = {k: tracker.count(k) for k in ("jobs_done", "jobs_failed",
+                                            "jobs_dropped", "workers_reaped",
+                                            "updates_discarded")}
+    say(f"(c) MultiProcessRunner, 2 spawned workers on the card, LeNet-MNIST "
+        f"bf16, {SC_MP_JOBS} jobs of {per} data/mnist images ({SC_MP_EPOCHS} "
+        f"epochs a job): join {marks.get('join', 0) * 1e3:.1f} ms; worker 1 "
+        f"SIGKILLed {SC_MP_KILL_S} s into its first job, reaped "
+        f"{marks.get('kill_to_reap', 0) * 1e3:.1f} ms later (window "
+        f"{SC_STALE_S} s), its requeued job taken "
+        f"{marks.get('reap_to_taken', 0) * 1e3:.1f} ms after the reap; "
+        f"{wall:.2f} s in all; results (worker, retries) {agg.seen}; "
+        f"tracker {counts}; exit codes {codes}; a job's params "
+        f"{nbytes} bytes up and the current params {nbytes} bytes down to "
+        f"each worker, {4 * nbytes} bytes across the wire a round of 2 jobs;"
+        f" test accuracy {acc:.4f} on {len(test)} images")
+    check(finite, "(c) non-finite averaged params")
+    check(counts["jobs_done"] == SC_MP_JOBS and counts["jobs_dropped"] == 0
+          and counts["workers_reaped"] >= 1, f"(c) {counts}")
+    check(any(r >= 1 for _, r in agg.seen), "(c) no job was requeued")
+    check(codes[1] == -signal.SIGKILL and not any(alive),
+          f"(c) processes {codes}, alive {alive}")
+    check(acc >= SC_MP_MIN_ACC, f"(c) accuracy {acc}")
+
+
+def sc_hogwild(torch, ln, say) -> None:
+    """(d): HogwildTrainer on LeNet-MNIST."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.updaters import (apply_descent,
+                                                       dl4j_updater,
+                                                       tree_map)
+    from deeplearning4j_tpu_torch.parallel.hogwild import HogwildTrainer
+
+    dev = SC_DEVICE
+    train, test = mnist_split(True), mnist_split(False)
+
+    def batches(data, n):
+        x = torch.as_tensor(np.asarray(data.features)[:n * LENET_B]).to(dev)
+        y = torch.as_tensor(np.asarray(data.labels)[:n * LENET_B]).to(dev)
+        return list(zip(x.split(LENET_B), y.split(LENET_B)))
+
+    jobs, held = batches(train, SC_HW_BATCHES), batches(test, 4)
+    net = MultiLayerNetwork(ln.lenet_conf(), device=dev).init(seed=0)
+
+    def loss_fn(p, x, y, gen):
+        return net.loss(p, x, y, gen, train=True)
+
+    def held_loss(p):
+        with torch.no_grad():
+            return float(sum(loss_fn(p, x, y, None) for x, y in held)) / 4
+
+    upd = dl4j_updater(lr=SC_HW_LR, momentum=SC_HW_MOM)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t = HogwildTrainer(loss_fn, upd, num_workers=2, device=dev)
+        sc_sync(torch, dev)
+        t0 = time.perf_counter()
+        p2 = t.fit(net.params, jobs, seed=0)
+        sc_sync(torch, dev)
+        wall = time.perf_counter() - t0
+        before, after = held_loss(net.params), held_loss(p2)
+        by_worker = {}
+        for j in t.tracker.updates():
+            by_worker[j.worker_id] = by_worker.get(j.worker_id, 0) + 1
+        # one worker against a plain loop of the same steps and folds
+        one = HogwildTrainer(loss_fn, upd, num_workers=1, local_steps=2,
+                             device=dev).fit(net.params, jobs[:6], seed=0)
+        gv = torch.func.grad_and_value(loss_fn)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        local = glob = net.params
+        ustate = upd.init(local)
+        for j, (x, y) in enumerate(jobs[:6]):
+            pulled = p = local
+            for i in range(2):
+                grads, _ = gv(p, x, y, gen)
+                with torch.no_grad():
+                    u, ustate = upd.update(ustate, grads, p, j + i, 1)
+                    p = apply_descent(p, u)
+            local = p
+            glob = tree_map(lambda g, a, b: g + (a - b), glob, p, pulled)
+        equal = all(torch.equal(a, b) for pa, pb in zip(one, glob)
+                    for a, b in zip(pa.values(), pb.values()))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    say(f"(d) HogwildTrainer, 2 threads on {dev}, LeNet-MNIST bf16, "
+        f"{SC_HW_BATCHES} jobs of {LENET_B}: {wall:.2f} s "
+        f"({SC_HW_BATCHES / wall:.1f} steps/s), jobs by worker {by_worker}, "
+        f"held-out loss {before:.4f} -> {after:.4f}; one worker against a "
+        f"plain loop of the same 12 steps and folds: torch.equal {equal}")
+    check(t.tracker.count("iterations") == SC_HW_BATCHES
+          and len(t.tracker.updates()) == SC_HW_BATCHES,
+          f"(d) {t.tracker.count('iterations')} jobs processed")
+    check(after < before, f"(d) the loss did not fall: {before} -> {after}")
+    check(equal, "(d) one worker differs from the plain loop")
+
+
+class ScHistogram:
+    """(e)'s numeric job: the shard's vocabulary histogram on the card."""
+
+    def __init__(self, torch, cache, tok):
+        self.torch, self.cache, self.tok = torch, cache, tok
+
+    def perform(self, job):
+        torch = self.torch
+        ids = [self.cache.index_of(w) for s in job.work for w in self.tok(s)
+               if w in self.cache]
+        job.result = {"h": torch.bincount(
+            torch.tensor(ids, device=SC_DEVICE),
+            minlength=len(self.cache)).float()}
+
+    def update(self, *args):
+        pass
+
+
+def sc_chaos(torch, t8, say) -> None:
+    """(e): the word-count runner under injected crashes, and corrupted
+    results against the hardened accumulator."""
+    from deeplearning4j_tpu_torch.nlp import distributed as nd
+
+    shards = nd.shard_sentences(t8, SC_CHAOS_SHARDS)
+    clean = nd.word_count_distributed(shards, n_workers=SC_WORKERS)
+    # every injected fault logs (a traceback each): counted below instead
+    quiet = logging.getLogger("deeplearning4j_tpu_torch.parallel.scaleout")
+    level = quiet.level
+    quiet.setLevel(logging.CRITICAL)
+    try:
+        sc_chaos_runs(torch, t8, shards, clean, say)
+    finally:
+        quiet.setLevel(level)
+
+
+def sc_chaos_runs(torch, t8, shards, clean, say) -> None:
+    from deeplearning4j_tpu_torch.nlp import distributed as nd
+    from deeplearning4j_tpu_torch.nlp.text import DefaultTokenizerFactory
+    from deeplearning4j_tpu_torch.nlp.vocab import build_vocab
+    from deeplearning4j_tpu_torch.parallel import scaleout as so
+    from deeplearning4j_tpu_torch.parallel.chaos import chaos_factory
+
+    factory = chaos_factory(nd.WordCountPerformer, p_fail=SC_P_FAIL,
+                            seed=SC_SEED)
+    runner = so.DistributedRunner(
+        so.CollectionJobIterator(shards), factory, nd.WordCountAggregator(),
+        n_workers=SC_WORKERS, router_cls=so.HogWildWorkRouter,
+        max_job_retries=100)
+    counts = runner.run(timeout_s=SC_DEADLINE_S)
+    fails = sum(p.injected["fail"] for p in factory.instances)
+    tr = runner.tracker
+    say(f"(e) word count over {len(shards)} text8 shards under "
+        f"chaos_factory(p_fail={SC_P_FAIL}): {fails} injected crashes, "
+        f"jobs_failed {tr.count('jobs_failed')}, jobs_dropped "
+        f"{tr.count('jobs_dropped')}; {len(counts)} words, equal to the "
+        f"clean run's {counts == clean}")
+    check(counts == clean, "(e) the counts under crashes differ")
+    check(fails > 0 and tr.count("jobs_failed") == fails
+          and tr.count("jobs_dropped") == 0, f"(e) crashes {fails}")
+
+    tok = DefaultTokenizerFactory()
+    cache = build_vocab(t8, tok, 5)
+    factory = chaos_factory(lambda: ScHistogram(torch, cache, tok),
+                            p_corrupt=SC_P_CORRUPT, seed=SC_SEED,
+                            corrupt=lambda r: {"h": r["h"] * float("nan")})
+    runner = so.DistributedRunner(
+        so.CollectionJobIterator(shards), factory, so.WorkAccumulator(),
+        n_workers=SC_WORKERS, router_cls=so.HogWildWorkRouter)
+    mean = runner.run(timeout_s=SC_DEADLINE_S)
+    corrupt = sum(p.injected["corrupt"] for p in factory.instances)
+    rejected = runner.tracker.count("updates_rejected")
+    say(f"(e) vocabulary histograms on the card under "
+        f"chaos_factory(p_corrupt={SC_P_CORRUPT}, a NaN hook): {corrupt} "
+        f"corrupted, {rejected} rejected by the WorkAccumulator; the mean "
+        f"finite {bool(torch.isfinite(mean['h']).all())}")
+    check(corrupt > 0 and rejected == corrupt,
+          f"(e) {corrupt} corrupted, {rejected} rejected")
+    check(bool(torch.isfinite(mean["h"]).all()), "(e) non-finite mean")
+
+
+def scaleout_phase(torch, fa, fw, fg, ln, t8, card: str) -> dict:
+    """Phase 24 (see the module docstring).  Returns the main paths'
+    launches: B1 of (a)'s ranks, B4 and B5 of (b)'s trainers."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models import gpt
+    from deeplearning4j_tpu_torch.runtime import compile_cache
+
+    def say(msg):
+        print(f"  {msg} [{card}]")
+
+    compile_cache.clear()
+    if SC_DEVICE == "cuda":
+        gc_cuda(torch)
+    check(not torch.distributed.is_initialized(),
+          "phase 24 needs no process group up in this process")
+    st = sc_settings()
+    tmp = tempfile.mkdtemp(prefix="scaleout-")
+    t = [time.perf_counter()]
+    marks = []
+
+    def mark(name):
+        t.append(time.perf_counter())
+        marks.append(name)
+
+    # (a)'s two ranks start and serve, and (c)'s runner spawns its worker
+    # processes (its lines printed when it is done), while this process
+    # runs (a)'s reference, (b), (d) and (e)
+    from concurrent.futures import ThreadPoolExecutor
+    mp_lines = []
+    mp_pool = ThreadPoolExecutor(1)
+    try:
+        started = ma_start(sc_rank, tmp, "sc", (tmp, st))
+        mp = mp_pool.submit(sc_multiprocess, torch, ln, mp_lines.append)
+        want, want_list, ref_b1 = sc_serving_reference(torch, fa, gpt, st,
+                                                       say)
+        mark("(a) mesh=None")
+        emb = sc_embeddings(torch, fw, fg, t8, say)
+        mark("(b)")
+        sc_hogwild(torch, ln, say)
+        mark("(d)")
+        sc_chaos(torch, t8, say)
+        mark("(e)")
+        mp.result()
+        for line in mp_lines:
+            say(line)
+        mark("(c) after them")
+        ranks = ma_join(started, "sc", phase=24)
+        mark("(a) ranks joined")
+    finally:
+        mp_pool.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    b1 = sc_serving_checks(ranks, want, want_list, ref_b1, say)
+    launches = {"launches": b1, "w2v": emb["word2vec"],
+                "glove": emb["GloVe"]}
+    say("phase 24 wall: " + ", ".join(
+        f"{n_} {b_ - a_:.1f} s" for n_, a_, b_ in zip(marks, t, t[1:]))
+        + f"; total {t[-1] - t[0]:.1f} s; launches on the main paths "
+          f"{launches}")
+    return launches
+
+
 class PhaseClock:
     """Each phase's header when it starts and, when the next one starts
     (or :meth:`stop`), a line naming the phase with its seconds; the
@@ -10830,6 +11540,15 @@ def main() -> int:
         launches[name] += dp[name]
     launches_w2v += dp["w2v"]
     launches_glove += dp["glove"]
+    clock.start("24", "the scale-out runtime: GPT-2 small served on "
+                "data=1 x pipe=2 and data=1 x seq=2 by two gloo ranks, "
+                "distributed word2vec and GloVe through B4/B5, the "
+                "multi-process runner with a SIGKILLed worker, Hogwild and "
+                "the chaos performer")
+    sc = scaleout_phase(torch, fa, fw, fg, ln, t8, card)
+    launches["launches"] += sc["launches"]
+    launches_w2v += sc["w2v"]
+    launches_glove += sc["glove"]
     clock.stop()
 
     kernels = [{

@@ -4,6 +4,8 @@ vocab/Huffman, tokenization SPIs, similarity queries.
 Port of ``deeplearning4j_tpu/nlp`` (exports as its ``__init__.py:8-27``);
 the bag-of-words/TF-IDF vectorizers are not ported yet (ROADMAP A8).
 The chunk updates run kernels B4 (word2vec) and B5 (GloVe) on CUDA.
+``nlp/distributed.py`` trains word2vec and GloVe (and counts words and
+the vocabulary) over the scale-out runner, sentence shards averaged.
 """
 
 from deeplearning4j_tpu_torch.nlp.text import (  # noqa: F401

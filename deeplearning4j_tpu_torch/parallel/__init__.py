@@ -15,8 +15,12 @@ parameter-averaging trainers (``data_parallel.py``), the experts
 launcher, ``Cluster`` and ``HostHeartbeat``) and ``chaos.py``'s serving
 and training injectors, and the multi-host data plane (``multihost.py``'s
 ``stage_global_batch`` and store splits; the data service is
-``datasets/data_service.py``).  The scale-out runner with its chaos
-performer (ROADMAP A7.6) is not."""
+``datasets/data_service.py``), and the scale-out runtime: the
+``StateTracker`` coordinator (``coordinator.py``), the scale-out SPI with
+the in-process runner and ``IRUnitDriver`` (``scaleout.py``), the
+library performers (``performers.py``), the Hogwild trainer
+(``hogwild.py``), the socket-served tracker and the multi-process runner
+(``transport.py``) and the chaos performer (``chaos.py``)."""
 
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, MeshSpec,
@@ -25,4 +29,7 @@ from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.parallel.data_parallel import (  # noqa: F401
     DataParallelTrainer, ParameterAveragingTrainer,
+)
+from deeplearning4j_tpu_torch.parallel.coordinator import (  # noqa: F401
+    Job, StateTracker, WorkerRecord,
 )

@@ -1,6 +1,6 @@
 """Fault injection for training and for the serving fleet.
 
-Port of ``deeplearning4j_tpu/parallel/chaos.py`` (:52-141, :199-424).
+Port of ``deeplearning4j_tpu/parallel/chaos.py``.
 
 The training injectors are ``ResilientFit`` ``fault_hook`` s that fire
 once, at a step boundary: :class:`DeviceLossChaos` (a
@@ -18,9 +18,19 @@ Each fires at the replica's next step boundary ON its own worker thread
 chaos must not become a second).  ``serving/chaos_gate.py`` drives it
 as a drill.
 
-``ChaosPerformer`` and ``chaos_factory`` wrap the scale-out runner's
-workers, ROADMAP A7.6: importing one raises ``NotImplementedError``
-naming it.
+For the scale-out runners (``parallel/scaleout.py``,
+``parallel/transport.py``), :class:`ChaosPerformer` wraps any
+``WorkerPerformer`` and injects, per ``perform`` call and independently
+per worker: crashes (raise) with probability ``p_fail``; stalls of
+``stall_s`` seconds with probability ``p_stall`` (past the reaper's
+window they exercise the heartbeat path); result corruption (the
+``corrupt`` callable rewrites ``job.result``) with probability
+``p_corrupt``, which the hardened ``WorkAccumulator`` must reject.  The
+draws come from a counter-based hash of (seed, the worker's call
+count), :func:`_hash01`, bit for bit the reference's, so a seed gives
+the same fault schedule in every run and in both packages.
+:func:`chaos_factory` gives each worker of a runner its own derived
+seed.
 """
 
 from __future__ import annotations
@@ -31,11 +41,13 @@ from typing import Callable, Optional
 
 # defined beside ResilientFit, which catches it (runtime/resilience.py), and
 # re-exported here beside the injectors that raise it
+from deeplearning4j_tpu_torch.parallel import scaleout as so
+from deeplearning4j_tpu_torch.parallel.coordinator import Job
 from deeplearning4j_tpu_torch.runtime.resilience import DeviceLossError
 
-__all__ = ["DeviceLossChaos", "DeviceLossError", "HostLossChaos",
-           "InjectedFault", "PreemptionChaos", "ServingChaos",
-           "WorkerKilled"]
+__all__ = ["ChaosPerformer", "DeviceLossChaos", "DeviceLossError",
+           "HostLossChaos", "InjectedFault", "PreemptionChaos",
+           "ServingChaos", "WorkerKilled", "chaos_factory"]
 
 
 class DeviceLossChaos:
@@ -131,7 +143,7 @@ class PreemptionChaos:
 
 class InjectedFault(RuntimeError):
     """An injected failure (:48): an ordinary error, which the batcher's
-    replay path owns."""
+    replay path and the scale-out runners' requeue own."""
 
 
 class WorkerKilled(BaseException):
@@ -351,9 +363,89 @@ class ServingChaos:
             hook("direct")
 
 
-def __getattr__(name: str):
-    if name in ("ChaosPerformer", "chaos_factory"):
-        raise NotImplementedError(
-            f"parallel.chaos.{name} is not ported yet: ROADMAP A7.6 (the "
-            f"scale-out runner whose workers it wraps)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+# ---------------------------------------------------------------------------
+# the scale-out runners' performers (:143-197, :425-452)
+# ---------------------------------------------------------------------------
+
+def _hash01(seed: int, n: int) -> float:
+    """Deterministic uniform [0, 1) from (seed, call index)."""
+    h = (seed * 2654435761 + n * 40503) & 0xFFFFFFFF
+    h ^= h >> 16
+    h = (h * 2246822519) & 0xFFFFFFFF
+    h ^= h >> 13
+    return (h & 0xFFFFFF) / float(1 << 24)
+
+
+class ChaosPerformer(so.WorkerPerformer):
+    """Wrap ``inner`` with a deterministic fault schedule."""
+
+    def __init__(self, inner: so.WorkerPerformer, *, p_fail: float = 0.0,
+                 p_stall: float = 0.0, stall_s: float = 0.0,
+                 p_corrupt: float = 0.0,
+                 corrupt: Optional[Callable] = None, seed: int = 0):
+        self.inner = inner
+        self.p_fail = p_fail
+        self.p_stall = p_stall
+        self.stall_s = stall_s
+        self.p_corrupt = p_corrupt
+        self.corrupt = corrupt
+        self.seed = seed
+        self._calls = 0
+        self._lock = threading.Lock()
+        #: how many of each fault fired
+        self.injected = {"fail": 0, "stall": 0, "corrupt": 0}
+
+    def _next_call(self) -> int:
+        with self._lock:
+            self._calls += 1
+            return self._calls
+
+    def perform(self, job: Job) -> None:
+        n = self._next_call()
+        u = _hash01(self.seed, n)
+        if u < self.p_fail:
+            self.injected["fail"] += 1
+            raise InjectedFault(
+                f"injected crash (call {n}, u={u:.3f} < {self.p_fail})")
+        if _hash01(self.seed + 1, n) < self.p_stall:
+            self.injected["stall"] += 1
+            time.sleep(self.stall_s)
+        self.inner.perform(job)
+        # p_corrupt gates the hook like the other faults
+        if self.corrupt is not None \
+                and _hash01(self.seed + 2, n) < self.p_corrupt:
+            self.injected["corrupt"] += 1
+            job.result = self.corrupt(job.result)
+
+    def update(self, *args) -> None:
+        self.inner.update(*args)
+
+
+def chaos_factory(inner_factory: Callable[[], so.WorkerPerformer], *,
+                  p_fail: float = 0.0, p_stall: float = 0.0,
+                  stall_s: float = 0.0, p_corrupt: float = 0.0,
+                  corrupt: Optional[Callable] = None, seed: int = 0
+                  ) -> Callable[[], so.WorkerPerformer]:
+    """A performer factory for ``DistributedRunner``: each worker gets a
+    ChaosPerformer of its own with the derived seed ``seed + 1000 k``
+    (the factory's k-th call), so faults spread over the workers and
+    stay reproducible.  ``factory.instances`` lists every performer it
+    made, so a drill can sum their ``injected`` counters."""
+    counter = {"n": 0}
+    lock = threading.Lock()
+    instances = []
+
+    def make() -> ChaosPerformer:
+        with lock:
+            counter["n"] += 1
+            worker_seed = seed + 1000 * counter["n"]
+        perf = ChaosPerformer(inner_factory(), p_fail=p_fail,
+                              p_stall=p_stall, stall_s=stall_s,
+                              p_corrupt=p_corrupt, corrupt=corrupt,
+                              seed=worker_seed)
+        with lock:
+            instances.append(perf)
+        return perf
+
+    make.instances = instances
+    return make

@@ -5,8 +5,9 @@ Port of ``deeplearning4j_tpu/runtime/console.py``, which imports no JAX;
 the port keeps its own copy.  It serves the JSONL files the port's
 ``runtime.metrics.ScalarsLogger`` writes and any tracker object with the
 reference's ``StateTracker`` surface (``workers``, ``heartbeats``,
-``count``, ``has_pending``, ``is_done``; the tracker itself belongs to
-the scale-out runner, ROADMAP A7.6).
+``count``, ``has_pending``, ``is_done``): the port's
+``parallel/coordinator.StateTracker``, or a
+``parallel/transport.RemoteStateTracker`` over a socket.
 
 Reference parity: the Dropwizard surfaces — the render webapp serving
 embedding/filter visualizations (``plot/dropwizard/RenderApplication

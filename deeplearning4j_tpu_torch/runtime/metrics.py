@@ -121,8 +121,9 @@ class ResilienceMetrics:
       loss-spike detector hits, checkpoint rollbacks performed, and runs
       that exhausted the retry budget;
     - ``checkpoints_saved``: auto-checkpoints written by ResilientFit;
-    - ``updates_rejected`` / ``worker_join_retries``: the scaleout
-      aggregator's (the scale-out runner, ROADMAP A7.6).
+    - ``updates_rejected`` / ``worker_join_retries``: the scale-out
+      runners' (``parallel/scaleout.WorkAccumulator`` and
+      ``parallel/transport.worker_main``).
 
     Keys are open-ended (``note`` accepts any name)."""
 

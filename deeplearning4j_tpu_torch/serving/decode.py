@@ -62,8 +62,12 @@ slots' and the page pool's KV caches hold the rank's heads
 row-parallel products over ``model`` (``parallel/tensor_parallel``), so
 every rank samples the same tokens, the replicated engine's.  The
 entries are captured only where the group's collectives can be
-(``parallel.mesh.mesh_captures``: not under gloo).  A mesh with a
-``pipe`` or ``seq`` axis above 1 raises, naming ROADMAP A7.1b.4.
+(``parallel.mesh.mesh_captures``: not under gloo), and always where
+the rank's model group is itself alone (no collective runs then).  On a
+mesh with a ``pipe`` or ``seq`` axis above 1 every rank of that group
+holds the whole served tree (the reference's decode specs split only
+``model``: its ``P()`` placement replicates the rest), and serves
+alike: the ranks that share a data coordinate are one serving group.
 ``quantize=`` quantizes the GLOBAL tree, then slices each int8 payload by its leaf's
 spec and each per-channel scale by ``runtime/quantize.quant_specs``, so
 every scale is the replicated engine's (``rebind_params`` keeps that
@@ -111,7 +115,7 @@ from deeplearning4j_tpu_torch.models import gpt
 from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.parallel import collectives
 from deeplearning4j_tpu_torch.parallel import tensor_parallel as tpar
-from deeplearning4j_tpu_torch.parallel.mesh import (PIPE_AXIS, SEQ_AXIS,
+from deeplearning4j_tpu_torch.parallel.mesh import (DATA_AXIS,
                                                     check_mesh_axes,
                                                     mesh_captures,
                                                     mesh_signature,
@@ -615,15 +619,8 @@ class DecodeEngine:
                  draft_k: int = 4,
                  device: DeviceLike = None):
         check_mesh_axes(mesh)
-        for axis in (PIPE_AXIS, SEQ_AXIS):
-            n = 1 if mesh is None else int(mesh.shape.get(axis, 1))
-            if n > 1:
-                raise NotImplementedError(
-                    f"DecodeEngine on a mesh with a {axis!r} axis of {n} is "
-                    f"not ported to the PyTorch package yet (ROADMAP "
-                    f"A7.1b.4: serving on such a mesh, the weights "
-                    f"replicated over it)")
-        #: the model group's size and this rank's group (None: replicated)
+        #: the model group's size and this rank's group (None: replicated
+        #: over the mesh: every other axis holds the whole tree)
         self.mesh = mesh
         self.model_degree = model_degree(mesh)
         self._tp = tpar.model_group(mesh)
@@ -858,8 +855,9 @@ class DecodeEngine:
                                         dim=1)
 
         # one entry in four: all update the engine's state, which lives
-        # in the buffers they share
-        cap = mesh_captures(self.mesh)
+        # in the buffers they share; without a model group the entries
+        # run no collective, so they capture on any mesh
+        cap = mesh_captures(self.mesh) or self._tp is None
         self._prefill = compile_cache.cached_graph(
             prefill_fn, label=f"{self.label}.prefill", donate_argnums=(1,),
             capture=cap)
@@ -1221,10 +1219,10 @@ class DecodeEngine:
             event.record()
         self._harvester.put(bufs, event, prefix, self.prefill_chunk,
                             self._prefix_space, paged)
-        if self._tp is not None:
-            # every rank of the group must find the same entries at its
-            # next lookup, so a mesh engine's store is not eventually
-            # consistent
+        if self.mesh is not None:
+            # every rank of the serving group must find the same entries
+            # at its next lookup, so a mesh engine's store is not
+            # eventually consistent
             self._harvester.flush()
 
     def flush_harvests(self) -> None:
@@ -1793,7 +1791,7 @@ class _ReplayRequest(DecodeRequest):
 
 
 # ---------------------------------------------------------------------------
-# the schedule of a model group
+# the schedule of a serving group
 # ---------------------------------------------------------------------------
 
 #: the ops of a group's schedule
@@ -1955,8 +1953,11 @@ def _agreed(chan: _Channel, engine, fn, bucket: int,
         out = fn()
     except Exception as e:          # noqa: BLE001 — agreed, then raised
         err = e
-    issued = (collectives.issued(group) - before if group is not None
-              else None)
+    # a rank whose model group is itself ran none (a pipe or seq peer); a
+    # source that ran nothing (a remote replica's view) counts as None
+    issued = (None if engine is None
+              else collectives.issued(group) - before if group is not None
+              else 0)
     failed, in_step = chan.agree(err is not None, issued)
     if not failed:
         return out
@@ -2084,15 +2085,31 @@ def _follow_ops(engine, chan: _Channel, remote: bool, sends: bool) -> None:
                 chan.result(res if sends else None, res.size)
 
 
-def _model_channel(engine, timeout_s: float) -> _Channel:
-    """The schedule channel of a model-sharded engine's group, on a
-    process group of its own over the same ranks (made by those ranks
-    alone): its model rank 0 sends."""
+def _group_ranks(engine) -> Optional[List[int]]:
+    """The global ranks that serve with this rank: the mesh's ranks at
+    its data coordinate (its model, pipe, seq and expert lines; the
+    grid is data-major), or None where that is this rank alone."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None:
+        return None
+    import torch.distributed as dist
+    ranks = tuple(mesh.ranks)
+    k = len(ranks) // int(mesh.shape.get(DATA_AXIS, 1))
+    if k <= 1:
+        return None
+    start = ranks.index(dist.get_rank()) // k * k
+    return sorted(ranks[start:start + k])
+
+
+def _group_channel(engine, ranks: List[int], timeout_s: float) -> _Channel:
+    """The schedule channel of a mesh engine's serving group
+    (:func:`_group_ranks`), on a process group of its own over those
+    ranks (made by them alone): the lowest, the group's model rank 0 at
+    pipe and seq 0, sends."""
     import datetime
 
     import torch.distributed as dist
     mesh = engine.mesh
-    ranks = sorted(dist.get_process_group_ranks(mesh.groups["model"]))
     group = dist.new_group(
         ranks, use_local_synchronization=True,
         timeout=datetime.timedelta(seconds=timeout_s + mesh.timeout_s))
@@ -2187,10 +2204,13 @@ class ContinuousBatcher:
     times each; ``evacuate()`` hands every unfinished request back for
     ``resubmit`` on another replica.
 
-    **Over a model-sharded engine** (``DecodeEngine(mesh=)``, SPMD: every
-    rank of the model group builds its batcher over its engine) the
-    group's model rank 0 is the leader: it takes the requests and keeps
-    the queue, admission, expiry and replays.  Before each engine op
+    **Over a mesh engine** (``DecodeEngine(mesh=)``, SPMD) the ranks that
+    share a data coordinate serve as one group: the model group, and
+    with it every rank of the ``pipe`` and ``seq`` lines, which hold the
+    whole served tree.  Every rank of the group builds its batcher over
+    its engine, and the group's lowest rank (model rank 0 at pipe and
+    seq 0) is the leader: it takes the requests and keeps the queue,
+    admission, expiry and replays.  Before each engine op
     (an admission check, a start, a step or a round, a release) it
     broadcasts a fixed-layout header over the group (op, bucket, slot,
     budget, seed, temperature, the harvest knob, and a start's prompt);
@@ -2232,8 +2252,9 @@ class ContinuousBatcher:
         if self._held is not None:
             collectives.claim(self._held, self._thread)
         chan = _channel
-        if chan is None and self._held is not None:
-            chan = _model_channel(engine, self.GROUP_TIMEOUT_S)
+        ranks = _group_ranks(engine) if chan is None else None
+        if ranks is not None:
+            chan = _group_channel(engine, ranks, self.GROUP_TIMEOUT_S)
         self._chan = chan
         #: the engine ops of the worker: the engine itself, or the
         #: leader's schedule over the group
@@ -2279,9 +2300,9 @@ class ContinuousBatcher:
         prompt no bucket fits, an empty prompt, a bad deadline and (paged)
         a prompt larger than the whole pool raise here, synchronously."""
         if not self.leads:
-            raise RuntimeError("a follower of a model group's schedule "
+            raise RuntimeError("a follower of a serving group's schedule "
                                "takes no requests: submit on the group's "
-                               "model rank 0")
+                               "model rank 0 (its lowest rank)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")

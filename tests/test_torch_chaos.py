@@ -13,8 +13,8 @@ ends the worker with its entry lock free and its traceback silenced;
 does in its tier-1 test; the training injectors fire once at their step
 as the JAX package's do (``DeviceLossChaos``, ``HostLossChaos`` over a
 virtual host, ``PreemptionChaos``), and the scale-out runner's
-``ChaosPerformer`` and ``chaos_factory`` (ROADMAP A7.6) raise
-``NotImplementedError`` naming their item.
+``ChaosPerformer`` and ``chaos_factory`` (ROADMAP A7.6, ported) draw the
+reference's fault schedule call for call.
 
 The drill's captures are the port's form of the reference's "zero new
 compiles": each replica the factory builds costs exactly one warm-up's
@@ -202,13 +202,42 @@ def test_training_injectors_name_a7(name):
     """The training injectors fire exactly once, at the first step at or
     past theirs, as the JAX package's do (each port injector is held
     against the reference's on the same calls); the scale-out runner's
-    two still raise, naming ROADMAP A7.6."""
+    two (ROADMAP A7.6, ported) draw the reference's fault schedule: the
+    same crashes on the same calls, and ``chaos_factory``'s derived
+    seeds."""
     from deeplearning4j_tpu.parallel import chaos as jchaos
+    from deeplearning4j_tpu.parallel.coordinator import Job as JJob
+    from deeplearning4j_tpu_torch.parallel.coordinator import Job
+
+    class Echo:
+        def perform(self, job):
+            job.result = job.work
+
+        def update(self, *args):
+            pass
 
     if name in ("ChaosPerformer", "chaos_factory"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7.6"):
-            getattr(chaos, name)
-        assert callable(getattr(jchaos, name))
+        def make(mod):
+            if name == "ChaosPerformer":
+                return [mod.ChaosPerformer(Echo(), p_fail=0.4, seed=3)]
+            factory = mod.chaos_factory(Echo, p_fail=0.4, seed=3)
+            return [factory(), factory()]
+
+        seen = []
+        for mod, job_cls in ((chaos, Job), (jchaos, JJob)):
+            perfs = make(mod)
+            fired = []
+            for perf in perfs:
+                for i in range(40):
+                    try:
+                        perf.perform(job_cls(work=i))
+                        fired.append("ok")
+                    except mod.InjectedFault:
+                        fired.append("fail")
+            seen.append((fired, [p.seed for p in perfs],
+                         [p.injected for p in perfs]))
+        assert seen[0] == seen[1]
+        assert "fail" in seen[0][0] and "ok" in seen[0][0]
     else:
         def guard():
             return type("G", (), {"n": 0, "request": lambda self: setattr(

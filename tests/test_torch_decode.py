@@ -304,9 +304,22 @@ def test_bucket_chunk_divisibility_and_knobs(params):
     assert eng.prefill_chunk == 16
     with pytest.raises(ValueError, match="exceeds the model"):
         DecodeEngine(CFG, params, buckets=(128,), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7.1b.4"):
-        DecodeEngine(CFG, params, mesh=types.SimpleNamespace(
-            shape={"data": 1, "pipe": 2}), device="cpu")
+    # a pipe or seq axis above 1 holds the whole served tree on each of
+    # its ranks (the reference's decode specs split only model): one rank
+    # of such a mesh runs no collective and decodes mesh=None's tokens
+    # (every rank of a group: tests/test_torch_pipe_serving.py)
+    prompt = np.arange(5, dtype=np.int32) + 3
+    for axis in ("pipe", "seq"):
+        eng = DecodeEngine(CFG, params, buckets=(24, 64), device="cpu",
+                           mesh=types.SimpleNamespace(
+                               shape={"data": 1, axis: 2},
+                               axis_names=("data", axis), ranks=(0, 1),
+                               rank=0, device=torch.device("cpu"),
+                               backend="gloo"))
+        assert eng.model_degree == 1 and eng._tp is None
+        b, slot, first = eng.start(prompt, max_tokens=6)
+        toks = [int(first)] + [int(eng.advance(b)[slot]) for _ in range(5)]
+        np.testing.assert_array_equal(toks, _solo(params, prompt, 6))
     # the serving tier's knobs: the page width is the shrunk chunk, the
     # default pool the pinned capacity plus the trash page
     eng = DecodeEngine(CFG, params, buckets=(24, 64), prefill_chunk=16,

@@ -11,8 +11,8 @@ registry is freed and a host-store entry of the old weights no longer
 hits); ``evacuate`` / ``resubmit`` of a replica's unfinished requests,
 greedy and sampled, continuing with the tokens of an undisturbed run;
 a failed dispatch returning its pages and replaying its requests bit
-for bit; and the messages of what is not ported (ROADMAP A7), beside
-the fleet's names, which import.
+for bit; the fleet's names, which import, the model-degree refusal,
+and an engine on a pipe mesh, which builds.
 """
 
 import threading
@@ -260,13 +260,16 @@ def test_stub_messages_name_their_items(tree, params):
                  "SwapFailed"):
         assert isinstance(getattr(trouter, name), type)
     # model groups are ported: without a process group of two ranks a
-    # degree of 2 cannot be filled (the reference's error), and the pipe
-    # axis stays refused
+    # degree of 2 cannot be filled (the reference's error); serving on a
+    # pipe mesh is ported too (tests/test_torch_pipe_serving.py), while
+    # Router.replicate builds model meshes only, as the reference's
+    # (serving/router.py:160-200): its one replica here is unsharded
     with pytest.raises(ValueError, match="model_degree 2"):
         Router.replicate(CFG, tree, 1, model_degree=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1b.4"):
-        DecodeEngine(CFG, params, mesh=types.SimpleNamespace(
-            shape={"data": 1, "pipe": 2}), device="cpu")
+    eng = DecodeEngine(CFG, params, device="cpu", mesh=types.SimpleNamespace(
+        shape={"data": 1, "pipe": 2}, axis_names=("data", "pipe"),
+        ranks=(0, 1), rank=0, device=torch.device("cpu"), backend="gloo"))
+    assert eng.model_degree == 1 and eng.mesh.shape["pipe"] == 2
 
 
 def test_router_modules_import_no_jax():

@@ -244,8 +244,9 @@ def test_model_axis_is_accepted_and_the_rest_stays_raising():
     # the MoE family, the router over model groups and the engine's
     # knobs on a model mesh are ported (tests/test_torch_expert_parallel
     # .py, tests/test_torch_model_serving.py), and so are a pipe axis
-    # beside the model axis and the pipeline's microbatches; serving on
-    # a pipe mesh and a group the ranks cannot fill refuse
+    # beside the model axis and the pipeline's microbatches; a group the
+    # ranks cannot fill refuses; serving on a pipe mesh takes every knob
+    # (tests/test_torch_pipe_serving.py)
     from deeplearning4j_tpu_torch.models import moe as tmoe
     piped = _fake_mesh(model=2, pipe=2)
     step, _ = tlm.CausalLM(tmoe.MoETransformerConfig(), device="cpu") \
@@ -258,11 +259,17 @@ def test_model_axis_is_accepted_and_the_rest_stays_raising():
     with pytest.raises(ValueError, match="model_degree 2"):
         Router.replicate(tgpt.gpt_tiny(), None, 1, model_degree=2,
                          device="cpu")
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+    cfg = tgpt.gpt_tiny(vocab_size=64, max_len=32)
+    params = tgpt.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    piped = _fake_mesh(pipe=2)
     for knob in (dict(quantize="int8"), dict(kv_dtype="int8")):
-        from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
-        with pytest.raises(NotImplementedError, match="ROADMAP A7.1b.4"):
-            DecodeEngine(tgpt.gpt_tiny(), {}, mesh=piped, device="cpu",
-                         **knob)
+        eng = DecodeEngine(cfg, params, mesh=piped, device="cpu",
+                           buckets=(16,), **knob)
+        # one rank of pipe=2 holds the whole served tree
+        assert eng.model_degree == 1 and eng._tp is None
+        assert eng.quantize == knob.get("quantize")
+        assert eng.kv_dtype == knob.get("kv_dtype")
 
 
 def test_vocab_embed_needs_its_group():
