@@ -472,6 +472,34 @@ Phases, each fatal on failure:
    rejected by the WorkAccumulator.  (a)'s ranks serve while this
    process runs (a)'s reference and (b)-(e).  B1 launches of (a)'s
    ranks and B4/B5 launches of (b)'s trainers join the kernels line.
+25. NLP and periphery, every time beside the card's name and power
+   limit: (a) the RNTN at the reference's published width (dim 25, 5
+   classes, max_nodes 64) over 2,304 data/text8 windows of 24 words,
+   labelled by SentiWordNet.classify (seven classes onto five) and
+   parsed by TreeParser; 2,048 trees fit full-batch for 20 AdaGrad
+   epochs from seeded weights (rntn.params_from_numpy): the first 3
+   losses within 1e-4 relative of the same fit on the CPU, the loss
+   falls, RNTNEval over the 256 held-out trees counts their internal
+   nodes; an epoch's ms and trees/s; (b) text8's word2vec vectors (phase
+   7's config, one epoch through B4: its launches join the kernels line),
+   KMeansClustering at the defaults (k=8, 100 iterations) on the card,
+   its labels equal and centroids within 1e-4 of Lloyd on the CPU from
+   the same initial centroids; exact Tsne of every word at TsneConfig's
+   defaults (float64): the KL at the end below iteration 100's, the P on
+   the host and the device loop timed, 20 iterations from the same y0
+   within 1e-3 relative of the CPU's; render_embedding_html's page;
+   BarnesHutTsne of the 300 most frequent words for 30 iterations (below
+   full width: its negative forces are host Python), card against CPU
+   within 1e-5; (c) default_tagger's tags of 500 text8 windows, a
+   Word2VecDataSetIterator over (b)'s vectors (window 5: 500 inputs)
+   into a softmax MultiLayerNetwork, viterbi.decode_batch of the 100
+   held-out windows' emissions with transitions_from_labels: paths equal
+   to the CPU's decode, tag accuracy above the majority tag's share; (d)
+   NewsGroupsLoader(tfidf=True, n_docs=4000) feeding a softmax
+   MultiLayerNetwork on the card: the TF-IDF tensor equal to its numpy
+   values, held-out accuracy >= 0.9.  Four spawned workers parse and tag
+   and run the CPU sides of the checks (one of them Barnes-Hut on the
+   card) while this process drives the card.
 
 Each phase prints its seconds on a line of its own when it ends
 ("phase N: S s"), and the script prints every phase's seconds and its
@@ -11311,6 +11339,475 @@ def scaleout_phase(torch, fa, fw, fg, ln, t8, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 25: NLP and periphery
+# ---------------------------------------------------------------------------
+
+#: phase 25's sizes.  The RNTN runs at the reference's published width
+#: (deeplearning4j_tpu/nlp/rntn.py:138, numHidden=25, 5 classes,
+#: max_nodes 64) over 2,304 text8 windows of 24 words (at most 47 nodes
+#: a tree): 2,048 fit full-batch, 256 held out.  Barnes-Hut t-SNE runs
+#: below full width (N=300, 30 iterations): its negative forces are the
+#: host SpTree's Python, the same in both packages.
+NP_SETTINGS = dict(width=24, n_trees=2304, n_train=2048, epochs=20,
+                   parity_epochs=3, dim=25, n_classes=5, max_nodes=64,
+                   tsne_check_iter=20, bh_n=300, bh_iter=30, tag_train=400,
+                   tag_test=100, tag_window=5, tag_epochs=10,
+                   news_docs=4000, news_train=3200, news_epochs=5, seed=0)
+#: SentiWordNet.classify's seven classes onto the treebank's five
+NP_SENTIMENT = {"strong_negative": 0, "negative": 1, "weak_negative": 1,
+                "neutral": 2, "weak_positive": 3, "positive": 3,
+                "strong_positive": 4}
+NP_RNTN_RTOL = 1e-4      # the first epochs' losses, card against the CPU
+NP_KMEANS_TOL = 1e-4     # centroids, card against the CPU
+NP_TSNE_RTOL = 1e-3      # exact t-SNE at 20 iterations, card against CPU
+NP_BH_RTOL = 1e-5        # Barnes-Hut, card against the CPU
+NP_DEADLINE_S = 600.0    # a worker's job, at most
+
+
+def np_worker_init() -> None:
+    """A phase 25 worker process: the repo importable, two torch
+    threads (the card's host has eight cores for this process and
+    four workers)."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.set_num_threads(2)
+
+
+def np_windows(st, start: int, n: int):
+    """``n`` consecutive text8 windows of ``st["width"]`` words, from
+    window ``start``."""
+    with open(TEXT8) as f:
+        words = f.read().split()
+    w = st["width"]
+    return [words[(start + i) * w:(start + i + 1) * w] for i in range(n)]
+
+
+def np_parse_job(st):
+    """(trees, five-class labels, (c)'s windows, their tags, seconds):
+    SentiWordNet labels and TreeParser trees of the RNTN windows, then
+    default_tagger's tags of the sequence-labelling windows."""
+    from deeplearning4j_tpu_torch.nlp.pos import default_tagger
+    from deeplearning4j_tpu_torch.nlp.sentiment import SentiWordNet
+    from deeplearning4j_tpu_torch.nlp.treeparser import TreeParser
+
+    t0 = time.perf_counter()
+    swn, parser = SentiWordNet(), TreeParser()
+    texts = [" ".join(w) for w in np_windows(st, 0, st["n_trees"])]
+    labels = [NP_SENTIMENT[swn.classify(t)] for t in texts]
+    trees = [parser.parse(t, label=lab) for t, lab in zip(texts, labels)]
+    tagger = default_tagger()
+    seqs = np_windows(st, st["n_trees"], st["tag_train"] + st["tag_test"])
+    tags = [[t for _, t in tagger.tag(s)] for s in seqs]
+    return trees, labels, seqs, tags, time.perf_counter() - t0
+
+
+def np_rntn_weights(st, vocab_size: int) -> dict:
+    """Initial RNTN weights at the reference's init_params scales
+    (rntn.py:143-156), drawn from RandomState(seed): both devices start
+    from them through rntn.params_from_numpy."""
+    d, k = st["dim"], st["n_classes"]
+    rng = np.random.RandomState(st["seed"])
+    return {"embed": rng.randn(vocab_size, d) * 0.1,
+            "W": rng.randn(2 * d, d) / np.sqrt(2 * d),
+            "b": np.zeros(d),
+            "V": rng.randn(d, 2 * d, 2 * d) / (2 * d),
+            "U": rng.randn(d, k) / np.sqrt(d),
+            "bc": np.zeros(k)}
+
+
+def np_rntn_model(st, trees, device):
+    from deeplearning4j_tpu_torch.nlp import rntn
+
+    vocab = rntn.build_vocab(trees)
+    cfg = rntn.RNTNConfig(vocab_size=len(vocab), dim=st["dim"],
+                          n_classes=st["n_classes"],
+                          max_nodes=st["max_nodes"])
+    return rntn.RNTN(cfg, trees, device=device, params=rntn.params_from_numpy(
+        np_rntn_weights(st, len(vocab)), device))
+
+
+def np_rntn_cpu_job(st, trees):
+    """The first epochs' losses of the fit on the CPU, and seconds."""
+    t0 = time.perf_counter()
+    losses = np_rntn_model(st, trees, "cpu").fit(st["parity_epochs"])
+    return losses, time.perf_counter() - t0
+
+
+def np_bh_job(st, x, device: str):
+    """Barnes-Hut t-SNE of ``x`` on ``device`` (TsneConfig's defaults,
+    ``bh_iter`` iterations): (embedding, seconds)."""
+    from deeplearning4j_tpu_torch.plot.tsne import BarnesHutTsne, TsneConfig
+
+    t0 = time.perf_counter()
+    y = BarnesHutTsne(TsneConfig(max_iter=st["bh_iter"]),
+                      device=device).fit_transform(x)
+    return y, time.perf_counter() - t0
+
+
+def np_tsne_job(st, p, y0, device: str):
+    """Exact t-SNE from P and ``y0`` for ``tsne_check_iter`` iterations
+    on ``device``: (embedding, last KL)."""
+    from deeplearning4j_tpu_torch.plot.tsne import Tsne, TsneConfig
+
+    ts = Tsne(TsneConfig(max_iter=st["tsne_check_iter"]), device=device)
+    return ts.embed(p, y0), ts.kl_
+
+
+def np_get(job, what: str):
+    """A worker job's result, failing the phase if it raised or hung."""
+    try:
+        return job.get(NP_DEADLINE_S)
+    except Exception as e:                       # noqa: BLE001
+        raise SmokeFailure(f"phase 25 {what}: {type(e).__name__}: {e}")
+
+
+def np_softmax_net(n_in: int, n_out: int, lr: float):
+    """One softmax layer over ``n_in`` inputs, fp32, AdaGrad."""
+    from deeplearning4j_tpu_torch.nn.conf import (LayerKind,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder()
+            .n_in(n_in).lr(lr).use_adagrad(True).compute_dtype("float32")
+            .list(1)
+            .override(0, kind=LayerKind.OUTPUT, n_out=n_out,
+                      activation="softmax", loss_function="mcxent")
+            .pretrain(False).backward(True).build())
+    return MultiLayerNetwork(conf, device="cuda").init(seed=0)
+
+
+def np_rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def np_vectors(torch, fw, t8, st, card, say):
+    """(b)'s word vectors: text8's word2vec at phase 7's config, one
+    epoch through B4.  Returns the Word2Vec and B4's launches."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec, Word2VecConfig
+
+    w2v = Word2Vec(t8, Word2VecConfig(min_word_frequency=5, epochs=1,
+                                      **W2V_CONFIG), device="cuda")
+    fw.reset_launches()
+    t0 = time.perf_counter()
+    w2v.fit()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n = fw.launches
+    check(w2v.chunks > 0 and n == w2v.chunks,
+          f"phase 25 word2vec: B4 launched {n} times for {w2v.chunks} "
+          f"chunks")
+    check(bool(w2v.syn0.isfinite().all()), "phase 25: non-finite vectors")
+    say(f"(b) word2vec on text8, one epoch: V={len(w2v.cache)}, "
+        f"D={w2v.syn0.shape[1]}, {w2v.chunks} chunks = {n} B4 launches, "
+        f"{sec * 1e3:.1f} ms [{card}]")
+    check(len(w2v.cache) > 1000, f"phase 25: vocabulary {len(w2v.cache)}")
+    return w2v, n
+
+
+def np_kmeans(torch, x, st, say, card) -> None:
+    """(b) KMeansClustering at the reference defaults on the card, and
+    Lloyd on the CPU from the same initial centroids."""
+    from deeplearning4j_tpu_torch.clustering.kmeans import (KMeansClustering,
+                                                            KMeansConfig,
+                                                            lloyd)
+
+    km = KMeansClustering(KMeansConfig(), device="cuda")
+    t0 = time.perf_counter()
+    km.fit(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    cfg = km.config
+    c, labels, inertia, iters = lloyd(x.cpu(), km.init_centroids_.cpu(),
+                                      cfg.max_iterations, cfg.tolerance)
+    err = float((km.centroids.cpu() - c).abs().max())
+    same = bool(torch.equal(km.labels_.cpu(), labels))
+    sizes = torch.bincount(labels, minlength=cfg.n_clusters).tolist()
+    say(f"(b) k-means k={cfg.n_clusters} on {x.shape[0]} vectors: "
+        f"{km.n_iter_} iterations (CPU {iters}), inertia {km.inertia_:.4f} "
+        f"(CPU {float(inertia):.4f}), cluster sizes {sizes}; card against "
+        f"the CPU from the same initial centroids: labels equal {same}, "
+        f"centroids max|diff| {err:.3e} (tolerance {NP_KMEANS_TOL:g}); "
+        f"{ms:.1f} ms with k-means++ seeding [{card}]")
+    check(same and err <= NP_KMEANS_TOL and km.n_iter_ == iters,
+          "phase 25 k-means: the card and the CPU disagree")
+
+
+def np_tsne(torch, pool, x_host, words, st, say, card):
+    """(b) exact t-SNE of every word vector at TsneConfig's defaults,
+    its page, and the 20-iteration comparison's CPU job."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.plot.plotter import render_embedding_html
+    from deeplearning4j_tpu_torch.plot.tsne import (Tsne, TsneConfig,
+                                                    joint_probabilities)
+
+    cfg = TsneConfig()
+    t0 = time.perf_counter()
+    p = joint_probabilities(x_host.astype(np.float64), cfg.perplexity)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ts = Tsne(cfg, device="cuda")
+    y0 = ts.initial_y(len(words)).numpy()
+    cpu_job = pool.apply_async(np_tsne_job, (st, p, y0, "cpu"))
+    ts.embed(p[:64, :64], y0[:64])                    # warm-up, small
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = ts.embed(p, y0)
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    kls = ts.kl_history_.cpu().numpy()
+    check(np.isfinite(y).all() and y.shape == (len(words), 2),
+          "phase 25 t-SNE: bad embedding")
+    check(kls[-1] < kls[cfg.exaggeration_iters],
+          f"phase 25 t-SNE: KL {kls[-1]:.4f} not below iteration "
+          f"{cfg.exaggeration_iters}'s {kls[cfg.exaggeration_iters]:.4f}")
+    say(f"(b) exact t-SNE of {len(words)} words (perplexity "
+        f"{cfg.perplexity:g}, {cfg.max_iter} iterations, float64): P on the "
+        f"host {host_ms:.1f} ms, the device loop {dev_ms:.1f} ms "
+        f"({dev_ms / cfg.max_iter:.3f} ms an iteration, host clock after "
+        f"synchronize, P's upload included); KL {kls[0]:.4f} at iteration "
+        f"0 (exaggerated), {kls[cfg.exaggeration_iters]:.4f} at "
+        f"{cfg.exaggeration_iters}, {kls[-1]:.4f} at the end [{card}]")
+    check_ts = Tsne(TsneConfig(max_iter=st["tsne_check_iter"]),
+                    device="cuda")
+    t0 = time.perf_counter()
+    y20 = check_ts.embed(p, y0)
+    ms20 = (time.perf_counter() - t0) * 1e3
+    busy = sum(device_ms_by_kernel(torch, lambda: check_ts.embed(p, y0))
+               .values())
+    say(f"(b) exact t-SNE, {st['tsne_check_iter']} iterations: {ms20:.2f} "
+        f"ms (host clock after synchronize, P's upload included), device "
+        f"busy {busy:.2f} ms of it in a profiled repeat ({busy / ms20:.1%}) "
+        f"[{card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        page = render_embedding_html(words, y, os.path.join(tmp, "emb.html"))
+        html = open(page).read()
+        check(f'"w": "{words[0]}"' in html and "<svg" in html,
+              "phase 25: the embedding page lacks its words")
+        say(f"(b) embedding page: {len(html)} bytes, {len(words)} words")
+    return y20, cpu_job
+
+
+def np_newsgroups(torch, st, say, card) -> None:
+    """(d) NewsGroupsLoader(tfidf=True) feeding a softmax classifier on
+    the card."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.newsgroups import NewsGroupsLoader
+
+    t0 = time.perf_counter()
+    loader = NewsGroupsLoader(tfidf=True, n_docs=st["news_docs"],
+                              seed=st["seed"], device="cuda")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    tfidf = loader.vectorizer.transform(loader.texts)
+    check(tfidf.device.type == "cuda" and torch.equal(
+        tfidf.cpu(), torch.from_numpy(loader.data.features)),
+        "phase 25 newsgroups: the TF-IDF tensor differs from its numpy "
+        "values")
+    labels = torch.from_numpy(loader.data.labels).cuda()
+    n = st["news_train"]
+    net = np_softmax_net(tfidf.shape[1], labels.shape[1], lr=0.1)
+    t0 = time.perf_counter()
+    net.fit_backprop(DataSet(tfidf[:n], labels[:n]).batch_by(100),
+                     num_epochs=st["news_epochs"])
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    acc = net.evaluate(DataSet(tfidf[n:], labels[n:])).accuracy()
+    say(f"(d) newsgroups surrogate: {loader.num_examples} documents, "
+        f"{len(loader.label_names)} labels, TF-IDF {tuple(tfidf.shape)} on "
+        f"the card equal to its numpy values; loading {host_ms:.1f} ms, fit "
+        f"{st['news_epochs']} epochs {fit_ms:.1f} ms; held-out accuracy "
+        f"{acc:.4f} on {loader.num_examples - n} documents [{card}]")
+    check(acc >= 0.9, f"phase 25 newsgroups: held-out accuracy {acc:.4f}")
+
+
+def np_rntn(torch, pool, trees, labels, st, say, card):
+    """(a) the RNTN fit on the card and RNTNEval over the held-out trees;
+    the same fit's first epochs start on the CPU in a worker.  Returns
+    the card's first losses and that job."""
+    from deeplearning4j_tpu_torch.nlp.rntn import RNTNEval
+
+    train, held = trees[:st["n_train"]], trees[st["n_train"]:]
+    cpu_job = pool.apply_async(np_rntn_cpu_job, (st, train))
+    model = np_rntn_model(st, train, "cuda")
+    k = st["parity_epochs"]
+    losses = model.fit(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += model.fit(st["epochs"] - k - 1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    epoch_ms = sec / (st["epochs"] - k - 1) * 1e3
+    last = []
+    by = device_ms_by_kernel(torch, lambda: last.extend(model.fit(1)))
+    losses += last
+    busy = sum(by.values())
+    top = ", ".join(f"{name[:48]} {ms:.2f}" for name, ms in sorted(
+        by.items(), key=lambda kv: -kv[1])[:4])
+    ev = RNTNEval(st["n_classes"])
+    ev.eval(model, held)
+    internal = sum((t.size() - 1) // 2 for t in held)
+    sizes = [t.size() for t in trees]
+    say(f"(a) RNTN dim {st['dim']} over {len(trees)} text8 windows of "
+        f"{st['width']} words ({min(sizes)}-{max(sizes)} nodes, labels "
+        f"{np.bincount(labels, minlength=st['n_classes']).tolist()}, V="
+        f"{model.cfg.vocab_size}): {st['epochs']} full-batch AdaGrad epochs "
+        f"over {len(train)} trees, loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+        f"an epoch {epoch_ms:.2f} ms, {len(train) / (epoch_ms / 1e3):.1f} "
+        f"trees/s (host clock after synchronize, epochs {k + 1}-"
+        f"{st['epochs'] - 1}); the last epoch profiled: device busy "
+        f"{busy:.2f} ms ({busy / epoch_ms:.1%} of an unprofiled epoch), "
+        f"device ms by kernel {top} [{card}]")
+    say(f"(a) RNTNEval over {len(held)} held-out trees: {ev.confusion.sum()} "
+        f"internal nodes (expected {internal}), node accuracy "
+        f"{ev.accuracy():.4f}, root accuracy {ev.root_accuracy():.4f}")
+    check(losses[-1] < losses[0], "phase 25 RNTN: the loss did not fall")
+    check(int(ev.confusion.sum()) == internal,
+          "phase 25 RNTNEval: node count differs from the internal nodes")
+    return losses[:k], cpu_job
+
+
+def np_rntn_parity(losses, cpu_job, say) -> None:
+    """(a)'s first epochs on the card against the CPU worker's."""
+    k = len(losses)
+    cpu, cpu_s = np_get(cpu_job, "RNTN on the CPU")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu))
+    say(f"(a) the first {k} epochs' losses on the card against the CPU from "
+        f"the same weights: {losses} vs {cpu}, max relative difference "
+        f"{rel:.3e} (tolerance {NP_RNTN_RTOL:g}; the CPU took {cpu_s:.1f} s "
+        f"in a worker)")
+    check(rel <= NP_RNTN_RTOL, "phase 25 RNTN: card and CPU losses differ")
+
+
+def np_sequences(torch, w2v, seqs, tags, st, say, card) -> None:
+    """(c) windows of word vectors -> a softmax tagger on the card ->
+    Viterbi over its emissions, on the card and on the CPU."""
+    from deeplearning4j_tpu_torch.nlp.moving_window import \
+        Word2VecDataSetIterator
+    from deeplearning4j_tpu_torch.nlp.word_vectors import WordVectors
+    from deeplearning4j_tpu_torch.utils import viterbi
+
+    names = sorted({t for ts in tags for t in ts})
+    ix = {t: i for i, t in enumerate(names)}
+    wv = WordVectors(w2v.cache, w2v.syn0.cpu())
+    n_tr = st["tag_train"]
+    train = list(zip(seqs[:n_tr], tags[:n_tr]))
+    test = list(zip(seqs[n_tr:], tags[n_tr:]))
+    it = Word2VecDataSetIterator(wv, train, names, batch_size=256,
+                                 window_size=st["tag_window"], device="cuda")
+    batches = list(it)
+    n_in = batches[0].features.shape[1]
+    net = np_softmax_net(n_in, len(names), lr=0.2)
+    t0 = time.perf_counter()
+    net.fit_backprop(batches, num_epochs=st["tag_epochs"])
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    xt = torch.cat([b.features for b in Word2VecDataSetIterator(
+        wv, test, names, batch_size=4096, window_size=st["tag_window"],
+        device="cuda")])
+    with torch.no_grad():
+        probs = net.output(xt)
+    em = torch.log(probs.clamp_min(1e-30)).reshape(len(test), st["width"],
+                                                    len(names))
+    trans = viterbi.transitions_from_labels(
+        [[ix[t] for t in ts] for ts in tags[:n_tr]], len(names),
+        device="cuda")
+    t0 = time.perf_counter()
+    paths, logp = viterbi.decode_batch(em, trans)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    cpu_paths, cpu_logp = viterbi.decode_batch(em.cpu(), trans.cpu())
+    same = bool(torch.equal(paths.cpu(), cpu_paths))
+    gold = torch.tensor([[ix[t] for t in ts] for ts in tags[n_tr:]])
+    acc = float((paths.cpu() == gold).float().mean())
+    greedy = float((em.argmax(-1).cpu() == gold).float().mean())
+    major = float(torch.bincount(gold.flatten()).max()) / gold.numel()
+    say(f"(c) tagging {len(train)} + {len(test)} text8 windows of "
+        f"{st['width']} words ({len(names)} tags from default_tagger): "
+        f"{n_in} inputs, softmax fit {st['tag_epochs']} epochs {fit_ms:.1f} "
+        f"ms; Viterbi over [{len(test)}, {st['width']}, {len(names)}] "
+        f"{dec_ms:.2f} ms; paths on the card equal to the CPU's {same}, "
+        f"log-probability max|diff| "
+        f"{float((logp.cpu() - cpu_logp).abs().max()):.3e}; tag accuracy "
+        f"{acc:.4f} (per-position argmax {greedy:.4f}, the majority tag's "
+        f"share {major:.4f}) [{card}]")
+    check(same, "phase 25 Viterbi: card and CPU paths differ")
+    check(acc > major, f"phase 25 tagging: accuracy {acc:.4f} not above the "
+                       f"majority tag's share {major:.4f}")
+
+
+def nlp_phase(torch, fw, t8, card: str) -> int:
+    """Phase 25: returns B4's launches on its path.  Four spawned
+    workers parse and tag text8 and run the CPU sides of the checks (one
+    of them Barnes-Hut on the card) while this process drives the
+    card."""
+    import multiprocessing
+
+    st = NP_SETTINGS
+    t = [time.perf_counter()]
+    marks = []
+
+    def mark(name):
+        t.append(time.perf_counter())
+        marks.append(name)
+
+    def say(line):
+        print("  " + line)
+
+    pool = multiprocessing.get_context("spawn").Pool(
+        4, initializer=np_worker_init)
+    try:
+        parse = pool.apply_async(np_parse_job, (st,))
+        w2v, launches = np_vectors(torch, fw, t8, st, card, say)
+        x = w2v.syn0.detach()
+        x_host = x.cpu().numpy()
+        words = w2v.cache.words()
+        bh_x = x_host[:st["bh_n"]].astype(np.float64)
+        bh = {dev: pool.apply_async(np_bh_job, (st, bh_x, dev))
+              for dev in ("cuda", "cpu")}
+        mark("(b) word2vec")
+        np_kmeans(torch, x, st, say, card)
+        mark("(b) k-means")
+        y20, tsne_cpu = np_tsne(torch, pool, x_host, words, st, say, card)
+        mark("(b) t-SNE")
+        np_newsgroups(torch, st, say, card)
+        mark("(d) newsgroups")
+        trees, labels, seqs, tags, parse_s = np_get(parse, "parsing")
+        say(f"parsing and tagging in a worker: {parse_s:.1f} s")
+        mark("waiting for the parses")
+        first, rntn_cpu = np_rntn(torch, pool, trees, labels, st, say, card)
+        mark("(a) RNTN")
+        np_sequences(torch, w2v, seqs, tags, st, say, card)
+        mark("(c) sequences")
+        np_rntn_parity(first, rntn_cpu, say)
+        y20_cpu, kl20_cpu = np_get(tsne_cpu, "t-SNE on the CPU")
+        rel = np_rel(y20, y20_cpu)
+        say(f"(b) exact t-SNE, {st['tsne_check_iter']} iterations from the "
+            f"same y0, card against the CPU: {rel:.3e} relative (tolerance "
+            f"{NP_TSNE_RTOL:g}); CPU KL {kl20_cpu:.6f}")
+        check(rel <= NP_TSNE_RTOL, "phase 25 t-SNE: card and CPU differ")
+        (yb, sb), (yc, sc) = (np_get(bh[d], f"Barnes-Hut on {d}")
+                              for d in ("cuda", "cpu"))
+        rel = np_rel(yb, yc)
+        say(f"(b) Barnes-Hut t-SNE of the {st['bh_n']} most frequent words "
+            f"({st['bh_iter']} iterations, below full width: host SpTree "
+            f"forces): card {sb:.1f} s, CPU {sc:.1f} s (each in a worker); "
+            f"card against CPU {rel:.3e} relative (tolerance "
+            f"{NP_BH_RTOL:g}) [{card}]")
+        check(np.isfinite(yb).all() and rel <= NP_BH_RTOL,
+              "phase 25 Barnes-Hut: card and CPU differ")
+        mark("the workers' checks")
+    finally:
+        pool.terminate()
+        pool.join()
+    say("phase 25 wall: " + ", ".join(
+        f"{n_} {b_ - a_:.1f} s" for n_, a_, b_ in zip(marks, t, t[1:]))
+        + f"; total {t[-1] - t[0]:.1f} s; B4 launches on the path "
+          f"{launches}")
+    return launches
+
+
 class PhaseClock:
     """Each phase's header when it starts and, when the next one starts
     (or :meth:`stop`), a line naming the phase with its seconds; the
@@ -11549,6 +12046,11 @@ def main() -> int:
     launches["launches"] += sc["launches"]
     launches_w2v += sc["w2v"]
     launches_glove += sc["glove"]
+    clock.start("25", "NLP and periphery: RNTN sentiment from raw text8 "
+                "windows, word2vec vectors through B4 into k-means, exact "
+                "and Barnes-Hut t-SNE and the embedding page, moving-window "
+                "tagging decoded by Viterbi, TF-IDF newsgroups")
+    launches_w2v += nlp_phase(torch, fw, t8, card)
     clock.stop()
 
     kernels = [{

@@ -1,2 +1,3 @@
 """Host utilities of the port (counterpart of ``deeplearning4j_tpu/utils``):
-image loading."""
+image loading, math and string helpers, and Viterbi decoding (its
+forward pass on the emissions' device)."""

@@ -11,7 +11,8 @@ order of a cluster snapshot, retention, the sharded layout's files, the
 heartbeat, preemption propagated to every member at one boundary, a host
 loss that evicts one member while the survivor finishes bit for bit, and
 a sync timeout that becomes a host loss only on a stale heartbeat.  The
-reference's :75 (``cloud/provision.py``, ROADMAP A9) is left out; its
+reference's :75 (``cloud/provision.py``) is held in
+``tests/test_torch_periphery.py``; its
 data plane (:581-628) is here: the store split by member rank, a rank's
 rows of a global batch against JAX's ``P("data")`` shard, and
 ``global_data_mesh`` over a real group.
