@@ -500,6 +500,21 @@ Phases, each fatal on failure:
    values, held-out accuracy >= 0.9.  Four spawned workers parse and tag
    and run the CPU sides of the checks (one of them Barnes-Hut on the
    card) while this process drives the card.
+26. The examples: each of the seven under deeplearning4j_tpu_torch/
+   examples runs on the card as a user runs it (python -m
+   deeplearning4j_tpu_torch.examples.<name> in a subprocess, all seven
+   at once, the 8-rank parallelism_axes (gloo ranks sharing the card)
+   beside the six others, a deadline each).  Checks: exit code 0 and
+   the lines each prints: LeNet's test accuracy >= 0.90, word2vec's
+   three nearest words to "sea" in the vocabulary (both pair modes),
+   GloVe's similarities finite, every LM and BERT loss finite and the
+   last below the first where a run prints several, every
+   parallelism-axes loss finite, the chaotic word counts identical to
+   the clean ones, the streaming accuracies >= 0.85; text_generation,
+   data_parallel and parallelism_axes launched B1, B2 and B3 and
+   word_embeddings B4 and B5 (each example's "kernel launches:" line;
+   the counts join the kernels line).  Prints each example's wall
+   seconds beside the card's name and power limit.
 
 Each phase prints its seconds on a line of its own when it ends
 ("phase N: S s"), and the script prints every phase's seconds and its
@@ -547,7 +562,9 @@ import contextlib
 import dataclasses
 import json
 import logging
+import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -11808,6 +11825,149 @@ def nlp_phase(torch, fw, t8, card: str) -> int:
     return launches
 
 
+#: the examples phase 26 runs, the kernels each must launch
+EX_KERNELS = {
+    "mnist_lenet": (),
+    "word_embeddings": ("word2vec_chunk", "glove_chunk"),
+    "text_generation": ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                        "flash_attention_bwd_dq"),
+    "data_parallel": ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                      "flash_attention_bwd_dq"),
+    "distributed_runtime": (),
+    "parallelism_axes": ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                         "flash_attention_bwd_dq"),
+    "streaming_ingestion": (),
+}
+#: seconds an example may run in phase 26 (its ranks' own deadline is
+#: the spawner's 120 s)
+EX_DEADLINE_S = 240.0
+
+
+def ex_floats(out: str, pattern: str) -> list:
+    import re
+
+    return [float(x) for x in re.findall(pattern, out, re.M)]
+
+
+def ex_check(name: str, out: str) -> dict:
+    """Phase 26's checks of one example's output; its launches line's
+    counts."""
+    import ast
+
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("kernel launches:")]
+    check(len(lines) == 1, f"phase 26 {name}: no launches line")
+    counts = json.loads(lines[0][len("kernel launches:"):])
+    for k in EX_KERNELS[name]:
+        check(counts.get(k, 0) > 0, f"phase 26 {name}: {k} never launched "
+                                    f"({counts})")
+    if name == "mnist_lenet":
+        acc = ex_floats(out, r"^ Accuracy:\s+([0-9.]+)$")
+        check(len(acc) == 1 and acc[0] >= 0.90,
+              f"phase 26 mnist_lenet: test accuracy {acc} < 0.90")
+    elif name == "word_embeddings":
+        from deeplearning4j_tpu_torch.examples.word_embeddings import CORPUS
+
+        vocab = {w for sentence in CORPUS for w in sentence.split()}
+        for prefix in ("word2vec nearest(sea):",
+                       "word2vec[device] nearest(sea):"):
+            line = [ln for ln in out.splitlines() if ln.startswith(prefix)]
+            near = ast.literal_eval(line[0][len(prefix):].strip()) \
+                if line else []
+            check(len(near) == 3 and all(w in vocab for w, _ in near),
+                  f"phase 26 word_embeddings: {prefix} {near}")
+        sims = ex_floats(out, r"sim\(cat,\w+\) = (\S+)")
+        check(len(sims) == 2 and all(map(math.isfinite, sims)),
+              f"phase 26 word_embeddings: GloVe similarities {sims}")
+    elif name == "text_generation":
+        first = ex_floats(out, r"^first LM loss: (\S+)$")
+        final = ex_floats(out, r"^final LM loss: (\S+)$")
+        check(len(first) == len(final) == 1 and math.isfinite(final[0])
+              and final[0] < first[0],
+              f"phase 26 text_generation: losses {first} -> {final}")
+        check("gpt continuation: 'the quick " in out,
+              "phase 26 text_generation: no continuation")
+    elif name == "data_parallel":
+        losses = ex_floats(out, r"^step \d: loss (\S+)  \(batch sharded")
+        check(len(losses) == 5 and all(map(math.isfinite, losses))
+              and losses[-1] < losses[0],
+              f"phase 26 data_parallel: losses {losses}")
+    elif name == "distributed_runtime":
+        check("with 25% injected crashes: identical result -> True" in out,
+              "phase 26 distributed_runtime: the chaotic counts differ")
+    elif name == "parallelism_axes":
+        losses = ex_floats(out, r"(?:BERT|MoE-LM) loss (\S+)$")
+        check(len(losses) == 4 and all(map(math.isfinite, losses))
+              and "all parallelism axes OK" in out,
+              f"phase 26 parallelism_axes: losses {losses}")
+    elif name == "streaming_ingestion":
+        accs = ex_floats(out, r"accuracy ([0-9.]+)$")
+        check(len(accs) == 2 and min(accs) >= 0.85,
+              f"phase 26 streaming_ingestion: accuracies {accs}")
+    return counts
+
+
+def examples_phase(card: str) -> dict:
+    """Phase 26: the seven examples, each a subprocess as a user runs
+    it, all at once; the B1-B5 launches they report, summed."""
+    import tempfile
+
+    # one CPU thread a process: fifteen processes (the eight ranks among
+    # them) share the host's cores
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    t0 = time.perf_counter()
+    runs = {}
+    try:
+        for name in EX_KERNELS:
+            out = open(os.path.join(tmp, f"{name}.out"), "w+")
+            err = open(os.path.join(tmp, f"{name}.err"), "w+")
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 f"deeplearning4j_tpu_torch.examples.{name}"],
+                cwd=REPO, env=env, stdout=out, stderr=err)
+            runs[name] = (proc, out, err)
+        ends = {}
+        deadline = t0 + EX_DEADLINE_S
+        while len(ends) < len(runs) and time.perf_counter() < deadline:
+            for name, (proc, _, _) in runs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+        late = [n for n in runs if n not in ends]
+        for proc, _, _ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+        check(not late, f"phase 26: {late} still running after "
+                        f"{EX_DEADLINE_S:g} s: killed")
+        total = {}
+        for name, (proc, out, err) in runs.items():
+            out.seek(0)
+            err.seek(0)
+            text, errs = out.read(), err.read()
+            check(proc.returncode == 0,
+                  f"phase 26 {name}: exit code {proc.returncode}\n"
+                  f"{text[-3000:]}\n{errs[-3000:]}")
+            counts = ex_check(name, text)
+            shown = [ln for ln in text.splitlines()
+                     if not ln.startswith(("kernel launches:", " [", "[["))]
+            print(f"  {name}: {ends[name]:.1f} s wall [{card}]")
+            for ln in shown[-6:]:
+                print(f"    {ln[:200]}")
+            print(f"    launches {counts}")
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+    finally:
+        for _, out, err in runs.values():
+            out.close()
+            err.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 26: the seven examples side by side in "
+          f"{time.perf_counter() - t0:.1f} s; launches {total} [{card}]")
+    return total
+
+
 class PhaseClock:
     """Each phase's header when it starts and, when the next one starts
     (or :meth:`stop`), a line naming the phase with its seconds; the
@@ -12051,6 +12211,15 @@ def main() -> int:
                 "and Barnes-Hut t-SNE and the embedding page, moving-window "
                 "tagging decoded by Viterbi, TF-IDF newsgroups")
     launches_w2v += nlp_phase(torch, fw, t8, card)
+    clock.start("26", "the examples: the seven user entry points under "
+                "deeplearning4j_tpu_torch/examples as subprocesses, all at "
+                "once (parallelism_axes on 8 gloo ranks sharing the card)")
+    ex = examples_phase(card)
+    launches["launches"] += ex["flash_attention_fwd"]
+    launches["launches_dkv"] += ex["flash_attention_bwd_dkv"]
+    launches["launches_dq"] += ex["flash_attention_bwd_dq"]
+    launches_w2v += ex["word2vec_chunk"]
+    launches_glove += ex["glove_chunk"]
     clock.stop()
 
     kernels = [{

@@ -37,3 +37,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet  # noqa: E402,F401

@@ -131,6 +131,26 @@ class Evaluation:
         p, r = self.precision(i), self.recall(i)
         return 2 * p * r / (p + r) if p + r else 0.0
 
+    # -- quantization acceptance (the reference's :170-187) ----------------
+    def accuracy_delta(self, other: "Evaluation") -> float:
+        """|accuracy(self) - accuracy(other)|: the quantized-against-fp32
+        number a serving rollout holds (both evaluated on the same
+        labels)."""
+        return abs(self.accuracy() - other.accuracy())
+
+    def assert_accuracy_within(self, other: "Evaluation", tol: float,
+                               label: str = "quantized") -> float:
+        """The accuracy delta against ``other``, which must be within
+        ``tol``; beyond it, an ``AssertionError`` that names both
+        accuracies."""
+        delta = self.accuracy_delta(other)
+        if delta > tol:
+            raise AssertionError(
+                f"{label} accuracy delta {delta:.4f} exceeds tolerance "
+                f"{tol} (reference {self.accuracy():.4f} vs {label} "
+                f"{other.accuracy():.4f})")
+        return delta
+
     # -- report (stats():97 parity) ----------------------------------------
     def stats(self) -> str:
         cm = self.confusion

@@ -38,9 +38,6 @@ Params = Dict[str, Tensor]
 
 _LAYER_REGISTRY: Dict[LayerKind, Type["Layer"]] = {}
 
-#: the ROADMAP item that ports each layer kind this package lacks
-_NOT_PORTED: Dict[LayerKind, str] = {}
-
 
 def register_layer(kind: LayerKind):
     def deco(cls: Type["Layer"]):
@@ -51,18 +48,13 @@ def register_layer(kind: LayerKind):
 
 
 def make_layer(conf: NeuralNetConfiguration) -> "Layer":
-    """The layer for ``conf.kind``; raises ``NotImplementedError`` for a
-    kind the port does not have yet, naming its ROADMAP item."""
+    """The layer for ``conf.kind``; ``ValueError`` for a kind no layer
+    registered."""
     try:
         return _LAYER_REGISTRY[conf.kind](conf)
     except KeyError:
-        item = _NOT_PORTED.get(conf.kind)
-        if item is None:
-            raise ValueError(f"no layer registered for kind {conf.kind}")
-        raise NotImplementedError(
-            f"layer kind {conf.kind.value!r} is not ported yet (ROADMAP "
-            f"{item}); the port has "
-            f"{sorted(k.value for k in _LAYER_REGISTRY)}") from None
+        raise ValueError(
+            f"no layer registered for kind {conf.kind}") from None
 
 
 class Layer:

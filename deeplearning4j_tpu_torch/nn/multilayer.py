@@ -121,11 +121,6 @@ Tensor = torch.Tensor
 Params = List[Dict[str, Tensor]]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
-
-
 def _nbytes(a) -> int:
     if isinstance(a, torch.Tensor):
         return a.numel() * a.element_size()

@@ -588,6 +588,39 @@ class AttnDecision:
     impl: str
     source: str
 
+    @property
+    def kernel_name(self) -> str:
+        """The kernel that runs, as a row reports it: ``"ring"``,
+        ``"cuda"`` (B1-B3) or ``"plain"`` (the reference's ``ring`` /
+        ``pallas`` / ``xla``, :461-467; the port has no interpreter)."""
+        return self.impl if self.impl in ("ring", "cuda") else "plain"
+
+
+def attention_auto(q: Tensor, k: Tensor, v: Tensor,
+                   mask: Optional[Tensor] = None,
+                   causal: bool = False) -> Tensor:
+    """B1 (B2 and B3 as its backward) where it wins, the plain
+    ``models/transformer.attention`` everywhere else (the reference's
+    :420-437).  The kernel runs on a CUDA tensor whose shape and dtype
+    :func:`kernel_supports`.  The TPU's crossover (``FLASH_MIN_SEQ =
+    4096``) is not carried over: where the autotuner has banked a
+    crossover for this card and head dim
+    (``runtime/autotune.measured_crossover``), the kernel runs at and
+    above that key length and the plain attention below it; where none
+    is banked, the kernel runs for every supported shape, since it is
+    ahead of the plain attention on the H100 from B=1, T=128 up
+    (``PERF.md`` section 6).  CPU tensors take the plain attention."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+
+    Tq, Tk, D = q.shape[1], k.shape[1], q.shape[3]
+    if q.device.type == "cuda" and kernel_supports(Tq, Tk, D, q.dtype):
+        from deeplearning4j_tpu_torch.runtime import autotune as at
+        crossover = at.measured_crossover(D, causal,
+                                          kind=at.device_kind(q.device))
+        if crossover is None or Tk >= crossover:
+            return flash_attention(q, k, v, mask, causal)
+    return tfm.attention(q, k, v, mask, causal)
+
 
 def make_attn_fn(kernel: str = "auto", mesh=None, *, autotune: bool = False):
     """An ``attn(q, k, v, mask=None, causal=False)`` drop-in for
@@ -684,3 +717,20 @@ def make_attn_fn(kernel: str = "auto", mesh=None, *, autotune: bool = False):
 
     attn.describe = describe
     return attn
+
+
+def make_flash_attn(mesh):
+    """The attention of a training step on ``mesh`` (the reference's
+    :626-645): the plain ``models/transformer.attention`` when the mesh
+    lives on the CPU or holds a ``seq`` axis above 1 (ring attention
+    owns that axis, and the step's ``make_attn_fn`` takes it there),
+    else :func:`make_attn_fn` ``("auto", mesh=mesh)``, which runs B1-B3
+    on each rank's own rows and heads.  ``mesh=None`` means one card."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.mesh import seq_degree
+
+    device = torch.device("cuda") if mesh is None else torch.device(
+        mesh.device)
+    if device.type != "cuda" or seq_degree(mesh) > 1:
+        return tfm.attention
+    return make_attn_fn("auto", mesh=mesh)

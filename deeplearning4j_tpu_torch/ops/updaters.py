@@ -8,7 +8,11 @@ that transformation, step for step, as optax 0.2.6 computes it
 from the same gradients.  ``torch.optim.AdamW`` is not used: it folds
 the decay into the parameter before the Adam step and keeps its own
 step-count rules.  ResNet trains with ``optax.sgd`` with Nesterov
-momentum (``models/resnet.py:287``): :func:`sgd`.  :func:`dl4j_updater`
+momentum (``models/resnet.py:287``): :func:`sgd`.  :func:`adam`,
+:func:`adagrad`, :func:`rmsprop` and :func:`lamb` are optax 0.2.6's
+transforms of those names at their defaults, and
+:func:`make_optimizer` is the reference's registry of the six families
+by name (``ops/updaters.py:138-153``).  :func:`dl4j_updater`
 is the reference's ``ops/updaters.py:dl4j_updater`` (:41-118), the
 GradientAdjustment chain that ``nn/multilayer`` trains with; its
 updates are subtracted (:func:`apply_descent`).
@@ -90,6 +94,51 @@ class AdamWState(NamedTuple):
     nu: Tree
 
 
+def _leaves(ref: Tree, tree: Tree) -> list:
+    """``tree``'s leaves in the order of ``ref``'s (matched key by key,
+    as :func:`tree_map` matches them: two dicts of one structure may
+    hold their keys in different orders)."""
+    return tree_leaves(tree_map(lambda _, x: x, ref, tree))
+
+
+def _adam_moments(grads: Tree, state: AdamWState, b1: float, b2: float):
+    """optax's ``scale_by_adam`` moments: mu = (1 - b1) g + b1 mu and
+    nu = (1 - b2) g^2 + b2 nu (fp32), the incremented count, and the
+    bias corrections 1 - b^count in fp32 on the device (no host number
+    in a captured step).  Returns ``(mu, nu, count, c1, c2)``, mu and
+    nu as trees of the gradients' structure."""
+    g = tree_leaves(grads)
+    mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
+                            torch._foreach_mul(_leaves(grads, state.mu), b1))
+    nu = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
+        torch._foreach_mul(_leaves(grads, state.nu), b2))
+    count = state.count + 1
+    n = count.to(torch.float32)
+    c1 = 1.0 - torch.pow(b1, n)
+    c2 = 1.0 - torch.pow(b2, n)
+    return (tree_unflatten(grads, mu), tree_unflatten(grads, nu), count, c1,
+            c2)
+
+
+def _adam_direction(mu: Tree, nu: Tree, c1: Tensor, c2: Tensor,
+                    eps: float) -> list:
+    """mu_hat / (sqrt(nu_hat) + eps) leaf by leaf (``eps_root`` 0)."""
+    m_hat = torch._foreach_div(tree_leaves(mu), c1)
+    v_hat = torch._foreach_div(tree_leaves(nu), c2)
+    return torch._foreach_div(
+        m_hat, torch._foreach_add(torch._foreach_sqrt(v_hat), eps))
+
+
+def _adam_init(params: Tree) -> AdamWState:
+    def zeros(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+
+    dev = tree_leaves(params)[0].device
+    return AdamWState(count=torch.zeros((), dtype=torch.int32, device=dev),
+                      mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+
+
 def adamw(learning_rate: float, weight_decay: float = 1e-4, b1: float = 0.9,
           b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
     """``optax.adamw(learning_rate, b1, b2, eps, weight_decay=...)`` with
@@ -105,35 +154,145 @@ def adamw(learning_rate: float, weight_decay: float = 1e-4, b1: float = 0.9,
       u = -learning_rate * u.
     """
 
-    def init(params: Tree) -> AdamWState:
-        def zeros(p):
-            return torch.zeros_like(p, dtype=torch.float32)
-
-        dev = tree_leaves(params)[0].device
-        return AdamWState(count=torch.zeros((), dtype=torch.int32,
-                                            device=dev),
-                          mu=tree_map(zeros, params),
-                          nu=tree_map(zeros, params))
-
     def update(grads: Tree, state: AdamWState, params: Tree):
-        count = state.count + 1
-        # 1 - decay**count in fp32, as optax's bias_correction
-        # (a Python base: no host-to-device copy inside a captured step)
-        n = count.to(torch.float32)
-        c1 = 1.0 - torch.pow(b1, n)
-        c2 = 1.0 - torch.pow(b2, n)
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
-        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
-                      state.nu)
+        mu, nu, count, c1, c2 = _adam_moments(grads, state, b1, b2)
+        u = torch._foreach_mul(
+            torch._foreach_add(_adam_direction(mu, nu, c1, c2, eps),
+                               torch._foreach_mul(_leaves(grads, params),
+                                                  weight_decay)),
+            -learning_rate)
+        return (tree_unflatten(grads, u),
+                AdamWState(count=count, mu=mu, nu=nu))
 
-        def step(m, v, p):
-            u = (m / c1) / (torch.sqrt(v / c2) + eps)
-            return (u + weight_decay * p) * -learning_rate
+    return GradientTransformation(_adam_init, update)
 
-        updates = tree_map(step, mu, nu, params)
-        return updates, AdamWState(count=count, mu=mu, nu=nu)
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> GradientTransformation:
+    """``optax.adam(learning_rate, b1, b2, eps)`` with optax's defaults
+    (``eps_root=0``, no Nesterov): ``scale_by_adam`` then
+    ``scale_by_learning_rate``.  Per leaf, the moments of :func:`adamw`,
+    then u = -learning_rate * mu_hat / (sqrt(nu_hat) + eps).  The state
+    is :class:`AdamWState` (optax's ``ScaleByAdamState``)."""
+
+    def update(grads: Tree, state: AdamWState, params: Tree = None):
+        mu, nu, count, c1, c2 = _adam_moments(grads, state, b1, b2)
+        u = torch._foreach_mul(_adam_direction(mu, nu, c1, c2, eps),
+                               -learning_rate)
+        return (tree_unflatten(grads, u),
+                AdamWState(count=count, mu=mu, nu=nu))
+
+    return GradientTransformation(_adam_init, update)
+
+
+class ScaleByRssState(NamedTuple):
+    """optax's AdaGrad state: each leaf's sum of squared gradients."""
+    sum_of_squares: Tree
+
+
+def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
+            eps: float = 1e-7) -> GradientTransformation:
+    """``optax.adagrad(learning_rate, initial_accumulator_value, eps)``:
+    ``scale_by_rss`` then ``scale_by_learning_rate``.  Per leaf: s = g^2
+    + s (s starts at ``initial_accumulator_value``); u = -learning_rate *
+    (rsqrt(s + eps) where s > 0, else 0) * g."""
+
+    def init(params: Tree) -> ScaleByRssState:
+        return ScaleByRssState(tree_map(
+            lambda p: torch.full_like(p, initial_accumulator_value), params))
+
+    def update(grads: Tree, state: ScaleByRssState, params: Tree = None):
+        g = tree_leaves(grads)
+        s = torch._foreach_add(torch._foreach_mul(g, g),
+                               _leaves(grads, state.sum_of_squares))
+        scale = [torch.where(t > 0, torch.rsqrt(t + eps), 0.0) for t in s]
+        u = torch._foreach_mul(torch._foreach_mul(scale, g), -learning_rate)
+        return (tree_unflatten(grads, u),
+                ScaleByRssState(tree_unflatten(grads, s)))
 
     return GradientTransformation(init, update)
+
+
+class ScaleByRmsState(NamedTuple):
+    """optax's RMSProp state (no bias correction): the EMA of g^2."""
+    nu: Tree
+
+
+def rmsprop(learning_rate: float, decay: float = 0.9, eps: float = 1e-8,
+            initial_scale: float = 0.0) -> GradientTransformation:
+    """``optax.rmsprop(learning_rate, decay, eps, initial_scale)`` at
+    optax's defaults otherwise: eps inside the square root, no bias
+    correction, not centred, no momentum (``scale_by_rms`` then
+    ``scale_by_learning_rate``).  Per leaf: nu = (1 - decay) g^2 + decay
+    nu; u = -learning_rate * rsqrt(nu + eps) * g."""
+
+    def init(params: Tree) -> ScaleByRmsState:
+        return ScaleByRmsState(tree_map(
+            lambda p: torch.full_like(p, initial_scale), params))
+
+    def update(grads: Tree, state: ScaleByRmsState, params: Tree = None):
+        g = tree_leaves(grads)
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(g, g), 1 - decay),
+            torch._foreach_mul(_leaves(grads, state.nu), decay))
+        scale = torch._foreach_rsqrt(torch._foreach_add(nu, eps))
+        u = torch._foreach_mul(torch._foreach_mul(scale, g), -learning_rate)
+        return (tree_unflatten(grads, u),
+                ScaleByRmsState(tree_unflatten(grads, nu)))
+
+    return GradientTransformation(init, update)
+
+
+def lamb(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-6, weight_decay: float = 0.0
+         ) -> GradientTransformation:
+    """``optax.lamb(learning_rate, b1, b2, eps, weight_decay=...)`` with
+    optax's defaults (``eps_root=0``, no mask): ``scale_by_adam`` ->
+    ``add_decayed_weights`` -> ``scale_by_trust_ratio`` ->
+    ``scale_by_learning_rate``.  Per leaf: the Adam direction a (as
+    :func:`adam`), a = a + weight_decay * p, then a times the trust
+    ratio ||p|| / ||a||, which is 1 where either norm is 0 (optax's
+    ``scale_by_trust_ratio`` at min_norm 0, coefficient 1, eps 0), then
+    times -learning_rate.  The state is :class:`AdamWState`."""
+
+    def update(grads: Tree, state: AdamWState, params: Tree):
+        mu, nu, count, c1, c2 = _adam_moments(grads, state, b1, b2)
+        p = _leaves(grads, params)
+        a = torch._foreach_add(_adam_direction(mu, nu, c1, c2, eps),
+                               torch._foreach_mul(p, weight_decay))
+        p_norm = torch._foreach_norm(p)
+        a_norm = torch._foreach_norm(a)
+        ratio = [torch.where((pn == 0.0) | (an == 0.0), 1.0, pn / an)
+                 for pn, an in zip(p_norm, a_norm)]
+        u = torch._foreach_mul(torch._foreach_mul(a, ratio), -learning_rate)
+        return (tree_unflatten(grads, u),
+                AdamWState(count=count, mu=mu, nu=nu))
+
+    return GradientTransformation(_adam_init, update)
+
+
+def make_optimizer(name: str, lr: float = 1e-3,
+                   **kw) -> GradientTransformation:
+    """The optimizer families by name (the reference's registry,
+    ``ops/updaters.py:138-153``, with its keyword arguments and its
+    defaults): ``sgd`` (``momentum``, default 0.0), ``adagrad``,
+    ``adam`` (``b1``, ``b2``), ``adamw`` (``weight_decay``, default
+    0.01), ``lamb`` (``weight_decay``, default 0.0) and ``rmsprop``.
+    The name is case-blind; another raises ``ValueError``."""
+    name = name.lower()
+    if name == "sgd":
+        return sgd(lr, momentum=kw.get("momentum", 0.0))
+    if name == "adagrad":
+        return adagrad(lr)
+    if name == "adam":
+        return adam(lr, b1=kw.get("b1", 0.9), b2=kw.get("b2", 0.999))
+    if name == "adamw":
+        return adamw(lr, weight_decay=kw.get("weight_decay", 0.01))
+    if name == "lamb":
+        return lamb(lr, weight_decay=kw.get("weight_decay", 0.0))
+    if name == "rmsprop":
+        return rmsprop(lr)
+    raise ValueError(f"unknown optimizer '{name}'")
 
 
 class TraceState(NamedTuple):

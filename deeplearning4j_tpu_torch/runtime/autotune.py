@@ -30,7 +30,10 @@ settles it once per card and shape bucket and remembers the answer:
   (``make_attn_fn(autotune=True)``; by default the attention takes the
   kernel for every shape it supports and reads no file): a cached
   winner then overrides that rule.  A warmed second process sweeps
-  nothing: a consult is a host-side JSON read.
+  nothing: a consult is a host-side JSON read;
+- :func:`measured_crossover` is the smallest key length at which the
+  kernel won on this card, which ``ops/flash_attention.attention_auto``
+  takes as its crossover.
 
 Every sweep and consult books into ``runtime.metrics.mfu_metrics``
 (``sweeps``, ``candidates_timed``, ``consults``, ``cache_hits``,
@@ -176,6 +179,31 @@ def lookup_attention(q_len: int, k_len: int, head_dim: int, causal: bool,
                                    rows_bucket=shape_bucket(rows, 1)))
     mfu_metrics.note("cache_hits" if rec else "cache_misses")
     return rec
+
+
+def measured_crossover(head_dim: int, causal: bool,
+                       kind: Optional[str] = None) -> Optional[int]:
+    """The measured kernel/plain crossover on a card (the reference's
+    :188-207): the smallest swept key-length bucket at which the kernel
+    (``impl == "cuda"``) won for head dim ``head_dim`` and this
+    causality, over every rows bucket (a win at any batch x heads
+    counts).  None when the cache is off or no sweep found a win.  The
+    key's fields are read by their prefixes: the port's key carries the
+    rows' bucket before the lengths (:func:`attn_key`)."""
+    path = cache_path()
+    if path is None:
+        return None
+    kind = kind or device_kind()
+    want_tail = f"|d{head_dim}|{'causal' if causal else 'full'}"
+    wins = []
+    for key, rec in _load(path).items():
+        if (key.startswith(f"attn|{kind}|") and key.endswith(want_tail)
+                and rec.get("impl") == "cuda"):
+            fields = [f for f in key[len(f"attn|{kind}|"):].split("|")
+                      if f.startswith("k") and f[1:].isdigit()]
+            if fields:
+                wins.append(int(fields[0][1:]))
+    return min(wins) if wins else None
 
 
 def _time_candidate(fn, dev: torch.device, repeats: int) -> float:

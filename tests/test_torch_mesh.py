@@ -1204,3 +1204,24 @@ def test_collectives_on_two_gloo_ranks(tmp_path):
         assert res["signature"] == (
             tuple((a, 2 if a == "data" else 1) for a in tmesh.ALL_AXES),
             (0, 1), r, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# rank programs of the examples' spawner (deeplearning4j_tpu_torch.examples)
+# ---------------------------------------------------------------------------
+
+def example_rank_dies(rank):
+    """Rank 1 ends by SIGKILL; rank 0 waits for it in a barrier that
+    never completes."""
+    import signal
+
+    if rank.rank == 1:
+        os.kill(os.getpid(), signal.SIGKILL)
+    torch.distributed.barrier()
+    return rank.rank
+
+
+def example_rank_hangs(rank):
+    """Every rank outlives any deadline a test gives it."""
+    time.sleep(600)
+    return rank.rank

@@ -144,7 +144,17 @@ def test_unported_layer_kinds_raise_not_implemented(kind, item):
     conf = tconf.NeuralNetConfiguration(kind=tconf.LayerKind(kind),
                                         n_in=4, n_out=3)
     assert tmake_layer(conf).kind is tconf.LayerKind(kind)
-    assert not base._NOT_PORTED
+    assert set(base._LAYER_REGISTRY) == set(tconf.LayerKind)
+
+
+@pytest.mark.parametrize("kind", [k.value for k in tconf.LayerKind])
+def test_make_layer_builds_every_layer_kind(kind):
+    """Every ``LayerKind`` has its registered layer, built from a bare
+    conf; the layer's class carries the kind."""
+    conf = tconf.NeuralNetConfiguration(kind=tconf.LayerKind(kind),
+                                        n_in=4, n_out=3)
+    layer = tmake_layer(conf)
+    assert layer.kind is tconf.LayerKind(kind) and layer.conf is conf
 
 
 def test_unported_fit_paths_raise_not_implemented():
